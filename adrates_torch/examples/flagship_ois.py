@@ -68,6 +68,15 @@ def build_model() -> Model:
     return m
 
 
+def start_dates(value_dt: Date) -> list:
+    """48 distinct start dates across ~4 years with day-of-month
+    jitter (``bench.py:162-169``)."""
+    month_offsets = [-40, -33, -27, -22, -18, -14, -11, -8, -6, -4,
+                     -2, 0, 2, 5, 9, 14]
+    return [value_dt.add_months(m).add_days(int(d))
+            for m in month_offsets for d in (0, 7, 17)]
+
+
 def build_ois_trades(model: Model, rng: np.random.Generator) -> list:
     """The 720 topology-distinct OIS (``bench.py:142-185``)."""
     value_dt = model.value_dt
@@ -91,11 +100,7 @@ def build_ois_trades(model: Model, rng: np.random.Generator) -> list:
              FrequencyTypes.QUARTERLY]
     bds = [BusDayAdjustTypes.MODIFIED_FOLLOWING,
            BusDayAdjustTypes.FOLLOWING]
-    # 48 distinct start dates across ~4 years with day-of-month jitter
-    month_offsets = [-40, -33, -27, -22, -18, -14, -11, -8, -6, -4,
-                     -2, 0, 2, 5, 9, 14]
-    starts = [value_dt.add_months(m).add_days(int(d))
-              for m in month_offsets for d in (0, 7, 17)]
+    starts = start_dates(value_dt)
 
     trades = []
     i = 0

@@ -1,10 +1,11 @@
 """Model facade: multi-curve container and FX store.
 
 Port of ``adrates_tpu/models/models.py`` — ``build_curve`` (:74),
-``build_fx`` (:159) and ``fx`` (:174). Parity with the reference's
+``build_xccy_curve`` (:187, ``models/xccy_builder.py``), ``build_fx``
+(:159) and ``fx`` (:174). Parity with the reference's
 cavour/models/models.py (CurveAccessor 23-49, build_curve 142-228,
-build_fx 230-266). XCCY and inflation curves,
-prebuilt market data, scenarios and persistence are not ported yet.
+build_fx 230-266). Inflation curves, prebuilt market data, scenarios and
+persistence are not ported yet.
 """
 
 from __future__ import annotations
@@ -14,6 +15,8 @@ from typing import Dict, List
 
 from ..trades.rates.ois import OIS
 from ..trades.rates.ois_curve import OISCurve
+from ..trades.rates.xccy_basis_swap import XccyBasisSwap
+from ..trades.rates.xccy_curve import XccyCurve
 from ..utils.calendar import BusDayAdjustTypes, CalendarTypes
 from ..utils.currency import CurrencyTypes
 from ..utils.date import Date
@@ -110,6 +113,88 @@ class Model:
             "interp_type": interp_type,
             "payment_lag": payment_lag,
             "cal_type": cal_type,
+        }
+        return curve
+
+    def build_xccy_curve(self,
+                         name: str,
+                         domestic_curve_name: str,
+                         foreign_curve_name: str,
+                         basis_spreads: List[float],
+                         tenor_list: List[str],
+                         spot_fx: float,
+                         domestic_notional: float = 100_000_000,
+                         domestic_freq_type: FrequencyTypes =
+                         FrequencyTypes.ANNUAL,
+                         foreign_freq_type: FrequencyTypes =
+                         FrequencyTypes.ANNUAL,
+                         domestic_dc_type: DayCountTypes =
+                         DayCountTypes.ACT_360,
+                         foreign_dc_type: DayCountTypes =
+                         DayCountTypes.ACT_365F,
+                         bus_day_type: BusDayAdjustTypes =
+                         BusDayAdjustTypes.MODIFIED_FOLLOWING,
+                         interp_type: InterpTypes =
+                         InterpTypes.FLAT_FWD_RATES,
+                         check_refit: bool = True) -> XccyCurve:
+        """Bootstrap a foreign-in-domestic-collateral curve from basis
+        spreads (quoted in bp) and register it under ``name`` (port of
+        ``adrates_tpu/models/xccy_builder.py``). The "domestic" curve is
+        the collateral currency's OIS curve; spot_fx is DOMESTIC per
+        FOREIGN."""
+        for role, cname in (("Domestic", domestic_curve_name),
+                            ("Foreign", foreign_curve_name)):
+            if cname not in self._curves_dict:
+                raise ValueError(
+                    f"{role} curve '{cname}' not found in model. "
+                    f"Build it first using build_curve().")
+        domestic_curve = self._curves_dict[domestic_curve_name]
+        foreign_curve = self._curves_dict[foreign_curve_name]
+        domestic_currency = CurrencyTypes[domestic_curve_name.split("_")[0]]
+        foreign_currency = CurrencyTypes[foreign_curve_name.split("_")[0]]
+        domestic_index = CurveTypes[domestic_curve_name]
+        foreign_index = CurveTypes[foreign_curve_name]
+        foreign_notional = domestic_notional / spot_fx
+
+        basis_swaps = [XccyBasisSwap(
+            effective_dt=self.value_dt,
+            term_dt_or_tenor=tenor,
+            domestic_notional=domestic_notional,
+            foreign_notional=foreign_notional,
+            domestic_spread=0.0,
+            foreign_spread=spread_bps / 10000.0,
+            domestic_freq_type=domestic_freq_type,
+            foreign_freq_type=foreign_freq_type,
+            domestic_dc_type=domestic_dc_type,
+            foreign_dc_type=foreign_dc_type,
+            domestic_floating_index=domestic_index,
+            foreign_floating_index=foreign_index,
+            domestic_currency=domestic_currency,
+            foreign_currency=foreign_currency,
+            domestic_bd_type=bus_day_type,
+            foreign_bd_type=bus_day_type)
+            for tenor, spread_bps in zip(tenor_list, basis_spreads)]
+
+        curve = XccyCurve(value_dt=self.value_dt, basis_swaps=basis_swaps,
+                          domestic_curve=domestic_curve,
+                          foreign_curve=foreign_curve, spot_fx=spot_fx,
+                          interp_type=interp_type, check_refit=check_refit)
+        curve._domestic_index = domestic_index
+        curve._foreign_index = foreign_index
+        self._curves_dict[name] = curve
+        self._curve_params_dict[name] = {
+            "domestic_curve_name": domestic_curve_name,
+            "foreign_curve_name": foreign_curve_name,
+            "basis_spreads": list(basis_spreads),
+            "tenor_list": list(tenor_list),
+            "spot_fx": spot_fx,
+            "domestic_notional": domestic_notional,
+            "domestic_freq_type": domestic_freq_type,
+            "foreign_freq_type": foreign_freq_type,
+            "domestic_dc_type": domestic_dc_type,
+            "foreign_dc_type": foreign_dc_type,
+            "bus_day_type": bus_day_type,
+            "interp_type": interp_type,
         }
         return curve
 

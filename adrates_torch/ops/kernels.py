@@ -195,7 +195,15 @@ def gamma_quad_form_grouped_plain(J: torch.Tensor, dfs: torch.Tensor,
     """Plain twin of K2, written from ``_gamma_quad_form_grouped``:
     J [S, N, n_grid], dfs [S, n_grid] and the trip groups (dicts of
     ``s_idx``, ``e_idx``, ``p_idx``, ``rows`` index tensors and ``w``
-    weights) -> the trip term of Jᵀ·H_agg·J, [S, N, N]."""
+    weights) -> the trip term of Jᵀ·H_agg·J, [S, N, N].
+
+    A trip's value (a/b - 1) c has the second differential
+    2 du (dc - (c/b) db) with du = (da - (a/b) db)/b, so its block is
+    the rank-2 form w (X Yᵀ + Y Xᵀ) with X = (Ja - (a/b) Jb)/b and
+    Y = Jc - (c/b) Jb. That is the JAX package's four-product form
+    (f_ab, f_ac, f_bc, f_bb) regrouped: the near-cancelling Ja/Jb terms
+    of a short accrual period cancel once, in X, instead of across four
+    accumulated products."""
     S, N, n_grid = J.shape
     G = torch.zeros((S, N, N), dtype=J.dtype, device=J.device)
     Jf = J.reshape(S, -1)
@@ -203,22 +211,15 @@ def gamma_quad_form_grouped_plain(J: torch.Tensor, dfs: torch.Tensor,
         s_i, e_i, p_i = g["s_idx"].long(), g["e_idx"].long(), \
             g["p_idx"].long()
         rows = g["rows"].long()
-        w = g["w"][None, :]
         a, b, c = dfs[:, s_i], dfs[:, e_i], dfs[:, p_i]      # [S, T_g]
         base = rows[:, None] * n_grid
         Ja = Jf[:, base + s_i[None, :]]                       # [S, k, T_g]
         Jb = Jf[:, base + e_i[None, :]]
         Jc = Jf[:, base + p_i[None, :]]
-        f_ab = -c / (b * b)
-        f_ac = 1.0 / b
-        f_bb = 2.0 * a * c / (b * b * b)
-        f_bc = -a / (b * b)
-        Z = (Ja * (w * f_ab)[:, None, :]) @ Jb.transpose(1, 2)
-        Z = Z + (Ja * (w * f_ac)[:, None, :]) @ Jc.transpose(1, 2)
-        Z = Z + (Jb * (w * f_bc)[:, None, :]) @ Jc.transpose(1, 2)
-        Z = Z + Z.transpose(1, 2)
-        Z = Z + (Jb * (w * f_bb)[:, None, :]) @ Jb.transpose(1, 2)
-        G[:, rows[:, None], rows[None, :]] += Z
+        X = (Ja - (a / b)[:, None, :] * Jb) * (1.0 / b)[:, None, :]
+        Y = Jc - (c / b)[:, None, :] * Jb
+        Z = (X * g["w"][None, None, :]) @ Y.transpose(1, 2)
+        G[:, rows[:, None], rows[None, :]] += Z + Z.transpose(1, 2)
     return G
 
 

@@ -1,9 +1,12 @@
-"""Compiled leg containers (port of ``adrates_tpu/ops/pricers.py:36-76``).
+"""Compiled leg containers and the float-leg pricer (port of
+``adrates_tpu/ops/pricers.py``).
 
-Plain dataclasses of host numpy arrays, filled by the legs' ``tensor()``
-at trade-compile time and consumed by the book compilers. The leg
-pricers themselves (``pv_fixed_leg``/``pv_float_leg``) are not ported
-yet.
+The containers are plain dataclasses of host numpy arrays, filled by the
+legs' ``tensor()`` at trade-compile time and consumed by the book
+compilers; :func:`leg_to_torch` gives their device form.
+:func:`pv_float_leg` prices a float leg through static interpolation
+plans (the batched XCCY calibration legs); ``pv_fixed_leg`` and the
+dynamic-interpolation path are not ported yet.
 """
 
 from __future__ import annotations
@@ -11,6 +14,11 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
+
+from ..utils.error import LibError
+from ..utils.global_types import InterpTypes
+from .interpolation import simple_df_static
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,3 +58,90 @@ class FloatLegTensor:
     override_first: bool = False
     notional_exchange: bool = False
     has_cap_floor: bool = False
+
+
+_LEG_FLAGS = ("override_first", "notional_exchange", "has_cap_floor")
+
+
+def leg_to_torch(leg: FloatLegTensor, device) -> dict:
+    """A (possibly stacked) FloatLegTensor as a dict of f64 tensors on
+    ``device``; the three static switches stay Python bools."""
+    out = {}
+    for f in dataclasses.fields(FloatLegTensor):
+        v = getattr(leg, f.name)
+        out[f.name] = bool(v) if f.name in _LEG_FLAGS else torch.as_tensor(
+            np.asarray(v, dtype=np.float64), device=device)
+    return out
+
+
+def pv_float_leg(dfs: torch.Tensor, disc_interp_type: InterpTypes,
+                 leg: dict, plans: dict, idx_dfs: torch.Tensor = None,
+                 idx_interp_type: InterpTypes = None) -> torch.Tensor:
+    """PV of a floating leg: forwards projected off the index curve,
+    discounted on the discount curve (engine parity: dual-curve support,
+    0-accrual guard, first-fixing override on flow 0, strictly-future
+    coupon mask, optional principal and notional exchanges).
+
+    ``leg`` is a :func:`leg_to_torch` dict whose arrays are [..., P]
+    (scalars [...]); ``plans`` is dict(idx=..., disc=...) of torch
+    ``simple_interp_plan`` forms over the query orders
+    concat(start, end) and concat(pay, value[, effective, maturity]),
+    with the same leading dims as ``dfs``. Returns [...]."""
+    if plans is None:
+        raise LibError("not yet ported: pv_float_leg without static "
+                       "interpolation plans")
+    idx_dfs = dfs if idx_dfs is None else idx_dfs
+    idx_it = disc_interp_type if idx_interp_type is None \
+        else idx_interp_type
+    pay_t = leg["payment_times"]
+    n = pay_t.shape[-1]
+
+    idx_out = simple_df_static(plans["idx"], idx_dfs, idx_it)
+    disc_out = simple_df_static(plans["disc"], dfs, disc_interp_type)
+    df_start = idx_out[..., :n]
+    df_end = idx_out[..., n:]
+    df_pmts = disc_out[..., :n]
+    df_val = disc_out[..., n:n + 1]
+
+    # double-where guard: the unselected branch must not divide by the
+    # padded ia=0 slots — its VJP otherwise computes Inf * 0 = NaN, which
+    # surfaces the moment the curve grid becomes a differentiation INPUT
+    # (structured_risk feeds parent grids as explicit stage inputs; the
+    # NaN landed on the t=0 node's cotangent and poisoned every gamma).
+    has_accrual = leg["index_alphas"] > 0
+    ia_safe = torch.where(has_accrual, leg["index_alphas"], 1.0)
+    fwd = torch.where(has_accrual,
+                      (df_start / df_end - 1.0) / ia_safe, 0.0)
+
+    pos = torch.arange(n, device=pay_t.device)
+    if leg["override_first"]:
+        fwd = torch.where(pos == 0, leg["first_fixing_rate"][..., None],
+                          fwd)
+
+    # Cap/floor clamps the ALL-IN rate (fwd + margin), FRN convention.
+    rate = fwd + leg["spreads"]
+    if leg["has_cap_floor"]:
+        rate = torch.clamp(rate, leg["floor_rate"][..., None],
+                           leg["cap_rate"][..., None])
+
+    # Principal rides on the final payment row.
+    cf_amounts = rate * leg["pay_alphas"] * leg["notionals"] \
+        + torch.where(pos == n - 1, leg["principal"][..., None], 0.0)
+
+    # Strictly-future coupons only (a coupon on the valuation date has
+    # settled), matching the fixed-leg mask and SwapFloatLeg.value().
+    sign = leg["leg_sign"][..., None]
+    valid = pay_t > leg["value_time"][..., None]
+    pv = torch.where(valid, (sign * cf_amounts) * (df_pmts / df_val), 0.0)
+    total = pv.sum(dim=-1)
+
+    if leg["notional_exchange"]:
+        ex_dfs = disc_out[..., n + 1:n + 3]
+        ex_times = torch.stack([leg["effective_time"],
+                                leg["maturity_time"]], dim=-1)
+        amt = leg["notional_exchange_amount"]
+        ex_amounts = torch.stack([-amt, amt], dim=-1)
+        ex_pv = torch.where(ex_times >= leg["value_time"][..., None],
+                            (sign * ex_amounts) * (ex_dfs / df_val), 0.0)
+        total = total + ex_pv.sum(dim=-1)
+    return total

@@ -1,30 +1,36 @@
 """Batched curve-graph construction: one batched bootstrap per GROUP of
 same-topology curves instead of one subgraph per curve.
 
-Port of the OIS stages of ``adrates_tpu/parallel/curve_batching.py``.
-The host side (plan stacking, sentinel padding, static interpolation
-plans) is the same numpy code; the ``grids(qvec, P)`` closure is torch
-and runs each stage's curves as one [G, ...] bootstrap
-(``ops/bootstrap.bootstrap_ois`` takes stacked plans directly).
+Port of the OIS and XCCY stages of
+``adrates_tpu/parallel/curve_batching.py``. The host side (plan stacking,
+sentinel padding, static interpolation plans) is the same numpy code; the
+stage-native forwards and the ``grids(qvec, P)`` closure are torch and run
+each stage's curves as one [G, ...] bootstrap (``bootstrap_ois`` and
+``bootstrap_xccy`` take stacked plans directly).
 
 Padding semantics (all static, built once in numpy):
 
 - Within a group, plans pad to the max point/pillar counts. Padded
-  bootstrap rows are EXACT no-ops (acc=0, no prev link -> pv01=0, df=1).
+  bootstrap rows are EXACT no-ops (acc=0, no prev link -> pv01=0, df=1;
+  zero-weight chain points for XCCY).
 - Padded grid POSITIONS are pushed to ascending sentinel times
   t_i = 1e30 + i*1e24 with df 1.0. Interpolating any real query t against
   such a grid reproduces the unpadded clamp extrapolation to ~1e-28
   relative (the pad knot is 1e30 away), for every simple scheme. The
   sentinels live in the f64 plans: never cast a plan to f32.
 
-XCCY and inflation stages and the spline schemes are not ported yet:
-they raise ``LibError``.
+Every interpolation here goes through a static plan (the query times and
+the grid times are both fixed at compile time), including the XCCY
+calibration legs (``legs_plan``) and the bootstrap's foreign-curve
+queries (``fboot_plan``); the JAX package's dynamic-interpolation paths,
+the spline schemes and the inflation stages are not ported yet and raise
+``LibError``.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -33,6 +39,9 @@ from ..ops.bootstrap import OISBootstrapPlan, bootstrap_ois
 from ..ops.bootstrap import plan_to_torch as ois_plan_to_torch
 from ..ops.interpolation import (plan_to_torch, simple_df_static,
                                  simple_interp_plan)
+from ..ops.pricers import FloatLegTensor, leg_to_torch, pv_float_leg
+from ..ops.xccy_bootstrap import XccyBootstrapPlan, bootstrap_xccy
+from ..ops.xccy_bootstrap import plan_to_torch as xccy_plan_to_torch
 from ..utils.error import LibError
 from ..utils.global_types import InterpTypes
 
@@ -50,6 +59,14 @@ def _sent(i0: int, n: int) -> np.ndarray:
 def _pad1(a, n, fill):
     a = np.asarray(a)
     out = np.full((n,) + a.shape[1:], fill, dtype=a.dtype)
+    out[:a.shape[0]] = a
+    return out
+
+
+def _pad_tail_value(a, n):
+    """Pad with the last real value (clamp-safe for interp queries)."""
+    a = np.asarray(a, dtype=np.float64)
+    out = np.full(n, a[-1] if a.shape[0] else 0.0, dtype=np.float64)
     out[:a.shape[0]] = a
     return out
 
@@ -88,6 +105,99 @@ def _stack_ois_plans(plans: Sequence[OISBootstrapPlan]) -> OISBootstrapPlan:
         rate_c=f("rate_c", 0.0))
 
 
+def _stack_xccy_plans(plans: Sequence[XccyBootstrapPlan]
+                      ) -> XccyBootstrapPlan:
+    """Stack same-pillar-count XCCY plans: padded chain points carry
+    zero cashflow/zero dt (the telescoped chain and the [S, S+1] weight
+    matrix are unchanged), padded unique_sel entries duplicate the last
+    node and are sentinelized downstream."""
+    n = max(p.times.shape[0] for p in plans)
+    U = max(p.unique_sel.shape[0] for p in plans)
+    S = plans[0].mat_pos.shape[0]
+
+    def f(field, pad, width=n):
+        return np.stack([_pad1(getattr(p, field), width, pad)
+                         for p in plans])
+
+    def ftail(field):
+        return np.stack([_pad_tail_value(getattr(p, field), n)
+                         for p in plans])
+
+    sw_oh = np.zeros((len(plans), S, n))
+    seg_oh = np.zeros((len(plans), S + 1, n))
+    for g, p in enumerate(plans):
+        sw_oh[g, :, :p.swap_onehot.shape[1]] = p.swap_onehot
+        seg_oh[g, :, :p.seg_onehot.shape[1]] = p.seg_onehot
+    uniq = np.stack([
+        _pad1(p.unique_sel, U, p.unique_sel[-1]) for p in plans])
+    return XccyBootstrapPlan(
+        times=ftail("times"),
+        pay_t_foreign=ftail("pay_t_foreign"),
+        start_t=ftail("start_t"),
+        end_t=ftail("end_t"),
+        notionals=f("notionals", 0.0),
+        spread_sens=f("spread_sens", 0.0),
+        alpha_ratio=f("alpha_ratio", 1.0),
+        dt_chain=f("dt_chain", 0.0),
+        is_mat=f("is_mat", False),
+        is_notl=f("is_notl", True),
+        is_last=f("is_last", False),
+        swap_of=f("swap_of", 0),
+        seg_of=f("seg_of", 0),
+        mat_pos=np.stack([p.mat_pos for p in plans]),
+        swap_onehot=sw_oh,
+        seg_onehot=seg_oh,
+        v0=np.stack([p.v0 for p in plans]),
+        unique_sel=uniq,
+        foreign_sign=plans[0].foreign_sign)
+
+
+def _stack_legs(tensors: Sequence[FloatLegTensor]) -> FloatLegTensor:
+    """Stack per-curve [S, P_i] calibration-leg stacks to [G, S, Pmax]
+    (padded slots settled: payment time -1, index alpha 0)."""
+    P = max(t.payment_times.shape[1] for t in tensors)
+
+    def pad2(a, fill):
+        a = np.asarray(a)
+        out = np.full((a.shape[0], P), fill, dtype=np.float64)
+        out[:, :a.shape[1]] = a
+        return out
+
+    def stack(name, fill=0.0):
+        return np.stack([pad2(getattr(t, name), fill) for t in tensors])
+
+    def scal(name):
+        return np.stack([np.asarray(getattr(t, name), dtype=np.float64)
+                         for t in tensors])
+
+    first = tensors[0]
+    if not all(t.override_first == first.override_first and
+               t.notional_exchange == first.notional_exchange and
+               t.has_cap_floor == first.has_cap_floor for t in tensors):
+        raise LibError("stacked calibration legs disagree on their static "
+                       "switches")
+    return FloatLegTensor(
+        payment_times=stack("payment_times", -1.0),
+        start_times=stack("start_times", 0.0),
+        end_times=stack("end_times", 0.0),
+        pay_alphas=stack("pay_alphas", 0.0),
+        index_alphas=stack("index_alphas", 0.0),
+        spreads=stack("spreads", 0.0),
+        notionals=stack("notionals", 0.0),
+        principal=scal("principal"),
+        leg_sign=scal("leg_sign"),
+        value_time=scal("value_time"),
+        first_fixing_rate=scal("first_fixing_rate"),
+        notional_exchange_amount=scal("notional_exchange_amount"),
+        effective_time=scal("effective_time"),
+        maturity_time=scal("maturity_time"),
+        cap_rate=scal("cap_rate"),
+        floor_rate=scal("floor_rate"),
+        override_first=first.override_first,
+        notional_exchange=first.notional_exchange,
+        has_cap_floor=first.has_cap_floor)
+
+
 def _qidx(spec, n: int) -> np.ndarray:
     """Global quote indices for a curve, padded with the LAST real index
     (pad rates repeat the last pillar — monotone under log-interp)."""
@@ -99,9 +209,108 @@ def _qidx(spec, n: int) -> np.ndarray:
 @dataclasses.dataclass
 class _Stage:
     """Static description of one batched stage (arrays live in params)."""
-    kind: str                    # 'ois' (the only kind ported)
+    kind: str                    # 'ois' | 'xccy'
     ids: List[int]               # curve ids in stack order
     key: str                     # params["bat"] entry name
+    # xccy only:
+    dom_ids: List[int] = None
+    for_ids: List[int] = None
+    dom_interp: InterpTypes = None
+    foreign_interp: InterpTypes = None
+    recal: bool = True
+
+
+@dataclasses.dataclass
+class StageTopology:
+    """The static stage topology of a basket's batched curve graph, as
+    the structured risk pass reads it: the stages, the curve specs
+    (``offset``, ``n_quotes``, ``interp_type``), the host stage plans
+    (shapes only) and the layout of the book's grid axis. ``grid_dense``
+    means every (curve, time) pair is a column; otherwise curve c's
+    columns are ``grid_offsets[c]:grid_offsets[c+1]`` at unique-time
+    indices ``grid_keep_of[c]``, and ``grid_inv`` maps the dense [C*U]
+    axis onto the compact one (n_grid for an unreferenced pair)."""
+    stages: List[_Stage]
+    specs: list
+    bat: dict
+    n_quotes: int
+    unique_times: np.ndarray
+    grid_dense: bool
+    grid_keep_of: Optional[List[np.ndarray]] = None
+    grid_offsets: Optional[np.ndarray] = None
+    grid_inv: Optional[np.ndarray] = None
+
+
+# ---------------------------------------------------------------------------
+# Stage-native forwards (shared by grids() and the structured risk pass,
+# which differentiates each stage separately with a per-stage tangent
+# basis, so these are standalone pure functions of the device form of
+# bat[key] — see bat_to_torch)
+# ---------------------------------------------------------------------------
+
+
+def ois_native_ds(rates: torch.Tensor, b: dict) -> torch.Tensor:
+    """[G, Qp] padded local rates -> sentinelized native dfs [G, P1]."""
+    _, ds = bootstrap_ois(rates, b["plan"])
+    return torch.where(b["pad_mask"], 1.0, ds)
+
+
+def xccy_legs_pv(dom_ds: torch.Tensor, b: dict, st: _Stage) -> torch.Tensor:
+    """Calibration domestic-leg PVs [G, S] from the stacked dom grids
+    [G, Ld] — the ONLY channel through which the domestic curve reaches
+    the XCCY bootstrap (an S-value bottleneck the structured risk pass
+    exploits: dom-quote directions compose through these S values
+    instead of re-differentiating the whole stage)."""
+    S = b["legs"]["leg_sign"].shape[-1]
+    dds = dom_ds.unsqueeze(-2).expand(dom_ds.shape[:-1] + (S,)
+                                      + dom_ds.shape[-1:])
+    return pv_float_leg(dds, st.dom_interp, b["legs"], b["legs_plan"])
+
+
+def xccy_boot_ds(spreads: torch.Tensor, pv_dom: torch.Tensor,
+                 for_ds: torch.Tensor, b: dict, st: _Stage) -> torch.Tensor:
+    """[G, S] spreads + dom-leg PVs + stacked foreign grids [G, Lf] ->
+    sentinelized native dfs [G, U1]."""
+    _, ds = bootstrap_xccy(spreads, pv_dom, for_ds, b["spot_fx"], b["plan"],
+                           st.foreign_interp, b["fboot_plan"])
+    return torch.where(b["pad_mask"], 1.0, ds)
+
+
+def xccy_native_ds(spreads: torch.Tensor, dom_ds: torch.Tensor,
+                   for_ds: torch.Tensor, b: dict, st: _Stage
+                   ) -> torch.Tensor:
+    """[G, S] spreads + stacked parent native dfs -> sentinelized native
+    dfs [G, U1]. Without recalibration the parents enter as values only:
+    the dom-leg PVs are the build-time constants and the foreign grid is
+    detached."""
+    if st.recal:
+        pv_dom = xccy_legs_pv(dom_ds, b, st)
+    else:
+        pv_dom = b["pv_dom0"]
+        for_ds = for_ds.detach()
+    return xccy_boot_ds(spreads, pv_dom, for_ds, b, st)
+
+
+def stage_rows(ds: torch.Tensor, its: Sequence[InterpTypes],
+               plan: dict) -> torch.Tensor:
+    """Interpolate a stage's [G, P1] native grids at the stage's static
+    query times: [G, W]. Same-scheme members batch through one static
+    plan (``plan`` is the torch form of a stage's ``row_plan`` or
+    ``row_plan_keep``)."""
+    by_scheme: Dict[InterpTypes, List[int]] = {}
+    for m, it in enumerate(its):
+        if it not in _SIMPLE:
+            raise LibError(f"not yet ported: {it.name} stage rows")
+        by_scheme.setdefault(it, []).append(m)
+    if len(by_scheme) == 1:
+        (it, _), = by_scheme.items()
+        return simple_df_static(plan[it.name], ds, it)
+    rows: List = [None] * ds.shape[0]
+    for it, mids in by_scheme.items():
+        out = simple_df_static(plan[it.name], ds[mids], it)
+        for k, m in enumerate(mids):
+            rows[m] = out[k]
+    return torch.stack(rows)
 
 
 def _stack_plans(plans: Sequence[dict]) -> dict:
@@ -111,9 +320,9 @@ def _stack_plans(plans: Sequence[dict]) -> dict:
 
 def _row_plan(ut: np.ndarray, ts_static: np.ndarray,
               its: Sequence[InterpTypes]) -> dict:
-    """Per-scheme stacked static plans of a stage's rows at the shared
-    query times, keyed by scheme name (the per-stage row evaluation of
-    the structured risk pass, which is not ported yet, reads these)."""
+    """Per-scheme stacked static plans for stage_rows at the shared query
+    times, keyed by scheme name in the member grouping stage_rows
+    derives from ``its``."""
     by_scheme: Dict[InterpTypes, List[int]] = {}
     for m, it in enumerate(its):
         if it in _SIMPLE:
@@ -146,19 +355,26 @@ def build_batched_grids(basket, unique_times: np.ndarray,
     C = len(specs)
     bat: Dict[str, dict] = {}
     stages: List[_Stage] = []
+    for s in specs:
+        if s.kind not in ("ois", "xccy"):
+            raise LibError(f"not yet ported: {s.kind} curve stage")
 
     # ---- group OIS curves by static solve config --------------------
     # The group key buckets the plan SHAPES as well as the solve config:
-    # one merged group forces every member to the max quote/point count.
-    ois_plan_of = {i: basket.params["ois_plans"][i] for i in range(C)}
+    # one merged group forces every member to the max quote/point count,
+    # and the structured risk pass pays one tangent direction per PADDED
+    # quote slot.
+    ois_ids = [i for i, s in enumerate(specs) if s.kind == "ois"]
+    ois_plan_of = {i: basket.params["ois_plans"][k]
+                   for k, i in enumerate(ois_ids)}
     groups: Dict[tuple, List[int]] = {}
-    for i in range(C):
+    for i in ois_ids:
         p = ois_plan_of[i]
         key = (p.loglinear_rates,
                -(-p.swap_times.shape[0] // qb),
                -(-p.point_times.shape[0] // pb))
         groups.setdefault(key, []).append(i)
-    for gk, ids in groups.items():
+    for ids in groups.values():
         plans = [ois_plan_of[i] for i in ids]
         plan = _stack_ois_plans(plans)
         P1 = plan.point_times.shape[1] + 1      # incl. t=0 node
@@ -181,9 +397,137 @@ def build_batched_grids(basket, unique_times: np.ndarray,
                                [specs[i].interp_type for i in ids]))
         stages.append(_Stage(kind="ois", ids=list(ids), key=key))
 
+    # ---- group XCCY curves ------------------------------------------
+    xccy_ids = [i for i, s in enumerate(specs) if s.kind == "xccy"]
+    xp_of = {i: basket.params["xccy"][k] for k, i in enumerate(xccy_ids)}
+    xgroups: Dict[tuple, List[int]] = {}
+    for i in xccy_ids:
+        s = specs[i]
+        legs = xp_of[i]["dom_legs"]
+        xk = (s.foreign_interp_type, specs[s.dom_id].interp_type,
+              xp_of[i]["plan"].foreign_sign, s.n_quotes,
+              legs.override_first, legs.notional_exchange,
+              legs.has_cap_floor, basket.recalibrate_xccy)
+        xgroups.setdefault(xk, []).append(i)
+    for xk, ids in xgroups.items():
+        for it in xk[:2]:
+            if it not in _SIMPLE:
+                raise LibError(f"not yet ported: XCCY stage over a "
+                               f"{it.name} parent curve")
+        plans = [xp_of[i]["plan"] for i in ids]
+        plan = _stack_xccy_plans(plans)
+        U1 = plan.unique_sel.shape[1] + 1       # incl. t=0 node
+        pad_mask = np.zeros((len(ids), U1), dtype=bool)
+        for g, p in enumerate(plans):
+            pad_mask[g, 1 + p.unique_sel.shape[0]:] = True
+        key = f"xccy_{len(stages)}"
+        sent = np.tile(_sent(0, U1), (len(ids), 1))
+        ts_full = np.stack([
+            np.concatenate([[0.0], plan.times[g][plan.unique_sel[g]]])
+            for g in range(len(ids))])
+        ts_static = np.where(pad_mask, sent, ts_full)
+        bat[key] = dict(
+            plan=plan,
+            legs=_stack_legs([xp_of[i]["dom_legs"] for i in ids]),
+            spot_fx=np.array([xp_of[i]["spot_fx"] for i in ids]),
+            pv_dom0=np.stack([xp_of[i]["pv_dom0"] for i in ids]),
+            qidx=np.stack([_qidx(specs[i], specs[i].n_quotes)
+                           for i in ids]),
+            pad_mask=pad_mask,
+            sent=sent,
+            ts_static=ts_static,
+            row_plan=_row_plan(unique_times, ts_static,
+                               [specs[i].interp_type for i in ids]))
+        stages.append(_Stage(
+            kind="xccy", ids=list(ids), key=key,
+            dom_ids=[specs[i].dom_id for i in ids],
+            for_ids=[specs[i].for_id for i in ids],
+            dom_interp=xk[1], foreign_interp=xk[0],
+            recal=basket.recalibrate_xccy))
+
+    # ---- static parent time grids for the XCCY stages (the structured
+    # risk pass feeds parent native dfs as explicit stage inputs) -------
+    ts_static_of: Dict[int, np.ndarray] = {}
+    for st in stages:
+        for g, cid in enumerate(st.ids):
+            ts_static_of[cid] = bat[st.key]["ts_static"][g]
+
+    for st in stages:
+        if st.kind != "xccy":
+            continue
+        b = bat[st.key]
+        b["dom_ts"] = _stack_static_ts(st.dom_ids, ts_static_of)
+        b["for_ts"] = _stack_static_ts(st.for_ids, ts_static_of)
+        # static foreign-curve interp plan for the bootstrap's cashflow
+        # queries (query times AND the stacked parent grids are static)
+        xp = b["plan"]
+        b["fboot_plan"] = _stack_plans([
+            simple_interp_plan(
+                np.concatenate([xp.start_t[g], xp.end_t[g],
+                                xp.pay_t_foreign[g]]),
+                b["for_ts"][g], st.foreign_interp)
+            for g in range(len(st.ids))])
+        # static interp plans for the calibration domestic legs
+        # (pv_float_leg's two queries, same query order)
+        legs = b["legs"]
+        dts = b["dom_ts"]
+        idx_p, disc_p = [], []
+        for g in range(len(st.ids)):
+            ip_row, dp_row = [], []
+            for s in range(legs.payment_times.shape[1]):
+                idx_q = np.concatenate([legs.start_times[g, s],
+                                        legs.end_times[g, s]])
+                extra = [np.atleast_1d(legs.value_time[g, s])]
+                if legs.notional_exchange:
+                    extra.append(np.atleast_1d(legs.effective_time[g, s]))
+                    extra.append(np.atleast_1d(legs.maturity_time[g, s]))
+                disc_q = np.concatenate([legs.payment_times[g, s]] + extra)
+                ip_row.append(simple_interp_plan(idx_q, dts[g],
+                                                 st.dom_interp))
+                dp_row.append(simple_interp_plan(disc_q, dts[g],
+                                                 st.dom_interp))
+            idx_p.append(_stack_plans(ip_row))
+            disc_p.append(_stack_plans(dp_row))
+        b["legs_plan"] = dict(idx=_stack_plans(idx_p),
+                              disc=_stack_plans(disc_p))
+
     interp_of = [s.interp_type for s in specs]
-    bat["gplan"] = _grid_plans(unique_times, stages, bat, interp_of)
+    bat["gplan"] = _grid_plans(unique_times, ts_static_of, interp_of)
+
+    # ---- keep-compact row plans for the structured risk pass ---------
+    # A stage's rows only matter at the times the book's index tables
+    # reference ON ITS OWN curves (basket.grid_keep_of, the grid
+    # compaction): plans built at those queries (padded to the stage max
+    # with the t=0 node, whose rows carry zero cotangent) shrink every
+    # [G, U] row and tangent intermediate of the per-stage AD.
+    keep_of = getattr(basket, "grid_keep_of", None)
+    if keep_of is not None and not basket.grid_dense:
+        for st in stages:
+            bat[st.key]["row_plan_keep"] = _keep_plan(
+                unique_times, [keep_of[c] for c in st.ids],
+                [ts_static_of[c] for c in st.ids],
+                [interp_of[c] for c in st.ids])
+
     return make_grids(stages, interp_of), bat, stages
+
+
+def _keep_plan(unique_times, keeps, ts_list, its) -> dict:
+    """A stage's keep-compact row plan: each member's referenced times,
+    padded with unique_times[0] to the stage max, per scheme."""
+    qlists = [unique_times[k] for k in keeps]
+    Ug = max((len(q) for q in qlists), default=1) or 1
+    qpad = np.stack([np.concatenate([q, np.full(Ug - len(q),
+                                                unique_times[0])])
+                     for q in qlists])
+    plan: Dict[str, np.ndarray] = {"q": qpad}
+    by_s: Dict[InterpTypes, List[int]] = {}
+    for m, it in enumerate(its):
+        if it in _SIMPLE:
+            by_s.setdefault(it, []).append(m)
+    for it, mids in by_s.items():
+        plan[it.name] = _stack_plans([
+            simple_interp_plan(qpad[m], ts_list[m], it) for m in mids])
+    return plan
 
 
 def _stack_static_ts(ids, ts_static_of) -> np.ndarray:
@@ -203,14 +547,10 @@ def _by_scheme(interp_of: Sequence[InterpTypes]) -> Dict[InterpTypes,
     return out
 
 
-def _grid_plans(unique_times, stages, bat, interp_of) -> dict:
+def _grid_plans(unique_times, ts_static_of, interp_of) -> dict:
     """Static cross-stage interp plans for grids()' final assembly: one
     stacked plan per scheme over that scheme's curves (padded to a common
     grid length with sentinels), queried at every unique time."""
-    ts_static_of: Dict[int, np.ndarray] = {}
-    for st in stages:
-        for g, cid in enumerate(st.ids):
-            ts_static_of[cid] = bat[st.key]["ts_static"][g]
     gplan: Dict[str, dict] = {}
     for it, ids_ in _by_scheme(interp_of).items():
         stacked_ts = _stack_static_ts(ids_, ts_static_of)
@@ -220,21 +560,47 @@ def _grid_plans(unique_times, stages, bat, interp_of) -> dict:
     return gplan
 
 
+def _plans_to_torch(plans: dict, device) -> dict:
+    """{scheme name: numpy plan, "q": array} -> the same on ``device``."""
+    return {k: plan_to_torch(v, device) if isinstance(v, dict)
+            else torch.as_tensor(np.asarray(v, dtype=np.float64),
+                                 device=device)
+            for k, v in plans.items()}
+
+
 def bat_to_torch(bat: dict, device) -> dict:
-    """The device form of ``bat`` that grids() reads: stage plans, quote
-    indices, pad masks and the grid plans as tensors on ``device``."""
+    """The device form of ``bat`` that grids() and the structured risk
+    pass read: stage plans, quote indices, pad masks, row plans, XCCY
+    legs and static plans, and the grid plans as tensors on ``device``."""
+    def i64(a):
+        return torch.as_tensor(np.asarray(a, dtype=np.int64), device=device)
+
+    def f64(a):
+        return torch.as_tensor(np.asarray(a, dtype=np.float64),
+                               device=device)
+
     out = {}
     for key, b in bat.items():
         if key == "gplan":
-            out[key] = {name: plan_to_torch(p, device)
-                        for name, p in b.items()}
+            out[key] = _plans_to_torch(b, device)
             continue
-        out[key] = dict(
-            plan=ois_plan_to_torch(b["plan"], device),
-            qidx=torch.as_tensor(np.asarray(b["qidx"], dtype=np.int64),
-                                 device=device),
-            pad_mask=torch.as_tensor(np.asarray(b["pad_mask"], dtype=bool),
-                                     device=device))
+        d = dict(qidx=i64(b["qidx"]),
+                 pad_mask=torch.as_tensor(np.asarray(b["pad_mask"],
+                                                     dtype=bool),
+                                          device=device),
+                 row_plan=_plans_to_torch(b["row_plan"], device))
+        if "row_plan_keep" in b:
+            d["row_plan_keep"] = _plans_to_torch(b["row_plan_keep"], device)
+        if isinstance(b["plan"], XccyBootstrapPlan):
+            d.update(plan=xccy_plan_to_torch(b["plan"], device),
+                     legs=leg_to_torch(b["legs"], device),
+                     spot_fx=f64(b["spot_fx"]), pv_dom0=f64(b["pv_dom0"]),
+                     fboot_plan=plan_to_torch(b["fboot_plan"], device),
+                     legs_plan={k: plan_to_torch(v, device)
+                                for k, v in b["legs_plan"].items()})
+        else:
+            d["plan"] = ois_plan_to_torch(b["plan"], device)
+        out[key] = d
     return out
 
 
@@ -242,34 +608,41 @@ def make_grids(stages: Sequence[_Stage], interp_of: Sequence[InterpTypes]):
     """The pure fn (qvec, P) -> dense flat DF vector [C*U] (curve-major)
     over the stages, or the compacted [n_grid] selection when
     P["grid_sel"] is set. P["bat"] is :func:`bat_to_torch` output."""
-    for st in stages:
-        if st.kind != "ois":
-            raise LibError(f"not yet ported: {st.kind} curve stage")
+    for it in interp_of:
+        if it not in _SIMPLE:
+            raise LibError(f"not yet ported: {it.name} curve grids")
     C = len(interp_of)
     schemes = list(_by_scheme(interp_of).items())
+
+    def _stack_native(native, ids):
+        """Stack per-curve native dfs to a common padded length (pad
+        positions read df 1 at their sentinel times)."""
+        L = max(native[i].shape[-1] for i in ids)
+        return torch.stack([
+            torch.cat([native[i], torch.ones(
+                native[i].shape[:-1] + (L - native[i].shape[-1],),
+                dtype=native[i].dtype, device=native[i].device)], dim=-1)
+            for i in ids])
 
     def grids(qvec: torch.Tensor, P: dict) -> torch.Tensor:
         B = P["bat"]
         native: Dict[int, torch.Tensor] = {}
         for st in stages:
             b = B[st.key]
-            rates = qvec[b["qidx"]]                       # [G, Q]
-            _, ds = bootstrap_ois(rates, b["plan"])
-            # pad positions read df 1 at their sentinel times, so
-            # interpolation clamps at the last REAL knot (to ~1e-28)
-            ds = torch.where(b["pad_mask"], 1.0, ds)
+            if st.kind == "ois":
+                ds = ois_native_ds(qvec[b["qidx"]], b)
+            else:
+                ds = xccy_native_ds(qvec[b["qidx"]],
+                                    _stack_native(native, st.dom_ids),
+                                    _stack_native(native, st.for_ids),
+                                    b, st)
             for g, cid in enumerate(st.ids):
                 native[cid] = ds[g]
 
         rows: Dict[int, torch.Tensor] = {}
         for it, ids in schemes:
-            L = max(native[i].shape[-1] for i in ids)
-            ds = torch.stack([
-                torch.cat([native[i], torch.ones(
-                    native[i].shape[:-1] + (L - native[i].shape[-1],),
-                    dtype=native[i].dtype, device=native[i].device)],
-                    dim=-1) for i in ids])
-            out = simple_df_static(B["gplan"][it.name], ds, it)
+            out = simple_df_static(B["gplan"][it.name],
+                                   _stack_native(native, ids), it)
             for g, cid in enumerate(ids):
                 rows[cid] = out[g]
         flat = torch.cat([rows[i] for i in range(C)])

@@ -16,14 +16,19 @@ shared unique-time grid, per-trade gathers, aggregate-weight AD:
    the book delta ladder and gamma cost one trade's.
 
 ``make_multibook_fn(mb, device)`` is the device path: per scenario chunk,
-J = ∂dfs/∂q by ``vmap(jvp)``, g = ∂total/∂dfs by ``grad``, delta = J g,
-gamma = term1 (the hand-written K2 kernel) + term2 (``jacfwd(grad(..))``
-of g0·grids); then the per-trade PVs of every scenario in one sweep (the
-hand-written K1 kernel).
+J = ∂dfs/∂q, g = ∂total/∂dfs by ``grad``, delta = J g, gamma = term1 (the
+hand-written K2 kernel) + term2; then the per-trade PVs of every scenario
+in one sweep (the hand-written K1 kernel). J and term2 come from the
+STRUCTURED per-stage split (``structured_risk.py``) when the book carries
+its stage topology, else from the generic split over the whole curve
+graph (``vmap(jvp)`` for J, ``jacfwd(grad(..))`` of g0·grids for term2).
+``make_staged_multibook_fn`` runs the same structured pass as separately
+callable regions; ``warmup_multibook`` builds either and makes the first
+call.
 
-Ported here: OIS trades under natural collateral, OIS curves, the three
-simple interpolation schemes. Other instruments, foreign collateral and
-other curve kinds raise ``LibError``.
+Ported here: OIS and XCCY curves (the three simple interpolation
+schemes), OIS trades under natural or foreign collateral, float/float
+XCCY basis swaps. Other instruments and curve kinds raise ``LibError``.
 """
 
 from __future__ import annotations
@@ -38,10 +43,15 @@ from torch.func import grad, jacfwd, jvp, vmap
 
 from ..ops import kernels
 from ..utils.currency import CurrencyTypes
+from ..utils.day_count import DayCountTypes
 from ..utils.error import LibError
-from ..utils.global_types import InstrumentTypes, InterpTypes
+from ..utils.global_types import (CollateralType, InstrumentTypes,
+                                  InterpTypes, collateral_to_currency,
+                                  get_discount_curve_name)
+from ..ops.pricers import FloatLegTensor
 from ..utils.observability import timed
-from .curve_batching import bat_to_torch, build_batched_grids
+from .curve_batching import (StageTopology, bat_to_torch,
+                             build_batched_grids)
 
 # Bytes allowed for the risk pass's live f64 tangent stacks of one
 # scenario chunk. The generic split holds about three [chunk, N, C*U]
@@ -57,45 +67,104 @@ RISK_CHUNK_BYTES = 4 * 1024 ** 3
 # ---------------------------------------------------------------------------
 
 
+def _stack_leg_tensors(tensors: Sequence[FloatLegTensor]) -> FloatLegTensor:
+    """Pad to a common payment count and stack along a leading axis (the
+    XCCY calibration domestic legs). Static switches must agree."""
+    P = max(t.payment_times.shape[0] for t in tensors)
+
+    def pad(vec, fill):
+        v = np.asarray(vec, dtype=np.float64)
+        out = np.full(P, fill, dtype=np.float64)
+        out[:v.shape[0]] = v
+        return out
+
+    def stack(name, fill=0.0):
+        return np.stack([pad(getattr(t, name), fill) for t in tensors])
+
+    def scal(name):
+        return np.array([np.float64(getattr(t, name)) for t in tensors])
+
+    first = tensors[0]
+    if not all(t.override_first == first.override_first and
+               t.notional_exchange == first.notional_exchange and
+               t.has_cap_floor == first.has_cap_floor for t in tensors):
+        raise LibError("calibration legs disagree on their static switches")
+    return FloatLegTensor(
+        payment_times=stack("payment_times", -1.0),  # padded slots settled
+        start_times=stack("start_times", 0.0),
+        end_times=stack("end_times", 0.0),
+        pay_alphas=stack("pay_alphas", 0.0),
+        index_alphas=stack("index_alphas", 0.0),  # 0 -> fwd masked to 0
+        spreads=stack("spreads", 0.0),
+        notionals=stack("notionals", 0.0),
+        principal=scal("principal"),
+        leg_sign=scal("leg_sign"),
+        value_time=scal("value_time"),
+        first_fixing_rate=scal("first_fixing_rate"),
+        notional_exchange_amount=scal("notional_exchange_amount"),
+        effective_time=scal("effective_time"),
+        maturity_time=scal("maturity_time"),
+        cap_rate=scal("cap_rate"),
+        floor_rate=scal("floor_rate"),
+        override_first=first.override_first,
+        notional_exchange=first.notional_exchange,
+        has_cap_floor=first.has_cap_floor)
+
+
 @dataclasses.dataclass
 class _CurveSpec:
     name: str
-    kind: str                      # 'ois' (the only kind ported)
+    kind: str                      # 'ois' | 'xccy'
     interp_type: InterpTypes
     n_quotes: int
     offset: int                    # slice start in the packed quote vector
+    dom_id: int = -1               # xccy only: domestic curve id
+    for_id: int = -1               # xccy only: foreign curve id
+    foreign_interp_type: InterpTypes = None
 
 
 class CurveBasket:
-    """Compiles a Model's OIS curves into one differentiable quotes->grids
-    function over a packed quote vector.
+    """Compiles a Model's OIS and XCCY curves into one differentiable
+    quotes->grids function over a packed quote vector.
 
-    Curve order: by NAME (the model dict's insertion order is build
-    order, which would make the quote packing and the grid compaction
-    depend on it); explicit ``curve_names`` keep caller order.
-    ``specs[i].offset`` locates curve i's quotes inside the packed
-    vector."""
+    Curve order: OIS curves first, then XCCY curves (which consume the
+    OIS grids), each kind by NAME (the model dict's insertion order is
+    build order, which would make the quote packing and the grid
+    compaction depend on it); explicit ``curve_names`` keep caller order
+    within each kind. ``specs[i].offset`` locates curve i's quotes inside
+    the packed vector. ``recalibrate_xccy=False`` holds each XCCY curve's
+    parents as values (their quotes do not move it)."""
 
-    def __init__(self, model, curve_names: Optional[List[str]] = None):
+    def __init__(self, model, curve_names: Optional[List[str]] = None,
+                 recalibrate_xccy: bool = True):
         from ..trades.rates.ois_curve import OISCurve
+        from ..trades.rates.xccy_curve import XccyCurve
 
         explicit = curve_names is not None
         names = curve_names or list(model._curves_dict)
-        ois = []
+        ois, xccy = [], []
         for n in names:
             c = model._curves_dict[n]
-            if not isinstance(c, OISCurve):
+            if isinstance(c, OISCurve):
+                ois.append((n, c))
+            elif isinstance(c, XccyCurve):
+                xccy.append((n, c))
+            else:
                 raise LibError(f"not yet ported: {type(c).__name__} "
                                f"curve {n} in a basket")
-            ois.append((n, c))
         if not explicit:
             ois.sort(key=lambda nc: nc[0])
+            xccy.sort(key=lambda nc: nc[0])
 
         self.model = model
+        self.recalibrate_xccy = recalibrate_xccy
+        # compile_multibook(batch_curves=False) clears it: the risk pass
+        # then takes the generic split
+        self.batch_curves = True
         self.specs: List[_CurveSpec] = []
         self.curves: List[object] = []
         self._id_by_name: Dict[str, int] = {}
-        params: Dict = {"ois_plans": []}
+        params: Dict = {"ois_plans": [], "xccy": []}
         quotes0 = []
         offset = 0
         for name, curve in ois:
@@ -107,7 +176,34 @@ class CurveBasket:
             params["ois_plans"].append(curve._plan)
             quotes0.append(np.asarray(curve.swap_rates, dtype=np.float64))
             offset += n_q
+
+        for name, curve in xccy:
+            dom_name = next(n for n, c in ois
+                            if c is curve._domestic_curve)
+            for_name = next(n for n, c in ois
+                            if c is curve._foreign_curve)
+            n_q = len(curve.basis_spreads)
+            self.specs.append(_CurveSpec(
+                name, "xccy", curve._interp_type, n_q, offset,
+                dom_id=self._id_by_name[dom_name],
+                for_id=self._id_by_name[for_name],
+                foreign_interp_type=curve._foreign_curve._interp_type))
+            self._id_by_name[name] = len(self.curves)
+            self.curves.append(curve)
+            dom_dc = curve._domestic_curve._dc_type
+            dom_legs = _stack_leg_tensors([
+                s._domestic_leg.tensor(model.value_dt, index_dc=dom_dc)
+                for s in curve._used_swaps])
+            params["xccy"].append(dict(
+                plan=curve._plan, dom_legs=dom_legs,
+                spot_fx=np.float64(curve._spot_fx),
+                pv_dom0=np.asarray(curve._pv_domestic, dtype=np.float64)))
+            quotes0.append(np.asarray(curve.basis_spreads,
+                                      dtype=np.float64))
+            offset += n_q
+
         params["ois_plans"] = tuple(params["ois_plans"])
+        params["xccy"] = tuple(params["xccy"])
         self.params = params
         self.quotes0 = np.concatenate(quotes0) if quotes0 \
             else np.zeros(0)
@@ -130,22 +226,46 @@ class CurveBasket:
         rows concatenated in curve-id order (dense global index =
         curve_id * U + time_idx), then restricted to ``grid_sel`` (sorted
         int array into the dense [C*U] axis) — the compaction
-        compile_multibook applies. Sets ``grid_sel/n_grid/grid_curve_of``
-        and the host stage plans ``bat``/``stages``."""
+        compile_multibook applies. Sets the grid-axis metadata
+        (``grid_sel``, ``n_grid``, ``grid_dense``, ``grid_inv``,
+        ``grid_curve_of``, ``grid_keep_of``, ``grid_offsets``: the
+        per-curve rows the structured risk pass places into) and the
+        host stage plans ``bat``/``stages``."""
         ut = np.asarray(unique_times)
         U = ut.shape[0]
+        C = self.n_curves
         if grid_sel is None:
-            grid_sel = np.arange(self.n_curves * U, dtype=np.int32)
+            grid_sel = np.arange(C * U, dtype=np.int32)
         grid_sel = np.asarray(grid_sel, dtype=np.int32)
         self.grid_sel = grid_sel
         self.n_grid = int(grid_sel.shape[0])
+        self.grid_dense = self.n_grid == C * U
+        # gather-based inverse: dense index -> compact position, with
+        # unreferenced entries pointing at an appended zero slot
+        inv = np.full(C * U, self.n_grid, dtype=np.int32)
+        inv[grid_sel] = np.arange(self.n_grid, dtype=np.int32)
+        self.grid_inv = inv
         self.grid_curve_of = (grid_sel // U).astype(np.int32)
+        local_of = (grid_sel % U).astype(np.int32)
+        self.grid_keep_of = [local_of[self.grid_curve_of == c]
+                             for c in range(C)]
+        self.grid_offsets = np.concatenate(
+            [[0], np.cumsum([k.shape[0] for k in self.grid_keep_of])]
+        ).astype(np.int32)
         grids, bat, stages = build_batched_grids(
             self, ut, stage_buckets=stage_buckets)
         self.unique_times = ut
         self.bat = bat
         self.stages = stages
         return grids
+
+    def topology(self) -> StageTopology:
+        """The static stage topology the structured risk pass reads."""
+        return StageTopology(
+            stages=self.stages, specs=self.specs, bat=self.bat,
+            n_quotes=self.n_quotes, unique_times=self.unique_times,
+            grid_dense=self.grid_dense, grid_keep_of=self.grid_keep_of,
+            grid_offsets=self.grid_offsets, grid_inv=self.grid_inv)
 
 
 # ---------------------------------------------------------------------------
@@ -364,31 +484,95 @@ def _rows_for_instrument(inst, model, basket: CurveBasket, base, value_dt,
                          trade_id: int, clamp_rows: list,
                          collateral_type=None) -> list:
     """Compile one instrument into row dicts (reference semantics:
-    engine.py:2639-2728 dual-curve floats). Only OIS under natural
-    collateral is ported."""
-    itype = inst.derivative_type
-    if itype != InstrumentTypes.OIS_SWAP:
-        raise LibError(f"not yet ported: {itype} in a multibook")
-    if collateral_type is not None:
-        from ..utils.global_types import collateral_to_currency
-        if collateral_to_currency(collateral_type) != inst._currency:
-            raise LibError("not yet ported: OIS under foreign collateral")
+    engine.py:2639-2728 dual-curve floats, 1496-1520 XCCY foreign legs,
+    217-503 OIS under foreign collateral). Ported: OIS (natural or
+    foreign collateral) and float/float XCCY basis swaps; other
+    instruments raise ``LibError``."""
+    from ..trades.rates.swap_float_leg import SwapFloatLeg
+    from ..trades.rates.xccy_basis_swap import float_leg_xccy_tensor
+    from ..trades.rates.xccy_curve import find_xccy_curve
 
-    cid = basket.curve_id(inst._floating_index.name)
-    curve = basket.curves[cid]
-    fx = _fx_to_base(model, inst._currency, base)
-    ft = inst._fixed_leg.tensor(value_dt)
-    lt = inst._float_leg.tensor(value_dt, index_dc=curve._dc_type)
-    return [_fixed_row(ft.payment_times, np.asarray(ft.payments), cid, fx,
-                       float(ft.leg_sign), trade_id),
-            _float_row(lt, cid, cid, fx, trade_id, clamp_rows)]
+    itype = inst.derivative_type
+    rows = []
+
+    if itype == InstrumentTypes.OIS_SWAP:
+        cid = basket.curve_id(inst._floating_index.name)
+        curve = basket.curves[cid]
+        fx = _fx_to_base(model, inst._currency, base)
+
+        coll_ccy = None
+        if collateral_type is not None:
+            coll_ccy = collateral_to_currency(collateral_type)
+            if coll_ccy == inst._currency:
+                coll_ccy = None
+
+        if coll_ccy is None:
+            ft = inst._fixed_leg.tensor(value_dt)
+            lt = inst._float_leg.tensor(value_dt, index_dc=curve._dc_type)
+            rows.append(_fixed_row(ft.payment_times,
+                                   np.asarray(ft.payments), cid, fx,
+                                   float(ft.leg_sign), trade_id))
+            rows.append(_float_row(lt, cid, cid, fx, trade_id,
+                                   clamp_rows))
+        else:
+            # OIS under foreign collateral: project on the natural OIS
+            # curve, discount on the {CCY}_{COLL}_XCCY curve, whose df()
+            # pins ACT/365F query times. The curve graph recalibrates the
+            # XCCY grid, so rate AND basis deltas carry the chain.
+            disc_name = get_discount_curve_name(
+                inst._currency, CollateralType[coll_ccy.name])
+            if disc_name not in basket._id_by_name:
+                raise LibError(
+                    f"Collateralized OIS needs discount curve "
+                    f"{disc_name} in the basket")
+            disc_id = basket.curve_id(disc_name)
+            ft = inst._fixed_leg.tensor(
+                value_dt, discount_dc=DayCountTypes.ACT_365F)
+            lt = inst._float_leg.tensor(
+                value_dt, index_dc=curve._dc_type,
+                discount_dc=DayCountTypes.ACT_365F)
+            rows.append(_fixed_row(ft.payment_times,
+                                   np.asarray(ft.payments), disc_id, fx,
+                                   float(ft.leg_sign), trade_id))
+            rows.append(_float_row(lt, disc_id, cid, fx, trade_id,
+                                   clamp_rows))
+
+    elif itype == InstrumentTypes.XCCY_SWAP:
+        dom_leg = inst._domestic_leg
+        for_leg = inst._foreign_leg
+        if not (isinstance(dom_leg, SwapFloatLeg)
+                and isinstance(for_leg, SwapFloatLeg)):
+            raise LibError("not yet ported: fixed-leg XCCY swaps in a "
+                           "multibook")
+        xname, xcurve = find_xccy_curve(model, inst)
+        xid = basket.curve_id(xname)
+        dom_id = basket.curve_id(inst._domestic_floating_index.name)
+        for_id = basket.curve_id(inst._foreign_floating_index.name)
+        dom_curve = basket.curves[dom_id]
+        for_curve = basket.curves[for_id]
+        fx_dom = _fx_to_base(model, inst._domestic_currency, base)
+        fx_for = fx_dom * float(xcurve._spot_fx)  # foreign leg PV is in
+        #   foreign ccy; trade PV converts at the curve's spot
+        lt = dom_leg.tensor(value_dt, index_dc=dom_curve._dc_type)
+        rows.append(_float_row(lt, dom_id, dom_id, fx_dom, trade_id,
+                               clamp_rows))
+        lt = float_leg_xccy_tensor(for_leg, value_dt, for_curve._dc_type)
+        rows.append(_float_row(lt, xid, for_id, fx_for, trade_id,
+                               clamp_rows))
+
+    else:
+        raise LibError(f"not yet ported: {itype} in a multibook")
+
+    return rows
 
 
 def compile_multibook(instruments, model,
                       base_currency: CurrencyTypes = CurrencyTypes.GBP,
                       curve_names: Optional[List[str]] = None,
                       n_buckets: int = 4,
+                      recalibrate_xccy: bool = True,
                       collateral_types: Optional[Sequence] = None,
+                      batch_curves: bool = True,
                       stage_buckets: str = "fine") -> MultiBook:
     """Compile a multi-currency book against a Model (host numpy).
 
@@ -397,7 +581,11 @@ def compile_multibook(instruments, model,
     book references); all PVs are in ``base_currency``.
 
     ``collateral_types``: optional per-trade CollateralType list (None
-    entries = natural collateral; foreign collateral is not ported).
+    entries = natural collateral). An OIS whose collateral currency
+    differs from its own discounts on the {CCY}_{COLL}_XCCY curve.
+    ``batch_curves``: record the basket's stage topology, so the risk
+    pass takes the structured per-stage split; with False it takes the
+    generic split (the grids are the same batched stages either way).
     ``stage_buckets``: "fine" (default) or "coarse" — OIS stage-group
     shape-bucket coarseness, see curve_batching.build_batched_grids.
     """
@@ -405,7 +593,9 @@ def compile_multibook(instruments, model,
             and len(collateral_types) != len(instruments):
         raise LibError("collateral_types must parallel instruments")
 
-    basket = CurveBasket(model, curve_names)
+    basket = CurveBasket(model, curve_names,
+                         recalibrate_xccy=recalibrate_xccy)
+    basket.batch_curves = batch_curves
     value_dt = model.value_dt
 
     clamp_rows: list = []
@@ -770,9 +960,11 @@ def _trade_row_table(mb: MultiBook) -> np.ndarray:
 def _term1_trip_groups(basket, agg: MultiBookAggregate):
     """Host-side signature grouping of the trip table for the quad form:
     a trip's three J columns are nonzero ONLY on the quote slots of the
-    curves they belong to, so the [N, T] @ [T, N] contraction can run at
-    each group's closed quote width k instead of full N. Returns a list
-    of dicts of static int index arrays (``tsel`` into the trip table,
+    curves they belong to (plus XCCY parents when the basket
+    recalibrates them), so the [N, T] @ [T, N] contraction can run at
+    each group's closed quote width k instead of full N. Groups may share
+    quote rows (every XCCY group holds its parents'). Returns a list of
+    dicts of static int index arrays (``tsel`` into the trip table,
     ``s_idx``/``e_idx``/``p_idx``, the group's quote ``segs`` and width
     ``k``), or None when the basket lacks grid metadata."""
     curve_of = getattr(basket, "grid_curve_of", None)
@@ -781,13 +973,26 @@ def _term1_trip_groups(basket, agg: MultiBookAggregate):
     curve_of = np.asarray(curve_of)
     specs = basket.specs
 
+    def contrib(cid):
+        s = {int(cid)}
+        sp = specs[int(cid)]
+        if sp.kind == "xccy" and basket.recalibrate_xccy:
+            s |= {sp.dom_id, sp.for_id}
+        return s
+
     ts = np.asarray(agg.trip_s)
     te = np.asarray(agg.trip_e)
     tp = np.asarray(agg.trip_p)
     cs, ce, cp = curve_of[ts], curve_of[te], curve_of[tp]
+    sig_cache: Dict[tuple, frozenset] = {}
     by_sig: Dict[frozenset, List[int]] = {}
     for t in range(ts.shape[0]):
-        sig = frozenset((int(cs[t]), int(ce[t]), int(cp[t])))
+        key = (int(cs[t]), int(ce[t]), int(cp[t]))
+        sig = sig_cache.get(key)
+        if sig is None:
+            sig = frozenset(contrib(key[0]) | contrib(key[1])
+                            | contrib(key[2]))
+            sig_cache[key] = sig
         by_sig.setdefault(sig, []).append(t)
 
     groups = []
@@ -833,19 +1038,22 @@ class BookInputs:
     n_quotes: int
     n_trades: int
     tile: Optional[TileSpec] = None
+    # the stage topology for the structured risk split; None = the
+    # generic split (a book compiled with batch_curves=False)
+    topology: Optional[StageTopology] = None
 
 
 def book_inputs(mb: MultiBook) -> BookInputs:
     basket = mb.basket
-    dense = basket.n_grid == basket.n_curves * mb.unique_times.shape[0]
     return BookInputs(
         grids=basket.grids, bat=basket.bat,
-        grid_sel=None if dense else basket.grid_sel,
+        grid_sel=None if basket.grid_dense else basket.grid_sel,
         cols=mb.cols, clamp=mb.clamp, aggregate=mb.aggregate,
         tri=_trade_row_table(mb),
         groups=_term1_trip_groups(basket, mb.aggregate),
         n_grid=basket.n_grid, n_quotes=basket.n_quotes,
-        n_trades=mb.n_trades, tile=mb.tile)
+        n_trades=mb.n_trades, tile=mb.tile,
+        topology=basket.topology() if basket.batch_curves else None)
 
 
 @dataclasses.dataclass
@@ -863,7 +1071,7 @@ class DeviceBook:
 
 
 def _f64(a, device) -> torch.Tensor:
-    return torch.as_tensor(np.asarray(a, dtype=np.float64), device=device)
+    return torch.as_tensor(a, dtype=torch.float64, device=device)
 
 
 def _i32(a, device) -> torch.Tensor:
@@ -1033,29 +1241,17 @@ def _pvs_sweep(dfs_all: torch.Tensor, cols: Sequence[ColRows],
     return pvs_bs.T.contiguous()
 
 
-def risk_chunk_size(n_quotes: int, dense_width: int, n_scen: int) -> int:
-    """Scenarios per risk chunk: three [chunk, N, dense_width] f64 stacks
-    within RISK_CHUNK_BYTES, at least 1 and at most ``n_scen``."""
-    per = 3 * n_quotes * dense_width * 8
+def risk_chunk_size(n_quotes: int, width: int, n_scen: int) -> int:
+    """Scenarios per risk chunk: three [chunk, N, width] f64 stacks
+    within RISK_CHUNK_BYTES, at least 1 and at most ``n_scen``. The
+    generic split's stacks run at the dense stage width (C*U before
+    compaction), the structured split's at the book's grid width."""
+    per = 3 * n_quotes * width * 8
     return max(1, min(n_scen, RISK_CHUNK_BYTES // max(per, 1)))
 
 
-def make_multibook_fn(mb: Union[MultiBook, BookInputs], device,
-                      want_gamma: bool = True):
-    """(qvec [N], shocks [S, N]) -> {pvs [S, B], delta [S, N],
-    gamma [S, N, N]} on ``device``: per-trade PVs from the K1 sweep, book
-    delta/gamma from the aggregate graph. N is the packed quote
-    dimension across every curve, so the gamma includes all cross-curve
-    blocks. The book moves to ``device`` once, here (a lazily tiled book
-    is expanded there).
-
-    ``fn.risk_only`` and ``fn.pvs_only`` run the two halves separately;
-    ``fn.dfs_only`` and ``fn.jacobians`` return the shocked grids (and
-    their quote jacobians); ``fn.chunk(S)`` is the risk pass's scenario
-    chunk for S scenarios; ``fn.book`` holds the device tables."""
-    inp = book_inputs(mb) if isinstance(mb, MultiBook) else mb
-    device = torch.device(device)
-    grids = inp.grids
+def _device_book(inp: BookInputs, device) -> DeviceBook:
+    """The book's tables on ``device``, a lazily tiled book expanded."""
     P = {"bat": bat_to_torch(inp.bat, device),
          "grid_sel": None if inp.grid_sel is None
          else _i64(inp.grid_sel, device)}
@@ -1075,7 +1271,6 @@ def make_multibook_fn(mb: Union[MultiBook, BookInputs], device,
             # scale: the base slots with weights times sum(scale)
             clamp_agg = dataclasses.replace(clamp, w=clamp.w * scale.sum())
             clamp = _expand_clamp(clamp, scale, base)
-    tri = _i32(inp.tri, device)
     groups = [dict(s_idx=_i32(g["s_idx"], device),
                    e_idx=_i32(g["e_idx"], device),
                    p_idx=_i32(g["p_idx"], device),
@@ -1084,14 +1279,62 @@ def make_multibook_fn(mb: Union[MultiBook, BookInputs], device,
                        device),
                    w=agg.trip_w[_i64(g["tsel"], device)].contiguous())
               for g in (inp.groups or [])]
+    return DeviceBook(grids=inp.grids, params=P, aggregate=agg,
+                      clamp=clamp, clamp_agg=clamp_agg, cols=cols,
+                      tri=_i32(inp.tri, device), groups=groups)
+
+
+def _term1_fn(book: DeviceBook):
+    """term1(J [Sc, N, n_grid], dfs [Sc, n_grid]) -> [Sc, N, N]: the
+    trip quad form through the K2 kernel, plus the cap/floor clamp
+    slots' closed form."""
+    def term1(J, dfs):
+        J = J.contiguous()
+        dfs = dfs.contiguous()
+        t1 = kernels.gamma_quad_form_grouped(J, dfs, book.groups)
+        if book.clamp_agg is not None:
+            t1 = t1 + vmap(lambda j, d: _clamp_quad_form(
+                j, d, book.clamp_agg))(J, dfs)
+        return t1
+    return term1
+
+
+def make_multibook_fn(mb: Union[MultiBook, BookInputs], device,
+                      want_gamma: bool = True):
+    """(qvec [N], shocks [S, N]) -> {pvs [S, B], delta [S, N],
+    gamma [S, N, N]} on ``device``: per-trade PVs from the K1 sweep, book
+    delta/gamma from the aggregate graph. N is the packed quote
+    dimension across every curve (OIS rates + basis spreads), so the
+    gamma includes all cross-curve blocks. The book moves to ``device``
+    once, here (a lazily tiled book is expanded there).
+
+    The risk pass takes the STRUCTURED per-stage split
+    (``structured_risk``) whenever the book carries its stage topology,
+    and the generic split (``_scenario_risk``) for a book compiled with
+    ``batch_curves=False``; term1 is the K2 kernel either way.
+
+    ``fn.risk_only`` and ``fn.pvs_only`` run the two halves separately;
+    ``fn.dfs_only`` and ``fn.jacobians`` return the shocked grids (and
+    their quote jacobians); ``fn.chunk(S)`` is the risk pass's scenario
+    chunk for S scenarios; ``fn.structured`` says which split runs;
+    ``fn.book`` holds the device tables."""
+    inp = book_inputs(mb) if isinstance(mb, MultiBook) else mb
+    device = torch.device(device)
+    book = _device_book(inp, device)
+    grids, P = book.grids, book.params
+    agg, clamp_agg = book.aggregate, book.clamp_agg
+    term1 = _term1_fn(book)
     N = inp.n_quotes
-    dense_width = sum(p["i0"].size for p in inp.bat["gplan"].values())
+    structured = inp.topology is not None
+    if structured:
+        from .structured_risk import make_structured_risk
+        scenario_risk = make_structured_risk(inp.topology, term1)
+        width = inp.n_grid
+    else:
+        width = sum(p["i0"].size for p in inp.bat["gplan"].values())
 
     def chunk(n_scen: int) -> int:
-        return risk_chunk_size(N, dense_width, n_scen)
-
-    def _as(x):
-        return torch.as_tensor(x, dtype=torch.float64, device=device)
+        return risk_chunk_size(N, width, n_scen)
 
     def _risk(qvec, shocks):
         """Per-chunk risk; returns (dfs [S, n_grid], delta, gamma)."""
@@ -1105,17 +1348,15 @@ def make_multibook_fn(mb: Union[MultiBook, BookInputs], device,
                         grids(y, P), agg, clamp_agg))
                     return grids(x, P), total(x)
                 dfs, delta = vmap(one)(q)
+            elif structured:
+                out = scenario_risk(q, P, agg, clamp_agg, True)
+                dfs, delta = out["dfs"], out["delta"]
+                gamma_l.append(out["gamma"])
             else:
                 out = vmap(lambda x: _scenario_risk(
                     grids, x, P, agg, clamp_agg, True))(q)
-                dfs, delta = out["dfs"].contiguous(), out["delta"]
-                J = out["J"].contiguous()
-                term1 = kernels.gamma_quad_form_grouped(J, dfs, groups)
-                if clamp_agg is not None:
-                    term1 = term1 + vmap(
-                        lambda j, d: _clamp_quad_form(j, d, clamp_agg))(
-                            J, dfs)
-                gamma_l.append(term1 + out["term2"])
+                dfs, delta = out["dfs"], out["delta"]
+                gamma_l.append(term1(out["J"], dfs) + out["term2"])
             dfs_l.append(dfs)
             delta_l.append(delta)
         res = {"delta": torch.cat(delta_l)}
@@ -1124,27 +1365,35 @@ def make_multibook_fn(mb: Union[MultiBook, BookInputs], device,
         return torch.cat(dfs_l), res
 
     def fn(qvec, shocks):
-        dfs_all, out = _risk(_as(qvec), _as(shocks))
+        dfs_all, out = _risk(_f64(qvec, device), _f64(shocks, device))
         # the risk pass already bootstrapped every scenario's grids —
         # the PV sweep consumes them instead of recomputing
-        out["pvs"] = _pvs_sweep(dfs_all.contiguous(), cols, clamp, agg, tri)
+        out["pvs"] = _pvs_sweep(dfs_all.contiguous(), book.cols, book.clamp,
+                                agg, book.tri)
         return out
 
     def risk_only(qvec, shocks):
-        return _risk(_as(qvec), _as(shocks))[1]
+        return _risk(_f64(qvec, device), _f64(shocks, device))[1]
 
     def dfs_only(qvec, shocks):
         """The compact DF grids [S, n_grid] of the shocked quotes."""
-        q = _as(qvec)
-        return vmap(lambda s: grids(q + s, P))(_as(shocks)).contiguous()
+        q = _f64(qvec, device)
+        return vmap(lambda s: grids(q + s, P))(
+            _f64(shocks, device)).contiguous()
 
     def pvs_only(qvec, shocks):
-        return _pvs_sweep(dfs_only(qvec, shocks), cols, clamp, agg, tri)
+        return _pvs_sweep(dfs_only(qvec, shocks), book.cols, book.clamp,
+                          agg, book.tri)
 
     def jacobians(qvec, shocks):
-        """(dfs [S, n_grid], J [S, N, n_grid]) of the shocked quotes."""
+        """(dfs [S, n_grid], J [S, N, n_grid]) of the shocked quotes,
+        through the same split as the risk pass."""
+        q = _f64(qvec, device)[None, :] + _f64(shocks, device)
+        if structured:
+            fw = scenario_risk.fwd_delta(q, P, agg, clamp_agg)
+            return fw["dfs"], fw["J"]
         out = vmap(lambda x: _scenario_risk(grids, x, P, agg, clamp_agg,
-                                            False))(_as(qvec) + _as(shocks))
+                                            False))(q)
         return out["dfs"], out["J"].contiguous()
 
     fn.risk_only = risk_only
@@ -1152,7 +1401,107 @@ def make_multibook_fn(mb: Union[MultiBook, BookInputs], device,
     fn.dfs_only = dfs_only
     fn.jacobians = jacobians
     fn.chunk = chunk
-    fn.book = DeviceBook(grids=grids, params=P, aggregate=agg,
-                         clamp=clamp, clamp_agg=clamp_agg, cols=cols,
-                         tri=tri, groups=groups)
+    fn.structured = structured
+    fn.book = book
+    return fn
+
+
+def make_staged_multibook_fn(mb: Union[MultiBook, BookInputs], device,
+                             want_gamma: bool = True,
+                             max_chunk: Optional[int] = None):
+    """(qvec, shocks [S, N]) -> {pvs [S, B], delta [S, N],
+    gamma [S, N, N]} — the same outputs as make_multibook_fn, computed
+    as a plain composition of the staged REGIONS of the JAX package's
+    ``make_staged_multibook_fn`` (``adrates_tpu/parallel/multibook.py``
+    :1963), each callable on its own through ``fn.regions``:
+
+        A   fwd + J + delta  (structured_risk fwd_delta)
+        B   term1            (K2 trip quad form + clamp slots, over A's J)
+        C1  term2, XCCY stages (curve hessians + parent cotangents)
+        C2  term2, OIS stages (consume C1's cotangents)
+        D   gamma = t1 + h2_xccy + h2_ois
+        P   per-trade PV sweep (K1) over A's DF grids
+
+    Scenarios run in equalized chunks: the fewest chunks of at most the
+    cap, then even sizes (``fn.chunk(S)``; S = 100 under a cap of 25
+    gives 4 x 25), the last one zero-padded when S does not divide. The
+    cap comes from the device-memory budget RISK_CHUNK_BYTES (three
+    [chunk, N, n_grid] f64 stacks); ``max_chunk`` overrides it.
+
+    Requires the book's stage topology (batch_curves=True).
+    ``want_gamma=False`` runs A + P only."""
+    inp = book_inputs(mb) if isinstance(mb, MultiBook) else mb
+    if inp.topology is None:
+        raise LibError(
+            "make_staged_multibook_fn requires the batched stage "
+            "topology: compile the book with batch_curves=True")
+    from .structured_risk import make_structured_parts
+    device = torch.device(device)
+    book = _device_book(inp, device)
+    P, agg, clamp_agg = book.params, book.aggregate, book.clamp_agg
+    parts = make_structured_parts(inp.topology)
+    N = inp.n_quotes
+    chunk_cap = max(1, RISK_CHUNK_BYTES // (3 * N * inp.n_grid * 8)) \
+        if max_chunk is None else int(max_chunk)
+
+    def _chunk_for(S: int) -> int:
+        """Equalized chunk: smallest count of <=chunk_cap-sized chunks,
+        then even sizes."""
+        n_ch = -(-S // chunk_cap)
+        return -(-S // n_ch)
+
+    regions = dict(
+        A=lambda q: parts["fwd_delta"](q, P, agg, clamp_agg),
+        B=_term1_fn(book),
+        C1=lambda q, g, carry: parts["term2_xccy"](q, P, g, carry),
+        C2=lambda q, g, v_of: parts["term2_ois"](q, P, g, v_of),
+        D=lambda t1, h2x, h2o: t1 + h2x + h2o,
+        P=lambda dfs: _pvs_sweep(dfs.contiguous(), book.cols, book.clamp,
+                                 agg, book.tri))
+
+    def _run_chunk(q):
+        a = regions["A"](q)
+        res = {"delta": a["delta"], "dfs": a["dfs"]}
+        if want_gamma:
+            t1 = regions["B"](a["J"], a["dfs"])
+            h2x, v_of = regions["C1"](q, a["g"], a["carry"])
+            h2o = regions["C2"](q, a["g"], v_of)
+            res["gamma"] = regions["D"](t1, h2x, h2o)
+        return res
+
+    def fn(qvec, shocks):
+        qvec = _f64(qvec, device)
+        shocks = _f64(shocks, device)
+        S = shocks.shape[0]
+        chunk = _chunk_for(S)
+        outs = []
+        for lo in range(0, S, chunk):
+            sh = shocks[lo:lo + chunk]
+            pad = chunk - sh.shape[0]
+            if pad:
+                sh = torch.cat([sh, sh.new_zeros((pad, N))])
+            outs.append(_run_chunk(qvec[None, :] + sh))
+        res = {k: torch.cat([o[k] for o in outs])[:S] for k in outs[0]}
+        res["pvs"] = regions["P"](res.pop("dfs"))
+        return res
+
+    fn.chunk = _chunk_for
+    fn.regions = regions
+    fn.book = book
+    return fn
+
+
+def warmup_multibook(mb: MultiBook, n_scenarios: int, device,
+                     want_gamma: bool = True, staged: bool = False):
+    """Build the book's risk fn (``make_staged_multibook_fn`` with
+    ``staged=True``, else ``make_multibook_fn``) and make one call on
+    zero shocks at the production (n_scenarios, n_quotes) shape,
+    synchronized, so torch.func's first use, the kernel build and the
+    allocator's first growth happen here; returns the ready fn."""
+    device = torch.device(device)
+    make = make_staged_multibook_fn if staged else make_multibook_fn
+    fn = make(mb, device, want_gamma=want_gamma)
+    fn(mb.basket.quotes0, np.zeros((n_scenarios, mb.basket.n_quotes)))
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
     return fn

@@ -1,0 +1,556 @@
+"""Structured scenario risk: per-stage differentiation of the curve graph.
+
+Port of ``adrates_tpu/parallel/structured_risk.py`` (``_build_meta``,
+``make_structured_parts``, ``make_structured_risk``). The generic split
+(multibook._scenario_risk) pushes N (= every quote on every curve)
+tangents through the WHOLE curve graph twice per scenario. But the
+quotes->curves dependency is BLOCK SPARSE: an OIS curve depends only on
+its own pillar quotes, and an XCCY curve on its basis spreads plus its
+two parent OIS curves' quotes. This module differentiates each batched
+STAGE separately with a tangent basis sized to the stage's parent set
+and composes by the chain rule:
+
+- J rows, OIS stage: Qp tangent seeds (one per LOCAL quote slot). One
+  seed carries the same unit direction for EVERY group member at once —
+  members never interact inside a stage, so the [Qp] basis recovers all
+  G members' jacobians in one sweep.
+- J rows, XCCY stage: D = S + Qp_dom + Qp_for COMPOSED directions: basis
+  units plus parent jacobian columns fed as input tangents of the small
+  XCCY stage graph; the dom curve reaches the stage only through the S
+  calibration-leg PVs, so dom directions compose through that bottleneck.
+- term2 = sum_k g_k d2 dfs_k/dq2 by the second-order chain rule: the XCCY
+  stage's hessian over its composed directions, plus a COTANGENT v on
+  each parent's native dfs (``v_of``) that the parent OIS stage folds
+  into its own scalar g_c . rows_c + v_c . ds_c.
+
+Every function here takes a scenario batch: quotes [Sc, N] and returns
+[Sc, ...]. Per-stage AD runs under ``torch.func.vmap`` over the
+scenarios (and over the tangent seeds inside it); the static-offset block
+placements (fold pads, place rows, place hessian blocks) run outside
+``vmap`` on the [Sc, ...] results, as slice writes into tensors the
+functions allocate. The trip quad form (term1) is the caller's K2 kernel
+plus the clamp quad form.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List
+
+import numpy as np
+import torch
+from torch.func import grad, jvp, vmap
+
+from .curve_batching import (StageTopology, ois_native_ds, stage_rows,
+                             xccy_boot_ds, xccy_legs_pv, xccy_native_ds)
+
+
+def _build_meta(topo: StageTopology) -> dict:
+    """Static stage metadata: member positions, per-member quote
+    segments, direction metadata for XCCY stages and the grid layout."""
+    stages = topo.stages
+    specs = topo.specs
+    C = len(specs)
+    N = topo.n_quotes
+    U = int(np.asarray(topo.unique_times).shape[0])
+    bat0 = topo.bat
+
+    pos_of: Dict[int, tuple] = {}
+    for si, st in enumerate(stages):
+        for mi, cid in enumerate(st.ids):
+            pos_of[cid] = (si, mi)
+
+    its_of = [[specs[i].interp_type for i in st.ids] for st in stages]
+    n_dirs_of = [int(np.asarray(bat0[st.key]["qidx"]).shape[1])
+                 for st in stages]
+    p1_of = [int(np.asarray(bat0[st.key]["ts_static"]).shape[1])
+             for st in stages]
+
+    xmeta: Dict[int, dict] = {}
+    for si, st in enumerate(stages):
+        if st.kind != "xccy":
+            continue
+        S = n_dirs_of[si]
+        b = bat0[st.key]
+        Ld = int(np.asarray(b["dom_ts"]).shape[1])
+        Lf = int(np.asarray(b["for_ts"]).shape[1])
+        if not st.recal:
+            # parents are detached: directions = basis only
+            xmeta[si] = dict(D=S, S=S, Ld=Ld, Lf=Lf, parents=None)
+            continue
+        parents = []
+        for mi in range(len(st.ids)):
+            sd, md = pos_of[st.dom_ids[mi]]
+            sf, mf = pos_of[st.for_ids[mi]]
+            parents.append(dict(sd=sd, md=md, qd=n_dirs_of[sd],
+                                p1d=p1_of[sd], sf=sf, mf=mf,
+                                qf=n_dirs_of[sf], p1f=p1_of[sf]))
+        D = max(S + p["qd"] + p["qf"] for p in parents)
+        xmeta[si] = dict(D=D, S=S, Ld=Ld, Lf=Lf, parents=parents,
+                         Qd=max(p["qd"] for p in parents),
+                         Qf=max(p["qf"] for p in parents))
+
+    def segments(si, mi):
+        """[(global_offset, n_live, dir_lo, n_dirs_with_pads)] — local
+        dirs [dir_lo, dir_lo+n_dirs) map onto quote rows
+        [global_offset, global_offset+n_live), rows beyond n_live being
+        group-pad duplicates of the last."""
+        st = stages[si]
+        cid = st.ids[mi]
+        segs = [(specs[cid].offset, specs[cid].n_quotes, 0, n_dirs_of[si])]
+        if st.kind == "xccy" and xmeta[si]["parents"] is not None:
+            p = xmeta[si]["parents"][mi]
+            lo = n_dirs_of[si]
+            for sp, mp in ((p["sd"], p["md"]), (p["sf"], p["mf"])):
+                par_cid = stages[sp].ids[mp]
+                segs.append((specs[par_cid].offset,
+                             specs[par_cid].n_quotes, lo, n_dirs_of[sp]))
+                lo += n_dirs_of[sp]
+        return segs
+
+    dense = topo.grid_dense
+    keeprows = (not dense) and all(
+        "row_plan_keep" in bat0[st.key] for st in stages)
+    keep_of = None if dense else topo.grid_keep_of
+    grid = dict(
+        dense=dense, keeprows=keeprows,
+        keep_of=keep_of,
+        offsets=(np.arange(C + 1) * U if dense
+                 else np.asarray(topo.grid_offsets)),
+        inv=None if dense else np.asarray(topo.grid_inv),
+        Uc_of=([U] * C if dense else [int(k.shape[0]) for k in keep_of]))
+
+    return dict(stages=stages, specs=specs, C=C, N=N, U=U, bat0=bat0,
+                pos_of=pos_of, its_of=its_of, xmeta=xmeta,
+                n_dirs_of=n_dirs_of, p1_of=p1_of, segments=segments,
+                grid=grid,
+                ois_first=[si for si, st in enumerate(stages)
+                           if st.kind != "xccy"],
+                xccy_last=[si for si, st in enumerate(stages)
+                           if st.kind == "xccy"])
+
+
+def fold_pads(seg: torch.Tensor, n_live: int, dim: int) -> torch.Tensor:
+    """Fold pad-duplicate slices (beyond n_live along ``dim``) into the
+    last live one: a padded direction duplicates the member's last quote,
+    so its derivative adds to that quote's."""
+    if seg.shape[dim] <= n_live:
+        return seg
+    live = seg.narrow(dim, 0, n_live - 1)
+    last = seg.narrow(dim, n_live - 1, 1) + seg.narrow(
+        dim, n_live, seg.shape[dim] - n_live).sum(dim=dim, keepdim=True)
+    return torch.cat([live, last], dim=dim)
+
+
+def place_hess(H2: torch.Tensor, Hm: torch.Tensor, segs) -> None:
+    """Add a member's [Sc, D, D] local hessian into H2 [Sc, N, N] at its
+    segment-pair blocks (in place)."""
+    for off1, n1, lo1, nd1 in segs:
+        for off2, n2, lo2, nd2 in segs:
+            sub = Hm[:, lo1:lo1 + nd1, lo2:lo2 + nd2]
+            sub = fold_pads(fold_pads(sub, n1, 1), n2, 2)
+            H2[:, off1:off1 + n1, off2:off2 + n2] += sub
+
+
+def _seeds(n: int, G: int, like: torch.Tensor) -> torch.Tensor:
+    """[n, G, n] unit directions: seed j moves local slot j of every
+    group member at once."""
+    eye = torch.eye(n, dtype=like.dtype, device=like.device)
+    return eye[:, None, :].expand(n, G, n)
+
+
+def _jac(f, x: torch.Tensor, seeds: torch.Tensor):
+    """(f(x), [n_seeds, ...] directional derivatives of f at x): one jvp
+    per seed under vmap (the primal is computed once, unbatched)."""
+    out, tan = vmap(lambda s: jvp(f, (x,), (s,)))(seeds)
+    if isinstance(out, tuple):
+        return tuple(o[0] for o in out), tan
+    return out[0], tan
+
+
+def _hess(f, x: torch.Tensor, seeds: torch.Tensor) -> torch.Tensor:
+    """[n_seeds, ...] hessian-vector products of the scalar f at x
+    (forward over reverse)."""
+    return vmap(lambda s: jvp(grad(f), (x,), (s,))[1])(seeds)
+
+
+def make_structured_parts(topo: StageTopology) -> dict:
+    """The structured risk pass as separable batched functions (the
+    regions of multibook.make_staged_multibook_fn):
+
+    - ``fwd_delta(q, P, agg, clamp_agg)`` -> dict(dfs [Sc, n_grid],
+      g [Sc, n_grid], J [Sc, N, n_grid], delta [Sc, N], carry): stage
+      forwards, per-stage jacobian rows, assembled J on the book's grid
+      axis, the aggregate gradient and the book delta. ``carry`` holds
+      the cross-boundary arrays term2 needs per XCCY stage (the stacked
+      parent grids as values, the calibration-leg PVs and the composed
+      direction tables), so term2 never re-differentiates the parent
+      bootstraps.
+    - ``term2_xccy(q, P, g, carry)`` -> (H2 [Sc, N, N], v_of): the XCCY
+      stages' hessian placements and the chain cotangents
+      {str(parent cid): [Sc, P1]} their parents owe.
+    - ``term2_ois(q, P, g, v_of)`` -> [Sc, N, N]: the OIS stages'
+      hessians with the cotangents folded into each stage scalar.
+    - ``term2(q, P, g, carry)``: their sum.
+
+    ``P`` holds ``bat`` (curve_batching.bat_to_torch of ``topo.bat``);
+    ``agg``/``clamp_agg`` are the device aggregate and clamp slots.
+    gamma = term1 + term2.
+    """
+    from .multibook import aggregate_total
+
+    meta = _build_meta(topo)
+    stages = meta["stages"]
+    C, N, U = meta["C"], meta["N"], meta["U"]
+    pos_of = meta["pos_of"]
+    its_of = meta["its_of"]
+    xmeta = meta["xmeta"]
+    segments = meta["segments"]
+    ois_first = meta["ois_first"]
+    xccy_last = meta["xccy_last"]
+    grid = meta["grid"]
+    keeprows = grid["keeprows"]
+    Uc_of = grid["Uc_of"]
+    offs = grid["offsets"]
+    p1_of = meta["p1_of"]
+
+    def _rp(b):
+        """The stage row plan: keep-compact when available (rows only at
+        each curve's referenced times), else the full-U plan."""
+        return b["row_plan_keep"] if keeprows else b["row_plan"]
+
+    def _crop(x, cid):
+        """A member's stage rows [..., W] restricted to its curve's
+        columns: a slice (keeprows: evaluated at keep times padded to
+        the stage max), the whole row (dense), or a gather of the
+        referenced times from the full-U row."""
+        if keeprows:
+            return x[..., :Uc_of[cid]]
+        if grid["dense"]:
+            return x
+        idx = torch.as_tensor(grid["keep_of"][cid], dtype=torch.int64,
+                              device=x.device)
+        return x.index_select(-1, idx)
+
+    def _stage_g(g0, st):
+        """The aggregate cotangent [Sc, n_grid] laid out over one
+        stage's row output [Sc, G, W]. keeprows: each member's compact
+        segment slice-placed (pad columns carry zero — they multiply pad
+        row outputs). Else: per-curve slices of the cotangent re-expanded
+        to the dense [C*U] axis by a gather (unreferenced pairs read an
+        appended zero)."""
+        if not keeprows:
+            gd = g0
+            if not grid["dense"]:
+                inv = torch.as_tensor(grid["inv"], dtype=torch.int64,
+                                      device=g0.device)
+                gd = torch.cat([g0, g0.new_zeros((g0.shape[0], 1))],
+                               dim=1)[:, inv]
+            return torch.stack([gd[:, cid * U:(cid + 1) * U]
+                                for cid in st.ids], dim=1)
+        W = int(np.asarray(topo.bat[st.key]["row_plan_keep"]["q"])
+                .shape[-1])
+        out = g0.new_zeros((g0.shape[0], len(st.ids), W))
+        for mi, cid in enumerate(st.ids):
+            out[:, mi, :Uc_of[cid]] = g0[:, offs[cid]:offs[cid + 1]]
+        return out
+
+    def _ois_fwd(b, si):
+        def fwd(r):
+            ds = ois_native_ds(r, b)
+            return ds, stage_rows(ds, its_of[si], _rp(b))
+        return fwd
+
+    def _boot_fwd(b, st, si):
+        def boot(sp, pv, fd):
+            ds = xccy_boot_ds(sp, pv, fd, b, st)
+            return ds, stage_rows(ds, its_of[si], _rp(b))
+        return boot
+
+    def _parent_stack(ds_of, ids, L):
+        """[Sc, G, L] parent native grids padded with df 1."""
+        return torch.stack([torch.nn.functional.pad(
+            ds_of[c], (0, L - ds_of[c].shape[-1]), value=1.0)
+            for c in ids], dim=1)
+
+    def fwd_delta(q, P, agg, clamp_agg):
+        B = P["bat"]
+        Sc = q.shape[0]
+        ds_of: List = [None] * C          # cid -> [Sc, P1] native dfs
+        rows_of: List = [None] * C        # cid -> [Sc, W]
+        dds_st: Dict[int, torch.Tensor] = {}    # si -> [Sc, Qp, G, P1]
+        drows_st: Dict[int, torch.Tensor] = {}  # si -> [Sc, Dirs, G, W]
+        carry: Dict[int, dict] = {}
+
+        # ---- pass 1: OIS stages (primal + Qp-seed jvp) ---------------
+        for si in ois_first:
+            st = stages[si]
+            b = B[st.key]
+            fwd = _ois_fwd(b, si)
+            q_local = q[:, b["qidx"]]                      # [Sc, G, Qp]
+            seeds = _seeds(q_local.shape[-1], len(st.ids), q)
+            (ds, rows), (dds, drows) = vmap(
+                lambda r: _jac(fwd, r, seeds))(q_local)
+            dds_st[si] = dds
+            drows_st[si] = drows
+            for mi, cid in enumerate(st.ids):
+                ds_of[cid] = ds[:, mi]
+                rows_of[cid] = rows[:, mi]
+
+        # ---- pass 2: XCCY stages (composed parent directions) --------
+        for si in xccy_last:
+            st = stages[si]
+            b = B[st.key]
+            m = xmeta[si]
+            spreads = q[:, b["qidx"]]                      # [Sc, G, S]
+            G, S = spreads.shape[1:]
+            dom_ds = _parent_stack(ds_of, st.dom_ids, m["Ld"])
+            for_ds = _parent_stack(ds_of, st.for_ids, m["Lf"])
+
+            if m["parents"] is None:
+                # parents enter as VALUES only: basis spreads are the
+                # only differentiation directions
+                def fwd(sp, dd, fd, b=b, st=st, si=si):
+                    ds = xccy_native_ds(sp, dd, fd, b, st)
+                    return ds, stage_rows(ds, its_of[si], _rp(b))
+
+                seeds = _seeds(S, G, q)
+                (ds, rows), (_, drows) = vmap(
+                    lambda sp, dd, fd: _jac(
+                        lambda x: fwd(x, dd, fd), sp, seeds))(
+                            spreads, dom_ds, for_ds)
+                drows_st[si] = drows
+                carry[si] = dict(dom_ds=dom_ds, for_ds=for_ds)
+            else:
+                # parent jacobian columns as input tangents:
+                # td_legs [Sc, Qd, G, Ld] over the dom grids and
+                # tf2 [Sc, D2, G, Lf] (basis | pv | foreign) over the
+                # foreign grids
+                Qd, Qf = m["Qd"], m["Qf"]
+                D2 = 2 * S + Qf
+                td_legs = q.new_zeros((Sc, Qd, G, m["Ld"]))
+                tf2 = q.new_zeros((Sc, D2, G, m["Lf"]))
+                for mi, p in enumerate(m["parents"]):
+                    td_legs[:, :p["qd"], mi, :p["p1d"]] = \
+                        dds_st[p["sd"]][:, :, p["md"], :]
+                    tf2[:, 2 * S:2 * S + p["qf"], mi, :p["p1f"]] = \
+                        dds_st[p["sf"]][:, :, p["mf"], :]
+                tb2 = q.new_zeros((D2, G, S))
+                tb2[:S] = _seeds(S, G, q)
+                tp2 = q.new_zeros((D2, G, S))
+                tp2[S:2 * S] = _seeds(S, G, q)
+                boot = _boot_fwd(b, st, si)
+
+                def legs(dd, b=b, st=st):
+                    return xccy_legs_pv(dd, b, st)
+
+                def one(sp, dd, fd, tdl, tf, boot=boot, legs=legs,
+                        tb2=tb2, tp2=tp2):
+                    pv0, Jpv = _jac(legs, dd, tdl)        # Jpv [Qd, G, S]
+                    (ds, rows), (_, drows2) = vmap(
+                        lambda a, c, e: jvp(boot, (sp, pv0, fd),
+                                            (a, c, e)))(tb2, tp2, tf)
+                    return ds[0], rows[0], pv0, Jpv, drows2
+
+                ds, rows, pv0, Jpv, drows2 = vmap(one)(
+                    spreads, dom_ds, for_ds, td_legs, tf2)
+                # compose to quote-direction space, per-member layout
+                # matching segments(): [basis | dom quotes | for quotes]
+                D = m["D"]
+                W = drows2.shape[-1]
+                drows = q.new_zeros((Sc, D, G, W))
+                for mi, p in enumerate(m["parents"]):
+                    qd_m, qf_m = p["qd"], p["qf"]
+                    drows[:, :S, mi] = drows2[:, :S, mi]
+                    drows[:, S:S + qd_m, mi] = \
+                        Jpv[:, :qd_m, mi] @ drows2[:, S:2 * S, mi]
+                    drows[:, S + qd_m:S + qd_m + qf_m, mi] = \
+                        drows2[:, 2 * S:2 * S + qf_m, mi]
+                drows_st[si] = drows
+                carry[si] = dict(dom_ds=dom_ds, for_ds=for_ds, pv0=pv0,
+                                 Jpv=Jpv, td_legs=td_legs, tf2=tf2)
+            for mi, cid in enumerate(st.ids):
+                ds_of[cid] = ds[:, mi]
+                rows_of[cid] = rows[:, mi]
+
+        # ---- aggregate gradient --------------------------------------
+        dfs = torch.cat([_crop(rows_of[c], c) for c in range(C)], dim=-1)
+        g = vmap(grad(lambda d: aggregate_total(d, agg, clamp_agg)))(dfs)
+
+        # ---- J assembly (static slice placement) ---------------------
+        J = q.new_zeros((Sc, N, dfs.shape[-1]))
+        for cid in range(C):
+            si, mi = pos_of[cid]
+            d_c = _crop(drows_st[si][:, :, mi, :], cid)  # [Sc, Dirs, Uc]
+            c0, c1 = int(offs[cid]), int(offs[cid]) + d_c.shape[-1]
+            for off, n_live, lo, n_dirs in segments(si, mi):
+                J[:, off:off + n_live, c0:c1] = fold_pads(
+                    d_c[:, lo:lo + n_dirs], n_live, 1)
+        delta = (J @ g.unsqueeze(-1)).squeeze(-1)
+        return {"dfs": dfs, "g": g, "J": J, "delta": delta,
+                "carry": carry}
+
+    def term2_xccy(q, P, g, carry):
+        """XCCY-stage hessian placements + the chain cotangents their
+        parents owe: (H2_xccy [Sc, N, N], v_of {str(cid): [Sc, P1]})."""
+        B = P["bat"]
+        Sc = q.shape[0]
+        g0 = g.detach()
+        H2 = q.new_zeros((Sc, N, N))
+        v_of: Dict[str, torch.Tensor] = {}
+
+        for si in xccy_last:
+            st = stages[si]
+            b = B[st.key]
+            m = xmeta[si]
+            xs = carry[si]
+            G, S = len(st.ids), m["S"]
+            g_stage = _stage_g(g0, st)                      # [Sc, G, W]
+            spreads = q[:, b["qidx"]]                       # [Sc, G, S]
+
+            if m["parents"] is None:
+                def one_plain(sp, gs, dd, fd, b=b, st=st, si=si):
+                    def s_plain(x):
+                        ds = xccy_native_ds(x, dd, fd, b, st)
+                        return torch.sum(
+                            gs * stage_rows(ds, its_of[si], _rp(b)))
+                    return _hess(s_plain, sp, _seeds(S, G, sp))
+
+                Hx = vmap(one_plain)(spreads, g_stage, xs["dom_ds"],
+                                     xs["for_ds"])          # [Sc, S, G, S]
+                for mi in range(G):
+                    place_hess(H2, Hx[:, :, mi, :], segments(si, mi))
+                continue
+
+            Qd, Qf = m["Qd"], m["Qf"]
+            D2 = 2 * S + Qf
+            boot = _boot_fwd(b, st, si)
+
+            def legs(dd, b=b, st=st):
+                return xccy_legs_pv(dd, b, st)
+
+            def one(sp0, pv0, fd0, dd0, gs, tf, tdl, boot=boot, legs=legs,
+                    S=S, Qd=Qd, D2=D2, G=G):
+                # boot-stage hessian over (basis, pv, composed-foreign)
+                # directions; fd enters as a second argument so one grad
+                # gives both gZ = [gb | gpv | composed-f] and the
+                # native-foreign cotangent gf
+                def s_hat(Z, fd):
+                    fd2 = fd + torch.einsum("gd,dgl->gl", Z, tf)
+                    _, rows = boot(sp0 + Z[:, :S], pv0 + Z[:, S:2 * S], fd2)
+                    return torch.sum(gs * rows)
+
+                Z0 = sp0.new_zeros((G, D2))
+                gZ0, gf = grad(s_hat, argnums=(0, 1))(Z0, fd0)
+                Hx2 = _hess(lambda Z: s_hat(Z, fd0), Z0,
+                            _seeds(D2, G, sp0))             # [D2, G, D2]
+
+                # legs-stage hessian over dom-quote directions (legs
+                # only): sum_s gpv_s d2 pv_s / dq_dom2, and the legs vjp
+                # cotangent gdd on the dom grids
+                gpv0 = gZ0[:, S:2 * S].detach()
+
+                def s_legs(Zd, dd):
+                    dd2 = dd + torch.einsum("gd,dgl->gl", Zd, tdl)
+                    return torch.sum(gpv0 * legs(dd2))
+
+                Zd0 = sp0.new_zeros((G, Qd))
+                gdd = grad(s_legs, argnums=1)(Zd0, dd0)
+                Hl = _hess(lambda Zd: s_legs(Zd, dd0), Zd0,
+                           _seeds(Qd, G, sp0))              # [Qd, G, Qd]
+                return gf, gdd, Hx2, Hl
+
+            gf, gdd, Hx2, Hl = vmap(one)(
+                spreads, xs["pv0"], xs["for_ds"], xs["dom_ds"], g_stage,
+                xs["tf2"], xs["td_legs"])
+
+            # cotangents at the primal: gdd routes to the dom parent's
+            # native grid, gf to the foreign parent directly
+            for mi, p in enumerate(m["parents"]):
+                for cid_par, cot, p1 in (
+                        (st.dom_ids[mi], gdd, p["p1d"]),
+                        (st.for_ids[mi], gf, p["p1f"])):
+                    key = str(cid_par)
+                    add = cot[:, mi, :p1]
+                    v_of[key] = add if key not in v_of else v_of[key] + add
+
+            # transform the boot hessian to quote space per member
+            Jpv = xs["Jpv"]                                # [Sc, Qd, G, S]
+            for mi, p in enumerate(m["parents"]):
+                qd_m, qf_m = p["qd"], p["qf"]
+                Hb = Hx2[:, :, mi, :]                       # [Sc, D2, D2]
+                Jv = Jpv[:, :qd_m, mi]                      # [Sc, qd, S]
+                JvT = Jv.transpose(1, 2)
+                bb = Hb[:, :S, :S]
+                bp = Hb[:, :S, S:2 * S]
+                bf = Hb[:, :S, 2 * S:2 * S + qf_m]
+                pp = Hb[:, S:2 * S, S:2 * S]
+                pf = Hb[:, S:2 * S, 2 * S:2 * S + qf_m]
+                ff = Hb[:, 2 * S:2 * S + qf_m, 2 * S:2 * S + qf_m]
+                q_bd = bp @ JvT                             # [Sc, S, qd]
+                q_dd = Jv @ pp @ JvT + Hl[:, :qd_m, mi, :qd_m]
+                q_df = Jv @ pf                              # [Sc, qd, qf]
+                Hq = torch.cat([
+                    torch.cat([bb, q_bd, bf], dim=2),
+                    torch.cat([q_bd.transpose(1, 2), q_dd, q_df], dim=2),
+                    torch.cat([bf.transpose(1, 2), q_df.transpose(1, 2),
+                               ff], dim=2)], dim=1)
+                place_hess(H2, Hq, segments(si, mi))
+        return H2, v_of
+
+    def term2_ois(q, P, g, v_of):
+        """OIS-stage hessian placements with the XCCY chain cotangents
+        (term2_xccy's v_of) folded into each stage scalar."""
+        B = P["bat"]
+        Sc = q.shape[0]
+        g0 = g.detach()
+        H2 = q.new_zeros((Sc, N, N))
+        for si in ois_first:
+            st = stages[si]
+            b = B[st.key]
+            q_local = q[:, b["qidx"]]                      # [Sc, G, Qp]
+            G, Qp = q_local.shape[1:]
+            g_stage = _stage_g(g0, st)
+            zero = q.new_zeros((Sc, p1_of[si]))
+            v_stage = torch.stack([v_of.get(str(cid), zero)
+                                   for cid in st.ids], dim=1)
+            fwd = _ois_fwd(b, si)
+
+            def one(r, gs, vs, fwd=fwd, G=G, Qp=Qp):
+                def psi(x):
+                    ds, rows = fwd(x)
+                    return torch.sum(gs * rows) + torch.sum(vs * ds)
+                return _hess(psi, r, _seeds(Qp, G, r))
+
+            Hs = vmap(one)(q_local, g_stage, v_stage)   # [Sc, Qp, G, Qp]
+            for mi in range(G):
+                place_hess(H2, Hs[:, :, mi, :], segments(si, mi))
+        return H2
+
+    def term2(q, P, g, carry):
+        H2x, v_of = term2_xccy(q, P, g, carry)
+        return H2x + term2_ois(q, P, g, v_of)
+
+    return dict(fwd_delta=fwd_delta, term2=term2, term2_xccy=term2_xccy,
+                term2_ois=term2_ois, meta=meta)
+
+
+def make_structured_risk(topo: StageTopology, term1):
+    """The monolithic composition of :func:`make_structured_parts`:
+    scenario_risk(q [Sc, N], P, agg, clamp_agg, want_gamma) ->
+    {dfs, delta[, gamma]}, with ``term1(J, dfs)`` the caller's trip and
+    clamp quad form; ``scenario_risk.fwd_delta`` is the part that gives
+    J."""
+    parts = make_structured_parts(topo)
+    fwd_delta = parts["fwd_delta"]
+    term2 = parts["term2"]
+
+    def scenario_risk(q, P, agg, clamp_agg, want_gamma):
+        fw = fwd_delta(q, P, agg, clamp_agg)
+        out = {"delta": fw["delta"], "dfs": fw["dfs"]}
+        if want_gamma:
+            out["gamma"] = term1(fw["J"], fw["dfs"]) \
+                + term2(q, P, fw["g"], fw["carry"])
+        return out
+
+    scenario_risk.fwd_delta = fwd_delta
+    return scenario_risk

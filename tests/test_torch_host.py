@@ -135,9 +135,24 @@ def test_grid_plans(books):
 
 
 def test_unported_instrument_raises():
+    """Instruments the port does not compile yet (FRNs, bonds, inflation
+    swaps) raise LibError."""
+    import types
+    from adrates_torch.utils import InstrumentTypes, LibError
+    tm = cases.build_model("adrates_torch")
+    for itype in (InstrumentTypes.FRN, InstrumentTypes.BOND,
+                  InstrumentTypes.ZCIS, InstrumentTypes.YOY_INFLATION_SWAP):
+        with pytest.raises(LibError, match="not yet ported"):
+            tmb.compile_multibook([types.SimpleNamespace(
+                derivative_type=itype)], tm)
+
+
+def test_foreign_collateral_needs_its_xccy_curve():
+    """An OIS under foreign collateral discounts on the {CCY}_{COLL}_XCCY
+    curve, which this model lacks."""
     from adrates_torch.utils import CollateralType, LibError
     tm = cases.build_model("adrates_torch")
     trades = cases.build_trades("adrates_torch", tm)
-    with pytest.raises(LibError):
+    with pytest.raises(LibError, match="GBP_USD_XCCY"):
         tmb.compile_multibook(trades[:1], tm,
                               collateral_types=[CollateralType.USD])

@@ -4,8 +4,11 @@ once through the port's own host layer, once with the port's device layer
 fed the JAX-compiled book through ``interop.multibook_from_numpy``.
 
 Tolerances: pvs rtol 1e-11; delta 1e-9 x max|ref|; gamma 1e-8 x max|ref|.
-The JAX side takes the structured risk split and the port the generic
-one (multibook.py:1718-1743); the two agree to f64 noise (compare
+Both sides take the structured risk split (the port's
+``parallel/structured_risk.py``); a book compiled with
+``batch_curves=False`` takes the generic split
+(``adrates_tpu/parallel/multibook.py:1718-1743``) in both packages, and
+the two splits agree to f64 noise (compare
 tests/test_staged_risk.py:176-177).
 """
 
@@ -53,9 +56,22 @@ def test_port_host_and_device_match_jax(jax_case, port_book):
     kernels.pvs_sweep.launches = 0
     kernels.gamma_quad_form_grouped.launches = 0
     fn = tmb.make_multibook_fn(port_book, device="cpu")
+    assert fn.structured
     _compare(fn(q0, sh), ref)
     assert kernels.pvs_sweep.launches == 0
     assert kernels.gamma_quad_form_grouped.launches == 0
+
+
+def test_generic_split_matches_jax(jax_case):
+    _, q0, sh, ref = jax_case
+    model = cases.build_model("adrates_torch")
+    mb = tmb.compile_multibook(cases.build_trades("adrates_torch", model),
+                               model, base_currency=tmb.CurrencyTypes.USD,
+                               batch_curves=False)
+    scale = np.random.default_rng(cases.SEED).uniform(0.5, 2.0, 3)
+    fn = tmb.make_multibook_fn(tmb.tile_multibook(mb, 3, scale), "cpu")
+    assert not fn.structured
+    _compare(fn(q0, sh), ref)
 
 
 def test_port_device_layer_on_jax_compiled_book(jax_case):

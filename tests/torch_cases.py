@@ -103,7 +103,12 @@ def plan_fields(plan) -> dict:
             for f in dataclasses.fields(plan)}
 
 
-def jax_book_numpy(mb) -> dict:
+def _np_plans(p):
+    return {k: _np_plans(v) if isinstance(v, dict) else np.asarray(v)
+            for k, v in p.items()}
+
+
+def jax_book_numpy(mb, structured: bool = True) -> dict:
     """The JAX package's compiled (tiled) book as the numpy arguments of
     ``adrates_torch.interop.multibook_from_numpy``."""
     from adrates_tpu.parallel.multibook import (_term1_trip_groups,
@@ -111,21 +116,50 @@ def jax_book_numpy(mb) -> dict:
     basket = mb.basket
     bat = basket.params["bat"]
     stages = basket._stages
-    np_bat = {"gplan": {name: {k: np.asarray(v) for k, v in p.items()}
-                        for name, p in bat["gplan"].items()}}
+
+    def name(it):
+        return None if it is None else it.name
+
+    np_bat = {"gplan": _np_plans(bat["gplan"])}
     for st in stages:
         b = bat[st.key]
-        np_bat[st.key] = dict(plan=plan_fields(b["plan"]),
-                              qidx=np.asarray(b["qidx"]),
-                              pad_mask=np.asarray(b["pad_mask"]))
+        d = dict(plan=plan_fields(b["plan"]), qidx=np.asarray(b["qidx"]),
+                 pad_mask=np.asarray(b["pad_mask"]),
+                 ts_static=np.asarray(b["ts_static"]),
+                 row_plan=_np_plans(b["row_plan"]),
+                 row_plan_keep=(_np_plans(b["row_plan_keep"])
+                                if "row_plan_keep" in b else None))
+        if st.kind == "xccy":
+            d.update(legs=plan_fields(b["legs"]),
+                     spot_fx=np.asarray(b["spot_fx"]),
+                     pv_dom0=np.asarray(b["pv_dom0"]),
+                     dom_ts=np.asarray(b["dom_ts"]),
+                     for_ts=np.asarray(b["for_ts"]),
+                     fboot_plan=_np_plans(b["fboot_plan"]),
+                     legs_plan=_np_plans(b["legs_plan"]))
+        np_bat[st.key] = d
+    dense = basket._grid_dense
     basket_params = dict(
-        interp=[s.interp_type.name for s in basket.specs],
-        stages=[dict(kind=st.kind, ids=list(st.ids), key=st.key)
+        specs=[dict(name=s.name, kind=s.kind, interp=s.interp_type.name,
+                    n_quotes=s.n_quotes, offset=s.offset, dom_id=s.dom_id,
+                    for_id=s.for_id,
+                    foreign_interp=name(s.foreign_interp_type))
+               for s in basket.specs],
+        stages=[dict(kind=st.kind, ids=list(st.ids), key=st.key,
+                     dom_ids=st.dom_ids, for_ids=st.for_ids,
+                     dom_interp=name(st.dom_interp),
+                     foreign_interp=name(st.foreign_interp),
+                     recal=st.recal)
                 for st in stages],
         bat=np_bat,
-        grid_sel=None if basket._grid_dense else np.asarray(
-            basket.grid_sel),
-        n_quotes=basket.n_quotes)
+        unique_times=np.asarray(basket.params["unique_times"]),
+        n_quotes=basket.n_quotes,
+        grid=dict(sel=None if dense else np.asarray(basket.grid_sel),
+                  keep_of=None if dense else [np.asarray(k) for k in
+                                              basket.grid_keep_of],
+                  offsets=None if dense else np.asarray(basket.grid_offsets),
+                  inv=None if dense else np.asarray(basket.grid_inv)),
+        structured=structured)
     agg = mb.aggregate
     return dict(
         basket_params=basket_params,
@@ -142,3 +176,86 @@ def jax_book_numpy(mb) -> dict:
         tile=None if mb.tile is None else dict(
             scale=np.asarray(mb.tile.scale),
             base_trades=mb.tile.base_trades))
+
+
+def build_xccy_model(pkg: str):
+    """USD and GBP OIS (FLAT_FWD) plus GBP_USD_XCCY over them, as
+    tests/multibook_cases.py:build_model, and the 6-pillar
+    LINEAR_ZERO_RATES EUR curve of build_model, which shares the OIS
+    stage: its sixth quote slot pads the 5-pillar USD and GBP members, so
+    the XCCY curve's composed parent directions carry group-pad
+    duplicates; with the FX to USD."""
+    u, Model, _ = _ns(pkg)
+    m = Model(u.Date(1, 1, 2024))
+    m.build_curve("USD_OIS_SOFR", px_list=[5.3, 5.0, 4.6, 4.0, 3.88],
+                  tenor_list=["6M", "1Y", "2Y", "5Y", "10Y"],
+                  fixed_dcc_type=u.DayCountTypes.ACT_360,
+                  float_dc_type=u.DayCountTypes.ACT_360,
+                  interp_type=u.InterpTypes.FLAT_FWD_RATES)
+    m.build_curve("GBP_OIS_SONIA", px_list=[5.0, 4.7, 4.3, 3.9, 3.87],
+                  tenor_list=["6M", "1Y", "2Y", "5Y", "10Y"],
+                  fixed_dcc_type=u.DayCountTypes.ACT_365F,
+                  float_dc_type=u.DayCountTypes.ACT_365F,
+                  interp_type=u.InterpTypes.FLAT_FWD_RATES)
+    m.build_xccy_curve(name="GBP_USD_XCCY",
+                       domestic_curve_name="USD_OIS_SOFR",
+                       foreign_curve_name="GBP_OIS_SONIA",
+                       basis_spreads=[-5.0, -8.0, -11.0],
+                       tenor_list=["1Y", "5Y", "10Y"], spot_fx=1.27)
+    m.build_curve("EUR_OIS_ESTR", px_list=[3.9, 3.7, 3.3, 2.9, 2.8, 2.7],
+                  tenor_list=["3M", "1Y", "2Y", "5Y", "10Y", "20Y"],
+                  fixed_dcc_type=u.DayCountTypes.ACT_360,
+                  float_dc_type=u.DayCountTypes.ACT_360,
+                  interp_type=u.InterpTypes.LINEAR_ZERO_RATES)
+    m.build_fx(["GBPUSD", "EURUSD"], [1.27, 1.09])
+    return m
+
+
+def build_xccy_trades(pkg: str, model):
+    """(trades, collateral_types): a GBP, a USD and a EUR OIS, one
+    GBP/USD basis swap starting forward, and a seasoned GBP OIS under USD
+    collateral (discounted on GBP_USD_XCCY)."""
+    u, _, OIS = _ns(pkg)
+    rates = importlib.import_module(f"{pkg}.trades.rates")
+    v = model.value_dt
+    D, F, C, S = (u.DayCountTypes, u.FrequencyTypes, u.CurveTypes,
+                  u.SwapTypes)
+    MF = u.BusDayAdjustTypes.MODIFIED_FOLLOWING
+    gbp = OIS(v, "5Y", S.RECEIVE, 0.039, F.ANNUAL, D.ACT_365F,
+              C.GBP_OIS_SONIA, u.CurrencyTypes.GBP, notional=1e7,
+              float_dc_type=D.ACT_365F, bd_type=MF)
+    usd = OIS(v.add_months(-5), "2Y", S.PAY, 0.045, F.QUARTERLY, D.ACT_360,
+              C.USD_OIS_SOFR, u.CurrencyTypes.USD, notional=1.5e7,
+              float_dc_type=D.ACT_360, payment_lag=1, bd_type=MF)
+    xccy = rates.XccyBasisSwap(
+        effective_dt=v.add_months(3).add_days(5), term_dt_or_tenor="5Y",
+        domestic_notional=12_700_000, foreign_notional=10_000_000,
+        domestic_spread=0.0, foreign_spread=-0.0008,
+        domestic_freq_type=F.QUARTERLY, foreign_freq_type=F.QUARTERLY,
+        domestic_dc_type=D.ACT_360, foreign_dc_type=D.ACT_365F,
+        domestic_floating_index=C.USD_OIS_SOFR,
+        foreign_floating_index=C.GBP_OIS_SONIA,
+        domestic_currency=u.CurrencyTypes.USD,
+        foreign_currency=u.CurrencyTypes.GBP)
+    coll = OIS(v.add_months(-7), "7Y", S.PAY, 0.041, F.ANNUAL, D.ACT_365F,
+               C.GBP_OIS_SONIA, u.CurrencyTypes.GBP, notional=8e6,
+               float_dc_type=D.ACT_365F, bd_type=MF)
+    eur = OIS(v.add_months(2), "7Y", S.RECEIVE, 0.031, F.SEMI_ANNUAL,
+              D.ACT_360, C.EUR_OIS_ESTR, u.CurrencyTypes.EUR, notional=6e6,
+              float_dc_type=D.ACT_360, bd_type=MF)
+    return [gbp, usd, xccy, coll, eur], \
+        [None, None, None, u.CollateralType.USD, None]
+
+
+def compile_xccy_book(pkg: str, model, n_copies: int = 2, **kw):
+    """The XCCY book in USD, tiled x n_copies with seeded notional
+    scales; ``kw`` goes to compile_multibook (recalibrate_xccy,
+    batch_curves, ...)."""
+    u, _, _ = _ns(pkg)
+    mbmod = importlib.import_module(f"{pkg}.parallel.multibook")
+    trades, coll = build_xccy_trades(pkg, model)
+    mb = mbmod.compile_multibook(trades, model,
+                                 base_currency=u.CurrencyTypes.USD,
+                                 collateral_types=coll, **kw)
+    scale = np.random.default_rng(SEED + 2).uniform(0.5, 2.0, n_copies)
+    return mbmod.tile_multibook(mb, n_copies, notional_scale=scale)
