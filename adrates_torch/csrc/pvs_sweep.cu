@@ -1,97 +1,258 @@
-// K1: the per-trade PV sweep over all scenarios (f64).
+// K1: the per-trade PV sweep over all scenarios (f64), one launch.
 //
 // Replaces adrates_tpu/parallel/multibook.py:_pvs_sweep (:1782-1835, the
 // gather + weighted row-sum + trade gather part; the cap/floor clamp
 // epilogue stays plain torch in the caller).
 //
-//   rowpv[r, s] = sum_l w[r, l] * vT[col_idx[r, l], s]     (per bucket)
-//   pvs[b, s]   = sum_k rowpv[tri[b, k], s]
+//   out[s, b] = sum over trade b's live slots of w * vT[col, s]
 //
 // vT is the [M, S] value table (DF grid columns, then the forward-trip
-// values), contiguous, so a row holds all S scenarios of one column.
+// values) with an even row stride ld, so a row of S scenarios starts on a
+// 16-byte boundary. The slots come as a per-trade CSR (dead slots dropped,
+// a trade's duplicate columns merged) over blocks of kTB consecutive
+// trades in the book's own order; block k lists its distinct vT rows once
+// (brow[bptr[k] .. bptr[k+1]), ascending) and a slot names its row by its
+// index in that list (ascending within a trade).
 //
-// What bounds it on an H100: memory traffic, not arithmetic (2 flops per
-// 8-byte gathered value). At the flagship OIS slice (S = 100, M = 10,197
-// value columns, 200,160 tiled rows in 8 buckets holding 5,197,488 padded
-// slots, B = 100,080 trades) one sweep moves, in f64:
-//   - the slot tables: 5.2e6 * (4 + 8) = 62 MB, read once per 32-scenario
-//     tile (4 tiles; repeats are partly L2 hits);
-//   - the gathered values: 5.2e6 * 100 * 8 = 4.2 GB of L2 -> SM traffic,
-//     mostly L2 hits because vT itself is 10,197 * 100 * 8 = 8.2 MB,
-//     well under the 50 MB L2 — this is the binding stream;
-//   - rowpv: 200,160 * 100 * 8 = 160 MB written once and read once by
-//     the trade pass;
-//   - pvs: 100,080 * 100 * 8 = 80 MB written once.
-// So device memory sees about 0.5-0.6 GB (>= 0.15 ms at 3.35 TB/s) and L2
-// about 4.2 GB per sweep.
-// Design: one thread per (row, scenario). The 32 lanes of a warp take 32
-// consecutive scenarios of one row, so every gathered vT read is one
-// coalesced 256-byte segment and the row's (col, w) slot pair is a
-// broadcast load. No atomics: every output element is written by exactly
-// one thread, so the result is deterministic. Rows and trades go on grid
-// axis x (up to 2^31 - 1 blocks), scenario tiles on axis y.
+// What bounds it on an H100: bytes. Each input read once and the output
+// written once is, at the flagship OIS slice (S = 100, 4,510,272 live
+// slots, vT [10,197, 100], out [100,080, 100]), 54 MB of slots + 8 MB of
+// vT + 80 MB of out = 143 MB, 43 us at 3.35 TB/s; on the OIS + XCCY book
+// (5,245,500 merged slots, vT [14,660, 100], out [100,000, 100]) 156 MB,
+// 46 us. The flops (2 per slot and scenario, 0.9-1.1 GFLOP) take 26-31 us
+// at 34 TFLOP/s. In practice the L2 -> SM traffic binds first: vT fits in
+// the L2, but every slot needs a whole row of it. The earlier design
+// gathered one 800-byte row per padded slot (4.2-5.0 GB through the L2),
+// wrote and re-read 160 MB of row PVs and ran 9 launches.
+//
+// Design: one block of 512 threads per kTB = 32 consecutive trades and
+// per tile of up to kSC = 128 scenarios (one tile for S <= 128, so the
+// slot tables are read once). The block streams its distinct vT rows
+// through a ring of kStages shared-memory stages of kCH = 32 rows, filled
+// by 16-byte cp.async (the rows of the stage after next are looked up
+// while this one is summed), so a distinct row crosses the L2 once per
+// block instead of once per slot: at 32 trades 2.4x fewer rows than slots
+// on both flagship books. Larger blocks share more rows (3.0x at 64) but
+// measured slower: a block runs as long as its longest trade (up to 249
+// and 363 slots), and more trades per warp mean more idle passes. The
+// trades go to the 16 warps by slot count, two per warp, longest first;
+// lane l holds scenarios 2l, 2l+1, 64+2l, 65+2l of each and keeps the
+// sums in registers. Per chunk a warp loads a window of each trade's next
+// 32 (row, weight) slots, one per lane (the next chunk's window is
+// fetched while this one is summed); the trade's slots in the chunk are a
+// prefix of the window (rows ascending, at most kCH), counted by a
+// ballot, and broadcast by shuffles, one per pass. The shared-memory row
+// loads are predicated on a slot being there and on the lane's
+// scenarios, so only live bytes are read. The sums leave through a
+// shared-memory transpose tile as coalesced rows of out[S, B]. No
+// atomics: every output is one thread's sum in slot order, so the result
+// is deterministic.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kLanes = 32;   // scenarios per block row (one warp)
-constexpr int kRows = 8;     // rows (or trades) per block
+constexpr int kTB = 32;                 // trades per block
+constexpr int kThreads = 512;
+constexpr int kWarps = kThreads / 32;
+constexpr int kTPW = kTB / kWarps;      // trades per warp
+constexpr int kSC = 128;                // scenarios per tile
+constexpr int kCH = 32;                 // vT rows per stage
+constexpr int kStages = 3;
+constexpr int kStageElems = kCH * kSC;
+constexpr int kPieces = kCH * (kSC / 2) / kThreads;   // 16-byte copies
+constexpr int kTileLd = kTB + 1;        // transpose tile row stride
+constexpr int kSmemElems = kStages * kStageElems > kSC * kTileLd
+                               ? kStages * kStageElems : kSC * kTileLd;
+constexpr size_t kSmemBytes = sizeof(double) * kSmemElems;
+constexpr int kNoRow = 0x7fffffff;      // past a trade's last slot
 
-__global__ void pvs_rows_kernel(const double* __restrict__ vT, int S,
-                                const int* __restrict__ col_idx,
-                                const double* __restrict__ w, int R, int L,
-                                double* __restrict__ rowpv) {
-  const int64_t r = (int64_t)blockIdx.x * kRows + threadIdx.y;
-  const int s = blockIdx.y * kLanes + threadIdx.x;
-  if (r >= R || s >= S) return;
-  const int* ci = col_idx + r * L;
-  const double* wi = w + r * L;
-  double acc = 0.0;
-  for (int l = 0; l < L; ++l) {
-    acc += wi[l] * vT[(int64_t)ci[l] * S + s];
-  }
-  rowpv[r * S + s] = acc;
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem));
 }
 
-__global__ void pvs_trades_kernel(const double* __restrict__ rowpv, int S,
-                                  const int* __restrict__ tri, int B, int K,
-                                  double* __restrict__ out) {
-  const int64_t b = (int64_t)blockIdx.x * kRows + threadIdx.y;
-  const int s = blockIdx.y * kLanes + threadIdx.x;
-  if (b >= B || s >= S) return;
-  const int* tb = tri + b * K;
-  double acc = 0.0;
-  for (int k = 0; k < K; ++k) {
-    acc += rowpv[(int64_t)tb[k] * S + s];
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__global__ void __launch_bounds__(kThreads, 2)
+pvs_sweep_kernel(const double* __restrict__ vT, int ld, int S,
+                 const int* __restrict__ tptr,
+                 const int* __restrict__ slot_row,
+                 const double* __restrict__ slot_w,
+                 const int* __restrict__ bptr, const int* __restrict__ brow,
+                 int B, double* __restrict__ out) {
+  extern __shared__ __align__(16) double smem[];
+  const int blk = blockIdx.x;
+  const int s0 = blockIdx.y * kSC;
+  const int nS = min(kSC, S - s0);
+  const int nq = (nS + 1) / 2;          // 16-byte pieces of a row tile
+  const int t0 = blk * kTB;
+  const int r0 = bptr[blk];
+  const int nrow = bptr[blk + 1] - r0;
+  const int nchunk = (nrow + kCH - 1) / kCH;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int prow = threadIdx.x / (kSC / 2), pq = threadIdx.x % (kSC / 2);
+
+  // The block's trades go to warps by slot count, longest first, so a
+  // warp's trades need about the same number of passes per chunk.
+  __shared__ int s_len[kTB], s_perm[kTB];
+  if (threadIdx.x < kTB) {
+    const int t = t0 + threadIdx.x;
+    s_len[threadIdx.x] = t < B ? tptr[t + 1] - tptr[t] : -1;
   }
-  out[b * S + s] = acc;
+  __syncthreads();
+  if (threadIdx.x < kTB) {
+    const int me = s_len[threadIdx.x];
+    int rank = 0;
+    for (int u = 0; u < kTB; ++u) {
+      const int v = s_len[u];
+      rank += (v > me) || (v == me && u < (int)threadIdx.x);
+    }
+    s_perm[rank] = threadIdx.x;
+  }
+  __syncthreads();
+
+  // each owned trade: its next slot and end, and a window of its next
+  // 32 slots (row, weight), one per lane; the window for the next chunk
+  // is fetched while this one is summed
+  int cur[kTPW], end[kTPW], wr[kTPW], nwr[kTPW];
+  double ww[kTPW], nww[kTPW], acc[kTPW][4];
+#pragma unroll
+  for (int j = 0; j < kTPW; ++j) {
+    const int t = t0 + s_perm[warp * kTPW + j];
+    cur[j] = t < B ? tptr[t] : 0;
+    end[j] = t < B ? tptr[t + 1] : 0;
+    const int i = cur[j] + lane;
+    nwr[j] = i < end[j] ? __ldg(slot_row + i) : kNoRow;
+    nww[j] = i < end[j] ? __ldg(slot_w + i) : 0.0;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) acc[j][q] = 0.0;
+  }
+  const bool lane0 = 2 * lane < nS, lane1 = 64 + 2 * lane < nS;
+
+  // the vT rows of the chunk to be copied next, fetched one chunk early
+  int nxt[kPieces];
+  auto fetch_rows = [&](int c) {
+#pragma unroll
+    for (int i = 0; i < kPieces; ++i) {
+      const int r = c * kCH + prow + i * (kThreads / (kSC / 2));
+      nxt[i] = (c < nchunk && r < nrow) ? __ldg(brow + r0 + r) : -1;
+    }
+  };
+  auto load_chunk = [&](int c) {
+    double* st = smem + (c % kStages) * kStageElems;
+#pragma unroll
+    for (int i = 0; i < kPieces; ++i) {
+      const int r = prow + i * (kThreads / (kSC / 2));
+      if (nxt[i] >= 0 && pq < nq) {
+        cp_async16(st + r * kSC + 2 * pq,
+                   vT + (int64_t)nxt[i] * ld + s0 + 2 * pq);
+      }
+    }
+  };
+
+#pragma unroll
+  for (int c = 0; c < kStages - 1; ++c) {
+    fetch_rows(c);
+    load_chunk(c);
+    cp_async_commit();
+  }
+  fetch_rows(kStages - 1);
+  for (int c = 0; c < nchunk; ++c) {
+    cp_async_wait<kStages - 2>();       // chunk c has landed
+    __syncthreads();                    // for every thread; c-1 consumed
+    load_chunk(c + kStages - 1);
+    cp_async_commit();
+    fetch_rows(c + kStages);
+    const double* st = smem + (c % kStages) * kStageElems;
+    const int lo = c * kCH, hi = lo + kCH;
+    // a trade's slots in this chunk are a prefix of its window (rows
+    // ascending, at most kCH = 32 of them); one pass per slot of the
+    // busiest of the warp's trades, each pass over all of them with the
+    // shared-memory row loads predicated on a slot being there and on
+    // the lane's scenarios, so only live rows and lanes are read
+    int cnt[kTPW], passes = 0;
+#pragma unroll
+    for (int j = 0; j < kTPW; ++j) {
+      wr[j] = nwr[j];
+      ww[j] = nww[j];
+      cnt[j] = __popc(__ballot_sync(0xffffffffu, wr[j] < hi));
+      passes = max(passes, cnt[j]);
+      cur[j] += cnt[j];
+      const int i = cur[j] + lane;
+      nwr[j] = i < end[j] ? __ldg(slot_row + i) : kNoRow;
+      nww[j] = i < end[j] ? __ldg(slot_w + i) : 0.0;
+    }
+    for (int r = 0; r < passes; ++r) {
+#pragma unroll
+      for (int j = 0; j < kTPW; ++j) {
+        const bool hit = r < cnt[j];
+        const int lr = __shfl_sync(0xffffffffu, wr[j], r);
+        const double wj = __shfl_sync(0xffffffffu, ww[j], r);
+        const double w = hit ? wj : 0.0;
+        const double* row = st + (lr - lo) * kSC;
+        double2 v0 = make_double2(0.0, 0.0), v1 = v0;
+        if (hit && lane0) {
+          v0 = *reinterpret_cast<const double2*>(row + 2 * lane);
+        }
+        if (hit && lane1) {
+          v1 = *reinterpret_cast<const double2*>(row + 64 + 2 * lane);
+        }
+        acc[j][0] = fma(w, v0.x, acc[j][0]);
+        acc[j][1] = fma(w, v0.y, acc[j][1]);
+        acc[j][2] = fma(w, v1.x, acc[j][2]);
+        acc[j][3] = fma(w, v1.y, acc[j][3]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();                      // stages free: reuse as the tile
+
+  double* tile = smem;                  // [kSC][kTileLd]
+#pragma unroll
+  for (int j = 0; j < kTPW; ++j) {
+    const int tl = s_perm[warp * kTPW + j];
+    tile[(2 * lane) * kTileLd + tl] = acc[j][0];
+    tile[(2 * lane + 1) * kTileLd + tl] = acc[j][1];
+    tile[(64 + 2 * lane) * kTileLd + tl] = acc[j][2];
+    tile[(65 + 2 * lane) * kTileLd + tl] = acc[j][3];
+  }
+  __syncthreads();
+  for (int e = threadIdx.x; e < nS * kTB; e += kThreads) {
+    const int s = e / kTB, tl = e % kTB;
+    if (t0 + tl < B) {
+      out[(int64_t)(s0 + s) * B + t0 + tl] = tile[s * kTileLd + tl];
+    }
+  }
 }
 
 }  // namespace
 
-// Row pass for one column bucket: rowpv[R, S] (a slice of the caller's
-// concatenated row table). Returns the cudaError_t of the launch.
-extern "C" int pvs_rows_f64(const double* vT, int S, const int* col_idx,
-                            const double* w, int R, int L, double* rowpv,
-                            cudaStream_t stream) {
-  if (R <= 0 || S <= 0) return 0;
-  dim3 block(kLanes, kRows);
-  dim3 grid((R + kRows - 1) / kRows, (S + kLanes - 1) / kLanes);
-  pvs_rows_kernel<<<grid, block, 0, stream>>>(vT, S, col_idx, w, R, L,
-                                              rowpv);
-  return (int)cudaGetLastError();
-}
-
-// Trade pass: out[B, S] = sum over each trade's K row slots (dead slots
-// point at the all-zero last row of rowpv).
-extern "C" int pvs_trades_f64(const double* rowpv, int S, const int* tri,
-                              int B, int K, double* out,
-                              cudaStream_t stream) {
+// out[S, B] (row-major) = the trade PVs; vT [M, >= S] with row stride ld
+// (even) and a 16-byte aligned base. Returns the cudaError_t of the
+// launch.
+extern "C" int pvs_sweep_f64(const double* vT, int ld, int S,
+                             const int* tptr, const int* slot_row,
+                             const double* slot_w, const int* bptr,
+                             const int* brow, int B, double* out,
+                             cudaStream_t stream) {
   if (B <= 0 || S <= 0) return 0;
-  dim3 block(kLanes, kRows);
-  dim3 grid((B + kRows - 1) / kRows, (S + kLanes - 1) / kLanes);
-  pvs_trades_kernel<<<grid, block, 0, stream>>>(rowpv, S, tri, B, K, out);
+  // per call: the limit is a property of the current device
+  const cudaError_t err = cudaFuncSetAttribute(
+      pvs_sweep_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)kSmemBytes);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((B + kTB - 1) / kTB, (S + kSC - 1) / kSC);
+  pvs_sweep_kernel<<<grid, kThreads, kSmemBytes, stream>>>(
+      vT, ld, S, tptr, slot_row, slot_w, bptr, brow, B, out);
   return (int)cudaGetLastError();
 }

@@ -71,8 +71,8 @@ def _it(name) -> Optional[InterpTypes]:
 
 def multibook_from_numpy(basket_params: dict, cols: Sequence[dict],
                          clamp: Optional[dict], aggregate: dict,
-                         tri, groups: Optional[Sequence[dict]], n_grid: int,
-                         tile: Optional[dict]) -> BookInputs:
+                         n_trades: int, groups: Optional[Sequence[dict]],
+                         n_grid: int, tile: Optional[dict]) -> BookInputs:
     """The device-layer inputs (``multibook.BookInputs``) of a compiled
     book given as numpy.
 
@@ -97,7 +97,7 @@ def multibook_from_numpy(basket_params: dict, cols: Sequence[dict],
 
     ``cols``: dicts of ``col_idx``, ``w``, ``row_trade``. ``clamp``:
     ``ClampSlots`` fields or None. ``aggregate``: ``MultiBookAggregate``
-    fields. ``tri``: the [B, K] trade row table. ``groups``: the term-1
+    fields. ``n_trades``: the (tiled) trade count. ``groups``: the term-1
     trip groups (``tsel``, ``s_idx``, ``e_idx``, ``p_idx``, ``segs``,
     ``k``). ``tile``: ``scale`` and ``base_trades``, or None."""
     bp = basket_params
@@ -155,7 +155,6 @@ def multibook_from_numpy(basket_params: dict, cols: Sequence[dict],
                                              grid["keep_of"]],
             grid_offsets=None if dense else np.asarray(grid["offsets"]),
             grid_inv=None if dense else np.asarray(grid["inv"]))
-    tri = np.asarray(tri, dtype=np.int32)
     return BookInputs(
         grids=make_grids(stages, [s.interp_type for s in specs]), bat=bat,
         grid_sel=None if sel is None else np.asarray(sel),
@@ -168,14 +167,13 @@ def multibook_from_numpy(basket_params: dict, cols: Sequence[dict],
         aggregate=MultiBookAggregate(
             **{f.name: np.asarray(aggregate[f.name])
                for f in dataclasses.fields(MultiBookAggregate)}),
-        tri=tri,
         groups=None if groups is None else [
             dict(tsel=np.asarray(g["tsel"]), s_idx=np.asarray(g["s_idx"]),
                  e_idx=np.asarray(g["e_idx"]), p_idx=np.asarray(g["p_idx"]),
                  segs=tuple((int(o), int(n)) for o, n in g["segs"]),
                  k=int(g["k"])) for g in groups],
         n_grid=int(n_grid), n_quotes=int(bp["n_quotes"]),
-        n_trades=int(tri.shape[0]),
+        n_trades=int(n_trades),
         tile=None if tile is None else TileSpec(
             scale=np.asarray(tile["scale"], dtype=np.float64),
             base_trades=int(tile["base_trades"])),

@@ -1,5 +1,5 @@
 """The hand-written CUDA kernels of the book path, their plain torch
-twins, and the build that binds them.
+twins, the static tables they run on, and the build that binds them.
 
 K1 ``pvs_sweep`` (``csrc/pvs_sweep.cu``) replaces
 ``adrates_tpu/parallel/multibook.py:_pvs_sweep`` (:1782, the gather and
@@ -9,43 +9,60 @@ row/trade sums). K2 ``gamma_quad_form_grouped``
 closed form elsewhere), f64 throughout, and each source file says what
 bounds it on the card and how its design answers that.
 
+Tables: each kernel runs on static tables built once per book, on the
+book's device, by :func:`sweep_tables` (K1: a per-trade CSR of live
+(column, weight) slots plus each trade block's distinct value rows) and
+:func:`quad_tables` (K2: the trip groups, the launch's work list of
+group row blocks, and the table that sums the groups' blocks into G).
+The plain twins read the same tables.
+
 Dispatch: a wrapper given CPU tensors runs the plain twin; given CUDA
 tensors it launches the kernel or raises. Nothing falls back. Each
 wrapper counts its kernel launches in ``<wrapper>.launches`` (a plain
 int; the plain path never touches it).
 
-Build: at first use on a CUDA tensor, ``nvcc`` compiles every ``*.cu``
-under ``adrates_torch/csrc`` for ``sm_90a`` into one shared library with
-a plain C interface under ``adrates_torch/_build``, named by a hash of the
-sources and flags, and ``ctypes`` loads it. Nothing is built at import.
+Build: at first use on a CUDA tensor, one ``nvcc`` per ``*.cu`` under
+``adrates_torch/csrc`` (all started together) compiles it for ``sm_90a``,
+and one more links them into a shared library with a plain C interface
+under ``adrates_torch/_build``, named by a hash of the sources and flags,
+which ``ctypes`` loads. Nothing is built at import.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import hashlib
 import os
 import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Sequence, Tuple
+from typing import Sequence
 
+import numpy as np
 import torch
 
 _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
 _BUILD = _PKG / "_build"
 _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-               "-O3", "-shared", "-Xcompiler", "-fPIC"]
+               "-O3", "-Xcompiler", "-fPIC"]
+
+# trades per K1 thread block (csrc/pvs_sweep.cu kTB)
+SWEEP_BLOCK = 32
+# the most quote rows one K2 work item gathers (csrc/gamma_quad_form.cu
+# kKMax): a trip group up to this wide is one item, a wider one is split
+# into pairs of chunks of QUAD_ITEM_K // 2 rows
+QUAD_ITEM_K = 80
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    "pvs_rows_f64": [_P, _I, _P, _P, _I, _I, _P, _P],
-    "pvs_trades_f64": [_P, _I, _P, _I, _I, _P, _P],
-    "gamma_group_f64": [_P, _P, _I, _I, _I, _P, _P, _P, _P, _I, _P, _I,
-                        _P, _P],
+    "pvs_sweep_f64": [_P, _I, _I, _P, _P, _P, _P, _P, _I, _P, _P],
+    "gamma_groups_f64": [_P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P,
+                         _P, _I, _I, _I, _P, _P, _P],
+    "gamma_reduce_f64": [_P, _I, _I, _P, _P, _I, _P, _P],
 }
 
 _lib = None
@@ -72,19 +89,36 @@ def library_path() -> Path:
 
 def build_kernels() -> float:
     """Compile (if needed) and load the kernels; returns the seconds it
-    took. Raises if nvcc fails."""
+    took. Each source compiles in its own ``nvcc`` process, all started
+    together, then one link. Raises if nvcc fails."""
     global _lib
     t0 = time.perf_counter()
     if _lib is None:
         so = library_path()
         if not so.exists():
             _BUILD.mkdir(parents=True, exist_ok=True)
-            tmp = so.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp),
-                   *[str(p) for p in sorted(_CSRC.glob("*.cu"))]]
-            res = subprocess.run(cmd, capture_output=True, text=True)
+            tag = f"{os.getpid()}"
+            srcs = sorted(_CSRC.glob("*.cu"))
+            objs = [_BUILD / f"{s.stem}.{tag}.o" for s in srcs]
+            procs = [subprocess.Popen(
+                [_nvcc(), *_NVCC_FLAGS, "-c", "-o", str(o), str(s)],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+                for s, o in zip(srcs, objs)]
+            errs = []
+            for s, p in zip(srcs, procs):
+                out, err = p.communicate()
+                if p.returncode != 0:
+                    errs.append(f"{s.name} ({p.returncode}):\n{out}\n{err}")
+            if errs:
+                raise RuntimeError("nvcc failed: " + "\n".join(errs))
+            tmp = so.with_suffix(f".{tag}.tmp")
+            res = subprocess.run([_nvcc(), *_NVCC_FLAGS, "-shared", "-o",
+                                  str(tmp), *map(str, objs)],
+                                 capture_output=True, text=True)
+            for o in objs:
+                o.unlink(missing_ok=True)
             if res.returncode != 0:
-                raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
+                raise RuntimeError(f"nvcc link failed ({res.returncode}):\n"
                                    f"{res.stdout}\n{res.stderr}")
             os.replace(tmp, so)
         lib = ctypes.CDLL(str(so))
@@ -113,71 +147,131 @@ def _need(t: torch.Tensor, name: str, dtype, ndim: int, device):
         raise ValueError(f"{name} must be contiguous")
 
 
+def _stream(dev) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+
+
+def _ptr(counts: torch.Tensor) -> torch.Tensor:
+    """int32 CSR pointer [n + 1] of per-segment counts."""
+    out = torch.zeros(counts.shape[0] + 1, dtype=torch.int64,
+                      device=counts.device)
+    torch.cumsum(counts, 0, out=out[1:])
+    return out.to(torch.int32)
+
+
 # ---------------------------------------------------------------------------
 # K1: per-trade PV sweep
 # ---------------------------------------------------------------------------
 
 
-def pvs_sweep_plain(vT: torch.Tensor,
-                    buckets: Sequence[Tuple[torch.Tensor, torch.Tensor]],
-                    tri: torch.Tensor) -> torch.Tensor:
-    """Plain twin of K1, written from ``_pvs_sweep``: the [B, S] trade
-    PVs from the [M, S] value table, the column buckets' (col_idx [R, L],
-    w [R, L]) slots and the [B, K] trade row table over the concatenated
-    rows (dead slots index the appended zero row)."""
+@dataclasses.dataclass(frozen=True)
+class SweepTables:
+    """K1's tables: a per-trade CSR of live (column, weight) slots over
+    the [M, S] value table, blocked by ``SWEEP_BLOCK`` consecutive trades
+    (the book's own order). Block ``k`` stages the distinct value rows
+    ``brow[bptr[k]:bptr[k + 1]]`` (ascending); a slot names its row by
+    its index in that list (``slot_row``, ascending within each trade)."""
+    n_trades: int
+    n_cols: int
+    tptr: torch.Tensor               # [B + 1] int32
+    slot_row: torch.Tensor           # [nnz] int32
+    slot_w: torch.Tensor             # [nnz] f64
+    bptr: torch.Tensor               # [n_blocks + 1] int32
+    brow: torch.Tensor               # [n_rows] int32
+
+    def slot_trade(self) -> torch.Tensor:
+        """[nnz] int64: each slot's trade."""
+        return torch.repeat_interleave(
+            torch.arange(self.n_trades, device=self.tptr.device),
+            (self.tptr[1:] - self.tptr[:-1]).long())
+
+    def slot_col(self) -> torch.Tensor:
+        """[nnz] int64: each slot's column of the value table."""
+        blk = self.slot_trade() // SWEEP_BLOCK
+        return self.brow.long()[self.bptr.long()[blk]
+                                + self.slot_row.long()]
+
+
+def sweep_tables(trade: torch.Tensor, col: torch.Tensor, w: torch.Tensor,
+                 n_trades: int, n_cols: int) -> SweepTables:
+    """K1's tables from flat slots (trade, column, weight) in any order:
+    dead slots (w == 0) dropped, a trade's duplicate columns merged (their
+    weights summed in slot order), on the slots' device, vectorised."""
+    dev = w.device
+    live = w != 0.0
+    trade, col, w = trade[live].long(), col[live].long(), w[live]
+    key = trade * n_cols + col
+    key, order = torch.sort(key, stable=True)
+    w = w[order]
+    n = key.shape[0]
+    first = torch.ones(n, dtype=torch.bool, device=dev)
+    first[1:] = key[1:] != key[:-1]
+    starts = torch.nonzero(first).flatten()
+    lens = torch.diff(starts, append=torch.tensor([n], device=dev))
+    wsum = w[starts].clone()
+    for r in range(1, int(lens.max()) if n else 0):
+        more = lens > r
+        wsum[more] += w[starts[more] + r]
+    key = key[starts]
+    trade, col = key // n_cols, key % n_cols
+    n_blocks = -(-n_trades // SWEEP_BLOCK)
+    blk = trade // SWEEP_BLOCK
+    bkey, brow_of = torch.unique(blk * n_cols + col, sorted=True,
+                                 return_inverse=True)
+    bptr = _ptr(torch.bincount(bkey // n_cols, minlength=n_blocks))
+    return SweepTables(
+        n_trades=n_trades, n_cols=n_cols,
+        tptr=_ptr(torch.bincount(trade, minlength=n_trades)),
+        slot_row=(brow_of - bptr.long()[blk]).to(torch.int32),
+        slot_w=wsum.to(torch.float64).contiguous(),
+        bptr=bptr, brow=(bkey % n_cols).to(torch.int32))
+
+
+def pvs_sweep_plain(vT: torch.Tensor, tab: SweepTables) -> torch.Tensor:
+    """Plain twin of K1, written from ``_pvs_sweep``: the [S, B] trade
+    PVs, sum over each trade's slots of w · vT[col, :], from the [M, S]
+    value table and the tables of :func:`sweep_tables`."""
     S = vT.shape[1]
-    rowpvs = []
-    for ci, wi in buckets:
-        R, L = ci.shape
-        ci = ci.long()
-        # bound the [chunk, L, S] gathered temporary near 200 MB f64
-        chunk = max(1, min(R, int(2.5e7 // max(L * S, 1))))
-        for r0 in range(0, R, chunk):
-            c = ci[r0:r0 + chunk]
-            Y = vT[c.reshape(-1)].reshape(c.shape + (S,))
-            rowpvs.append(torch.sum(wi[r0:r0 + chunk, :, None] * Y, dim=1))
-    rowpvs.append(torch.zeros((1, S), dtype=vT.dtype, device=vT.device))
-    rowpv = torch.cat(rowpvs)
-    return torch.sum(rowpv[tri.long()], dim=1)
+    trade, col, w = tab.slot_trade(), tab.slot_col(), tab.slot_w
+    out = torch.zeros((tab.n_trades, S), dtype=vT.dtype, device=vT.device)
+    # bound the [chunk, S] gathered temporary near 200 MB f64
+    chunk = max(1, int(2.5e7 // max(S, 1)))
+    for lo in range(0, w.shape[0], chunk):
+        sl = slice(lo, lo + chunk)
+        out.index_add_(0, trade[sl], w[sl, None] * vT[col[sl]])
+    return out.T.contiguous()
 
 
-def pvs_sweep(vT: torch.Tensor,
-              buckets: Sequence[Tuple[torch.Tensor, torch.Tensor]],
-              tri: torch.Tensor) -> torch.Tensor:
-    """K1: [B, S] trade PVs (see :func:`pvs_sweep_plain`). ``col_idx`` and
-    ``tri`` are int32, ``vT`` and ``w`` f64, all contiguous on one
-    device."""
+def pvs_sweep(vT: torch.Tensor, tab: SweepTables) -> torch.Tensor:
+    """K1: [S, B] trade PVs (see :func:`pvs_sweep_plain`) in one launch.
+    ``vT`` is f64 [M, S] with unit column stride; a row stride that is
+    even (16-byte rows) is taken as it is, else the rows are copied into
+    an even-stride buffer first."""
     if not vT.is_cuda:
-        return pvs_sweep_plain(vT, buckets, tri)
+        return pvs_sweep_plain(vT, tab)
     dev = vT.device
-    _need(vT, "vT", torch.float64, 2, dev)
-    _need(tri, "tri", torch.int32, 2, dev)
     M, S = vT.shape
-    R_total = 0
-    for n, (ci, wi) in enumerate(buckets):
-        _need(ci, f"col_idx[{n}]", torch.int32, 2, dev)
-        _need(wi, f"w[{n}]", torch.float64, 2, dev)
-        if ci.shape != wi.shape:
-            raise ValueError(f"bucket {n}: col_idx {tuple(ci.shape)} vs "
-                             f"w {tuple(wi.shape)}")
-        R_total += ci.shape[0]
+    if vT.dtype != torch.float64:
+        raise TypeError(f"vT has dtype {vT.dtype}, expected torch.float64")
+    if M != tab.n_cols:
+        raise ValueError(f"vT has {M} rows, the tables {tab.n_cols}")
+    if vT.stride(1) != 1 or vT.stride(0) % 2 or vT.data_ptr() % 16:
+        buf = torch.empty((M, S + (S & 1)), dtype=vT.dtype, device=dev)
+        buf[:, :S] = vT
+        vT = buf[:, :S]
+    for name in ("tptr", "slot_row", "bptr", "brow"):
+        _need(getattr(tab, name), name, torch.int32, 1, dev)
+    _need(tab.slot_w, "slot_w", torch.float64, 1, dev)
+    B = tab.n_trades
+    out = torch.empty((S, B), dtype=torch.float64, device=dev)
+    if S == 0 or B == 0:
+        return out
     build_kernels()
-    stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
-    rowpv = torch.empty((R_total + 1, S), dtype=torch.float64, device=dev)
-    rowpv[R_total].zero_()
-    off = 0
-    for ci, wi in buckets:
-        R, L = ci.shape
-        _check(_lib.pvs_rows_f64(vT.data_ptr(), S, ci.data_ptr(),
-                                 wi.data_ptr(), R, L,
-                                 rowpv[off:].data_ptr(), stream),
-               "pvs_rows_f64")
-        pvs_sweep.launches += 1
-        off += R
-    B, K = tri.shape
-    out = torch.empty((B, S), dtype=torch.float64, device=dev)
-    _check(_lib.pvs_trades_f64(rowpv.data_ptr(), S, tri.data_ptr(), B, K,
-                               out.data_ptr(), stream), "pvs_trades_f64")
+    _check(_lib.pvs_sweep_f64(vT.data_ptr(), vT.stride(0), S,
+                              tab.tptr.data_ptr(), tab.slot_row.data_ptr(),
+                              tab.slot_w.data_ptr(), tab.bptr.data_ptr(),
+                              tab.brow.data_ptr(), B, out.data_ptr(),
+                              _stream(dev)), "pvs_sweep_f64")
     pvs_sweep.launches += 1
     return out
 
@@ -190,12 +284,125 @@ pvs_sweep.launches = 0
 # ---------------------------------------------------------------------------
 
 
+@dataclasses.dataclass(frozen=True)
+class QuadTables:
+    """K2's tables. Group g (in the caller's order) owns trips
+    ``tptr[g]:tptr[g + 1]`` of the concatenated (s_idx, e_idx, p_idx, w),
+    sorted by column, and quote rows ``rows[rptr[g]:rptr[g + 1]]``; its
+    symmetric k x k block lands in the per-scenario partial vector at
+    ``poff[g]`` (row-major). ``items`` is the launch's work list, largest
+    first: a row (g, a0, na, b0, nb) covers the part of group g's block
+    at its rows [a0, a0 + na) x [b0, b0 + nb) and its mirror, or with
+    nb = 0 the symmetric part [a0, a0 + na)^2; together a group's items
+    cover its block once. G entry e = i * N + j is the sum of the
+    partials ``red_src[red_ptr[e]:red_ptr[e + 1]]``, in group order."""
+    n_quotes: int
+    n_part: int
+    item_rows: int                   # most rows an item stages (8-padded)
+    items: torch.Tensor              # [n_items, 5] int32
+    tptr: torch.Tensor               # [n_groups + 1] int32
+    s_idx: torch.Tensor              # [T_all] int32
+    e_idx: torch.Tensor
+    p_idx: torch.Tensor
+    w: torch.Tensor                  # [T_all] f64
+    rptr: torch.Tensor               # [n_groups + 1] int32
+    rows: torch.Tensor               # [K_all] int32
+    poff: torch.Tensor               # [n_groups] int32
+    red_ptr: torch.Tensor            # [N * N + 1] int32
+    red_src: torch.Tensor            # [n_part] int32
+
+    @property
+    def n_groups(self) -> int:
+        return self.poff.shape[0]
+
+
+def _quad_items(ks: np.ndarray, ts: np.ndarray) -> np.ndarray:
+    """[n_items, 5] (g, a0, na, b0, nb): one symmetric item per group up
+    to QUAD_ITEM_K rows wide; a wider group's rows in chunks of
+    QUAD_ITEM_K // 2, one item per chunk pair (a <= b). Ordered by rows
+    gathered, then trips, largest first."""
+    h = QUAD_ITEM_K // 2
+    items = []
+    for g, k in enumerate(ks.tolist()):
+        if k <= QUAD_ITEM_K:
+            items.append((g, 0, k, 0, 0))
+            continue
+        lo = list(range(0, k, h))
+        for i, a in enumerate(lo):
+            na = min(h, k - a)
+            items.append((g, a, na, 0, 0))
+            items += [(g, a, na, b, min(h, k - b)) for b in lo[i + 1:]]
+    it = np.asarray(items, dtype=np.int64).reshape(-1, 5)
+    return it[np.lexsort((-ts[it[:, 0]], -(it[:, 2] + it[:, 4])))]
+
+
+def quad_tables(groups: Sequence[dict], n_quotes: int,
+                device=None) -> QuadTables:
+    """K2's tables from the trip groups (dicts of ``s_idx``, ``e_idx``,
+    ``p_idx``, ``rows`` and ``w``, numpy or tensors), built on the host
+    and placed on ``device`` (default: the groups' own)."""
+    def host(a):
+        return a.detach().cpu().numpy() if torch.is_tensor(a) \
+            else np.asarray(a)
+
+    if device is None:
+        device = groups[0]["w"].device if groups and torch.is_tensor(
+            groups[0]["w"]) else torch.device("cpu")
+    N = int(n_quotes)
+    cols = {k: [] for k in ("s_idx", "e_idx", "p_idx", "w")}
+    rows, ks, ts, ents = [], [], [], []
+    poff = 0
+    for g in groups:
+        s, e, p = (host(g[k]).astype(np.int64)
+                   for k in ("s_idx", "e_idx", "p_idx"))
+        o = np.lexsort((p, s, e))               # by e, then s, then p
+        for k, a in (("s_idx", s), ("e_idx", e), ("p_idx", p),
+                     ("w", host(g["w"]).astype(np.float64))):
+            cols[k].append(a[o])
+        r = host(g["rows"]).astype(np.int64)
+        rows.append(r)
+        ks.append(r.shape[0])
+        ts.append(s.shape[0])
+        ents.append((r[:, None] * N + r[None, :]).ravel())
+        poff += r.shape[0] ** 2
+    k_arr = np.asarray(ks, dtype=np.int64)
+    ent = np.concatenate(ents) if ents else np.zeros(0, dtype=np.int64)
+    red_src = np.argsort(ent, kind="stable")   # group order within entry
+
+    def cat(parts, dtype):
+        return np.concatenate(parts).astype(dtype) if parts \
+            else np.zeros(0, dtype=dtype)
+
+    def ptr(counts):
+        return np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
+
+    def dev(a):
+        return torch.as_tensor(np.ascontiguousarray(a), device=device)
+
+    t_arr = np.asarray(ts, dtype=np.int64)
+    items = _quad_items(k_arr, t_arr)
+    return QuadTables(
+        n_quotes=N, n_part=int(poff),
+        item_rows=int(((items[:, 2] + 7) // 8 * 8
+                       + (items[:, 4] + 7) // 8 * 8).max())
+        if items.size else 0,
+        items=dev(items.astype(np.int32)),
+        tptr=dev(ptr(t_arr)),
+        s_idx=dev(cat(cols["s_idx"], np.int32)),
+        e_idx=dev(cat(cols["e_idx"], np.int32)),
+        p_idx=dev(cat(cols["p_idx"], np.int32)),
+        w=dev(cat(cols["w"], np.float64)),
+        rptr=dev(ptr(k_arr)), rows=dev(cat(rows, np.int32)),
+        poff=dev(ptr(k_arr ** 2)[:-1]),
+        red_ptr=dev(ptr(np.bincount(ent, minlength=N * N))),
+        red_src=dev(red_src.astype(np.int32)))
+
+
 def gamma_quad_form_grouped_plain(J: torch.Tensor, dfs: torch.Tensor,
-                                  groups: Sequence[dict]) -> torch.Tensor:
+                                  tab: QuadTables) -> torch.Tensor:
     """Plain twin of K2, written from ``_gamma_quad_form_grouped``:
-    J [S, N, n_grid], dfs [S, n_grid] and the trip groups (dicts of
-    ``s_idx``, ``e_idx``, ``p_idx``, ``rows`` index tensors and ``w``
-    weights) -> the trip term of Jᵀ·H_agg·J, [S, N, N].
+    J [S, N, n_grid], dfs [S, n_grid] and the tables of
+    :func:`quad_tables` -> the trip term of Jᵀ·H_agg·J, [S, N, N].
 
     A trip's value (a/b - 1) c has the second differential
     2 du (dc - (c/b) db) with du = (da - (a/b) db)/b, so its block is
@@ -203,14 +410,18 @@ def gamma_quad_form_grouped_plain(J: torch.Tensor, dfs: torch.Tensor,
     Y = Jc - (c/b) Jb. That is the JAX package's four-product form
     (f_ab, f_ac, f_bc, f_bb) regrouped: the near-cancelling Ja/Jb terms
     of a short accrual period cancel once, in X, instead of across four
-    accumulated products."""
+    accumulated products. Each group's block goes to the partial vector,
+    and the reduction table sums the partials into G."""
     S, N, n_grid = J.shape
-    G = torch.zeros((S, N, N), dtype=J.dtype, device=J.device)
     Jf = J.reshape(S, -1)
-    for g in groups:
-        s_i, e_i, p_i = g["s_idx"].long(), g["e_idx"].long(), \
-            g["p_idx"].long()
-        rows = g["rows"].long()
+    part = torch.empty((S, tab.n_part), dtype=J.dtype, device=J.device)
+    tptr, rptr, poff = (x.tolist() for x in (tab.tptr, tab.rptr, tab.poff))
+    for g in range(tab.n_groups):
+        ts = slice(tptr[g], tptr[g + 1])
+        s_i, e_i, p_i = (x[ts].long() for x in
+                         (tab.s_idx, tab.e_idx, tab.p_idx))
+        rows = tab.rows[rptr[g]:rptr[g + 1]].long()
+        k = rows.shape[0]
         a, b, c = dfs[:, s_i], dfs[:, e_i], dfs[:, p_i]      # [S, T_g]
         base = rows[:, None] * n_grid
         Ja = Jf[:, base + s_i[None, :]]                       # [S, k, T_g]
@@ -218,45 +429,65 @@ def gamma_quad_form_grouped_plain(J: torch.Tensor, dfs: torch.Tensor,
         Jc = Jf[:, base + p_i[None, :]]
         X = (Ja - (a / b)[:, None, :] * Jb) * (1.0 / b)[:, None, :]
         Y = Jc - (c / b)[:, None, :] * Jb
-        Z = (X * g["w"][None, None, :]) @ Y.transpose(1, 2)
-        G[:, rows[:, None], rows[None, :]] += Z + Z.transpose(1, 2)
-    return G
+        Z = (X * tab.w[ts][None, None, :]) @ Y.transpose(1, 2)
+        part[:, poff[g]:poff[g] + k * k] = (Z + Z.transpose(1, 2)) \
+            .reshape(S, k * k)
+    ent = torch.repeat_interleave(
+        torch.arange(N * N, device=J.device),
+        (tab.red_ptr[1:] - tab.red_ptr[:-1]).long())
+    G = torch.zeros((S, N * N), dtype=J.dtype, device=J.device)
+    G.index_add_(1, ent, part[:, tab.red_src.long()])
+    return G.reshape(S, N, N)
 
 
 def gamma_quad_form_grouped(J: torch.Tensor, dfs: torch.Tensor,
-                            groups: Sequence[dict]) -> torch.Tensor:
+                            tab: QuadTables) -> torch.Tensor:
     """K2: the [S, N, N] trip term (see
-    :func:`gamma_quad_form_grouped_plain`). On CUDA the group index
-    tensors are int32 and ``w`` f64, all contiguous on J's device."""
+    :func:`gamma_quad_form_grouped_plain`) in two launches: every
+    (item, scenario) block on the FP64 tensor cores into the partial
+    buffer, then the fixed-order sum of the partials into G (which also
+    writes G's zeros). Groups of any width: a wide one runs as several
+    items."""
     if not J.is_cuda:
-        return gamma_quad_form_grouped_plain(J, dfs, groups)
+        return gamma_quad_form_grouped_plain(J, dfs, tab)
     dev = J.device
     _need(J, "J", torch.float64, 3, dev)
     _need(dfs, "dfs", torch.float64, 2, dev)
     S, N, n_grid = J.shape
     if tuple(dfs.shape) != (S, n_grid):
         raise ValueError(f"dfs {tuple(dfs.shape)} vs J {tuple(J.shape)}")
-    if S > 65535:
-        raise ValueError(f"{S} scenarios exceed one launch's grid z")
-    for n, g in enumerate(groups):
-        for key in ("s_idx", "e_idx", "p_idx", "rows"):
-            _need(g[key], f"groups[{n}].{key}", torch.int32, 1, dev)
-        _need(g["w"], f"groups[{n}].w", torch.float64, 1, dev)
-        if g["w"].shape != g["s_idx"].shape:
-            raise ValueError(f"groups[{n}]: w and s_idx lengths differ")
+    if N != tab.n_quotes:
+        raise ValueError(f"J has {N} quote rows, the tables "
+                         f"{tab.n_quotes}")
+    n_items = tab.items.shape[0]
+    if n_items > 65535:
+        raise ValueError(f"{n_items} work items exceed one launch's grid y")
+    _need(tab.items, "items", torch.int32, 2, dev)
+    for name in ("tptr", "s_idx", "e_idx", "p_idx", "rptr", "rows",
+                 "poff", "red_ptr", "red_src"):
+        _need(getattr(tab, name), name, torch.int32, 1, dev)
+    _need(tab.w, "w", torch.float64, 1, dev)
+    G = torch.empty((S, N, N), dtype=torch.float64, device=dev)
+    if S == 0:
+        return G
     build_kernels()
-    stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
-    G = torch.zeros((S, N, N), dtype=torch.float64, device=dev)
-    for g in groups:
-        T = g["s_idx"].shape[0]
-        k = g["rows"].shape[0]
-        _check(_lib.gamma_group_f64(
+    stream = _stream(dev)
+    part = torch.empty((S, tab.n_part), dtype=torch.float64, device=dev)
+    if n_items:
+        _check(_lib.gamma_groups_f64(
             J.data_ptr(), dfs.data_ptr(), S, N, n_grid,
-            g["s_idx"].data_ptr(), g["e_idx"].data_ptr(),
-            g["p_idx"].data_ptr(), g["w"].data_ptr(), T,
-            g["rows"].data_ptr(), k, G.data_ptr(), stream),
-            "gamma_group_f64")
+            tab.items.data_ptr(), tab.tptr.data_ptr(),
+            tab.s_idx.data_ptr(), tab.e_idx.data_ptr(),
+            tab.p_idx.data_ptr(), tab.w.data_ptr(), tab.rptr.data_ptr(),
+            tab.rows.data_ptr(), n_items, tab.item_rows, tab.n_part,
+            tab.poff.data_ptr(), part.data_ptr(), stream),
+            "gamma_groups_f64")
         gamma_quad_form_grouped.launches += 1
+    _check(_lib.gamma_reduce_f64(part.data_ptr(), S, tab.n_part,
+                                 tab.red_ptr.data_ptr(),
+                                 tab.red_src.data_ptr(), N * N,
+                                 G.data_ptr(), stream), "gamma_reduce_f64")
+    gamma_quad_form_grouped.launches += 1
     return G
 
 

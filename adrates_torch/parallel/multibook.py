@@ -921,42 +921,6 @@ def tile_multibook(mb: MultiBook, n_copies: int,
         tile=TileSpec(scale=scale, base_trades=mb.n_trades))
 
 
-def _trade_row_table(mb: MultiBook) -> np.ndarray:
-    """Static [B, K] row-gather table over the concatenated per-bucket
-    row-PV vector (bucket-major; within a lazily tiled bucket the device
-    expansion is copy-major, row index c*R_b + r — see _expand_cols).
-    Dead slots point at the appended zero row R_total."""
-    base_R = [cb.col_idx.shape[0] for cb in mb.cols]
-    offs = np.cumsum([0] + list(base_R))
-    if mb.tile is not None:
-        n_cop = int(mb.tile.scale.shape[0])
-        B_base = int(mb.tile.base_trades)
-        offs = np.cumsum([0] + [R * n_cop for R in base_R])
-    else:
-        n_cop = 1
-        B_base = mb.n_trades
-    R_total = int(offs[-1])
-
-    rows_of: List[list] = [[] for _ in range(B_base)]
-    for bi, cb in enumerate(mb.cols):
-        rt = np.asarray(cb.row_trade)
-        for r in range(rt.shape[0]):
-            rows_of[int(rt[r])].append((int(offs[bi]) + r, base_R[bi]))
-    K = max((len(x) for x in rows_of), default=1)
-    base_idx = np.full((B_base, K), R_total, dtype=np.int64)
-    stride = np.zeros((B_base, K), dtype=np.int64)
-    for t, lst in enumerate(rows_of):
-        for k, (gidx, rb) in enumerate(lst):
-            base_idx[t, k] = gidx
-            stride[t, k] = rb
-    if n_cop == 1:
-        return base_idx.astype(np.int32)
-    copies = np.arange(n_cop, dtype=np.int64)
-    idx = (base_idx[None, :, :]
-           + copies[:, None, None] * stride[None, :, :])
-    return idx.reshape(n_cop * B_base, K).astype(np.int32)
-
-
 def _term1_trip_groups(basket, agg: MultiBookAggregate):
     """Host-side signature grouping of the trip table for the quad form:
     a trip's three J columns are nonzero ONLY on the quote slots of the
@@ -1032,7 +996,6 @@ class BookInputs:
     cols: Tuple[ColRows, ...]
     clamp: Optional[ClampSlots]
     aggregate: MultiBookAggregate
-    tri: np.ndarray                  # [B, K] int32 (_trade_row_table)
     groups: Optional[list]           # _term1_trip_groups
     n_grid: int
     n_quotes: int
@@ -1049,7 +1012,6 @@ def book_inputs(mb: MultiBook) -> BookInputs:
         grids=basket.grids, bat=basket.bat,
         grid_sel=None if basket.grid_dense else basket.grid_sel,
         cols=mb.cols, clamp=mb.clamp, aggregate=mb.aggregate,
-        tri=_trade_row_table(mb),
         groups=_term1_trip_groups(basket, mb.aggregate),
         n_grid=basket.n_grid, n_quotes=basket.n_quotes,
         n_trades=mb.n_trades, tile=mb.tile,
@@ -1059,15 +1021,14 @@ def book_inputs(mb: MultiBook) -> BookInputs:
 @dataclasses.dataclass
 class DeviceBook:
     """The device tables ``make_multibook_fn`` runs on (``fn.book``):
-    the book expanded to full size, indices for the kernels int32."""
+    the book expanded to full size, the kernels' static tables."""
     grids: Callable
     params: dict
     aggregate: MultiBookAggregate
     clamp: Optional[ClampSlots]      # per-trade slots (tiled)
     clamp_agg: Optional[ClampSlots]  # the aggregate's view of them
-    cols: List[ColRows]
-    tri: torch.Tensor                # [B, K] int32
-    groups: List[dict]               # K2 trip groups (int32 + f64 w)
+    sweep: kernels.SweepTables       # K1: per-trade CSR, trade blocks
+    quad: kernels.QuadTables         # K2: trip groups, reduction table
 
 
 def _f64(a, device) -> torch.Tensor:
@@ -1216,29 +1177,37 @@ def _scenario_risk(grids, q: torch.Tensor, P: dict,
     return out
 
 
-def _pvs_sweep(dfs_all: torch.Tensor, cols: Sequence[ColRows],
-               clamp: Optional[ClampSlots], agg: MultiBookAggregate,
-               tri: torch.Tensor) -> torch.Tensor:
-    """Per-trade PVs [S, B] for all scenarios at once: the [M, S] value
-    table (DF columns then trip values, one contiguous S-row per column)
+def value_table(dfs_all: torch.Tensor,
+                agg: MultiBookAggregate) -> torch.Tensor:
+    """The [M, S] value table of the sweep (DF columns then trip values,
+    one S-row per column) as a view with an even row stride, so every
+    row starts on a 16-byte boundary."""
+    S, n_grid = dfs_all.shape
+    T = agg.trip_s.shape[0]
+    buf = torch.empty((n_grid + T, S + (S & 1)), dtype=dfs_all.dtype,
+                      device=dfs_all.device)
+    vT = buf[:, :S]
+    vT[:n_grid] = dfs_all.T
+    vT[n_grid:] = _trip_values(dfs_all, agg).T
+    return vT
+
+
+def _pvs_sweep(dfs_all: torch.Tensor, sweep: kernels.SweepTables,
+               clamp: Optional[ClampSlots],
+               agg: MultiBookAggregate) -> torch.Tensor:
+    """Per-trade PVs [S, B] for all scenarios at once: the value table
     through the K1 kernel, then the cap/floor clamp epilogue in torch."""
-    trip_all = _trip_values(dfs_all, agg)                   # [S, T]
-    vT = torch.cat([dfs_all, trip_all], dim=1).T.contiguous()   # [M, S]
-    pvs_bs = kernels.pvs_sweep(vT, [(cb.col_idx, cb.w) for cb in cols],
-                               tri)                         # [B, S]
+    pvs = kernels.pvs_sweep(value_table(dfs_all, agg), sweep)   # [S, B]
     if clamp is not None:
-        dT = dfs_all.T
-        df_s = dT[clamp.s_idx]
-        df_e = dT[clamp.e_idx]
-        df_p = dT[clamp.p_idx]
-        has = (clamp.ia > 0.0)[:, None]
-        ia = torch.where(clamp.ia > 0.0, clamp.ia, 1.0)[:, None]
+        df_s = dfs_all[:, clamp.s_idx]                      # [S, K]
+        df_e = dfs_all[:, clamp.e_idx]
+        df_p = dfs_all[:, clamp.p_idx]
+        has = clamp.ia > 0.0
+        ia = torch.where(has, clamp.ia, 1.0)
         fwd = torch.where(has, (df_s / df_e - 1.0) / ia, 0.0)
-        rate = torch.clamp(fwd + clamp.spread[:, None],
-                           clamp.floor[:, None], clamp.cap[:, None])
-        pvs_bs = pvs_bs.index_add(0, clamp.slot_trade,
-                                  clamp.w[:, None] * rate * df_p)
-    return pvs_bs.T.contiguous()
+        rate = torch.clamp(fwd + clamp.spread, clamp.floor, clamp.cap)
+        pvs = pvs.index_add(1, clamp.slot_trade, clamp.w * rate * df_p)
+    return pvs
 
 
 def risk_chunk_size(n_quotes: int, width: int, n_scen: int) -> int:
@@ -1250,14 +1219,9 @@ def risk_chunk_size(n_quotes: int, width: int, n_scen: int) -> int:
     return max(1, min(n_scen, RISK_CHUNK_BYTES // max(per, 1)))
 
 
-def _device_book(inp: BookInputs, device) -> DeviceBook:
-    """The book's tables on ``device``, a lazily tiled book expanded."""
-    P = {"bat": bat_to_torch(inp.bat, device),
-         "grid_sel": None if inp.grid_sel is None
-         else _i64(inp.grid_sel, device)}
-    agg = _agg_to(inp.aggregate, device)
-    clamp = None if inp.clamp is None else _clamp_to(inp.clamp, device)
-    clamp_agg = clamp
+def expanded_cols(inp: BookInputs, device) -> List[ColRows]:
+    """The book's column buckets on ``device``, a lazily tiled book
+    expanded (copy-major)."""
     cols = [ColRows(col_idx=_i32(cb.col_idx, device),
                     w=_f64(cb.w, device),
                     row_trade=_i64(cb.row_trade, device))
@@ -1266,22 +1230,55 @@ def _device_book(inp: BookInputs, device) -> DeviceBook:
         scale = _f64(inp.tile.scale, device)
         base = int(inp.tile.base_trades)
         cols = [_expand_cols(cb, scale, base) for cb in cols]
-        if clamp is not None:
-            # the aggregate's clamp total is linear in the per-copy
-            # scale: the base slots with weights times sum(scale)
-            clamp_agg = dataclasses.replace(clamp, w=clamp.w * scale.sum())
-            clamp = _expand_clamp(clamp, scale, base)
-    groups = [dict(s_idx=_i32(g["s_idx"], device),
-                   e_idx=_i32(g["e_idx"], device),
-                   p_idx=_i32(g["p_idx"], device),
-                   rows=_i32(np.concatenate(
-                       [np.arange(off, off + n) for off, n in g["segs"]]),
-                       device),
-                   w=agg.trip_w[_i64(g["tsel"], device)].contiguous())
-              for g in (inp.groups or [])]
+    return cols
+
+
+def sweep_tables_from_cols(cols: Sequence[ColRows], n_trades: int,
+                           n_cols: int) -> kernels.SweepTables:
+    """K1's per-trade CSR from the (expanded) column buckets, on their
+    device: every padded slot flattened, then ``kernels.sweep_tables``."""
+    def flat(f):
+        return torch.cat([f(cb).reshape(-1) for cb in cols])
+
+    return kernels.sweep_tables(
+        flat(lambda cb: cb.row_trade[:, None].expand(cb.col_idx.shape)),
+        flat(lambda cb: cb.col_idx), flat(lambda cb: cb.w), n_trades, n_cols)
+
+
+def trip_group_arrays(groups, agg: MultiBookAggregate) -> list:
+    """``_term1_trip_groups``' groups (host numpy) as the dicts
+    ``kernels.quad_tables`` takes: quote rows from the segments, weights
+    from the host aggregate."""
+    trip_w = np.asarray(agg.trip_w)
+    return [dict(s_idx=g["s_idx"], e_idx=g["e_idx"], p_idx=g["p_idx"],
+                 rows=np.concatenate([np.arange(off, off + n)
+                                      for off, n in g["segs"]]),
+                 w=trip_w[np.asarray(g["tsel"])])
+            for g in (groups or [])]
+
+
+def _device_book(inp: BookInputs, device) -> DeviceBook:
+    """The book's tables on ``device``, a lazily tiled book expanded."""
+    P = {"bat": bat_to_torch(inp.bat, device),
+         "grid_sel": None if inp.grid_sel is None
+         else _i64(inp.grid_sel, device)}
+    agg = _agg_to(inp.aggregate, device)
+    clamp = None if inp.clamp is None else _clamp_to(inp.clamp, device)
+    clamp_agg = clamp
+    if inp.tile is not None and clamp is not None:
+        scale = _f64(inp.tile.scale, device)
+        # the aggregate's clamp total is linear in the per-copy scale:
+        # the base slots with weights times sum(scale)
+        clamp_agg = dataclasses.replace(clamp, w=clamp.w * scale.sum())
+        clamp = _expand_clamp(clamp, scale, int(inp.tile.base_trades))
+    sweep = sweep_tables_from_cols(expanded_cols(inp, device),
+                                   inp.n_trades,
+                                   inp.n_grid + agg.trip_s.shape[0])
+    quad = kernels.quad_tables(trip_group_arrays(inp.groups, inp.aggregate),
+                               inp.n_quotes, device)
     return DeviceBook(grids=inp.grids, params=P, aggregate=agg,
-                      clamp=clamp, clamp_agg=clamp_agg, cols=cols,
-                      tri=_i32(inp.tri, device), groups=groups)
+                      clamp=clamp, clamp_agg=clamp_agg, sweep=sweep,
+                      quad=quad)
 
 
 def _term1_fn(book: DeviceBook):
@@ -1291,7 +1288,7 @@ def _term1_fn(book: DeviceBook):
     def term1(J, dfs):
         J = J.contiguous()
         dfs = dfs.contiguous()
-        t1 = kernels.gamma_quad_form_grouped(J, dfs, book.groups)
+        t1 = kernels.gamma_quad_form_grouped(J, dfs, book.quad)
         if book.clamp_agg is not None:
             t1 = t1 + vmap(lambda j, d: _clamp_quad_form(
                 j, d, book.clamp_agg))(J, dfs)
@@ -1368,8 +1365,7 @@ def make_multibook_fn(mb: Union[MultiBook, BookInputs], device,
         dfs_all, out = _risk(_f64(qvec, device), _f64(shocks, device))
         # the risk pass already bootstrapped every scenario's grids —
         # the PV sweep consumes them instead of recomputing
-        out["pvs"] = _pvs_sweep(dfs_all.contiguous(), book.cols, book.clamp,
-                                agg, book.tri)
+        out["pvs"] = _pvs_sweep(dfs_all, book.sweep, book.clamp, agg)
         return out
 
     def risk_only(qvec, shocks):
@@ -1382,8 +1378,8 @@ def make_multibook_fn(mb: Union[MultiBook, BookInputs], device,
             _f64(shocks, device)).contiguous()
 
     def pvs_only(qvec, shocks):
-        return _pvs_sweep(dfs_only(qvec, shocks), book.cols, book.clamp,
-                          agg, book.tri)
+        return _pvs_sweep(dfs_only(qvec, shocks), book.sweep, book.clamp,
+                          agg)
 
     def jacobians(qvec, shocks):
         """(dfs [S, n_grid], J [S, N, n_grid]) of the shocked quotes,
@@ -1456,8 +1452,7 @@ def make_staged_multibook_fn(mb: Union[MultiBook, BookInputs], device,
         C1=lambda q, g, carry: parts["term2_xccy"](q, P, g, carry),
         C2=lambda q, g, v_of: parts["term2_ois"](q, P, g, v_of),
         D=lambda t1, h2x, h2o: t1 + h2x + h2o,
-        P=lambda dfs: _pvs_sweep(dfs.contiguous(), book.cols, book.clamp,
-                                 agg, book.tri))
+        P=lambda dfs: _pvs_sweep(dfs, book.sweep, book.clamp, agg))
 
     def _run_chunk(q):
         a = regions["A"](q)

@@ -25,8 +25,14 @@ first use. Phases:
    phase 4 (the FD delta also on the largest XCCY basis quote), each
    region's time, and the staged outputs against ``make_multibook_fn``;
 7. each kernel against its plain torch twin on the card, at the shapes
-   each path gives it, with both times (CUDA events, median);
-8. the kernels' JSON line, the card line, and the final JSON line.
+   each path gives it, with both times (CUDA events, median), K1's table
+   build time and row reuse, K1's yardstick (one cuSPARSE SpMM of the
+   trade x column CSR by the value table; the port never calls it), and
+   each kernel's bound (bytes over HBM rate or flops over peak f64 rate,
+   from that path's tables);
+8. one bound line per kernel with the card line, the kernels' JSON line
+   (time, plain, library, bound, share of bound, launches and launches
+   per call on the main path), the card line, and the final JSON line.
 
 Each path's kernel launch counts are set to 0 just before it runs and
 read just after. Any failed check raises, so the script exits non-zero
@@ -39,6 +45,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 
 
 def _card_line() -> str:
@@ -107,7 +114,8 @@ def _drive(name, fn, q0, shocks, n_warm, cold=None):
     for _ in range(n_warm):
         out, ms = _timed(lambda: fn(q0, shocks))
         warm.append(ms)
-    info = dict(_launches(), cold_ms=cold_ms, warm_ms=warm,
+    info = dict(_launches(), calls=1 + n_warm, cold_ms=cold_ms,
+                warm_ms=warm,
                 peak_gib=torch.cuda.max_memory_allocated() / 2**30)
     print(f"{name}: cold {cold_ms:.1f} ms, warm "
           f"{[round(w, 1) for w in warm]} ms (median "
@@ -172,6 +180,7 @@ def _compile(model, trades, scale, **kw):
 
 
 def _describe(name, mb, fn, n_scen, t_model, t_compile, n_base):
+    import torch
     N = mb.basket.n_quotes
     print(f"{name}: {len(mb.basket.specs)} curves built with refit gates "
           f"in {t_model * 1e3:.1f} ms; {n_base} trades compiled and tiled "
@@ -180,8 +189,8 @@ def _describe(name, mb, fn, n_scen, t_model, t_compile, n_base):
           f"unique_times={mb.unique_times.shape[0]} "
           f"T={mb.aggregate.trip_s.shape[0]} S={n_scen} col buckets "
           f"[R, L]={[list(cb.col_idx.shape) for cb in mb.cols]} (base "
-          f"rows); chunk {fn.chunk(n_scen)}; {len(fn.book.groups)} trip "
-          f"groups of k={[int(g['rows'].shape[0]) for g in fn.book.groups]}"
+          f"rows); chunk {fn.chunk(n_scen)}; {fn.book.quad.n_groups} trip "
+          f"groups of k={torch.diff(fn.book.quad.rptr).tolist()}"
           f"; stages {[(st.kind, len(st.ids)) for st in mb.basket.stages]}",
           flush=True)
 
@@ -300,56 +309,140 @@ def run_xccy_book(device, n_warm: int = 3):
     return mono, mb, q0, shocks, info
 
 
-def compare_kernels(path, fn, q0, shocks):
-    """Phase 7: each kernel against its plain twin at one path's shapes;
-    returns the kernels' records (without launch counts)."""
+# Peak rates of one H100 SXM at its 700 W limit (NVIDIA's data sheet):
+# HBM3 bytes/s, f64 FMA on the CUDA cores and on the tensor cores.
+HBM_BPS = 3.35e12
+FP64_FLOPS = 34e12
+FP64_TC_FLOPS = 67e12
+
+
+def _bound(nbytes: float, flops: float, peak_flops: float):
+    """(bound_ms, bound_by): the larger of bytes over the HBM rate and
+    flops over the peak rate."""
+    t_b, t_f = nbytes / HBM_BPS * 1e3, flops / peak_flops * 1e3
+    return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
+
+
+def compare_kernels(path, fn, mb, q0, shocks, device):
+    """Phase 7: each kernel against its plain twin at one path's shapes,
+    with its bound and yardstick; returns the kernels' records (without
+    launch counts)."""
+    import numpy as np
     import torch
 
     from adrates_torch.ops import kernels
-    from adrates_torch.parallel.multibook import _trip_values
+    from adrates_torch.parallel import multibook as tmb
 
     book = fn.book
     dfs = fn.dfs_only(q0, shocks)
-    vT = torch.cat([dfs, _trip_values(dfs, book.aggregate)],
-                   dim=1).T.contiguous()
-    bks = [(cb.col_idx, cb.w) for cb in book.cols]
-    ref = kernels.pvs_sweep_plain(vT, bks, book.tri)
-    got = kernels.pvs_sweep(vT, bks, book.tri)
+    S = dfs.shape[0]
+    vT = tmb.value_table(dfs, book.aggregate)
+    M = vT.shape[0]
+    tab = book.sweep
+    B = tab.n_trades
+    inp = tmb.book_inputs(mb)
+    cols = tmb.expanded_cols(inp, device)
+    padded = sum(int(c.col_idx.numel()) for c in cols)
+    live = sum(int((c.w != 0).sum()) for c in cols)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tmb.sweep_tables_from_cols(cols, B, M)
+    torch.cuda.synchronize()
+    build_ms = (time.perf_counter() - t0) * 1e3
+    del cols
+    nnz, n_rows = int(tab.slot_w.numel()), int(tab.brow.numel())
+    longest = int((tab.tptr[1:] - tab.tptr[:-1]).max())
+    print(f"{path} K1 tables: built in {build_ms:.1f} ms; {padded} padded "
+          f"slots, {live} live, {nnz} after merging; {n_rows} staged rows "
+          f"in {tab.bptr.numel() - 1} blocks of {kernels.SWEEP_BLOCK} "
+          f"trades "
+          f"(reuse {nnz / max(n_rows, 1):.3f} slots per staged row); "
+          f"longest trade {longest} slots", flush=True)
+    ref = kernels.pvs_sweep_plain(vT, tab)
+    got = kernels.pvs_sweep(vT, tab)
     err1 = float((got - ref).abs().max())
     _check(f"{path} K1 pvs_sweep vs plain (abs / max|ref|)",
            err1 / float(ref.abs().max()), 1e-12)
-    ms1 = _cuda_ms(lambda: kernels.pvs_sweep(vT, bks, book.tri))
-    pms1 = _cuda_ms(lambda: kernels.pvs_sweep_plain(vT, bks, book.tri))
-    print(f"{path} K1 pvs_sweep [M, S]={list(vT.shape)} "
-          f"B={book.tri.shape[0]}: kernel {ms1:.3f} ms, plain "
-          f"{pms1:.3f} ms", flush=True)
+    ms1 = _cuda_ms(lambda: kernels.pvs_sweep(vT, tab))
+    pms1 = _cuda_ms(lambda: kernels.pvs_sweep_plain(vT, tab))
+    # yardstick: one cuSPARSE SpMM of the trade x column CSR by vT
+    with warnings.catch_warnings():          # CSR support is "beta"
+        warnings.simplefilter("ignore", UserWarning)
+        csr = torch.sparse_csr_tensor(tab.tptr.long(), tab.slot_col(),
+                                      tab.slot_w, size=(B, M))
+    vTc = vT.contiguous()
+    lib = torch.sparse.mm(csr, vTc)
+    _check(f"{path} K1 cuSPARSE SpMM vs plain (abs / max|ref|)",
+           float((lib.T - ref).abs().max() / ref.abs().max()), 1e-12)
+    lms1 = _cuda_ms(lambda: torch.sparse.mm(csr, vTc))
+    del lib, csr, vTc
+    # the function's bytes: a plain trade x column CSR (trade pointer,
+    # 4-byte column and 8-byte weight per slot), vT and out; the
+    # kernel's own block row lists (bptr, brow) are not counted
+    bytes1 = 4 * (B + 1) + 12 * nnz + 8 * M * S + 8 * S * B
+    bound1, by1 = _bound(bytes1, 2.0 * nnz * S, FP64_FLOPS)
+    print(f"{path} K1 pvs_sweep vT [M, S]={[M, S]} B={B}: kernel "
+          f"{ms1:.3f} ms, plain {pms1:.3f} ms, cuSPARSE {lms1:.3f} ms; "
+          f"bound {bound1 * 1e3:.1f} us ({by1}, {bytes1 / 1e6:.1f} MB)",
+          flush=True)
     del vT, ref, got
 
-    c = fn.chunk(shocks.shape[0])
+    c = fn.chunk(S)
     dfs_c, J = fn.jacobians(q0, shocks[:c])
     J = J.contiguous()
-    ref = kernels.gamma_quad_form_grouped_plain(J, dfs_c, book.groups)
-    got = kernels.gamma_quad_form_grouped(J, dfs_c, book.groups)
+    qt = book.quad
+    ref = kernels.gamma_quad_form_grouped_plain(J, dfs_c, qt)
+    got = kernels.gamma_quad_form_grouped(J, dfs_c, qt)
     err2 = float((got - ref).abs().max())
     _check(f"{path} K2 gamma_quad_form_grouped vs plain (abs / max|ref|)",
            err2 / float(ref.abs().max()), 1e-12)
-    ms2 = _cuda_ms(lambda: kernels.gamma_quad_form_grouped(
-        J, dfs_c, book.groups))
+    ms2 = _cuda_ms(lambda: kernels.gamma_quad_form_grouped(J, dfs_c, qt))
     pms2 = _cuda_ms(lambda: kernels.gamma_quad_form_grouped_plain(
-        J, dfs_c, book.groups))
+        J, dfs_c, qt))
+    Sc, N, n_grid = J.shape
+    tptr, rptr = qt.tptr.cpu().numpy(), qt.rptr.cpu().numpy()
+    cols_all = [np.concatenate([x.cpu().numpy()[tptr[g]:tptr[g + 1]]
+                                for x in (qt.s_idx, qt.e_idx, qt.p_idx)])
+                for g in range(qt.n_groups)]
+    rows = qt.rows.cpu().numpy()
+    need_j = np.unique(np.concatenate(
+        [(rows[rptr[g]:rptr[g + 1], None].astype(np.int64) * n_grid
+          + np.unique(cols_all[g])[None, :]).ravel()
+         for g in range(qt.n_groups)])).size
+    need_d = np.unique(np.concatenate(cols_all)).size
+    k = np.diff(rptr).astype(np.int64)
+    T = np.diff(tptr).astype(np.int64)
+    it = qt.items.cpu().numpy().astype(np.int64)
+    gathered = 3 * int(((it[:, 2] + it[:, 4]) * T[it[:, 0]]).sum())
+    bytes2 = 8 * Sc * (need_j + need_d + N * N)
+    bound2, by2 = _bound(bytes2, 4.0 * float((k * k * T).sum()) * Sc,
+                         FP64_TC_FLOPS)
     print(f"{path} K2 gamma_quad_form_grouped J={list(J.shape)}: kernel "
-          f"{ms2:.3f} ms, plain {pms2:.3f} ms", flush=True)
+          f"{ms2:.3f} ms, plain {pms2:.3f} ms; J values needed {need_j} "
+          f"per scenario ({8 * Sc * need_j / 1e6:.1f} MB per call), "
+          f"gathered {gathered} ({8 * Sc * gathered / 1e6:.1f} MB); bound "
+          f"{bound2 * 1e3:.1f} us ({by2}, {bytes2 / 1e6:.1f} MB)",
+          flush=True)
     del J, ref, got
     torch.cuda.empty_cache()
     return [
         dict(name="pvs_sweep", path=path, route="cuda",
              source="adrates_torch/csrc/pvs_sweep.cu",
              replaces="adrates_tpu/parallel/multibook.py:1782",
-             max_abs_err=err1, ms=ms1, plain_ms=pms1),
+             max_abs_err=err1, ms=ms1, plain_ms=pms1, library_ms=lms1,
+             library="torch.sparse.mm (cuSPARSE SpMM) of the [B, M] "
+                     "trade x column CSR by vT",
+             bound_ms=bound1, bound_by=by1, share_of_bound=bound1 / ms1,
+             tables_build_ms=build_ms, reuse=nnz / max(n_rows, 1)),
         dict(name="gamma_quad_form_grouped", path=path, route="cuda",
              source="adrates_torch/csrc/gamma_quad_form.cu",
              replaces="adrates_tpu/parallel/multibook.py:1660",
-             max_abs_err=err2, ms=ms2, plain_ms=pms2),
+             max_abs_err=err2, ms=ms2, plain_ms=pms2, library_ms=None,
+             library="none: no single PyTorch call computes a gather, a "
+                     "rank-2 quad form and a scatter into G",
+             bound_ms=bound2, bound_by=by2, share_of_bound=bound2 / ms2,
+             j_needed_mb=8 * Sc * need_j / 1e6,
+             j_gathered_mb=8 * Sc * gathered / 1e6),
     ]
 
 
@@ -378,8 +471,8 @@ def main() -> int:
           f"({kernels.library_path().name})", flush=True)
 
     # ---- phases 3-6 ------------------------------------------------------
-    fn_o, _, q_o, sh_o, info_o, info_g = run_ois_slice(device)
-    fn_x, _, q_x, sh_x, info_x = run_xccy_book(device)
+    fn_o, mb_o, q_o, sh_o, info_o, info_g = run_ois_slice(device)
+    fn_x, mb_x, q_x, sh_x, info_x = run_xccy_book(device)
     for path, info in (("ois_slice", info_o), ("ois_slice_generic", info_g),
                        ("ois_xccy_book", info_x)):
         for name in ("pvs_sweep", "gamma_quad_form_grouped"):
@@ -388,17 +481,24 @@ def main() -> int:
                                      f"{path} path")
 
     # ---- phase 7 -------------------------------------------------------
-    records = compare_kernels("ois_slice", fn_o, q_o, sh_o) \
-        + compare_kernels("ois_xccy_book", fn_x, q_x, sh_x)
+    records = compare_kernels("ois_slice", fn_o, mb_o, q_o, sh_o, device) \
+        + compare_kernels("ois_xccy_book", fn_x, mb_x, q_x, sh_x, device)
     for r in records:
-        r["launches"] = (info_o if r["path"] == "ois_slice"
-                         else info_x)[r["name"]]
+        info = info_o if r["path"] == "ois_slice" else info_x
+        r["launches"] = info[r["name"]]
+        r["launches_per_call"] = info[r["name"]] / info["calls"]
     torch.cuda.synchronize()
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
 
     # ---- phase 8 -------------------------------------------------------
+    card = _card_line()
+    for r in records:
+        print(f"bound {r['path']} {r['name']}: {r['ms']:.4f} ms against "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']}), share "
+              f"{r['share_of_bound']:.3f}, {r['launches_per_call']:g} "
+              f"launches per call; card {card}")
     print(json.dumps({"kernels": records}))
-    print(f"card: {_card_line()}")
+    print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

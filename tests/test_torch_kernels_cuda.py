@@ -9,6 +9,8 @@ device is visible. On a machine with a card and without JAX, run
 (``--noconftest`` because the suite's conftest configures JAX).
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -31,24 +33,66 @@ def _rel_err(a, b):
     return float((a - b).abs().max() / b.abs().max())
 
 
+def _flat_tables(rng, M, B, shapes, dev):
+    """K1's tables from random padded buckets (dead slots, repeated
+    columns), on ``dev``."""
+    t, c, w = [], [], []
+    for R, L in shapes:
+        ci = rng.integers(0, M, (R, L))
+        ci[:, 1:] = np.where(rng.random((R, L - 1)) < 0.3, ci[:, :1],
+                             ci[:, 1:])
+        wi = rng.normal(size=(R, L))
+        wi[rng.random((R, L)) < 0.2] = 0.0
+        t.append(np.repeat(rng.integers(0, B, R), L))
+        c.append(ci.ravel())
+        w.append(wi.ravel())
+    return kernels.sweep_tables(
+        *(torch.tensor(np.concatenate(x), device=dev) for x in (t, c, w)),
+        B, M)
+
+
 @pytest.mark.parametrize("S", [1, 33, 100])
 def test_pvs_sweep_kernel_matches_plain(dev, S):
     rng = np.random.default_rng(S)
-    M = 700
+    M, B = 700, 170
     vT = torch.tensor(rng.normal(size=(M, S)), device=dev)
-    bks = []
-    for R, L in [(13, 1), (300, 9), (41, 130)]:
-        bks.append((torch.tensor(rng.integers(0, M, (R, L)),
-                                 dtype=torch.int32, device=dev),
-                    torch.tensor(rng.normal(size=(R, L)), device=dev)))
-    tri = torch.tensor(rng.integers(0, 355, (170, 3)), dtype=torch.int32,
-                       device=dev)
+    tab = _flat_tables(rng, M, B, [(13, 1), (300, 9), (41, 130)], dev)
     before = kernels.pvs_sweep.launches
-    got = kernels.pvs_sweep(vT, bks, tri)
-    assert kernels.pvs_sweep.launches == before + len(bks) + 1
-    ref = kernels.pvs_sweep_plain(vT, bks, tri)
+    got = kernels.pvs_sweep(vT, tab)
+    assert kernels.pvs_sweep.launches == before + 1
+    ref = kernels.pvs_sweep_plain(vT, tab)
     torch.cuda.synchronize()
     assert _rel_err(got, ref) <= 1e-12
+
+
+@pytest.mark.parametrize("S", [1, 31, 32, 33, 100, 130])
+def test_pvs_sweep_kernel_ragged(dev, S):
+    """Scenario counts around the 32-lane and 128-scenario tiles (odd S
+    takes the even-stride copy), trades that leave the last block short,
+    trades with no slot, and blocks whose distinct rows span many
+    stages; once more through an even-stride view."""
+    rng = np.random.default_rng(200 + S)
+    M, B = 3000, 64 * 7 + 5
+    vT = torch.tensor(rng.normal(size=(M, S)), device=dev)
+    tab = _flat_tables(rng, M, B, [(400, 3), (200, 40), (7, 300)], dev)
+    ref = kernels.pvs_sweep_plain(vT, tab)
+    assert int((tab.tptr[1:] == tab.tptr[:-1]).sum()) > 0
+    got = kernels.pvs_sweep(vT, tab)
+    buf = torch.zeros((M, S + 3 - (S + 3) % 2), dtype=torch.float64,
+                      device=dev)
+    buf[:, :S] = vT
+    got_view = kernels.pvs_sweep(buf[:, :S], tab)
+    torch.cuda.synchronize()
+    assert _rel_err(got, ref) <= 1e-12
+    assert _rel_err(got_view, ref) <= 1e-12
+
+
+def _groups(rng, specs, n_grid, dev):
+    return [dict(s_idx=rng.integers(0, n_grid, T),
+                 e_idx=rng.integers(0, n_grid, T),
+                 p_idx=rng.integers(0, n_grid, T),
+                 rows=np.asarray(rows), w=rng.normal(size=T))
+            for rows, T in specs]
 
 
 @pytest.mark.parametrize("k", [5, 16, 37])
@@ -61,29 +105,62 @@ def test_gamma_kernel_matches_plain(dev, k):
 
     J = t(rng.normal(size=(S, N, n_grid)))
     dfs = t(rng.uniform(0.5, 1.0, (S, n_grid)))
-    groups = []
-    for rows, T in [(np.arange(0, k), 45),
-                    (np.sort(rng.choice(N, k, replace=False)), 70)]:
-        groups.append(dict(
-            s_idx=t(rng.integers(0, n_grid, T), torch.int32),
-            e_idx=t(rng.integers(0, n_grid, T), torch.int32),
-            p_idx=t(rng.integers(0, n_grid, T), torch.int32),
-            rows=t(rows, torch.int32), w=t(rng.normal(size=T))))
+    tab = kernels.quad_tables(_groups(
+        rng, [(np.arange(0, k), 45),
+              (np.sort(rng.choice(N, k, replace=False)), 70)], n_grid, dev),
+        N, dev)
     before = kernels.gamma_quad_form_grouped.launches
-    got = kernels.gamma_quad_form_grouped(J, dfs, groups)
+    got = kernels.gamma_quad_form_grouped(J, dfs, tab)
     assert kernels.gamma_quad_form_grouped.launches == before + 2
-    ref = kernels.gamma_quad_form_grouped_plain(J, dfs, groups)
+    ref = kernels.gamma_quad_form_grouped_plain(J, dfs, tab)
     torch.cuda.synchronize()
     assert _rel_err(got, ref) <= 1e-12
 
 
+@pytest.mark.parametrize("k", [1, 5, 8, 12, 16, 37, 72, 80, 96, 130])
+def test_gamma_kernel_ragged(dev, k):
+    """Group widths off and on the 8-row tile and past one work item
+    (96 and 130 rows run as chunk pairs), trip counts off the 16-trip
+    tile, an empty group, and scenario counts around 32 and 128, with
+    groups that overlap; rows in no group stay exactly zero."""
+    rng = np.random.default_rng(300 + k)
+    N, n_grid = 140, 500
+    rows = np.sort(rng.choice(N - 4, k, replace=False))
+    specs = [(rows, 37), (rows[: max(1, k // 2)], 0),
+             (np.concatenate([rows[: max(1, k // 3)], [N - 3, N - 2]]), 1),
+             (np.array([N - 2]), 17)]
+    tab = kernels.quad_tables(_groups(rng, specs, n_grid, dev), N, dev)
+    for S in (1, 31, 32, 33, 100, 130):
+        J = torch.tensor(rng.normal(size=(S, N, n_grid)), device=dev)
+        dfs = torch.tensor(rng.uniform(0.5, 1.0, (S, n_grid)), device=dev)
+        got = kernels.gamma_quad_form_grouped(J, dfs, tab)
+        ref = kernels.gamma_quad_form_grouped_plain(J, dfs, tab)
+        torch.cuda.synchronize()
+        assert _rel_err(got, ref) <= 1e-12, S
+        assert float(got[:, N - 1].abs().max()) == 0.0
+
+
 def test_wrappers_refuse_wrong_index_dtype(dev):
     vT = torch.ones((4, 2), dtype=torch.float64, device=dev)
-    ci = torch.zeros((1, 1), dtype=torch.int64, device=dev)
-    w = torch.ones((1, 1), dtype=torch.float64, device=dev)
-    tri = torch.zeros((1, 1), dtype=torch.int32, device=dev)
+    tab = kernels.sweep_tables(torch.zeros(1, dtype=torch.int64, device=dev),
+                               torch.zeros(1, dtype=torch.int64, device=dev),
+                               torch.ones(1, dtype=torch.float64, device=dev),
+                               1, 4)
+    bad = dataclasses.replace(tab, tptr=tab.tptr.long())
     with pytest.raises(TypeError):
-        kernels.pvs_sweep(vT, [(ci, w)], tri)
+        kernels.pvs_sweep(vT, bad)
+    with pytest.raises(ValueError):
+        kernels.pvs_sweep(vT[:3], tab)
+    qt = kernels.quad_tables([dict(
+        s_idx=np.zeros(1), e_idx=np.zeros(1), p_idx=np.zeros(1),
+        rows=np.arange(3), w=np.ones(1))], 3, dev)
+    J = torch.ones((1, 3, 1), dtype=torch.float64, device=dev)
+    dfs = torch.ones((1, 1), dtype=J.dtype, device=dev)
+    with pytest.raises(TypeError):
+        kernels.gamma_quad_form_grouped(
+            J, dfs, dataclasses.replace(qt, items=qt.items.long()))
+    with pytest.raises(ValueError):
+        kernels.gamma_quad_form_grouped(J[:, :2], dfs, qt)
 
 
 def test_slice_on_cuda_matches_cpu(dev):
@@ -105,8 +182,8 @@ def test_slice_on_cuda_matches_cpu(dev):
 @pytest.mark.parametrize("S", [1, 7])
 def test_gamma_kernel_overlapping_group_rows(dev, S):
     """Groups that share quote rows (as XCCY groups share their parents')
-    accumulate into the same entries in launch order: the kernel against
-    the twin; rows in no group stay exactly zero."""
+    sum into the same entries in the fixed group order: the kernel
+    against the twin; rows in no group stay exactly zero."""
     rng = np.random.default_rng(100 + S)
     N, n_grid = 50, 300
 
@@ -116,20 +193,17 @@ def test_gamma_kernel_overlapping_group_rows(dev, S):
     J = t(rng.normal(size=(S, N, n_grid)))
     dfs = t(rng.uniform(0.5, 1.0, (S, n_grid)))
     usd = np.arange(20, 40)
-    groups = []
-    for rows, T in [(np.concatenate([np.arange(0, 12), usd]), 41),
-                    (np.concatenate([usd, np.arange(44, 50)]), 77),
-                    (usd, 33)]:
-        groups.append(dict(
-            s_idx=t(rng.integers(0, n_grid, T), torch.int32),
-            e_idx=t(rng.integers(0, n_grid, T), torch.int32),
-            p_idx=t(rng.integers(0, n_grid, T), torch.int32),
-            rows=t(rows, torch.int32), w=t(rng.normal(size=T))))
-    got = kernels.gamma_quad_form_grouped(J, dfs, groups)
-    ref = kernels.gamma_quad_form_grouped_plain(J, dfs, groups)
+    tab = kernels.quad_tables(_groups(
+        rng, [(np.concatenate([np.arange(0, 12), usd]), 41),
+              (np.concatenate([usd, np.arange(44, 50)]), 77), (usd, 33)],
+        n_grid, dev), N, dev)
+    got = kernels.gamma_quad_form_grouped(J, dfs, tab)
+    ref = kernels.gamma_quad_form_grouped_plain(J, dfs, tab)
+    again = kernels.gamma_quad_form_grouped(J, dfs, tab)
     torch.cuda.synchronize()
     assert _rel_err(got, ref) <= 1e-12
     assert float(got[:, 12:20].abs().max()) == 0.0
+    assert torch.equal(got, again)
 
 
 def test_xccy_book_on_cuda_matches_cpu(dev):
@@ -141,10 +215,13 @@ def test_xccy_book_on_cuda_matches_cpu(dev):
     q0 = mb.basket.quotes0
     sh = cases.shocks(mb.basket.n_quotes)
     ref = tmb.make_multibook_fn(mb, device="cpu")(q0, sh)
-    before = kernels.gamma_quad_form_grouped.launches
     for make in (tmb.make_multibook_fn, tmb.make_staged_multibook_fn):
+        before = (kernels.pvs_sweep.launches,
+                  kernels.gamma_quad_form_grouped.launches)
         out = make(mb, dev)(q0, sh)
         torch.cuda.synchronize()
         for key in ("pvs", "delta", "gamma"):
             assert _rel_err(out[key].cpu(), ref[key]) <= 1e-12, key
-    assert kernels.gamma_quad_form_grouped.launches > before
+        # one sweep and one chunk of term 1 (groups, then the sum)
+        assert kernels.pvs_sweep.launches == before[0] + 1
+        assert kernels.gamma_quad_form_grouped.launches == before[1] + 2

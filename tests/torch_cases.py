@@ -111,8 +111,7 @@ def _np_plans(p):
 def jax_book_numpy(mb, structured: bool = True) -> dict:
     """The JAX package's compiled (tiled) book as the numpy arguments of
     ``adrates_torch.interop.multibook_from_numpy``."""
-    from adrates_tpu.parallel.multibook import (_term1_trip_groups,
-                                                _trade_row_table)
+    from adrates_tpu.parallel.multibook import _term1_trip_groups
     basket = mb.basket
     bat = basket.params["bat"]
     stages = basket._stages
@@ -170,7 +169,7 @@ def jax_book_numpy(mb, structured: bool = True) -> dict:
             for f in dataclasses.fields(mb.clamp)},
         aggregate={f.name: np.asarray(getattr(agg, f.name))
                    for f in dataclasses.fields(agg)},
-        tri=np.asarray(_trade_row_table(mb)),
+        n_trades=mb.n_trades,
         groups=_term1_trip_groups(basket, agg),
         n_grid=basket.n_grid,
         tile=None if mb.tile is None else dict(
@@ -259,3 +258,35 @@ def compile_xccy_book(pkg: str, model, n_copies: int = 2, **kw):
                                  collateral_types=coll, **kw)
     scale = np.random.default_rng(SEED + 2).uniform(0.5, 2.0, n_copies)
     return mbmod.tile_multibook(mb, n_copies, notional_scale=scale)
+
+
+def trade_slot_weights(jax_mb, port_mb):
+    """([B, M], [B, M]): each trade's (column, weight) slots over the value
+    table, densely, from the JAX package's trade row table over its
+    expanded column buckets, and from the port's per-trade CSR (K1's
+    tables) over its own."""
+    from adrates_tpu.parallel.multibook import _trade_row_table
+    from adrates_torch.parallel import multibook as tmb
+    mb = jax_mb
+    n = 1 if mb.tile is None else int(mb.tile.scale.shape[0])
+    scale = np.ones(1) if mb.tile is None else np.asarray(mb.tile.scale)
+    M = mb.basket.n_grid + int(mb.aggregate.trip_s.shape[0])
+    tri = np.asarray(_trade_row_table(mb))
+    R_total = sum(int(c.col_idx.shape[0]) for c in mb.cols) * n
+    owner = np.full(R_total + 1, -1)
+    owner[tri] = np.arange(mb.n_trades)[:, None]
+    jax_w = np.zeros((mb.n_trades, M))
+    off = 0
+    for c in mb.cols:
+        ci = np.tile(np.asarray(c.col_idx), (n, 1))
+        w = (scale[:, None, None] * np.asarray(c.w)[None]).reshape(ci.shape)
+        rows = owner[off:off + ci.shape[0]]
+        np.add.at(jax_w, (np.broadcast_to(rows[:, None], ci.shape), ci), w)
+        off += ci.shape[0]
+    inp = tmb.book_inputs(port_mb)
+    tab = tmb.sweep_tables_from_cols(tmb.expanded_cols(inp, "cpu"),
+                                     inp.n_trades, M)
+    port_w = np.zeros((inp.n_trades, M))
+    port_w[tab.slot_trade().numpy(), tab.slot_col().numpy()] = \
+        tab.slot_w.numpy()
+    return jax_w, port_w
