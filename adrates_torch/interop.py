@@ -78,8 +78,8 @@ def multibook_from_numpy(basket_params: dict, cols: Sequence[dict],
 
     ``basket_params``:
 
-    - ``specs``: per curve id, dicts of ``name``, ``kind`` ('ois' or
-      'xccy'), ``interp`` (scheme name), ``n_quotes``, ``offset`` and, for
+    - ``specs``: per curve id, dicts of ``name``, ``kind`` ('ois',
+      'xccy' or 'infl'), ``interp`` (scheme name), ``n_quotes``, ``offset`` and, for
       XCCY curves, ``dom_id``, ``for_id``, ``foreign_interp``;
     - ``stages``: dicts of ``kind``, ``ids``, ``key`` and, for XCCY
       stages, ``dom_ids``, ``for_ids``, ``dom_interp``,
@@ -88,8 +88,9 @@ def multibook_from_numpy(basket_params: dict, cols: Sequence[dict],
       ``pad_mask``, ``ts_static``, ``row_plan`` and (optional)
       ``row_plan_keep``; XCCY stages add ``legs`` (stacked calibration
       leg fields), ``spot_fx``, ``pv_dom0``, ``dom_ts``, ``for_ts``,
-      ``fboot_plan`` and ``legs_plan``; under ``gplan`` one stacked
-      interpolation plan per scheme name;
+      ``fboot_plan`` and ``legs_plan``; the inflation stage has its
+      stacked ``swap_times`` in place of ``plan``; under ``gplan`` one
+      stacked interpolation plan per scheme name;
     - ``unique_times``, ``n_quotes``, and ``grid``: dict of ``sel``
       (None for a dense grid), ``keep_of``, ``offsets`` and ``inv``;
     - ``structured``: True when the book carries its stage topology (the
@@ -129,7 +130,9 @@ def multibook_from_numpy(basket_params: dict, cols: Sequence[dict],
                  row_plan=_plans(b["row_plan"]))
         if b.get("row_plan_keep") is not None:
             d["row_plan_keep"] = _plans(b["row_plan_keep"])
-        if st.kind == "xccy":
+        if st.kind == "infl":
+            d["swap_times"] = np.asarray(b["swap_times"], dtype=np.float64)
+        elif st.kind == "xccy":
             d.update(plan=xccy_plan_from_numpy(b["plan"]),
                      legs=leg_from_numpy(b["legs"]),
                      spot_fx=np.asarray(b["spot_fx"]),

@@ -1,11 +1,12 @@
 """Model facade: multi-curve container and FX store.
 
 Port of ``adrates_tpu/models/models.py`` — ``build_curve`` (:74),
-``build_xccy_curve`` (:187, ``models/xccy_builder.py``), ``build_fx``
-(:159) and ``fx`` (:174). Parity with the reference's
-cavour/models/models.py (CurveAccessor 23-49, build_curve 142-228,
-build_fx 230-266). Inflation curves, prebuilt market data, scenarios and
-persistence are not ported yet.
+``build_parallel`` (:130), ``build_xccy_curve`` (:187,
+``models/xccy_builder.py``), ``build_inflation_curve`` (:191,
+``models/inflation_builder.py``), ``build_fx`` (:159) and ``fx`` (:174).
+Parity with the reference's cavour/models/models.py (CurveAccessor 23-49,
+build_curve 142-228, build_fx 230-266). Prebuilt market data, scenarios
+and persistence are not ported yet.
 """
 
 from __future__ import annotations
@@ -115,6 +116,26 @@ class Model:
             "cal_type": cal_type,
         }
         return curve
+
+    def build_parallel(self, *waves):
+        """Run curve builds wave by wave: each wave is an iterable of
+        zero-arg callables (closures over ``build_curve`` /
+        ``build_xccy_curve`` / ``build_inflation_curve`` calls), and a
+        later wave may read curves an earlier one built (XCCY needs its
+        parent OIS curves). The JAX package runs a wave on a thread pool
+        only to overlap XLA compiles; the port has none, so each wave runs
+        in order. ``CurveBasket`` orders curves by name within each kind,
+        so the build order does not change the book's packing."""
+        for wave in waves:
+            for build in wave:
+                build()
+
+    def build_inflation_curve(self, *args, **kwargs):
+        """Build and register an inflation curve from ZCIS breakevens in
+        percent; returns (curve, index). See
+        ``models/inflation_builder.py``."""
+        from .inflation_builder import build_inflation_curve
+        return build_inflation_curve(self, *args, **kwargs)
 
     def build_xccy_curve(self,
                          name: str,

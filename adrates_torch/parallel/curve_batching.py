@@ -1,12 +1,13 @@
 """Batched curve-graph construction: one batched bootstrap per GROUP of
 same-topology curves instead of one subgraph per curve.
 
-Port of the OIS and XCCY stages of
+Port of the OIS, XCCY and inflation stages of
 ``adrates_tpu/parallel/curve_batching.py``. The host side (plan stacking,
 sentinel padding, static interpolation plans) is the same numpy code; the
 stage-native forwards and the ``grids(qvec, P)`` closure are torch and run
 each stage's curves as one [G, ...] bootstrap (``bootstrap_ois`` and
-``bootstrap_xccy`` take stacked plans directly).
+``bootstrap_xccy`` take stacked plans directly; the inflation stage is the
+closed-form factor grid (1+r)^T with the t=0 node).
 
 Padding semantics (all static, built once in numpy):
 
@@ -22,9 +23,8 @@ Padding semantics (all static, built once in numpy):
 Every interpolation here goes through a static plan (the query times and
 the grid times are both fixed at compile time), including the XCCY
 calibration legs (``legs_plan``) and the bootstrap's foreign-curve
-queries (``fboot_plan``); the JAX package's dynamic-interpolation paths,
-the spline schemes and the inflation stages are not ported yet and raise
-``LibError``.
+queries (``fboot_plan``); the JAX package's dynamic-interpolation paths
+and the spline schemes are not ported yet and raise ``LibError``.
 """
 
 from __future__ import annotations
@@ -209,7 +209,7 @@ def _qidx(spec, n: int) -> np.ndarray:
 @dataclasses.dataclass
 class _Stage:
     """Static description of one batched stage (arrays live in params)."""
-    kind: str                    # 'ois' | 'xccy'
+    kind: str                    # 'ois' | 'xccy' | 'infl'
     ids: List[int]               # curve ids in stack order
     key: str                     # params["bat"] entry name
     # xccy only:
@@ -252,6 +252,15 @@ class StageTopology:
 def ois_native_ds(rates: torch.Tensor, b: dict) -> torch.Tensor:
     """[G, Qp] padded local rates -> sentinelized native dfs [G, P1]."""
     _, ds = bootstrap_ois(rates, b["plan"])
+    return torch.where(b["pad_mask"], 1.0, ds)
+
+
+def infl_native_ds(q: torch.Tensor, b: dict) -> torch.Tensor:
+    """[G, Qp] breakevens -> sentinelized factor grid [G, Qp+1]
+    (``adrates_tpu/parallel/curve_batching.py:257-262``)."""
+    stt = b["swap_times"]
+    one = torch.ones(q.shape[:-1] + (1,), dtype=q.dtype, device=q.device)
+    ds = torch.cat([one, torch.pow(1.0 + q, stt)], dim=-1)
     return torch.where(b["pad_mask"], 1.0, ds)
 
 
@@ -356,8 +365,9 @@ def build_batched_grids(basket, unique_times: np.ndarray,
     bat: Dict[str, dict] = {}
     stages: List[_Stage] = []
     for s in specs:
-        if s.kind not in ("ois", "xccy"):
-            raise LibError(f"not yet ported: {s.kind} curve stage")
+        if s.interp_type not in _SIMPLE:
+            raise LibError(f"not yet ported: {s.interp_type.name} curve "
+                           f"{s.name} in a stage")
 
     # ---- group OIS curves by static solve config --------------------
     # The group key buckets the plan SHAPES as well as the solve config:
@@ -444,6 +454,34 @@ def build_batched_grids(basket, unique_times: np.ndarray,
             for_ids=[specs[i].for_id for i in ids],
             dom_interp=xk[1], foreign_interp=xk[0],
             recal=basket.recalibrate_xccy))
+
+    # ---- inflation curves (closed form, one group) -------------------
+    infl_ids = [i for i, s in enumerate(specs) if s.kind == "infl"]
+    if infl_ids:
+        st_of = {i: np.asarray(basket.params["infl"][k]["swap_times"],
+                               dtype=np.float64)
+                 for k, i in enumerate(infl_ids)}
+        Q = max(st_of[i].shape[0] for i in infl_ids)
+        pad_mask = np.zeros((len(infl_ids), Q + 1), dtype=bool)
+        sts = []
+        for g, i in enumerate(infl_ids):
+            st = st_of[i]
+            pad_mask[g, 1 + st.shape[0]:] = True
+            sts.append(np.concatenate(
+                [st, st[-1] + 1.0 + np.arange(Q - st.shape[0])]))
+        sent = np.tile(_sent(0, Q + 1), (len(infl_ids), 1))
+        ts_full = np.concatenate(
+            [np.zeros((len(infl_ids), 1)), np.stack(sts)], axis=1)
+        ts_static = np.where(pad_mask, sent, ts_full)
+        bat["infl"] = dict(
+            swap_times=np.stack(sts),
+            qidx=np.stack([_qidx(specs[i], Q) for i in infl_ids]),
+            pad_mask=pad_mask,
+            sent=sent,
+            ts_static=ts_static,
+            row_plan=_row_plan(unique_times, ts_static,
+                               [specs[i].interp_type for i in infl_ids]))
+        stages.append(_Stage(kind="infl", ids=list(infl_ids), key="infl"))
 
     # ---- static parent time grids for the XCCY stages (the structured
     # risk pass feeds parent native dfs as explicit stage inputs) -------
@@ -591,7 +629,9 @@ def bat_to_torch(bat: dict, device) -> dict:
                  row_plan=_plans_to_torch(b["row_plan"], device))
         if "row_plan_keep" in b:
             d["row_plan_keep"] = _plans_to_torch(b["row_plan_keep"], device)
-        if isinstance(b["plan"], XccyBootstrapPlan):
+        if "swap_times" in b:                       # inflation stage
+            d["swap_times"] = f64(b["swap_times"])
+        elif isinstance(b["plan"], XccyBootstrapPlan):
             d.update(plan=xccy_plan_to_torch(b["plan"], device),
                      legs=leg_to_torch(b["legs"], device),
                      spot_fx=f64(b["spot_fx"]), pv_dom0=f64(b["pv_dom0"]),
@@ -631,6 +671,8 @@ def make_grids(stages: Sequence[_Stage], interp_of: Sequence[InterpTypes]):
             b = B[st.key]
             if st.kind == "ois":
                 ds = ois_native_ds(qvec[b["qidx"]], b)
+            elif st.kind == "infl":
+                ds = infl_native_ds(qvec[b["qidx"]], b)
             else:
                 ds = xccy_native_ds(qvec[b["qidx"]],
                                     _stack_native(native, st.dom_ids),

@@ -1,4 +1,4 @@
-"""Multi-currency, multi-curve book-scale pricing and risk (OIS slice).
+"""Multi-currency, multi-curve book-scale pricing and risk.
 
 Port of ``adrates_tpu/parallel/multibook.py``: the same design — one
 shared unique-time grid, per-trade gathers, aggregate-weight AD:
@@ -26,9 +26,12 @@ graph (``vmap(jvp)`` for J, ``jacfwd(grad(..))`` of g0·grids for term2).
 callable regions; ``warmup_multibook`` builds either and makes the first
 call.
 
-Ported here: OIS and XCCY curves (the three simple interpolation
-schemes), OIS trades under natural or foreign collateral, float/float
-XCCY basis swaps. Other instruments and curve kinds raise ``LibError``.
+Ported here: OIS, XCCY and inflation curves (the three simple
+interpolation schemes), OIS trades under natural or foreign collateral,
+XCCY swaps (float/float, fix-float, fix-fix), FRNs (cap/floor coupons as
+clamp slots), bonds, ZCIS and YoY inflation swaps — every instrument the
+JAX package's book compiler takes. Other instruments raise ``LibError``,
+as there.
 """
 
 from __future__ import annotations
@@ -46,7 +49,8 @@ from ..utils.currency import CurrencyTypes
 from ..utils.day_count import DayCountTypes
 from ..utils.error import LibError
 from ..utils.global_types import (CollateralType, InstrumentTypes,
-                                  InterpTypes, collateral_to_currency,
+                                  InterpTypes, SwapTypes,
+                                  collateral_to_currency,
                                   get_discount_curve_name)
 from ..ops.pricers import FloatLegTensor
 from ..utils.observability import timed
@@ -114,7 +118,7 @@ def _stack_leg_tensors(tensors: Sequence[FloatLegTensor]) -> FloatLegTensor:
 @dataclasses.dataclass
 class _CurveSpec:
     name: str
-    kind: str                      # 'ois' | 'xccy'
+    kind: str                      # 'ois' | 'xccy' | 'infl'
     interp_type: InterpTypes
     n_quotes: int
     offset: int                    # slice start in the packed quote vector
@@ -124,37 +128,44 @@ class _CurveSpec:
 
 
 class CurveBasket:
-    """Compiles a Model's OIS and XCCY curves into one differentiable
-    quotes->grids function over a packed quote vector.
+    """Compiles a Model's OIS, XCCY and inflation curves into one
+    differentiable quotes->grids function over a packed quote vector.
 
     Curve order: OIS curves first, then XCCY curves (which consume the
-    OIS grids), each kind by NAME (the model dict's insertion order is
-    build order, which would make the quote packing and the grid
-    compaction depend on it); explicit ``curve_names`` keep caller order
-    within each kind. ``specs[i].offset`` locates curve i's quotes inside
-    the packed vector. ``recalibrate_xccy=False`` holds each XCCY curve's
-    parents as values (their quotes do not move it)."""
+    OIS grids), then inflation curves (closed form, no dependencies), each
+    kind by NAME (the model dict's insertion order is build order, which
+    would make the quote packing and the grid compaction depend on it);
+    explicit ``curve_names`` keep caller order within each kind.
+    ``specs[i].offset`` locates curve i's quotes inside the packed vector.
+    ``recalibrate_xccy=False`` holds each XCCY curve's parents as values
+    (their quotes do not move it). Inflation rows hold cumulative FACTORS
+    (1+r)^T >= 1 on the shared time grid instead of discount factors; the
+    gathers and the trip form do not care what the numbers mean."""
 
     def __init__(self, model, curve_names: Optional[List[str]] = None,
                  recalibrate_xccy: bool = True):
+        from ..market.curves.inflation_curve import InflationCurve
         from ..trades.rates.ois_curve import OISCurve
         from ..trades.rates.xccy_curve import XccyCurve
 
         explicit = curve_names is not None
         names = curve_names or list(model._curves_dict)
-        ois, xccy = [], []
+        ois, xccy, infl = [], [], []
         for n in names:
             c = model._curves_dict[n]
             if isinstance(c, OISCurve):
                 ois.append((n, c))
             elif isinstance(c, XccyCurve):
                 xccy.append((n, c))
+            elif isinstance(c, InflationCurve):
+                infl.append((n, c))
             else:
                 raise LibError(f"not yet ported: {type(c).__name__} "
                                f"curve {n} in a basket")
         if not explicit:
             ois.sort(key=lambda nc: nc[0])
             xccy.sort(key=lambda nc: nc[0])
+            infl.sort(key=lambda nc: nc[0])
 
         self.model = model
         self.recalibrate_xccy = recalibrate_xccy
@@ -164,7 +175,7 @@ class CurveBasket:
         self.specs: List[_CurveSpec] = []
         self.curves: List[object] = []
         self._id_by_name: Dict[str, int] = {}
-        params: Dict = {"ois_plans": [], "xccy": []}
+        params: Dict = {"ois_plans": [], "xccy": [], "infl": []}
         quotes0 = []
         offset = 0
         for name, curve in ois:
@@ -202,8 +213,21 @@ class CurveBasket:
                                       dtype=np.float64))
             offset += n_q
 
+        for name, curve in infl:
+            n_q = len(curve.breakeven_rates)
+            self.specs.append(_CurveSpec(name, "infl", curve._interp_type,
+                                         n_q, offset))
+            self._id_by_name[name] = len(self.curves)
+            self.curves.append(curve)
+            params["infl"].append(dict(
+                swap_times=np.asarray(curve.swap_times, dtype=np.float64)))
+            quotes0.append(np.asarray(curve.breakeven_rates,
+                                      dtype=np.float64))
+            offset += n_q
+
         params["ois_plans"] = tuple(params["ois_plans"])
         params["xccy"] = tuple(params["xccy"])
+        params["infl"] = tuple(params["infl"])
         self.params = params
         self.quotes0 = np.concatenate(quotes0) if quotes0 \
             else np.zeros(0)
@@ -390,10 +414,27 @@ class _Interner:
         return np.asarray(self._times)[order], remap
 
 
+# each currency's default OIS curve: the discount curve of its FRNs, bonds
+# and inflation swaps
+_DEFAULT_OIS = {
+    CurrencyTypes.GBP: "GBP_OIS_SONIA",
+    CurrencyTypes.USD: "USD_OIS_SOFR",
+    CurrencyTypes.EUR: "EUR_OIS_ESTR",
+    CurrencyTypes.JPY: "JPY_OIS_TONAR",
+    CurrencyTypes.CHF: "CHF_OIS_SARON",
+    CurrencyTypes.AUD: "AUD_OIS_AONIA",
+    CurrencyTypes.CAD: "CAD_OIS_CORRA",
+}
+
+
 def _fx_to_base(model, ccy: CurrencyTypes, base: CurrencyTypes) -> float:
     if ccy == base:
         return 1.0
     return model.fx(f"{ccy.name}{base.name}")
+
+
+def _empty_flt() -> dict:
+    return dict(pay=[], s=[], e=[], pa=[], ia=[], sp=[], no=[], m=[])
 
 
 def _float_row(tensor, disc_id: int, proj_id: int, fx: float,
@@ -412,7 +453,7 @@ def _float_row(tensor, disc_id: int, proj_id: int, fx: float,
     n = pay_t.shape[0]
 
     fix_t, fix_amt, fix_m = [], [], []
-    flt = dict(pay=[], s=[], e=[], pa=[], ia=[], sp=[], no=[], m=[])
+    flt = _empty_flt()
 
     for j in range(n):
         live = pay_t[j] > 0.0
@@ -475,22 +516,84 @@ def _fixed_row(payment_times, amounts, disc_id: int, fx: float, sign: float,
         fix_amt.append(w * float(a))
         fix_m.append(1.0 if t >= 0.0 else 0.0)
     return dict(trade=trade_id, disc=disc_id, proj=disc_id,
-                fix_t=fix_t, fix_amt=fix_amt, fix_m=fix_m,
-                flt=dict(pay=[], s=[], e=[], pa=[], ia=[], sp=[], no=[],
-                         m=[]))
+                fix_t=fix_t, fix_amt=fix_amt, fix_m=fix_m, flt=_empty_flt())
+
+
+def _infl_curve_id(basket: CurveBasket, inst) -> int:
+    """The basket id of the instrument's inflation curve: the index's
+    attached curve, else the single inflation curve in the basket
+    (``adrates_tpu/parallel/multibook.py:631``)."""
+    from ..market.curves.inflation_curve import InflationCurve
+
+    curve = inst._inflation_index._inflation_curve
+    if curve is not None:
+        for i, c in enumerate(basket.curves):
+            if c is curve:
+                return i
+    cands = [i for i, c in enumerate(basket.curves)
+             if isinstance(c, InflationCurve)]
+    if len(cands) != 1:
+        raise LibError("Inflation trade needs its index's curve in the "
+                       "basket (or exactly one inflation curve)")
+    return cands[0]
+
+
+def _infl_payment(num_ref, den_ref, base_cpi: float, w: float,
+                  spread: float, pay_t: float, row: dict):
+    """Append ONE inflation-ratio payment w·(cpi_num/cpi_den − 1 +
+    spread)·df(pay) to a row dict, split into the book's linear and trip
+    primitives (``adrates_tpu/parallel/multibook.py:650-689``): a CPI is
+    its fixed value when the lagged date has a historical fixing, else
+    seas·base_cpi·factor(t).
+
+    Future/future ratios are the trip form (F_num/F_den − 1)·df exactly;
+    a fixed side puts the trip's other time on the inflation curve's t=0
+    column (factor 1 there by construction), so one trip shape covers all
+    four fixed/projected cases. Refs are (is_fixed, value, t, seas)."""
+    n_fixed, n_val, n_t, n_seas = num_ref
+    d_fixed, d_val, d_t, d_seas = den_ref
+
+    if n_fixed and d_fixed:
+        row["fix_t"].append(float(pay_t))
+        row["fix_amt"].append(w * (n_val / d_val - 1.0 + spread))
+        row["fix_m"].append(1.0)
+        return
+    if d_fixed:                   # k·F(n_t), k = seas·base/fixed_den
+        k = n_seas * base_cpi / d_val
+        s_t, e_t = float(n_t), 0.0
+    elif n_fixed:                 # k/F(d_t)
+        k = n_val / (d_seas * base_cpi)
+        s_t, e_t = 0.0, float(d_t)
+    else:                         # k·F(n_t)/F(d_t)
+        k = n_seas / d_seas
+        s_t, e_t = float(n_t), float(d_t)
+    w_trip = w * k                          # on (F_s/F_e − 1)·df_p
+    w_lin = w * (k - 1.0 + spread)          # on df_p
+    flt = row["flt"]
+    flt["pay"].append(float(pay_t))
+    flt["s"].append(s_t)
+    flt["e"].append(e_t)
+    flt["pa"].append(1.0)
+    flt["ia"].append(1.0)
+    flt["sp"].append(w_lin / w_trip)
+    flt["no"].append(w_trip)
+    flt["m"].append(1.0)
 
 
 def _rows_for_instrument(inst, model, basket: CurveBasket, base, value_dt,
                          trade_id: int, clamp_rows: list,
                          collateral_type=None) -> list:
-    """Compile one instrument into row dicts (reference semantics:
+    """Compile one instrument into row dicts
+    (``adrates_tpu/parallel/multibook.py:692-899``; reference semantics:
     engine.py:2639-2728 dual-curve floats, 1496-1520 XCCY foreign legs,
-    217-503 OIS under foreign collateral). Ported: OIS (natural or
-    foreign collateral) and float/float XCCY basis swaps; other
-    instruments raise ``LibError``."""
-    from ..trades.rates.swap_float_leg import SwapFloatLeg
+    505-698 bonds, 700-984 FRNs, 1108-1146 YoY legs, 217-503 OIS under
+    foreign collateral)."""
+    from ..market.position.engine_credit import _bond_tensor, _frn_tensor
+    from ..market.position.engine_inflation import _cpi_ref
+    from ..trades.rates.swap_fixed_leg import SwapFixedLeg
     from ..trades.rates.xccy_basis_swap import float_leg_xccy_tensor
     from ..trades.rates.xccy_curve import find_xccy_curve
+    from ..utils.helpers import times_from_dates
 
     itype = inst.derivative_type
     rows = []
@@ -538,12 +641,6 @@ def _rows_for_instrument(inst, model, basket: CurveBasket, base, value_dt,
                                    clamp_rows))
 
     elif itype == InstrumentTypes.XCCY_SWAP:
-        dom_leg = inst._domestic_leg
-        for_leg = inst._foreign_leg
-        if not (isinstance(dom_leg, SwapFloatLeg)
-                and isinstance(for_leg, SwapFloatLeg)):
-            raise LibError("not yet ported: fixed-leg XCCY swaps in a "
-                           "multibook")
         xname, xcurve = find_xccy_curve(model, inst)
         xid = basket.curve_id(xname)
         dom_id = basket.curve_id(inst._domestic_floating_index.name)
@@ -553,15 +650,126 @@ def _rows_for_instrument(inst, model, basket: CurveBasket, base, value_dt,
         fx_dom = _fx_to_base(model, inst._domestic_currency, base)
         fx_for = fx_dom * float(xcurve._spot_fx)  # foreign leg PV is in
         #   foreign ccy; trade PV converts at the curve's spot
-        lt = dom_leg.tensor(value_dt, index_dc=dom_curve._dc_type)
-        rows.append(_float_row(lt, dom_id, dom_id, fx_dom, trade_id,
-                               clamp_rows))
-        lt = float_leg_xccy_tensor(for_leg, value_dt, for_curve._dc_type)
-        rows.append(_float_row(lt, xid, for_id, fx_for, trade_id,
+        dom_leg = inst._domestic_leg
+        for_leg = inst._foreign_leg
+
+        if isinstance(dom_leg, SwapFixedLeg):
+            # the fixed leg's manual notional exchanges
+            # (xccy_fix_float_swap.py value()), on ACT_ACT_ISDA times as
+            # the domestic curve's df() default
+            ft = dom_leg.tensor(value_dt)
+            eff_t = times_from_dates(inst._effective_dt, value_dt,
+                                     DayCountTypes.ACT_ACT_ISDA)
+            mat_t = times_from_dates(inst._maturity_dt, value_dt,
+                                     DayCountTypes.ACT_ACT_ISDA)
+            n = inst._domestic_notional
+            rows.append(_fixed_row(
+                ft.payment_times, np.asarray(ft.payments), dom_id, fx_dom,
+                float(ft.leg_sign), trade_id,
+                extra_exchanges=[(eff_t, -n), (mat_t, n)]))
+        else:
+            lt = dom_leg.tensor(value_dt, index_dc=dom_curve._dc_type)
+            rows.append(_float_row(lt, dom_id, dom_id, fx_dom, trade_id,
+                                   clamp_rows))
+
+        if isinstance(for_leg, SwapFixedLeg):
+            # the foreign fixed leg and its exchanges on the XCCY curve,
+            # whose df() pins ACT/365F query times
+            xdc = DayCountTypes.ACT_365F
+            pay_t = np.asarray(times_from_dates(
+                for_leg._payment_dts, value_dt, xdc))
+            sign = 1.0 if for_leg._leg_type == SwapTypes.RECEIVE else -1.0
+            eff_t = times_from_dates(inst._effective_dt, value_dt, xdc)
+            mat_t = times_from_dates(inst._maturity_dt, value_dt, xdc)
+            n = inst._foreign_notional
+            rows.append(_fixed_row(
+                pay_t, np.asarray(for_leg._payments), xid, fx_for, sign,
+                trade_id, extra_exchanges=[(eff_t, -n), (mat_t, n)]))
+        else:
+            lt = float_leg_xccy_tensor(for_leg, value_dt, for_curve._dc_type)
+            rows.append(_float_row(lt, xid, for_id, fx_for, trade_id,
+                                   clamp_rows))
+
+    elif itype == InstrumentTypes.FRN:
+        # projected on its index curve, discounted on the currency's
+        # default OIS curve; capped/floored coupons become clamp slots
+        disc_id = basket.curve_id(_DEFAULT_OIS[inst._currency])
+        proj_id = basket.curve_id(inst._floating_index.name)
+        idx_curve = basket.curves[proj_id]
+        fx = _fx_to_base(model, inst._currency, base)
+        lt = _frn_tensor(inst, value_dt, index_dc=idx_curve._dc_type)
+        rows.append(_float_row(lt, disc_id, proj_id, fx, trade_id,
                                clamp_rows))
 
+    elif itype == InstrumentTypes.BOND:
+        disc_id = basket.curve_id(_DEFAULT_OIS[inst._currency])
+        fx = _fx_to_base(model, inst._currency, base)
+        ft = _bond_tensor(inst, value_dt)
+        amounts = np.asarray(ft.payments, dtype=np.float64).copy()
+        amounts[-1] += float(ft.principal)
+        rows.append(_fixed_row(ft.payment_times, amounts, disc_id, fx,
+                               1.0, trade_id))
+
+    elif itype in (InstrumentTypes.ZCIS,
+                   InstrumentTypes.YOY_INFLATION_SWAP):
+        index = inst._inflation_index
+        ccy = index._currency
+        disc_id = basket.curve_id(_DEFAULT_OIS[ccy])
+        infl_id = _infl_curve_id(basket, inst)
+        infl_curve = basket.curves[infl_id]
+        base_cpi = float(infl_curve._base_cpi)
+        fx = _fx_to_base(model, ccy, base)
+
+        if itype == InstrumentTypes.ZCIS:
+            # one exchange: fixed N[(1+r)^T − 1] vs inflation
+            # N[I_T/I_b − 1], both discounted at the ACT/365F payment time
+            if inst._payment_dt > value_dt:
+                pay_t = times_from_dates(inst._payment_dt, value_dt,
+                                         DayCountTypes.ACT_365F)
+                fixed_sign = -1.0 if inst._fixed_leg_type == SwapTypes.PAY \
+                    else 1.0
+                yf = inst.year_frac()
+                fixed_amt = inst._notional \
+                    * ((1.0 + inst._fixed_rate) ** yf - 1.0)
+                row = dict(trade=trade_id, disc=disc_id, proj=infl_id,
+                           fix_t=[float(pay_t)],
+                           fix_amt=[fx * fixed_sign * fixed_amt],
+                           fix_m=[1.0], flt=_empty_flt())
+                b_ref = _cpi_ref(index, infl_curve, inst._effective_dt,
+                                 value_dt)
+                f_ref = _cpi_ref(index, infl_curve, inst._maturity_dt,
+                                 value_dt)
+                _infl_payment(f_ref, b_ref, base_cpi,
+                              fx * (-fixed_sign) * inst._notional, 0.0,
+                              pay_t, row)
+                rows.append(row)
+        else:
+            # YoY: the periodic fixed leg + the YoY ratio leg
+            ft = inst._fixed_leg.tensor(value_dt)
+            rows.append(_fixed_row(ft.payment_times,
+                                   np.asarray(ft.payments), disc_id, fx,
+                                   float(ft.leg_sign), trade_id))
+            leg = inst._inflation_leg
+            sign = 1.0 if leg._leg_type == SwapTypes.RECEIVE else -1.0
+            row = dict(trade=trade_id, disc=disc_id, proj=infl_id,
+                       fix_t=[], fix_amt=[], fix_m=[], flt=_empty_flt())
+            for i in range(len(leg._payment_dts)):
+                if leg._payment_dts[i] <= value_dt:
+                    continue
+                s_ref = _cpi_ref(index, infl_curve, leg._yoy_start_dts[i],
+                                 value_dt)
+                e_ref = _cpi_ref(index, infl_curve, leg._yoy_end_dts[i],
+                                 value_dt)
+                pay_t = times_from_dates(leg._payment_dts[i], value_dt,
+                                         leg._dc_type)
+                w = fx * sign * float(leg._notional) \
+                    * float(leg._year_fracs[i])
+                _infl_payment(e_ref, s_ref, base_cpi, w,
+                              float(leg._spread), pay_t, row)
+            rows.append(row)
+
     else:
-        raise LibError(f"not yet ported: {itype} in a multibook")
+        raise LibError(f"MultiBook does not support {itype}")
 
     return rows
 
@@ -1192,6 +1400,21 @@ def value_table(dfs_all: torch.Tensor,
     return vT
 
 
+def clamp_epilogue(pvs: torch.Tensor, dfs_all: torch.Tensor,
+                   clamp: ClampSlots) -> torch.Tensor:
+    """The cap/floor clamp slots' PVs [S, K] added to their trades'
+    columns of ``pvs`` [S, B]: the sweep's torch epilogue
+    (``adrates_tpu/parallel/multibook.py:1823-1834``)."""
+    df_s = dfs_all[:, clamp.s_idx]                          # [S, K]
+    df_e = dfs_all[:, clamp.e_idx]
+    df_p = dfs_all[:, clamp.p_idx]
+    has = clamp.ia > 0.0
+    ia = torch.where(has, clamp.ia, 1.0)
+    fwd = torch.where(has, (df_s / df_e - 1.0) / ia, 0.0)
+    rate = torch.clamp(fwd + clamp.spread, clamp.floor, clamp.cap)
+    return pvs.index_add(1, clamp.slot_trade, clamp.w * rate * df_p)
+
+
 def _pvs_sweep(dfs_all: torch.Tensor, sweep: kernels.SweepTables,
                clamp: Optional[ClampSlots],
                agg: MultiBookAggregate) -> torch.Tensor:
@@ -1199,14 +1422,7 @@ def _pvs_sweep(dfs_all: torch.Tensor, sweep: kernels.SweepTables,
     through the K1 kernel, then the cap/floor clamp epilogue in torch."""
     pvs = kernels.pvs_sweep(value_table(dfs_all, agg), sweep)   # [S, B]
     if clamp is not None:
-        df_s = dfs_all[:, clamp.s_idx]                      # [S, K]
-        df_e = dfs_all[:, clamp.e_idx]
-        df_p = dfs_all[:, clamp.p_idx]
-        has = clamp.ia > 0.0
-        ia = torch.where(has, clamp.ia, 1.0)
-        fwd = torch.where(has, (df_s / df_e - 1.0) / ia, 0.0)
-        rate = torch.clamp(fwd + clamp.spread, clamp.floor, clamp.cap)
-        pvs = pvs.index_add(1, clamp.slot_trade, clamp.w * rate * df_p)
+        pvs = clamp_epilogue(pvs, dfs_all, clamp)
     return pvs
 
 

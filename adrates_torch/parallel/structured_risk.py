@@ -4,16 +4,16 @@ Port of ``adrates_tpu/parallel/structured_risk.py`` (``_build_meta``,
 ``make_structured_parts``, ``make_structured_risk``). The generic split
 (multibook._scenario_risk) pushes N (= every quote on every curve)
 tangents through the WHOLE curve graph twice per scenario. But the
-quotes->curves dependency is BLOCK SPARSE: an OIS curve depends only on
-its own pillar quotes, and an XCCY curve on its basis spreads plus its
-two parent OIS curves' quotes. This module differentiates each batched
-STAGE separately with a tangent basis sized to the stage's parent set
-and composes by the chain rule:
+quotes->curves dependency is BLOCK SPARSE: an OIS or inflation curve
+depends only on its own pillar quotes, and an XCCY curve on its basis
+spreads plus its two parent OIS curves' quotes. This module
+differentiates each batched STAGE separately with a tangent basis sized
+to the stage's parent set and composes by the chain rule:
 
-- J rows, OIS stage: Qp tangent seeds (one per LOCAL quote slot). One
-  seed carries the same unit direction for EVERY group member at once —
-  members never interact inside a stage, so the [Qp] basis recovers all
-  G members' jacobians in one sweep.
+- J rows, OIS/inflation stage: Qp tangent seeds (one per LOCAL quote
+  slot). One seed carries the same unit direction for EVERY group member
+  at once — members never interact inside a stage, so the [Qp] basis
+  recovers all G members' jacobians in one sweep.
 - J rows, XCCY stage: D = S + Qp_dom + Qp_for COMPOSED directions: basis
   units plus parent jacobian columns fed as input tangents of the small
   XCCY stage graph; the dom curve reaches the stage only through the S
@@ -40,8 +40,9 @@ import numpy as np
 import torch
 from torch.func import grad, jvp, vmap
 
-from .curve_batching import (StageTopology, ois_native_ds, stage_rows,
-                             xccy_boot_ds, xccy_legs_pv, xccy_native_ds)
+from .curve_batching import (StageTopology, infl_native_ds, ois_native_ds,
+                             stage_rows, xccy_boot_ds, xccy_legs_pv,
+                             xccy_native_ds)
 
 
 def _build_meta(topo: StageTopology) -> dict:
@@ -255,8 +256,13 @@ def make_structured_parts(topo: StageTopology) -> dict:
         return out
 
     def _ois_fwd(b, si):
+        """An OIS or inflation stage's forward: local quotes -> (native
+        grids, stage rows)."""
+        native = ois_native_ds if stages[si].kind == "ois" \
+            else infl_native_ds
+
         def fwd(r):
-            ds = ois_native_ds(r, b)
+            ds = native(r, b)
             return ds, stage_rows(ds, its_of[si], _rp(b))
         return fwd
 
@@ -281,7 +287,7 @@ def make_structured_parts(topo: StageTopology) -> dict:
         drows_st: Dict[int, torch.Tensor] = {}  # si -> [Sc, Dirs, G, W]
         carry: Dict[int, dict] = {}
 
-        # ---- pass 1: OIS stages (primal + Qp-seed jvp) ---------------
+        # ---- pass 1: OIS + inflation stages (primal + Qp-seed jvp) ---
         for si in ois_first:
             st = stages[si]
             b = B[st.key]
@@ -498,8 +504,8 @@ def make_structured_parts(topo: StageTopology) -> dict:
         return H2, v_of
 
     def term2_ois(q, P, g, v_of):
-        """OIS-stage hessian placements with the XCCY chain cotangents
-        (term2_xccy's v_of) folded into each stage scalar."""
+        """OIS/inflation-stage hessian placements with the XCCY chain
+        cotangents (term2_xccy's v_of) folded into each stage scalar."""
         B = P["bat"]
         Sc = q.shape[0]
         g0 = g.detach()

@@ -24,13 +24,25 @@ first use. Phases:
    and 3 warm calls of ``make_staged_multibook_fn``, with the checks of
    phase 4 (the FD delta also on the largest XCCY basis quote), each
    region's time, and the staged outputs against ``make_multibook_fn``;
-7. each kernel against its plain torch twin on the card, at the shapes
-   each path gives it, with both times (CUDA events, median), K1's table
+7. flagship_v5, the whole book of the repository's ``bench.py``: 12
+   curves (7 OIS + 3 XCCY + 2 inflation, N = 184), 1,004 trades of every
+   kind (FRNs with cap/floor clamp slots, bonds, ZCIS and YoY, fix-float
+   and fix-fix XCCY) tiled to 100,400, 100 scenarios, through
+   ``warmup_multibook(staged=True)`` and 3 warm staged calls, with the
+   checks of phase 4 (FD deltas also on the largest basis, breakeven and
+   clamped-coupon OIS quotes), each region's time (P split into K1 and
+   the clamp epilogue), the staged outputs against ``make_multibook_fn``,
+   and the clamp PV epilogue and clamp quad form timed at its shapes
+   (CUDA events, and the device time of their kernels in one
+   torch.profiler trace);
+8. each kernel against its plain torch twin on the card, at the shapes
+   each path's main function gives it (K2 at that function's scenario
+   chunk), with both times (CUDA events, median), K1's table
    build time and row reuse, K1's yardstick (one cuSPARSE SpMM of the
    trade x column CSR by the value table; the port never calls it), and
    each kernel's bound (bytes over HBM rate or flops over peak f64 rate,
    from that path's tables);
-8. one bound line per kernel with the card line, the kernels' JSON line
+9. one bound line per kernel with the card line, the kernels' JSON line
    (time, plain, library, bound, share of bound, launches and launches
    per call on the main path), the card line, and the final JSON line.
 
@@ -71,6 +83,31 @@ def _cuda_ms(f, reps: int = 10) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def _device_ms(f):
+    """(ms, kernels) of one ``f()`` call on the device: the summed times
+    of the kernels a torch.profiler trace records, after one warm-up run.
+    Unlike ``_cuda_ms`` it leaves out the gaps in which the device waits
+    for the host's launches. (None, 0) when the trace holds no kernel."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    f()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        f()
+        torch.cuda.synchronize()
+    ks = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not ks:
+        return None, 0
+    return sum(e.time_range.elapsed_us() for e in ks) / 1e3, len(ks)
+
+
+def _fmt_ms(ms) -> str:
+    return "not measured (no kernel in the trace)" if ms is None \
+        else f"{ms:.3f} ms"
 
 
 def _check(name: str, err: float, bound: float):
@@ -222,6 +259,7 @@ def run_ois_slice(device, n_warm: int = 3):
     _describe("ois", mb, fn, cfg.N_SCENARIOS, t_model, t_compile,
               len(base))
     out, info = _drive("ois structured", fn, q0, shocks, n_warm)
+    info["chunk"] = fn.chunk(cfg.N_SCENARIOS)
     check_outputs("ois", out, fn, q0, shocks, mb.n_trades)
     chf = mb.basket.quote_slice("CHF_OIS_SARON")
     if not bool((out["delta"][:, chf] == 0).all()):
@@ -246,14 +284,67 @@ def run_ois_slice(device, n_warm: int = 3):
     return fn, mb, q0, shocks, info, info_gen
 
 
+def _run_staged(name, mb, shocks, device, n_warm, describe):
+    """A staged path: launch counts from 0, ``warmup_multibook`` as the
+    cold call, ``n_warm`` warm calls; ``describe(fn)`` prints the shape
+    lines. Returns (fn, out, info)."""
+    import torch
+
+    from adrates_torch.parallel.multibook import warmup_multibook
+    _reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    fn, cold_ms = _timed(lambda: warmup_multibook(mb, shocks.shape[0],
+                                                  device, staged=True))
+    describe(fn)
+    out, info = _drive(f"{name} staged", fn, mb.basket.quotes0, shocks,
+                       n_warm, cold=(None, cold_ms))
+    info["chunk"] = fn.chunk(shocks.shape[0])
+    return fn, out, info
+
+
+def _time_regions(fn, q0, shocks, device):
+    """Each region's host-clock ms on the first warm chunk; returns (ms
+    by region, region A's output)."""
+    import torch
+    sh = torch.as_tensor(shocks[:fn.chunk(shocks.shape[0])], device=device)
+    q = torch.as_tensor(q0, device=device)[None, :] + sh
+    r = fn.regions
+    a, ms_a = _timed(lambda: r["A"](q))
+    t1, ms_b = _timed(lambda: r["B"](a["J"], a["dfs"]))
+    (h2x, v_of), ms_c1 = _timed(lambda: r["C1"](q, a["g"], a["carry"]))
+    h2o, ms_c2 = _timed(lambda: r["C2"](q, a["g"], v_of))
+    _, ms_d = _timed(lambda: r["D"](t1, h2x, h2o))
+    _, ms_p = _timed(lambda: r["P"](a["dfs"]))
+    return dict(A=ms_a, B=ms_b, C1=ms_c1, C2=ms_c2, D=ms_d, P=ms_p), a
+
+
+def _print_regions(name, chunk, regions, note=""):
+    print(f"{name} regions (chunk {chunk}{note}): "
+          f"{ {k: round(v, 2) for k, v in regions.items()} } ms", flush=True)
+
+
+def _top_quote(mb, delta0, kind):
+    """The quote of the largest |delta| among the curves of ``kind``."""
+    specs = [sp for sp in mb.basket.specs if sp.kind == kind]
+    lo = min(sp.offset for sp in specs)
+    hi = max(sp.offset + sp.n_quotes for sp in specs)
+    return lo + int(delta0[lo:hi].abs().argmax())
+
+
+def _check_staged_vs_mono(name, out, mono, q0, shocks):
+    ref = mono(q0, shocks)
+    for k in ("pvs", "delta", "gamma"):
+        _check(f"{name} staged vs make_multibook_fn {k} (abs / max|ref|)",
+               float((out[k] - ref[k]).abs().max() / ref[k].abs().max()),
+               1e-10)
+
+
 def run_xccy_book(device, n_warm: int = 3):
     """Phase 6: the OIS + XCCY book through the staged regions."""
     import numpy as np
-    import torch
 
     from adrates_torch.examples import flagship_ois_xccy as cfg
-    from adrates_torch.parallel.multibook import (make_multibook_fn,
-                                                  warmup_multibook)
+    from adrates_torch.parallel.multibook import make_multibook_fn
 
     rng = np.random.default_rng(cfg.SEED)
     t0 = time.perf_counter()
@@ -264,48 +355,117 @@ def run_xccy_book(device, n_warm: int = 3):
     scale = rng.uniform(0.5, 2.0, cfg.N_TRADES // len(base))
     mb = _compile(model, base, scale, collateral_types=coll)
     t_compile = time.perf_counter() - t0
-    N = mb.basket.n_quotes
-    shocks = rng.normal(0.0, 1e-3, (cfg.N_SCENARIOS, N))
+    shocks = rng.normal(0.0, 1e-3, (cfg.N_SCENARIOS, mb.basket.n_quotes))
     q0 = mb.basket.quotes0
 
-    _reset_launches()
-    torch.cuda.reset_peak_memory_stats()
-    fn, cold_ms = _timed(lambda: warmup_multibook(
-        mb, cfg.N_SCENARIOS, device, staged=True))
-    _describe("xccy", mb, fn, cfg.N_SCENARIOS, t_model, t_compile,
-              len(base))
-    out, info = _drive("xccy staged", fn, q0, shocks, n_warm,
-                       cold=(None, cold_ms))
-
-    # per-region times on one warm chunk
-    sh = torch.as_tensor(shocks[:fn.chunk(cfg.N_SCENARIOS)],
-                         device=device)
-    q = torch.as_tensor(q0, device=device)[None, :] + sh
-    r = fn.regions
-    a, ms_a = _timed(lambda: r["A"](q))
-    t1, ms_b = _timed(lambda: r["B"](a["J"], a["dfs"]))
-    (h2x, v_of), ms_c1 = _timed(lambda: r["C1"](q, a["g"], a["carry"]))
-    h2o, ms_c2 = _timed(lambda: r["C2"](q, a["g"], v_of))
-    _, ms_d = _timed(lambda: r["D"](t1, h2x, h2o))
-    _, ms_p = _timed(lambda: r["P"](a["dfs"]))
-    info["regions_ms"] = dict(A=ms_a, B=ms_b, C1=ms_c1, C2=ms_c2, D=ms_d,
-                              P=ms_p)
-    print(f"xccy regions (chunk {q.shape[0]}): "
-          f"{ {k: round(v, 2) for k, v in info['regions_ms'].items()} } ms",
-          flush=True)
-    del a, t1, h2x, v_of, h2o
+    fn, out, info = _run_staged(
+        "xccy", mb, shocks, device, n_warm,
+        lambda fn: _describe("xccy", mb, fn, cfg.N_SCENARIOS, t_model,
+                             t_compile, len(base)))
+    info["regions_ms"], a = _time_regions(fn, q0, shocks, device)
+    _print_regions("xccy", a["dfs"].shape[0], info["regions_ms"])
+    del a
 
     mono = make_multibook_fn(mb, device=device)
-    basis = min(s.offset for s in mb.basket.specs if s.kind == "xccy")
-    top_basis = basis + int(out["delta"][0, basis:].abs().argmax())
     check_outputs("xccy", out, mono, q0, shocks, mb.n_trades,
-                  fd_extra=(top_basis,))
-    ref = mono(q0, shocks)
-    for k in ("pvs", "delta", "gamma"):
-        _check(f"xccy staged vs make_multibook_fn {k} (abs / max|ref|)",
-               float((out[k] - ref[k]).abs().max() / ref[k].abs().max()),
-               1e-10)
-    del ref
+                  fd_extra=(_top_quote(mb, out["delta"][0], "xccy"),))
+    _check_staged_vs_mono("xccy", out, mono, q0, shocks)
+    return mono, mb, q0, shocks, info
+
+
+def run_flagship_v5(device, n_warm: int = 3):
+    """Phase 7: the flagship_v5 book through the staged regions."""
+    import numpy as np
+    import torch
+    from torch.func import grad, vmap
+
+    from adrates_torch.examples import flagship_v5 as cfg
+    from adrates_torch.ops import kernels
+    from adrates_torch.parallel import multibook as tmb
+
+    rng = np.random.default_rng(cfg.SEED)
+    t0 = time.perf_counter()
+    model = cfg.build_model()
+    t_model = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with warnings.catch_warnings():        # CHF has no trades
+        warnings.simplefilter("ignore", UserWarning)
+        mb, shocks = cfg.build_book(model, rng)
+    t_compile = time.perf_counter() - t0
+    S = cfg.N_SCENARIOS
+    q0 = mb.basket.quotes0
+    stages = [(st.kind, len(st.ids)) for st in mb.basket.stages]
+    if stages != [("ois", 7), ("xccy", 3), ("infl", 2)]:
+        raise AssertionError(f"flagship_v5 stages {stages}")
+    if mb.clamp is None:
+        raise AssertionError("flagship_v5 has no clamp slots")
+
+    def describe(fn):
+        _describe("flagship_v5", mb, fn, S, t_model, t_compile,
+                  mb.tile.base_trades)
+        print(f"flagship_v5: {mb.clamp.w.shape[0]} clamp slots in the base "
+              f"book ({fn.book.clamp.w.shape[0]} tiled)", flush=True)
+
+    fn, out, info = _run_staged("flagship_v5", mb, shocks, device, n_warm,
+                                describe)
+
+    # per-region times on one warm chunk, P split into value table + K1
+    # and the clamp epilogue
+    book = fn.book
+    regions, a = _time_regions(fn, q0, shocks, device)
+    pv1, regions["P_K1"] = _timed(lambda: kernels.pvs_sweep(
+        tmb.value_table(a["dfs"], book.aggregate), book.sweep))
+    _, regions["P_clamp"] = _timed(lambda: tmb.clamp_epilogue(
+        pv1, a["dfs"], book.clamp))
+    info["regions_ms"] = regions
+    _print_regions("flagship_v5", a["dfs"].shape[0], regions,
+                   "; P_K1 = value table + K1, P_clamp = clamp epilogue")
+
+    # the clamp epilogue and the clamp quad form at this path's shapes
+    # (torch ops, no kernel records): CUDA events around a call, which
+    # hold the host's launch gaps, and the device time of its kernels
+    mono = tmb.make_multibook_fn(mb, device=device)
+    dfs_all = mono.dfs_only(q0, shocks)
+    pv_all = kernels.pvs_sweep(tmb.value_table(dfs_all, book.aggregate),
+                               book.sweep)
+    J, dfs_c = a["J"], a["dfs"]
+    clamp_terms = dict(
+        clamp_epilogue=lambda: tmb.clamp_epilogue(pv_all, dfs_all,
+                                                  book.clamp),
+        clamp_quad_form=lambda: vmap(lambda j, d: tmb._clamp_quad_form(
+            j, d, book.clamp_agg))(J, dfs_c))
+    for key, f in clamp_terms.items():
+        info[f"{key}_ms"] = _cuda_ms(f)
+        info[f"{key}_device_ms"], info[f"{key}_kernels"] = _device_ms(f)
+    print(f"flagship_v5 clamp PV epilogue (pvs {list(pv_all.shape)}, "
+          f"{book.clamp.w.shape[0]} slots): {info['clamp_epilogue_ms']:.3f} "
+          f"ms by events, device "
+          f"{_fmt_ms(info['clamp_epilogue_device_ms'])} in "
+          f"{info['clamp_epilogue_kernels']} kernels; clamp quad form under "
+          f"vmap (J {list(J.shape)}, {book.clamp_agg.w.shape[0]} aggregate "
+          f"slots): {info['clamp_quad_form_ms']:.3f} ms by events, device "
+          f"{_fmt_ms(info['clamp_quad_form_device_ms'])} in "
+          f"{info['clamp_quad_form_kernels']} kernels", flush=True)
+    del a, pv1, pv_all, dfs_all, J, dfs_c
+
+    # FD probes: the largest basis and breakeven quotes, and the GBP/USD
+    # OIS quote that moves the clamped coupons most
+    extra = [_top_quote(mb, out["delta"][0], k) for k in ("xccy", "infl")]
+    dfs0, J0 = mono.jacobians(q0, shocks[:1])
+    g_cl = grad(lambda d: tmb._clamp_pvs(d, book.clamp_agg).sum())(dfs0[0])
+    d_cl = (J0[0] @ g_cl).abs()
+    ois = torch.zeros_like(d_cl, dtype=torch.bool)
+    for name in ("GBP_OIS_SONIA", "USD_OIS_SOFR"):
+        ois[mb.basket.quote_slice(name)] = True
+    extra.append(int(torch.where(ois, d_cl, 0.0).argmax()))
+    del dfs0, J0
+    print(f"flagship_v5 FD probes: basis {extra[0]}, breakeven {extra[1]}, "
+          f"clamped-coupon OIS {extra[2]}", flush=True)
+    check_outputs("flagship_v5", out, mono, q0, shocks, mb.n_trades,
+                  fd_extra=tuple(extra))
+    _check_staged_vs_mono("flagship_v5", out, mono, q0, shocks)
+    del out
+    torch.cuda.empty_cache()
     return mono, mb, q0, shocks, info
 
 
@@ -323,10 +483,12 @@ def _bound(nbytes: float, flops: float, peak_flops: float):
     return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
 
 
-def compare_kernels(path, fn, mb, q0, shocks, device):
-    """Phase 7: each kernel against its plain twin at one path's shapes,
+def compare_kernels(path, fn, mb, q0, shocks, device, chunk):
+    """Phase 8: each kernel against its plain twin at one path's shapes,
     with its bound and yardstick; returns the kernels' records (without
-    launch counts)."""
+    launch counts). ``fn`` is a make_multibook_fn of the book (its grids,
+    jacobians and tables); ``chunk`` is the scenario chunk of the path's
+    main function, at which that function launches K2."""
     import numpy as np
     import torch
 
@@ -387,8 +549,7 @@ def compare_kernels(path, fn, mb, q0, shocks, device):
           flush=True)
     del vT, ref, got
 
-    c = fn.chunk(S)
-    dfs_c, J = fn.jacobians(q0, shocks[:c])
+    dfs_c, J = fn.jacobians(q0, shocks[:chunk])
     J = J.contiguous()
     qt = book.quad
     ref = kernels.gamma_quad_form_grouped_plain(J, dfs_c, qt)
@@ -470,27 +631,33 @@ def main() -> int:
     print(f"build: K1 + K2 built and loaded in {secs:.2f} s "
           f"({kernels.library_path().name})", flush=True)
 
-    # ---- phases 3-6 ------------------------------------------------------
+    # ---- phases 3-7 ------------------------------------------------------
     fn_o, mb_o, q_o, sh_o, info_o, info_g = run_ois_slice(device)
     fn_x, mb_x, q_x, sh_x, info_x = run_xccy_book(device)
+    fn_f, mb_f, q_f, sh_f, info_f = run_flagship_v5(device)
     for path, info in (("ois_slice", info_o), ("ois_slice_generic", info_g),
-                       ("ois_xccy_book", info_x)):
+                       ("ois_xccy_book", info_x), ("flagship_v5", info_f)):
         for name in ("pvs_sweep", "gamma_quad_form_grouped"):
             if info[name] <= 0:
                 raise AssertionError(f"{name} was not launched on the "
                                      f"{path} path")
 
-    # ---- phase 7 -------------------------------------------------------
-    records = compare_kernels("ois_slice", fn_o, mb_o, q_o, sh_o, device) \
-        + compare_kernels("ois_xccy_book", fn_x, mb_x, q_x, sh_x, device)
+    # ---- phase 8 -------------------------------------------------------
+    infos = dict(ois_slice=info_o, ois_xccy_book=info_x, flagship_v5=info_f)
+    records = []
+    for path, args in (("ois_slice", (fn_o, mb_o, q_o, sh_o)),
+                       ("ois_xccy_book", (fn_x, mb_x, q_x, sh_x)),
+                       ("flagship_v5", (fn_f, mb_f, q_f, sh_f))):
+        records += compare_kernels(path, *args, device,
+                                   chunk=infos[path]["chunk"])
     for r in records:
-        info = info_o if r["path"] == "ois_slice" else info_x
+        info = infos[r["path"]]
         r["launches"] = info[r["name"]]
         r["launches_per_call"] = info[r["name"]] / info["calls"]
     torch.cuda.synchronize()
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
 
-    # ---- phase 8 -------------------------------------------------------
+    # ---- phase 9 -------------------------------------------------------
     card = _card_line()
     for r in records:
         print(f"bound {r['path']} {r['name']}: {r['ms']:.4f} ms against "

@@ -138,16 +138,36 @@ def test_grid_plans(books):
 
 
 def test_unported_instrument_raises():
-    """Instruments the port does not compile yet (FRNs, bonds, inflation
-    swaps) raise LibError."""
-    import types
-    from adrates_torch.utils import InstrumentTypes, LibError
+    """What the port's book compiler still refuses as not ported: a curve
+    whose interpolation scheme is not one of the three simple ones, in a
+    stage."""
+    from adrates_torch.utils import InterpTypes, LibError
     tm = cases.build_model("adrates_torch")
-    for itype in (InstrumentTypes.FRN, InstrumentTypes.BOND,
-                  InstrumentTypes.ZCIS, InstrumentTypes.YOY_INFLATION_SWAP):
-        with pytest.raises(LibError, match="not yet ported"):
-            tmb.compile_multibook([types.SimpleNamespace(
-                derivative_type=itype)], tm)
+    tm._curves_dict["EUR_OIS_ESTR"]._interp_type = \
+        InterpTypes.PCHIP_LOG_DISCOUNT
+    with pytest.raises(LibError, match="not yet ported: "
+                       "PCHIP_LOG_DISCOUNT curve EUR_OIS_ESTR"):
+        cases.compile_book("adrates_torch", tm)
+
+
+@pytest.mark.parametrize("itype", ["SWAP_FIXED_LEG", "SWAP_FLOAT_LEG",
+                                   "SWAP_INFLATION_LEG",
+                                   "SWAP_YOY_INFLATION_LEG"])
+def test_bare_leg_refused_as_by_jax(itype):
+    """A bare leg is no book instrument: both packages' compilers refuse
+    it (``adrates_tpu/parallel/multibook.py:896-897``)."""
+    import types
+    from adrates_tpu.utils import InstrumentTypes as JInstrumentTypes
+    from adrates_tpu.utils import LibError as JLibError
+    from adrates_torch.utils import InstrumentTypes, LibError
+    jm = cases.build_model("adrates_tpu")
+    tm = cases.build_model("adrates_torch")
+    with pytest.raises(JLibError, match="does not support"):
+        jmb.compile_multibook([types.SimpleNamespace(
+            derivative_type=JInstrumentTypes[itype])], jm)
+    with pytest.raises(LibError, match="does not support"):
+        tmb.compile_multibook([types.SimpleNamespace(
+            derivative_type=InstrumentTypes[itype])], tm)
 
 
 def test_foreign_collateral_needs_its_xccy_curve():

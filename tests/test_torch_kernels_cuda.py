@@ -225,3 +225,30 @@ def test_xccy_book_on_cuda_matches_cpu(dev):
         # one sweep and one chunk of term 1 (groups, then the sum)
         assert kernels.pvs_sweep.launches == before[0] + 1
         assert kernels.gamma_quad_form_grouped.launches == before[1] + 2
+
+
+def test_all_kinds_book_on_cuda_matches_cpu(dev):
+    """A book of every instrument kind (OIS, basis, fix-float and fix-fix
+    XCCY, FRNs with clamp slots, a bond, ZCIS and YoY on an inflation
+    curve), tiled x2, through make_multibook_fn and
+    make_staged_multibook_fn on the card against the CPU run."""
+    from adrates_torch.utils import CurrencyTypes
+    model = cases.build_all_kinds_model("adrates_torch")
+    _, mb = cases.compile_tiled(
+        "adrates_torch", model, cases.all_kinds_trades("adrates_torch",
+                                                       model),
+        base_currency=CurrencyTypes.USD)
+    assert mb.clamp is not None
+    assert [st.kind for st in mb.basket.stages] == ["ois", "xccy", "infl"]
+    q0 = mb.basket.quotes0
+    sh = cases.shocks(mb.basket.n_quotes)
+    ref = tmb.make_multibook_fn(mb, device="cpu")(q0, sh)
+    for make in (tmb.make_multibook_fn, tmb.make_staged_multibook_fn):
+        before = (kernels.pvs_sweep.launches,
+                  kernels.gamma_quad_form_grouped.launches)
+        out = make(mb, dev)(q0, sh)
+        torch.cuda.synchronize()
+        for key in ("pvs", "delta", "gamma"):
+            assert _rel_err(out[key].cpu(), ref[key]) <= 1e-12, key
+        assert kernels.pvs_sweep.launches == before[0] + 1
+        assert kernels.gamma_quad_form_grouped.launches == before[1] + 2

@@ -133,9 +133,9 @@ def test_unreferenced_curve_has_zero_risk():
 
 def test_clamp_slots_through_interop():
     """A JAX-compiled book with capped and floored FRN coupons (clamp
-    slots, which the port's own compiler cannot produce yet) through the
-    port's device layer: the clamp PV epilogue and the clamp quad form
-    match the JAX package."""
+    slots) through the port's device layer: the clamp PV epilogue and the
+    clamp quad form match the JAX package (tests/test_torch_credit.py
+    holds the port's own compile of such a book)."""
     from adrates_tpu.trades.credit import FRN
     from adrates_tpu.utils import CurrencyTypes, CurveTypes, \
         DayCountTypes, FrequencyTypes

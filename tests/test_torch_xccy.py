@@ -345,20 +345,25 @@ def test_find_xccy_curve_needs_exact_pair(models):
 
 
 def test_unported_paths_raise(models):
-    """Fixed-leg XCCY swaps, spline schemes in the curve graph and the
-    dynamic-interpolation pricer and bootstrap paths raise LibError."""
-    import types
+    """Spline schemes in the curve graph (an XCCY curve in a stage, and
+    the grids) and the dynamic-interpolation pricer and bootstrap paths
+    raise LibError (fixed-leg XCCY swaps compile since their port:
+    tests/test_torch_xccy_fixed.py)."""
     from adrates_torch.parallel import curve_batching as tcb
-    from adrates_torch.trades.rates import SwapFixedLeg
-    from adrates_torch.utils import InstrumentTypes, InterpTypes
+    from adrates_torch.utils import InterpTypes
     _, tm = models
-    swap = cases.build_xccy_trades("adrates_torch", tm)[0][2]
-    fixed = types.SimpleNamespace(
-        derivative_type=InstrumentTypes.XCCY_SWAP,
-        _domestic_leg=SwapFixedLeg.__new__(SwapFixedLeg),
-        _foreign_leg=swap._foreign_leg)
-    with pytest.raises(LibError, match="fixed-leg XCCY"):
-        tmb.compile_multibook([fixed], tm)
+    trades, coll = cases.build_xccy_trades("adrates_torch", tm)
+    xccy = tm._curves_dict["GBP_USD_XCCY"]
+    it = xccy._interp_type
+    xccy._interp_type = InterpTypes.PCHIP_ZERO_RATES
+    try:
+        with pytest.raises(LibError, match="not yet ported: "
+                           "PCHIP_ZERO_RATES curve GBP_USD_XCCY"):
+            tmb.compile_multibook(trades, tm,
+                                  base_currency=tmb.CurrencyTypes.USD,
+                                  collateral_types=coll)
+    finally:
+        xccy._interp_type = it
     with pytest.raises(LibError, match="PCHIP"):
         tcb.make_grids([], [InterpTypes.PCHIP_ZERO_RATES])
     with pytest.raises(LibError):

@@ -122,12 +122,16 @@ def jax_book_numpy(mb, structured: bool = True) -> dict:
     np_bat = {"gplan": _np_plans(bat["gplan"])}
     for st in stages:
         b = bat[st.key]
-        d = dict(plan=plan_fields(b["plan"]), qidx=np.asarray(b["qidx"]),
+        d = dict(qidx=np.asarray(b["qidx"]),
                  pad_mask=np.asarray(b["pad_mask"]),
                  ts_static=np.asarray(b["ts_static"]),
                  row_plan=_np_plans(b["row_plan"]),
                  row_plan_keep=(_np_plans(b["row_plan_keep"])
                                 if "row_plan_keep" in b else None))
+        if st.kind == "infl":
+            d["swap_times"] = np.asarray(b["swap_times"])
+        else:
+            d["plan"] = plan_fields(b["plan"])
         if st.kind == "xccy":
             d.update(legs=plan_fields(b["legs"]),
                      spot_fx=np.asarray(b["spot_fx"]),
@@ -290,3 +294,170 @@ def trade_slot_weights(jax_mb, port_mb):
     port_w[tab.slot_trade().numpy(), tab.slot_col().numpy()] = \
         tab.slot_w.numpy()
     return jax_w, port_w
+
+
+def build_credit_model(pkg: str):
+    """tests/multibook_cases.py:build_model through ``pkg``: USD and GBP
+    OIS (FLAT_FWD), GBP_USD_XCCY over them, GBPUSD."""
+    u, Model, _ = _ns(pkg)
+    m = Model(u.Date(1, 1, 2024))
+    m.build_curve("USD_OIS_SOFR", px_list=[5.3, 5.0, 4.6, 4.0, 3.88],
+                  tenor_list=["6M", "1Y", "2Y", "5Y", "10Y"],
+                  fixed_dcc_type=u.DayCountTypes.ACT_360,
+                  float_dc_type=u.DayCountTypes.ACT_360,
+                  interp_type=u.InterpTypes.FLAT_FWD_RATES)
+    m.build_curve("GBP_OIS_SONIA", px_list=[5.0, 4.7, 4.3, 3.9, 3.87],
+                  tenor_list=["6M", "1Y", "2Y", "5Y", "10Y"],
+                  fixed_dcc_type=u.DayCountTypes.ACT_365F,
+                  float_dc_type=u.DayCountTypes.ACT_365F,
+                  interp_type=u.InterpTypes.FLAT_FWD_RATES)
+    m.build_xccy_curve(name="GBP_USD_XCCY",
+                       domestic_curve_name="USD_OIS_SOFR",
+                       foreign_curve_name="GBP_OIS_SONIA",
+                       basis_spreads=[-5.0, -8.0, -11.0],
+                       tenor_list=["1Y", "5Y", "10Y"], spot_fx=1.27)
+    m.build_fx(["GBPUSD"], [1.27])
+    return m
+
+
+def credit_trades_for(pkg: str, model):
+    """tests/multibook_cases.py:trades_for through ``pkg``: a GBP and a
+    USD OIS, a basis swap, a plain and a capped/floored GBP FRN and a
+    7Y bond."""
+    u, _, OIS = _ns(pkg)
+    rates = importlib.import_module(f"{pkg}.trades.rates")
+    credit = importlib.import_module(f"{pkg}.trades.credit")
+    v = model.value_dt
+    D, F, C, S = (u.DayCountTypes, u.FrequencyTypes, u.CurveTypes,
+                  u.SwapTypes)
+    MF = u.BusDayAdjustTypes.MODIFIED_FOLLOWING
+    gbp_ois = OIS(v, "5Y", S.RECEIVE, 0.039, F.ANNUAL, D.ACT_365F,
+                  C.GBP_OIS_SONIA, u.CurrencyTypes.GBP, notional=10_000_000,
+                  float_dc_type=D.ACT_365F, bd_type=MF)
+    usd_ois = OIS(v, "2Y", S.PAY, 0.045, F.QUARTERLY, D.ACT_360,
+                  C.USD_OIS_SOFR, u.CurrencyTypes.USD, notional=15_000_000,
+                  float_dc_type=D.ACT_360, bd_type=MF)
+    xccy = rates.XccyBasisSwap(
+        effective_dt=v, term_dt_or_tenor="5Y",
+        domestic_notional=12_700_000, foreign_notional=10_000_000,
+        domestic_spread=0.0, foreign_spread=-0.0008,
+        domestic_freq_type=F.QUARTERLY, foreign_freq_type=F.QUARTERLY,
+        domestic_dc_type=D.ACT_360, foreign_dc_type=D.ACT_365F,
+        domestic_floating_index=C.USD_OIS_SOFR,
+        foreign_floating_index=C.GBP_OIS_SONIA,
+        domestic_currency=u.CurrencyTypes.USD,
+        foreign_currency=u.CurrencyTypes.GBP)
+    frn = dict(freq_type=F.QUARTERLY, dc_type=D.ACT_365F,
+               floating_index=C.GBP_OIS_SONIA, currency=u.CurrencyTypes.GBP,
+               face_value=5_000_000)
+    frn_plain = credit.FRN(v, "5Y", quoted_margin=0.0015, **frn)
+    frn_capped = credit.FRN(v, "5Y", quoted_margin=0.0015, cap_rate=0.045,
+                            floor_rate=0.02, **frn)
+    bond = credit.Bond(v, "7Y", coupon=0.04, freq_type=F.SEMI_ANNUAL,
+                       dc_type=D.ACT_365F, currency=u.CurrencyTypes.GBP,
+                       face_value=1_000_000)
+    return [gbp_ois, usd_ois, xccy, frn_plain, frn_capped, bond]
+
+
+def fixed_xccy_trades(pkg: str, model):
+    """On build_credit_model: fix-float swaps starting today (t = 0
+    exchange), forward and seasoned (past exchange), paying and receiving
+    the fixed leg; fix-fix swaps starting today and forward."""
+    u = importlib.import_module(f"{pkg}.utils")
+    rates = importlib.import_module(f"{pkg}.trades.rates")
+    v = model.value_dt
+    D, F, C, S, Y = (u.DayCountTypes, u.FrequencyTypes, u.CurveTypes,
+                     u.SwapTypes, u.CurrencyTypes)
+    pair = dict(domestic_floating_index=C.USD_OIS_SOFR,
+                foreign_floating_index=C.GBP_OIS_SONIA,
+                domestic_currency=Y.USD, foreign_currency=Y.GBP)
+    fix_float = [rates.XccyFixFloat(
+        effective_dt=st, term_dt_or_tenor=ten, domestic_notional=dn,
+        foreign_notional=dn / 1.27, domestic_leg_type=side,
+        domestic_coupon=cpn, foreign_spread=spr,
+        domestic_freq_type=F.SEMI_ANNUAL, foreign_freq_type=F.QUARTERLY,
+        domestic_dc_type=D.ACT_360, foreign_dc_type=D.ACT_365F, **pair)
+        for st, ten, dn, side, cpn, spr in [
+            (v, "5Y", 2.0e7, S.RECEIVE, 0.041, -0.0011),
+            (v.add_months(3).add_days(5), "7Y", 1.3e7, S.PAY, 0.037, -0.0004),
+            (v.add_months(-8), "3Y", 9.0e6, S.PAY, 0.046, -0.0015)]]
+    fix_fix = [rates.XccyFixFix(
+        effective_dt=st, term_dt_or_tenor=ten, domestic_notional=dn,
+        foreign_notional=dn / 1.27, domestic_leg_type=S.RECEIVE,
+        domestic_coupon=dc, foreign_coupon=fc,
+        domestic_freq_type=F.ANNUAL, foreign_freq_type=F.ANNUAL,
+        domestic_dc_type=D.ACT_360, foreign_dc_type=D.ACT_365F, **pair)
+        for st, ten, dn, dc, fc in [
+            (v, "10Y", 1.7e7, 0.039, 0.042),
+            (v.add_months(9).add_days(13), "5Y", 6.0e6, 0.044, 0.036)]]
+    return fix_float + fix_fix
+
+
+def build_infl_model(pkg: str, **infl_kw):
+    """tests/multibook_cases.py:build_model_infl through ``pkg``: the GBP
+    OIS curve and a 5-pillar GBP_RPI_INFLATION curve (base CPI 293);
+    ``infl_kw`` goes to build_inflation_curve (seasonality, fixings)."""
+    u, Model, _ = _ns(pkg)
+    m = Model(u.Date(1, 1, 2024))
+    m.build_curve("GBP_OIS_SONIA", px_list=[5.0, 4.7, 4.3, 3.9, 3.87],
+                  tenor_list=["6M", "1Y", "2Y", "5Y", "10Y"],
+                  fixed_dcc_type=u.DayCountTypes.ACT_365F,
+                  float_dc_type=u.DayCountTypes.ACT_365F,
+                  interp_type=u.InterpTypes.FLAT_FWD_RATES)
+    m.build_inflation_curve("GBP_RPI_INFLATION",
+                            breakeven_list=[3.8, 3.5, 3.4, 3.5, 3.3],
+                            tenor_list=["1Y", "3Y", "5Y", "10Y", "30Y"],
+                            base_cpi=293.0, **infl_kw)
+    return m
+
+
+def infl_trades_for(pkg: str, model):
+    """tests/multibook_cases.py:infl_trades_for through ``pkg``: a 5Y ZCIS,
+    a 4Y annual YoY swap with a spread and a 5Y GBP OIS."""
+    u, _, OIS = _ns(pkg)
+    rates = importlib.import_module(f"{pkg}.trades.rates")
+    v = model.value_dt
+    D, F, C, S = (u.DayCountTypes, u.FrequencyTypes, u.CurveTypes,
+                  u.SwapTypes)
+    index = model.curves["GBP_RPI_INFLATION"]._used_swaps[0] \
+        ._inflation_index
+    zcis = rates.ZeroCouponInflationSwap(
+        effective_dt=v, term_dt_or_tenor="5Y", fixed_leg_type=S.PAY,
+        fixed_rate=0.033, inflation_index=index, notional=7_000_000)
+    yoy = rates.YoYInflationSwap(
+        effective_dt=v, term_dt_or_tenor="4Y", fixed_leg_type=S.RECEIVE,
+        fixed_rate=0.034, inflation_index=index, freq_type=F.ANNUAL,
+        notional=5_000_000, inflation_spread=0.0007)
+    ois = OIS(v, "5Y", S.RECEIVE, 0.039, F.ANNUAL, D.ACT_365F,
+              C.GBP_OIS_SONIA, u.CurrencyTypes.GBP, notional=10_000_000,
+              float_dc_type=D.ACT_365F,
+              bd_type=u.BusDayAdjustTypes.MODIFIED_FOLLOWING)
+    return [zcis, yoy, ois]
+
+
+def compile_tiled(pkg: str, model, trades, n_copies: int = 2, seed=SEED + 3,
+                  **kw):
+    """``trades`` compiled in ``pkg`` (base GBP unless ``kw`` says
+    otherwise) and tiled x n_copies with seeded notional scales."""
+    mbmod = importlib.import_module(f"{pkg}.parallel.multibook")
+    mb = mbmod.compile_multibook(trades, model, **kw)
+    scale = np.random.default_rng(seed).uniform(0.5, 2.0, n_copies)
+    return mb, mbmod.tile_multibook(mb, n_copies, notional_scale=scale)
+
+
+def build_all_kinds_model(pkg: str):
+    """build_credit_model plus the GBP RPI curve of build_infl_model: a
+    model for every instrument kind of the book compiler."""
+    m = build_credit_model(pkg)
+    m.build_inflation_curve("GBP_RPI_INFLATION",
+                            breakeven_list=[3.8, 3.5, 3.4, 3.5, 3.3],
+                            tenor_list=["1Y", "3Y", "5Y", "10Y", "30Y"],
+                            base_cpi=293.0)
+    return m
+
+
+def all_kinds_trades(pkg: str, model):
+    """OIS, a basis swap, FRNs (plain and capped), a bond, fix-float and
+    fix-fix XCCY swaps, a ZCIS and a YoY swap."""
+    return credit_trades_for(pkg, model) + fixed_xccy_trades(pkg, model) \
+        + infl_trades_for(pkg, model)[:2]
