@@ -5,16 +5,22 @@ K1 ``pvs_sweep`` (``csrc/pvs_sweep.cu``) replaces
 ``adrates_tpu/parallel/multibook.py:_pvs_sweep`` (:1782, the gather and
 row/trade sums). K2 ``gamma_quad_form_grouped``
 (``csrc/gamma_quad_form.cu``) replaces ``_gamma_quad_form_grouped``
-(:1660, the trip term). Both are forward-only (their derivatives are
-closed form elsewhere), f64 throughout, and each source file says what
-bounds it on the card and how its design answers that.
+(:1660, the trip term). K3 ``pertrade_quad_form``
+(``csrc/pertrade_quad_form.cu``) replaces the per-trade quad forms of
+``adrates_tpu/parallel/pertrade_blocks.py`` (:316-363) and
+``multibook.py:_sel_gamma_kernel`` (:2693-2753). All three are
+forward-only (their derivatives are closed form elsewhere), f64
+throughout, and each source file says what bounds it on the card and how
+its design answers that.
 
 Tables: each kernel runs on static tables built once per book, on the
 book's device, by :func:`sweep_tables` (K1: a per-trade CSR of live
-(column, weight) slots plus each trade block's distinct value rows) and
+(column, weight) slots plus each trade block's distinct value rows),
 :func:`quad_tables` (K2: the trip groups, the launch's work list of
-group row blocks, and the table that sums the groups' blocks into G).
-The plain twins read the same tables.
+group row blocks, and the table that sums the groups' blocks into G) and
+:func:`pertrade_tables` (K3: groups of quote rows, their trades' slot
+CSR and the launch's output tiles). The plain twins read the same
+tables.
 
 Dispatch: a wrapper given CPU tensors runs the plain twin; given CUDA
 tensors it launches the kernel or raises. Nothing falls back. Each
@@ -63,6 +69,8 @@ _SIGNATURES = {
     "gamma_groups_f64": [_P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P,
                          _P, _I, _I, _I, _P, _P, _P],
     "gamma_reduce_f64": [_P, _I, _I, _P, _P, _I, _P, _P],
+    "pertrade_quad_f64": [_P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P,
+                          _P, _P, _P, _P],
 }
 
 _lib = None
@@ -492,3 +500,170 @@ def gamma_quad_form_grouped(J: torch.Tensor, dfs: torch.Tensor,
 
 
 gamma_quad_form_grouped.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K3: per-trade term-1 quad form
+# ---------------------------------------------------------------------------
+
+# output tile edge of a K3 block (csrc/pertrade_quad_form.cu kT)
+PERTRADE_TILE = 32
+
+
+@dataclasses.dataclass(frozen=True)
+class PertradeTables:
+    """K3's tables. Group g has quote rows ``qrows[qptr[g]:qptr[g + 1]]``
+    (k_g of them) and items (trades) ``ibase[g]:ibase[g + 1]``; item i
+    owns slots ``iptr[i]:iptr[i + 1]`` of (s_idx, e_idx, p_idx), which are
+    the caller's slots reordered by item (``order``: the caller's index of
+    each), and its k x k block lands at ``ioff[i]`` of the flat output
+    (``n_out`` values). ``tiles`` [n_tiles, 3] (item, i0, j0), i0 <= j0,
+    are the launch's output tiles, largest item first; Jt needs
+    ``n_cols`` columns at least (the highest quote row + 1)."""
+    ks: tuple                        # k_g per group
+    ibase: tuple                     # [n_groups + 1] item ranges
+    n_out: int
+    n_cols: int
+    order: torch.Tensor              # [n_slots] int64
+    s_idx: torch.Tensor              # [n_slots] int32, by item
+    e_idx: torch.Tensor
+    p_idx: torch.Tensor
+    sitem: torch.Tensor              # [n_slots] int64: each slot's item
+    iptr: torch.Tensor               # [n_items + 1] int32
+    igrp: torch.Tensor               # [n_items] int32
+    ioff: torch.Tensor               # [n_items] int32
+    qptr: torch.Tensor               # [n_groups + 1] int32
+    qrows: torch.Tensor              # [sum k] int32
+    tiles: torch.Tensor              # [n_tiles, 3] int32
+
+    def blocks(self, flat: torch.Tensor) -> list:
+        """The flat output as one [n_items_g, k_g, k_g] view per group."""
+        out, off = [], 0
+        for g, k in enumerate(self.ks):
+            n = self.ibase[g + 1] - self.ibase[g]
+            out.append(flat[off:off + n * k * k].view(n, k, k))
+            off += n * k * k
+        return out
+
+
+def pertrade_tables(rows: Sequence, n_items: Sequence[int], item, s_idx,
+                    e_idx, p_idx, device=None) -> PertradeTables:
+    """K3's tables from host arrays: per group its quote rows (``rows``)
+    and trade count (``n_items``; the items are numbered group by group),
+    and per slot its item and DF columns (s, e, p), in any order."""
+    ks = [int(np.asarray(r).shape[0]) for r in rows]
+    n_it = np.asarray(n_items, dtype=np.int64)
+    ibase = np.concatenate([[0], np.cumsum(n_it)]).astype(np.int64)
+    n_items_all = int(ibase[-1])
+    item = np.asarray(item, dtype=np.int64)
+    order = np.argsort(item, kind="stable")
+    counts = np.bincount(item, minlength=n_items_all)
+    igrp = np.repeat(np.arange(len(ks)), n_it)
+    k_of = np.asarray(ks, dtype=np.int64)[igrp]
+    ioff = np.concatenate([[0], np.cumsum(k_of * k_of)])
+    if ioff[-1] >= 2 ** 31:
+        raise ValueError(f"{ioff[-1]} output values exceed int32 offsets")
+    # the upper-triangle tiles of each item, items with most slots first
+    T = PERTRADE_TILE
+    tl = []
+    for i in np.argsort(-counts, kind="stable"):
+        starts = range(0, int(k_of[i]), T)
+        tl += [(i, a, b) for a in starts for b in starts if a <= b]
+    tiles = np.asarray(tl, dtype=np.int64).reshape(-1, 3)
+
+    def dev(a, dtype):
+        return torch.as_tensor(np.ascontiguousarray(a, dtype=dtype),
+                               device=device)
+
+    qrows = np.concatenate([np.asarray(r) for r in rows]) if rows \
+        else np.zeros(0)
+    return PertradeTables(
+        ks=tuple(ks), ibase=tuple(int(x) for x in ibase),
+        n_out=int(ioff[-1]),
+        n_cols=int(qrows.max()) + 1 if qrows.size else 0,
+        order=dev(order, np.int64),
+        s_idx=dev(np.asarray(s_idx)[order], np.int32),
+        e_idx=dev(np.asarray(e_idx)[order], np.int32),
+        p_idx=dev(np.asarray(p_idx)[order], np.int32),
+        sitem=dev(item[order], np.int64),
+        iptr=dev(np.concatenate([[0], np.cumsum(counts)]), np.int32),
+        igrp=dev(igrp, np.int32), ioff=dev(ioff[:-1], np.int32),
+        qptr=dev(np.concatenate([[0], np.cumsum(ks)]), np.int32),
+        qrows=dev(qrows, np.int32),
+        tiles=dev(tiles, np.int32))
+
+
+def pertrade_quad_form_plain(Jt: torch.Tensor, dfs: torch.Tensor,
+                             w: torch.Tensor, tab: PertradeTables) -> list:
+    """Plain twin of K3, written from the JAX package's per-slot form
+    (``einsum("p,pn,pm->pnm")`` and a scatter-add by trade, chunked):
+    Jt [n_grid, N], dfs [n_grid], the slot weights ``w`` in the caller's
+    slot order and the tables of :func:`pertrade_tables` -> per group the
+    [n_items_g, k_g, k_g] term-1 blocks. A slot's block is the rank-2
+    form w (X Yᵀ + Y Xᵀ) over the group's rows, X = (Ja - (a/b) Jb)/b,
+    Y = Jc - (c/b) Jb (the JAX package's four products regrouped, as in
+    K2's twin)."""
+    ws = w[tab.order]
+    iptr = tab.iptr.tolist()
+    qptr = tab.qptr.tolist()
+    out = []
+    for g, k in enumerate(tab.ks):
+        i0, i1 = tab.ibase[g], tab.ibase[g + 1]
+        rows = tab.qrows[qptr[g]:qptr[g + 1]].long()
+        blk = torch.zeros((i1 - i0, k, k), dtype=Jt.dtype, device=Jt.device)
+        lo, hi = iptr[i0], iptr[i1]
+        # bound the [chunk, k, k] per-slot temporary near 200 MB f64
+        chunk = max(1, int(2.5e7 // max(k * k, 1)))
+        for c0 in range(lo, hi, chunk):
+            sl = slice(c0, min(hi, c0 + chunk))
+            s, e, p = (x[sl].long() for x in (tab.s_idx, tab.e_idx,
+                                              tab.p_idx))
+            a, b, c = dfs[s], dfs[e], dfs[p]
+            Ja, Jb, Jc = (Jt[x][:, rows] for x in (s, e, p))
+            X = (Ja - (a / b)[:, None] * Jb) / b[:, None]
+            Y = Jc - (c / b)[:, None] * Jb
+            blk.index_add_(0, tab.sitem[sl] - i0,
+                           torch.einsum("p,pn,pm->pnm", ws[sl], X, Y))
+        out.append(blk + blk.transpose(1, 2))
+    return out
+
+
+def pertrade_quad_form(Jt: torch.Tensor, dfs: torch.Tensor, w: torch.Tensor,
+                       tab: PertradeTables) -> list:
+    """K3: per group the [n_items_g, k_g, k_g] term-1 blocks (see
+    :func:`pertrade_quad_form_plain`), every group in one launch."""
+    if not Jt.is_cuda:
+        return pertrade_quad_form_plain(Jt, dfs, w, tab)
+    dev = Jt.device
+    _need(Jt, "Jt", torch.float64, 2, dev)
+    _need(dfs, "dfs", torch.float64, 1, dev)
+    _need(w, "w", torch.float64, 1, dev)
+    n_grid, N = Jt.shape
+    if dfs.shape[0] != n_grid:
+        raise ValueError(f"dfs {tuple(dfs.shape)} vs Jt {tuple(Jt.shape)}")
+    if w.shape[0] != tab.order.shape[0]:
+        raise ValueError(f"{w.shape[0]} slot weights, the tables "
+                         f"{tab.order.shape[0]} slots")
+    if tab.n_cols > N:
+        raise ValueError(f"the tables need {tab.n_cols} Jt columns, Jt "
+                         f"has {N}")
+    for name in ("s_idx", "e_idx", "p_idx", "iptr", "igrp", "ioff", "qptr",
+                 "qrows"):
+        _need(getattr(tab, name), name, torch.int32, 1, dev)
+    _need(tab.tiles, "tiles", torch.int32, 2, dev)
+    out = torch.empty(tab.n_out, dtype=torch.float64, device=dev)
+    n_tiles = tab.tiles.shape[0]
+    if n_tiles:
+        ws = w[tab.order].contiguous()
+        build_kernels()
+        _check(_lib.pertrade_quad_f64(
+            Jt.data_ptr(), N, dfs.data_ptr(), tab.tiles.data_ptr(), n_tiles,
+            tab.iptr.data_ptr(), tab.igrp.data_ptr(), tab.ioff.data_ptr(),
+            tab.qptr.data_ptr(), tab.qrows.data_ptr(), tab.s_idx.data_ptr(),
+            tab.e_idx.data_ptr(), tab.p_idx.data_ptr(), ws.data_ptr(),
+            out.data_ptr(), _stream(dev)), "pertrade_quad_f64")
+        pertrade_quad_form.launches += 1
+    return tab.blocks(out)
+
+
+pertrade_quad_form.launches = 0

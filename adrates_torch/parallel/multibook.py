@@ -24,7 +24,10 @@ its stage topology, else from the generic split over the whole curve
 graph (``vmap(jvp)`` for J, ``jacfwd(grad(..))`` of g0·grids for term2).
 ``make_staged_multibook_fn`` runs the same structured pass as separately
 callable regions; ``warmup_multibook`` builds either and makes the first
-call.
+call. ``make_per_trade_delta_fn`` (every trade's ladder, on K1) and
+``make_per_trade_gamma_fn`` (selected trades' gammas, term 1 on the K3
+kernel) give per-trade risk at one quote vector; ``pertrade_blocks.py``
+every trade's own gamma block.
 
 Ported here: OIS, XCCY and inflation curves (the three simple
 interpolation schemes), OIS trades under natural or foreign collateral,
@@ -252,9 +255,10 @@ class CurveBasket:
         int array into the dense [C*U] axis) — the compaction
         compile_multibook applies. Sets the grid-axis metadata
         (``grid_sel``, ``n_grid``, ``grid_dense``, ``grid_inv``,
-        ``grid_curve_of``, ``grid_keep_of``, ``grid_offsets``: the
-        per-curve rows the structured risk pass places into) and the
-        host stage plans ``bat``/``stages``."""
+        ``grid_curve_of``, ``grid_local_of`` (each column's unique-time
+        index), ``grid_keep_of``, ``grid_offsets``: the per-curve rows
+        the structured risk pass places into) and the host stage plans
+        ``bat``/``stages``."""
         ut = np.asarray(unique_times)
         U = ut.shape[0]
         C = self.n_curves
@@ -270,8 +274,8 @@ class CurveBasket:
         inv[grid_sel] = np.arange(self.n_grid, dtype=np.int32)
         self.grid_inv = inv
         self.grid_curve_of = (grid_sel // U).astype(np.int32)
-        local_of = (grid_sel % U).astype(np.int32)
-        self.grid_keep_of = [local_of[self.grid_curve_of == c]
+        self.grid_local_of = (grid_sel % U).astype(np.int32)
+        self.grid_keep_of = [self.grid_local_of[self.grid_curve_of == c]
                              for c in range(C)]
         self.grid_offsets = np.concatenate(
             [[0], np.cumsum([k.shape[0] for k in self.grid_keep_of])]
@@ -1235,8 +1239,8 @@ class DeviceBook:
     aggregate: MultiBookAggregate
     clamp: Optional[ClampSlots]      # per-trade slots (tiled)
     clamp_agg: Optional[ClampSlots]  # the aggregate's view of them
-    sweep: kernels.SweepTables       # K1: per-trade CSR, trade blocks
-    quad: kernels.QuadTables         # K2: trip groups, reduction table
+    sweep: Optional[kernels.SweepTables]  # K1: per-trade CSR, trade blocks
+    quad: Optional[kernels.QuadTables]    # K2: trip groups, reduction table
 
 
 def _f64(a, device) -> torch.Tensor:
@@ -1385,19 +1389,23 @@ def _scenario_risk(grids, q: torch.Tensor, P: dict,
     return out
 
 
+def _even_rows(top: torch.Tensor, bottom: torch.Tensor) -> torch.Tensor:
+    """[top; bottom] ([M, S]) as a view of a buffer with an even row
+    stride, so every row starts on a 16-byte boundary (K1's layout)."""
+    S = top.shape[1]
+    buf = torch.empty((top.shape[0] + bottom.shape[0], S + (S & 1)),
+                      dtype=top.dtype, device=top.device)
+    out = buf[:, :S]
+    out[:top.shape[0]] = top
+    out[top.shape[0]:] = bottom
+    return out
+
+
 def value_table(dfs_all: torch.Tensor,
                 agg: MultiBookAggregate) -> torch.Tensor:
     """The [M, S] value table of the sweep (DF columns then trip values,
-    one S-row per column) as a view with an even row stride, so every
-    row starts on a 16-byte boundary."""
-    S, n_grid = dfs_all.shape
-    T = agg.trip_s.shape[0]
-    buf = torch.empty((n_grid + T, S + (S & 1)), dtype=dfs_all.dtype,
-                      device=dfs_all.device)
-    vT = buf[:, :S]
-    vT[:n_grid] = dfs_all.T
-    vT[n_grid:] = _trip_values(dfs_all, agg).T
-    return vT
+    one S-row per column), rows 16-byte aligned."""
+    return _even_rows(dfs_all.T, _trip_values(dfs_all, agg).T)
 
 
 def clamp_epilogue(pvs: torch.Tensor, dfs_all: torch.Tensor,
@@ -1473,8 +1481,11 @@ def trip_group_arrays(groups, agg: MultiBookAggregate) -> list:
             for g in (groups or [])]
 
 
-def _device_book(inp: BookInputs, device) -> DeviceBook:
-    """The book's tables on ``device``, a lazily tiled book expanded."""
+def _device_book(inp: BookInputs, device, sweep: bool = True,
+                 quad: bool = True) -> DeviceBook:
+    """The book's tables on ``device``, a lazily tiled book expanded;
+    K1's ``sweep`` and K2's ``quad`` tables only where asked for (the
+    per-trade gammas need neither, the ladders no ``quad``)."""
     P = {"bat": bat_to_torch(inp.bat, device),
          "grid_sel": None if inp.grid_sel is None
          else _i64(inp.grid_sel, device)}
@@ -1487,14 +1498,34 @@ def _device_book(inp: BookInputs, device) -> DeviceBook:
         # the base slots with weights times sum(scale)
         clamp_agg = dataclasses.replace(clamp, w=clamp.w * scale.sum())
         clamp = _expand_clamp(clamp, scale, int(inp.tile.base_trades))
-    sweep = sweep_tables_from_cols(expanded_cols(inp, device),
-                                   inp.n_trades,
-                                   inp.n_grid + agg.trip_s.shape[0])
-    quad = kernels.quad_tables(trip_group_arrays(inp.groups, inp.aggregate),
-                               inp.n_quotes, device)
+    sw = None if not sweep else sweep_tables_from_cols(
+        expanded_cols(inp, device), inp.n_trades,
+        inp.n_grid + agg.trip_s.shape[0])
+    qt = None if not quad else kernels.quad_tables(
+        trip_group_arrays(inp.groups, inp.aggregate), inp.n_quotes, device)
     return DeviceBook(grids=inp.grids, params=P, aggregate=agg,
-                      clamp=clamp, clamp_agg=clamp_agg, sweep=sweep,
-                      quad=quad)
+                      clamp=clamp, clamp_agg=clamp_agg, sweep=sw, quad=qt)
+
+
+def _jacobians_fn(inp: BookInputs, book: DeviceBook):
+    """q [Sc, N] -> (dfs [Sc, n_grid], J [Sc, N, n_grid]): the shocked
+    grids and their quote jacobians through the book's risk split (the
+    structured one when the book carries its stage topology)."""
+    P, agg, clamp_agg = book.params, book.aggregate, book.clamp_agg
+    if inp.topology is not None:
+        from .structured_risk import make_structured_parts
+        fwd_delta = make_structured_parts(inp.topology)["fwd_delta"]
+
+        def jac(q):
+            fw = fwd_delta(q, P, agg, clamp_agg)
+            return fw["dfs"], fw["J"]
+        return jac
+
+    def jac(q):
+        out = vmap(lambda x: _scenario_risk(book.grids, x, P, agg,
+                                            clamp_agg, False))(q)
+        return out["dfs"], out["J"].contiguous()
+    return jac
 
 
 def _term1_fn(book: DeviceBook):
@@ -1597,16 +1628,12 @@ def make_multibook_fn(mb: Union[MultiBook, BookInputs], device,
         return _pvs_sweep(dfs_only(qvec, shocks), book.sweep, book.clamp,
                           agg)
 
+    jac = _jacobians_fn(inp, book)
+
     def jacobians(qvec, shocks):
         """(dfs [S, n_grid], J [S, N, n_grid]) of the shocked quotes,
         through the same split as the risk pass."""
-        q = _f64(qvec, device)[None, :] + _f64(shocks, device)
-        if structured:
-            fw = scenario_risk.fwd_delta(q, P, agg, clamp_agg)
-            return fw["dfs"], fw["J"]
-        out = vmap(lambda x: _scenario_risk(grids, x, P, agg, clamp_agg,
-                                            False))(q)
-        return out["dfs"], out["J"].contiguous()
+        return jac(_f64(qvec, device)[None, :] + _f64(shocks, device))
 
     fn.risk_only = risk_only
     fn.pvs_only = pvs_only
@@ -1715,4 +1742,287 @@ def warmup_multibook(mb: MultiBook, n_scenarios: int, device,
     fn(mb.basket.quotes0, np.zeros((n_scenarios, mb.basket.n_quotes)))
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+    return fn
+
+
+# ---------------------------------------------------------------------------
+# per-trade delta ladders and gammas
+# ---------------------------------------------------------------------------
+
+
+def _base_trades(mb: MultiBook) -> int:
+    return mb.tile.base_trades if mb.tile is not None else mb.n_trades
+
+
+def _repeat_slots(owner: np.ndarray, n_base: int, rows_of: np.ndarray):
+    """(k, idx): every slot ``idx`` of base trade ``rows_of[k]``, for each
+    k in order (``owner``: each slot's base trade), so a base trade listed
+    twice gets its slots twice."""
+    order = np.argsort(owner, kind="stable")
+    cnt = np.bincount(owner, minlength=n_base)
+    start = np.concatenate([[0], np.cumsum(cnt)])[:-1]
+    n_k = cnt[rows_of]
+    k = np.repeat(np.arange(rows_of.shape[0]), n_k)
+    pos = np.arange(int(n_k.sum())) - np.repeat(np.cumsum(n_k) - n_k, n_k)
+    return k, order[np.repeat(start[rows_of], n_k) + pos]
+
+
+def _harvest(mb: MultiBook, rows_of, mult) -> Dict[str, np.ndarray]:
+    """The live slots of the base trades ``rows_of`` (one entry per
+    listed trade; weights times ``mult[k]``), as the float64 tables of
+    the JAX package's harvest loops (``pertrade_blocks.py:_harvest_group``,
+    ``multibook.py:2556-2595``), vectorised: ``lin`` [n, 3] (k, column,
+    w), ``trip`` [n, 5] (k, s, e, p, w) and ``clamp`` [n, 9] (k, s, e, p,
+    ia, w, spread, cap, floor), k the position in ``rows_of``."""
+    CU = mb.basket.n_grid
+    agg = mb.aggregate
+    n_base = _base_trades(mb)
+    rows_of = np.asarray(rows_of, dtype=np.int64)
+    mult = np.asarray(mult, dtype=np.float64)
+    t, c, w = [], [], []
+    for cb in mb.cols:
+        wi = np.asarray(cb.w)
+        live = wi != 0.0
+        t.append(np.broadcast_to(np.asarray(cb.row_trade)[:, None],
+                                 wi.shape)[live])
+        c.append(np.asarray(cb.col_idx)[live])
+        w.append(wi[live])
+    t = np.concatenate(t).astype(np.int64) if t else np.zeros(0, np.int64)
+    c = np.concatenate(c).astype(np.int64) if c else np.zeros(0, np.int64)
+    w = np.concatenate(w) if w else np.zeros(0)
+    out = {}
+    is_lin = c < CU
+    k, i = _repeat_slots(t[is_lin], n_base, rows_of)
+    out["lin"] = np.stack([k, c[is_lin][i], w[is_lin][i] * mult[k]],
+                          axis=1)
+    k, i = _repeat_slots(t[~is_lin], n_base, rows_of)
+    ti = c[~is_lin][i] - CU
+    out["trip"] = np.stack(
+        [k, np.asarray(agg.trip_s)[ti], np.asarray(agg.trip_e)[ti],
+         np.asarray(agg.trip_p)[ti], w[~is_lin][i] * mult[k]], axis=1)
+    out["clamp"] = np.zeros((0, 9))
+    if mb.clamp is not None:
+        cl = mb.clamp
+        k, i = _repeat_slots(np.asarray(cl.slot_trade, dtype=np.int64),
+                             n_base, rows_of)
+        f = [np.asarray(getattr(cl, n))[i] for n in
+             ("s_idx", "e_idx", "p_idx", "ia", "w", "spread", "cap",
+              "floor")]
+        f[4] = f[4] * mult[k]
+        out["clamp"] = np.stack([k, *f], axis=1)
+    return out
+
+
+def _slot_dict(lin: np.ndarray, trip: np.ndarray,
+               cl: np.ndarray) -> Dict[str, np.ndarray]:
+    """The harvest tables as named columns (the JAX package's keys)."""
+    ix = np.int32
+    return dict(
+        lin_b=lin[:, 0].astype(ix), lin_c=lin[:, 1].astype(ix),
+        lin_w=lin[:, 2],
+        tr_b=trip[:, 0].astype(ix), tr_s=trip[:, 1].astype(ix),
+        tr_e=trip[:, 2].astype(ix), tr_p=trip[:, 3].astype(ix),
+        tr_w=trip[:, 4],
+        cl_b=cl[:, 0].astype(ix), cl_s=cl[:, 1].astype(ix),
+        cl_e=cl[:, 2].astype(ix), cl_p=cl[:, 3].astype(ix),
+        cl_ia=cl[:, 4], cl_w=cl[:, 5], cl_sp=cl[:, 6], cl_cap=cl[:, 7],
+        cl_lo=cl[:, 8])
+
+
+def _harvest_sel_tables(mb: MultiBook, trade_ids) -> Dict[str, np.ndarray]:
+    """Flat lin / trip / clamp slot tables of a SELECTION of (tiled)
+    trade ids (``adrates_tpu`` ``_harvest_sel_tables`` without its MXU
+    pair tables): b indices local to the selection order, one entry per
+    selection when a base trade is selected in several copies, weights at
+    the copy's tile scale."""
+    sel = np.asarray(trade_ids, dtype=np.int64)
+    if sel.size and (sel.min() < 0 or sel.max() >= mb.n_trades):
+        raise ValueError(f"trade ids outside [0, {mb.n_trades})")
+    if mb.tile is not None:
+        B_base = mb.tile.base_trades
+        mult = np.asarray(mb.tile.scale)[sel // B_base]
+        rows_of = sel % B_base
+    else:
+        mult = np.ones(sel.shape[0])
+        rows_of = sel
+    h = _harvest(mb, rows_of, mult)
+    return _slot_dict(h["lin"], h["trip"], h["clamp"])
+
+
+def _tables_to(tb: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
+    """Slot tables on ``device``: indices int64, the rest f64."""
+    return {k: (_i64(v, device) if np.issubdtype(v.dtype, np.integer)
+                else _f64(v, device)) for k, v in tb.items()}
+
+
+def _clamp_slot_terms(dfs: torch.Tensor, tb: dict):
+    """(u, v, p, ia, rate, wI) of the clamp slots at ``dfs``: the DFs,
+    the safe index alpha, the clipped rate and the weight times the
+    in-band mask (``multibook.py:2730-2738``)."""
+    u, v, p = dfs[tb["cl_s"]], dfs[tb["cl_e"]], dfs[tb["cl_p"]]
+    has = tb["cl_ia"] > 0.0
+    ia = torch.where(has, tb["cl_ia"], 1.0)
+    pre = torch.where(has, (u / v - 1.0) / ia, 0.0) + tb["cl_sp"]
+    rate = torch.clamp(pre, tb["cl_lo"], tb["cl_cap"])
+    inside = (pre > tb["cl_lo"]) & (pre < tb["cl_cap"]) & has
+    return u, v, p, ia, rate, tb["cl_w"] * inside.to(u.dtype)
+
+
+def _slot_gradient(dfs: torch.Tensor, tb: dict, n_b: int, width: int,
+                   local: bool = False) -> torch.Tensor:
+    """[n_b, width] DF-space gradient of each trade's PV, closed form:
+    its linear weights, its trips' partials and its clamp slots'. The
+    scatter columns are the slots' grid columns, or with ``local`` their
+    restricted-row positions (the ``*l`` columns of the blocks' tables)."""
+    sfx = "l" if local else ""
+    G = dfs.new_zeros(n_b * width)
+
+    def add(b, col, val):
+        G.index_add_(0, b * width + col, val)
+
+    add(tb["lin_b"], tb["lin_c" + sfx], tb["lin_w"])
+    a, b_, c_ = dfs[tb["tr_s"]], dfs[tb["tr_e"]], dfs[tb["tr_p"]]
+    w = tb["tr_w"]
+    add(tb["tr_b"], tb["tr_s" + sfx], w * c_ / b_)
+    add(tb["tr_b"], tb["tr_e" + sfx], -w * a * c_ / (b_ * b_))
+    add(tb["tr_b"], tb["tr_p" + sfx], w * (a / b_ - 1.0))
+    u, v, p, ia, rate, wI = _clamp_slot_terms(dfs, tb)
+    add(tb["cl_b"], tb["cl_p" + sfx], tb["cl_w"] * rate)
+    add(tb["cl_b"], tb["cl_s" + sfx], wI * p / (ia * v))
+    add(tb["cl_b"], tb["cl_e" + sfx], -wI * p * u / (ia * v * v))
+    return G.view(n_b, width)
+
+
+def _k3_weights(dfs: torch.Tensor, tb: dict) -> torch.Tensor:
+    """K3's slot weights in :func:`_k3_tables`' slot order: each trip's
+    weight, then each clamp slot's in-band weight over its index alpha
+    (the clamp's Hessian is the trip's times w·inside/ia)."""
+    _, _, _, ia, _, wI = _clamp_slot_terms(dfs, tb)
+    return torch.cat([tb["tr_w"], wI / ia])
+
+
+def _k3_tables(tb: Dict[str, np.ndarray], rows, n_items,
+               device) -> kernels.PertradeTables:
+    """K3's tables over the trip then the clamp slots of ``tb``, whose b
+    columns are the items (groups of ``rows``, ``n_items`` trades each)."""
+    def cat(kind):
+        return np.concatenate([tb["tr_" + kind], tb["cl_" + kind]])
+
+    return kernels.pertrade_tables(rows, n_items, cat("b"), cat("s"),
+                                   cat("e"), cat("p"), device)
+
+
+def _need_multibook(mb) -> MultiBook:
+    if not isinstance(mb, MultiBook):
+        raise LibError("per-trade risk needs the compiled MultiBook (its "
+                       "base trades' slots), not device-layer inputs")
+    return mb
+
+
+def make_per_trade_delta_fn(mb: MultiBook, device):
+    """(qvec [N]) -> [B, N] per-trade delta ladders (ccy units per unit
+    rate; multiply by 1e-4 for per-bp) on ``device``, single scenario
+    (``adrates_tpu`` ``make_per_trade_delta_fn``, its "gather" method in
+    f64).
+
+    Chain-rule split: per-slot dPV/dDF coefficients are closed form and
+    J = d dfs/d quotes comes from the book's risk split at q. The ladder
+    is ``ladder[b, :] = sum over b's slots of w · Jv[col, :]`` with
+    Jv = [Jᵀ; J_trip] [n_grid + T, N], the trip rows in closed form: the
+    PV sweep's own CSR (``fn.book.sweep``) over a value table whose S
+    columns are the N quotes, so K1 computes it in one launch. The cap/
+    floor clamp rows are added in torch. ``fn.prep(qvec)`` gives K1's
+    inputs, ``fn.book`` its tables."""
+    mb = _need_multibook(mb)
+    inp = book_inputs(mb)
+    device = torch.device(device)
+    book = _device_book(inp, device, quad=False)
+    jac = _jacobians_fn(inp, book)
+    agg, cl = book.aggregate, book.clamp
+    if cl is not None:
+        ct = dict(cl_s=cl.s_idx, cl_e=cl.e_idx, cl_p=cl.p_idx, cl_ia=cl.ia,
+                  cl_w=cl.w, cl_sp=cl.spread, cl_cap=cl.cap, cl_lo=cl.floor)
+
+    def prep(qvec):
+        """(dfs [n_grid], Jt [n_grid, N], Jv [n_grid + T, N]) at qvec:
+        K1's value table, rows 16-byte aligned."""
+        dfs, J = jac(_f64(qvec, device)[None, :])
+        dfs, Jt = dfs[0], J[0].T
+        a = dfs[agg.trip_s][:, None]
+        b_ = dfs[agg.trip_e][:, None]
+        c_ = dfs[agg.trip_p][:, None]
+        J_trip = (Jt[agg.trip_s] * (c_ / b_)
+                  - Jt[agg.trip_e] * (a * c_ / (b_ * b_))
+                  + Jt[agg.trip_p] * (a / b_ - 1.0))
+        return dfs, Jt, _even_rows(Jt, J_trip)
+
+    def fn(qvec):
+        dfs, Jt, Jv = prep(qvec)
+        out = kernels.pvs_sweep(Jv, book.sweep).T.contiguous()   # [B, N]
+        if cl is not None:
+            # the clamp slots' DF partials, as in _slot_gradient
+            u, v, p, ia, rate, wI = _clamp_slot_terms(dfs, ct)
+            d = ((cl.w * rate)[:, None] * Jt[cl.p_idx]
+                 + (wI * p / (ia * v))[:, None] * Jt[cl.s_idx]
+                 - (wI * p * u / (ia * v * v))[:, None] * Jt[cl.e_idx])
+            out.index_add_(0, cl.slot_trade, d)
+        return out
+
+    fn.prep = prep
+    fn.book = book
+    return fn
+
+
+def make_per_trade_gamma_fn(mb: MultiBook, trade_ids, device):
+    """(qvec [N]) -> [B_sel, N, N] exact per-trade gamma matrices of the
+    selected (tiled) trades on ``device`` (``adrates_tpu``
+    ``make_per_trade_gamma_fn``; ccy units per unit-rate², 1e-8 for
+    per-bp²), by the book gamma's chain-rule split
+
+        gamma_b = Jᵀ·H_b·J + Σ_k G[b, k] · ∂²dfs_k/∂q∂q.
+
+    G, the trades' DF-space gradients, is closed form over their slots;
+    term 1 is the K3 kernel over their trip and in-band clamp slots at
+    full width (k = N); term 2 is the structured per-stage curve-Hessian
+    contraction (``structured_risk.make_pertrade_curvehess``), or for a
+    book without the stage topology one ``jacfwd(jacfwd(grids))``.
+    ``fn.prep(qvec)`` gives K3's inputs, ``fn.k3`` its tables."""
+    mb = _need_multibook(mb)
+    sel = np.asarray(trade_ids, dtype=np.int64)
+    n_sel = int(sel.shape[0])
+    inp = book_inputs(mb)
+    device = torch.device(device)
+    book = _device_book(inp, device, sweep=False, quad=False)
+    jac = _jacobians_fn(inp, book)
+    N, CU = inp.n_quotes, inp.n_grid
+    host = _harvest_sel_tables(mb, sel)
+    tb = _tables_to(host, device)
+    k3 = _k3_tables(host, [np.arange(N)], [n_sel], device)
+    if inp.topology is not None:
+        from .structured_risk import (make_pertrade_curvehess,
+                                      make_pertrade_tensors)
+        tensors = make_pertrade_tensors(inp.topology)
+        contract = make_pertrade_curvehess(inp.topology)
+
+        def term2(q, G):
+            return contract(tensors(q, book.params), G)
+    else:
+        def term2(q, G):
+            H = jacfwd(jacfwd(lambda x: book.grids(x, book.params)))(q)
+            return (G @ H.reshape(CU, N * N)).reshape(-1, N, N)
+
+    def prep(qvec):
+        """(q, dfs [n_grid], Jt [n_grid, N], K3's slot weights) at qvec."""
+        q = _f64(qvec, device)
+        dfs, J = jac(q[None, :])
+        dfs, Jt = dfs[0], J[0].T.contiguous()
+        return q, dfs, Jt, _k3_weights(dfs, tb)
+
+    def fn(qvec):
+        q, dfs, Jt, w = prep(qvec)
+        t1 = kernels.pertrade_quad_form(Jt, dfs, w, k3)[0]
+        return t1 + term2(q, _slot_gradient(dfs, tb, n_sel, CU))
+
+    fn.prep = prep
+    fn.k3 = k3
     return fn

@@ -30,6 +30,12 @@ placements (fold pads, place rows, place hessian blocks) run outside
 ``vmap`` on the [Sc, ...] results, as slice writes into tensors the
 functions allocate. The trip quad form (term1) is the caller's K2 kernel
 plus the clamp quad form.
+
+The per-trade curve-Hessian contraction (``make_pertrade_tensors``,
+``make_pertrade_curvehess``) ports ``_so_tensor`` and
+``make_pertrade_curvehess`` (``adrates_tpu/parallel/structured_risk.py``
+:688-1033): each stage's second-order response tensors at one quote
+vector, contracted with every trade's DF-space gradient.
 """
 
 from __future__ import annotations
@@ -38,7 +44,7 @@ from typing import Dict, List
 
 import numpy as np
 import torch
-from torch.func import grad, jvp, vmap
+from torch.func import grad, jvp, vjp, vmap
 
 from .curve_batching import (StageTopology, infl_native_ds, ois_native_ds,
                              stage_rows, xccy_boot_ds, xccy_legs_pv,
@@ -544,8 +550,7 @@ def make_structured_risk(topo: StageTopology, term1):
     """The monolithic composition of :func:`make_structured_parts`:
     scenario_risk(q [Sc, N], P, agg, clamp_agg, want_gamma) ->
     {dfs, delta[, gamma]}, with ``term1(J, dfs)`` the caller's trip and
-    clamp quad form; ``scenario_risk.fwd_delta`` is the part that gives
-    J."""
+    clamp quad form."""
     parts = make_structured_parts(topo)
     fwd_delta = parts["fwd_delta"]
     term2 = parts["term2"]
@@ -558,5 +563,260 @@ def make_structured_risk(topo: StageTopology, term1):
                 + term2(q, P, fw["g"], fw["carry"])
         return out
 
-    scenario_risk.fwd_delta = fwd_delta
     return scenario_risk
+
+
+# ---------------------------------------------------------------------------
+# per-trade curve-Hessian contraction
+# ---------------------------------------------------------------------------
+
+
+def _so_tensor(f, x0: torch.Tensor, seeds: torch.Tensor):
+    """Second-order directional-derivative tensor T[i, j, ...] =
+    d^2 f/(d s_i)(d s_j) at x0 (``adrates_tpu`` ``_so_tensor``): one jvp
+    over jvp per seed pair under vmap. The seed bases are member-parallel
+    (outputs of different group members never mix, so one seed carries
+    every member's direction at once). ``f`` may return a tuple."""
+    def one(s1):
+        def inner(x):
+            return jvp(f, (x,), (s1,))[1]
+        return vmap(lambda s2: jvp(inner, (x0,), (s2,))[1])(seeds)
+    return vmap(one)(seeds)
+
+
+def make_pertrade_tensors(topo: StageTopology):
+    """tensors(q [N], P) -> the per-stage response tensors the per-trade
+    curve-Hessian contraction reads (:func:`make_pertrade_curvehess`),
+    at one quote vector, every stage's rows on its full unique-time plan
+    (``row_plan``) as in the JAX package. They do not depend on the
+    trades' DF gradients, so one call serves every trade batch and every
+    signature group. Per OIS/inflation stage si: ``so[si] = (dsT
+    [Qp, Qp, G, P1], rowsT [Qp, Qp, G, U])``; per XCCY stage: ``rowsT``
+    [S, S, G, U] (parents held), or (parents recalibrated) the legs
+    jacobian ``Jpv`` [Qd, G, S], the legs vjp rows ``Jlegs_nat``
+    [S, G, Ld], ``drows2`` [D2, G, U] and ``rowsTx`` [D2, D2, G, U] over
+    (basis | pv | composed foreign) directions, ``drows_fd`` [Lf, G, U]
+    and ``legsT`` [Qd, Qd, G, S]."""
+    meta = _build_meta(topo)
+    stages = meta["stages"]
+    its_of = meta["its_of"]
+    xmeta = meta["xmeta"]
+    C = meta["C"]
+
+    def tensors(q, P):
+        B = P["bat"]
+        ds_of: List = [None] * C
+        dds_st: Dict[int, torch.Tensor] = {}
+        so: Dict[int, dict] = {}
+        for si in meta["ois_first"]:
+            st = stages[si]
+            b = B[st.key]
+            native = ois_native_ds if st.kind == "ois" else infl_native_ds
+
+            def fwd(r, b=b, si=si, native=native):
+                ds = native(r, b)
+                return ds, stage_rows(ds, its_of[si], b["row_plan"])
+
+            q_local = q[b["qidx"]]                         # [G, Qp]
+            seeds = _seeds(q_local.shape[-1], len(st.ids), q)
+            (ds, _), (dds, _) = _jac(fwd, q_local, seeds)
+            dds_st[si] = dds                               # [Qp, G, P1]
+            for mi, cid in enumerate(st.ids):
+                ds_of[cid] = ds[mi]
+            dsT, rowsT = _so_tensor(fwd, q_local, seeds)
+            so[si] = dict(dsT=dsT, rowsT=rowsT)
+
+        for si in meta["xccy_last"]:
+            st = stages[si]
+            b = B[st.key]
+            m = xmeta[si]
+            spreads = q[b["qidx"]]                         # [G, S]
+            G, S = spreads.shape
+            dom_ds = torch.stack([torch.nn.functional.pad(
+                ds_of[c], (0, m["Ld"] - ds_of[c].shape[-1]), value=1.0)
+                for c in st.dom_ids])
+            for_ds = torch.stack([torch.nn.functional.pad(
+                ds_of[c], (0, m["Lf"] - ds_of[c].shape[-1]), value=1.0)
+                for c in st.for_ids])
+
+            if m["parents"] is None:
+                def fwd0(sp, b=b, st=st, si=si, dd=dom_ds, fd=for_ds):
+                    ds = xccy_native_ds(sp, dd, fd, b, st)
+                    return stage_rows(ds, its_of[si], b["row_plan"])
+                so[si] = dict(rowsT=_so_tensor(fwd0, spreads,
+                                               _seeds(S, G, q)))
+                continue
+
+            Qd, Qf = m["Qd"], m["Qf"]
+            D2 = 2 * S + Qf
+            td_legs = q.new_zeros((Qd, G, m["Ld"]))
+            tf2 = q.new_zeros((D2, G, m["Lf"]))
+            for mi, p in enumerate(m["parents"]):
+                td_legs[:p["qd"], mi, :p["p1d"]] = dds_st[p["sd"]][:, p["md"]]
+                tf2[2 * S:2 * S + p["qf"], mi, :p["p1f"]] = \
+                    dds_st[p["sf"]][:, p["mf"]]
+
+            def legs(dd, b=b, st=st):
+                return xccy_legs_pv(dd, b, st)
+
+            pv0, Jpv = _jac(legs, dom_ds, td_legs)         # [Qd, G, S]
+            _, legs_vjp = vjp(legs, dom_ds)
+            Jlegs_nat = vmap(lambda ct: legs_vjp(ct)[0])(
+                _seeds(S, G, q))                           # [S, G, Ld]
+
+            def boot_z(Z, b=b, st=st, si=si, spreads=spreads, pv0=pv0,
+                       for_ds=for_ds, tf2=tf2, S=S):
+                fd2 = for_ds + torch.einsum("gd,dgl->gl", Z, tf2)
+                ds = xccy_boot_ds(spreads + Z[:, :S], pv0 + Z[:, S:2 * S],
+                                  fd2, b, st)
+                return stage_rows(ds, its_of[si], b["row_plan"])
+
+            Z0 = q.new_zeros((G, D2))
+            seedsD = _seeds(D2, G, q)
+            _, drows2 = _jac(boot_z, Z0, seedsD)          # [D2, G, U]
+            rowsTx = _so_tensor(boot_z, Z0, seedsD)       # [D2, D2, G, U]
+
+            def boot_fd(fd, b=b, st=st, si=si, spreads=spreads, pv0=pv0):
+                ds = xccy_boot_ds(spreads, pv0, fd, b, st)
+                return stage_rows(ds, its_of[si], b["row_plan"])
+
+            _, drows_fd = _jac(boot_fd, for_ds,
+                               _seeds(m["Lf"], G, q))      # [Lf, G, U]
+
+            def legs_z(Zd, td_legs=td_legs, dom_ds=dom_ds, legs=legs):
+                return legs(dom_ds + torch.einsum("gd,dgl->gl", Zd,
+                                                  td_legs))
+
+            legsT = _so_tensor(legs_z, q.new_zeros((G, Qd)),
+                               _seeds(Qd, G, q))           # [Qd, Qd, G, S]
+            so[si] = dict(Jpv=Jpv, Jlegs_nat=Jlegs_nat, drows2=drows2,
+                          rowsTx=rowsTx, drows_fd=drows_fd, legsT=legsT)
+        return so
+
+    return tensors
+
+
+def _contract(Gb: torch.Tensor, T: torch.Tensor) -> torch.Tensor:
+    """"bu,iju->bij": [B, U] trade rows against a [I, J, U] tensor."""
+    I, J, U = T.shape
+    return (Gb @ T.reshape(I * J, U).T).reshape(-1, I, J)
+
+
+def make_pertrade_curvehess(topo: StageTopology, restrict=None):
+    """contract(so, G) -> [B, width, width]: sum_k G[b, k] d2 dfs_k/dq dq
+    for every trade b (``adrates_tpu`` ``make_pertrade_curvehess``), with
+    ``so`` the per-stage tensors of :func:`make_pertrade_tensors` at the
+    quote vector. The contraction is linear in G: each member's tensor
+    meets the trades' DF-gradient rows in one matrix product, and the
+    XCCY chain terms flow as per-trade cotangents on the parents' native
+    grids, as in the scenario term 2.
+
+    ``restrict=None``: G is [B, n_grid] on the book's grid axis (re-
+    expanded to the dense [C*U] axis here) and the output [B, N, N].
+    ``restrict=dict(cids=[...], width=k)`` (the per-trade blocks) names a
+    set of curves closed over XCCY parents: G is [B, T*U], each touched
+    curve's full unique-time row in sorted-cid order, and the output the
+    [B, k, k] block of their quote slots (exact: quotes outside it move
+    no touched curve)."""
+    meta = _build_meta(topo)
+    stages = meta["stages"]
+    specs = meta["specs"]
+    C, N, U = meta["C"], meta["N"], meta["U"]
+    xmeta = meta["xmeta"]
+    grid = meta["grid"]
+    if restrict is None:
+        touched = set(range(C))
+        width = N
+        row_pos = {cid: cid for cid in range(C)}
+        segments = meta["segments"]
+    else:
+        touched = set(restrict["cids"])
+        width = int(restrict["width"])
+        row_pos = {cid: i for i, cid in enumerate(sorted(touched))}
+        offmap, blk_off = {}, 0
+        for cid in sorted(touched):
+            offmap[specs[cid].offset] = blk_off
+            blk_off += specs[cid].n_quotes
+        if blk_off != width:
+            raise ValueError(f"restrict width {width}, curves {blk_off}")
+
+        def segments(si, mi):
+            return [(offmap[off], n, lo, nd)
+                    for off, n, lo, nd in meta["segments"](si, mi)]
+
+    def contract(so, G):
+        Bn = G.shape[0]
+        if restrict is None and not grid["dense"]:
+            inv = torch.as_tensor(grid["inv"], dtype=torch.int64,
+                                  device=G.device)
+            G = torch.cat([G, G.new_zeros((Bn, 1))], dim=1)[:, inv]
+        out = G.new_zeros((Bn, width, width))
+
+        def g_rows(cid):
+            if cid not in touched:
+                return None
+            r = row_pos[cid]
+            return G[:, r * U:(r + 1) * U]
+
+        # own-stage terms of the OIS / inflation members
+        for si in meta["ois_first"]:
+            for mi, cid in enumerate(stages[si].ids):
+                Gb = g_rows(cid)
+                if Gb is not None:
+                    place_hess(out, _contract(Gb, so[si]["rowsT"][:, :, mi]),
+                               segments(si, mi))
+
+        # XCCY stages, and the cotangents their parents owe
+        vnat: Dict[int, torch.Tensor] = {}
+        for si in meta["xccy_last"]:
+            st = stages[si]
+            m = xmeta[si]
+            t = so[si]
+            S = m["S"]
+            for mi, cid in enumerate(st.ids):
+                Gb = g_rows(cid)
+                if Gb is None:
+                    continue
+                if m["parents"] is None:
+                    place_hess(out, _contract(Gb, t["rowsT"][:, :, mi]),
+                               segments(si, mi))
+                    continue
+                p = m["parents"][mi]
+                qd_m, qf_m = p["qd"], p["qf"]
+                w_pv = Gb @ t["drows2"][S:2 * S, mi].T      # [B, S]
+                v_dom = w_pv @ t["Jlegs_nat"][:, mi]        # [B, Ld]
+                v_for = Gb @ t["drows_fd"][:, mi].T         # [B, Lf]
+                for cid_par, vb, p1 in ((st.dom_ids[mi], v_dom, p["p1d"]),
+                                        (st.for_ids[mi], v_for, p["p1f"])):
+                    add = vb[:, :p1]
+                    vnat[cid_par] = add if cid_par not in vnat \
+                        else vnat[cid_par] + add
+                Hb = _contract(Gb, t["rowsTx"][:, :, mi])  # [B, D2, D2]
+                Jv = t["Jpv"][:qd_m, mi]                    # [qd, S]
+                bb = Hb[:, :S, :S]
+                bp = Hb[:, :S, S:2 * S]
+                bf = Hb[:, :S, 2 * S:2 * S + qf_m]
+                pp = Hb[:, S:2 * S, S:2 * S]
+                pf = Hb[:, S:2 * S, 2 * S:2 * S + qf_m]
+                ff = Hb[:, 2 * S:2 * S + qf_m, 2 * S:2 * S + qf_m]
+                q_bd = bp @ Jv.T                            # [B, S, qd]
+                q_dd = Jv @ pp @ Jv.T + _contract(
+                    w_pv, t["legsT"][:qd_m, :qd_m, mi])
+                q_df = Jv @ pf                              # [B, qd, qf]
+                Hq = torch.cat([
+                    torch.cat([bb, q_bd, bf], dim=2),
+                    torch.cat([q_bd.transpose(1, 2), q_dd, q_df], dim=2),
+                    torch.cat([bf.transpose(1, 2), q_df.transpose(1, 2),
+                               ff], dim=2)], dim=1)
+                place_hess(out, Hq, segments(si, mi))
+
+        # parent-chain second-order terms
+        for si in meta["ois_first"]:
+            for mi, cid in enumerate(stages[si].ids):
+                vb = vnat.get(cid)
+                if vb is not None:
+                    place_hess(out, _contract(vb, so[si]["dsT"][:, :, mi]),
+                               segments(si, mi))
+        return out
+
+    return contract

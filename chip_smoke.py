@@ -8,7 +8,8 @@ Needs one CUDA card, ``nvcc`` (on PATH or under $CUDA_HOME) and
 first use. Phases:
 
 1. environment: the card's name and power limit, torch/CUDA/nvcc versions;
-2. build: compile and load the kernels (K1 pvs_sweep, K2 gamma quad form);
+2. build: compile and load the kernels (K1 pvs_sweep, K2 gamma quad form,
+   K3 per-trade quad form);
 3. OIS slice: the flagship OIS book (7 curves, N = 144 quotes, 720 OIS
    tiled to 100,080 trades, 100 scenarios) through ``make_multibook_fn``
    on the structured risk split: one cold call, then 3 warm calls;
@@ -35,13 +36,24 @@ first use. Phases:
    and the clamp PV epilogue and clamp quad form timed at its shapes
    (CUDA events, and the device time of their kernels in one
    torch.profiler trace);
+7b. per-trade risk on phase 7's book at ``bench.py``'s shapes: every
+   trade's delta ladder [100,400 x 184] (K1), the dense gammas of 256
+   trades from ``default_rng(7)`` with a capped FRN and an XCCY trade
+   among them (K3 at k = 184) and every trade's own-block gamma (K3 over
+   the signature groups), each cold + 3 warm with its launch counts, its
+   J pass, the blocks builder's time, the groups and k_max, peak memory;
+   checks: the ladders sum to the staged book delta and the blocks to
+   its gamma at zero shock (1e-9 rel), the FRN's and the XCCY trade's
+   ladders against a central FD of their PVs (1e-5 rel), each dense
+   gamma symmetric and equal to its block (1e-10 rel);
 8. each kernel against its plain torch twin on the card, at the shapes
    each path's main function gives it (K2 at that function's scenario
-   chunk), with both times (CUDA events, median), K1's table
-   build time and row reuse, K1's yardstick (one cuSPARSE SpMM of the
-   trade x column CSR by the value table; the port never calls it), and
-   each kernel's bound (bytes over HBM rate or flops over peak f64 rate,
-   from that path's tables);
+   chunk; K1 also at the ladders' Jv [n_grid + T, N]; K3 on both
+   per-trade paths), with both times (CUDA events, median), K1's table
+   build time and row reuse, a yardstick the port never calls (K1: one
+   cuSPARSE SpMM of the trade x column CSR; K3: one torch.bmm of
+   pre-gathered padded operands), and each kernel's bound (bytes over
+   HBM rate or flops over peak f64 rate, from that path's tables);
 9. one bound line per kernel with the card line, the kernels' JSON line
    (time, plain, library, bound, share of bound, launches and launches
    per call on the main path), the card line, and the final JSON line.
@@ -120,13 +132,15 @@ def _reset_launches():
     from adrates_torch.ops import kernels
     kernels.pvs_sweep.launches = 0
     kernels.gamma_quad_form_grouped.launches = 0
+    kernels.pertrade_quad_form.launches = 0
 
 
 def _launches() -> dict:
     from adrates_torch.ops import kernels
     return {"pvs_sweep": kernels.pvs_sweep.launches,
             "gamma_quad_form_grouped":
-                kernels.gamma_quad_form_grouped.launches}
+                kernels.gamma_quad_form_grouped.launches,
+            "pertrade_quad_form": kernels.pertrade_quad_form.launches}
 
 
 def _timed(f):
@@ -466,7 +480,151 @@ def run_flagship_v5(device, n_warm: int = 3):
     _check_staged_vs_mono("flagship_v5", out, mono, q0, shocks)
     del out
     torch.cuda.empty_cache()
-    return mono, mb, q0, shocks, info
+    return fn, mono, mb, q0, shocks, info
+
+
+def _select_trades(mb, n_sel=256):
+    """``bench.py``'s per-trade gamma selection size: 256 of the tiled
+    trades from ``default_rng(7)``, with a capped/floored FRN and a trade
+    on a recalibrated XCCY curve put in place of the last two draws when
+    the draw holds none. Returns (trade ids, position of the FRN, position
+    of the XCCY trade)."""
+    import numpy as np
+
+    from adrates_torch.parallel import pertrade_blocks as tpb
+    B = mb.tile.base_trades
+    sel = np.random.default_rng(7).choice(mb.n_trades, n_sel, replace=False)
+    capped = np.unique(np.asarray(mb.clamp.slot_trade))
+    xccy = [c for c, sp in enumerate(mb.basket.specs) if sp.kind == "xccy"]
+    on_xccy = np.nonzero(tpb._touched_sets(mb)[:, xccy].any(axis=1))[0]
+    if not mb.basket.recalibrate_xccy or not on_xccy.size:
+        raise AssertionError("flagship_v5 has no recalibrated XCCY trade")
+    pos = []
+    for k, cand in ((n_sel - 1, capped), (n_sel - 2, on_xccy)):
+        hit = np.nonzero(np.isin(sel % B, cand))[0]
+        if hit.size:
+            pos.append(int(hit[0]))
+            continue
+        t = int(cand[0]) + B           # the candidate's second copy
+        if t in sel:
+            raise AssertionError(f"trade {t} already selected")
+        sel[k] = t
+        pos.append(k)
+    return sel, pos[0], pos[1]
+
+
+def run_per_trade(device, staged, mono, mb, q0, n_warm: int = 3):
+    """Phase 7b: the per-trade paths on phase 7's flagship_v5 book: every
+    trade's delta ladder (K1), 256 selected trades' dense gammas (K3 at
+    k = N) and every trade's own-block gamma (K3 over the signature
+    groups), each driven cold + ``n_warm`` warm with its own launch
+    counts (``staged`` and ``mono`` are phase 7's fns), then checked.
+    Returns (the three fns, infos)."""
+    import numpy as np
+    import torch
+
+    from adrates_torch.parallel import (dense_from_block,
+                                        make_per_trade_delta_fn,
+                                        make_per_trade_gamma_blocks_fn,
+                                        make_per_trade_gamma_fn)
+    card = _card_line()
+    N = mb.basket.n_quotes
+    sel, i_frn, i_x = _select_trades(mb)
+    infos = {}
+
+    lad_fn = make_per_trade_delta_fn(mb, device)
+    lad, infos["ladders"] = _drive(
+        f"per-trade ladders [{mb.n_trades} x {N}]",
+        lambda q, _: lad_fn(q), q0, None, n_warm)
+    gam_fn = make_per_trade_gamma_fn(mb, sel, device)
+    gam, infos["gamma_256"] = _drive(
+        f"per-trade gammas [{len(sel)} x {N} x {N}]",
+        lambda q, _: gam_fn(q), q0, None, n_warm)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    blk_fn = make_per_trade_gamma_blocks_fn(mb, device)
+    torch.cuda.synchronize()
+    build_ms = (time.perf_counter() - t0) * 1e3
+    groups, infos["blocks"] = _drive(
+        f"per-trade gamma blocks [{mb.n_trades} trades]",
+        lambda q, _: blk_fn(q), q0, None, n_warm)
+    infos["blocks"]["build_ms"] = build_ms
+    k_max = max(k for _, k, _ in blk_fn.group_meta)
+    print(f"per-trade gamma blocks: builder {build_ms:.1f} ms (host "
+          f"harvest + device tables); {blk_fn.n_groups} groups, k_max "
+          f"{k_max}, {sum(bg for *_, bg in blk_fn.group_meta)} base "
+          f"trades, K3 {blk_fn.k3.tiles.shape[0]} tiles; card {card}",
+          flush=True)
+    # the J pass at q0 alone (each fn's prep: grids, structured J and the
+    # kernel's operands), median of 3 separate calls; a warm call adds
+    # the kernel and, for the gammas, the stage tensors and contractions
+    for key, f in (("ladders", lad_fn), ("gamma_256", gam_fn),
+                   ("blocks", blk_fn)):
+        i = infos[key]
+        i["prep_ms"] = statistics.median(_timed(lambda: f.prep(q0))[1]
+                                         for _ in range(3))
+        print(f"per-trade {key}: warm median "
+              f"{statistics.median(i['warm_ms']):.1f} ms; the J pass alone "
+              f"(prep) {i['prep_ms']:.1f} ms; peak {i['peak_gib']:.2f} GiB; "
+              f"card {card}", flush=True)
+    for key, name in (("ladders", "pvs_sweep"), ("gamma_256",
+                                                 "pertrade_quad_form"),
+                      ("blocks", "pertrade_quad_form")):
+        if infos[key][name] <= 0:
+            raise AssertionError(f"{name} was not launched on the per-trade "
+                                 f"{key} path")
+
+    # ---- checks -------------------------------------------------------
+    zero = np.zeros((1, N))
+    book = staged(q0, zero)
+    delta0, gamma0 = book["delta"][0], book["gamma"][0]
+    _check("per-trade sum_b ladder == staged book delta (rel)",
+           float((lad.sum(dim=0) - delta0).abs().max()
+                 / delta0.abs().max()), 1e-9)
+    h = 1e-6
+    for label, i in (("capped FRN", i_frn), ("XCCY", i_x)):
+        t = int(sel[i])
+        j = int(lad[t].abs().argmax())
+        e = np.zeros((1, N))
+        e[0, j] = h
+        fd = float(mono.pvs_only(q0, e)[0, t] - mono.pvs_only(q0, -e)[0, t]) \
+            / (2 * h)
+        _check(f"per-trade ladder of the {label} (trade {t}) at quote {j} "
+               f"vs central FD of its PV (rel)",
+               abs(fd - float(lad[t, j])) / abs(fd), 1e-5)
+    total = torch.zeros((N, N), dtype=torch.float64, device=device)
+    for g in groups:
+        q = torch.as_tensor(g.qidx, dtype=torch.int64, device=device)
+        total[q[:, None], q[None, :]] += g.blocks.sum(dim=0)
+    _check("per-trade blocks summed == staged book gamma (rel)",
+           float((total - gamma0).abs().max() / gamma0.abs().max()), 1e-9)
+    _check("per-trade selected gammas symmetric (rel, worst trade)",
+           max(float((g - g.T).abs().max() / max(float(g.abs().max()),
+                                                  1e-300)) for g in gam),
+           1e-10)
+    where = {int(t): (g, p) for g in groups
+             for p, t in enumerate(g.trade_ids)}
+    worst, n_empty = 0.0, 0
+    for i, t in enumerate(sel):
+        if int(t) not in where:
+            # a trade with no live slot is in no group, and its dense
+            # gamma is exactly zero
+            n_empty += 1
+            if bool(gam[i].any()):
+                raise AssertionError(f"trade {t} is in no block group but "
+                                     f"has a nonzero gamma")
+            continue
+        g, p = where[int(t)]
+        d = torch.as_tensor(dense_from_block(g, p, N), device=device)
+        worst = max(worst, float((d - gam[i]).abs().max()
+                                 / gam[i].abs().max()))
+    _check(f"per-trade selected gamma == dense_from_block (rel, worst "
+           f"trade; {n_empty} trades without a live slot exactly zero)",
+           worst, 1e-10)
+    infos["n_groups"], infos["k_max"] = blk_fn.n_groups, k_max
+    del lad, gam, groups, book, total
+    torch.cuda.empty_cache()
+    return (lad_fn, gam_fn, blk_fn), infos
 
 
 # Peak rates of one H100 SXM at its 700 W limit (NVIDIA's data sheet):
@@ -607,6 +765,172 @@ def compare_kernels(path, fn, mb, q0, shocks, device, chunk):
     ]
 
 
+def _k3_operands(Jt, dfs, w, tab):
+    """The yardstick's operands: per item the padded [2K, k_max] stacks
+    L = [w X; Y] and R = [Y; w X] of its slots (K the most slots of an
+    item, k_max the widest group; pad rows and columns zero), so that
+    Lᵀ R is its block."""
+    import torch
+    n_grid, N = Jt.shape
+    ws = w[tab.order]
+    counts = (tab.iptr[1:] - tab.iptr[:-1]).long()
+    K = max(int(counts.max()), 1)
+    k_max = max(tab.ks)
+    n_items = counts.shape[0]
+    rows = torch.full((len(tab.ks), k_max), N, dtype=torch.int64,
+                      device=Jt.device)
+    qptr = tab.qptr.tolist()
+    for g, k in enumerate(tab.ks):
+        rows[g, :k] = tab.qrows[qptr[g]:qptr[g + 1]].long()
+    Jp = torch.cat([Jt, Jt.new_zeros((n_grid, 1))], dim=1)
+    it = tab.sitem
+    sel = rows[tab.igrp.long()[it]]                       # [nnz, k_max]
+    s, e, p = (x.long()[:, None] for x in (tab.s_idx, tab.e_idx,
+                                           tab.p_idx))
+    a, b, c = dfs[s], dfs[e], dfs[p]
+    X = (Jp[s, sel] - (a / b) * Jp[e, sel]) / b
+    Y = Jp[p, sel] - (c / b) * Jp[e, sel]
+    pos = torch.arange(it.shape[0], device=Jt.device) - tab.iptr.long()[it]
+    L = Jt.new_zeros((n_items, 2 * K, k_max))
+    R = torch.zeros_like(L)
+    L[it, pos] = ws[:, None] * X
+    L[it, K + pos] = Y
+    R[it, pos] = Y
+    R[it, K + pos] = ws[:, None] * X
+    return L, R
+
+
+def _k3_bytes_flops(tab, n_grid: int, n_quotes: int):
+    """The bytes K3's function must move and its flops (4 k^2 per slot),
+    from the tables. Bytes: the slot table; the Jt values its items need,
+    each (grid column, quote row) pair once across items and groups (a
+    group's k quote rows of every column one of its slots names), as K2's
+    bound counts J; the DFs it reads; the output. Also returns the Jt
+    bytes needed and those read item by item (each item's distinct
+    columns, k wide), which the kernel gathers."""
+    import numpy as np
+    it = tab.sitem.cpu().numpy().astype(np.int64)
+    cols = [x.cpu().numpy().astype(np.int64) for x in (tab.s_idx, tab.e_idx,
+                                                       tab.p_idx)]
+    igrp = tab.igrp.cpu().numpy().astype(np.int64)
+    ks = np.asarray(tab.ks, dtype=np.int64)
+    k_of = ks[igrp]
+    qrows = tab.qrows.cpu().numpy().astype(np.int64)
+    qptr = tab.qptr.cpu().numpy().astype(np.int64)
+    # each group's distinct columns, then each column's k_g quote rows
+    gc = np.unique(np.concatenate([igrp[it] * n_grid + c for c in cols]))
+    g, c = gc // n_grid, gc % n_grid
+    n = ks[g]
+    pos = np.arange(int(n.sum())) - np.repeat(np.cumsum(n) - n, n)
+    q = qrows[np.repeat(qptr[g], n) + pos]
+    j_bytes = 8 * np.unique(np.repeat(c, n) * n_quotes + q).size
+    per_item = np.unique(np.concatenate([it * n_grid + c for c in cols]))
+    j_item_bytes = 8 * int(k_of[per_item // n_grid].sum())
+    nnz = it.shape[0]
+    nbytes = (20 * nnz + 4 * (k_of.shape[0] + 1) + j_bytes
+              + 8 * np.unique(np.concatenate(cols)).size + 8 * tab.n_out)
+    return nbytes, 4.0 * float((k_of[it] ** 2).sum()), j_bytes, j_item_bytes
+
+
+def compare_per_trade_kernels(fns, q0, device):
+    """Phase 8, the per-trade rows: K1 at the ladders' shape (Jv as the
+    value table, the N quotes as its columns) and K3 on the selected and
+    the blocks path, each against its twin, with its bound and
+    yardstick; returns the records (without launch counts)."""
+    import torch
+
+    from adrates_torch.ops import kernels
+    lad_fn, gam_fn, blk_fn = fns
+    records = []
+
+    _, _, Jv = lad_fn.prep(q0)
+    tab = lad_fn.book.sweep
+    M, S = Jv.shape
+    B, nnz = tab.n_trades, int(tab.slot_w.numel())
+    ref = kernels.pvs_sweep_plain(Jv, tab)
+    got = kernels.pvs_sweep(Jv, tab)
+    err = float((got - ref).abs().max())
+    _check("flagship_v5 ladders K1 pvs_sweep vs plain (abs / max|ref|)",
+           err / float(ref.abs().max()), 1e-12)
+    ms = _cuda_ms(lambda: kernels.pvs_sweep(Jv, tab))
+    pms = _cuda_ms(lambda: kernels.pvs_sweep_plain(Jv, tab))
+    with warnings.catch_warnings():          # CSR support is "beta"
+        warnings.simplefilter("ignore", UserWarning)
+        csr = torch.sparse_csr_tensor(tab.tptr.long(), tab.slot_col(),
+                                      tab.slot_w, size=(B, M))
+    Jc = Jv.contiguous()
+    lib = torch.sparse.mm(csr, Jc)
+    _check("flagship_v5 ladders cuSPARSE SpMM vs plain (abs / max|ref|)",
+           float((lib.T - ref).abs().max() / ref.abs().max()), 1e-12)
+    lms = _cuda_ms(lambda: torch.sparse.mm(csr, Jc))
+    nbytes = 4 * (B + 1) + 12 * nnz + 8 * M * S + 8 * S * B
+    bound, by = _bound(nbytes, 2.0 * nnz * S, FP64_FLOPS)
+    print(f"flagship_v5_ladders K1 pvs_sweep Jv [M, N]={[M, S]} B={B}: "
+          f"kernel {ms:.3f} ms, plain {pms:.3f} ms, cuSPARSE {lms:.3f} ms; "
+          f"bound {bound * 1e3:.1f} us ({by}, {nbytes / 1e6:.1f} MB)",
+          flush=True)
+    records.append(dict(
+        name="pvs_sweep", path="flagship_v5_ladders", route="cuda",
+        source="adrates_torch/csrc/pvs_sweep.cu",
+        replaces="adrates_tpu/parallel/multibook.py:2842",
+        max_abs_err=err, ms=ms, plain_ms=pms, library_ms=lms,
+        library="torch.sparse.mm (cuSPARSE SpMM) of the [B, M] trade x "
+                "column CSR by Jv",
+        bound_ms=bound, bound_by=by, share_of_bound=bound / ms))
+    del Jv, Jc, ref, got, lib, csr
+
+    for path, fn, replaces in (
+            ("flagship_v5_gamma_256", gam_fn,
+             "adrates_tpu/parallel/multibook.py:2693"),
+            ("flagship_v5_gamma_blocks", blk_fn,
+             "adrates_tpu/parallel/pertrade_blocks.py:316")):
+        _, dfs, Jt, w = fn.prep(q0)
+        t = fn.k3
+        ref = kernels.pertrade_quad_form_plain(Jt, dfs, w, t)
+        got = kernels.pertrade_quad_form(Jt, dfs, w, t)
+        scale = max(float(r.abs().max()) for r in ref)
+        err = max(float((g - r).abs().max()) for g, r in zip(got, ref))
+        _check(f"{path} K3 pertrade_quad_form vs plain (abs / max|ref|)",
+               err / scale, 1e-12)
+        ms = _cuda_ms(lambda: kernels.pertrade_quad_form(Jt, dfs, w, t))
+        pms = _cuda_ms(lambda: kernels.pertrade_quad_form_plain(Jt, dfs, w,
+                                                                t))
+        L, R = _k3_operands(Jt, dfs, w, t)
+        Lt = L.transpose(1, 2)
+        lib = torch.bmm(Lt, R)
+        lib_err = max(float((lib[i0:i1, :k, :k] - r).abs().max())
+                      for (i0, i1, k), r in zip(
+                          zip(t.ibase[:-1], t.ibase[1:], t.ks), ref))
+        _check(f"{path} K3 yardstick bmm vs plain (abs / max|ref|)",
+               lib_err / scale, 1e-12)
+        lms = _cuda_ms(lambda: torch.bmm(Lt, R))
+        nbytes, flops, j_bytes, j_item = _k3_bytes_flops(t, *Jt.shape)
+        bound, by = _bound(nbytes, flops, FP64_TC_FLOPS)
+        n_items = t.iptr.numel() - 1
+        print(f"{path} K3 pertrade_quad_form: {n_items} items in "
+              f"{len(t.ks)} groups (k {min(t.ks)}..{max(t.ks)}), "
+              f"{t.order.numel()} slots, {t.tiles.shape[0]} tiles: kernel "
+              f"{ms:.3f} ms, plain {pms:.3f} ms, bmm of padded operands "
+              f"{list(L.shape)} {lms:.3f} ms; bound {bound * 1e3:.1f} us "
+              f"({by}, {nbytes / 1e6:.3f} MB of which Jt values needed "
+              f"{j_bytes / 1e6:.3f} MB, read item by item "
+              f"{j_item / 1e6:.3f} MB; {flops / 1e9:.3f} GFLOP)",
+              flush=True)
+        records.append(dict(
+            name="pertrade_quad_form", path=path, route="cuda",
+            source="adrates_torch/csrc/pertrade_quad_form.cu",
+            replaces=replaces, max_abs_err=err, ms=ms, plain_ms=pms,
+            library_ms=lms,
+            library="torch.bmm of the pre-gathered, padded [items, 2K, "
+                    "k_max] operands [w X; Y] and [Y; w X] (gather not "
+                    "timed)",
+            bound_ms=bound, bound_by=by, share_of_bound=bound / ms,
+            jt_needed_mb=j_bytes / 1e6, jt_per_item_mb=j_item / 1e6))
+        del L, R, Lt, lib, ref, got
+    torch.cuda.empty_cache()
+    return records
+
+
 def main() -> int:
     import torch
 
@@ -628,13 +952,15 @@ def main() -> int:
 
     # ---- phase 2: build ------------------------------------------------
     secs = kernels.build_kernels()
-    print(f"build: K1 + K2 built and loaded in {secs:.2f} s "
+    print(f"build: K1, K2 + K3 built and loaded in {secs:.2f} s "
           f"({kernels.library_path().name})", flush=True)
 
-    # ---- phases 3-7 ------------------------------------------------------
+    # ---- phases 3-7b ----------------------------------------------------
     fn_o, mb_o, q_o, sh_o, info_o, info_g = run_ois_slice(device)
     fn_x, mb_x, q_x, sh_x, info_x = run_xccy_book(device)
-    fn_f, mb_f, q_f, sh_f, info_f = run_flagship_v5(device)
+    staged_f, fn_f, mb_f, q_f, sh_f, info_f = run_flagship_v5(device)
+    pt_fns, pt_infos = run_per_trade(device, staged_f, fn_f, mb_f, q_f)
+    del staged_f
     for path, info in (("ois_slice", info_o), ("ois_slice_generic", info_g),
                        ("ois_xccy_book", info_x), ("flagship_v5", info_f)):
         for name in ("pvs_sweep", "gamma_quad_form_grouped"):
@@ -650,6 +976,10 @@ def main() -> int:
                        ("flagship_v5", (fn_f, mb_f, q_f, sh_f))):
         records += compare_kernels(path, *args, device,
                                    chunk=infos[path]["chunk"])
+    records += compare_per_trade_kernels(pt_fns, q_f, device)
+    infos.update(flagship_v5_ladders=pt_infos["ladders"],
+                 flagship_v5_gamma_256=pt_infos["gamma_256"],
+                 flagship_v5_gamma_blocks=pt_infos["blocks"])
     for r in records:
         info = infos[r["path"]]
         r["launches"] = info[r["name"]]

@@ -252,3 +252,82 @@ def test_all_kinds_book_on_cuda_matches_cpu(dev):
             assert _rel_err(out[key].cpu(), ref[key]) <= 1e-12, key
         assert kernels.pvs_sweep.launches == before[0] + 1
         assert kernels.gamma_quad_form_grouped.launches == before[1] + 2
+
+
+def _k3_tables(rng, ks, n_items, n_slots, n_grid, dev):
+    """K3's tables over groups of widths ``ks`` (random quote rows of
+    N = 184) with random slots; of several items, the first has none."""
+    N = 184
+    n_all = sum(n_items)
+    item = rng.integers(min(1, n_all - 1), n_all, n_slots)
+    s, e, p = rng.integers(0, n_grid, (3, n_slots))
+    rows = [np.sort(rng.choice(N, k, replace=False)) for k in ks]
+    return kernels.pertrade_tables(rows, n_items, item, s, e, p, dev)
+
+
+@pytest.mark.parametrize("n_items", [1, 37])
+@pytest.mark.parametrize("k", [12, 40, 97, 184])
+def test_pertrade_kernel_matches_plain(dev, k, n_items):
+    rng = np.random.default_rng(400 + k + n_items)
+    n_grid, n_slots = 500, 60 * n_items
+    tab = _k3_tables(rng, [k], [n_items], n_slots, n_grid, dev)
+    Jt = torch.tensor(rng.normal(size=(n_grid, 184)), device=dev)
+    dfs = torch.tensor(rng.uniform(0.5, 1.0, n_grid), device=dev)
+    w = torch.tensor(rng.normal(size=n_slots), device=dev)
+    before = kernels.pertrade_quad_form.launches
+    got = kernels.pertrade_quad_form(Jt, dfs, w, tab)
+    assert kernels.pertrade_quad_form.launches == before + 1
+    ref = kernels.pertrade_quad_form_plain(Jt, dfs, w, tab)
+    torch.cuda.synchronize()
+    assert _rel_err(got[0], ref[0]) <= 1e-12
+    assert torch.equal(got[0], got[0].transpose(1, 2))
+
+
+def test_pertrade_kernel_ragged_groups(dev):
+    """Groups of widths around the 32-row tile in one launch, items with
+    no slot (exact zeros), slot counts around the 32-slot chunk."""
+    rng = np.random.default_rng(500)
+    ks, n_items = [1, 31, 32, 33, 64, 65, 184], [3, 2, 1, 4, 2, 2, 1]
+    n_grid = 400
+    tab = _k3_tables(rng, ks, n_items, 31 * 4 + 33, n_grid, dev)
+    Jt = torch.tensor(rng.normal(size=(n_grid, 184)), device=dev)
+    dfs = torch.tensor(rng.uniform(0.5, 1.0, n_grid), device=dev)
+    w = torch.tensor(rng.normal(size=31 * 4 + 33), device=dev)
+    got = kernels.pertrade_quad_form(Jt, dfs, w, tab)
+    ref = kernels.pertrade_quad_form_plain(Jt, dfs, w, tab)
+    torch.cuda.synchronize()
+    empty = np.diff(tab.iptr.cpu().numpy()) == 0
+    assert empty.any()
+    for g, r in zip(got, ref):
+        assert g.shape == r.shape
+        assert _rel_err(g, r) <= 1e-12
+    flat = torch.cat([g.reshape(g.shape[0], -1).abs().amax(1) for g in got])
+    assert float(flat[torch.tensor(empty, device=dev)].max()) == 0.0
+
+
+def test_per_trade_paths_on_cuda_match_cpu(dev):
+    """The all-kinds book (clamp slots, XCCY, inflation), tiled x2: the
+    ladders through K1, the selected gammas and the blocks through K3,
+    on the card against the CPU run."""
+    from adrates_torch.parallel import pertrade_blocks as tpb
+    from adrates_torch.utils import CurrencyTypes
+    model = cases.build_all_kinds_model("adrates_torch")
+    _, mb = cases.compile_tiled(
+        "adrates_torch", model, cases.all_kinds_trades("adrates_torch",
+                                                       model),
+        base_currency=CurrencyTypes.USD)
+    q0 = mb.basket.quotes0
+    sel = [int(mb.clamp.slot_trade[0]), 0, mb.n_trades - 1]
+    k1, k3 = kernels.pvs_sweep.launches, kernels.pertrade_quad_form.launches
+    lad = tmb.make_per_trade_delta_fn(mb, dev)(q0)
+    gam = tmb.make_per_trade_gamma_fn(mb, sel, dev)(q0)
+    blk = tpb.make_per_trade_gamma_blocks_fn(mb, dev)(q0)
+    torch.cuda.synchronize()
+    assert kernels.pvs_sweep.launches == k1 + 1
+    assert kernels.pertrade_quad_form.launches == k3 + 2
+    assert _rel_err(lad.cpu(), tmb.make_per_trade_delta_fn(mb, "cpu")(q0)) \
+        <= 1e-12
+    assert _rel_err(gam.cpu(), tmb.make_per_trade_gamma_fn(
+        mb, sel, "cpu")(q0)) <= 1e-12
+    for g, r in zip(blk, tpb.make_per_trade_gamma_blocks_fn(mb, "cpu")(q0)):
+        assert _rel_err(g.blocks.cpu(), r.blocks) <= 1e-12

@@ -378,3 +378,131 @@ def test_wrappers_build_nothing_for_cpu_tensors(tmp_path, monkeypatch):
     dfs = torch.full((2, 4), 0.9, dtype=torch.float64)
     assert kernels.gamma_quad_form_grouped(
         J, dfs, kernels.quad_tables([g], 3)).shape == (2, 3, 3)
+    k3 = kernels.pertrade_tables([np.arange(2)], [1], [0], [0], [1], [2])
+    assert kernels.pertrade_quad_form(
+        torch.ones((4, 3), dtype=torch.float64), dfs[0],
+        torch.ones(1, dtype=torch.float64), k3)[0].shape == (1, 2, 2)
+
+
+def _k3_case(rng, N, n_grid, groups):
+    """Slot tables over ``groups`` ([(rows, n_items, trips, clamps)]):
+    random trips, and clamp slots with index alphas, spreads and bands
+    that put about half of them inside the band (and one without an
+    index alpha), as the harvest's named columns; items numbered group
+    by group."""
+    tr, cl = [], []
+    base = 0
+    for rows, n_items, n_tr, n_cl in groups:
+        b = rng.integers(0, n_items, n_tr) + base
+        tr.append(np.stack([b, *rng.integers(0, n_grid, (3, n_tr)),
+                            rng.normal(0.0, 1e6, n_tr)], axis=1))
+        b = rng.integers(0, n_items, n_cl) + base
+        ia = rng.uniform(0.2, 0.6, n_cl)
+        ia[:1] = 0.0
+        lo = rng.uniform(-0.2, 0.0, n_cl)
+        cap = lo + rng.uniform(0.0, 0.4, n_cl)
+        cl.append(np.stack([b, *rng.integers(0, n_grid, (3, n_cl)), ia,
+                            rng.normal(0.0, 1e6, n_cl),
+                            rng.normal(0.0, 0.01, n_cl), cap, lo], axis=1))
+        base += n_items
+    return tmb._slot_dict(np.zeros((0, 3)), np.concatenate(tr),
+                          np.concatenate(cl))
+
+
+def _k3_dense_reference(Jt, dfs, tb, groups):
+    """Each item's block as the sum over its slots of Jg H Jgᵀ: H the
+    slot's 3 x 3 DF Hessian (of w (a/b - 1) c for a trip; of
+    w clip((a/b - 1)/ia + spread, floor, cap) c for a clamp slot, which is
+    the trip's times 1/ia inside the band and 0 outside it or without an
+    index alpha), Jg the [k, 3] quote jacobians of its three DFs."""
+    out, base = [], 0
+    for rows, n_items, _, _ in groups:
+        out.append(np.zeros((n_items, len(rows), len(rows))))
+    ibase = np.cumsum([0] + [g[1] for g in groups])
+
+    def add(b, s, e, p, w):
+        g = int(np.searchsorted(ibase, b, side="right") - 1)
+        rows = groups[g][0]
+        a_, b_, c_ = dfs[s], dfs[e], dfs[p]
+        H = w * np.array([[0.0, -c_ / b_**2, 1.0 / b_],
+                          [-c_ / b_**2, 2 * a_ * c_ / b_**3, -a_ / b_**2],
+                          [1.0 / b_, -a_ / b_**2, 0.0]])
+        Jg = Jt[[s, e, p]][:, rows].T
+        out[g][b - ibase[g]] += Jg @ H @ Jg.T
+
+    for i in range(tb["tr_b"].shape[0]):
+        add(tb["tr_b"][i], tb["tr_s"][i], tb["tr_e"][i], tb["tr_p"][i],
+            tb["tr_w"][i])
+    for i in range(tb["cl_b"].shape[0]):
+        ia = tb["cl_ia"][i]
+        u, v = dfs[tb["cl_s"][i]], dfs[tb["cl_e"][i]]
+        pre = ((u / v - 1.0) / ia if ia > 0 else 0.0) + tb["cl_sp"][i]
+        if ia > 0 and tb["cl_lo"][i] < pre < tb["cl_cap"][i]:
+            add(tb["cl_b"][i], tb["cl_s"][i], tb["cl_e"][i], tb["cl_p"][i],
+                tb["cl_w"][i] / ia)
+    return out
+
+
+@pytest.mark.parametrize("which", ["ragged", "full_width"])
+def test_pertrade_quad_form_plain_matches_dense_reference(which):
+    """K3's twin on trip and clamp slots (in and out of the band) against
+    an independent dense reference: groups of ragged width with items
+    that have no slot, and one group at the full width k = N = 184."""
+    rng = np.random.default_rng(7 if which == "ragged" else 8)
+    N, n_grid = 184, 300
+    if which == "ragged":
+        groups = [(np.sort(rng.choice(N, k, replace=False)), n, t, c)
+                  for k, n, t, c in ((1, 2, 5, 2), (5, 3, 40, 9),
+                                     (37, 6, 70, 30), (33, 4, 0, 6))]
+    else:
+        groups = [(np.arange(N), 3, 50, 20)]
+    tb = _k3_case(rng, N, n_grid, groups)
+    Jt = rng.normal(size=(n_grid, N))
+    dfs = rng.uniform(0.5, 1.0, n_grid)
+    ref = _k3_dense_reference(Jt, dfs, tb, groups)
+    tab = tmb._k3_tables(tb, [g[0] for g in groups], [g[1] for g in groups],
+                         "cpu")
+    dfs_t = torch.tensor(dfs)
+    w = tmb._k3_weights(dfs_t, tmb._tables_to(tb, "cpu"))
+    inside = (w[tb["tr_b"].shape[0]:] != 0).sum()
+    assert 0 < inside < tb["cl_b"].shape[0]
+    before = kernels.pertrade_quad_form.launches
+    got = kernels.pertrade_quad_form(torch.tensor(Jt), dfs_t, w, tab)
+    assert kernels.pertrade_quad_form.launches == before
+    assert len(got) == len(groups)
+    for g, r in zip(got, ref):
+        assert g.shape == r.shape
+        np.testing.assert_allclose(g.numpy(), r, rtol=0,
+                                   atol=1e-12 * np.abs(r).max())
+        assert torch.equal(g, g.transpose(1, 2))
+
+
+def test_pertrade_tables_cover_each_block_once():
+    """The tiles (i0 <= j0, and their mirrors) cover every item's k x k
+    block exactly once, largest item first; the slot CSR holds each
+    slot once, by item."""
+    rng = np.random.default_rng(11)
+    ks, n_items = [1, 32, 33, 97, 184], [2, 1, 3, 1, 2]
+    item = rng.integers(0, sum(n_items), 200)
+    s, e, p = rng.integers(0, 50, (3, 200))
+    tab = kernels.pertrade_tables([np.arange(k) for k in ks], n_items, item,
+                                  s, e, p)
+    assert tab.n_out == sum(n * k * k for n, k in zip(n_items, ks))
+    cover = np.zeros(tab.n_out, dtype=np.int64)
+    ioff = tab.ioff.numpy()
+    k_of = np.repeat(ks, n_items)
+    for i, i0, j0 in tab.tiles.numpy():
+        k = k_of[i]
+        blk = np.zeros((k, k), dtype=np.int64)
+        blk[i0:i0 + 32, j0:j0 + 32] += 1
+        if i0 != j0:
+            blk[j0:j0 + 32, i0:i0 + 32] += 1
+        cover[ioff[i]:ioff[i] + k * k] += blk.ravel()
+    assert (cover == 1).all()
+    counts = np.diff(tab.iptr.numpy())
+    np.testing.assert_array_equal(counts, np.bincount(item,
+                                                      minlength=len(k_of)))
+    first = tab.tiles.numpy()[:, 0]
+    assert (np.diff(counts[first]) <= 0).all()
+    np.testing.assert_array_equal(tab.s_idx.numpy(), s[tab.order.numpy()])
+    np.testing.assert_array_equal(tab.sitem.numpy(), np.sort(item))

@@ -461,3 +461,39 @@ def all_kinds_trades(pkg: str, model):
     fix-fix XCCY swaps, a ZCIS and a YoY swap."""
     return credit_trades_for(pkg, model) + fixed_xccy_trades(pkg, model) \
         + infl_trades_for(pkg, model)[:2]
+
+
+PERTRADE_BOOKS = ["ois", "xccy_recal", "xccy_held", "credit", "infl",
+                  "all_kinds"]
+
+
+def pertrade_book(pkg: str, name: str):
+    """The tiled book ``name`` (one of PERTRADE_BOOKS) of the per-trade
+    tests, compiled through ``pkg``."""
+    if name == "ois":
+        return compile_book(pkg, build_model(pkg))[1]
+    if name.startswith("xccy"):
+        return compile_xccy_book(pkg, build_xccy_model(pkg),
+                                 recalibrate_xccy=name == "xccy_recal")
+    if name == "credit":
+        m = build_credit_model(pkg)
+        return compile_tiled(pkg, m, credit_trades_for(pkg, m),
+                             n_copies=3)[1]
+    if name == "infl":
+        m = build_infl_model(pkg)
+        return compile_tiled(pkg, m, infl_trades_for(pkg, m))[1]
+    m = build_all_kinds_model(pkg)
+    usd = importlib.import_module(f"{pkg}.utils").CurrencyTypes.USD
+    return compile_tiled(pkg, m, all_kinds_trades(pkg, m),
+                         base_currency=usd)[1]
+
+
+def pertrade_selection(mb) -> list:
+    """A base trade in two copies (a capped/floored FRN where the book
+    has clamp slots), then the first and last base trades of the last
+    copy."""
+    B = mb.tile.base_trades
+    t = int(np.asarray(mb.clamp.slot_trade)[0]) if mb.clamp is not None \
+        else 1
+    last = mb.n_trades - B
+    return [t, B + t, last, mb.n_trades - 1]
