@@ -19,8 +19,8 @@ book's device, by :func:`sweep_tables` (K1: a per-trade CSR of live
 :func:`quad_tables` (K2: the trip groups, the launch's work list of
 group row blocks, and the table that sums the groups' blocks into G) and
 :func:`pertrade_tables` (K3: groups of quote rows, their trades' slot
-CSR and the launch's output tiles). The plain twins read the same
-tables.
+CSR and the launch's work list of units packed into blocks). The plain
+twins read the same tables.
 
 Dispatch: a wrapper given CPU tensors runs the plain twin; given CUDA
 tensors it launches the kernel or raises. Nothing falls back. Each
@@ -69,8 +69,8 @@ _SIGNATURES = {
     "gamma_groups_f64": [_P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P,
                          _P, _I, _I, _I, _P, _P, _P],
     "gamma_reduce_f64": [_P, _I, _I, _P, _P, _I, _P, _P],
-    "pertrade_quad_f64": [_P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P,
-                          _P, _P, _P, _P],
+    "pertrade_quad_f64": [_P, _I, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P,
+                          _P, _P, _P],
 }
 
 _lib = None
@@ -506,8 +506,20 @@ gamma_quad_form_grouped.launches = 0
 # K3: per-trade term-1 quad form
 # ---------------------------------------------------------------------------
 
-# output tile edge of a K3 block (csrc/pertrade_quad_form.cu kT)
-PERTRADE_TILE = 32
+# K3's launch geometry (csrc/pertrade_quad_form.cu): warps per block, the
+# most 16 x 8 tiles a warp accumulates, slots per staged segment, the most
+# rows a block stages (the widest item one unit takes whole is 184 rows:
+# its 144 tiles fit 16 warps of 9), the widest and the narrowest
+# chunk a cut item's units pair (96 + 96 rows staged); the SMs of an H100
+# and the least work (pertrade_work) the host balances units to
+PERTRADE_WARPS = 16
+PERTRADE_TPW = 9
+PERTRADE_SEG = 16
+PERTRADE_ROWS = 192
+PERTRADE_CHUNK = 96
+PERTRADE_CHUNK_MIN = 32
+PERTRADE_SMS = 132
+PERTRADE_MIN_WORK = 1024
 
 
 @dataclasses.dataclass(frozen=True)
@@ -516,14 +528,27 @@ class PertradeTables:
     (k_g of them) and items (trades) ``ibase[g]:ibase[g + 1]``; item i
     owns slots ``iptr[i]:iptr[i + 1]`` of (s_idx, e_idx, p_idx), which are
     the caller's slots reordered by item (``order``: the caller's index of
-    each), and its k x k block lands at ``ioff[i]`` of the flat output
-    (``n_out`` values). ``tiles`` [n_tiles, 3] (item, i0, j0), i0 <= j0,
-    are the launch's output tiles, largest item first; Jt needs
-    ``n_cols`` columns at least (the highest quote row + 1)."""
+    each), and its k x k block lands at the sum of the earlier items' k^2
+    in the flat output (``n_out`` values). Jt needs ``n_cols`` columns at least (the highest
+    quote row + 1).
+
+    The launch's work list: ``units`` [n_units, 13] (item, a0, na, b0,
+    nb, row_off, warp0, n_warps, lo, hi, qoff, k, ioff) each cover the
+    item's rows [a0, a0 + na) against [b0, b0 + nb) and the mirror, or
+    with nb = 0 the symmetric block of [a0, a0 + na), staged from block
+    row ``row_off`` (chunk a padded to 16 rows, chunk b to 8) on warps
+    [warp0, warp0 + n_warps), with the item's slots [lo, hi), its group's
+    rows at ``qrows[qoff:qoff + k]`` and its block at ``ioff``; together
+    an item's units cover its block once. ``packs`` [n_packs, 5] (first
+    unit, end unit, segments, staged rows, first row in ``prows``) are the
+    blocks, largest first; ``prows`` [sum of staged rows, 2] holds each
+    staged row's Jt column (-1 for padding) and its unit in the pack;
+    ``rows_max`` the most rows a pack stages."""
     ks: tuple                        # k_g per group
     ibase: tuple                     # [n_groups + 1] item ranges
     n_out: int
     n_cols: int
+    rows_max: int
     order: torch.Tensor              # [n_slots] int64
     s_idx: torch.Tensor              # [n_slots] int32, by item
     e_idx: torch.Tensor
@@ -531,26 +556,145 @@ class PertradeTables:
     sitem: torch.Tensor              # [n_slots] int64: each slot's item
     iptr: torch.Tensor               # [n_items + 1] int32
     igrp: torch.Tensor               # [n_items] int32
-    ioff: torch.Tensor               # [n_items] int32
     qptr: torch.Tensor               # [n_groups + 1] int32
     qrows: torch.Tensor              # [sum k] int32
-    tiles: torch.Tensor              # [n_tiles, 3] int32
+    units: torch.Tensor              # [n_units, 13] int32
+    packs: torch.Tensor              # [n_packs, 5] int32
+    prows: torch.Tensor              # [sum of staged rows, 2] int32
 
     def blocks(self, flat: torch.Tensor) -> list:
-        """The flat output as one [n_items_g, k_g, k_g] view per group."""
-        out, off = [], 0
+        """The flat output as one [n_items_g, k_g, k_g] view per group
+        (one ``as_strided`` each: half the host time of a slice and a
+        view)."""
+        out, off = [], flat.storage_offset()
         for g, k in enumerate(self.ks):
             n = self.ibase[g + 1] - self.ibase[g]
-            out.append(flat[off:off + n * k * k].view(n, k, k))
+            out.append(flat.as_strided((n, k, k), (k * k, k, 1), off))
             off += n * k * k
         return out
+
+
+def _pad8(n):
+    return (n + 7) // 8 * 8
+
+
+def _pad16(n):
+    return (n + 15) // 16 * 16
+
+
+def _rows(na, nb):
+    """Rows a unit stages: chunk a padded to 16, chunk b to 8."""
+    return _pad16(na) + _pad8(nb)
+
+
+def _tiles(na, nb):
+    """A unit's 16 x 8 tiles: for nb = 0 (symmetric) those of chunk a's
+    16-row tiles I against its 8-row tiles J >= 2 I, else all of chunk a
+    against chunk b."""
+    ni, ja = _pad16(na) // 16, _pad8(na) // 8
+    sym = np.where(ja % 2 == 0, ni * (ni + 1), ni * ni)
+    return np.where(np.asarray(nb) == 0, sym, ni * (_pad8(nb) // 8))
+
+
+def pertrade_work(tiles, slots, rows):
+    """A K3 unit's work as the host balances it: its tiles times its
+    4-slot steps plus four steps a tile for the epilogue, and for each
+    16-slot segment half a step a staged row plus 32."""
+    slots = np.maximum(slots, 1)
+    return (np.asarray(tiles) * (-(-slots // 4) + 4)
+            + -(-slots // PERTRADE_SEG) * (np.asarray(rows) // 2 + 32))
+
+
+def _chunk_pairs(i: int, k: int, h: int) -> list:
+    lo = list(range(0, k, h))
+    out = []
+    for j, a in enumerate(lo):
+        na = min(h, k - a)
+        out.append((i, a, na, 0, 0))
+        out += [(i, a, na, b, min(h, k - b)) for b in lo[j + 1:]]
+    return out
+
+
+def _pertrade_work(k_of: np.ndarray, counts: np.ndarray):
+    """K3's (units [n_units, 5 + 3], packs [n_packs, 4]) for items of
+    widths ``k_of`` and slot counts ``counts``. An item is one unit if it
+    stages at most PERTRADE_ROWS rows in tiles its warps hold and its
+    work is at most the target (the launch's work over PERTRADE_SMS, at
+    least PERTRADE_MIN_WORK), else a unit per pair of its row chunks
+    (a <= b), the widest chunk (a multiple of 16 from PERTRADE_CHUNK down
+    to PERTRADE_CHUNK_MIN) whose units stay within the target. Units are
+    ordered by work, largest first, and packed in that order while a pack
+    stays within PERTRADE_ROWS staged rows, the target and PERTRADE_WARPS
+    warps at PERTRADE_TPW tiles each; a pack's spare warps then go, one at
+    a time, to its unit with the most tiles per warp. Columns: (item, a0,
+    na, b0, nb, row_off, warp0, n_warps)."""
+    live = k_of > 0
+    whole = pertrade_work(_tiles(k_of, 0), counts, _rows(k_of, 0))
+    target = max(float(whole[live].sum()) / PERTRADE_SMS, PERTRADE_MIN_WORK)
+    fits = (_pad16(k_of) <= PERTRADE_ROWS) & (
+        _tiles(k_of, 0) <= PERTRADE_TPW * PERTRADE_WARPS)
+    one = live & fits & ((whole <= target) | (k_of <= PERTRADE_CHUNK_MIN))
+    i1 = np.nonzero(one)[0]
+    units = [np.stack([i1, 0 * i1, k_of[i1], 0 * i1, 0 * i1], axis=1)]
+    for i in np.nonzero(live & ~one)[0].tolist():
+        k = int(k_of[i])
+        h = min(PERTRADE_CHUNK, _pad16(k) - 16)
+        while h > PERTRADE_CHUNK_MIN and pertrade_work(
+                _tiles(h, h), counts[i], _rows(h, h)) > target:
+            h -= 16
+        units.append(np.asarray(_chunk_pairs(i, k, h)).reshape(-1, 5))
+    u = np.concatenate(units).astype(np.int64)
+    n_up = _tiles(u[:, 2], u[:, 4])
+    slots = counts[u[:, 0]]
+    rows = _rows(u[:, 2], u[:, 4])
+    work = pertrade_work(n_up, slots, rows)
+    o = np.argsort(-work, kind="stable")
+    u, n_up, slots, work, rows = u[o], n_up[o], slots[o], work[o], rows[o]
+    need = np.maximum(1, -(-n_up // PERTRADE_TPW))
+    seg = -(-slots // PERTRADE_SEG)
+    table = np.zeros((u.shape[0], 8), dtype=np.int64)
+    table[:, :5] = u
+    # greedy packing and the spare warps, on plain ints
+    rl, nl, wl, ul = (x.tolist() for x in (rows, need, work, n_up))
+    warp0, n_warps, packs = [], [], []
+    start = 0
+    while start < len(rl):
+        end, r, wp, wk = start + 1, rl[start], nl[start], wl[start]
+        while (end < len(rl) and r + rl[end] <= PERTRADE_ROWS
+               and wp + nl[end] <= PERTRADE_WARPS
+               and wk + wl[end] <= target):
+            r, wp, wk = r + rl[end], wp + nl[end], wk + wl[end]
+            end += 1
+        nw = nl[start:end]
+        for _ in range(PERTRADE_WARPS - sum(nw)):
+            per = [-(-t // n) for t, n in zip(ul[start:end], nw)]
+            j = per.index(max(per))
+            if per[j] <= 1:
+                break
+            nw[j] += 1
+        acc = 0
+        for n in nw:
+            warp0.append(acc)
+            acc += n
+        n_warps += nw
+        packs.append((start, end, int(seg[start:end].max()), r))
+        start = end
+    packs = np.asarray(packs, dtype=np.int64).reshape(-1, 4)
+    pk = np.repeat(np.arange(len(packs)), packs[:, 1] - packs[:, 0])
+    table[:, 5] = np.cumsum(rows) - rows - (np.cumsum(packs[:, 3])
+                                            - packs[:, 3])[pk]
+    table[:, 6] = warp0
+    table[:, 7] = n_warps
+    return table, packs
 
 
 def pertrade_tables(rows: Sequence, n_items: Sequence[int], item, s_idx,
                     e_idx, p_idx, device=None) -> PertradeTables:
     """K3's tables from host arrays: per group its quote rows (``rows``)
     and trade count (``n_items``; the items are numbered group by group),
-    and per slot its item and DF columns (s, e, p), in any order."""
+    and per slot its item and DF columns (s, e, p), in any order. Every
+    table is built here in the dtype the kernel takes, so a call checks
+    only its own operands."""
     ks = [int(np.asarray(r).shape[0]) for r in rows]
     n_it = np.asarray(n_items, dtype=np.int64)
     ibase = np.concatenate([[0], np.cumsum(n_it)]).astype(np.int64)
@@ -563,34 +707,53 @@ def pertrade_tables(rows: Sequence, n_items: Sequence[int], item, s_idx,
     ioff = np.concatenate([[0], np.cumsum(k_of * k_of)])
     if ioff[-1] >= 2 ** 31:
         raise ValueError(f"{ioff[-1]} output values exceed int32 offsets")
-    # the upper-triangle tiles of each item, items with most slots first
-    T = PERTRADE_TILE
-    tl = []
-    for i in np.argsort(-counts, kind="stable"):
-        starts = range(0, int(k_of[i]), T)
-        tl += [(i, a, b) for a in starts for b in starts if a <= b]
-    tiles = np.asarray(tl, dtype=np.int64).reshape(-1, 3)
+    units, packs = _pertrade_work(k_of, counts)
+    iptr = np.concatenate([[0], np.cumsum(counts)])
+    qptr = np.concatenate([[0], np.cumsum(ks)]).astype(np.int64)
+    it = units[:, 0]
+    units = np.concatenate([units, np.stack(
+        [iptr[it], iptr[it + 1], qptr[igrp[it]], k_of[it], ioff[it]],
+        axis=1).reshape(-1, 5)], axis=1)
+
+    qrows = np.concatenate([np.asarray(r) for r in rows]).astype(np.int64) \
+        if rows else np.zeros(0, dtype=np.int64)
+    # each pack's staged rows, units in order: Jt column (-1 = padding)
+    # and unit in the pack
+    _, a0, na, b0, nb = units[:, :5].T
+    kpa = _pad16(na)
+    n_rows = kpa + _pad8(nb)
+    ur = np.repeat(np.arange(units.shape[0]), n_rows)
+    j = np.arange(ur.shape[0]) - np.repeat(np.cumsum(n_rows) - n_rows, n_rows)
+    jb = j - kpa[ur]
+    loc = np.where(j < kpa[ur], np.where(j < na[ur], a0[ur] + j, -1),
+                   np.where(jb < nb[ur], b0[ur] + jb, -1))
+    pk = np.repeat(np.arange(packs.shape[0]), packs[:, 1] - packs[:, 0])
+    prows = np.stack([
+        np.where(loc >= 0, qrows[units[ur, 10] + np.maximum(loc, 0)], -1),
+        ur - packs[pk, 0][ur]], axis=1)
+    packs = np.concatenate([packs, (np.cumsum(packs[:, 3])
+                                    - packs[:, 3])[:, None]], axis=1)
 
     def dev(a, dtype):
         return torch.as_tensor(np.ascontiguousarray(a, dtype=dtype),
                                device=device)
 
-    qrows = np.concatenate([np.asarray(r) for r in rows]) if rows \
-        else np.zeros(0)
     return PertradeTables(
         ks=tuple(ks), ibase=tuple(int(x) for x in ibase),
         n_out=int(ioff[-1]),
         n_cols=int(qrows.max()) + 1 if qrows.size else 0,
+        rows_max=int(packs[:, 3].max()) if packs.size else 0,
         order=dev(order, np.int64),
         s_idx=dev(np.asarray(s_idx)[order], np.int32),
         e_idx=dev(np.asarray(e_idx)[order], np.int32),
         p_idx=dev(np.asarray(p_idx)[order], np.int32),
         sitem=dev(item[order], np.int64),
-        iptr=dev(np.concatenate([[0], np.cumsum(counts)]), np.int32),
-        igrp=dev(igrp, np.int32), ioff=dev(ioff[:-1], np.int32),
-        qptr=dev(np.concatenate([[0], np.cumsum(ks)]), np.int32),
+        iptr=dev(iptr, np.int32),
+        igrp=dev(igrp, np.int32),
+        qptr=dev(qptr, np.int32),
         qrows=dev(qrows, np.int32),
-        tiles=dev(tiles, np.int32))
+        units=dev(units, np.int32), packs=dev(packs, np.int32),
+        prows=dev(prows, np.int32))
 
 
 def pertrade_quad_form_plain(Jt: torch.Tensor, dfs: torch.Tensor,
@@ -631,7 +794,10 @@ def pertrade_quad_form_plain(Jt: torch.Tensor, dfs: torch.Tensor,
 def pertrade_quad_form(Jt: torch.Tensor, dfs: torch.Tensor, w: torch.Tensor,
                        tab: PertradeTables) -> list:
     """K3: per group the [n_items_g, k_g, k_g] term-1 blocks (see
-    :func:`pertrade_quad_form_plain`), every group in one launch."""
+    :func:`pertrade_quad_form_plain`): one ``torch.empty`` and one launch
+    for every group, the slot weights read through ``order`` by the
+    kernel. The tables' dtypes are fixed by :func:`pertrade_tables`; a
+    call checks its operands and the tables' device."""
     if not Jt.is_cuda:
         return pertrade_quad_form_plain(Jt, dfs, w, tab)
     dev = Jt.device
@@ -647,21 +813,21 @@ def pertrade_quad_form(Jt: torch.Tensor, dfs: torch.Tensor, w: torch.Tensor,
     if tab.n_cols > N:
         raise ValueError(f"the tables need {tab.n_cols} Jt columns, Jt "
                          f"has {N}")
-    for name in ("s_idx", "e_idx", "p_idx", "iptr", "igrp", "ioff", "qptr",
-                 "qrows"):
-        _need(getattr(tab, name), name, torch.int32, 1, dev)
-    _need(tab.tiles, "tiles", torch.int32, 2, dev)
+    if tab.packs.device != dev:
+        raise ValueError(f"the tables are on {tab.packs.device}, expected "
+                         f"{dev}")
     out = torch.empty(tab.n_out, dtype=torch.float64, device=dev)
-    n_tiles = tab.tiles.shape[0]
-    if n_tiles:
-        ws = w[tab.order].contiguous()
-        build_kernels()
+    n_packs = tab.packs.shape[0]
+    if n_packs:
+        if _lib is None:
+            build_kernels()
         _check(_lib.pertrade_quad_f64(
-            Jt.data_ptr(), N, dfs.data_ptr(), tab.tiles.data_ptr(), n_tiles,
-            tab.iptr.data_ptr(), tab.igrp.data_ptr(), tab.ioff.data_ptr(),
-            tab.qptr.data_ptr(), tab.qrows.data_ptr(), tab.s_idx.data_ptr(),
-            tab.e_idx.data_ptr(), tab.p_idx.data_ptr(), ws.data_ptr(),
-            out.data_ptr(), _stream(dev)), "pertrade_quad_f64")
+            Jt.data_ptr(), N, dfs.data_ptr(), w.data_ptr(),
+            tab.order.data_ptr(), tab.packs.data_ptr(), n_packs,
+            tab.rows_max, tab.units.data_ptr(), tab.prows.data_ptr(),
+            tab.s_idx.data_ptr(), tab.e_idx.data_ptr(), tab.p_idx.data_ptr(),
+            out.data_ptr(), _stream(dev)),
+            "pertrade_quad_f64")
         pertrade_quad_form.launches += 1
     return tab.blocks(out)
 

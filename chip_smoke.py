@@ -49,14 +49,20 @@ first use. Phases:
 8. each kernel against its plain torch twin on the card, at the shapes
    each path's main function gives it (K2 at that function's scenario
    chunk; K1 also at the ladders' Jv [n_grid + T, N]; K3 on both
-   per-trade paths), with both times (CUDA events, median), K1's table
+   per-trade paths; K3's blocks also bit for bit symmetric), each timed
+   over 30 calls by CUDA events around the call (``ms``, which holds the
+   wrapper's host work) and by the device time of its kernels in a
+   torch.profiler trace (``device_ms``), the twin's time, K1's table
    build time and row reuse, a yardstick the port never calls (K1: one
-   cuSPARSE SpMM of the trade x column CSR; K3: one torch.bmm of
-   pre-gathered padded operands), and each kernel's bound (bytes over
-   HBM rate or flops over peak f64 rate, from that path's tables);
+   cuSPARSE SpMM of the trade x column CSR; K2 and K3: one torch.bmm of
+   pre-gathered padded [w X; Y] and [Y; w X] operands, K2's over
+   (scenario, group), checked against the twin), and each kernel's bound
+   (bytes over HBM rate or flops over peak f64 rate, from that path's
+   tables);
 9. one bound line per kernel with the card line, the kernels' JSON line
-   (time, plain, library, bound, share of bound, launches and launches
-   per call on the main path), the card line, and the final JSON line.
+   (both times, plain, library, bound, share of bound by device time and
+   by events, launches and launches per call on the main path), the card
+   line, and the final JSON line.
 
 Each path's kernel launch counts are set to 0 just before it runs and
 read just after. Any failed check raises, so the script exits non-zero
@@ -79,9 +85,15 @@ def _card_line() -> str:
     return res.stdout.strip().splitlines()[0]
 
 
-def _cuda_ms(f, reps: int = 10) -> float:
-    """Median device milliseconds of ``f()`` over ``reps`` runs (CUDA
-    events), after one warm-up run."""
+def _stats(times) -> dict:
+    return dict(median=statistics.median(times), min=min(times),
+                max=max(times), reps=len(times))
+
+
+def _cuda_stats(f, reps: int = 30) -> dict:
+    """Event-window milliseconds of ``f()`` (CUDA events around each of
+    ``reps`` calls, after one warm-up call): median, min, max. A window
+    holds the host work of the call between its two events."""
     import torch
     f()
     torch.cuda.synchronize()
@@ -94,14 +106,21 @@ def _cuda_ms(f, reps: int = 10) -> float:
         b.record()
         b.synchronize()
         times.append(a.elapsed_time(b))
-    return statistics.median(times)
+    return _stats(times)
 
 
-def _device_ms(f):
-    """(ms, kernels) of one ``f()`` call on the device: the summed times
-    of the kernels a torch.profiler trace records, after one warm-up run.
-    Unlike ``_cuda_ms`` it leaves out the gaps in which the device waits
-    for the host's launches. (None, 0) when the trace holds no kernel."""
+def _cuda_ms(f, reps: int = 30) -> float:
+    """Median event-window milliseconds of ``f()`` (``_cuda_stats``)."""
+    return _cuda_stats(f, reps)["median"]
+
+
+def _device_stats(f, reps: int = 30):
+    """Device milliseconds per ``f()`` call: the summed times of the
+    kernels a torch.profiler trace records over ``reps`` synchronized
+    calls (after one warm-up call), split into calls by their count;
+    median, min, max and the kernels per call. Unlike the event window it
+    leaves out the host's time before and between launches. None when
+    the trace holds no kernel."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -109,17 +128,70 @@ def _device_ms(f):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        f()
-        torch.cuda.synchronize()
-    ks = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        for _ in range(reps):
+            f()
+            torch.cuda.synchronize()
+    ks = sorted((e for e in prof.events()
+                 if e.device_type == DeviceType.CUDA),
+                key=lambda e: e.time_range.start)
     if not ks:
-        return None, 0
-    return sum(e.time_range.elapsed_us() for e in ks) / 1e3, len(ks)
+        return None
+    us = [e.time_range.elapsed_us() for e in ks]
+    if len(us) % reps:
+        # the trace lost a kernel (seen after earlier traces in the same
+        # process): with one kernel a call its events are the calls; else
+        # only the mean kernel times the kernels a call is known
+        n = max(1, round(len(us) / reps))
+        if n == 1:
+            out = _stats([u / 1e3 for u in us])
+        else:
+            mean = sum(us) / len(us) * n / 1e3
+            out = dict(median=mean, min=mean, max=mean, reps=reps)
+        out["kernels"] = n
+        return out
+    n = len(us) // reps
+    out = _stats([sum(us[i * n:(i + 1) * n]) / 1e3 for i in range(reps)])
+    out["kernels"] = n
+    return out
+
+
+def _timings(kernel, plain, library=None) -> dict:
+    """A kernel record's times, 30 calls each: the kernel's event window
+    (``ms``, median) and its device time (``device_ms``, median, with min
+    and max), the plain twin's event window, and the yardstick's event
+    window and device time (None without one)."""
+    dv = _device_stats(kernel)
+    out = dict(ms=_cuda_ms(kernel), device_ms=dv and dv["median"],
+               device_ms_min=dv and dv["min"], device_ms_max=dv and dv["max"],
+               plain_ms=_cuda_ms(plain), library_ms=None,
+               library_device_ms=None)
+    if library is not None:
+        lv = _device_stats(library)
+        out.update(library_ms=_cuda_ms(library),
+                   library_device_ms=lv and lv["median"])
+    return out
+
+
+def _shares(bound_ms: float, tm: dict) -> dict:
+    """Share of the bound by device time (None where the trace held no
+    kernel) and by event window."""
+    return dict(share_of_bound=tm["device_ms"] and bound_ms / tm["device_ms"],
+                share_of_bound_events=bound_ms / tm["ms"])
+
+
+def _fmt_tm(tm: dict) -> str:
+    """A record's times as one phrase."""
+    lib = "" if tm["library_ms"] is None else (
+        f", yardstick {tm['library_ms']:.4f} ms (device "
+        f"{_fmt_ms(tm['library_device_ms'])})")
+    return (f"kernel {tm['ms']:.4f} ms by events, device "
+            f"{_fmt_ms(tm['device_ms'])}, plain {tm['plain_ms']:.3f} ms"
+            + lib)
 
 
 def _fmt_ms(ms) -> str:
     return "not measured (no kernel in the trace)" if ms is None \
-        else f"{ms:.3f} ms"
+        else f"{ms:.4f} ms"
 
 
 def _check(name: str, err: float, bound: float):
@@ -450,7 +522,9 @@ def run_flagship_v5(device, n_warm: int = 3):
             j, d, book.clamp_agg))(J, dfs_c))
     for key, f in clamp_terms.items():
         info[f"{key}_ms"] = _cuda_ms(f)
-        info[f"{key}_device_ms"], info[f"{key}_kernels"] = _device_ms(f)
+        dv = _device_stats(f)
+        info[f"{key}_device_ms"] = dv and dv["median"]
+        info[f"{key}_kernels"] = dv["kernels"] if dv else 0
     print(f"flagship_v5 clamp PV epilogue (pvs {list(pv_all.shape)}, "
           f"{book.clamp.w.shape[0]} slots): {info['clamp_epilogue_ms']:.3f} "
           f"ms by events, device "
@@ -553,7 +627,8 @@ def run_per_trade(device, staged, mono, mb, q0, n_warm: int = 3):
     print(f"per-trade gamma blocks: builder {build_ms:.1f} ms (host "
           f"harvest + device tables); {blk_fn.n_groups} groups, k_max "
           f"{k_max}, {sum(bg for *_, bg in blk_fn.group_meta)} base "
-          f"trades, K3 {blk_fn.k3.tiles.shape[0]} tiles; card {card}",
+          f"trades, K3 {blk_fn.k3.units.shape[0]} units in "
+          f"{blk_fn.k3.packs.shape[0]} blocks; card {card}",
           flush=True)
     # the J pass at q0 alone (each fn's prep: grids, structured J and the
     # kernel's operands), median of 3 separate calls; a warm call adds
@@ -683,8 +758,6 @@ def compare_kernels(path, fn, mb, q0, shocks, device, chunk):
     err1 = float((got - ref).abs().max())
     _check(f"{path} K1 pvs_sweep vs plain (abs / max|ref|)",
            err1 / float(ref.abs().max()), 1e-12)
-    ms1 = _cuda_ms(lambda: kernels.pvs_sweep(vT, tab))
-    pms1 = _cuda_ms(lambda: kernels.pvs_sweep_plain(vT, tab))
     # yardstick: one cuSPARSE SpMM of the trade x column CSR by vT
     with warnings.catch_warnings():          # CSR support is "beta"
         warnings.simplefilter("ignore", UserWarning)
@@ -694,15 +767,16 @@ def compare_kernels(path, fn, mb, q0, shocks, device, chunk):
     lib = torch.sparse.mm(csr, vTc)
     _check(f"{path} K1 cuSPARSE SpMM vs plain (abs / max|ref|)",
            float((lib.T - ref).abs().max() / ref.abs().max()), 1e-12)
-    lms1 = _cuda_ms(lambda: torch.sparse.mm(csr, vTc))
+    tm1 = _timings(lambda: kernels.pvs_sweep(vT, tab),
+                   lambda: kernels.pvs_sweep_plain(vT, tab),
+                   lambda: torch.sparse.mm(csr, vTc))
     del lib, csr, vTc
     # the function's bytes: a plain trade x column CSR (trade pointer,
     # 4-byte column and 8-byte weight per slot), vT and out; the
     # kernel's own block row lists (bptr, brow) are not counted
     bytes1 = 4 * (B + 1) + 12 * nnz + 8 * M * S + 8 * S * B
     bound1, by1 = _bound(bytes1, 2.0 * nnz * S, FP64_FLOPS)
-    print(f"{path} K1 pvs_sweep vT [M, S]={[M, S]} B={B}: kernel "
-          f"{ms1:.3f} ms, plain {pms1:.3f} ms, cuSPARSE {lms1:.3f} ms; "
+    print(f"{path} K1 pvs_sweep vT [M, S]={[M, S]} B={B}: {_fmt_tm(tm1)}; "
           f"bound {bound1 * 1e3:.1f} us ({by1}, {bytes1 / 1e6:.1f} MB)",
           flush=True)
     del vT, ref, got
@@ -715,9 +789,18 @@ def compare_kernels(path, fn, mb, q0, shocks, device, chunk):
     err2 = float((got - ref).abs().max())
     _check(f"{path} K2 gamma_quad_form_grouped vs plain (abs / max|ref|)",
            err2 / float(ref.abs().max()), 1e-12)
-    ms2 = _cuda_ms(lambda: kernels.gamma_quad_form_grouped(J, dfs_c, qt))
-    pms2 = _cuda_ms(lambda: kernels.gamma_quad_form_grouped_plain(
-        J, dfs_c, qt))
+    # yardstick: one torch.bmm over (scenario, group) of the padded
+    # [w X; Y] and [Y; w X] (gathered, and scattered into G, untimed)
+    L, R = _k2_operands(J, dfs_c, qt)
+    Lt = L.transpose(1, 2)
+    lib = _k2_scatter(torch.bmm(Lt, R), qt, J.shape)
+    _check(f"{path} K2 yardstick bmm vs plain (abs / max|ref|)",
+           float((lib - ref).abs().max() / ref.abs().max()), 1e-12)
+    tm2 = _timings(lambda: kernels.gamma_quad_form_grouped(J, dfs_c, qt),
+                   lambda: kernels.gamma_quad_form_grouped_plain(
+                       J, dfs_c, qt),
+                   lambda: torch.bmm(Lt, R))
+    del lib
     Sc, N, n_grid = J.shape
     tptr, rptr = qt.tptr.cpu().numpy(), qt.rptr.cpu().numpy()
     cols_all = [np.concatenate([x.cpu().numpy()[tptr[g]:tptr[g + 1]]
@@ -736,33 +819,85 @@ def compare_kernels(path, fn, mb, q0, shocks, device, chunk):
     bytes2 = 8 * Sc * (need_j + need_d + N * N)
     bound2, by2 = _bound(bytes2, 4.0 * float((k * k * T).sum()) * Sc,
                          FP64_TC_FLOPS)
-    print(f"{path} K2 gamma_quad_form_grouped J={list(J.shape)}: kernel "
-          f"{ms2:.3f} ms, plain {pms2:.3f} ms; J values needed {need_j} "
-          f"per scenario ({8 * Sc * need_j / 1e6:.1f} MB per call), "
+    print(f"{path} K2 gamma_quad_form_grouped J={list(J.shape)}: "
+          f"{_fmt_tm(tm2)}, bmm operands {list(L.shape)}; J values needed "
+          f"{need_j} per scenario ({8 * Sc * need_j / 1e6:.1f} MB per call), "
           f"gathered {gathered} ({8 * Sc * gathered / 1e6:.1f} MB); bound "
           f"{bound2 * 1e3:.1f} us ({by2}, {bytes2 / 1e6:.1f} MB)",
           flush=True)
-    del J, ref, got
+    del J, ref, got, L, R, Lt
     torch.cuda.empty_cache()
     return [
         dict(name="pvs_sweep", path=path, route="cuda",
              source="adrates_torch/csrc/pvs_sweep.cu",
              replaces="adrates_tpu/parallel/multibook.py:1782",
-             max_abs_err=err1, ms=ms1, plain_ms=pms1, library_ms=lms1,
+             max_abs_err=err1, **tm1,
              library="torch.sparse.mm (cuSPARSE SpMM) of the [B, M] "
                      "trade x column CSR by vT",
-             bound_ms=bound1, bound_by=by1, share_of_bound=bound1 / ms1,
+             bound_ms=bound1, bound_by=by1, **_shares(bound1, tm1),
              tables_build_ms=build_ms, reuse=nnz / max(n_rows, 1)),
         dict(name="gamma_quad_form_grouped", path=path, route="cuda",
              source="adrates_torch/csrc/gamma_quad_form.cu",
              replaces="adrates_tpu/parallel/multibook.py:1660",
-             max_abs_err=err2, ms=ms2, plain_ms=pms2, library_ms=None,
-             library="none: no single PyTorch call computes a gather, a "
-                     "rank-2 quad form and a scatter into G",
-             bound_ms=bound2, bound_by=by2, share_of_bound=bound2 / ms2,
+             max_abs_err=err2, **tm2,
+             library="torch.bmm over (scenario, group) of the "
+                     "pre-gathered, padded [S x groups, 2 T_max, k_max] "
+                     "operands [w X; Y] and [Y; w X] (gather and scatter "
+                     "into G not timed)",
+             bound_ms=bound2, bound_by=by2, **_shares(bound2, tm2),
              j_needed_mb=8 * Sc * need_j / 1e6,
              j_gathered_mb=8 * Sc * gathered / 1e6),
     ]
+
+
+def _k2_operands(J, dfs, qt):
+    """K2's yardstick operands: per (scenario, group) the padded
+    [2 T_max, k_max] stacks L = [w X; Y] and R = [Y; w X] of the group's
+    trips (T_max the most trips of a group, k_max the widest; pad rows and
+    columns zero), so that Lᵀ R is the group's block P = Z + Zᵀ;
+    [S * n_groups, 2 T_max, k_max] each."""
+    import torch
+    S, N, n_grid = J.shape
+    tptr, rptr = qt.tptr.tolist(), qt.rptr.tolist()
+    G = qt.n_groups
+    T = max(tptr[g + 1] - tptr[g] for g in range(G))
+    K = max(rptr[g + 1] - rptr[g] for g in range(G))
+    L = J.new_zeros((S, G, 2 * T, K))
+    R = torch.zeros_like(L)
+    Jf = J.reshape(S, -1)
+    for g in range(G):
+        ts = slice(tptr[g], tptr[g + 1])
+        Tg = ts.stop - ts.start
+        s_i, e_i, p_i = (x[ts].long() for x in (qt.s_idx, qt.e_idx,
+                                                 qt.p_idx))
+        rows = qt.rows[rptr[g]:rptr[g + 1]].long()
+        k = rows.shape[0]
+        a, b, c = dfs[:, s_i], dfs[:, e_i], dfs[:, p_i]        # [S, T_g]
+        base = rows[None, :] * n_grid
+        Ja, Jb, Jc = (Jf[:, x[:, None] + base] for x in (s_i, e_i, p_i))
+        X = (Ja - (a / b)[..., None] * Jb) / b[..., None]       # [S, T_g, k]
+        Y = Jc - (c / b)[..., None] * Jb
+        wX = X * qt.w[ts][None, :, None]
+        L[:, g, :Tg, :k] = wX
+        L[:, g, T:T + Tg, :k] = Y
+        R[:, g, :Tg, :k] = Y
+        R[:, g, T:T + Tg, :k] = wX
+    return L.reshape(S * G, 2 * T, K), R.reshape(S * G, 2 * T, K)
+
+
+def _k2_scatter(P, qt, shape):
+    """[S, N, N] G from the yardstick's [S * n_groups, k_max, k_max]
+    blocks, summed into each group's rows in group order."""
+    import torch
+    S, N, _ = shape
+    G = torch.zeros((S, N, N), dtype=P.dtype, device=P.device)
+    P = P.reshape(S, qt.n_groups, P.shape[1], P.shape[2])
+    rptr = qt.rptr.tolist()
+    for g in range(qt.n_groups):
+        rows = qt.rows[rptr[g]:rptr[g + 1]].long()
+        k = rows.shape[0]
+        G[:, rows[:, None], rows[None, :]] += P[:, g, :k, :k]
+    return G
 
 
 def _k3_operands(Jt, dfs, w, tab):
@@ -852,8 +987,6 @@ def compare_per_trade_kernels(fns, q0, device):
     err = float((got - ref).abs().max())
     _check("flagship_v5 ladders K1 pvs_sweep vs plain (abs / max|ref|)",
            err / float(ref.abs().max()), 1e-12)
-    ms = _cuda_ms(lambda: kernels.pvs_sweep(Jv, tab))
-    pms = _cuda_ms(lambda: kernels.pvs_sweep_plain(Jv, tab))
     with warnings.catch_warnings():          # CSR support is "beta"
         warnings.simplefilter("ignore", UserWarning)
         csr = torch.sparse_csr_tensor(tab.tptr.long(), tab.slot_col(),
@@ -862,21 +995,22 @@ def compare_per_trade_kernels(fns, q0, device):
     lib = torch.sparse.mm(csr, Jc)
     _check("flagship_v5 ladders cuSPARSE SpMM vs plain (abs / max|ref|)",
            float((lib.T - ref).abs().max() / ref.abs().max()), 1e-12)
-    lms = _cuda_ms(lambda: torch.sparse.mm(csr, Jc))
+    tm = _timings(lambda: kernels.pvs_sweep(Jv, tab),
+                  lambda: kernels.pvs_sweep_plain(Jv, tab),
+                  lambda: torch.sparse.mm(csr, Jc))
     nbytes = 4 * (B + 1) + 12 * nnz + 8 * M * S + 8 * S * B
     bound, by = _bound(nbytes, 2.0 * nnz * S, FP64_FLOPS)
     print(f"flagship_v5_ladders K1 pvs_sweep Jv [M, N]={[M, S]} B={B}: "
-          f"kernel {ms:.3f} ms, plain {pms:.3f} ms, cuSPARSE {lms:.3f} ms; "
-          f"bound {bound * 1e3:.1f} us ({by}, {nbytes / 1e6:.1f} MB)",
-          flush=True)
+          f"{_fmt_tm(tm)}; bound {bound * 1e3:.1f} us ({by}, "
+          f"{nbytes / 1e6:.1f} MB)", flush=True)
     records.append(dict(
         name="pvs_sweep", path="flagship_v5_ladders", route="cuda",
         source="adrates_torch/csrc/pvs_sweep.cu",
         replaces="adrates_tpu/parallel/multibook.py:2842",
-        max_abs_err=err, ms=ms, plain_ms=pms, library_ms=lms,
+        max_abs_err=err, **tm,
         library="torch.sparse.mm (cuSPARSE SpMM) of the [B, M] trade x "
                 "column CSR by Jv",
-        bound_ms=bound, bound_by=by, share_of_bound=bound / ms))
+        bound_ms=bound, bound_by=by, **_shares(bound, tm)))
     del Jv, Jc, ref, got, lib, csr
 
     for path, fn, replaces in (
@@ -892,9 +1026,9 @@ def compare_per_trade_kernels(fns, q0, device):
         err = max(float((g - r).abs().max()) for g, r in zip(got, ref))
         _check(f"{path} K3 pertrade_quad_form vs plain (abs / max|ref|)",
                err / scale, 1e-12)
-        ms = _cuda_ms(lambda: kernels.pertrade_quad_form(Jt, dfs, w, t))
-        pms = _cuda_ms(lambda: kernels.pertrade_quad_form_plain(Jt, dfs, w,
-                                                                t))
+        asym = sum(int((g != g.transpose(1, 2)).sum()) for g in got)
+        _check(f"{path} K3 blocks bit for bit symmetric (entries that "
+               f"differ from their mirror)", asym, 0)
         L, R = _k3_operands(Jt, dfs, w, t)
         Lt = L.transpose(1, 2)
         lib = torch.bmm(Lt, R)
@@ -903,15 +1037,18 @@ def compare_per_trade_kernels(fns, q0, device):
                           zip(t.ibase[:-1], t.ibase[1:], t.ks), ref))
         _check(f"{path} K3 yardstick bmm vs plain (abs / max|ref|)",
                lib_err / scale, 1e-12)
-        lms = _cuda_ms(lambda: torch.bmm(Lt, R))
+        tm = _timings(lambda: kernels.pertrade_quad_form(Jt, dfs, w, t),
+                      lambda: kernels.pertrade_quad_form_plain(Jt, dfs, w,
+                                                               t),
+                      lambda: torch.bmm(Lt, R))
         nbytes, flops, j_bytes, j_item = _k3_bytes_flops(t, *Jt.shape)
         bound, by = _bound(nbytes, flops, FP64_TC_FLOPS)
         n_items = t.iptr.numel() - 1
         print(f"{path} K3 pertrade_quad_form: {n_items} items in "
               f"{len(t.ks)} groups (k {min(t.ks)}..{max(t.ks)}), "
-              f"{t.order.numel()} slots, {t.tiles.shape[0]} tiles: kernel "
-              f"{ms:.3f} ms, plain {pms:.3f} ms, bmm of padded operands "
-              f"{list(L.shape)} {lms:.3f} ms; bound {bound * 1e3:.1f} us "
+              f"{t.order.numel()} slots, {t.units.shape[0]} units in "
+              f"{t.packs.shape[0]} blocks: {_fmt_tm(tm)}, bmm of padded "
+              f"operands {list(L.shape)}; bound {bound * 1e3:.1f} us "
               f"({by}, {nbytes / 1e6:.3f} MB of which Jt values needed "
               f"{j_bytes / 1e6:.3f} MB, read item by item "
               f"{j_item / 1e6:.3f} MB; {flops / 1e9:.3f} GFLOP)",
@@ -919,12 +1056,11 @@ def compare_per_trade_kernels(fns, q0, device):
         records.append(dict(
             name="pertrade_quad_form", path=path, route="cuda",
             source="adrates_torch/csrc/pertrade_quad_form.cu",
-            replaces=replaces, max_abs_err=err, ms=ms, plain_ms=pms,
-            library_ms=lms,
+            replaces=replaces, max_abs_err=err, **tm,
             library="torch.bmm of the pre-gathered, padded [items, 2K, "
                     "k_max] operands [w X; Y] and [Y; w X] (gather not "
                     "timed)",
-            bound_ms=bound, bound_by=by, share_of_bound=bound / ms,
+            bound_ms=bound, bound_by=by, **_shares(bound, tm),
             jt_needed_mb=j_bytes / 1e6, jt_per_item_mb=j_item / 1e6))
         del L, R, Lt, lib, ref, got
     torch.cuda.empty_cache()
@@ -990,10 +1126,14 @@ def main() -> int:
     # ---- phase 9 -------------------------------------------------------
     card = _card_line()
     for r in records:
-        print(f"bound {r['path']} {r['name']}: {r['ms']:.4f} ms against "
-              f"{r['bound_ms']:.4f} ms ({r['bound_by']}), share "
-              f"{r['share_of_bound']:.3f}, {r['launches_per_call']:g} "
-              f"launches per call; card {card}")
+        if r["device_ms"] is None:
+            raise AssertionError(f"no device time for {r['name']} on "
+                                 f"{r['path']}: the trace held no kernel")
+        print(f"bound {r['path']} {r['name']}: device {r['device_ms']:.4f} "
+              f"ms (events {r['ms']:.4f} ms) against {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']}), share {r['share_of_bound']:.3f} (by "
+              f"events {r['share_of_bound_events']:.3f}), "
+              f"{r['launches_per_call']:g} launches per call; card {card}")
     print(json.dumps({"kernels": records}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {

@@ -265,15 +265,23 @@ def _k3_tables(rng, ks, n_items, n_slots, n_grid, dev):
     return kernels.pertrade_tables(rows, n_items, item, s, e, p, dev)
 
 
+def _k3_operands(rng, tab, n_grid, dev):
+    n_slots = tab.order.shape[0]
+    return (torch.tensor(rng.normal(size=(n_grid, 184)), device=dev),
+            torch.tensor(rng.uniform(0.5, 1.0, n_grid), device=dev),
+            torch.tensor(rng.normal(size=n_slots), device=dev))
+
+
 @pytest.mark.parametrize("n_items", [1, 37])
-@pytest.mark.parametrize("k", [12, 40, 97, 184])
+@pytest.mark.parametrize("k", [1, 7, 8, 9, 12, 40, 71, 72, 73, 97, 184])
 def test_pertrade_kernel_matches_plain(dev, k, n_items):
+    """Widths on and off the 8-row tile, at and past the packing sizes,
+    and the widest item one block takes whole (k = 184); one item, or 37
+    packed."""
     rng = np.random.default_rng(400 + k + n_items)
     n_grid, n_slots = 500, 60 * n_items
     tab = _k3_tables(rng, [k], [n_items], n_slots, n_grid, dev)
-    Jt = torch.tensor(rng.normal(size=(n_grid, 184)), device=dev)
-    dfs = torch.tensor(rng.uniform(0.5, 1.0, n_grid), device=dev)
-    w = torch.tensor(rng.normal(size=n_slots), device=dev)
+    Jt, dfs, w = _k3_operands(rng, tab, n_grid, dev)
     before = kernels.pertrade_quad_form.launches
     got = kernels.pertrade_quad_form(Jt, dfs, w, tab)
     assert kernels.pertrade_quad_form.launches == before + 1
@@ -283,9 +291,50 @@ def test_pertrade_kernel_matches_plain(dev, k, n_items):
     assert torch.equal(got[0], got[0].transpose(1, 2))
 
 
+@pytest.mark.parametrize("per_item", [1, 15, 16, 17, 31, 32, 33])
+@pytest.mark.parametrize("k", [40, 184])
+def test_pertrade_kernel_segments(dev, k, per_item):
+    """Items of exactly ``per_item`` slots, on both sides of one and two
+    16-slot segments, beside an item with none."""
+    rng = np.random.default_rng(600 + k + per_item)
+    n_grid, n_items = 300, 5
+    item = np.repeat(np.arange(1, n_items), per_item)
+    s, e, p = rng.integers(0, n_grid, (3, item.shape[0]))
+    tab = kernels.pertrade_tables([np.sort(rng.choice(184, k,
+                                                      replace=False))],
+                                  [n_items], item, s, e, p, dev)
+    Jt, dfs, w = _k3_operands(rng, tab, n_grid, dev)
+    got = kernels.pertrade_quad_form(Jt, dfs, w, tab)[0]
+    ref = kernels.pertrade_quad_form_plain(Jt, dfs, w, tab)[0]
+    torch.cuda.synchronize()
+    assert _rel_err(got, ref) <= 1e-12
+    assert torch.equal(got, got.transpose(1, 2))
+    assert float(got[0].abs().max()) == 0.0
+
+
+def test_pertrade_kernel_is_one_kernel(dev):
+    """A K3 call puts exactly one kernel into a torch.profiler trace: the
+    weights are read through ``order`` by the kernel, not gathered by a
+    launch of their own."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    rng = np.random.default_rng(700)
+    tab = _k3_tables(rng, [12, 72, 184], [9, 3, 2], 400, 300, dev)
+    Jt, dfs, w = _k3_operands(rng, tab, 300, dev)
+    kernels.pertrade_quad_form(Jt, dfs, w, tab)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        kernels.pertrade_quad_form(Jt, dfs, w, tab)
+        torch.cuda.synchronize()
+    ks = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    assert len(ks) == 1 and "pertrade_quad" in ks[0], ks
+
+
 def test_pertrade_kernel_ragged_groups(dev):
-    """Groups of widths around the 32-row tile in one launch, items with
-    no slot (exact zeros), slot counts around the 32-slot chunk."""
+    """Groups of ragged widths (packed several to a block, and one at
+    k = 184) in one launch, items with no slot (exact zeros), slot counts
+    around the 16-slot segment; wider items run as chunk pairs."""
     rng = np.random.default_rng(500)
     ks, n_items = [1, 31, 32, 33, 64, 65, 184], [3, 2, 1, 4, 2, 2, 1]
     n_grid = 400
@@ -301,8 +350,31 @@ def test_pertrade_kernel_ragged_groups(dev):
     for g, r in zip(got, ref):
         assert g.shape == r.shape
         assert _rel_err(g, r) <= 1e-12
+        assert torch.equal(g, g.transpose(1, 2))
     flat = torch.cat([g.reshape(g.shape[0], -1).abs().amax(1) for g in got])
     assert float(flat[torch.tensor(empty, device=dev)].max()) == 0.0
+
+
+@pytest.mark.parametrize("k", [185, 192, 300])
+def test_pertrade_kernel_wide_items(dev, k):
+    """Items wider than one block takes whole run as pairs of 96-row
+    chunks, beside packed small items."""
+    rng = np.random.default_rng(800 + k)
+    N, n_grid, n_slots = 320, 300, 150
+    item = rng.integers(0, 6, n_slots)
+    s, e, p = rng.integers(0, n_grid, (3, n_slots))
+    rows = [np.sort(rng.choice(N, kk, replace=False)) for kk in (k, 12)]
+    tab = kernels.pertrade_tables(rows, [2, 4], item, s, e, p, dev)
+    assert int((tab.units[:, 4] > 0).sum()) > 0
+    Jt = torch.tensor(rng.normal(size=(n_grid, N)), device=dev)
+    dfs = torch.tensor(rng.uniform(0.5, 1.0, n_grid), device=dev)
+    w = torch.tensor(rng.normal(size=n_slots), device=dev)
+    got = kernels.pertrade_quad_form(Jt, dfs, w, tab)
+    ref = kernels.pertrade_quad_form_plain(Jt, dfs, w, tab)
+    torch.cuda.synchronize()
+    for g, r in zip(got, ref):
+        assert _rel_err(g, r) <= 1e-12
+        assert torch.equal(g, g.transpose(1, 2))
 
 
 def test_per_trade_paths_on_cuda_match_cpu(dev):

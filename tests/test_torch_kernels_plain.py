@@ -477,32 +477,144 @@ def test_pertrade_quad_form_plain_matches_dense_reference(which):
         assert torch.equal(g, g.transpose(1, 2))
 
 
-def test_pertrade_tables_cover_each_block_once():
-    """The tiles (i0 <= j0, and their mirrors) cover every item's k x k
-    block exactly once, largest item first; the slot CSR holds each
-    slot once, by item."""
+def _k3_emulated(Jt, dfs, w, tab):
+    """K3's launch as the kernel runs it, in numpy: each pack's units on
+    their rows and warps, each unit's block from its slots, written where
+    its upper-triangle tiles and their mirrors land (a symmetric unit's
+    lower entries from its upper ones). Returns (per group blocks, the
+    write count of every output entry) and asserts the pack limits and
+    the unit columns on the way."""
+    W, TPW = kernels.PERTRADE_WARPS, kernels.PERTRADE_TPW
+    iptr, igrp, qptr, qrows = (x.numpy().astype(np.int64) for x in (
+        tab.iptr, tab.igrp, tab.qptr, tab.qrows))
+    k_of = np.asarray(tab.ks)[igrp]
+    ioff = np.cumsum(k_of * k_of) - k_of * k_of
+    s, e, p = (x.numpy().astype(np.int64) for x in (tab.s_idx, tab.e_idx,
+                                                    tab.p_idx))
+    ws = w[tab.order.numpy()]
+    out = np.full(tab.n_out, np.nan)
+    writes = np.zeros(tab.n_out, dtype=np.int64)
+    units = tab.units.numpy().astype(np.int64)
+    assert units.shape[1] == 13
+    prows = tab.prows.numpy()
+    row0 = 0
+    for u0, u1, nseg, n_rows, r0 in tab.packs.numpy():
+        assert r0 == row0
+        row0 += n_rows
+        assert 0 < n_rows <= tab.rows_max <= kernels.PERTRADE_ROWS
+        assert n_rows % 8 == 0 and 0 < u1 - u0 <= W
+        warps = np.zeros(W, dtype=np.int64)
+        row_end = 0
+        for (item, a0, na, b0, nb, roff, w0, nw, lo, hi, qoff, k,
+             blk) in units[u0:u1]:
+            g = igrp[item]
+            assert (lo, hi, qoff, k, blk) == (
+                iptr[item], iptr[item + 1], qptr[g], qptr[g + 1] - qptr[g],
+                ioff[item])
+            kpa, kpb = -(-na // 16) * 16, -(-nb // 8) * 8
+            assert roff == row_end
+            row_end += kpa + kpb
+            assert nw >= 1 and w0 + nw <= W
+            warps[w0:w0 + nw] += 1
+            assert -(-(hi - lo) // kernels.PERTRADE_SEG) <= nseg
+            tiles = int(kernels._tiles(na, nb))
+            assert -(-tiles // nw) <= TPW
+            staged = prows[r0 + roff:r0 + roff + kpa + kpb]
+            assert (staged[:, 1] == np.searchsorted(
+                units[u0:u1, 5], roff, side="right") - 1).all()
+            loc = np.concatenate([a0 + np.arange(na), b0 + np.arange(nb)])
+            q = qrows[qoff + loc]
+            np.testing.assert_array_equal(
+                staged[:, 0], np.concatenate([
+                    q[:na], np.full(kpa - na, -1), q[na:],
+                    np.full(kpb - nb, -1)]))
+            sl = slice(lo, hi)
+            a, b, c = dfs[s[sl]], dfs[e[sl]], dfs[p[sl]]
+            X = (Jt[s[sl]][:, q] - (a / b)[:, None] * Jt[e[sl]][:, q]) \
+                * (ws[sl] / b)[:, None]
+            Y = Jt[p[sl]][:, q] - (c / b)[:, None] * Jt[e[sl]][:, q]
+            P = X.T @ Y + Y.T @ X
+            if nb == 0:
+                P = np.triu(P) + np.triu(P, 1).T
+                ri, ci = np.meshgrid(loc, loc, indexing="ij")
+                v = P
+            else:
+                Pab = P[:na, na:]
+                ra, cb = np.meshgrid(loc[:na], loc[na:], indexing="ij")
+                ri = np.concatenate([ra.ravel(), cb.ravel()])
+                ci = np.concatenate([cb.ravel(), ra.ravel()])
+                v = np.concatenate([Pab.ravel(), Pab.ravel()])
+            at = blk + ri.ravel() * k + ci.ravel()
+            out[at] = np.ravel(v)
+            np.add.at(writes, at, 1)
+        assert row_end == n_rows
+        assert (warps <= 1).all()
+    return tab.blocks(torch.tensor(out)), writes
+
+
+def _k3_slot_items(rng, n_items, n_slots, case):
+    if case != "flagship_like":
+        return rng.integers(0, sum(n_items), n_slots)
+    # most items light, one 240-slot item, as on flagship_v5's 256 trades
+    return np.concatenate([np.repeat(np.arange(1, n_items[0]), 8),
+                           np.zeros(240, dtype=np.int64)])
+
+
+@pytest.mark.parametrize("case", ["ragged", "packed_beside_wide",
+                                  "chunked", "flagship_like"])
+def test_pertrade_tables_cover_each_block_once(case):
+    """The work list covers every item's k x k block exactly once (each
+    unit's tiles and their mirrors, on the warps the pack gives it),
+    units largest first; the slot CSR holds each slot once, by item; and
+    the emulated launch equals the twin, exactly symmetric."""
     rng = np.random.default_rng(11)
-    ks, n_items = [1, 32, 33, 97, 184], [2, 1, 3, 1, 2]
-    item = rng.integers(0, sum(n_items), 200)
-    s, e, p = rng.integers(0, 50, (3, 200))
+    ks, n_items = {"ragged": ([1, 7, 8, 9, 32, 33, 97, 184],
+                              [2, 3, 1, 2, 1, 3, 1, 2]),
+                   "packed_beside_wide": ([12, 40, 72, 184],
+                                          [30, 8, 6, 2]),
+                   "chunked": ([185, 200, 12], [1, 2, 3]),
+                   "flagship_like": ([184], [256])}[case]
+    item = _k3_slot_items(rng, n_items, 300, case)
+    n_slots, n_grid = item.shape[0], 50
+    s, e, p = rng.integers(0, n_grid, (3, n_slots))
     tab = kernels.pertrade_tables([np.arange(k) for k in ks], n_items, item,
                                   s, e, p)
     assert tab.n_out == sum(n * k * k for n, k in zip(n_items, ks))
-    cover = np.zeros(tab.n_out, dtype=np.int64)
-    ioff = tab.ioff.numpy()
-    k_of = np.repeat(ks, n_items)
-    for i, i0, j0 in tab.tiles.numpy():
-        k = k_of[i]
-        blk = np.zeros((k, k), dtype=np.int64)
-        blk[i0:i0 + 32, j0:j0 + 32] += 1
-        if i0 != j0:
-            blk[j0:j0 + 32, i0:i0 + 32] += 1
-        cover[ioff[i]:ioff[i] + k * k] += blk.ravel()
-    assert (cover == 1).all()
     counts = np.diff(tab.iptr.numpy())
-    np.testing.assert_array_equal(counts, np.bincount(item,
-                                                      minlength=len(k_of)))
-    first = tab.tiles.numpy()[:, 0]
-    assert (np.diff(counts[first]) <= 0).all()
+    np.testing.assert_array_equal(counts, np.bincount(
+        item, minlength=sum(n_items)))
+    units = tab.units.numpy().astype(np.int64)
+    work = kernels.pertrade_work(kernels._tiles(units[:, 2], units[:, 4]),
+                                 counts[units[:, 0]],
+                                 kernels._rows(units[:, 2], units[:, 4]))
+    assert (np.diff(work) <= 0).all()
     np.testing.assert_array_equal(tab.s_idx.numpy(), s[tab.order.numpy()])
     np.testing.assert_array_equal(tab.sitem.numpy(), np.sort(item))
+    Jt = rng.normal(size=(n_grid, max(ks)))
+    dfs = rng.uniform(0.5, 1.0, n_grid)
+    w = rng.normal(size=n_slots)
+    got, writes = _k3_emulated(Jt, dfs, w, tab)
+    assert (writes == 1).all()
+    ref = kernels.pertrade_quad_form_plain(
+        torch.tensor(Jt), torch.tensor(dfs), torch.tensor(w), tab)
+    for g, r in zip(got, ref):
+        assert torch.equal(g, g.transpose(1, 2))
+        np.testing.assert_allclose(g.numpy(), r.numpy(), rtol=0,
+                                   atol=1e-12 * float(r.abs().max()))
+    packs = tab.packs.numpy()
+    k_of = np.repeat(ks, n_items)[units[:, 0]]
+    if case == "packed_beside_wide":
+        # small items share blocks beside the k = 184 items' units
+        assert (packs[:, 1] - packs[:, 0]).max() > 1
+        assert (k_of == 184).any() and (k_of == 12).any()
+    if case == "chunked":
+        assert (units[:, 4] > 0).any()
+    if case == "flagship_like":
+        # the light items whole on 16 warps, one block each; the heavy
+        # one cut into chunk pairs
+        light = units[:, 0] != 0
+        assert (units[light, 2] == 184).all()
+        assert (units[light, 7] == 16).all()
+        assert (units[~light, 4] > 0).any() and (~light).sum() > 1
+        assert len(packs) == 255 + (~light).sum() - (
+            packs[:, 1] - packs[:, 0] - 1).sum()
