@@ -16,7 +16,7 @@ from typing import Optional, Sequence
 import numpy as np
 
 from .ops.bootstrap import OISBootstrapPlan
-from .ops.pricers import FloatLegTensor
+from .ops.pricers import FixedLegTensor, FloatLegTensor
 from .ops.xccy_bootstrap import XccyBootstrapPlan
 from .parallel.curve_batching import StageTopology, _Stage, make_grids
 from .parallel.multibook import (BookInputs, ClampSlots, ColRows,
@@ -57,6 +57,11 @@ def leg_from_numpy(fields: dict) -> FloatLegTensor:
     flags = ("override_first", "notional_exchange", "has_cap_floor")
     leg = _dataclass_from_numpy(FloatLegTensor, fields, flags)
     return dataclasses.replace(leg, **{k: bool(fields[k]) for k in flags})
+
+
+def fixed_leg_from_numpy(fields: dict) -> FixedLegTensor:
+    """A ``FixedLegTensor`` from a dict of its fields."""
+    return _dataclass_from_numpy(FixedLegTensor, fields)
 
 
 def _plans(p: dict) -> dict:

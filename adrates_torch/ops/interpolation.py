@@ -1,12 +1,19 @@
-"""DF interpolation for the three simple schemes, through static plans.
+"""DF interpolation for the three simple schemes, static and dynamic.
 
-Port of ``adrates_tpu/ops/interpolation.py:simple_interp_plan`` (host
-numpy, copied verbatim) and ``simple_df_static`` (torch). Both the query
-times and the grid times are static wherever the book path interpolates
+Port of ``adrates_tpu/ops/interpolation.py``: ``simple_interp_plan``
+(host numpy, copied verbatim) and ``simple_df_static`` (torch) for the
+book path, where both the query times and the grid times are static
 (cashflow schedules and bootstrap node times are fixed at trade-compile
 time; only the DFs vary), so the plan precomputes the bracketing indices,
 the interpolation weight and the exact-knot decision once in numpy and
-the traced part is gathers plus a handful of elementwise ops.
+the differentiated part is gathers plus a handful of elementwise ops;
+and ``simple_df`` / ``interp_fit`` / ``interp_df`` for the single-trade
+engine, which build the same plan in torch on the device (the same
+formulas in the same order, so the two paths agree bit for bit) and
+evaluate it with ``simple_df_static``. ``jnp.interp``'s semantics are
+kept: the +1e-12 nudge, the clamp outside the grid, the degenerate
+interval guard, ``side="right"``, the exact-knot select at 1e-10 on the
+un-nudged query and the t = 0 zero-rate patch.
 
  - FLAT_FWD_RATES      linear in rt = -log(DF)          (piecewise-flat fwd)
  - LINEAR_ZERO_RATES   linear in r = -log(DF)/t
@@ -17,6 +24,8 @@ The PCHIP and cubic schemes are not ported yet: they raise ``LibError``.
 
 from __future__ import annotations
 
+from typing import NamedTuple, Optional
+
 import numpy as np
 import torch
 
@@ -25,6 +34,9 @@ from ..utils.global_types import InterpTypes
 
 _SIMPLE_SCHEMES = (InterpTypes.FLAT_FWD_RATES, InterpTypes.LINEAR_ZERO_RATES,
                    InterpTypes.LINEAR_FWD_RATES)
+
+# jnp.interp's degenerate-interval threshold for float64 grids
+_DX_EPS = float(np.spacing(np.finfo(np.float64).eps))
 
 
 def simple_interp_plan(q, x, interp_type: InterpTypes) -> dict:
@@ -113,3 +125,88 @@ def simple_df_static(plan: dict, dfs: torch.Tensor,
         raise LibError("not yet ported: interpolation scheme "
                        + str(interp_type))
     return torch.where(plan["at_knot"], d.gather(-1, plan["knot_idx"]), val)
+
+
+# ---------------------------------------------------------------------------
+# Dynamic queries (the single-trade engine)
+# ---------------------------------------------------------------------------
+
+
+class InterpAux(NamedTuple):
+    """Per-curve interpolation state from :func:`interp_fit`; empty for
+    the simple schemes (the fitted schemes' slopes and spline
+    coefficients are not ported yet)."""
+    y: Optional[torch.Tensor] = None
+    d: Optional[torch.Tensor] = None
+    c: Optional[torch.Tensor] = None
+
+
+def simple_plan_torch(q: torch.Tensor, x: torch.Tensor,
+                      interp_type: InterpTypes) -> dict:
+    """:func:`simple_interp_plan` built in torch on the tensors' device:
+    the same bracket, weight, clamp and knot decisions from the same
+    formulas in the same order, for query times ``q`` [Q] on the sorted
+    grid ``x`` [N]. Neither is differentiated (only the DFs are)."""
+    if interp_type not in _SIMPLE_SCHEMES:
+        raise LibError("not yet ported: interpolation scheme "
+                       + str(interp_type))
+    n = x.shape[0]
+    tq = q + 1e-12                      # simple_df's nudge
+    i = torch.searchsorted(x, tq, right=True).clamp(1, n - 1)
+    i0, i1 = i - 1, i
+    dx = x[i1] - x[i0]
+    delta = tq - x[i0]
+    dx0 = dx.abs() <= _DX_EPS
+    c = torch.where(dx0, 0.0, delta / torch.where(dx0, 1.0, dx))
+    lo = tq < x[0]
+    out = lo | (tq > x[-1])
+    edge = torch.where(lo, 0, n - 1)
+    i0 = torch.where(out, edge, i0)
+    i1 = torch.where(out, edge, i1)
+    c = torch.where(out, 0.0, c)
+    # exact-knot guard on the UN-nudged query; argmin keeps the first of
+    # equal distances, as numpy's does on a grid with a repeated time
+    dist = (q[:, None] - x[None, :]).abs()
+    knot_idx = dist.argmin(dim=1)
+    at_knot = dist.gather(1, knot_idx[:, None])[:, 0] < 1e-10
+    plan = dict(i0=i0, i1=i1, c=c, knot_idx=knot_idx, at_knot=at_knot, q=q)
+    if interp_type == InterpTypes.LINEAR_ZERO_RATES:
+        # the t = 0 node's zero rate patched to its neighbour's, as an
+        # index remap (the rate at node 0 is only read through the
+        # brackets)
+        zero0 = x[0] == 0.0
+        plan["i0"] = torch.where(zero0 & (i0 == 0), 1, i0)
+        plan["i1"] = torch.where(zero0 & (i1 == 0), 1, i1)
+        plan["x_safe"] = x.clamp(min=1e-15)
+    return plan
+
+
+def simple_df(t, times: torch.Tensor, dfs: torch.Tensor,
+              interp_type: InterpTypes) -> torch.Tensor:
+    """DF(t) for the three simple schemes on the grid (``times``,
+    ``dfs``), vectorized over ``t`` (a 0-d ``t`` gives a 0-d result).
+    Differentiable in ``dfs`` to every order."""
+    t = torch.as_tensor(t, dtype=torch.float64, device=dfs.device)
+    tt = t.reshape(-1)
+    out = simple_df_static(simple_plan_torch(tt, times, interp_type), dfs,
+                           interp_type)
+    return out.reshape(t.shape)
+
+
+def interp_fit(times: torch.Tensor, dfs: torch.Tensor,
+               interp_type: InterpTypes) -> InterpAux:
+    """Scheme-specific state for a curve: nothing for the simple schemes;
+    the PCHIP and cubic fits are not ported yet."""
+    if times.shape[0] == 1 or interp_type in _SIMPLE_SCHEMES:
+        return InterpAux()
+    raise LibError("not yet ported: interpolation scheme "
+                   + str(interp_type))
+
+
+def interp_df(t, times: torch.Tensor, dfs: torch.Tensor,
+              interp_type: InterpTypes, aux: InterpAux = None
+              ) -> torch.Tensor:
+    """DF(t) under a curve's scheme (``aux`` from :func:`interp_fit`).
+    Only the simple schemes are ported; the others raise ``LibError``
+    (from :func:`simple_plan_torch`)."""
+    return simple_df(t, times, dfs, interp_type)

@@ -1,12 +1,13 @@
-"""Compiled leg containers and the float-leg pricer (port of
+"""Compiled leg containers and the leg pricers (port of
 ``adrates_tpu/ops/pricers.py``).
 
 The containers are plain dataclasses of host numpy arrays, filled by the
 legs' ``tensor()`` at trade-compile time and consumed by the book
-compilers; :func:`leg_to_torch` gives their device form.
-:func:`pv_float_leg` prices a float leg through static interpolation
-plans (the batched XCCY calibration legs); ``pv_fixed_leg`` and the
-dynamic-interpolation path are not ported yet.
+compilers and the single-trade engine; :func:`leg_to_torch` gives their
+device form. :func:`pv_float_leg` prices a float leg through static
+interpolation plans (the batched XCCY calibration legs) or, given the
+curves' grid times, through dynamic interpolation (the engine);
+:func:`pv_fixed_leg` prices a fixed leg through dynamic interpolation.
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ import torch
 
 from ..utils.error import LibError
 from ..utils.global_types import InterpTypes
-from .interpolation import simple_df_static
+from .interpolation import interp_df, simple_df_static
 
 
 @dataclasses.dataclass(frozen=True)
@@ -63,41 +64,81 @@ class FloatLegTensor:
 _LEG_FLAGS = ("override_first", "notional_exchange", "has_cap_floor")
 
 
-def leg_to_torch(leg: FloatLegTensor, device) -> dict:
-    """A (possibly stacked) FloatLegTensor as a dict of f64 tensors on
-    ``device``; the three static switches stay Python bools."""
+def leg_to_torch(leg, device) -> dict:
+    """A (possibly stacked) FloatLegTensor or FixedLegTensor as a dict of
+    f64 tensors on ``device``; the float leg's three static switches stay
+    Python bools."""
     out = {}
-    for f in dataclasses.fields(FloatLegTensor):
+    for f in dataclasses.fields(leg):
         v = getattr(leg, f.name)
         out[f.name] = bool(v) if f.name in _LEG_FLAGS else torch.as_tensor(
             np.asarray(v, dtype=np.float64), device=device)
     return out
 
 
+def pv_fixed_leg(dfs: torch.Tensor, times: torch.Tensor,
+                 interp_type: InterpTypes, leg: dict) -> torch.Tensor:
+    """PV of a fixed leg on the discount grid (``times``, ``dfs``):
+    future-payment mask, DFs relative to the valuation time, the
+    principal on the final flow, the leg sign. ``leg`` is the
+    :func:`leg_to_torch` form of one FixedLegTensor. Returns a 0-d
+    tensor."""
+    pay_t = leg["payment_times"]
+    n = pay_t.shape[0]
+    qt = torch.cat([pay_t, leg["value_time"].reshape(1)])
+    df_all = interp_df(qt, times, dfs, interp_type)
+    df_pmts = df_all[:n]
+    df_val = df_all[n]
+
+    mask = pay_t > leg["value_time"]
+    last = torch.arange(n, device=pay_t.device) == n - 1
+    amounts = leg["payments"] + torch.where(last, leg["principal"], 0.0)
+    pv = torch.where(mask, (leg["leg_sign"] * amounts) * (df_pmts / df_val),
+                     0.0)
+    return pv.sum()
+
+
 def pv_float_leg(dfs: torch.Tensor, disc_interp_type: InterpTypes,
-                 leg: dict, plans: dict, idx_dfs: torch.Tensor = None,
-                 idx_interp_type: InterpTypes = None) -> torch.Tensor:
+                 leg: dict, plans: dict = None, idx_dfs: torch.Tensor = None,
+                 idx_interp_type: InterpTypes = None, *,
+                 times: torch.Tensor = None,
+                 idx_times: torch.Tensor = None) -> torch.Tensor:
     """PV of a floating leg: forwards projected off the index curve,
     discounted on the discount curve (engine parity: dual-curve support,
     0-accrual guard, first-fixing override on flow 0, strictly-future
     coupon mask, optional principal and notional exchanges).
 
     ``leg`` is a :func:`leg_to_torch` dict whose arrays are [..., P]
-    (scalars [...]); ``plans`` is dict(idx=..., disc=...) of torch
-    ``simple_interp_plan`` forms over the query orders
-    concat(start, end) and concat(pay, value[, effective, maturity]),
-    with the same leading dims as ``dfs``. Returns [...]."""
-    if plans is None:
-        raise LibError("not yet ported: pv_float_leg without static "
-                       "interpolation plans")
+    (scalars [...]). The DFs at the query orders concat(start, end) and
+    concat(pay, value[, effective, maturity]) come from ``plans``,
+    dict(idx=..., disc=...) of torch ``simple_interp_plan`` forms with the
+    same leading dims as ``dfs``, or, without plans, from dynamic
+    interpolation of one leg on the grids (``times``, ``dfs``) and
+    (``idx_times``, ``idx_dfs``), each defaulting to the discount curve's.
+    Returns [...]."""
+    if plans is None and times is None:
+        raise LibError("pv_float_leg needs static interpolation plans or "
+                       "the curves' grid times")
     idx_dfs = dfs if idx_dfs is None else idx_dfs
     idx_it = disc_interp_type if idx_interp_type is None \
         else idx_interp_type
     pay_t = leg["payment_times"]
     n = pay_t.shape[-1]
 
-    idx_out = simple_df_static(plans["idx"], idx_dfs, idx_it)
-    disc_out = simple_df_static(plans["disc"], dfs, disc_interp_type)
+    if plans is not None:
+        idx_out = simple_df_static(plans["idx"], idx_dfs, idx_it)
+        disc_out = simple_df_static(plans["disc"], dfs, disc_interp_type)
+    else:
+        # one batched query per curve
+        idx_times = times if idx_times is None else idx_times
+        idx_q = torch.cat([leg["start_times"], leg["end_times"]])
+        idx_out = interp_df(idx_q, idx_times, idx_dfs, idx_it)
+        extra = [leg["value_time"].reshape(1)]
+        if leg["notional_exchange"]:
+            extra += [leg["effective_time"].reshape(1),
+                      leg["maturity_time"].reshape(1)]
+        disc_out = interp_df(torch.cat([pay_t] + extra), times, dfs,
+                             disc_interp_type)
     df_start = idx_out[..., :n]
     df_end = idx_out[..., n:]
     df_pmts = disc_out[..., :n]

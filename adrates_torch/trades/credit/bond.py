@@ -1,9 +1,10 @@
 """Fixed-coupon / zero-coupon / amortizing bond.
 
 Copy of ``adrates_tpu/trades/credit/bond.py`` (plain numpy and scipy)
-without the single-trade engine's ``position()`` and the analytics no
-port entry point calls (durations, dv01, reports): schedule, value with
-z-spread, accrued, clean/dirty, YTM and z-spread. Valuation is vectorized
+without the analytics no port entry point calls (durations, dv01,
+reports): ``position(model, device)``, schedule, value with z-spread
+(keeping the per-payment DFs and PVs the engine's cashflow report
+reads), accrued, clean/dirty, YTM and z-spread. Valuation is vectorized
 (one batched DF query per call); root-finding (YTM, z-spread) uses Brent
 on the host. ``g_spread`` and ``i_spread`` need ``zero_rate``, which the
 port's ``DiscountCurve`` lacks, and raise ``LibError`` until it is ported.
@@ -127,6 +128,14 @@ class Bond:
 
     # ------------------------------------------------------------------
 
+    def position(self, model, device=None):
+        """This trade against ``model``, computed on ``device`` (None: the
+        CUDA card)."""
+        from ...market.position.position import Position
+        return Position(self, model, device)
+
+    # ------------------------------------------------------------------
+
     def value(self, value_dt: Date, discount_curve,
               z_spread: float = 0.0, settlement_dt: Date = None) -> float:
         """PV of coupons + principal(s), with exp(-z*t) z-spread adjustment
@@ -135,6 +144,7 @@ class Bond:
             settlement_dt = value_dt
 
         df_settle = discount_curve.df(settlement_dt)
+        n = len(self._payment_dts)
         future = np.array([dt > settlement_dt for dt in self._payment_dts])
         dfs = np.asarray(discount_curve.df(list(self._payment_dts)))
         if z_spread != 0.0:
@@ -143,25 +153,34 @@ class Bond:
             dfs = dfs * np.exp(-z_spread * t)
         df_rel = dfs / df_settle
 
-        bond_pv = float(np.sum(np.where(
-            future, np.array(self._coupon_payments) * df_rel, 0.0)))
+        # per-payment DFs and PVs are kept for the engine's cashflow report
+        coupon_pvs = np.where(future,
+                              np.array(self._coupon_payments) * df_rel, 0.0)
+        self._payment_dfs = list(np.where(future, df_rel, 0.0))
+        self._coupon_pvs = list(coupon_pvs)
+        bond_pv = float(np.sum(coupon_pvs))
 
         if self._is_amortizing:
-            bond_pv += float(np.sum(np.where(
+            prin_pvs = np.where(
                 future & (np.array(self._principal_payments) > 0),
-                np.array(self._principal_payments) * df_rel, 0.0)))
+                np.array(self._principal_payments) * df_rel, 0.0)
+            self._principal_pvs = list(prin_pvs)
+            bond_pv += float(np.sum(prin_pvs))
         else:
             # Bullet principal paid on the final (adjusted) payment date.
             # The reference discounts it at the unadjusted maturity here but
             # at the adjusted date in the engine (bond.py:346-353 vs
             # engine.py:546-560); we use the adjusted payment date in both.
+            self._principal_pvs = [0.0] * n
             final_dt = self._payment_dts[-1]
             if final_dt > settlement_dt:
                 df_mat = discount_curve.df(final_dt)
                 if z_spread != 0.0:
                     t_mat = (final_dt - settlement_dt) / 365.25
                     df_mat = df_mat * np.exp(-z_spread * t_mat)
-                bond_pv += self._face_value * df_mat / df_settle
+                prin_pv = self._face_value * df_mat / df_settle
+                self._principal_pvs[-1] = prin_pv
+                bond_pv += prin_pv
 
         return bond_pv
 

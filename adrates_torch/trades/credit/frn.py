@@ -1,12 +1,13 @@
 """Floating Rate Note (FRN).
 
-Copy of ``adrates_tpu/trades/credit/frn.py`` (plain numpy and scipy)
-without the single-trade engine's ``position()``: schedule, value with
-the cap/floor clamp and the discount-margin exp adjustment, accrued
-interest (per-100 units, as the reference package), clean/dirty prices and
-discount_margin by Brent; the bump analytics and reports, which no port
-entry point calls, are left out. A curve is used only through ``df`` and
-``_dc_type``.
+Copy of ``adrates_tpu/trades/credit/frn.py`` (plain numpy and scipy):
+``position(model, device)``, schedule, value with the cap/floor clamp and
+the discount-margin exp adjustment (keeping the per-coupon rates,
+amounts, DFs and PVs the engine's cashflow report reads), accrued
+interest (per-100 units, as the reference package), clean/dirty prices
+and discount_margin by Brent; the bump analytics and reports, which no
+port entry point calls, are left out. A curve is used only through
+``df`` and ``_dc_type``.
 """
 
 from __future__ import annotations
@@ -115,6 +116,14 @@ class FRN:
             rate = np.maximum(rate, self._floor_rate)
         return rate
 
+    def position(self, model, device=None):
+        """This trade against ``model``, computed on ``device`` (None: the
+        CUDA card)."""
+        from ...market.position.position import Position
+        return Position(self, model, device)
+
+    # ------------------------------------------------------------------
+
     def value(self, value_dt: Date, discount_curve, index_curve=None,
               discount_margin: float = 0.0,
               settlement_dt: Date = None) -> float:
@@ -159,7 +168,15 @@ class FRN:
                                for d in self._payment_dts])
             df_pmts = df_pmts * np.exp(-discount_margin * disc_t)
 
-        pv = float(np.sum(np.where(future, coupons * df_pmts, 0.0)))
+        pvs = np.where(future, coupons * df_pmts, 0.0)
+        pv = float(np.sum(pvs))
+
+        # per-coupon rates, amounts, DFs and PVs for the engine's cashflow
+        # report
+        self._rates = list(np.where(future, rates, 0.0))
+        self._coupon_payments = list(np.where(future, coupons, 0.0))
+        self._payment_dfs = list(np.where(future, df_pmts, 0.0))
+        self._payment_pvs = list(pvs)
 
         if self._maturity_dt > settlement_dt:
             df_mat = discount_curve.df(self._maturity_dt, dc) / df_settle
@@ -167,7 +184,10 @@ class FRN:
                 t_mat = day_counter.year_frac(settlement_dt,
                                               self._maturity_dt)[0]
                 df_mat *= np.exp(-discount_margin * t_mat)
-            pv += self._face_value * df_mat
+            principal_pv = self._face_value * df_mat
+            pv += principal_pv
+            if self._payment_pvs:
+                self._payment_pvs[-1] += principal_pv
 
         return pv
 

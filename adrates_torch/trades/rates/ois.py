@@ -1,7 +1,8 @@
 """Overnight index swap (OIS) product.
 
 Behavioral parity with the reference's cavour/trades/rates/ois.py (leg
-construction 128-190, value 209-273). The float leg defaults mirror the
+construction 128-190, value 209-273, position hook 199-205; the position
+takes the device its engine runs on). The float leg defaults mirror the
 reference (annual, THIRTY_E_360, zero spread).
 """
 
@@ -89,6 +90,14 @@ class OIS:
         self._fixed_year_fracs = self._fixed_leg._year_fracs
         self._start_dt = self._fixed_leg._effective_dt
         self._notional = notional
+
+    # ------------------------------------------------------------------
+
+    def position(self, model, device=None):
+        """This trade against ``model``, computed on ``device`` (None: the
+        CUDA card)."""
+        from ...market.position.position import Position
+        return Position(self, model, device)
 
     # ------------------------------------------------------------------
 

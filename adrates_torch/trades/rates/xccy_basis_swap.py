@@ -2,7 +2,8 @@
 
 Port of ``adrates_tpu/trades/rates/xccy_basis_swap.py`` (construction:
 domestic RECEIVE / foreign PAY, both legs with notional exchange; host
-``value()`` incl. foreign collateral via an inverted curve), plus the
+``value()`` incl. foreign collateral via an inverted curve;
+``position(model, device)``), plus the
 foreign leg's compiled tensor the book compiler reads
 (``adrates_tpu/market/position/engine_xccy.py:_float_leg_xccy_tensor``).
 FX convention: spot_fx = domestic per foreign, PV_total = PV_dom +
@@ -102,6 +103,14 @@ class XccyBasisSwap:
 
         self._adjusted_domestic_dts = self._domestic_leg._payment_dts
         self._adjusted_foreign_dts = self._foreign_leg._payment_dts
+
+    # ------------------------------------------------------------------
+
+    def position(self, model, device=None):
+        """This trade against ``model``, computed on ``device`` (None: the
+        CUDA card)."""
+        from ...market.position.position import Position
+        return Position(self, model, device)
 
     # ------------------------------------------------------------------
 

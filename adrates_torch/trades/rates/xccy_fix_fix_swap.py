@@ -1,7 +1,7 @@
 """Cross-currency fixed-vs-fixed swap.
 
 Copy of ``adrates_tpu/trades/rates/xccy_fix_fix_swap.py`` (plain Python)
-without the single-trade engine's ``position()``: two fixed legs in
+with ``position(model, device)``: two fixed legs in
 different currencies, both with manual notional exchanges. FX convention:
 PV = dom + spot_fx * for, spot_fx domestic per foreign.
 """
@@ -108,6 +108,14 @@ class XccyFixFix:
         if leg_type == SwapTypes.PAY:
             pv = -pv
         return pv
+
+    def position(self, model, device=None):
+        """This trade against ``model``, computed on ``device`` (None: the
+        CUDA card)."""
+        from ...market.position.position import Position
+        return Position(self, model, device)
+
+    # ------------------------------------------------------------------
 
     def value(self,
               value_dt: Date,

@@ -1,7 +1,7 @@
 """Cross-currency fixed-vs-float swap.
 
 Copy of ``adrates_tpu/trades/rates/xccy_fix_float_swap.py`` (plain Python)
-without the single-trade engine's ``position()``: domestic fixed leg
+with ``position(model, device)``: domestic fixed leg
 (notional exchanges added at valuation, the fixed-leg class has no
 exchange flag) vs foreign floating leg (exchange built into the leg).
 FX convention: PV = dom + spot_fx * for, spot_fx domestic per foreign.
@@ -114,6 +114,14 @@ class XccyFixFloat:
         if self._domestic_leg_type == SwapTypes.PAY:
             pv = -pv
         return pv
+
+    def position(self, model, device=None):
+        """This trade against ``model``, computed on ``device`` (None: the
+        CUDA card)."""
+        from ...market.position.position import Position
+        return Position(self, model, device)
+
+    # ------------------------------------------------------------------
 
     def value(self,
               value_dt: Date,

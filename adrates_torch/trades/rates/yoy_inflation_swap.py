@@ -1,7 +1,7 @@
 """Year-on-year inflation swap.
 
 Copy of ``adrates_tpu/trades/rates/yoy_inflation_swap.py`` (plain Python)
-without the single-trade engine's ``position()``: periodic fixed leg
+with ``position(model, device)``: periodic fixed leg
 (``SwapFixedLeg``) vs YoY inflation leg; ``value``, ``breakeven_rate``,
 ``pv01``.
 """
@@ -77,6 +77,14 @@ class YoYInflationSwap:
             effective_dt, self._termination_dt, inflation_leg_type,
             inflation_index, freq_type, notional, inflation_spread,
             dc_type, payment_lag, cal_type, bd_type, dg_type, end_of_month)
+
+    # ------------------------------------------------------------------
+
+    def position(self, model, device=None):
+        """This trade against ``model``, computed on ``device`` (None: the
+        CUDA card)."""
+        from ...market.position.position import Position
+        return Position(self, model, device)
 
     # ------------------------------------------------------------------
 

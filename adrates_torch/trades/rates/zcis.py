@@ -1,7 +1,7 @@
 """Zero-coupon inflation swap (ZCIS).
 
-Copy of ``adrates_tpu/trades/rates/zcis.py`` (plain Python) without the
-single-trade engine's ``position()``: fixed leg pays N*[(1+r)^T - 1],
+Copy of ``adrates_tpu/trades/rates/zcis.py`` (plain Python) with
+``position(model, device)``: fixed leg pays N*[(1+r)^T - 1],
 inflation leg pays N*[I(T-lag)/I(0-lag)-1], single exchange at maturity;
 ``breakeven_inflation_rate``, ``pv01``.
 """
@@ -76,6 +76,14 @@ class ZeroCouponInflationSwap:
     def year_frac(self) -> float:
         return DayCount(self._dc_type).year_frac(self._effective_dt,
                                                  self._maturity_dt)[0]
+
+    # ------------------------------------------------------------------
+
+    def position(self, model, device=None):
+        """This trade against ``model``, computed on ``device`` (None: the
+        CUDA card)."""
+        from ...market.position.position import Position
+        return Position(self, model, device)
 
     # ------------------------------------------------------------------
 

@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Smoke run of the adrates_torch book-risk paths on one NVIDIA GPU.
+"""Smoke run of the adrates_torch book-risk paths and single-trade engine on
+one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -46,6 +47,23 @@ first use. Phases:
    its gamma at zero shock (1e-9 rel), the FRN's and the XCCY trade's
    ladders against a central FD of their PVs (1e-5 rel), each dense
    gamma symmetric and equal to its block (1e-10 rel);
+7c. the single-trade engine on phase 7's model (no kernel of its own):
+   the README quick start (VALUE, DELTA, GAMMA through ``position(model)``
+   with no device, so on the card); ``bench.py``'s config 2 on
+   flagship_v5's 32-pillar GBP curve (a 10Y OIS: VALUE + DELTA + GAMMA
+   cold and 20 warm, SPEED cold and 5 warm, on the host clock; the device
+   ops and device time of one request in a torch.profiler trace; the
+   same request on an engine asked for the CPU, held to the card's at
+   1e-12; the 10Y delta against a central FD of VALUE on models rebuilt
+   with that quote +-1 bp, 1e-5) and config 1 (100 warm bootstraps);
+   one live base trade of every route (natural and USD-collateral OIS,
+   XCCY basis, fix-float and fix-fix, ZCIS, YoY, bond, capped FRN):
+   finite outputs, symmetric gamma blocks (1e-10), PV equal to the
+   trade's host ``value`` (abs 1e-6 or rel 1e-12); the kernel launch
+   counts of that path (none); the engine against the book of the GBP
+   OIS and ZCIS (PVs at 1e-10, K1's per-trade ladders x 1e-4 at rtol
+   1e-9 / 1e-8); a Portfolio per valuation currency equal to the sum of
+   its trades' PVs; an ``engine`` JSON line before the kernels line;
 8. each kernel against its plain torch twin on the card, at the shapes
    each path's main function gives it (K2 at that function's scenario
    chunk; K1 also at the ladders' Jv [n_grid + T, N]; K3 on both
@@ -153,6 +171,26 @@ def _device_stats(f, reps: int = 30):
     out = _stats([sum(us[i * n:(i + 1) * n]) / 1e3 for i in range(reps)])
     out["kernels"] = n
     return out
+
+
+def _request_device(f):
+    """(device ops, their summed device ms) of one warm ``f()`` call in a
+    torch.profiler trace of the card's activity alone (an engine request
+    dispatches thousands of small ops; the host events of a full trace
+    take tens of seconds to collect); (None, None) when the trace holds
+    no device event."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    f()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        f()
+        torch.cuda.synchronize()
+    ks = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not ks:
+        return None, None
+    return len(ks), sum(e.time_range.elapsed_us() for e in ks) / 1e3
 
 
 def _timings(kernel, plain, library=None) -> dict:
@@ -460,7 +498,8 @@ def run_xccy_book(device, n_warm: int = 3):
 
 
 def run_flagship_v5(device, n_warm: int = 3):
-    """Phase 7: the flagship_v5 book through the staged regions."""
+    """Phase 7: the flagship_v5 book through the staged regions; returns
+    its fns, book, quotes, shocks, info and model."""
     import numpy as np
     import torch
     from torch.func import grad, vmap
@@ -554,7 +593,7 @@ def run_flagship_v5(device, n_warm: int = 3):
     _check_staged_vs_mono("flagship_v5", out, mono, q0, shocks)
     del out
     torch.cuda.empty_cache()
-    return fn, mono, mb, q0, shocks, info
+    return fn, mono, mb, q0, shocks, info, model
 
 
 def _select_trades(mb, n_sel=256):
@@ -700,6 +739,351 @@ def run_per_trade(device, staged, mono, mb, q0, n_warm: int = 3):
     del lad, gam, groups, book, total
     torch.cuda.empty_cache()
     return (lad_fn, gam_fn, blk_fn), infos
+
+
+ENGINE_ROUTES = ["ois", "ois_usd_collateral", "xccy_basis", "xccy_fix_float",
+                 "xccy_fix_fix", "zcis", "yoy", "bond", "frn_capped"]
+
+
+def _route_trades(trades, coll, value_dt):
+    """The first live base trade (maturing after ``value_dt``) of every
+    engine route, in the book's order: (route, trade, collateral type).
+    The natural OIS and the inflation swaps are GBP; the YoY swap's first
+    CPI window starts on its effective date (a stub's starts a year before
+    the payment, earlier than the index can project without fixings, and
+    the host ``value`` raises there); the capped FRN is one whose last
+    payment falls on its maturity date (the host ``value`` discounts the
+    principal at the maturity date, the engine at the last payment)."""
+    from adrates_torch.trades.credit import FRN, Bond
+    from adrates_torch.trades.rates import (OIS, XccyBasisSwap, XccyFixFix,
+                                            XccyFixFloat, YoYInflationSwap,
+                                            ZeroCouponInflationSwap)
+    from adrates_torch.utils import CurrencyTypes
+    tests = dict(
+        ois=lambda t, c: isinstance(t, OIS) and c is None
+        and t._currency == CurrencyTypes.GBP,
+        ois_usd_collateral=lambda t, c: isinstance(t, OIS) and c is not None,
+        xccy_basis=lambda t, c: isinstance(t, XccyBasisSwap),
+        xccy_fix_float=lambda t, c: isinstance(t, XccyFixFloat),
+        xccy_fix_fix=lambda t, c: isinstance(t, XccyFixFix),
+        zcis=lambda t, c: isinstance(t, ZeroCouponInflationSwap)
+        and t._inflation_index._currency == CurrencyTypes.GBP,
+        yoy=lambda t, c: isinstance(t, YoYInflationSwap)
+        and t._inflation_index._currency == CurrencyTypes.GBP
+        and t._inflation_leg._yoy_start_dts[0] >= t._effective_dt,
+        bond=lambda t, c: isinstance(t, Bond),
+        frn_capped=lambda t, c: isinstance(t, FRN)
+        and t._cap_rate is not None
+        and t._maturity_dt == t._payment_dts[-1])
+    return [(name,) + next((t, c) for t, c in zip(trades, coll)
+                           if t._maturity_dt > value_dt
+                           and tests[name](t, c))
+            for name in ENGINE_ROUTES]
+
+
+def _direct_value(model, trade, coll) -> float:
+    """A trade's own host ``value(...)`` on the model's curves."""
+    from adrates_torch.trades.rates.xccy_curve import find_xccy_curve
+    from adrates_torch.utils import (CollateralType, collateral_to_currency,
+                                     get_discount_curve_name)
+
+    def ois_of(ccy):
+        return model.curves[get_discount_curve_name(ccy,
+                                                    CollateralType[ccy.name])]
+    v = model.value_dt
+    kind = trade.derivative_type.name
+    if kind == "OIS_SWAP":
+        ois = model.curves[trade._floating_index.name]
+        if coll is None:
+            return trade.value(v, ois)
+        ccy = collateral_to_currency(coll)
+        xc = model.curves[get_discount_curve_name(trade._currency, coll)]
+        return trade.value(v, ois, xccy_discount_curve=xc,
+                           spot_fx=model.fx(f"{ccy.name}"
+                                            f"{trade._currency.name}"),
+                           collateral_type=coll)
+    if kind == "XCCY_SWAP":
+        _, xc = find_xccy_curve(model, trade)
+        return trade.value(
+            v, model.curves[trade._domestic_floating_index.name],
+            model.curves[trade._foreign_floating_index.name],
+            xccy_discount_curve=xc, spot_fx=xc._spot_fx)
+    if kind in ("ZCIS", "YOY_INFLATION_SWAP"):
+        index = trade._inflation_index
+        return trade.value(v, ois_of(index._currency), index._inflation_curve)
+    if kind == "BOND":
+        return trade.value(v, ois_of(trade._currency))
+    return trade.value(v, ois_of(trade._currency),
+                       model.curves[trade._floating_index.name])
+
+
+def _gamma_blocks(res):
+    """A result's gamma blocks by curve (cross-gammas apart)."""
+    g = res.gamma
+    if hasattr(g, "_by_curve"):
+        return {n: x.risk_ladder for n, x in g._by_curve.items()}
+    return {g.curve_type.name: g.risk_ladder}
+
+
+def _result_arrays(res):
+    """(value, every delta ladder and gamma block flattened) of a result,
+    for holding two engines' results together."""
+    import numpy as np
+    parts = [np.array([res.value.amount])]
+    for obj in (res.risk, res.gamma):
+        ls = obj._by_curve.values() if hasattr(obj, "_by_curve") else [obj]
+        parts += [np.ravel(x.risk_ladder) for x in ls]
+        if hasattr(obj, "_cross_gammas"):
+            parts += [np.ravel(c.risk_matrix)
+                      for c in obj._cross_gammas.values()]
+    return parts
+
+
+def run_engine(device, model, trades, coll, n_warm: int = 20):
+    """Phase 7c: the single-trade engine on the card (no kernel of its
+    own): the README quick start; ``bench.py``'s config 2 on
+    flagship_v5's GBP curve (cold + ``n_warm`` warm requests, SPEED, the
+    device ops of one request, the same request on an engine asked for
+    the CPU, a central FD of the 10Y delta) and config 1 (100 warm
+    bootstraps); one trade of every route from phase 7's base trades;
+    the engine against the book (PVs, and the K1 per-trade ladders); a
+    Portfolio of the route trades. Returns the ``engine`` record."""
+    import numpy as np
+    import torch
+
+    from adrates_torch.examples import flagship_ois
+    from adrates_torch.market import Portfolio
+    from adrates_torch.models import Model
+    from adrates_torch.ops.bootstrap import bootstrap_ois, plan_to_torch
+    from adrates_torch.parallel import (compile_multibook,
+                                        make_multibook_fn,
+                                        make_per_trade_delta_fn)
+    from adrates_torch.trades.rates import OIS
+    from adrates_torch.utils import (BusDayAdjustTypes, CurrencyTypes,
+                                     CurveTypes, Date, DayCountTypes,
+                                     FrequencyTypes, InterpTypes,
+                                     RequestTypes, SwapTypes)
+    R = RequestTypes
+    VDG = [R.VALUE, R.DELTA, R.GAMMA]
+    card = _card_line()
+    rec = dict(card=card, parts_s={})
+    t_phase = t_mark = time.perf_counter()
+    _reset_launches()
+
+    def mark(part):
+        """Seconds since the previous mark, kept under ``part``."""
+        nonlocal t_mark
+        now = time.perf_counter()
+        rec["parts_s"][part] = now - t_mark
+        t_mark = now
+
+    def finite(res, name):
+        for a in _result_arrays(res):
+            if not np.isfinite(a).all():
+                raise AssertionError(f"engine {name}: non-finite output")
+
+    # ---- the README quick start ------------------------------------------
+    qs = Model(Date(1, 1, 2024))
+    qs.build_curve("GBP_OIS_SONIA",
+                   px_list=[5.19, 4.71, 4.35, 3.93, 3.87, 3.71],
+                   tenor_list=["1M", "1Y", "2Y", "5Y", "10Y", "30Y"],
+                   fixed_dcc_type=DayCountTypes.ACT_365F,
+                   float_dc_type=DayCountTypes.ACT_365F)
+    swap = OIS(Date(1, 1, 2024), "10Y", SwapTypes.RECEIVE, 0.0387,
+               FrequencyTypes.ANNUAL, DayCountTypes.ACT_365F,
+               CurveTypes.GBP_OIS_SONIA, CurrencyTypes.GBP,
+               notional=10_000_000, float_dc_type=DayCountTypes.ACT_365F)
+    res, ms = _timed(lambda: swap.position(qs).compute(VDG))
+    finite(res, "quick start")
+    lad, gam = res.risk.risk_ladder, res.gamma.risk_ladder
+    i, j = int(np.abs(lad).argmax()), int(np.abs(np.diag(gam)).argmax())
+    rec["quick_start"] = dict(pv=res.value.amount, cold_ms=ms,
+                              max_bucket=[res.risk.tenors[i], float(lad[i])],
+                              max_gamma_diag=[res.gamma.tenors[j],
+                                              float(gam[j, j])])
+    _check("engine quick start PV vs direct value (abs)",
+           abs(res.value.amount - swap.value(qs.value_dt,
+                                             qs.curves.GBP_OIS_SONIA)), 1e-6)
+    print(f"engine quick start on {res.risk.tenors[0]}..{res.risk.tenors[-1]}"
+          f" GBP: PV {res.value.amount:.6f} GBP; largest bucket "
+          f"{res.risk.tenors[i]} {lad[i]:.6f} GBP/bp; largest gamma "
+          f"diagonal {res.gamma.tenors[j]} {gam[j, j]:.9f} GBP/bp^2; first "
+          f"request {ms:.1f} ms", flush=True)
+    mark("quick start")
+
+    # ---- bench.py config 2 on flagship_v5's GBP curve --------------------
+    curve = model.curves.GBP_OIS_SONIA
+    swap = OIS(model.value_dt, "10Y", SwapTypes.RECEIVE, 0.0387,
+               FrequencyTypes.ANNUAL, DayCountTypes.ACT_365F,
+               CurveTypes.GBP_OIS_SONIA, CurrencyTypes.GBP,
+               notional=10_000_000, float_dc_type=DayCountTypes.ACT_365F,
+               bd_type=BusDayAdjustTypes.MODIFIED_FOLLOWING)
+    pos = swap.position(model, device=device)
+
+    def drive(p, reqs, n):
+        out, cold = _timed(lambda: p.compute(reqs))
+        warm = [_timed(lambda: p.compute(reqs))[1] for _ in range(n)]
+        return out, dict(cold_ms=cold, warm_ms=_stats(warm))
+    res, rec["config2"] = drive(pos, VDG, n_warm)
+    finite(res, "config 2")
+    res_s, rec["config2_speed"] = drive(pos, [R.SPEED], 5)
+    for key, reqs in (("config2", VDG), ("config2_speed", [R.SPEED])):
+        n_ops, d_ms = _request_device(lambda: pos.compute(reqs))
+        rec[key].update(device_ops=n_ops, device_ms=d_ms)
+    mark("config 2 and SPEED on the card, their device ops")
+    cpu_pos = swap.position(model, device="cpu")
+    res_cpu, rec["config2_cpu"] = drive(cpu_pos, VDG, n_warm)
+    err = max(float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-300))
+              for a, b in zip(_result_arrays(res)[1:],
+                              _result_arrays(res_cpu)[1:]))
+    err_pv = abs(res.value.amount - res_cpu.value.amount)
+    _check("engine config 2 cuda vs cpu ladders and gammas (abs / "
+           "max|ref|)", err, 1e-12)
+    _check("engine config 2 cuda vs cpu PV (abs / max(|ref|, 1))",
+           err_pv / max(abs(res_cpu.value.amount), 1.0), 1e-12)
+    rec["config2"]["cuda_vs_cpu_err"] = max(err, err_pv)
+    mark("config 2 on the CPU")
+
+    tenors, rates = flagship_ois.MAIN_TENORS, flagship_ois.MAIN_RATES
+    k10 = tenors.index("10Y")
+    pv_bumped = []
+    for h in (0.01, -0.01):                   # +-1 bp, quotes in percent
+        m = Model(model.value_dt)
+        m.build_curve("GBP_OIS_SONIA",
+                      px_list=[r + (h if k == k10 else 0.0)
+                               for k, r in enumerate(rates)],
+                      tenor_list=tenors,
+                      fixed_dcc_type=DayCountTypes.ACT_365F,
+                      float_dc_type=DayCountTypes.ACT_365F,
+                      interp_type=InterpTypes.FLAT_FWD_RATES)
+        pv_bumped.append(swap.position(m, device=device).compute(
+            [R.VALUE]).value.amount)
+    fd = (pv_bumped[0] - pv_bumped[1]) / 2.0  # per bp
+    ad = float(res.risk.risk_ladder[k10])
+    _check("engine config 2 DELTA at 10Y vs central FD of VALUE on models "
+           "rebuilt +-1bp (rel)", abs(ad - fd) / abs(fd), 1e-5)
+    rec["config2"].update(delta_10y=ad, fd_10y=fd)
+    mark("FD of the 10Y delta")
+
+    plan = plan_to_torch(curve._plan, device)
+    r = torch.as_tensor(np.asarray(curve.swap_rates), device=device)
+    bootstrap_ois(r, plan)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(100):
+        out = bootstrap_ois(r, plan)
+    torch.cuda.synchronize()
+    rec["config1_bootstrap_ms"] = (time.perf_counter() - t0) / 100 * 1e3
+    del out
+    mark("config 1")
+    c2, cs, cc = rec["config2"], rec["config2_speed"], rec["config2_cpu"]
+    print(f"engine config 2 (flagship_v5 GBP_OIS_SONIA, "
+          f"{len(curve.swap_rates)} pillars, 10Y RECEIVE 0.0387, 10M): "
+          f"VALUE+DELTA+GAMMA cold {c2['cold_ms']:.1f} ms, warm median "
+          f"{c2['warm_ms']['median']:.2f} [{c2['warm_ms']['min']:.2f}, "
+          f"{c2['warm_ms']['max']:.2f}] ms over {n_warm}; one request "
+          f"{c2['device_ops']} device ops, {_fmt_ms(c2['device_ms'])} of "
+          f"device time; SPEED cold {cs['cold_ms']:.1f} ms, warm median "
+          f"{cs['warm_ms']['median']:.2f} [{cs['warm_ms']['min']:.2f}, "
+          f"{cs['warm_ms']['max']:.2f}] ms over 5, {cs['device_ops']} "
+          f"device ops, {_fmt_ms(cs['device_ms'])}; engine asked for the "
+          f"CPU: warm median {cc['warm_ms']['median']:.2f} "
+          f"[{cc['warm_ms']['min']:.2f}, {cc['warm_ms']['max']:.2f}] ms; "
+          f"config 1 bootstrap {rec['config1_bootstrap_ms']:.3f} ms a call "
+          f"(100 warm); card {card}", flush=True)
+
+    # ---- one trade of every route ---------------------------------------
+    routes = _route_trades(trades, coll, model.value_dt)
+    results = {}
+    rec["routes"] = {}
+    for name, trade, c in routes:
+        reqs = VDG + ([R.CASHFLOWS] if name in ("ois", "bond", "frn_capped")
+                      else [])
+        p = trade.position(model, device=device)
+        out, cold = _timed(lambda: p.compute(reqs, c))
+        out, warm = _timed(lambda: p.compute(reqs, c))
+        finite(out, name)
+        if R.CASHFLOWS in reqs and not len(out.cashflows):
+            raise AssertionError(f"engine {name}: no cashflows")
+        blocks = _gamma_blocks(out)
+        scale = max(float(np.abs(g).max()) for g in blocks.values())
+        asym = max(float(np.abs(g - g.T).max()) for g in blocks.values())
+        if scale == 0.0:
+            raise AssertionError(f"engine {name}: zero gamma")
+        _check(f"engine {name} gamma blocks symmetric (abs / max|gamma|)",
+               asym / scale, 1e-10)
+        direct = _direct_value(model, trade, c)
+        _check(f"engine {name} PV vs direct value (abs, bound max(1e-6, "
+               f"1e-12 |PV|))", abs(out.value.amount - direct),
+               max(1e-6, 1e-12 * abs(direct)))
+        results[name] = out
+        rec["routes"][name] = dict(pv=out.value.amount,
+                                   currency=out.value.currency.name,
+                                   direct=direct, cold_ms=cold,
+                                   warm_ms=warm)
+        print(f"engine {name}: PV {out.value.amount:.6f} "
+              f"{out.value.currency.name} (direct {direct:.6f}); cold "
+              f"{cold:.1f} ms, warm {warm:.1f} ms", flush=True)
+
+    mark("the route trades")
+    # the engine's path launches none of K1-K3 (read before the book gate)
+    rec["main_path_launches"] = _launches()
+    print(f"engine main path kernel launches: {rec['main_path_launches']}",
+          flush=True)
+
+    # ---- the engine against the book (K1 ladders) ------------------------
+    by = {n: (t, c) for n, t, c in routes}
+    pair = [by["ois"][0], by["zcis"][0]]
+    with warnings.catch_warnings():        # curves the pair leaves out
+        warnings.simplefilter("ignore", UserWarning)
+        mb = compile_multibook(pair, model, base_currency=CurrencyTypes.GBP)
+    N = mb.basket.n_quotes
+    q0 = mb.basket.quotes0
+    book_pvs = make_multibook_fn(mb, device=device)(
+        q0, np.zeros((1, N)))["pvs"][0].cpu().numpy()
+    _reset_launches()
+    lad = make_per_trade_delta_fn(mb, device)(q0).cpu().numpy() * 1e-4
+    k1 = _launches()["pvs_sweep"]
+    if k1 <= 0:
+        raise AssertionError("the book ladders did not launch K1")
+    for k, name in enumerate(("ois", "zcis")):
+        e = results[name]
+        _check(f"engine vs book {name} PV (abs, bound max(1e-6, 1e-10 "
+               f"|PV|))", abs(book_pvs[k] - e.value.amount),
+               max(1e-6, 1e-10 * abs(e.value.amount)))
+        rtol, atol = (1e-9, 1e-8) if name == "ois" else (1e-8, 1e-7)
+        curves = ["GBP_OIS_SONIA"] + (["GBP_RPI_INFLATION"]
+                                      if name == "zcis" else [])
+        for cname in curves:
+            ref = e.risk(CurveTypes[cname]).risk_ladder
+            got = lad[k, mb.basket.quote_slice(cname)]
+            excess = float((np.abs(got - ref)
+                            - (atol + rtol * np.abs(ref))).max())
+            _check(f"engine vs book {name} {cname} ladder (K1 per-trade "
+                   f"delta x 1e-4; worst excess over atol {atol:g} + rtol "
+                   f"{rtol:g} |ref|)", max(excess, 0.0), 0.0)
+    rec["book_gate_k1_launches"] = k1
+    mark("engine against the book")
+
+    # ---- a Portfolio of the route trades, one per valuation currency -----
+    groups = {}
+    for name, trade, c in routes:
+        groups.setdefault((results[name].value.currency.name, c),
+                          []).append((name, trade))
+    for (ccy, c), members in groups.items():
+        pf = Portfolio([t.position(model, device=device)
+                        for _, t in members])
+        total = pf.compute([R.VALUE], c).value.amount
+        ref = sum(results[n].value.amount for n, _ in members)
+        _check(f"engine Portfolio of {len(members)} {ccy} trades == sum "
+               f"of their PVs (abs / max(|sum|, 1))",
+               abs(total - ref) / max(abs(ref), 1.0), 1e-12)
+    mark("Portfolio")
+    rec["phase_s"] = time.perf_counter() - t_phase
+    print(f"engine phase: {rec['phase_s']:.1f} s "
+          f"({ {k: round(v, 2) for k, v in rec['parts_s'].items()} }); card "
+          f"{card}", flush=True)
+    return rec
 
 
 # Peak rates of one H100 SXM at its 700 W limit (NVIDIA's data sheet):
@@ -1094,9 +1478,17 @@ def main() -> int:
     # ---- phases 3-7b ----------------------------------------------------
     fn_o, mb_o, q_o, sh_o, info_o, info_g = run_ois_slice(device)
     fn_x, mb_x, q_x, sh_x, info_x = run_xccy_book(device)
-    staged_f, fn_f, mb_f, q_f, sh_f, info_f = run_flagship_v5(device)
+    staged_f, fn_f, mb_f, q_f, sh_f, info_f, model_f = run_flagship_v5(
+        device)
     pt_fns, pt_infos = run_per_trade(device, staged_f, fn_f, mb_f, q_f)
     del staged_f
+    # phase 7c on phase 7's model and base trades (the same seed and draw
+    # order rebuild them)
+    import numpy as np
+    from adrates_torch.examples import flagship_v5
+    base, coll = flagship_v5.build_base_trades(
+        model_f, np.random.default_rng(flagship_v5.SEED))
+    engine = run_engine(device, model_f, base, coll)
     for path, info in (("ois_slice", info_o), ("ois_slice_generic", info_g),
                        ("ois_xccy_book", info_x), ("flagship_v5", info_f)):
         for name in ("pvs_sweep", "gamma_quad_form_grouped"):
@@ -1134,6 +1526,7 @@ def main() -> int:
               f"({r['bound_by']}), share {r['share_of_bound']:.3f} (by "
               f"events {r['share_of_bound_events']:.3f}), "
               f"{r['launches_per_call']:g} launches per call; card {card}")
+    print(json.dumps({"engine": engine}))
     print(json.dumps({"kernels": records}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {

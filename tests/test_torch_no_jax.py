@@ -1,5 +1,6 @@
 """adrates_torch must run where JAX is not installed: it imports no JAX,
-directly or through adrates_tpu."""
+directly or through adrates_tpu; and where pandas is not installed: it
+imports pandas only inside the result types' DataFrame views."""
 
 import json
 import pathlib
@@ -20,6 +21,7 @@ _PROBE = """
 import importlib, json, sys
 sys.modules['jax'] = None
 sys.modules['adrates_tpu'] = None
+sys.modules['pandas'] = None
 out = {}
 for m in sys.argv[1:]:
     try:
@@ -36,7 +38,7 @@ print(json.dumps(dict(errors=out, leaked=leaked)))
 @pytest.fixture(scope="module")
 def blocked_imports():
     """Import every module of the package in ONE fresh interpreter with
-    jax and adrates_tpu blocked."""
+    jax, adrates_tpu and pandas blocked."""
     res = subprocess.run([sys.executable, "-c", _PROBE, *MODULES],
                          capture_output=True, text=True,
                          cwd=str(PKG.parent), timeout=300)

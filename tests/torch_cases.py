@@ -497,3 +497,179 @@ def pertrade_selection(mb) -> list:
         else 1
     last = mb.n_trades - B
     return [t, B + t, last, mb.n_trades - 1]
+
+
+# ---------------------------------------------------------------------------
+# the single-trade engine: results of both packages as comparable arrays
+
+
+def result_parts(res) -> dict:
+    """An ``AnalyticsResult`` as {kind: {name: numpy array}}: the PV; each
+    delta ladder, gamma matrix and cross-gamma by curve name; the speed
+    cube; the cashflow report's numeric columns."""
+    out = {}
+    if res.value is not None:
+        out["value"] = {"pv": np.array([res.value.amount])}
+
+    def blocks(obj):
+        if obj is None:
+            return None
+        if hasattr(obj, "_by_curve"):
+            d = {n: l.risk_ladder for n, l in obj._by_curve.items()}
+            d.update({f"{a} x {b}": cg.risk_matrix
+                      for (a, b), cg in obj._cross_gammas.items()})
+            return d
+        return {obj.curve_type.name: obj.risk_ladder}
+
+    for kind, obj in (("delta", res.risk), ("gamma", res.gamma)):
+        b = blocks(obj)
+        if b is not None:
+            out[kind] = b
+    if res.speed is not None:
+        out["speed"] = {res.speed.curve_type.name: res.speed.risk_cube}
+    if res.cashflows is not None:
+        cols = ("notional", "payment_fraction", "accrual_period", "amount",
+                "discount_factor", "discounted_amount")
+        out["cashflows"] = {c: np.array([getattr(cf, c)
+                                         for cf in res.cashflows])
+                            for c in cols}
+    return out
+
+
+def result_labels(res) -> dict:
+    """The non-numeric parts of an ``AnalyticsResult``: currencies, curve
+    types, tenor labels, cashflow dates and leg tags, as plain values."""
+    out = {}
+    if res.value is not None:
+        out["value"] = res.value.currency.name
+    for kind, obj in (("delta", res.risk), ("gamma", res.gamma),
+                      ("speed", res.speed)):
+        if obj is None:
+            continue
+        ls = obj._by_curve.values() if hasattr(obj, "_by_curve") else [obj]
+        out[kind] = [(l.curve_type.name, l.currency.name, list(l.tenors))
+                     for l in ls]
+        if hasattr(obj, "_cross_gammas"):
+            out[kind + "_cross"] = [
+                (a, b, cg.currency.name, list(cg.tenors_curve1),
+                 list(cg.tenors_curve2))
+                for (a, b), cg in obj._cross_gammas.items()]
+    if res.cashflows is not None:
+        out["cashflows"] = [(str(cf.payment_date), cf.leg_type)
+                            for cf in res.cashflows]
+        out["cashflows_ccy"] = res.cashflows.currency.name
+    return out
+
+
+def assert_parts_close(ref: dict, got: dict, rel: float = 1e-10):
+    """Every array of ``got`` equals ``ref``'s within ``rel`` x the largest
+    |entry| of its kind in ``ref`` (cashflows: of its column); a PV within
+    1e-8 as well, the rounding of a sum of flows of 1e7 notional, so that
+    a par swap's PV of ~0 compares."""
+    assert set(got) == set(ref)
+    for kind, blocks in ref.items():
+        assert set(got[kind]) == set(blocks), kind
+        if kind == "cashflows":
+            for name, r in blocks.items():
+                scale = max(float(np.abs(r).max()), 1e-300) if r.size else 1
+                np.testing.assert_allclose(got[kind][name], r, rtol=0,
+                                           atol=rel * scale,
+                                           err_msg=f"{kind} {name}")
+            continue
+        scale = max(float(np.abs(r).max()) for r in blocks.values())
+        atol = max(rel * scale, 1e-8 if kind == "value" else 1e-300)
+        for name, r in blocks.items():
+            np.testing.assert_allclose(got[kind][name], r, rtol=0,
+                                       atol=atol, err_msg=f"{kind} {name}")
+
+
+ENGINE_ROUTES = ["xccy_basis", "xccy_fix_float", "xccy_fix_fix", "zcis", "yoy",
+                 "bond", "bond_amortizing", "frn", "frn_capped", "frn_dual"]
+
+
+def engine_route(pkg, model, route):
+    """(trade, requests) of an engine ``route`` (one of ENGINE_ROUTES) on
+    build_all_kinds_model, built through ``pkg``: VALUE, DELTA, GAMMA and
+    CASHFLOWS (the ZCIS route reports no cashflows)."""
+    u = importlib.import_module(f"{pkg}.utils")
+    credit = importlib.import_module(f"{pkg}.trades.credit")
+    R = u.RequestTypes
+    reqs = [R.VALUE, R.DELTA, R.GAMMA, R.CASHFLOWS]
+    kinds = all_kinds_trades(pkg, model)
+    v = model.value_dt
+    F, D, C, Y = (u.FrequencyTypes, u.DayCountTypes, u.CurveTypes,
+                  u.CurrencyTypes)
+    if route == "bond_amortizing":
+        return credit.Bond(v.add_months(-5), "4Y", coupon=0.035,
+                           freq_type=F.SEMI_ANNUAL, dc_type=D.ACT_365F,
+                           currency=Y.GBP, face_value=2_000_000,
+                           amortization_schedule=[
+                               2e6 - 2.5e5 * (i + 1) for i in range(8)]), \
+            reqs
+    if route == "frn_dual":
+        return credit.FRN(v.add_months(-3), "3Y", quoted_margin=0.002,
+                          freq_type=F.QUARTERLY, dc_type=D.ACT_360,
+                          currency=Y.USD, floating_index=C.GBP_OIS_SONIA,
+                          face_value=3_000_000), reqs
+    i = {"frn": 3, "frn_capped": 4, "bond": 5, "xccy_basis": 2,
+         "xccy_fix_float": 7, "xccy_fix_fix": 10, "zcis": 11, "yoy": 12}
+    if route == "zcis":
+        reqs = reqs[:3]          # the ZCIS route reports no cashflows
+    return kinds[i[route]], reqs
+
+
+def engine_route_results(models: dict, route: str) -> dict:
+    """``route`` computed by both packages' engines (the port's on the
+    CPU), on ``models`` (pkg -> build_all_kinds_model(pkg)), with each
+    result's comparable parts."""
+    out = dict(name=route)
+    for pkg, key in (("adrates_tpu", "jax"), ("adrates_torch", "port")):
+        trade, reqs = engine_route(pkg, models[pkg], route)
+        kw = {} if pkg == "adrates_tpu" else dict(device="cpu")
+        out[key] = trade.position(models[pkg], **kw).compute(reqs)
+    out["jp"] = result_parts(out["jax"])
+    out["tp"] = result_parts(out["port"])
+    return out
+
+
+def check_route_kind(route: dict, kind: str):
+    """One output kind of a route: present in both results or in neither
+    (only the ZCIS route reports no cashflows), and equal at 1e-10 x
+    max|ref| of its kind."""
+    jp, tp = route["jp"], route["tp"]
+    assert (kind in jp) == (kind in tp)
+    if kind not in jp:
+        assert route["name"] == "zcis" and kind == "cashflows"
+        return
+    assert_parts_close({kind: jp[kind]}, {kind: tp[kind]})
+
+
+def check_gamma_symmetric(parts: dict):
+    """Each curve's gamma block is symmetric within 1e-10 x the largest
+    |gamma| of the result (a par leg's block on its own curve is ~1e-17
+    noise, in the JAX package too)."""
+    blocks = parts["gamma"]
+    scale = max(float(np.abs(g).max()) for g in blocks.values())
+    for name, g in blocks.items():
+        if " x " not in name:
+            np.testing.assert_allclose(g, g.T, rtol=0, atol=1e-10 * scale,
+                                       err_msg=name)
+
+
+def direct_value(model, trade) -> float:
+    """A trade's own host ``value(...)`` on the port's all-kinds model."""
+    from adrates_torch.trades.rates.xccy_curve import find_xccy_curve
+    curves = model.curves
+    gbp, usd = curves["GBP_OIS_SONIA"], curves["USD_OIS_SOFR"]
+    v = model.value_dt
+    kind = trade.derivative_type.name
+    if kind == "XCCY_SWAP":
+        _, xc = find_xccy_curve(model, trade)
+        return trade.value(v, usd, gbp, xccy_discount_curve=xc,
+                           spot_fx=xc._spot_fx)
+    if kind in ("ZCIS", "YOY_INFLATION_SWAP"):
+        return trade.value(v, gbp, curves["GBP_RPI_INFLATION"])
+    if kind == "BOND":
+        return trade.value(v, gbp)
+    disc = usd if trade._currency.name == "USD" else gbp
+    return trade.value(v, disc, curves[trade._floating_index.name])
