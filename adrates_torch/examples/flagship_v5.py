@@ -17,6 +17,16 @@ notional scales, under 100 scenarios of N(0, 1e-3) quote shocks.
 Seed 7 and ``bench.py``'s draw order (trades, then the tile scales, then
 the shocks), so the book, the scales and the shocks are ``bench.py``'s
 own.
+
+``build_model(schemes=...)`` moves OIS curves onto other interpolation
+schemes (default: every curve FLAT_FWD_RATES, as ``bench.py``);
+``SPLINE_SCHEMES`` puts five of the seven on the fitted schemes — GBP
+PCHIP_LOG_DISCOUNT, USD (the XCCY curves' domestic parent, recalibrated)
+PCHIP_ZERO_RATES, EUR NATCUBIC_LOG_DISCOUNT, JPY NATCUBIC_ZERO_RATES, AUD
+FINCUBIC_ZERO_RATES — and leaves CHF and CAD on FLAT_FWD_RATES, so the
+one OIS stage mixes simple and fitted members and the three XCCY curves
+sit over three different fitted foreign schemes. The book, the seed, the
+draw order and the tiling are unchanged.
 """
 
 from __future__ import annotations
@@ -49,10 +59,21 @@ N_TRADES = 100_000                 # tiled to the first multiple above
 N_SCENARIOS = 100
 SEED = 7
 
+SPLINE_SCHEMES = {
+    "GBP_OIS_SONIA": InterpTypes.PCHIP_LOG_DISCOUNT,
+    "USD_OIS_SOFR": InterpTypes.PCHIP_ZERO_RATES,
+    "EUR_OIS_ESTR": InterpTypes.NATCUBIC_LOG_DISCOUNT,
+    "JPY_OIS_TONAR": InterpTypes.NATCUBIC_ZERO_RATES,
+    "AUD_OIS_AONIA": InterpTypes.FINCUBIC_ZERO_RATES,
+}
 
-def build_model() -> Model:
+
+def build_model(schemes=None) -> Model:
     """The 12 curves (each through its refit gate) and the FX, in
-    ``bench.py``'s two waves (XCCY needs its parent OIS curves)."""
+    ``bench.py``'s two waves (XCCY needs its parent OIS curves).
+    ``schemes`` maps an OIS curve's name to its interpolation scheme (the
+    others FLAT_FWD_RATES)."""
+    schemes = schemes or {}
     m = Model(VALUE_DT)
 
     def shifted(rates, d):
@@ -65,7 +86,8 @@ def build_model() -> Model:
     def ois(name, px, ten, dc):
         return lambda: m.build_curve(
             name, px_list=px, tenor_list=ten, fixed_dcc_type=dc,
-            float_dc_type=dc, interp_type=InterpTypes.FLAT_FWD_RATES)
+            float_dc_type=dc,
+            interp_type=schemes.get(name, InterpTypes.FLAT_FWD_RATES))
 
     wave1 = [ois("GBP_OIS_SONIA", main, tenors, DayCountTypes.ACT_365F),
              ois("USD_OIS_SOFR", shifted(main, 0.35), tenors,

@@ -1,1 +1,2 @@
 from .discount_curve import DiscountCurve
+from .interpolator import Interpolator, InterpolatorAd, interpolate

@@ -148,14 +148,19 @@ class Engine(LegacyLegAnalytics):
             rates=self._f64(curve.swap_rates)))
 
     def _xccy_consts(self, xccy_curve) -> dict:
-        """An XCCY curve's chain plan, foreign-curve interpolation plan,
-        grid, domestic-leg PVs, the foreign curve's DFs, spot FX and the
-        basis spreads on the device. The foreign grid's times are static even
-        where its DFs are differentiated, so the static plan serves both."""
+        """An XCCY curve's chain plan, foreign-curve interpolation plan
+        (None for a foreign curve on a fitted scheme, which the bootstrap
+        then fits on its grid), grid, domestic-leg PVs, the foreign curve's
+        times and DFs, spot FX and the basis spreads on the device. The
+        foreign grid's times are static even where its DFs are
+        differentiated, so a static plan serves both."""
+        fplan = xccy_curve._fplan
         return self._consts(xccy_curve, "xccy", lambda: dict(
             plan=xccy_plan_to_torch(xccy_curve._plan, self.device),
-            fplan=interp_plan_to_torch(xccy_curve._fplan, self.device),
+            fplan=None if fplan is None
+            else interp_plan_to_torch(fplan, self.device),
             times=xccy_curve._times.to(self.device),
+            for_times=xccy_curve._foreign_curve._times.to(self.device),
             dfs=xccy_curve._dfs.to(self.device),
             pv_dom=self._f64(xccy_curve._pv_domestic),
             for_dfs=xccy_curve._foreign_curve._dfs.to(self.device),
@@ -373,9 +378,10 @@ class Engine(LegacyLegAnalytics):
         def pv_fn(rates, spreads):
             times, dfs = bootstrap_ois(rates, O["plan"])
             f_dfs = dfs if chain_foreign else X["for_dfs"]
+            f_times = times if chain_foreign else X["for_times"]
             _, xdfs = bootstrap_xccy(spreads, X["pv_dom"], f_dfs,
                                      X["spot_fx"], X["plan"], f_it,
-                                     X["fplan"])
+                                     X["fplan"], foreign_times=f_times)
             xts = X["times"]
             pv = pv_fixed_leg(xdfs, xts, xccy_it, ft)
             pv = pv + pv_float_leg(xdfs, xccy_it, lt, idx_dfs=dfs,

@@ -12,9 +12,11 @@ Port of ``adrates_tpu/market/position/engine_xccy.py``. Risk views:
    PV(for_rates, spreads) through both the pricing and the bootstrap.
 
 Everything is one function PV(dom_rates, for_rates, spreads) composed
-from the OIS bootstrap, the XCCY bootstrap (through the XCCY curve's
-static foreign-interpolation plan: the foreign grid's times are fixed
-even where its DFs are differentiated) and the leg pricers; all
+from the OIS bootstrap, the XCCY bootstrap (through a static
+foreign-interpolation plan where the foreign curve is on a simple scheme:
+the foreign grid's times are fixed even where its DFs are differentiated;
+on a fitted scheme the bootstrap fits the foreign grid itself) and the
+leg pricers, on every interpolation scheme; all
 requested outputs come back as one packed tensor, one device->host copy.
 """
 
@@ -27,7 +29,8 @@ import torch
 from torch.func import jacfwd, jacrev
 
 from ...ops.bootstrap import bootstrap_ois
-from ...ops.interpolation import interp_df, simple_interp_plan
+from ...ops.interpolation import (_SIMPLE_SCHEMES, interp_df,
+                                  simple_interp_plan)
 from ...ops.interpolation import plan_to_torch as interp_plan_to_torch
 from ...ops.pricers import FixedLegTensor, pv_fixed_leg, pv_float_leg
 from ...ops.xccy_bootstrap import bootstrap_xccy
@@ -140,13 +143,15 @@ def compute_xccy(engine, derivative, reqs: Set[RequestTypes]
     X = engine._xccy_consts(xccy_curve)
     if for_curve is xccy_curve._foreign_curve:
         fplan = X["fplan"]
-    else:
+    elif for_it in _SIMPLE_SCHEMES:
         # the basis bootstrap's foreign queries on this foreign curve's
         # own (static) grid
         p = xccy_curve._plan
         fplan = interp_plan_to_torch(simple_interp_plan(
             np.concatenate([p.start_t, p.end_t, p.pay_t_foreign]),
             for_curve._times.numpy(), for_it), dev)
+    else:
+        fplan = None         # fitted on the foreign grid in the bootstrap
     xts = X["times"]
 
     want = (RequestTypes.VALUE in reqs, RequestTypes.DELTA in reqs,
@@ -179,9 +184,10 @@ def compute_xccy(engine, derivative, reqs: Set[RequestTypes]
         return dom_pv + spot_fx * for_pv
 
     def xccy_dfs_fn(spreads, for_rates):
-        _, for_dfs = bootstrap_ois(for_rates, Fp["plan"])
+        for_times, for_dfs = bootstrap_ois(for_rates, Fp["plan"])
         _, dfs = bootstrap_xccy(spreads, X["pv_dom"], for_dfs, X["spot_fx"],
-                                X["plan"], for_it, fplan)
+                                X["plan"], for_it, fplan,
+                                foreign_times=for_times)
         return dfs
 
     def basis_pv(spreads, dom_rates, for_rates):

@@ -1,25 +1,40 @@
-"""DF interpolation for the three simple schemes, static and dynamic.
+"""DF interpolation under all eight schemes, static and dynamic.
 
-Port of ``adrates_tpu/ops/interpolation.py``: ``simple_interp_plan``
-(host numpy, copied verbatim) and ``simple_df_static`` (torch) for the
-book path, where both the query times and the grid times are static
-(cashflow schedules and bootstrap node times are fixed at trade-compile
-time; only the DFs vary), so the plan precomputes the bracketing indices,
-the interpolation weight and the exact-knot decision once in numpy and
-the differentiated part is gathers plus a handful of elementwise ops;
-and ``simple_df`` / ``interp_fit`` / ``interp_df`` for the single-trade
-engine, which build the same plan in torch on the device (the same
-formulas in the same order, so the two paths agree bit for bit) and
-evaluate it with ``simple_df_static``. ``jnp.interp``'s semantics are
-kept: the +1e-12 nudge, the clamp outside the grid, the degenerate
-interval guard, ``side="right"``, the exact-knot select at 1e-10 on the
-un-nudged query and the t = 0 zero-rate patch.
+Port of ``adrates_tpu/ops/interpolation.py``:
 
  - FLAT_FWD_RATES      linear in rt = -log(DF)          (piecewise-flat fwd)
  - LINEAR_ZERO_RATES   linear in r = -log(DF)/t
  - LINEAR_FWD_RATES    linear in DF itself
+ - PCHIP_LOG_DISCOUNT  monotone Hermite on log(DF)
+ - PCHIP_ZERO_RATES    monotone Hermite on zero rates
+ - NATCUBIC_LOG_DISCOUNT / NATCUBIC_ZERO_RATES  natural cubic spline
+ - FINCUBIC_ZERO_RATES clamped spline (S''(t0)=0, S'(tN)=0)
 
-The PCHIP and cubic schemes are not ported yet: they raise ``LibError``.
+The three simple schemes: ``simple_interp_plan`` (host numpy, copied
+verbatim) and ``simple_df_static`` (torch) for the book path, where both
+the query times and the grid times are static (cashflow schedules and
+bootstrap node times are fixed at trade-compile time; only the DFs vary),
+so the plan precomputes the bracketing indices, the interpolation weight
+and the exact-knot decision once in numpy and the differentiated part is
+gathers plus a handful of elementwise ops; ``simple_df`` for the
+single-trade engine, which builds the same plan in torch on the device
+(the same formulas in the same order, so the two paths agree bit for
+bit). ``jnp.interp``'s semantics are kept: the +1e-12 nudge, the clamp
+outside the grid, the degenerate interval guard, ``side="right"``, the
+exact-knot select at 1e-10 on the un-nudged query and the t = 0 zero-rate
+patch.
+
+The fitted schemes: ``interp_fit`` computes a curve's state (PCHIP slopes,
+or spline coefficients from the parallel-cyclic-reduction tridiagonal
+solve of ``utils/math.py``), differentiable in the DFs to every order;
+``hermite_eval`` / ``cubic_eval`` evaluate it at the bracket
+``clip(searchsorted(x, t, left) - 1, 0, n - 2)``, so a query past the last
+knot extrapolates the last polynomial and one before the first the first.
+``fitted_interp_plan`` fixes that bracket in numpy for static queries on a
+static grid (the book path) and ``fitted_df_static`` fits and evaluates
+against it; the dynamic ``interp_df`` computes the same bracket with
+``torch.searchsorted`` and evaluates with the same code. ``interp_plan`` /
+``df_static`` take either kind of plan.
 """
 
 from __future__ import annotations
@@ -31,9 +46,16 @@ import torch
 
 from ..utils.error import LibError
 from ..utils.global_types import InterpTypes
+from ..utils.global_vars import gSmall
+from ..utils.math import solve_tridiagonal
 
 _SIMPLE_SCHEMES = (InterpTypes.FLAT_FWD_RATES, InterpTypes.LINEAR_ZERO_RATES,
                    InterpTypes.LINEAR_FWD_RATES)
+_PCHIP_SCHEMES = (InterpTypes.PCHIP_LOG_DISCOUNT, InterpTypes.PCHIP_ZERO_RATES)
+_CUBIC_SCHEMES = (InterpTypes.FINCUBIC_ZERO_RATES,
+                  InterpTypes.NATCUBIC_ZERO_RATES,
+                  InterpTypes.NATCUBIC_LOG_DISCOUNT)
+_FITTED_SCHEMES = _PCHIP_SCHEMES + _CUBIC_SCHEMES
 
 # jnp.interp's degenerate-interval threshold for float64 grids
 _DX_EPS = float(np.spacing(np.finfo(np.float64).eps))
@@ -86,9 +108,12 @@ def simple_interp_plan(q, x, interp_type: InterpTypes) -> dict:
     return plan
 
 
-def plan_to_torch(plan: dict, device) -> dict:
-    """A numpy plan (or a stack of them) as tensors on ``device``:
-    indices as int64 (what ``torch.gather`` takes), weights f64."""
+def plan_to_torch(plan, device):
+    """A numpy plan (or a stack of them, or a list of per-member plans) as
+    tensors on ``device``: indices as int64 (what ``torch.gather`` takes),
+    weights and times f64."""
+    if isinstance(plan, (list, tuple)):
+        return [plan_to_torch(p, device) for p in plan]
     out = {}
     for k, v in plan.items():
         v = np.asarray(v)
@@ -122,23 +147,211 @@ def simple_df_static(plan: dict, dfs: torch.Tensor,
         y0 = r.gather(-1, i0)
         val = torch.exp(-(y0 + c * (r.gather(-1, i1) - y0)) * plan["q"])
     else:
-        raise LibError("not yet ported: interpolation scheme "
+        raise LibError("simple_df_static: not a simple scheme "
                        + str(interp_type))
     return torch.where(plan["at_knot"], d.gather(-1, plan["knot_idx"]), val)
 
 
 # ---------------------------------------------------------------------------
-# Dynamic queries (the single-trade engine)
+# The fitted schemes
 # ---------------------------------------------------------------------------
 
 
 class InterpAux(NamedTuple):
-    """Per-curve interpolation state from :func:`interp_fit`; empty for
-    the simple schemes (the fitted schemes' slopes and spline
-    coefficients are not ported yet)."""
+    """Per-curve interpolation state from :func:`interp_fit`.
+
+    PCHIP schemes: y = transformed knot values, d = Hermite slopes. Cubic
+    schemes: y = transformed knot values, c = [..., 4, N-1] polynomial
+    coefficients (highest order first, scipy layout). Empty for the simple
+    schemes."""
     y: Optional[torch.Tensor] = None
     d: Optional[torch.Tensor] = None
     c: Optional[torch.Tensor] = None
+
+
+def _take(v: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``v`` [..., n] at the last-axis indices ``idx``: a 1-D ``v`` (or a
+    1-D ``idx``) is indexed directly, else ``idx`` carries ``v``'s leading
+    dims and is gathered."""
+    if v.dim() == 1 or idx.dim() == 1:
+        return v[..., idx]
+    return v.gather(-1, idx)
+
+
+def _zero_rates(times: torch.Tensor, dfs: torch.Tensor) -> torch.Tensor:
+    """Continuously-compounded zero rates with the t=0 node patched to its
+    neighbour (parity: interpolator_ad.py:167-170)."""
+    zero = -torch.log(dfs) / (times + gSmall)
+    first = torch.where(times[..., :1] == 0, zero[..., 1:2], zero[..., :1])
+    return torch.cat([first, zero[..., 1:]], dim=-1)
+
+
+def pchip_slopes(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Shape-preserving Hermite slopes (weighted-harmonic-mean PCHIP):
+    endpoint slopes are the one-sided secants; interior slopes are the
+    weighted harmonic mean of adjacent secants, zero where the secants
+    change sign. Guarded divisions keep every derivative finite."""
+    h = x[..., 1:] - x[..., :-1]                 # [n-1]
+    m = (y[..., 1:] - y[..., :-1]) / h           # [n-1] secants
+
+    m0 = m[..., :-1]                             # secant left of a node
+    m1 = m[..., 1:]                              # secant right of a node
+    h0 = h[..., :-1]
+    h1 = h[..., 1:]
+    cond = (m0 * m1) > 0
+    w1 = 2.0 * h1 + h0
+    w2 = h1 + 2.0 * h0
+    safe_m0 = torch.where(cond, m0, 1.0)
+    safe_m1 = torch.where(cond, m1, 1.0)
+    interior = torch.where(cond, (w1 + w2) / (w1 / safe_m0 + w2 / safe_m1),
+                           0.0)
+    return torch.cat([m[..., :1], interior, m[..., -1:]], dim=-1)
+
+
+def hermite_eval(t: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
+                 d: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Evaluate the cubic Hermite interpolant at ``t`` on the brackets
+    ``idx`` (:func:`fitted_index`)."""
+    x0 = _take(x, idx)
+    x1 = _take(x, idx + 1)
+    y0 = _take(y, idx)
+    y1 = _take(y, idx + 1)
+    d0 = _take(d, idx)
+    d1 = _take(d, idx + 1)
+    h = x1 - x0
+    s = (t - x0) / h
+    s2 = s * s
+    s3 = s2 * s
+    h00 = 2.0 * s3 - 3.0 * s2 + 1.0
+    h10 = s3 - 2.0 * s2 + s
+    h01 = -2.0 * s3 + 3.0 * s2
+    h11 = s3 - s2
+    return h00 * y0 + h10 * h * d0 + h01 * y1 + h11 * h * d1
+
+
+def cubic_spline_coeffs(x: torch.Tensor, y: torch.Tensor,
+                        natural_left: bool = True,
+                        clamped_right: bool = False) -> torch.Tensor:
+    """Cubic-spline polynomial coefficients, scipy CubicSpline layout.
+
+    Solves the knot-slope tridiagonal system by parallel cyclic reduction
+    (``utils/math.solve_tridiagonal``). Boundary conditions: S''(x0) = 0;
+    clamped_right: S'(xN) = 0, else natural right (S''(xN) = 0).
+
+    Returns c [..., 4, N-1]: S(t) = c0 u^3 + c1 u^2 + c2 u + c3 on
+    [x_i, x_{i+1}], u = t - x_i.
+    """
+    n = x.shape[-1]
+    h = x[..., 1:] - x[..., :-1]                 # [n-1]
+    m = (y[..., 1:] - y[..., :-1]) / h           # [..., n-1]
+
+    # Tridiagonal system for the knot slopes s (size n): interior rows
+    # enforce C2 continuity, boundary rows encode the BCs.
+    inv_h = 1.0 / h
+    one = torch.ones(inv_h.shape[:-1] + (1,), dtype=x.dtype,
+                     device=x.device)
+    lower = torch.cat([0.0 * one, inv_h[..., :-1], one], dim=-1)
+    diag = torch.cat([2.0 * one, 2.0 * (inv_h[..., :-1] + inv_h[..., 1:]),
+                      2.0 * one], dim=-1)
+    upper = torch.cat([one, inv_h[..., 1:], 0.0 * one], dim=-1)
+    rhs = torch.cat([3.0 * m[..., :1],
+                     3.0 * (m[..., :-1] * inv_h[..., :-1]
+                            + m[..., 1:] * inv_h[..., 1:]),
+                     3.0 * m[..., -1:]], dim=-1)
+    if clamped_right:
+        lower = torch.cat([lower[..., :n - 1], 0.0 * one], dim=-1)
+        diag = torch.cat([diag[..., :n - 1], one], dim=-1)
+        rhs = torch.cat([rhs[..., :n - 1], torch.zeros_like(rhs[..., :1])],
+                        dim=-1)
+
+    s = solve_tridiagonal(lower, diag, upper, rhs)
+
+    s0 = s[..., :-1]
+    s1 = s[..., 1:]
+    c3 = y[..., :-1]
+    c2 = s0
+    c1 = (3.0 * m - 2.0 * s0 - s1) / h
+    c0 = (s0 + s1 - 2.0 * m) / (h * h)
+    return torch.stack([c0, c1, c2, c3], dim=-2)
+
+
+def cubic_eval(t: torch.Tensor, x: torch.Tensor, c: torch.Tensor,
+               idx: torch.Tensor) -> torch.Tensor:
+    """Evaluate a piecewise cubic with coefficients [..., 4, N-1] at ``t``
+    on the brackets ``idx``."""
+    u = t - _take(x, idx)
+    return ((_take(c[..., 0, :], idx) * u + _take(c[..., 1, :], idx)) * u
+            + _take(c[..., 2, :], idx)) * u + _take(c[..., 3, :], idx)
+
+
+def fitted_index(t: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """The fitted schemes' bracket: clip(searchsorted(x, t, left) - 1, 0,
+    n - 2) on the sorted 1-D grid ``x``."""
+    return torch.clamp(torch.searchsorted(x, t) - 1, 0, x.shape[-1] - 2)
+
+
+def _fitted_eval(t, x, aux: InterpAux, idx, interp_type: InterpTypes):
+    if interp_type == InterpTypes.PCHIP_LOG_DISCOUNT:
+        return torch.exp(hermite_eval(t, x, aux.y, aux.d, idx))
+    if interp_type == InterpTypes.PCHIP_ZERO_RATES:
+        return torch.exp(-t * hermite_eval(t, x, aux.y, aux.d, idx))
+    if interp_type == InterpTypes.NATCUBIC_LOG_DISCOUNT:
+        return torch.exp(cubic_eval(t, x, aux.c, idx))
+    return torch.exp(-t * cubic_eval(t, x, aux.c, idx))   # zero-rate cubics
+
+
+def fitted_interp_plan(q, x, interp_type: InterpTypes) -> dict:
+    """The static plan of a fitted scheme for STATIC queries ``q`` (any
+    shape) on the STATIC sorted grid ``x`` (a curve's real knots): the
+    grid, the queries and :func:`fitted_index`'s bracket computed in numpy
+    (``searchsorted`` on the left side, as the dynamic path's). Consumed
+    by :func:`fitted_df_static`."""
+    if interp_type not in _FITTED_SCHEMES:
+        raise LibError("fitted_interp_plan: not a fitted scheme "
+                       + str(interp_type))
+    q = np.asarray(q, np.float64)
+    x = np.asarray(x, np.float64)
+    idx = np.clip(np.searchsorted(x, q, side="left") - 1, 0,
+                  x.shape[0] - 2)
+    return dict(x=x, q=q, idx=idx.astype(np.int32))
+
+
+def fitted_df_static(plan: dict, dfs: torch.Tensor,
+                     interp_type: InterpTypes) -> torch.Tensor:
+    """Fit the curve on the plan's knots and evaluate it at the plan's
+    queries. ``dfs`` [..., L] holds the knots' DFs first (positions past
+    the plan's knot count, a stage's padding, are not read); leading dims
+    batch. Returns the queries' shape (behind the leading dims)."""
+    x = plan["x"]
+    d = dfs[..., :x.shape[-1]]
+    return _fitted_eval(plan["q"], x, interp_fit(x, d, interp_type),
+                        plan["idx"], interp_type)
+
+
+def interp_plan(q, x, interp_type: InterpTypes) -> dict:
+    """The static plan of any scheme: :func:`simple_interp_plan` or
+    :func:`fitted_interp_plan`."""
+    if interp_type in _SIMPLE_SCHEMES:
+        return simple_interp_plan(q, x, interp_type)
+    return fitted_interp_plan(q, x, interp_type)
+
+
+def df_static(plan, dfs: torch.Tensor,
+              interp_type: InterpTypes) -> torch.Tensor:
+    """Evaluate a torch static plan of any scheme; a list of per-member
+    plans evaluates member g against ``dfs[g]`` and stacks the results
+    (the members of a stage have knot counts of their own)."""
+    if isinstance(plan, (list, tuple)):
+        return torch.stack([df_static(p, dfs[g], interp_type)
+                            for g, p in enumerate(plan)])
+    if "idx" in plan:
+        return fitted_df_static(plan, dfs, interp_type)
+    return simple_df_static(plan, dfs, interp_type)
+
+
+# ---------------------------------------------------------------------------
+# Dynamic queries (the single-trade engine, the curves' own queries)
+# ---------------------------------------------------------------------------
 
 
 def simple_plan_torch(q: torch.Tensor, x: torch.Tensor,
@@ -148,7 +361,7 @@ def simple_plan_torch(q: torch.Tensor, x: torch.Tensor,
     formulas in the same order, for query times ``q`` [Q] on the sorted
     grid ``x`` [N]. Neither is differentiated (only the DFs are)."""
     if interp_type not in _SIMPLE_SCHEMES:
-        raise LibError("not yet ported: interpolation scheme "
+        raise LibError("simple_plan_torch: not a simple scheme "
                        + str(interp_type))
     n = x.shape[0]
     tq = q + 1e-12                      # simple_df's nudge
@@ -195,18 +408,43 @@ def simple_df(t, times: torch.Tensor, dfs: torch.Tensor,
 
 def interp_fit(times: torch.Tensor, dfs: torch.Tensor,
                interp_type: InterpTypes) -> InterpAux:
-    """Scheme-specific state for a curve: nothing for the simple schemes;
-    the PCHIP and cubic fits are not ported yet."""
-    if times.shape[0] == 1 or interp_type in _SIMPLE_SCHEMES:
+    """Scheme-specific state for a curve on the grid (``times`` [N],
+    ``dfs`` [..., N]): nothing for the simple schemes (or a one-node
+    grid), else the transformed knot values and the PCHIP slopes or the
+    spline coefficients. Differentiable in ``dfs`` to every order."""
+    if times.shape[-1] == 1 or interp_type in _SIMPLE_SCHEMES:
         return InterpAux()
-    raise LibError("not yet ported: interpolation scheme "
-                   + str(interp_type))
+    if interp_type == InterpTypes.PCHIP_LOG_DISCOUNT:
+        y = torch.log(dfs)
+        return InterpAux(y=y, d=pchip_slopes(times, y))
+    if interp_type == InterpTypes.PCHIP_ZERO_RATES:
+        y = _zero_rates(times, dfs)
+        return InterpAux(y=y, d=pchip_slopes(times, y))
+    if interp_type == InterpTypes.NATCUBIC_LOG_DISCOUNT:
+        y = torch.log(dfs)
+        return InterpAux(y=y, c=cubic_spline_coeffs(times, y))
+    if interp_type == InterpTypes.NATCUBIC_ZERO_RATES:
+        y = _zero_rates(times, dfs)
+        return InterpAux(y=y, c=cubic_spline_coeffs(times, y))
+    if interp_type == InterpTypes.FINCUBIC_ZERO_RATES:
+        y = _zero_rates(times, dfs)
+        return InterpAux(y=y, c=cubic_spline_coeffs(times, y,
+                                                    clamped_right=True))
+    raise LibError("Invalid interpolation scheme " + str(interp_type))
 
 
 def interp_df(t, times: torch.Tensor, dfs: torch.Tensor,
               interp_type: InterpTypes, aux: InterpAux = None
               ) -> torch.Tensor:
-    """DF(t) under a curve's scheme (``aux`` from :func:`interp_fit`).
-    Only the simple schemes are ported; the others raise ``LibError``
-    (from :func:`simple_plan_torch`)."""
-    return simple_df(t, times, dfs, interp_type)
+    """DF(t) under a curve's scheme on the grid (``times``, ``dfs``),
+    vectorized over ``t`` (a 0-d ``t`` gives a 0-d result). ``aux`` from
+    :func:`interp_fit` (the fitted schemes refit without it).
+    Differentiable in ``dfs`` to every order."""
+    if interp_type in _SIMPLE_SCHEMES:
+        return simple_df(t, times, dfs, interp_type)
+    t = torch.as_tensor(t, dtype=torch.float64, device=dfs.device)
+    tt = t.reshape(-1)
+    if aux is None or (aux.d is None and aux.c is None):
+        aux = interp_fit(times, dfs, interp_type)
+    out = _fitted_eval(tt, times, aux, fitted_index(tt, times), interp_type)
+    return out.reshape(out.shape[:-1] + t.shape)

@@ -8,6 +8,8 @@ device form. :func:`pv_float_leg` prices a float leg through static
 interpolation plans (the batched XCCY calibration legs) or, given the
 curves' grid times, through dynamic interpolation (the engine);
 :func:`pv_fixed_leg` prices a fixed leg through dynamic interpolation.
+Both take every interpolation scheme: the dynamic paths fit the fitted
+schemes on the grid they are given.
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ import torch
 
 from ..utils.error import LibError
 from ..utils.global_types import InterpTypes
-from .interpolation import interp_df, simple_df_static
+from .interpolation import df_static, interp_df
 
 
 @dataclasses.dataclass(frozen=True)
@@ -111,8 +113,10 @@ def pv_float_leg(dfs: torch.Tensor, disc_interp_type: InterpTypes,
     ``leg`` is a :func:`leg_to_torch` dict whose arrays are [..., P]
     (scalars [...]). The DFs at the query orders concat(start, end) and
     concat(pay, value[, effective, maturity]) come from ``plans``,
-    dict(idx=..., disc=...) of torch ``simple_interp_plan`` forms with the
-    same leading dims as ``dfs``, or, without plans, from dynamic
+    dict(idx=..., disc=...) of torch static plans (``df_static``: stacked
+    simple plans with the same leading dims as ``dfs``, or per-member
+    lists of plans over ``dfs``'s first axis), or, without plans, from
+    dynamic
     interpolation of one leg on the grids (``times``, ``dfs``) and
     (``idx_times``, ``idx_dfs``), each defaulting to the discount curve's.
     Returns [...]."""
@@ -126,8 +130,8 @@ def pv_float_leg(dfs: torch.Tensor, disc_interp_type: InterpTypes,
     n = pay_t.shape[-1]
 
     if plans is not None:
-        idx_out = simple_df_static(plans["idx"], idx_dfs, idx_it)
-        disc_out = simple_df_static(plans["disc"], dfs, disc_interp_type)
+        idx_out = df_static(plans["idx"], idx_dfs, idx_it)
+        disc_out = df_static(plans["disc"], dfs, disc_interp_type)
     else:
         # one batched query per curve
         idx_times = times if idx_times is None else idx_times

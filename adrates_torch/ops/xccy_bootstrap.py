@@ -18,9 +18,11 @@ doublings directly (the JAX package wraps them in a custom linear solve):
 the doubling polynomial equals (I - A)^-1 b for every A with this
 sparsity, so its derivatives of every order are exact.
 
-Only the static foreign-interpolation path (``foreign_plan``, a
-``simple_interp_plan`` over the cashflow query times) is ported; the
-dynamic paths raise ``LibError``.
+The foreign curve's DFs at the cashflow times come from a static plan
+(``foreign_plan``: ``ops/interpolation.interp_plan`` over the cashflow
+query times, of any scheme, or per-member plans of a stacked stage) or,
+without one, from ``interp_fit`` plus ``interp_df`` on the foreign grid
+(``foreign_times``), under the foreign curve's own scheme either way.
 
 FX convention: spot_fx is DOMESTIC per FOREIGN, and the par condition is
 PV_dom + spot_fx * PV_for = 0.
@@ -34,7 +36,7 @@ import numpy as np
 import torch
 
 from ..utils.error import LibError
-from .interpolation import simple_df_static
+from .interpolation import df_static, interp_df, interp_fit
 
 
 @dataclasses.dataclass(frozen=True)
@@ -88,7 +90,8 @@ def plan_to_torch(plan: XccyBootstrapPlan, device) -> dict:
 
 def bootstrap_xccy(spreads: torch.Tensor, pv_dom: torch.Tensor,
                    foreign_dfs: torch.Tensor, spot_fx, plan: dict,
-                   foreign_interp_type, foreign_plan: dict):
+                   foreign_interp_type, foreign_plan=None,
+                   foreign_times: torch.Tensor = None):
     """Solve the XCCY curve: (times, dfs) with the t=0 node prepended.
 
     spreads:     [S] pillar basis spreads (decimal)
@@ -96,18 +99,28 @@ def bootstrap_xccy(spreads: torch.Tensor, pv_dom: torch.Tensor,
     foreign_dfs: the foreign OIS discount grid (t=0 node included)
     spot_fx:     domestic per foreign (a float or a 0-d tensor)
     plan:        :func:`plan_to_torch` dict
-    foreign_interp_type, foreign_plan: the foreign curve's simple scheme
-        and the torch form of a ``simple_interp_plan`` over
-        concat(start_t, end_t, pay_t_foreign) x the foreign grid times.
+    foreign_interp_type: the foreign curve's scheme
+    foreign_plan: the torch form of an ``interp_plan`` over
+        concat(start_t, end_t, pay_t_foreign) x the foreign grid times
+        (a list of per-member plans for a stacked plan), or None
+    foreign_times: the foreign grid's times, read when there is no plan
 
     With a stacked [G, ...] plan every argument carries the same leading
     [G] axis (``spot_fx`` as [G]) and so do the outputs.
     """
-    if foreign_plan is None:
-        raise LibError("not yet ported: XCCY bootstrap without a static "
-                       "foreign interpolation plan")
     n = plan["start_t"].shape[-1]
-    out = simple_df_static(foreign_plan, foreign_dfs, foreign_interp_type)
+    if foreign_plan is not None:
+        out = df_static(foreign_plan, foreign_dfs, foreign_interp_type)
+    elif foreign_times is not None and plan["start_t"].dim() == 1:
+        aux = interp_fit(foreign_times, foreign_dfs, foreign_interp_type)
+        q = torch.cat([plan["start_t"], plan["end_t"],
+                       plan["pay_t_foreign"]])
+        out = interp_df(q, foreign_times, foreign_dfs, foreign_interp_type,
+                        aux)
+    else:
+        raise LibError("bootstrap_xccy needs a static foreign "
+                       "interpolation plan, or the foreign grid's times "
+                       "for one curve")
     df_s, df_e = out[..., :n], out[..., n:2 * n]
     df_pay_ois = out[..., 2 * n:]
 

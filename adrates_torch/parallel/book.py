@@ -16,8 +16,7 @@ import numpy as np
 import torch
 
 from ..ops.bootstrap import bootstrap_ois
-from ..ops.interpolation import (plan_to_torch, simple_df_static,
-                                 simple_interp_plan)
+from ..ops.interpolation import df_static, interp_plan, plan_to_torch
 from ..utils.global_types import InterpTypes
 
 
@@ -146,15 +145,15 @@ def compile_book(swaps, value_dt, index_dc=None) -> BookTensors:
 def book_pvs(rates: torch.Tensor, plan: dict, interp_type: InterpTypes,
              book: BookTensors, grid_times: np.ndarray) -> torch.Tensor:
     """Per-trade PVs [B]: one bootstrap, one interpolation over the unique
-    grid, per-trade gathers. ``plan`` is a device plan
-    (``ops/bootstrap.plan_to_torch``) and ``grid_times`` the host copy of
-    the bootstrap's node times (t=0 included), which with the book's
-    static unique times fixes the interpolation plan."""
+    grid (a fit first on the fitted schemes), per-trade gathers. ``plan``
+    is a device plan (``ops/bootstrap.plan_to_torch``) and ``grid_times``
+    the host copy of the bootstrap's node times (t=0 included), which with
+    the book's static unique times fixes the interpolation plan."""
     dev = rates.device
     _, dfs = bootstrap_ois(rates, plan)
-    iplan = plan_to_torch(simple_interp_plan(book.unique_times, grid_times,
-                                             interp_type), dev)
-    dfs_u = simple_df_static(iplan, dfs, interp_type)
+    iplan = plan_to_torch(interp_plan(book.unique_times, grid_times,
+                                      interp_type), dev)
+    dfs_u = df_static(iplan, dfs, interp_type)
 
     def t(a, dtype=torch.float64):
         return torch.as_tensor(np.asarray(a), dtype=dtype, device=dev)

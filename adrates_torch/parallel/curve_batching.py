@@ -19,12 +19,21 @@ Padding semantics (all static, built once in numpy):
   such a grid reproduces the unpadded clamp extrapolation to ~1e-28
   relative (the pad knot is 1e30 away), for every simple scheme. The
   sentinels live in the f64 plans: never cast a plan to f32.
+- A member on a fitted scheme (PCHIP, cubic spline) is fitted on its REAL
+  knots only: the pad positions, trailing and known from ``pad_mask``,
+  are sliced off before the fit, since a pad interval 1e30 long changes
+  the fitted tail (and, for PCHIP, the last knot's slope). The JAX
+  package fits such a member on its padded grid, so its batched grids
+  depart from its own unbatched ones there; the port's equal the
+  unbatched ones and each curve's own ``df_t``.
 
 Every interpolation here goes through a static plan (the query times and
 the grid times are both fixed at compile time), including the XCCY
 calibration legs (``legs_plan``) and the bootstrap's foreign-curve
-queries (``fboot_plan``); the JAX package's dynamic-interpolation paths
-and the spline schemes are not ported yet and raise ``LibError``.
+queries (``fboot_plan``). Same-simple-scheme members of a stage batch
+through one stacked plan; a fitted member has a plan of its own
+(``ops/interpolation.fitted_interp_plan``: its knots, the queries and
+their brackets), and is fitted and evaluated per curve.
 """
 
 from __future__ import annotations
@@ -37,7 +46,8 @@ import torch
 
 from ..ops.bootstrap import OISBootstrapPlan, bootstrap_ois
 from ..ops.bootstrap import plan_to_torch as ois_plan_to_torch
-from ..ops.interpolation import (plan_to_torch, simple_df_static,
+from ..ops.interpolation import (fitted_df_static, fitted_interp_plan,
+                                 plan_to_torch, simple_df_static,
                                  simple_interp_plan)
 from ..ops.pricers import FloatLegTensor, leg_to_torch, pv_float_leg
 from ..ops.xccy_bootstrap import XccyBootstrapPlan, bootstrap_xccy
@@ -198,6 +208,15 @@ def _stack_legs(tensors: Sequence[FloatLegTensor]) -> FloatLegTensor:
         has_cap_floor=first.has_cap_floor)
 
 
+def _real_ts(ts_row: np.ndarray, pad_row: np.ndarray) -> np.ndarray:
+    """A member's real knot times: its stage row without the pad
+    positions, which are trailing."""
+    n = int((~pad_row).sum())
+    if pad_row[:n].any():
+        raise LibError("stage pad positions are not trailing")
+    return ts_row[:n]
+
+
 def _qidx(spec, n: int) -> np.ndarray:
     """Global quote indices for a curve, padded with the LAST real index
     (pad rates repeat the last pillar — monotone under log-interp)."""
@@ -270,10 +289,15 @@ def xccy_legs_pv(dom_ds: torch.Tensor, b: dict, st: _Stage) -> torch.Tensor:
     the XCCY bootstrap (an S-value bottleneck the structured risk pass
     exploits: dom-quote directions compose through these S values
     instead of re-differentiating the whole stage)."""
+    lp = b["legs_plan"]
+    if isinstance(lp["idx"], list):
+        # a fitted dom scheme: member g's plans fit dom_ds[g] once for
+        # all S legs
+        return pv_float_leg(dom_ds, st.dom_interp, b["legs"], lp)
     S = b["legs"]["leg_sign"].shape[-1]
     dds = dom_ds.unsqueeze(-2).expand(dom_ds.shape[:-1] + (S,)
                                       + dom_ds.shape[-1:])
-    return pv_float_leg(dds, st.dom_interp, b["legs"], b["legs_plan"])
+    return pv_float_leg(dds, st.dom_interp, b["legs"], lp)
 
 
 def xccy_boot_ds(spreads: torch.Tensor, pv_dom: torch.Tensor,
@@ -303,15 +327,17 @@ def xccy_native_ds(spreads: torch.Tensor, dom_ds: torch.Tensor,
 def stage_rows(ds: torch.Tensor, its: Sequence[InterpTypes],
                plan: dict) -> torch.Tensor:
     """Interpolate a stage's [G, P1] native grids at the stage's static
-    query times: [G, W]. Same-scheme members batch through one static
-    plan (``plan`` is the torch form of a stage's ``row_plan`` or
-    ``row_plan_keep``)."""
+    query times: [G, W]. Same-simple-scheme members batch through one
+    static plan; a fitted member is fitted on its real knots and evaluated
+    through its own plan (``plan`` is the torch form of a stage's
+    ``row_plan`` or ``row_plan_keep``; ``plan["fit"]`` maps a fitted
+    member's position to its plan)."""
+    fit = plan.get("fit", {})
     by_scheme: Dict[InterpTypes, List[int]] = {}
     for m, it in enumerate(its):
-        if it not in _SIMPLE:
-            raise LibError(f"not yet ported: {it.name} stage rows")
-        by_scheme.setdefault(it, []).append(m)
-    if len(by_scheme) == 1:
+        if it in _SIMPLE:
+            by_scheme.setdefault(it, []).append(m)
+    if not fit and len(by_scheme) == 1:
         (it, _), = by_scheme.items()
         return simple_df_static(plan[it.name], ds, it)
     rows: List = [None] * ds.shape[0]
@@ -319,6 +345,8 @@ def stage_rows(ds: torch.Tensor, its: Sequence[InterpTypes],
         out = simple_df_static(plan[it.name], ds[mids], it)
         for k, m in enumerate(mids):
             rows[m] = out[k]
+    for m, fp in fit.items():
+        rows[m] = fitted_df_static(fp, ds[m], its[m])
     return torch.stack(rows)
 
 
@@ -327,18 +355,34 @@ def _stack_plans(plans: Sequence[dict]) -> dict:
     return {k: np.stack([p[k] for p in plans]) for k in plans[0]}
 
 
-def _row_plan(ut: np.ndarray, ts_static: np.ndarray,
+def _row_plan(ut: np.ndarray, ts_static: np.ndarray, pad_mask: np.ndarray,
               its: Sequence[InterpTypes]) -> dict:
-    """Per-scheme stacked static plans for stage_rows at the shared query
-    times, keyed by scheme name in the member grouping stage_rows
-    derives from ``its``."""
+    """Static plans for stage_rows at the shared query times: per simple
+    scheme one stacked plan, keyed by scheme name in the member grouping
+    stage_rows derives from ``its``; under "fit", each fitted member's own
+    plan on its real knots."""
+    return _member_plans([ut] * len(its), ts_static, pad_mask, its)
+
+
+def _member_plans(qs, ts_static, pad_mask, its) -> dict:
+    """Member m's queries ``qs[m]`` on its stage row: stacked simple plans
+    by scheme (on the sentinel-padded rows) and the fitted members' plans
+    (on their real knots) under "fit"."""
     by_scheme: Dict[InterpTypes, List[int]] = {}
+    plan: Dict = {}
+    fit = {}
     for m, it in enumerate(its):
         if it in _SIMPLE:
             by_scheme.setdefault(it, []).append(m)
-    return {it.name: _stack_plans(
-        [simple_interp_plan(ut, ts_static[m], it) for m in mids])
-        for it, mids in by_scheme.items()}
+        else:
+            fit[m] = fitted_interp_plan(
+                qs[m], _real_ts(ts_static[m], pad_mask[m]), it)
+    for it, mids in by_scheme.items():
+        plan[it.name] = _stack_plans(
+            [simple_interp_plan(qs[m], ts_static[m], it) for m in mids])
+    if fit:
+        plan["fit"] = fit
+    return plan
 
 
 def build_batched_grids(basket, unique_times: np.ndarray,
@@ -364,10 +408,6 @@ def build_batched_grids(basket, unique_times: np.ndarray,
     C = len(specs)
     bat: Dict[str, dict] = {}
     stages: List[_Stage] = []
-    for s in specs:
-        if s.interp_type not in _SIMPLE:
-            raise LibError(f"not yet ported: {s.interp_type.name} curve "
-                           f"{s.name} in a stage")
 
     # ---- group OIS curves by static solve config --------------------
     # The group key buckets the plan SHAPES as well as the solve config:
@@ -403,7 +443,7 @@ def build_batched_grids(basket, unique_times: np.ndarray,
             pad_mask=pad_mask,
             sent=sent,
             ts_static=ts_static,
-            row_plan=_row_plan(unique_times, ts_static,
+            row_plan=_row_plan(unique_times, ts_static, pad_mask,
                                [specs[i].interp_type for i in ids]))
         stages.append(_Stage(kind="ois", ids=list(ids), key=key))
 
@@ -420,10 +460,6 @@ def build_batched_grids(basket, unique_times: np.ndarray,
               legs.has_cap_floor, basket.recalibrate_xccy)
         xgroups.setdefault(xk, []).append(i)
     for xk, ids in xgroups.items():
-        for it in xk[:2]:
-            if it not in _SIMPLE:
-                raise LibError(f"not yet ported: XCCY stage over a "
-                               f"{it.name} parent curve")
         plans = [xp_of[i]["plan"] for i in ids]
         plan = _stack_xccy_plans(plans)
         U1 = plan.unique_sel.shape[1] + 1       # incl. t=0 node
@@ -446,7 +482,7 @@ def build_batched_grids(basket, unique_times: np.ndarray,
             pad_mask=pad_mask,
             sent=sent,
             ts_static=ts_static,
-            row_plan=_row_plan(unique_times, ts_static,
+            row_plan=_row_plan(unique_times, ts_static, pad_mask,
                                [specs[i].interp_type for i in ids]))
         stages.append(_Stage(
             kind="xccy", ids=list(ids), key=key,
@@ -479,16 +515,19 @@ def build_batched_grids(basket, unique_times: np.ndarray,
             pad_mask=pad_mask,
             sent=sent,
             ts_static=ts_static,
-            row_plan=_row_plan(unique_times, ts_static,
+            row_plan=_row_plan(unique_times, ts_static, pad_mask,
                                [specs[i].interp_type for i in infl_ids]))
         stages.append(_Stage(kind="infl", ids=list(infl_ids), key="infl"))
 
     # ---- static parent time grids for the XCCY stages (the structured
     # risk pass feeds parent native dfs as explicit stage inputs) -------
     ts_static_of: Dict[int, np.ndarray] = {}
+    real_ts_of: Dict[int, np.ndarray] = {}
     for st in stages:
+        b = bat[st.key]
         for g, cid in enumerate(st.ids):
-            ts_static_of[cid] = bat[st.key]["ts_static"][g]
+            ts_static_of[cid] = b["ts_static"][g]
+            real_ts_of[cid] = _real_ts(b["ts_static"][g], b["pad_mask"][g])
 
     for st in stages:
         if st.kind != "xccy":
@@ -497,40 +536,61 @@ def build_batched_grids(basket, unique_times: np.ndarray,
         b["dom_ts"] = _stack_static_ts(st.dom_ids, ts_static_of)
         b["for_ts"] = _stack_static_ts(st.for_ids, ts_static_of)
         # static foreign-curve interp plan for the bootstrap's cashflow
-        # queries (query times AND the stacked parent grids are static)
+        # queries (query times AND the stacked parent grids are static):
+        # one stacked plan on the sentinel-padded parent rows for a simple
+        # foreign scheme, else each member's plan on its parent's real
+        # knots
         xp = b["plan"]
-        b["fboot_plan"] = _stack_plans([
-            simple_interp_plan(
-                np.concatenate([xp.start_t[g], xp.end_t[g],
-                                xp.pay_t_foreign[g]]),
-                b["for_ts"][g], st.foreign_interp)
-            for g in range(len(st.ids))])
+        fq = [np.concatenate([xp.start_t[g], xp.end_t[g],
+                              xp.pay_t_foreign[g]])
+              for g in range(len(st.ids))]
+        if st.foreign_interp in _SIMPLE:
+            b["fboot_plan"] = _stack_plans([
+                simple_interp_plan(fq[g], b["for_ts"][g], st.foreign_interp)
+                for g in range(len(st.ids))])
+        else:
+            b["fboot_plan"] = [
+                fitted_interp_plan(fq[g], real_ts_of[st.for_ids[g]],
+                                   st.foreign_interp)
+                for g in range(len(st.ids))]
         # static interp plans for the calibration domestic legs
-        # (pv_float_leg's two queries, same query order)
+        # (pv_float_leg's two queries, same query order): per member a
+        # stack over its S legs (simple), or one plan of [S, Q] queries
+        # on the dom parent's real knots (fitted)
         legs = b["legs"]
         dts = b["dom_ts"]
         idx_p, disc_p = [], []
         for g in range(len(st.ids)):
-            ip_row, dp_row = [], []
+            idx_q, disc_q = [], []
             for s in range(legs.payment_times.shape[1]):
-                idx_q = np.concatenate([legs.start_times[g, s],
-                                        legs.end_times[g, s]])
+                idx_q.append(np.concatenate([legs.start_times[g, s],
+                                             legs.end_times[g, s]]))
                 extra = [np.atleast_1d(legs.value_time[g, s])]
                 if legs.notional_exchange:
                     extra.append(np.atleast_1d(legs.effective_time[g, s]))
                     extra.append(np.atleast_1d(legs.maturity_time[g, s]))
-                disc_q = np.concatenate([legs.payment_times[g, s]] + extra)
-                ip_row.append(simple_interp_plan(idx_q, dts[g],
+                disc_q.append(np.concatenate([legs.payment_times[g, s]]
+                                             + extra))
+            if st.dom_interp in _SIMPLE:
+                idx_p.append(_stack_plans([simple_interp_plan(
+                    q, dts[g], st.dom_interp) for q in idx_q]))
+                disc_p.append(_stack_plans([simple_interp_plan(
+                    q, dts[g], st.dom_interp) for q in disc_q]))
+            else:
+                knots = real_ts_of[st.dom_ids[g]]
+                idx_p.append(fitted_interp_plan(np.stack(idx_q), knots,
+                                                st.dom_interp))
+                disc_p.append(fitted_interp_plan(np.stack(disc_q), knots,
                                                  st.dom_interp))
-                dp_row.append(simple_interp_plan(disc_q, dts[g],
-                                                 st.dom_interp))
-            idx_p.append(_stack_plans(ip_row))
-            disc_p.append(_stack_plans(dp_row))
-        b["legs_plan"] = dict(idx=_stack_plans(idx_p),
-                              disc=_stack_plans(disc_p))
+        if st.dom_interp in _SIMPLE:
+            b["legs_plan"] = dict(idx=_stack_plans(idx_p),
+                                  disc=_stack_plans(disc_p))
+        else:
+            b["legs_plan"] = dict(idx=idx_p, disc=disc_p)
 
     interp_of = [s.interp_type for s in specs]
-    bat["gplan"] = _grid_plans(unique_times, ts_static_of, interp_of)
+    bat["gplan"] = _grid_plans(unique_times, ts_static_of, real_ts_of,
+                               interp_of)
 
     # ---- keep-compact row plans for the structured risk pass ---------
     # A stage's rows only matter at the times the book's index tables
@@ -543,28 +603,23 @@ def build_batched_grids(basket, unique_times: np.ndarray,
         for st in stages:
             bat[st.key]["row_plan_keep"] = _keep_plan(
                 unique_times, [keep_of[c] for c in st.ids],
-                [ts_static_of[c] for c in st.ids],
+                bat[st.key]["ts_static"], bat[st.key]["pad_mask"],
                 [interp_of[c] for c in st.ids])
 
     return make_grids(stages, interp_of), bat, stages
 
 
-def _keep_plan(unique_times, keeps, ts_list, its) -> dict:
+def _keep_plan(unique_times, keeps, ts_static, pad_mask, its) -> dict:
     """A stage's keep-compact row plan: each member's referenced times,
-    padded with unique_times[0] to the stage max, per scheme."""
+    padded with unique_times[0] to the stage max, per simple scheme and
+    per fitted member (each at its own queries)."""
     qlists = [unique_times[k] for k in keeps]
     Ug = max((len(q) for q in qlists), default=1) or 1
     qpad = np.stack([np.concatenate([q, np.full(Ug - len(q),
                                                 unique_times[0])])
                      for q in qlists])
-    plan: Dict[str, np.ndarray] = {"q": qpad}
-    by_s: Dict[InterpTypes, List[int]] = {}
-    for m, it in enumerate(its):
-        if it in _SIMPLE:
-            by_s.setdefault(it, []).append(m)
-    for it, mids in by_s.items():
-        plan[it.name] = _stack_plans([
-            simple_interp_plan(qpad[m], ts_list[m], it) for m in mids])
+    plan = _member_plans(qpad, ts_static, pad_mask, its)
+    plan["q"] = qpad
     return plan
 
 
@@ -579,31 +634,45 @@ def _stack_static_ts(ids, ts_static_of) -> np.ndarray:
 
 def _by_scheme(interp_of: Sequence[InterpTypes]) -> Dict[InterpTypes,
                                                          List[int]]:
+    """The curves of each simple scheme, by scheme."""
     out: Dict[InterpTypes, List[int]] = {}
     for i, it in enumerate(interp_of):
-        out.setdefault(it, []).append(i)
+        if it in _SIMPLE:
+            out.setdefault(it, []).append(i)
     return out
 
 
-def _grid_plans(unique_times, ts_static_of, interp_of) -> dict:
-    """Static cross-stage interp plans for grids()' final assembly: one
-    stacked plan per scheme over that scheme's curves (padded to a common
-    grid length with sentinels), queried at every unique time."""
-    gplan: Dict[str, dict] = {}
+def _grid_plans(unique_times, ts_static_of, real_ts_of, interp_of) -> dict:
+    """Static cross-stage interp plans for grids()' final assembly,
+    queried at every unique time: one stacked plan per simple scheme over
+    that scheme's curves (padded to a common grid length with sentinels),
+    and under "fit" each fitted curve's own plan on its real knots."""
+    gplan: Dict = {}
     for it, ids_ in _by_scheme(interp_of).items():
         stacked_ts = _stack_static_ts(ids_, ts_static_of)
         gplan[it.name] = _stack_plans([
             simple_interp_plan(unique_times, stacked_ts[g], it)
             for g in range(len(ids_))])
+    fit = {cid: fitted_interp_plan(unique_times, real_ts_of[cid], it)
+           for cid, it in enumerate(interp_of) if it not in _SIMPLE}
+    if fit:
+        gplan["fit"] = fit
     return gplan
 
 
 def _plans_to_torch(plans: dict, device) -> dict:
-    """{scheme name: numpy plan, "q": array} -> the same on ``device``."""
-    return {k: plan_to_torch(v, device) if isinstance(v, dict)
-            else torch.as_tensor(np.asarray(v, dtype=np.float64),
-                                 device=device)
-            for k, v in plans.items()}
+    """{scheme name: numpy plan, "fit": {member: numpy plan}, "q": array}
+    -> the same on ``device``."""
+    out = {}
+    for k, v in plans.items():
+        if k == "fit":
+            out[k] = {m: plan_to_torch(p, device) for m, p in v.items()}
+        elif isinstance(v, dict):
+            out[k] = plan_to_torch(v, device)
+        else:
+            out[k] = torch.as_tensor(np.asarray(v, dtype=np.float64),
+                                     device=device)
+    return out
 
 
 def bat_to_torch(bat: dict, device) -> dict:
@@ -648,11 +717,10 @@ def make_grids(stages: Sequence[_Stage], interp_of: Sequence[InterpTypes]):
     """The pure fn (qvec, P) -> dense flat DF vector [C*U] (curve-major)
     over the stages, or the compacted [n_grid] selection when
     P["grid_sel"] is set. P["bat"] is :func:`bat_to_torch` output."""
-    for it in interp_of:
-        if it not in _SIMPLE:
-            raise LibError(f"not yet ported: {it.name} curve grids")
     C = len(interp_of)
     schemes = list(_by_scheme(interp_of).items())
+    fitted = [(cid, it) for cid, it in enumerate(interp_of)
+              if it not in _SIMPLE]
 
     def _stack_native(native, ids):
         """Stack per-curve native dfs to a common padded length (pad
@@ -687,6 +755,9 @@ def make_grids(stages: Sequence[_Stage], interp_of: Sequence[InterpTypes]):
                                    _stack_native(native, ids), it)
             for g, cid in enumerate(ids):
                 rows[cid] = out[g]
+        for cid, it in fitted:
+            rows[cid] = fitted_df_static(B["gplan"]["fit"][cid], native[cid],
+                                         it)
         flat = torch.cat([rows[i] for i in range(C)])
         sel = P.get("grid_sel")
         return flat if sel is None else flat[sel]

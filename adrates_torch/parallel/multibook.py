@@ -1575,7 +1575,11 @@ def make_multibook_fn(mb: Union[MultiBook, BookInputs], device,
         scenario_risk = make_structured_risk(inp.topology, term1)
         width = inp.n_grid
     else:
-        width = sum(p["i0"].size for p in inp.bat["gplan"].values())
+        # the dense [C*U] row width: each simple scheme's stacked plan
+        # and each fitted curve's own
+        gplan = inp.bat["gplan"]
+        width = sum(p["i0"].size for k, p in gplan.items() if k != "fit") \
+            + sum(p["q"].size for p in gplan.get("fit", {}).values())
 
     def chunk(n_scen: int) -> int:
         return risk_chunk_size(N, width, n_scen)

@@ -1,18 +1,18 @@
 """Fixed-coupon / zero-coupon / amortizing bond.
 
-Copy of ``adrates_tpu/trades/credit/bond.py`` (plain numpy and scipy)
-without the analytics no port entry point calls (durations, dv01,
-reports): ``position(model, device)``, schedule, value with z-spread
-(keeping the per-payment DFs and PVs the engine's cashflow report
-reads), accrued, clean/dirty, YTM and z-spread. Valuation is vectorized
-(one batched DF query per call); root-finding (YTM, z-spread) uses Brent
-on the host. ``g_spread`` and ``i_spread`` need ``zero_rate``, which the
-port's ``DiscountCurve`` lacks, and raise ``LibError`` until it is ported.
+Copy of ``adrates_tpu/trades/credit/bond.py`` (plain numpy and scipy):
+``position(model, device)``, schedule, value with z-spread (keeping the
+per-payment DFs and PVs the engine's cashflow report reads), accrued,
+clean/dirty, YTM, z/g/i-spreads (the last two through the curves'
+``zero_rate``), duration and convexity, dv01 and cs01, key-rate
+durations from the engine's delta ladder, the amortization helpers and
+the payment reports. Valuation is vectorized (one batched DF query per
+call); root-finding (YTM, z-spread) uses Brent on the host.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Union
+from typing import List, Optional, Union
 
 import numpy as np
 from scipy.optimize import brentq, newton
@@ -23,8 +23,9 @@ from ...utils.currency import CurrencyTypes
 from ...utils.date import Date
 from ...utils.day_count import DayCount, DayCountTypes
 from ...utils.error import LibError
-from ...utils.frequency import FrequencyTypes
+from ...utils.frequency import FrequencyTypes, annual_frequency
 from ...utils.global_types import InstrumentTypes
+from ...utils.helpers import format_table
 from ...utils.schedule import Schedule
 
 
@@ -253,6 +254,11 @@ class Bond:
         except Exception:
             return newton(pv_difference, 0.05, maxiter=100)
 
+    def current_yield(self) -> float:
+        if self._is_zero_coupon:
+            return 0.0
+        return self._coupon
+
     # ------------------------------------------------------------------
 
     def z_spread(self, settlement_dt: Date, discount_curve,
@@ -274,17 +280,177 @@ class Bond:
 
     def g_spread(self, settlement_dt: Date, govt_curve,
                  clean_price: float) -> float:
-        """YTM minus government-curve zero yield at maturity: needs the
-        curves' ``zero_rate``, not ported yet."""
-        raise LibError("not yet ported: Bond.g_spread (DiscountCurve."
-                       "zero_rate)")
+        """YTM minus government-curve zero yield at maturity."""
+        bond_ytm = self.yield_to_maturity(settlement_dt, clean_price)
+        govt_yield = govt_curve.zero_rate(self._maturity_dt,
+                                          freq_type=self._freq_type,
+                                          dc_type=self._dc_type)
+        return bond_ytm - float(govt_yield)
 
     def i_spread(self, settlement_dt: Date, discount_curve,
                  clean_price: float) -> float:
-        """YTM minus swap-curve zero yield at maturity: needs the curves'
-        ``zero_rate``, not ported yet."""
-        raise LibError("not yet ported: Bond.i_spread (DiscountCurve."
-                       "zero_rate)")
+        """YTM minus swap-curve zero yield at maturity."""
+        bond_ytm = self.yield_to_maturity(settlement_dt, clean_price)
+        swap_yield = discount_curve.zero_rate(self._maturity_dt,
+                                              freq_type=self._freq_type,
+                                              dc_type=self._dc_type)
+        return bond_ytm - float(swap_yield)
+
+    # ------------------------------------------------------------------
+
+    def duration(self, settlement_dt: Date, discount_curve,
+                 duration_type: str = "modified",
+                 z_spread: float = 0.0) -> float:
+        """YTM-weighted Macaulay duration; modified == Macaulay under
+        continuous compounding (reference bond.py:648-704)."""
+        clean_px = self.clean_price(settlement_dt, discount_curve,
+                                    z_spread, settlement_dt)
+        ytm = self.yield_to_maturity(settlement_dt, clean_px)
+
+        weighted_time = 0.0
+        total_pv = 0.0
+        for i, payment_dt in enumerate(self._payment_dts):
+            if payment_dt > settlement_dt:
+                t = (payment_dt - settlement_dt) / 365.25
+                pv = self._coupon_payments[i] * np.exp(-ytm * t)
+                if self._is_amortizing:
+                    pv += self._principal_payments[i] * np.exp(-ytm * t)
+                weighted_time += pv * t
+                total_pv += pv
+        if not self._is_amortizing and self._maturity_dt > settlement_dt:
+            t = (self._maturity_dt - settlement_dt) / 365.25
+            pv = self._face_value * np.exp(-ytm * t)
+            weighted_time += pv * t
+            total_pv += pv
+
+        macaulay = weighted_time / total_pv
+        if duration_type.lower() in ("macaulay", "modified"):
+            return macaulay
+        raise ValueError(f"Unknown duration type: {duration_type}")
+
+    def convexity(self, settlement_dt: Date, discount_curve,
+                  z_spread: float = 0.0) -> float:
+        clean_px = self.clean_price(settlement_dt, discount_curve,
+                                    z_spread, settlement_dt)
+        ytm = self.yield_to_maturity(settlement_dt, clean_px)
+        weighted_t2 = 0.0
+        total_pv = 0.0
+        for i, payment_dt in enumerate(self._payment_dts):
+            if payment_dt > settlement_dt:
+                t = (payment_dt - settlement_dt) / 365.25
+                pv = self._coupon_payments[i] * np.exp(-ytm * t)
+                if self._is_amortizing:
+                    pv += self._principal_payments[i] * np.exp(-ytm * t)
+                weighted_t2 += pv * t * t
+                total_pv += pv
+        if not self._is_amortizing and self._maturity_dt > settlement_dt:
+            t = (self._maturity_dt - settlement_dt) / 365.25
+            pv = self._face_value * np.exp(-ytm * t)
+            weighted_t2 += pv * t * t
+            total_pv += pv
+        return weighted_t2 / total_pv
+
+    def dv01(self, settlement_dt: Date, discount_curve,
+             z_spread: float = 0.0) -> float:
+        """Central 1bp z-spread bump (reference bond.py:752-783)."""
+        bump = 0.0001
+        pv_down = self.value(settlement_dt, discount_curve,
+                             z_spread - bump, settlement_dt)
+        pv_up = self.value(settlement_dt, discount_curve,
+                           z_spread + bump, settlement_dt)
+        return (pv_down - pv_up) / 2.0
+
+    def cs01(self, settlement_dt: Date, discount_curve,
+             z_spread: float = 0.0) -> float:
+        """1bp credit-spread sensitivity — same bump as dv01 by the
+        reference's definition (bond.py:834-874)."""
+        return self.dv01(settlement_dt, discount_curve, z_spread)
+
+    def key_rate_durations(self, model, device=None) -> dict:
+        """Percentage price sensitivity to 100bp per tenor, from the AD
+        delta ladder (reference bond.py:785-833), computed on ``device``
+        (None: the CUDA card)."""
+        from ...market.position.engine import Engine
+        from ...utils.global_types import RequestTypes
+        engine = Engine(model, device)
+        result = engine.compute(self, [RequestTypes.VALUE,
+                                       RequestTypes.DELTA])
+        price = result.value.amount
+        krds = {}
+        for tenor, delta_val in zip(result.risk.tenors,
+                                    result.risk.risk_ladder):
+            krds[tenor] = (-float(delta_val) / price * 10000.0
+                           if price != 0 else 0.0)
+        return krds
+
+    # ------------------------------------------------------------------
+
+    @staticmethod
+    def generate_equal_principal_schedule(face_value: float,
+                                          num_periods: int) -> List[float]:
+        """Outstanding principal after each period, equal repayments."""
+        step = face_value / num_periods
+        return [face_value - step * (i + 1) for i in range(num_periods)]
+
+    @staticmethod
+    def generate_annuity_schedule(face_value: float, num_periods: int,
+                                  coupon_rate: float,
+                                  freq_type: FrequencyTypes) -> List[float]:
+        """Outstanding principal under level total payments (annuity)."""
+        freq = annual_frequency(freq_type)
+        r = coupon_rate / freq
+        if r == 0:
+            return Bond.generate_equal_principal_schedule(face_value,
+                                                          num_periods)
+        annuity = face_value * r / (1 - (1 + r) ** (-num_periods))
+        outstanding = face_value
+        schedule = []
+        for _ in range(num_periods):
+            interest = outstanding * r
+            principal = annuity - interest
+            outstanding -= principal
+            schedule.append(max(outstanding, 0.0))
+        schedule[-1] = 0.0
+        return schedule
+
+    # ------------------------------------------------------------------
+
+    def print_valuation(self, value_dt: Date, discount_curve,
+                        z_spread: float = 0.0, settlement_dt: Date = None):
+        """Per-cashflow PV table + clean/dirty/accrued summary (reference
+        bond.py:915-1026)."""
+        self.value(value_dt, discount_curve, z_spread, settlement_dt)
+        settle = settlement_dt or value_dt
+        header = ["PAY_NUM", "PAY_dt", "COUPON", "PRINCIPAL", "DF", "PV",
+                  "CUM_PV"]
+        cum = 0.0
+        rows = []
+        for i in range(self._num_coupons):
+            pv = float(self._coupon_pvs[i]) + float(self._principal_pvs[i])
+            cum += pv
+            rows.append([i + 1, str(self._payment_dts[i]),
+                         round(self._coupon_payments[i], 2),
+                         round(self._principal_payments[i], 2),
+                         round(float(self._payment_dfs[i]), 6),
+                         round(pv, 2), round(cum, 2)])
+        print(format_table(header, rows))
+        print(f"ACCRUED INTEREST: {self.accrued_interest(settle):,.4f}")
+        print(f"DIRTY PRICE:      "
+              f"{self.dirty_price(value_dt, discount_curve, z_spread, settlement_dt):,.6f}")
+        print(f"CLEAN PRICE:      "
+              f"{self.clean_price(value_dt, discount_curve, z_spread, settlement_dt):,.6f}")
+
+    def print_payments(self):
+        header = ["PAY_NUM", "PAY_dt", "ACCR_START", "ACCR_END", "YEARFRAC",
+                  "COUPON", "PRINCIPAL"]
+        rows = [[i + 1, str(self._payment_dts[i]),
+                 str(self._accrual_start_dts[i]),
+                 str(self._accrual_end_dts[i]),
+                 round(self._year_fracs[i], 6),
+                 round(self._coupon_payments[i], 2),
+                 round(self._principal_payments[i], 2)]
+                for i in range(self._num_coupons)]
+        print(format_table(header, rows))
 
     def __repr__(self):
         return (f"Bond({self._issue_dt} -> {self._maturity_dt}, "

@@ -4,9 +4,9 @@ Copy of ``adrates_tpu/trades/credit/frn.py`` (plain numpy and scipy):
 ``position(model, device)``, schedule, value with the cap/floor clamp and
 the discount-margin exp adjustment (keeping the per-coupon rates,
 amounts, DFs and PVs the engine's cashflow report reads), accrued
-interest (per-100 units, as the reference package), clean/dirty prices
-and discount_margin by Brent; the bump analytics and reports, which no
-port entry point calls, are left out. A curve is used only through
+interest (per-100 units, as the reference package), clean/dirty prices,
+discount_margin by Brent, the discount-margin bump analytics (modified
+duration, dv01) and the payment reports. A curve is used only through
 ``df`` and ``_dc_type``.
 """
 
@@ -25,6 +25,7 @@ from ...utils.day_count import DayCount, DayCountTypes
 from ...utils.error import LibError
 from ...utils.frequency import FrequencyTypes
 from ...utils.global_types import CurveTypes, InstrumentTypes
+from ...utils.helpers import format_table
 from ...utils.schedule import Schedule
 
 
@@ -252,6 +253,62 @@ class FRN:
                 raise LibError(
                     f"Failed to converge on discount margin for price "
                     f"{clean_price}")
+
+    def modified_duration(self, value_dt: Date, discount_curve,
+                          index_curve=None, discount_margin: float = 0.0,
+                          settlement_dt: Date = None) -> float:
+        """-(1/P) dP/d(dm) by central 1bp bump (frn.py:494-536)."""
+        if settlement_dt is None:
+            settlement_dt = value_dt
+        bump = 0.0001
+        p0 = self.dirty_price(value_dt, discount_curve, index_curve,
+                              discount_margin, settlement_dt)
+        p_up = self.dirty_price(value_dt, discount_curve, index_curve,
+                                discount_margin + bump, settlement_dt)
+        p_down = self.dirty_price(value_dt, discount_curve, index_curve,
+                                  discount_margin - bump, settlement_dt)
+        return -(p_up - p_down) / (2 * bump * p0)
+
+    def dv01(self, value_dt: Date, discount_curve, index_curve=None,
+             discount_margin: float = 0.0,
+             settlement_dt: Date = None) -> float:
+        if settlement_dt is None:
+            settlement_dt = value_dt
+        bump = 0.0001
+        pv = self.value(value_dt, discount_curve, index_curve,
+                        discount_margin, settlement_dt)
+        pv_bumped = self.value(value_dt, discount_curve, index_curve,
+                               discount_margin + bump, settlement_dt)
+        return abs(pv_bumped - pv)
+
+    # ------------------------------------------------------------------
+
+    def print_valuation(self):
+        """Per-coupon rate/PV table (reference frn.py print_valuation) —
+        requires a prior value()."""
+        if not hasattr(self, "_payment_pvs"):
+            raise LibError("FRN has not been valued — call value() first")
+        header = ["PAY_NUM", "PAY_dt", "RATE", "PMNT", "DF", "PV", "CUM_PV"]
+        cum = 0.0
+        rows = []
+        for i in range(self._num_coupons):
+            pv = float(self._payment_pvs[i])
+            cum += pv
+            rows.append([i + 1, str(self._payment_dts[i]),
+                         round(float(self._rates[i]), 8),
+                         round(float(self._coupon_payments[i]), 2),
+                         round(float(self._payment_dfs[i]), 6),
+                         round(pv, 2), round(cum, 2)])
+        print(format_table(header, rows))
+
+    def print_payments(self):
+        header = ["PAY_NUM", "PAY_dt", "ACCR_START", "ACCR_END", "YEARFRAC"]
+        rows = [[i + 1, str(self._payment_dts[i]),
+                 str(self._start_accrued_dts[i]),
+                 str(self._end_accrued_dts[i]),
+                 round(self._year_fracs[i], 6)]
+                for i in range(self._num_coupons)]
+        print(format_table(header, rows))
 
     def __repr__(self):
         return (f"FRN({self._issue_dt} -> {self._maturity_dt}, "

@@ -4,7 +4,9 @@ Port of ``adrates_tpu/trades/rates/ois_curve.py`` (behavioral parity with
 the reference's input prep 113-154, cashflow bootstrap 156-212 and refit
 gate 344-358 at SWAP_TOL=1e-10). The curve is built on the host: the
 static plan in numpy, the bootstrap as CPU float64 torch ops
-(``ops/bootstrap.py``), shared with the book path's batched stages.
+(``ops/bootstrap.py``), shared with the book path's batched stages. The
+refit gate prices the calibration swaps on the curve's own scheme, any
+of the eight.
 """
 
 from __future__ import annotations

@@ -5,9 +5,11 @@ Port of ``adrates_tpu/trades/rates/xccy_curve.py``: the static chain plan
 (``_foreign_plan``), the domestic calibration-leg PVs, the ACT/365F
 ``df()`` and the 1e-10 refit gate. The solve is
 ``ops/xccy_bootstrap.bootstrap_xccy`` as CPU float64 torch ops, shared
-with the book path's batched XCCY stages. The curve-level jacobian
-properties of the JAX class (which the single-trade engine reads) are
-not ported yet; a foreign curve on a spline scheme raises ``LibError``.
+with the book path's batched XCCY stages. A foreign curve on a simple
+scheme gives the bootstrap a static plan; one on a fitted scheme has
+none, and the bootstrap fits and queries it directly (as the JAX
+class). The curve-level jacobian properties of the JAX class are not
+ported (the single-trade engine composes its own).
 
 FX convention: spot_fx = DOMESTIC per FOREIGN.
 """
@@ -75,7 +77,9 @@ class XccyCurve(DiscountCurve):
                 self._foreign_curve._dfs, self._spot_fx,
                 xccy_plan_to_torch(self._plan, "cpu"),
                 self._foreign_curve._interp_type,
-                plan_to_torch(self._fplan, "cpu"))
+                None if self._fplan is None
+                else plan_to_torch(self._fplan, "cpu"),
+                foreign_times=self._foreign_curve._times)
 
             if check_refit:
                 with timed("curve.refit.xccy", pillars=len(basis_swaps)):
@@ -213,15 +217,13 @@ class XccyCurve(DiscountCurve):
 
     # ------------------------------------------------------------------
 
-    def _foreign_plan(self) -> dict:
+    def _foreign_plan(self):
         """Static-weight interp plan for the bootstrap's foreign-curve
         queries (the schedule AND the parent grid times are fixed once
-        the curve set exists). A foreign curve on a spline scheme has no
-        such plan; that path is not ported yet."""
+        the curve set exists); None for a fitted foreign scheme."""
         it = self._foreign_curve._interp_type
         if it not in _SIMPLE_SCHEMES:
-            raise LibError(f"not yet ported: XCCY curve over a {it.name} "
-                           f"foreign curve")
+            return None
         q = np.concatenate([np.asarray(self._plan.start_t),
                             np.asarray(self._plan.end_t),
                             np.asarray(self._plan.pay_t_foreign)])

@@ -64,6 +64,22 @@ first use. Phases:
    OIS and ZCIS (PVs at 1e-10, K1's per-trade ladders x 1e-4 at rtol
    1e-9 / 1e-8); a Portfolio per valuation currency equal to the sum of
    its trades' PVs; an ``engine`` JSON line before the kernels line;
+7d. flagship_v5 on the fitted schemes (``flagship_v5.SPLINE_SCHEMES``:
+   GBP PCHIP_LOG_DISCOUNT, USD PCHIP_ZERO_RATES, EUR
+   NATCUBIC_LOG_DISCOUNT, JPY NATCUBIC_ZERO_RATES, AUD
+   FINCUBIC_ZERO_RATES; CHF and CAD FLAT_FWD; the book, seed and draw
+   order of phase 7): each spline member's pad count in its stage, the
+   staged path cold + 3 warm with phase 7's gates (FD also on the largest
+   GBP, USD and JPY quotes), per-region times and the device ops and
+   device ms of one warm call (phase 7's beside them), the generic split
+   once (= structured); each spline curve's ``df_t`` against the book's
+   grid row and the engine's PV against the book's on one live OIS of
+   each spline curve and one basis swap of each XCCY curve (1e-10); the
+   per-trade paths of phase 7b on this book; K1, K2 and K3 against their
+   twins on its inputs (1e-12, gates, not kernel records); config 2 on
+   the PCHIP GBP curve (cold + 20 warm, device ops, cuda = cpu) and one
+   bond's duration and g-spread on the host; a ``splines`` JSON line
+   before the kernels line;
 8. each kernel against its plain torch twin on the card, at the shapes
    each path's main function gives it (K2 at that function's scenario
    chunk; K1 also at the ladders' Jv [n_grid + T, N]; K3 on both
@@ -455,6 +471,16 @@ def _top_quote(mb, delta0, kind):
     return lo + int(delta0[lo:hi].abs().argmax())
 
 
+def _call_device(name, fn, q0, shocks, info):
+    """The device ops and device ms of one warm ``fn(q0, shocks)`` call (a
+    CUDA-only profiler trace), kept in ``info`` and printed."""
+    info["device_ops"], info["device_ms"] = _request_device(
+        lambda: fn(q0, shocks))
+    print(f"{name}: one warm call {info['device_ops']} device ops, "
+          f"{_fmt_ms(info['device_ms'])} of device time; card "
+          f"{_card_line()}", flush=True)
+
+
 def _check_staged_vs_mono(name, out, mono, q0, shocks):
     ref = mono(q0, shocks)
     for k in ("pvs", "delta", "gamma"):
@@ -533,6 +559,7 @@ def run_flagship_v5(device, n_warm: int = 3):
 
     fn, out, info = _run_staged("flagship_v5", mb, shocks, device, n_warm,
                                 describe)
+    _call_device("flagship_v5 staged", fn, q0, shocks, info)
 
     # per-region times on one warm chunk, P split into value table + K1
     # and the clamp epilogue
@@ -839,6 +866,44 @@ def _result_arrays(res):
     return parts
 
 
+def _drive_request(p, reqs, n):
+    """One engine request on a position: cold, then ``n`` warm on the host
+    clock; returns (result, dict(cold_ms, warm_ms stats))."""
+    out, cold = _timed(lambda: p.compute(reqs))
+    warm = [_timed(lambda: p.compute(reqs))[1] for _ in range(n)]
+    return out, dict(cold_ms=cold, warm_ms=_stats(warm))
+
+
+def _config2_swap(model):
+    """``bench.py``'s config-2 trade: a 10Y RECEIVE 0.0387 OIS on the
+    model's GBP_OIS_SONIA, 10M notional, MODIFIED_FOLLOWING."""
+    from adrates_torch.trades.rates import OIS
+    from adrates_torch.utils import (BusDayAdjustTypes, CurrencyTypes,
+                                     CurveTypes, DayCountTypes,
+                                     FrequencyTypes, SwapTypes)
+    return OIS(model.value_dt, "10Y", SwapTypes.RECEIVE, 0.0387,
+               FrequencyTypes.ANNUAL, DayCountTypes.ACT_365F,
+               CurveTypes.GBP_OIS_SONIA, CurrencyTypes.GBP,
+               notional=10_000_000, float_dc_type=DayCountTypes.ACT_365F,
+               bd_type=BusDayAdjustTypes.MODIFIED_FOLLOWING)
+
+
+def _cuda_vs_cpu(name, res, res_cpu) -> float:
+    """Gates the card's result against the CPU-asked-for engine's at
+    1e-12 (ladders and gammas of their largest, the PV of max(|PV|, 1));
+    returns the larger error."""
+    import numpy as np
+    err = max(float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-300))
+              for a, b in zip(_result_arrays(res)[1:],
+                              _result_arrays(res_cpu)[1:]))
+    err_pv = abs(res.value.amount - res_cpu.value.amount)
+    _check(f"{name} cuda vs cpu ladders and gammas (abs / max|ref|)", err,
+           1e-12)
+    _check(f"{name} cuda vs cpu PV (abs / max(|ref|, 1))",
+           err_pv / max(abs(res_cpu.value.amount), 1.0), 1e-12)
+    return max(err, err_pv)
+
+
 def run_engine(device, model, trades, coll, n_warm: int = 20):
     """Phase 7c: the single-trade engine on the card (no kernel of its
     own): the README quick start; ``bench.py``'s config 2 on
@@ -859,10 +924,9 @@ def run_engine(device, model, trades, coll, n_warm: int = 20):
                                         make_multibook_fn,
                                         make_per_trade_delta_fn)
     from adrates_torch.trades.rates import OIS
-    from adrates_torch.utils import (BusDayAdjustTypes, CurrencyTypes,
-                                     CurveTypes, Date, DayCountTypes,
-                                     FrequencyTypes, InterpTypes,
-                                     RequestTypes, SwapTypes)
+    from adrates_torch.utils import (CurrencyTypes, CurveTypes, Date,
+                                     DayCountTypes, FrequencyTypes,
+                                     InterpTypes, RequestTypes, SwapTypes)
     R = RequestTypes
     VDG = [R.VALUE, R.DELTA, R.GAMMA]
     card = _card_line()
@@ -913,35 +977,19 @@ def run_engine(device, model, trades, coll, n_warm: int = 20):
 
     # ---- bench.py config 2 on flagship_v5's GBP curve --------------------
     curve = model.curves.GBP_OIS_SONIA
-    swap = OIS(model.value_dt, "10Y", SwapTypes.RECEIVE, 0.0387,
-               FrequencyTypes.ANNUAL, DayCountTypes.ACT_365F,
-               CurveTypes.GBP_OIS_SONIA, CurrencyTypes.GBP,
-               notional=10_000_000, float_dc_type=DayCountTypes.ACT_365F,
-               bd_type=BusDayAdjustTypes.MODIFIED_FOLLOWING)
+    swap = _config2_swap(model)
     pos = swap.position(model, device=device)
-
-    def drive(p, reqs, n):
-        out, cold = _timed(lambda: p.compute(reqs))
-        warm = [_timed(lambda: p.compute(reqs))[1] for _ in range(n)]
-        return out, dict(cold_ms=cold, warm_ms=_stats(warm))
-    res, rec["config2"] = drive(pos, VDG, n_warm)
+    res, rec["config2"] = _drive_request(pos, VDG, n_warm)
     finite(res, "config 2")
-    res_s, rec["config2_speed"] = drive(pos, [R.SPEED], 5)
+    res_s, rec["config2_speed"] = _drive_request(pos, [R.SPEED], 5)
     for key, reqs in (("config2", VDG), ("config2_speed", [R.SPEED])):
         n_ops, d_ms = _request_device(lambda: pos.compute(reqs))
         rec[key].update(device_ops=n_ops, device_ms=d_ms)
     mark("config 2 and SPEED on the card, their device ops")
     cpu_pos = swap.position(model, device="cpu")
-    res_cpu, rec["config2_cpu"] = drive(cpu_pos, VDG, n_warm)
-    err = max(float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-300))
-              for a, b in zip(_result_arrays(res)[1:],
-                              _result_arrays(res_cpu)[1:]))
-    err_pv = abs(res.value.amount - res_cpu.value.amount)
-    _check("engine config 2 cuda vs cpu ladders and gammas (abs / "
-           "max|ref|)", err, 1e-12)
-    _check("engine config 2 cuda vs cpu PV (abs / max(|ref|, 1))",
-           err_pv / max(abs(res_cpu.value.amount), 1.0), 1e-12)
-    rec["config2"]["cuda_vs_cpu_err"] = max(err, err_pv)
+    res_cpu, rec["config2_cpu"] = _drive_request(cpu_pos, VDG, n_warm)
+    rec["config2"]["cuda_vs_cpu_err"] = _cuda_vs_cpu("engine config 2", res,
+                                                     res_cpu)
     mark("config 2 on the CPU")
 
     tenors, rates = flagship_ois.MAIN_TENORS, flagship_ois.MAIN_RATES
@@ -1083,6 +1131,244 @@ def run_engine(device, model, trades, coll, n_warm: int = 20):
     print(f"engine phase: {rec['phase_s']:.1f} s "
           f"({ {k: round(v, 2) for k, v in rec['parts_s'].items()} }); card "
           f"{card}", flush=True)
+    return rec
+
+
+def _twin_gates(name, mono, q0, shocks, chunk, pt_fns) -> dict:
+    """K1, K2 and K3 against their plain twins on one book's inputs (K1 on
+    the PV pass and the ladders, K2 at the staged chunk, K3 on the
+    selected and the blocks path), each at 1e-12 x max|ref|; returns the
+    errors. These launches are not counted on any main path."""
+    from adrates_torch.ops import kernels
+    from adrates_torch.parallel import multibook as tmb
+    book = mono.book
+    errs = {}
+
+    def gate(key, got, ref):
+        got, ref = list(got), list(ref)
+        scale = max(float(r.abs().max()) for r in ref)
+        errs[key] = max(float((g - r).abs().max())
+                        for g, r in zip(got, ref)) / scale
+        _check(f"{name} {key} vs plain (abs / max|ref|)", errs[key], 1e-12)
+
+    vT = tmb.value_table(mono.dfs_only(q0, shocks), book.aggregate)
+    gate("K1 pvs_sweep", [kernels.pvs_sweep(vT, book.sweep)],
+         [kernels.pvs_sweep_plain(vT, book.sweep)])
+    dfs_c, J = mono.jacobians(q0, shocks[:chunk])
+    J = J.contiguous()
+    gate("K2 gamma_quad_form_grouped",
+         [kernels.gamma_quad_form_grouped(J, dfs_c, book.quad)],
+         [kernels.gamma_quad_form_grouped_plain(J, dfs_c, book.quad)])
+    del vT, J, dfs_c
+    lad_fn, gam_fn, blk_fn = pt_fns
+    _, _, Jv = lad_fn.prep(q0)
+    tab = lad_fn.book.sweep
+    gate("ladders K1 pvs_sweep", [kernels.pvs_sweep(Jv, tab)],
+         [kernels.pvs_sweep_plain(Jv, tab)])
+    del Jv
+    for key, f in (("gamma_256", gam_fn), ("gamma_blocks", blk_fn)):
+        _, dfs, Jt, w = f.prep(q0)
+        gate(f"{key} K3 pertrade_quad_form",
+             kernels.pertrade_quad_form(Jt, dfs, w, f.k3),
+             kernels.pertrade_quad_form_plain(Jt, dfs, w, f.k3))
+    return errs
+
+
+def run_flagship_v5_splines(device, flat, n_warm: int = 3):
+    """Phase 7d: flagship_v5 with five of its OIS curves on the fitted
+    schemes (``flagship_v5.SPLINE_SCHEMES``; the book, seed and draw order
+    unchanged): the staged path cold + ``n_warm`` warm with phase 7's
+    gates (FD also on a GBP, a USD and a JPY quote), the generic split
+    once; the engine against the book's PVs on one live OIS of each
+    spline curve and one basis swap of each XCCY curve; each spline
+    curve's ``df_t`` against the book's grid row; the per-trade paths;
+    K1-K3 against their twins on this book; config 2 on the PCHIP GBP
+    curve and a bond's analytics. ``flat`` is phase 7's info, printed
+    beside this phase's. Returns the ``splines`` record."""
+    import numpy as np
+    import torch
+
+    from adrates_torch.examples import flagship_v5 as cfg
+    from adrates_torch.parallel import multibook as tmb
+    from adrates_torch.trades.credit import Bond
+    from adrates_torch.trades.rates import OIS, XccyBasisSwap
+    from adrates_torch.utils import CurrencyTypes, RequestTypes
+    R = RequestTypes
+    VDG = [R.VALUE, R.DELTA, R.GAMMA]
+    card = _card_line()
+    t_phase = time.perf_counter()
+    schemes = {n: it.name for n, it in cfg.SPLINE_SCHEMES.items()}
+
+    rng = np.random.default_rng(cfg.SEED)
+    t0 = time.perf_counter()
+    model = cfg.build_model(schemes=cfg.SPLINE_SCHEMES)
+    t_model = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with warnings.catch_warnings():        # CHF has no trades
+        warnings.simplefilter("ignore", UserWarning)
+        mb, shocks = cfg.build_book(model, rng)
+    t_compile = time.perf_counter() - t0
+    S = cfg.N_SCENARIOS
+    q0 = mb.basket.quotes0
+    basket = mb.basket
+    pads = {}
+    for st in basket.stages:
+        pm = np.asarray(basket.bat[st.key]["pad_mask"])
+        for g, cid in enumerate(st.ids):
+            if basket.specs[cid].name in schemes:
+                pads[basket.specs[cid].name] = int(pm[g].sum())
+    if sorted(pads) != sorted(schemes):
+        raise AssertionError(f"spline members {sorted(pads)}")
+    print(f"flagship_v5 splines: schemes {schemes} (CHF, CAD FLAT_FWD); pad "
+          f"positions of each spline member in its stage {pads}", flush=True)
+
+    fn, out, info = _run_staged(
+        "flagship_v5 splines", mb, shocks, device, n_warm,
+        lambda fn: _describe("flagship_v5 splines", mb, fn, S, t_model,
+                             t_compile, mb.tile.base_trades))
+    for name in ("pvs_sweep", "gamma_quad_form_grouped"):
+        if info[name] <= 0:
+            raise AssertionError(f"{name} was not launched on the spline "
+                                 f"book's staged path")
+    _call_device("flagship_v5 splines staged", fn, q0, shocks, info)
+    info["regions_ms"], a = _time_regions(fn, q0, shocks, device)
+    _print_regions("flagship_v5 splines", a["dfs"].shape[0],
+                   info["regions_ms"])
+    del a
+    mono = tmb.make_multibook_fn(mb, device=device)
+    delta0 = out["delta"][0]
+    fd = []
+    for name in ("GBP_OIS_SONIA", "USD_OIS_SOFR", "JPY_OIS_TONAR"):
+        sl = basket.quote_slice(name)
+        fd.append(sl.start + int(delta0[sl].abs().argmax()))
+    print(f"flagship_v5 splines FD probes: GBP {fd[0]}, USD {fd[1]}, JPY "
+          f"{fd[2]}", flush=True)
+    check_outputs("flagship_v5 splines", out, mono, q0, shocks, mb.n_trades,
+                  fd_extra=tuple(fd))
+    _check_staged_vs_mono("flagship_v5 splines", out, mono, q0, shocks)
+
+    # ---- the generic split, once -----------------------------------------
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)
+        mb_gen, _ = cfg.build_book(model, np.random.default_rng(cfg.SEED),
+                                   batch_curves=False)
+    fn_gen = tmb.make_multibook_fn(mb_gen, device=device)
+    if fn_gen.structured:
+        raise AssertionError("batch_curves=False took the structured split")
+    _reset_launches()
+    out_gen, info["generic_ms"] = _timed(lambda: fn_gen(q0, shocks))
+    info["generic_launches"] = _launches()
+    print(f"flagship_v5 splines generic: one call {info['generic_ms']:.1f} "
+          f"ms; launches {info['generic_launches']}", flush=True)
+    for k, bound in (("pvs", 1e-10), ("delta", 1e-9), ("gamma", 1e-8)):
+        _check(f"flagship_v5 splines generic vs structured {k} (abs / "
+               f"max|ref|)", float((out_gen[k] - out[k]).abs().max()
+                                   / out[k].abs().max()), bound)
+    del out_gen, fn_gen, mb_gen, out
+    torch.cuda.empty_cache()
+
+    # ---- the book against the curves and the engine ----------------------
+    dfs0 = mono.dfs_only(q0, np.zeros((1, basket.n_quotes)))[0].cpu().numpy()
+    for name in schemes:
+        cols = np.flatnonzero(basket.grid_curve_of == basket.curve_id(name))
+        t = basket.unique_times[basket.grid_local_of[cols]]
+        ref = model.curves[name].df_t(t).numpy()
+        _check(f"flagship_v5 splines {name} df_t vs the book's grid row at "
+               f"its {t.shape[0]} times (abs / max|ref|)",
+               float(np.abs(dfs0[cols] - ref).max() / np.abs(ref).max()),
+               1e-10)
+    base, coll = cfg.build_base_trades(model,
+                                       np.random.default_rng(cfg.SEED))
+    live = [(t, c) for t, c in zip(base, coll)
+            if t._maturity_dt > model.value_dt and c is None]
+    picks = [next(t for t, _ in live if isinstance(t, OIS)
+                  and t._floating_index.name == name) for name in schemes]
+    picks += [next(t for t, _ in live if isinstance(t, XccyBasisSwap)
+                   and t._foreign_floating_index.name == forn)
+              for forn in ("GBP_OIS_SONIA", "EUR_OIS_ESTR", "JPY_OIS_TONAR")]
+    with warnings.catch_warnings():        # curves the picks leave out
+        warnings.simplefilter("ignore", UserWarning)
+        mb_e = tmb.compile_multibook(picks, model,
+                                     base_currency=CurrencyTypes.USD)
+    book_pvs = tmb.make_multibook_fn(mb_e, device=device).pvs_only(
+        mb_e.basket.quotes0, np.zeros((1, mb_e.basket.n_quotes)))[0].cpu()
+    for k, t in enumerate(picks):
+        v = t.position(model, device=device).compute([R.VALUE]).value
+        ccy = v.currency.name
+        usd = v.amount * (1.0 if ccy == "USD" else model.fx(f"{ccy}USD"))
+        label = (t._floating_index.name if isinstance(t, OIS)
+                 else f"basis over {t._foreign_floating_index.name}")
+        _check(f"flagship_v5 splines engine vs book PV, {label} (abs, bound "
+               f"max(1e-6, 1e-10 |PV|))", abs(float(book_pvs[k]) - usd),
+               max(1e-6, 1e-10 * abs(usd)))
+    del dfs0, mb_e, book_pvs
+    print(f"flagship_v5 splines: book tied to the curves and the engine; "
+          f"phase so far {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+    # ---- the per-trade paths and the kernels' twins -----------------------
+    print("phase 7d per-trade paths on the spline book:", flush=True)
+    pt_fns, pt_infos = run_per_trade(device, fn, mono, mb, q0, n_warm)
+    twins = _twin_gates("flagship_v5 splines", mono, q0, shocks,
+                        info["chunk"], pt_fns)
+    del pt_fns, fn, mono
+    torch.cuda.empty_cache()
+
+    # ---- the engine on the PCHIP GBP curve, a bond's analytics -----------
+    swap = _config2_swap(model)
+    pos = swap.position(model, device=device)
+    res, c2 = _drive_request(pos, VDG, 20)
+    c2["device_ops"], c2["device_ms"] = _request_device(
+        lambda: pos.compute(VDG))
+    res_cpu, _ = _drive_request(swap.position(model, device="cpu"), VDG, 1)
+    c2["cuda_vs_cpu_err"] = _cuda_vs_cpu("flagship_v5 splines config 2", res,
+                                         res_cpu)
+    for a in _result_arrays(res):
+        if not np.isfinite(a).all():
+            raise AssertionError("flagship_v5 splines config 2: non-finite")
+    print(f"flagship_v5 splines config 2 (GBP_OIS_SONIA "
+          f"{schemes['GBP_OIS_SONIA']}): VALUE+DELTA+GAMMA cold "
+          f"{c2['cold_ms']:.1f} ms, warm median {c2['warm_ms']['median']:.2f} "
+          f"[{c2['warm_ms']['min']:.2f}, {c2['warm_ms']['max']:.2f}] ms over "
+          f"20; one request {c2['device_ops']} device ops, "
+          f"{_fmt_ms(c2['device_ms'])}; card {card}", flush=True)
+    bond = next(t for t in base if isinstance(t, Bond)
+                and t._currency == CurrencyTypes.GBP
+                and t._maturity_dt > model.value_dt)
+    curve = model.curves.GBP_OIS_SONIA
+    v = model.value_dt
+
+    def analytics():
+        return (bond.duration(v, curve),
+                bond.g_spread(v, curve, bond.clean_price(v, curve)))
+    (dur, gsp), bond_ms = _timed(analytics)
+    if not (np.isfinite(dur) and np.isfinite(gsp) and dur > 0):
+        raise AssertionError(f"bond analytics: duration {dur}, g_spread {gsp}")
+    print(f"flagship_v5 splines bond analytics on the host: duration "
+          f"{dur:.6f}, g_spread {gsp:.8f} in {bond_ms:.1f} ms", flush=True)
+
+    def book_rec(i):
+        return dict(warm_ms=i["warm_ms"], cold_ms=i["cold_ms"],
+                    regions_ms=i["regions_ms"], device_ops=i["device_ops"],
+                    device_ms=i["device_ms"], peak_gib=i["peak_gib"],
+                    launches={k: i[k] for k in ("pvs_sweep",
+                                                "gamma_quad_form_grouped")})
+    rec = dict(card=card, schemes=schemes, pads=pads, model_ms=t_model * 1e3,
+               compile_ms=t_compile * 1e3, staged=book_rec(info),
+               flat_staged=book_rec(flat), generic_ms=info["generic_ms"],
+               per_trade={k: dict(warm_ms=i["warm_ms"], prep_ms=i["prep_ms"],
+                                  peak_gib=i["peak_gib"])
+                          for k, i in pt_infos.items() if isinstance(i, dict)},
+               twins=twins, config2=c2,
+               bond=dict(duration=dur, g_spread=gsp, ms=bond_ms))
+    rec["phase_s"] = time.perf_counter() - t_phase
+    s, f = rec["staged"], rec["flat_staged"]
+    print(f"flagship_v5 splines vs phase 7 (FLAT_FWD), warm staged median "
+          f"{statistics.median(s['warm_ms']):.1f} vs "
+          f"{statistics.median(f['warm_ms']):.1f} ms, device ops "
+          f"{s['device_ops']} vs {f['device_ops']}, device "
+          f"{_fmt_ms(s['device_ms'])} vs {_fmt_ms(f['device_ms'])}, peak "
+          f"{s['peak_gib']:.2f} vs {f['peak_gib']:.2f} GiB; phase "
+          f"{rec['phase_s']:.1f} s; card {card}", flush=True)
     return rec
 
 
@@ -1489,6 +1775,7 @@ def main() -> int:
     base, coll = flagship_v5.build_base_trades(
         model_f, np.random.default_rng(flagship_v5.SEED))
     engine = run_engine(device, model_f, base, coll)
+    splines = run_flagship_v5_splines(device, info_f)
     for path, info in (("ois_slice", info_o), ("ois_slice_generic", info_g),
                        ("ois_xccy_book", info_x), ("flagship_v5", info_f)):
         for name in ("pvs_sweep", "gamma_quad_form_grouped"):
@@ -1527,6 +1814,7 @@ def main() -> int:
               f"events {r['share_of_bound_events']:.3f}), "
               f"{r['launches_per_call']:g} launches per call; card {card}")
     print(json.dumps({"engine": engine}))
+    print(json.dumps({"splines": splines}))
     print(json.dumps({"kernels": records}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {

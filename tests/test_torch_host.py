@@ -138,16 +138,32 @@ def test_grid_plans(books):
 
 
 def test_unported_instrument_raises():
-    """What the port's book compiler still refuses as not ported: a curve
-    whose interpolation scheme is not one of the three simple ones, in a
-    stage."""
-    from adrates_torch.utils import InterpTypes, LibError
+    """A curve on a fitted scheme in a stage (ported; the name is kept from
+    when the book compiler refused it): the book with a PCHIP_LOG_DISCOUNT
+    EUR curve compiles, and its PVs equal the JAX package's on its
+    unbatched curve graph (which fits every curve on its own knots) at
+    1e-10 x max|ref|."""
+    import jax.numpy as jnp
+    from adrates_tpu.utils import InterpTypes as JInterpTypes
+    from adrates_torch.utils import InterpTypes
+    jm = cases.build_model("adrates_tpu")
     tm = cases.build_model("adrates_torch")
+    jm._curves_dict["EUR_OIS_ESTR"]._interp_type = \
+        JInterpTypes.PCHIP_LOG_DISCOUNT
     tm._curves_dict["EUR_OIS_ESTR"]._interp_type = \
         InterpTypes.PCHIP_LOG_DISCOUNT
-    with pytest.raises(LibError, match="not yet ported: "
-                       "PCHIP_LOG_DISCOUNT curve EUR_OIS_ESTR"):
-        cases.compile_book("adrates_torch", tm)
+    jb = jmb.compile_multibook(cases.build_trades("adrates_tpu", jm), jm,
+                               base_currency=jmb.CurrencyTypes.USD,
+                               batch_curves=False)
+    tb = tmb.compile_multibook(cases.build_trades("adrates_torch", tm), tm,
+                               base_currency=tmb.CurrencyTypes.USD)
+    q0 = tb.basket.quotes0
+    zero = np.zeros((1, q0.shape[0]))
+    ref = np.asarray(jmb.make_multibook_fn(jb)(jnp.asarray(q0),
+                                               jnp.asarray(zero))["pvs"])
+    got = tmb.make_multibook_fn(tb, "cpu").pvs_only(q0, zero).numpy()
+    np.testing.assert_allclose(got, ref, rtol=0,
+                               atol=1e-10 * np.abs(ref).max())
 
 
 @pytest.mark.parametrize("itype", ["SWAP_FIXED_LEG", "SWAP_FLOAT_LEG",

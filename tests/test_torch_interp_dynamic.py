@@ -2,7 +2,8 @@
 package's, on the CPU.
 
 ``simple_df`` / ``interp_df`` against ``adrates_tpu``'s on every simple
-scheme, at knots, between them, below the first and above the last node,
+scheme (the fitted schemes' state and values too; their jacobians and
+Hessians are in test_torch_interp_fitted.py), at knots, between them, below the first and above the last node,
 at t = 0 and within the 1e-10 knot guard, on a grid that starts at t = 0,
 one with a repeated time and one anchored just above 0: values, ``jacrev``
 and ``jacfwd(jacrev)`` in the DFs at 1e-10 x max|ref|, and the dynamic
@@ -112,11 +113,27 @@ def test_scalar_query_and_interp_df():
                                     "NATCUBIC_ZERO_RATES",
                                     "FINCUBIC_ZERO_RATES"])
 def test_fitted_schemes_raise(scheme):
-    times, dfs = (_t(x) for x in GRIDS["t0"])
-    with pytest.raises(LibError, match="not yet ported"):
-        tint.interp_df(_t([0.7]), times, dfs, TIT[scheme])
-    with pytest.raises(LibError, match="not yet ported"):
-        tint.interp_fit(times, dfs, TIT[scheme])
+    """The fitted schemes (ported; the name is kept from when they
+    raised): ``interp_fit``'s state and ``interp_df`` at the GRIDS["t0"]
+    queries against the JAX package's, at 1e-10 x max|ref|."""
+    times, dfs = GRIDS["t0"]
+    q = _queries(times)
+    jx, jd = jnp.asarray(times), jnp.asarray(dfs)
+    tx, td = _t(times), _t(dfs)
+    ja = jint.interp_fit(jx, jd, JIT[scheme])
+    ta = tint.interp_fit(tx, td, TIT[scheme])
+    for k in ("y", "d", "c"):
+        r, g = getattr(ja, k), getattr(ta, k)
+        assert (r is None) == (g is None), k
+        if r is not None:
+            r = np.asarray(r)
+            np.testing.assert_allclose(g.numpy(), r, rtol=0,
+                                       atol=1e-10 * np.abs(r).max(),
+                                       err_msg=k)
+    ref = np.asarray(jint.interp_df(jnp.asarray(q), jx, jd, JIT[scheme], ja))
+    got = tint.interp_df(_t(q), tx, td, TIT[scheme], ta).numpy()
+    np.testing.assert_allclose(got, ref, rtol=0,
+                               atol=1e-10 * np.abs(ref).max())
 
 
 # ---------------------------------------------------------------------------

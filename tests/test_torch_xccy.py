@@ -345,30 +345,44 @@ def test_find_xccy_curve_needs_exact_pair(models):
 
 
 def test_unported_paths_raise(models):
-    """Spline schemes in the curve graph (an XCCY curve in a stage, and
-    the grids) and the dynamic-interpolation pricer and bootstrap paths
-    raise LibError (fixed-leg XCCY swaps compile since their port:
-    tests/test_torch_xccy_fixed.py)."""
-    from adrates_torch.parallel import curve_batching as tcb
+    """An XCCY curve on a fitted scheme of its own in a stage (ported; the
+    name is kept from when the compile refused it): the book with
+    GBP_USD_XCCY on PCHIP_ZERO_RATES compiles and its PVs, delta and gamma
+    equal the JAX package's on its unbatched curve graph at 1e-10 x
+    max|ref|. The pricer and the bootstrap still refuse to run with
+    neither a static plan nor the grid's times."""
+    from adrates_tpu.utils import InterpTypes as JInterpTypes
     from adrates_torch.utils import InterpTypes
-    _, tm = models
-    trades, coll = cases.build_xccy_trades("adrates_torch", tm)
-    xccy = tm._curves_dict["GBP_USD_XCCY"]
-    it = xccy._interp_type
-    xccy._interp_type = InterpTypes.PCHIP_ZERO_RATES
-    try:
-        with pytest.raises(LibError, match="not yet ported: "
-                           "PCHIP_ZERO_RATES curve GBP_USD_XCCY"):
-            tmb.compile_multibook(trades, tm,
-                                  base_currency=tmb.CurrencyTypes.USD,
-                                  collateral_types=coll)
-    finally:
-        xccy._interp_type = it
-    with pytest.raises(LibError, match="PCHIP"):
-        tcb.make_grids([], [InterpTypes.PCHIP_ZERO_RATES])
+    out = []
+    for pkg, m, it in (("adrates_tpu", models[0], JInterpTypes),
+                       ("adrates_torch", models[1], InterpTypes)):
+        xccy = m._curves_dict["GBP_USD_XCCY"]
+        old = xccy._interp_type
+        xccy._interp_type = it.PCHIP_ZERO_RATES
+        try:
+            trades, coll = cases.build_xccy_trades(pkg, m)
+            mod = jmb if pkg == "adrates_tpu" else tmb
+            kw = dict(batch_curves=False) if pkg == "adrates_tpu" else {}
+            out.append(mod.compile_multibook(
+                trades, m, base_currency=mod.CurrencyTypes.USD,
+                collateral_types=coll, **kw))
+        finally:
+            xccy._interp_type = old
+    jb, tb = out
+    assert tb.basket.specs[tb.basket.curve_id("GBP_USD_XCCY")] \
+        .interp_type == InterpTypes.PCHIP_ZERO_RATES
+    q0 = tb.basket.quotes0
+    sh = cases.shocks(q0.shape[0], 2)
+    ref = jmb.make_multibook_fn(jb)(jnp.asarray(q0), jnp.asarray(sh))
+    got = tmb.make_multibook_fn(tb, "cpu")(q0, sh)
+    for k in ("pvs", "delta", "gamma"):
+        r = np.asarray(ref[k])
+        np.testing.assert_allclose(got[k].numpy(), r, rtol=0,
+                                   atol=1e-10 * np.abs(r).max(), err_msg=k)
     with pytest.raises(LibError):
         tpricers.pv_float_leg(torch.ones(3), InterpTypes.FLAT_FWD_RATES,
                               {}, None)
     with pytest.raises(LibError):
         tx.bootstrap_xccy(torch.zeros(2), torch.zeros(2), torch.ones(3),
-                          1.0, {}, InterpTypes.FLAT_FWD_RATES, None)
+                          1.0, {"start_t": torch.zeros((2, 2))},
+                          InterpTypes.FLAT_FWD_RATES, None)

@@ -296,26 +296,34 @@ def trade_slot_weights(jax_mb, port_mb):
     return jax_w, port_w
 
 
-def build_credit_model(pkg: str):
+def build_credit_model(pkg: str, schemes=None):
     """tests/multibook_cases.py:build_model through ``pkg``: USD and GBP
-    OIS (FLAT_FWD), GBP_USD_XCCY over them, GBPUSD."""
+    OIS (FLAT_FWD), GBP_USD_XCCY over them, GBPUSD. ``schemes`` maps a
+    curve's name to the name of another interpolation scheme; the two OIS
+    curves have the same pillars and points, so neither pads the other in
+    their stage."""
     u, Model, _ = _ns(pkg)
+    schemes = schemes or {}
+
+    def it(name):
+        return u.InterpTypes[schemes.get(name, "FLAT_FWD_RATES")]
     m = Model(u.Date(1, 1, 2024))
     m.build_curve("USD_OIS_SOFR", px_list=[5.3, 5.0, 4.6, 4.0, 3.88],
                   tenor_list=["6M", "1Y", "2Y", "5Y", "10Y"],
                   fixed_dcc_type=u.DayCountTypes.ACT_360,
                   float_dc_type=u.DayCountTypes.ACT_360,
-                  interp_type=u.InterpTypes.FLAT_FWD_RATES)
+                  interp_type=it("USD_OIS_SOFR"))
     m.build_curve("GBP_OIS_SONIA", px_list=[5.0, 4.7, 4.3, 3.9, 3.87],
                   tenor_list=["6M", "1Y", "2Y", "5Y", "10Y"],
                   fixed_dcc_type=u.DayCountTypes.ACT_365F,
                   float_dc_type=u.DayCountTypes.ACT_365F,
-                  interp_type=u.InterpTypes.FLAT_FWD_RATES)
+                  interp_type=it("GBP_OIS_SONIA"))
     m.build_xccy_curve(name="GBP_USD_XCCY",
                        domestic_curve_name="USD_OIS_SOFR",
                        foreign_curve_name="GBP_OIS_SONIA",
                        basis_spreads=[-5.0, -8.0, -11.0],
-                       tenor_list=["1Y", "5Y", "10Y"], spot_fx=1.27)
+                       tenor_list=["1Y", "5Y", "10Y"], spot_fx=1.27,
+                       interp_type=it("GBP_USD_XCCY"))
     m.build_fx(["GBPUSD"], [1.27])
     return m
 
@@ -445,10 +453,11 @@ def compile_tiled(pkg: str, model, trades, n_copies: int = 2, seed=SEED + 3,
     return mb, mbmod.tile_multibook(mb, n_copies, notional_scale=scale)
 
 
-def build_all_kinds_model(pkg: str):
-    """build_credit_model plus the GBP RPI curve of build_infl_model: a
-    model for every instrument kind of the book compiler."""
-    m = build_credit_model(pkg)
+def build_all_kinds_model(pkg: str, schemes=None):
+    """build_credit_model (``schemes`` as there) plus the GBP RPI curve of
+    build_infl_model: a model for every instrument kind of the book
+    compiler."""
+    m = build_credit_model(pkg, schemes)
     m.build_inflation_curve("GBP_RPI_INFLATION",
                             breakeven_list=[3.8, 3.5, 3.4, 3.5, 3.3],
                             tenor_list=["1Y", "3Y", "5Y", "10Y", "30Y"],
@@ -461,6 +470,31 @@ def all_kinds_trades(pkg: str, model):
     fix-fix XCCY swaps, a ZCIS and a YoY swap."""
     return credit_trades_for(pkg, model) + fixed_xccy_trades(pkg, model) \
         + infl_trades_for(pkg, model)[:2]
+
+
+# two scheme maps for build_all_kinds_model that together cover the five
+# fitted schemes; the XCCY curve of the first is recalibrated in-graph,
+# the second's held as values (spline_book)
+SPLINE_SCHEMES = {
+    "a_recal": {"USD_OIS_SOFR": "NATCUBIC_ZERO_RATES",
+                "GBP_OIS_SONIA": "PCHIP_LOG_DISCOUNT",
+                "GBP_USD_XCCY": "PCHIP_ZERO_RATES"},
+    "b_held": {"USD_OIS_SOFR": "PCHIP_ZERO_RATES",
+               "GBP_OIS_SONIA": "NATCUBIC_LOG_DISCOUNT",
+               "GBP_USD_XCCY": "FINCUBIC_ZERO_RATES"},
+}
+
+
+def spline_book(pkg: str, name: str, **kw):
+    """(model, tiled book): the all-kinds trades on build_all_kinds_model
+    with the scheme map SPLINE_SCHEMES[name], in USD, tiled x2; ``kw``
+    goes to compile_multibook."""
+    u = importlib.import_module(f"{pkg}.utils")
+    m = build_all_kinds_model(pkg, SPLINE_SCHEMES[name])
+    return m, compile_tiled(pkg, m, all_kinds_trades(pkg, m),
+                            base_currency=u.CurrencyTypes.USD,
+                            recalibrate_xccy=name.endswith("recal"),
+                            **kw)[1]
 
 
 PERTRADE_BOOKS = ["ois", "xccy_recal", "xccy_held", "credit", "infl",
