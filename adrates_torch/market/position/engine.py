@@ -38,6 +38,7 @@ from ...requests.results import (AnalyticsResult, CashflowItem, Cashflows,
                                  CrossGamma, Delta, Gamma, Risk, Speed,
                                  Valuation)
 from ...utils.day_count import DayCountTypes
+from ...utils.device import resolve_device
 from ...utils.error import LibError
 from ...utils.global_types import (CollateralType, InstrumentTypes,
                                    RequestTypes, SwapTypes,
@@ -46,17 +47,6 @@ from ...utils.global_types import (CollateralType, InstrumentTypes,
 from ...utils.helpers import to_tenor
 from ...utils.observability import timed
 from .engine_legacy import LegacyLegAnalytics
-
-
-def resolve_device(device=None) -> torch.device:
-    """``device`` as a ``torch.device``. None means the CUDA card; where no
-    card is visible that raises rather than running on the host."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise LibError("no CUDA device is visible: pass device='cpu' "
-                           "to run the engine on the host")
-        return torch.device("cuda")
-    return torch.device(device)
 
 
 def memo_tensor(owner, key, build):

@@ -1,19 +1,31 @@
-"""Model facade: multi-curve container and FX store.
+"""Model facade: multi-curve container, FX store, scenario engine.
 
 Port of ``adrates_tpu/models/models.py`` — ``build_curve`` (:74),
 ``build_parallel`` (:130), ``build_xccy_curve`` (:187,
 ``models/xccy_builder.py``), ``build_inflation_curve`` (:191,
-``models/inflation_builder.py``), ``build_fx`` (:159) and ``fx`` (:174).
-Parity with the reference's cavour/models/models.py (CurveAccessor 23-49,
-build_curve 142-228, build_fx 230-266). Prebuilt market data, scenarios
-and persistence are not ported yet.
+``models/inflation_builder.py``), ``build_fx`` (:159), ``fx`` (:174,
+routed through ``marketdata.FXRoutingEngine``), ``scenario`` (:238),
+``scenario_grid`` (:279) and ``to_json`` / ``from_json`` (:308,
+``models/serialization.py``). Parity with the reference's
+cavour/models/models.py (CurveAccessor 23-49, build_curve 142-228,
+build_fx 230-266, scenario 507-557). The Bloomberg-backed ``prebuilt_*``
+builders are not ported (they need ``xbbg`` and a terminal).
+
+``scenario_grid`` is the one method that puts tensors on a device: it
+takes ``device`` (None: the CUDA card, see ``utils/device.py``).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Dict, List
+from typing import Dict, List, Union
 
+import numpy as np
+import torch
+from torch.func import vmap
+
+from ..marketdata.market_data_engine import FXRoutingEngine
+from ..ops.bootstrap import bootstrap_ois, plan_to_torch
 from ..trades.rates.ois import OIS
 from ..trades.rates.ois_curve import OISCurve
 from ..trades.rates.xccy_basis_swap import XccyBasisSwap
@@ -22,6 +34,7 @@ from ..utils.calendar import BusDayAdjustTypes, CalendarTypes
 from ..utils.currency import CurrencyTypes
 from ..utils.date import Date
 from ..utils.day_count import DayCountTypes
+from ..utils.device import resolve_device
 from ..utils.error import LibError
 from ..utils.frequency import FrequencyTypes
 from ..utils.global_types import CurveTypes, InterpTypes, SwapTypes
@@ -56,7 +69,7 @@ class CurveAccessor:
 
 @dataclass
 class Model:
-    """Multi-curve model: builds and stores curves and FX."""
+    """Multi-curve model: builds and stores curves, FX, and scenarios."""
 
     value_dt: Date
     _curves_dict: Dict[str, object] = field(default_factory=dict)
@@ -157,12 +170,15 @@ class Model:
                          BusDayAdjustTypes.MODIFIED_FOLLOWING,
                          interp_type: InterpTypes =
                          InterpTypes.FLAT_FWD_RATES,
-                         check_refit: bool = True) -> XccyCurve:
+                         check_refit: bool = True,
+                         use_ad: bool = True) -> XccyCurve:
         """Bootstrap a foreign-in-domestic-collateral curve from basis
         spreads (quoted in bp) and register it under ``name`` (port of
         ``adrates_tpu/models/xccy_builder.py``). The "domestic" curve is
         the collateral currency's OIS curve; spot_fx is DOMESTIC per
-        FOREIGN."""
+        FOREIGN. ``use_ad`` is only stored with the curve's parameters, as
+        the JAX builder stores it (its curve class reads it nowhere), so
+        the two packages' stored parameters and JSON agree."""
         for role, cname in (("Domestic", domestic_curve_name),
                             ("Foreign", foreign_curve_name)):
             if cname not in self._curves_dict:
@@ -216,6 +232,7 @@ class Model:
             "foreign_dc_type": foreign_dc_type,
             "bus_day_type": bus_day_type,
             "interp_type": interp_type,
+            "use_ad": use_ad,
         }
         return curve
 
@@ -235,15 +252,91 @@ class Model:
         return result
 
     def fx(self, pair: str) -> float:
-        """Spot rate for a pair, inverting if necessary. Pairs that need
-        routing through a third currency are not ported yet."""
+        """Spot rate for a pair, inverting or routing if necessary."""
         if pair in self._fx_params_dict:
             return self._fx_params_dict[pair]["price"]
         inverse = pair[3:] + pair[:3]
         if inverse in self._fx_params_dict:
             return 1.0 / self._fx_params_dict[inverse]["price"]
-        raise LibError(f"FX pair {pair} needs routing, which is not yet "
-                       f"ported (register the pair or its inverse)")
+        return FXRoutingEngine(self._fx_params_dict).rate(pair)
+
+    # ------------------------------------------------------------------
+    # scenarios
+    # ------------------------------------------------------------------
+
+    def scenario(self, curve_name: str,
+                 shock: Union[float, Dict[str, float]]) -> "Model":
+        """New Model with one curve re-bootstrapped under shocked quotes.
+
+        shock: float => parallel shift in PERCENT units (reference
+        convention, models.py:507-557); dict tenor->shift for per-tenor.
+        Untouched curves and FX are copied by reference; every XCCY curve
+        whose domestic or foreign parent is the shocked curve is rebuilt.
+        The name of an XCCY or inflation curve has stored parameters
+        without ``px_list`` and raises ``KeyError``, as in the JAX
+        package.
+        """
+        if curve_name not in self._curve_params_dict:
+            raise LibError(f"No stored parameters for curve {curve_name}")
+        params = dict(self._curve_params_dict[curve_name])
+        tenor_list = params["tenor_list"]
+        px_list = list(params["px_list"])
+
+        if isinstance(shock, dict):
+            unknown = set(shock) - set(tenor_list)
+            if unknown:
+                raise LibError(f"Shock tenors not on curve: {unknown}")
+            px_list = [px + shock.get(ten, 0.0)
+                       for px, ten in zip(px_list, tenor_list)]
+        else:
+            px_list = [px + shock for px in px_list]
+
+        new_model = Model(self.value_dt)
+        new_model._curves_dict = dict(self._curves_dict)
+        new_model._curve_params_dict = dict(self._curve_params_dict)
+        new_model._fx_params_dict = dict(self._fx_params_dict)
+        params["px_list"] = px_list
+        new_model.build_curve(curve_name, **params)
+
+        # XCCY node DFs are functions of their parents' grids: a shocked
+        # OIS curve invalidates its dependants (the reference returns a
+        # model holding only the shocked curve; keeping the rest of the
+        # market consistent is the JAX package's upgrade, kept here)
+        for dep_name, dep_params in self._curve_params_dict.items():
+            if dep_params.get("domestic_curve_name") == curve_name or \
+                    dep_params.get("foreign_curve_name") == curve_name:
+                new_model.build_xccy_curve(dep_name, **dep_params)
+        return new_model
+
+    def scenario_grid(self, curve_name: str, shocks,
+                      device=None) -> torch.Tensor:
+        """Batched scenario bootstrap: shocks [S, P] in percent added to
+        the stored quotes; returns the DF grids [S, n_nodes] (t = 0 node
+        included) on ``device`` from ONE ``vmap`` of ``bootstrap_ois``
+        over the curve's plan (no Python rebuild per row)."""
+        curve = self._curves_dict[curve_name]
+        dev = resolve_device(device)
+        base = torch.as_tensor(np.asarray(curve.swap_rates, np.float64),
+                               device=dev)
+        shocks = torch.as_tensor(shocks, dtype=torch.float64,
+                                 device=dev) / 100.0
+        plan = plan_to_torch(curve._plan, dev)
+        return vmap(lambda s: bootstrap_ois(base + s, plan)[1])(shocks)
+
+    # ------------------------------------------------------------------
+    # persistence
+    # ------------------------------------------------------------------
+
+    def to_json(self, fp=None):
+        """Serialize market state (curve params + FX) to JSON; every
+        curve re-bootstraps bit-identically on load."""
+        from .serialization import model_to_json
+        return model_to_json(self, fp)
+
+    @classmethod
+    def from_json(cls, source) -> "Model":
+        from .serialization import model_from_json
+        return model_from_json(source)
 
     @property
     def curves(self) -> CurveAccessor:

@@ -1,22 +1,48 @@
-"""Single-curve OIS book: compile calibration swaps to index tables and
-price them against one bootstrapped curve.
+"""Single-curve OIS book: compile swaps to index tables, price them against
+one bootstrapped curve under a scenario matrix, and take the book's delta
+and gamma from its aggregate.
 
-Port of ``adrates_tpu/parallel/book.py:BookTensors``, ``compile_book``
-(:89) and ``book_pvs`` (:234) — what the ``OISCurve`` refit gate needs.
-Every payment/accrual time collapses into ONE sorted unique-time grid and
+Port of ``adrates_tpu/parallel/book.py`` (:89-583) without the mesh
+functions (``shard_book``, ``make_sharded_book_fn``,
+``make_pershard_aggregate_fn``; multi-GPU is a later slice). Every
+payment/accrual time collapses into ONE sorted unique-time grid and
 trades hold indices into it, so pricing the book is one bootstrap, one
-interpolation over the grid and per-trade gathers.
+interpolation over the grid and per-trade gathers:
+
+ - ``compile_book`` / ``tile_book`` / ``compile_book_buckets`` build the
+   host tables (numpy, as the JAX package's);
+ - ``make_book_fn`` gives the per-trade PVs [S, B] of every scenario from
+   the hand-written K1 kernel (``kernels.pvs_sweep``, replacing
+   ``_pvs_from_grid`` under ``lax.map``, :223-231 / :379-380): the value
+   table is ``multibook.value_table``'s layout, rows ``[dfs_u (U); trip
+   values (T)]`` and one column per scenario, and each trade's fixed,
+   spread and forward slots are one per-trade CSR of (row, weight) over
+   it, built once per (book, device);
+ - the book delta [S, N] and gamma [S, N, N] are ``torch.func`` ``jacrev``
+   and ``jacfwd(jacrev)`` of ``aggregate_total_pv``, the O(U + T)
+   aggregate, vmapped over the scenarios, as in JAX. K2 is not on this
+   path: JAX differentiates the aggregate here, not a J-based quad form.
+
+Any interpolation scheme works: the simple ones through their static
+plan, the fitted ones fitted on the bootstrap's nodes
+(``interpolation.df_static``). Functions that put tensors on a device take
+``device`` (None: the CUDA card, ``utils/device.py``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
+from torch.func import jacfwd, jacrev, vmap
 
-from ..ops.bootstrap import bootstrap_ois
-from ..ops.interpolation import df_static, interp_plan, plan_to_torch
+from ..ops import kernels
+from ..ops.bootstrap import OISBootstrapPlan, bootstrap_ois, plan_to_torch
+from ..ops.interpolation import df_static, interp_plan
+from ..ops.interpolation import plan_to_torch as interp_plan_to_torch
+from ..utils.device import resolve_device
 from ..utils.global_types import InterpTypes
 
 
@@ -44,6 +70,10 @@ class BookTensors:
     flt_notionals: np.ndarray        # [B, P] signed notionals
     flt_mask: np.ndarray             # [B, P]
 
+    @property
+    def num_trades(self) -> int:
+        return self.fix_idx.shape[0]
+
 
 class _TimeInterner:
     """Host-side dedupe of payment times into one sorted grid."""
@@ -69,19 +99,21 @@ class _TimeInterner:
         return np.asarray(self._times)[order], remap
 
 
-def compile_book(swaps, value_dt, index_dc=None) -> BookTensors:
+def compile_book(swaps, value_dt, pad_to: Optional[int] = None,
+                 index_dc=None) -> BookTensors:
     """Compile a list of OIS products into one indexed BookTensors.
 
     Only future payments (time > 0) are marked live; pricing assumes the
-    curve's anchor (t=0) is the valuation date. ``index_dc`` is the
-    projection curve's day count for the forward divisor (defaults to
-    each leg's own basis).
+    curve's anchor (t=0) is the valuation date. ``pad_to`` fixes the slot
+    count P (default: the longest leg). ``index_dc`` is the projection
+    curve's day count for the forward divisor (defaults to each leg's own
+    basis).
     """
     fixed = [s._fixed_leg.tensor(value_dt) for s in swaps]
     flt = [s._float_leg.tensor(value_dt, index_dc=index_dc)
            for s in swaps]
-    P_max = max(max(t.payment_times.shape[0] for t in fixed),
-                max(t.payment_times.shape[0] for t in flt))
+    P_max = pad_to or max(max(t.payment_times.shape[0] for t in fixed),
+                          max(t.payment_times.shape[0] for t in flt))
 
     interner = _TimeInterner()
     interner.add(0.0)  # always include the anchor
@@ -142,18 +174,81 @@ def compile_book(swaps, value_dt, index_dc=None) -> BookTensors:
     return BookTensors(unique_times=unique_times, **out)
 
 
+def tile_book(base: BookTensors, n_copies: int, coupon_scale=None,
+              notional_scale=None) -> BookTensors:
+    """Scale a compiled book up by tiling with per-copy coupon/notional
+    multipliers (books share schedules; amounts differ). Copy-major: trade
+    ``c * B + b`` is copy c of base trade b."""
+    if coupon_scale is None:
+        coupon_scale = np.ones(n_copies)
+    if notional_scale is None:
+        notional_scale = np.ones(n_copies)
+
+    def tile(x, scale_vec=None):
+        x = np.asarray(x)
+        tiled = np.tile(x, (n_copies, 1))
+        if scale_vec is not None:
+            reps = np.repeat(np.asarray(scale_vec, dtype=np.float64),
+                             x.shape[0])
+            tiled = tiled * reps[:, None]
+        return tiled
+
+    return BookTensors(
+        unique_times=base.unique_times,
+        fix_idx=tile(base.fix_idx),
+        fix_payments=tile(base.fix_payments, coupon_scale),
+        fix_mask=tile(base.fix_mask),
+        flt_pay_idx=tile(base.flt_pay_idx),
+        flt_start_idx=tile(base.flt_start_idx),
+        flt_end_idx=tile(base.flt_end_idx),
+        flt_pay_alphas=tile(base.flt_pay_alphas),
+        flt_index_alphas=tile(base.flt_index_alphas),
+        flt_spreads=tile(base.flt_spreads),
+        flt_notionals=tile(base.flt_notionals, notional_scale),
+        flt_mask=tile(base.flt_mask))
+
+
+def _combine_book(book: BookTensors):
+    """The scenario-invariant per-slot weights (host numpy [B, P] each):
+
+      pv_b = sum_p w_fix*df[fix] + (w_fwd*(df_s/df_e - 1) + w_spr)*df_pay
+    """
+    w_fix = np.asarray(book.fix_payments) * np.asarray(book.fix_mask)
+    ia = np.asarray(book.flt_index_alphas)
+    pa = np.asarray(book.flt_pay_alphas)
+    ratio = np.where(ia > 0.0, pa / np.where(ia > 0.0, ia, 1.0), 0.0)
+    notional = np.asarray(book.flt_notionals) * np.asarray(book.flt_mask)
+    w_fwd = ratio * notional
+    w_spr = np.asarray(book.flt_spreads) * pa * notional
+    return w_fix, w_fwd, w_spr
+
+
+def _grid_times(plan: OISBootstrapPlan) -> np.ndarray:
+    """The bootstrap's node times, t = 0 included (static)."""
+    return np.concatenate([[0.0], np.asarray(plan.point_times,
+                                             dtype=np.float64)])
+
+
+def _dfs_u(rates: torch.Tensor, P: dict, iplan, interp_type: InterpTypes):
+    """DFs on the book's unique grid: one bootstrap, one interpolation
+    (a fit on the nodes first on the fitted schemes)."""
+    _, dfs = bootstrap_ois(rates, P)
+    return df_static(iplan, dfs, interp_type)
+
+
 def book_pvs(rates: torch.Tensor, plan: dict, interp_type: InterpTypes,
              book: BookTensors, grid_times: np.ndarray) -> torch.Tensor:
-    """Per-trade PVs [B]: one bootstrap, one interpolation over the unique
-    grid (a fit first on the fitted schemes), per-trade gathers. ``plan``
-    is a device plan (``ops/bootstrap.plan_to_torch``) and ``grid_times``
-    the host copy of the bootstrap's node times (t=0 included), which with
-    the book's static unique times fixes the interpolation plan."""
+    """Per-trade PVs [B] through the per-trade gathers (no kernel): one
+    bootstrap, one interpolation over the unique grid, per-trade sums.
+    ``plan`` is a device plan (``ops/bootstrap.plan_to_torch``) and
+    ``grid_times`` the host copy of the bootstrap's node times (t=0
+    included), which with the book's static unique times fixes the
+    interpolation plan. The OIS curve's refit gate and ``book_analytics``
+    run on it."""
     dev = rates.device
-    _, dfs = bootstrap_ois(rates, plan)
-    iplan = plan_to_torch(interp_plan(book.unique_times, grid_times,
-                                      interp_type), dev)
-    dfs_u = df_static(iplan, dfs, interp_type)
+    iplan = interp_plan_to_torch(interp_plan(book.unique_times, grid_times,
+                                             interp_type), dev)
+    dfs_u = _dfs_u(rates, plan, iplan, interp_type)
 
     def t(a, dtype=torch.float64):
         return torch.as_tensor(np.asarray(a), dtype=dtype, device=dev)
@@ -161,13 +256,371 @@ def book_pvs(rates: torch.Tensor, plan: dict, interp_type: InterpTypes,
     def g(idx):
         return dfs_u[t(idx, torch.int64)]
 
-    ia = t(book.flt_index_alphas)
-    ratio = torch.where(ia > 0.0, t(book.flt_pay_alphas)
-                        / torch.where(ia > 0.0, ia, 1.0), 0.0)
-    w_fix = t(book.fix_payments) * t(book.fix_mask)
-    w_fwd = ratio * t(book.flt_notionals) * t(book.flt_mask)
-    w_spr = (t(book.flt_spreads) * t(book.flt_pay_alphas)
-             * t(book.flt_notionals) * t(book.flt_mask))
+    w_fix, w_fwd, w_spr = (t(w) for w in _combine_book(book))
     fix_pv = torch.sum(w_fix * g(book.fix_idx), dim=1)
     cf = w_fwd * (g(book.flt_start_idx) / g(book.flt_end_idx) - 1.0) + w_spr
     return fix_pv + torch.sum(cf * g(book.flt_pay_idx), dim=1)
+
+
+@dataclasses.dataclass(frozen=True)
+class BookAggregate:
+    """The book's TOTAL PV collapsed onto the unique-time grid (host
+    numpy):
+
+      total = sum_u w_lin[u] * df[u]
+            + sum_t w_trip[t] * (df[s_t]/df[e_t] - 1) * df[p_t]
+
+    U and T are both small (hundreds) regardless of book size, so the
+    book's delta ladder and gamma cost one trade's."""
+    w_lin: np.ndarray        # [U]
+    trip_s: np.ndarray       # [T] int32
+    trip_e: np.ndarray       # [T] int32
+    trip_p: np.ndarray       # [T] int32
+    trip_w: np.ndarray       # [T]
+    unique_times: np.ndarray  # [U]
+
+
+def _trip_keys(s, e, p, U: int) -> np.ndarray:
+    """The (start, end, pay) index triple as one int64 key."""
+    return (np.asarray(s).astype(np.int64) * U + e) * U + p
+
+
+def _unkey(uniq: np.ndarray, U: int):
+    """(trip_s, trip_e, trip_p) int32 from sorted trip keys."""
+    return ((uniq // (U * U)).astype(np.int32),
+            ((uniq // U) % U).astype(np.int32),
+            (uniq % U).astype(np.int32))
+
+
+def aggregate_book(book: BookTensors) -> BookAggregate:
+    """Collapse a book to its aggregate-PV weights (host-side groupby)."""
+    U = int(book.unique_times.shape[0])
+    w_fix, w_fwd, w_spr = _combine_book(book)
+    flt_pay = np.asarray(book.flt_pay_idx).ravel()
+    w_lin = np.bincount(np.asarray(book.fix_idx).ravel(),
+                        weights=w_fix.ravel(), minlength=U)
+    w_lin += np.bincount(flt_pay, weights=w_spr.ravel(), minlength=U)
+
+    w = w_fwd.ravel()
+    live = w != 0.0
+    key = _trip_keys(np.asarray(book.flt_start_idx).ravel()[live],
+                     np.asarray(book.flt_end_idx).ravel()[live],
+                     flt_pay[live], U)
+    uniq, inverse = np.unique(key, return_inverse=True)
+    trip_s, trip_e, trip_p = _unkey(uniq, U)
+    return BookAggregate(w_lin=w_lin, trip_s=trip_s, trip_e=trip_e,
+                         trip_p=trip_p,
+                         trip_w=np.bincount(inverse, weights=w[live]),
+                         unique_times=book.unique_times)
+
+
+def merge_aggregates(aggs) -> BookAggregate:
+    """Sum BookAggregates sharing one unique grid: linear weights add,
+    forward triples concatenate with (s, e, p)-key deduplication."""
+    U = int(aggs[0].unique_times.shape[0])
+    w_lin = np.sum([np.asarray(a.w_lin) for a in aggs], axis=0)
+    key = _trip_keys(np.concatenate([np.asarray(a.trip_s) for a in aggs]),
+                     np.concatenate([np.asarray(a.trip_e) for a in aggs]),
+                     np.concatenate([np.asarray(a.trip_p) for a in aggs]),
+                     U)
+    w = np.concatenate([np.asarray(a.trip_w) for a in aggs])
+    uniq, inverse = np.unique(key, return_inverse=True)
+    trip_s, trip_e, trip_p = _unkey(uniq, U)
+    return BookAggregate(w_lin=w_lin, trip_s=trip_s, trip_e=trip_e,
+                         trip_p=trip_p, trip_w=np.bincount(inverse, weights=w),
+                         unique_times=aggs[0].unique_times)
+
+
+@dataclasses.dataclass(frozen=True)
+class _DeviceAggregate:
+    """An aggregate on the device, with its grid's interpolation plan."""
+    iplan: object
+    w_lin: torch.Tensor
+    trip_s: torch.Tensor     # int64
+    trip_e: torch.Tensor
+    trip_p: torch.Tensor
+    trip_w: torch.Tensor
+
+
+def _agg_to(agg: BookAggregate, grid_times: np.ndarray,
+            interp_type: InterpTypes, device) -> _DeviceAggregate:
+    def f64(a):
+        return torch.as_tensor(np.asarray(a, np.float64), device=device)
+
+    def i64(a):
+        return torch.as_tensor(np.asarray(a, np.int64), device=device)
+
+    return _DeviceAggregate(
+        iplan=interp_plan_to_torch(interp_plan(agg.unique_times, grid_times,
+                                               interp_type), device),
+        w_lin=f64(agg.w_lin), trip_s=i64(agg.trip_s),
+        trip_e=i64(agg.trip_e), trip_p=i64(agg.trip_p),
+        trip_w=f64(agg.trip_w))
+
+
+def _total(rates, P: dict, interp_type: InterpTypes,
+           agg: _DeviceAggregate) -> torch.Tensor:
+    dfs_u = _dfs_u(rates, P, agg.iplan, interp_type)
+    lin = torch.sum(agg.w_lin * dfs_u)
+    trip = torch.sum(agg.trip_w
+                     * (dfs_u[agg.trip_s] / dfs_u[agg.trip_e] - 1.0)
+                     * dfs_u[agg.trip_p])
+    return lin + trip
+
+
+def aggregate_total_pv(rates: torch.Tensor, plan: OISBootstrapPlan,
+                       interp_type: InterpTypes,
+                       agg: BookAggregate) -> torch.Tensor:
+    """Total book PV from the aggregated weights — O(U + T), on the
+    device of ``rates`` (a tensor)."""
+    dev = rates.device
+    return _total(rates, plan_to_torch(plan, dev), interp_type,
+                  _agg_to(agg, _grid_times(plan), interp_type, dev))
+
+
+def book_analytics(rates, plan: OISBootstrapPlan, interp_type: InterpTypes,
+                   book: BookTensors, shocks=None, device=None):
+    """(pvs [S,B], delta [S,N], gamma [S,N,N]) over a scenario shock
+    matrix (shocks [S,N] in rate units; None = single base scenario), on
+    ``device``.
+
+    CROSS-CHECK ONLY (not exported): differentiates through the per-trade
+    [B, P] gather graph, so each Hessian column costs O(B*P). The book
+    functions take the O(U + T) aggregate's delta and gamma instead; this
+    naive formulation exists to validate them in tests."""
+    dev = resolve_device(device)
+    P = plan_to_torch(plan, dev)
+    grid_times = _grid_times(plan)
+    rates = torch.as_tensor(rates, dtype=torch.float64, device=dev)
+    if shocks is None:
+        shocks = torch.zeros((1, rates.shape[0]), dtype=torch.float64)
+    shocks = torch.as_tensor(shocks, dtype=torch.float64, device=dev)
+
+    def pvs(r):
+        return book_pvs(r, P, interp_type, book, grid_times)
+
+    def total(r):
+        return torch.sum(pvs(r))
+
+    def one_scenario(shock):
+        r = rates + shock
+        return pvs(r), jacrev(total)(r), jacfwd(jacrev(total))(r)
+
+    return vmap(one_scenario)(shocks)
+
+
+# ---------------------------------------------------------------------------
+# The book functions: per-trade PVs on K1, delta and gamma from the aggregate
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class BookSweep:
+    """K1's inputs for a book (or a tuple of books sharing one grid, their
+    trades concatenated in order), on the device: the unique grid's
+    interpolation plan, the forward trips (s, e, p) whose values fill the
+    value table's rows U..U+T-1, and the per-trade CSR of (row, weight)
+    slots over the table (``kernels.sweep_tables``)."""
+    iplan: object
+    trip_s: torch.Tensor     # [T] int64
+    trip_e: torch.Tensor
+    trip_p: torch.Tensor
+    sweep: kernels.SweepTables
+
+
+def _book_sweep(books, grid_times: np.ndarray, interp_type: InterpTypes,
+                device) -> BookSweep:
+    """Build K1's tables for ``books`` (sharing one unique grid): each
+    trade's fixed slots (``w_fix`` at ``fix_idx``), spread slots
+    (``w_spr`` at ``flt_pay_idx``) and forward slots (``w_fwd`` at the row
+    of its (s, e, p) trip, keyed as ``aggregate_book`` keys them)."""
+    U = int(books[0].unique_times.shape[0])
+    trade, col, w, fwd = [], [], [], []
+    off = 0
+    for b in books:
+        B, P = np.asarray(b.fix_idx).shape
+        tid = np.repeat(np.arange(off, off + B, dtype=np.int64), P)
+        w_fix, w_fwd, w_spr = _combine_book(b)
+        pay = np.asarray(b.flt_pay_idx).ravel()
+        trade += [tid, tid]
+        col += [np.asarray(b.fix_idx).ravel(), pay]
+        w += [w_fix.ravel(), w_spr.ravel()]
+        live = w_fwd.ravel() != 0.0
+        fwd.append((tid[live], w_fwd.ravel()[live],
+                    _trip_keys(np.asarray(b.flt_start_idx).ravel()[live],
+                               np.asarray(b.flt_end_idx).ravel()[live],
+                               pay[live], U)))
+        off += B
+    uniq, inverse = np.unique(np.concatenate([k for _, _, k in fwd]),
+                              return_inverse=True)
+    trade.append(np.concatenate([t for t, _, _ in fwd]))
+    col.append(U + inverse.ravel())
+    w.append(np.concatenate([x for _, x, _ in fwd]))
+    trip_s, trip_e, trip_p = _unkey(uniq, U)
+
+    def i64(a):
+        return torch.as_tensor(np.asarray(a, np.int64), device=device)
+
+    sweep = kernels.sweep_tables(
+        i64(np.concatenate(trade)), i64(np.concatenate(col)),
+        torch.as_tensor(np.concatenate(w), dtype=torch.float64,
+                        device=device),
+        off, U + uniq.shape[0])
+    return BookSweep(
+        iplan=interp_plan_to_torch(interp_plan(books[0].unique_times,
+                                               grid_times, interp_type),
+                                   device),
+        trip_s=i64(trip_s), trip_e=i64(trip_e), trip_p=i64(trip_p),
+        sweep=sweep)
+
+
+def _make_fn(plan: OISBootstrapPlan, interp_type: InterpTypes,
+             want_gamma: bool, device):
+    """The shared body of the book functions: fn(rates, books, agg,
+    shocks), with ``fn.tables(books)`` and ``fn.value_table(rates, books,
+    shocks)`` (tensors on the device). ``books`` is a tuple of books
+    sharing one grid; K1's tables and the aggregate's device copy are
+    built at first sight of each and kept (the objects are held, so their
+    ids stay theirs)."""
+    from .multibook import value_table as multibook_value_table
+    dev = resolve_device(device)
+    P = plan_to_torch(plan, dev)
+    grid_times = _grid_times(plan)
+    memo = {}
+
+    def kept(objs: tuple, build):
+        key = tuple(map(id, objs))
+        if key not in memo:
+            memo[key] = (objs, build())
+        return memo[key][1]
+
+    def tables(books) -> BookSweep:
+        return kept(books, lambda: _book_sweep(books, grid_times,
+                                               interp_type, dev))
+
+    def value_table(rates, books, shocks):
+        """(K1's value table [U + T, S], rows 16-byte aligned, and the
+        books' tables): every scenario's DF grid ([S, U] is small), then
+        its trip values."""
+        tab = tables(books)
+        dfs_u = vmap(lambda s: _dfs_u(rates + s, P, tab.iplan,
+                                      interp_type))(shocks)
+        return multibook_value_table(dfs_u, tab), tab
+
+    def fn(rates, books, agg, shocks):
+        rates = torch.as_tensor(rates, dtype=torch.float64, device=dev)
+        shocks = torch.as_tensor(shocks, dtype=torch.float64, device=dev)
+        ag = kept((agg,), lambda: _agg_to(agg, grid_times, interp_type,
+                                          dev))
+        vT, tab = value_table(rates, books, shocks)
+        pvs = kernels.pvs_sweep(vT, tab.sweep)   # one K1 launch
+
+        def total(r):
+            return _total(r, P, interp_type, ag)
+
+        def one_scenario(shock):
+            r = rates + shock
+            out = {"delta": jacrev(total)(r)}
+            if want_gamma:
+                out["gamma"] = jacfwd(jacrev(total))(r)
+            return out
+
+        out = vmap(one_scenario)(shocks)
+        out["pvs"] = pvs
+        return out
+
+    fn.tables = tables
+    fn.value_table = value_table
+    return fn
+
+
+def make_book_fn(plan: OISBootstrapPlan, interp_type: InterpTypes,
+                 want_gamma: bool = True, device=None):
+    """(rates [N], book, agg, shocks [S, N]) -> {pvs [S, B], delta [S, N],
+    gamma [S, N, N]} on ``device`` (rates and shocks in rate units).
+
+    Per-trade PVs come from the K1 kernel, one launch per call over every
+    scenario; book-level delta/gamma from the aggregated total (identical
+    by construction, tested), so the AD graph never differentiates
+    through the per-trade slots. K1's tables are built at the first call
+    on a book and kept (``fn.tables(book)`` builds or returns them), so a
+    warm call builds none. ``fn.value_table(rates, book, shocks)`` gives
+    K1's inputs: the [U + T, S] value table (device tensors in) and the
+    tables."""
+    inner = _make_fn(plan, interp_type, want_gamma, device)
+
+    def fn(rates, book, agg, shocks):
+        return inner(rates, (book,), agg, shocks)
+
+    fn.tables = lambda book: inner.tables((book,))
+    fn.value_table = lambda rates, book, shocks: inner.value_table(
+        rates, (book,), shocks)
+    return fn
+
+
+def _slice_book(book: BookTensors, rows: slice, pad: int) -> BookTensors:
+    """Row/pad-slice of a compiled book (padded slots sit at the END of
+    each row, so truncating the slot axis keeps every live payment)."""
+    def cut(x):
+        x = np.asarray(x)
+        return x[rows, :pad] if x.ndim == 2 else x
+    return BookTensors(
+        unique_times=book.unique_times,
+        **{f.name: cut(getattr(book, f.name))
+           for f in dataclasses.fields(BookTensors)
+           if f.name != "unique_times"})
+
+
+def compile_book_buckets(swaps, value_dt, index_dc=None,
+                         n_buckets: int = 4):
+    """Compile a heterogeneous book into pad-size buckets sharing ONE
+    unique-time grid: trades sorted by payment count, each bucket padded
+    to its own maximum (equal-count buckets; contiguous buckets with the
+    same pad collapse, so a homogeneous book is one bucket).
+
+    Returns (books, order): per-bucket BookTensors and the permutation
+    such that concatenated bucket PVs follow swaps[order].
+    """
+    sizes = np.array([max(len(s._fixed_leg._payment_dts),
+                          len(s._float_leg._payment_dts)) for s in swaps])
+    order = np.argsort(sizes, kind="stable")
+    big = compile_book([swaps[i] for i in order], value_dt,
+                       index_dc=index_dc)
+    sorted_sizes = sizes[order]
+    n = len(swaps)
+    bounds = np.linspace(0, n, min(n_buckets, n) + 1).astype(int)
+    spans = []
+    for lo, hi in zip(bounds[:-1], bounds[1:]):
+        if hi <= lo:
+            continue
+        pad = int(sorted_sizes[lo:hi].max())
+        if spans and spans[-1][2] == pad:
+            spans[-1] = (spans[-1][0], hi, pad)
+        else:
+            spans.append((lo, hi, pad))
+    books = [_slice_book(big, slice(int(lo), int(hi)), pad)
+             for lo, hi, pad in spans]
+    return books, order
+
+
+def make_bucketed_book_fn(plan: OISBootstrapPlan, interp_type: InterpTypes,
+                          want_gamma: bool = True, device=None):
+    """``make_book_fn`` over a sequence of pad-bucketed books sharing one
+    grid: (rates, books, agg, shocks) -> the same dict, per-trade PVs
+    concatenated in bucket order; delta/gamma from the aggregate.
+
+    K1 sweeps every bucket, in their concatenated order, in one launch.
+    Its per-trade CSR holds live slots only, so the buckets' pad saving
+    (which the JAX package's padded gathers need) does not apply to it:
+    the bucketed and the monolithic book cost K1 the same. The output
+    equals the JAX function's. ``fn.tables(books)`` builds or returns
+    the kept tables."""
+    inner = _make_fn(plan, interp_type, want_gamma, device)
+
+    def fn(rates, books, agg, shocks):
+        return inner(rates, tuple(books), agg, shocks)
+
+    fn.tables = lambda books: inner.tables(tuple(books))
+    fn.value_table = lambda rates, books, shocks: inner.value_table(
+        rates, tuple(books), shocks)
+    return fn

@@ -27,7 +27,8 @@ callable regions; ``warmup_multibook`` builds either and makes the first
 call. ``make_per_trade_delta_fn`` (every trade's ladder, on K1) and
 ``make_per_trade_gamma_fn`` (selected trades' gammas, term 1 on the K3
 kernel) give per-trade risk at one quote vector; ``pertrade_blocks.py``
-every trade's own gamma block.
+every trade's own gamma block; ``make_multibook_speed_fn`` the book's
+exact third-order tensor.
 
 Ported here: OIS, XCCY and inflation curves (the three simple
 interpolation schemes), OIS trades under natural or foreign collateral,
@@ -45,11 +46,12 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
-from torch.func import grad, jacfwd, jvp, vmap
+from torch.func import grad, jacfwd, jacrev, jvp, vmap
 
 from ..ops import kernels
 from ..utils.currency import CurrencyTypes
 from ..utils.day_count import DayCountTypes
+from ..utils.device import resolve_device
 from ..utils.error import LibError
 from ..utils.global_types import (CollateralType, InstrumentTypes,
                                   InterpTypes, SwapTypes,
@@ -67,6 +69,11 @@ from .curve_batching import (StageTopology, bat_to_torch,
 # budget // (3 * N * C*U * 8): at the flagship OIS slice (N = 144) that is
 # tens of scenarios per chunk, well inside an 80 GB card.
 RISK_CHUNK_BYTES = 4 * 1024 ** 3
+
+# Largest quote-vector size the exact third-order SPEED tower accepts
+# without force=True (see make_multibook_speed_fn: past this the N^2
+# forward tangents make runtime and memory impractical).
+SPEED_MAX_QUOTES = 64
 
 
 # ---------------------------------------------------------------------------
@@ -1646,6 +1653,53 @@ def make_multibook_fn(mb: Union[MultiBook, BookInputs], device,
     fn.chunk = chunk
     fn.structured = structured
     fn.book = book
+    return fn
+
+
+def make_multibook_speed_fn(mb: MultiBook, device=None,
+                            force: bool = False):
+    """(qvec [N]) -> [N, N, N] EXACT third-order book risk tensor
+    speed[i, j, k] = ∂³ total_PV / ∂q_i ∂q_j ∂q_k (ccy units per
+    unit-rate³; multiply by 1e-12 for per-bp³), on ``device`` (None: the
+    CUDA card). Port of ``adrates_tpu/parallel/multibook.py:2256``.
+
+    The plain AD tower ``jacfwd(jacfwd(jacrev(total)))`` over the
+    aggregate graph, ``total(q) = aggregate_total(grids(q, P), agg,
+    clamp)`` with the tile and clamp aggregates carried as
+    ``make_multibook_fn`` carries them — NO structured shortcut, for the
+    JAX package's reason: the structured pass's second-order machinery
+    holds the aggregate cotangent g fixed, so differentiating ITS gamma
+    would drop the ∂g/∂q third-order terms, and extending the per-stage
+    chain rule one more level means hand-assembling the full Faà di
+    Bruno composition through the XCCY legs. The tower is exact; its N²
+    forward tangents through the whole curve graph make it impractical at
+    flagship N (184).
+
+    Raises LibError above SPEED_MAX_QUOTES quotes unless ``force=True``.
+    """
+    n_quotes = mb.basket.n_quotes
+    if n_quotes > SPEED_MAX_QUOTES and not force:
+        raise LibError(
+            f"make_multibook_speed_fn: n_quotes={n_quotes} > "
+            f"{SPEED_MAX_QUOTES}. The exact third-order tower needs N^2 "
+            f"forward tangents through the whole curve graph; past ~"
+            f"{SPEED_MAX_QUOTES} quotes compile and runtime are "
+            f"impractical (see docstring). Pass force=True to override, "
+            f"or compute engine-level SPEED per position for selected "
+            f"trades.")
+    device = resolve_device(device)
+    book = _device_book(book_inputs(mb), device, sweep=False, quad=False)
+    grids, P = book.grids, book.params
+    agg, clamp_agg = book.aggregate, book.clamp_agg
+
+    def total(q):
+        return aggregate_total(grids(q, P), agg, clamp_agg)
+
+    tower = jacfwd(jacfwd(jacrev(total)))
+
+    def fn(qvec):
+        return tower(_f64(qvec, device))
+
     return fn
 
 

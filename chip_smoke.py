@@ -80,10 +80,36 @@ first use. Phases:
    the PCHIP GBP curve (cold + 20 warm, device ops, cuda = cpu) and one
    bond's duration and g-spread on the host; a ``splines`` JSON line
    before the kernels line;
+7e. the host API and the single-curve book (K1; no new kernel): the
+   port's quick start (``adrates_torch.examples.quickstart.main()``, on the
+   card; the +100 bp P&L beside its first- and second-order estimates,
+   the second closer); ``bench.py``'s config-2 DELTA on flagship_v5's
+   GBP_OIS_SONIA against central FDs of VALUE on ``model.scenario`` +-1
+   bp at its three largest buckets (1e-5 of the largest: the swap is at
+   par, its other buckets ~0); ``scenario_grid`` of 100
+   N(0, 0.1) % shocks cold + 3 warm with device ops and ms, rows 0, 49
+   and 99 equal to ``model.scenario``'s DFs (1e-12); phase 7's model
+   through ``to_json`` / ``from_json`` (every curve's DFs and the config-2
+   PV bit for bit) and ``Model.fx`` on routed pairs (1e-15) and one with
+   no route (raises); the quick start's 20 OIS tiled x5,000 with per-copy
+   coupon and notional scales (100,000 trades) under 100 N(0, 1e-3)
+   shocks through ``make_book_fn`` (tables and kernel build apart, cold +
+   3 warm, device ops and ms, busy share, K1 launches per call, peak
+   memory; gates: finite, sum of trade PVs = ``aggregate_total_pv``
+   1e-9, delta vs FD 1e-5, gamma symmetric 1e-10, K1 = twin 1e-12, the
+   base book's delta and gamma = ``make_multibook_fn``'s on the same
+   trades 1e-9); 1,000 OIS of 1Y-50Y in 4 pad buckets each tiled x100
+   through ``make_bucketed_book_fn`` (merged aggregate = the monolithic
+   book's, PVs = ``make_book_fn``'s permuted by ``order`` 1e-12, delta and
+   gamma equal); book SPEED at N = 64 (GBP and USD OIS curves, their 240
+   flagship OIS) cold + 3 warm (symmetric, = FD of the gamma, the
+   184-quote book refused); a ``hostapi`` JSON line before the kernels
+   line;
 8. each kernel against its plain torch twin on the card, at the shapes
    each path's main function gives it (K2 at that function's scenario
    chunk; K1 also at the ladders' Jv [n_grid + T, N]; K3 on both
-   per-trade paths; K3's blocks also bit for bit symmetric), each timed
+   per-trade paths; K1 also at phase 7e's single-curve book; K3's blocks
+   also bit for bit symmetric), each timed
    over 30 calls by CUDA events around the call (``ms``, which holds the
    wrapper's host work) and by the device time of its kernels in a
    torch.profiler trace (``device_ms``), the twin's time, K1's table
@@ -1372,6 +1398,419 @@ def run_flagship_v5_splines(device, flat, n_warm: int = 3):
     return rec
 
 
+# Single-curve book sizes of phase 7e (the quick start's 20 base OIS tiled
+# to 100,000 trades; 1,000 bucketed OIS each tiled to 100,000)
+BOOK_COPIES = 5_000
+BUCKET_COPIES = 100
+
+
+def _rel(a, b) -> float:
+    return abs(a - b) / abs(b)
+
+
+def _max_rel(got, ref) -> float:
+    """max |got - ref| / max |ref| of two tensors or arrays."""
+    import numpy as np
+    got, ref = (np.asarray(x.cpu() if hasattr(x, "cpu") else x)
+                for x in (got, ref))
+    return float(np.abs(got - ref).max() / np.abs(ref).max())
+
+
+def _warm_calls(name, f, n_warm):
+    """A cold call with the launch counts from 0 and the peak memory
+    reset, ``n_warm`` warm calls, the device ops and device ms of one more
+    warm call; returns (out, info)."""
+    import torch
+    _reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    out, cold = _timed(f)
+    warm = [_timed(f)[1] for _ in range(n_warm)]
+    info = dict(_launches(), calls=1 + n_warm, cold_ms=cold,
+                warm_ms=_stats(warm),
+                peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    n_ops, d_ms = _request_device(f)
+    med = info["warm_ms"]["median"]
+    info.update(device_ops=n_ops, device_ms=d_ms,
+                busy_share=d_ms and d_ms / med)
+    print(f"{name}: cold {cold:.1f} ms, warm median {med:.2f} "
+          f"[{info['warm_ms']['min']:.2f}, {info['warm_ms']['max']:.2f}] ms "
+          f"over {n_warm}; one warm call {n_ops} device ops, "
+          f"{_fmt_ms(d_ms)} of device time (busy share "
+          f"{'not measured' if d_ms is None else f'{d_ms / med:.3f}'}); "
+          f"launches {info['pvs_sweep']} of K1 in {1 + n_warm} calls; "
+          f"peak {info['peak_gib']:.2f} GiB", flush=True)
+    return out, info
+
+
+def run_host_api(device, model, mb_big, n_warm: int = 3, device_arg=None):
+    """Phase 7e: the host API and the single-curve book on the card. The
+    quick start; ``bench.py``'s config-2 delta against central FDs on
+    ``model.scenario``; ``scenario_grid``; the JSON round trip and FX
+    routing of ``model`` (phase 7's flagship_v5); the single-curve book
+    (K1) at 100,000 trades x 100 scenarios, bucketed and not; book SPEED
+    at N = 64. Calls that take a device get ``device_arg`` (None: the
+    card). ``mb_big`` is phase 7's multibook (N = 184), which the SPEED
+    guard refuses. Returns (the ``hostapi`` record, the book path's
+    (fn, rates, book, shocks, info) for phase 8)."""
+    import numpy as np
+    import torch
+
+    from adrates_torch.examples import flagship_ois, quickstart
+    from adrates_torch.models import Model
+    from adrates_torch.ops import kernels
+    from adrates_torch.parallel import (aggregate_book, aggregate_total_pv,
+                                        compile_book, compile_book_buckets,
+                                        compile_multibook, make_book_fn,
+                                        make_bucketed_book_fn,
+                                        make_multibook_fn,
+                                        make_multibook_speed_fn,
+                                        merge_aggregates, tile_book)
+    from adrates_torch.trades.rates import OIS
+    from adrates_torch.utils import (BusDayAdjustTypes, CurrencyTypes,
+                                     CurveTypes, DayCountTypes,
+                                     FrequencyTypes, InterpTypes, LibError,
+                                     RequestTypes, SwapTypes)
+    R = RequestTypes
+    card = _card_line()
+    rec = dict(card=card, parts_s={})
+    t_phase = t_mark = time.perf_counter()
+
+    def mark(part):
+        nonlocal t_mark
+        now = time.perf_counter()
+        rec["parts_s"][part] = now - t_mark
+        t_mark = now
+
+    # ---- the quick start -------------------------------------------------
+    _reset_launches()
+    qs, ms = _timed(lambda: quickstart.main(device_arg))
+    for k in ("book_pv_sums", "book_delta", "book_gamma"):
+        if not np.isfinite(qs[k]).all():
+            raise AssertionError(f"quick start {k}: non-finite")
+    e1 = abs(qs["pnl_order1"] - qs["pnl_100bp"])
+    e2 = abs(qs["pnl_order2"] - qs["pnl_100bp"])
+    print(f"quick start on the card: 10Y PV {qs['pv_10y']:.6f} GBP; +100 bp "
+          f"P&L {qs['pnl_100bp']:.2f} GBP, first order {qs['pnl_order1']:.2f}"
+          f" (off {e1:.2f}), first + second {qs['pnl_order2']:.2f} (off "
+          f"{e2:.2f}); book {qs['book_trades']} trades; {ms:.0f} ms; "
+          f"launches {_launches()}", flush=True)
+    _check("quick start: second-order P&L error / first-order's", e2 / e1,
+           1.0 - 1e-12)
+    rec["quick_start"] = dict(
+        pv_10y=qs["pv_10y"], pnl_100bp=float(qs["pnl_100bp"]),
+        pnl_order1=qs["pnl_order1"], pnl_order2=qs["pnl_order2"],
+        book_pv_sum=float(qs["book_pv_sums"].sum()), ms=ms,
+        k1_launches=_launches()["pvs_sweep"])
+    mark("quick start")
+
+    # ---- config 2's delta against FDs on model.scenario ------------------
+    swap = _config2_swap(model)
+    tenors = model._curve_params_dict["GBP_OIS_SONIA"]["tenor_list"]
+    res = swap.position(model, device=device).compute([R.VALUE, R.DELTA])
+    lad = res.risk.risk_ladder
+    top = float(np.abs(lad).max())
+    fd_rec = {}
+    # the swap is at par on the curve's own 10Y quote, so its other
+    # buckets are ~0: each is held to 1e-5 of the largest bucket
+    for i in np.argsort(-np.abs(lad))[:3]:
+        pv = [swap.position(model.scenario("GBP_OIS_SONIA",
+                                           {tenors[i]: h}),
+                            device=device).compute([R.VALUE]).value.amount
+              for h in (0.01, -0.01)]          # +-1 bp, quotes in percent
+        fd = (pv[0] - pv[1]) / 2.0
+        _check(f"config 2 DELTA at {tenors[i]} ({float(lad[i]):.6g}) vs "
+               f"central FD of VALUE on model.scenario +-1bp ({fd:.6g}), "
+               f"abs / max|DELTA|", abs(float(lad[i]) - fd) / top, 1e-5)
+        fd_rec[tenors[i]] = [float(lad[i]), fd]
+    rec["scenario_fd"] = fd_rec
+    mark("scenario FD")
+
+    # ---- scenario_grid ---------------------------------------------------
+    sg_shocks = np.random.default_rng(7).normal(0.0, 0.1, (100, len(tenors)))
+    grid, sg = _warm_calls(
+        "scenario_grid GBP_OIS_SONIA S=100",
+        lambda: model.scenario_grid("GBP_OIS_SONIA", sg_shocks,
+                                    device=device_arg), n_warm)
+    for s in (0, 49, 99):
+        ref = model.scenario("GBP_OIS_SONIA", dict(
+            zip(tenors, sg_shocks[s]))).curves.GBP_OIS_SONIA._dfs
+        _check(f"scenario_grid row {s} vs model.scenario DFs (abs)",
+               float((grid[s].cpu() - ref).abs().max()), 1e-12)
+    sg["shape"] = list(grid.shape)
+    rec["scenario_grid"] = sg
+    mark("scenario_grid")
+
+    # ---- JSON and FX -----------------------------------------------------
+    t0 = time.perf_counter()
+    text = model.to_json()
+    t1 = time.perf_counter()
+    back = Model.from_json(text)
+    t2 = time.perf_counter()
+    for name in model.curves.keys():
+        if not torch.equal(back.curves[name]._dfs, model.curves[name]._dfs):
+            raise AssertionError(f"JSON round trip: {name}'s DFs differ")
+    pv0 = swap.position(model, device=device).compute([R.VALUE]).value.amount
+    pv1 = swap.position(back, device=device).compute([R.VALUE]).value.amount
+    if pv0 != pv1:
+        raise AssertionError(f"JSON round trip: config-2 PV {pv1!r} != "
+                             f"{pv0!r}")
+    fx = {}
+    for pair in ("GBPJPY", "EURCHF"):
+        cross = model.fx(pair[:3] + "USD") / model.fx(pair[3:] + "USD")
+        fx[pair] = model.fx(pair)
+        _check(f"Model.fx({pair}) vs the USD cross (rel)",
+               _rel(fx[pair], cross), 1e-15)
+    try:
+        model.fx("GBPNZD")
+    except LibError as e:
+        fx["GBPNZD"] = str(e)
+    else:
+        raise AssertionError("Model.fx(GBPNZD) did not raise")
+    rec["json_fx"] = dict(to_json_ms=(t1 - t0) * 1e3,
+                          from_json_ms=(t2 - t1) * 1e3, chars=len(text),
+                          curves=len(model.curves.keys()), fx=fx)
+    print(f"JSON: {len(text)} chars, to_json {(t1 - t0) * 1e3:.1f} ms, "
+          f"from_json (12 curves rebuilt) {(t2 - t1) * 1e3:.0f} ms; every "
+          f"curve's DFs and the config-2 PV bit-identical; fx {fx}",
+          flush=True)
+    mark("JSON and FX")
+
+    # ---- the single-curve book at full width -----------------------------
+    curve = model.curves.GBP_OIS_SONIA
+    q = np.asarray(curve.swap_rates)
+    N = q.shape[0]
+    base_swaps = quickstart.book_swaps(np.random.default_rng(0))
+    base = compile_book(base_swaps, model.value_dt)
+    rng = np.random.default_rng(7)
+    cs = rng.uniform(0.5, 1.5, BOOK_COPIES)
+    ns = rng.uniform(0.5, 1.5, BOOK_COPIES)
+    book = tile_book(base, BOOK_COPIES, coupon_scale=cs, notional_scale=ns)
+    agg = aggregate_book(book)
+    shocks = rng.normal(0.0, 1e-3, (100, N))
+    fn = make_book_fn(curve._plan, curve._interp_type, device=device_arg)
+    k_build = kernels.build_kernels()
+    torch.cuda.synchronize()
+    tab, tab_ms = _timed(lambda: fn.tables(book))
+    out, info = _warm_calls(
+        f"single-curve book {book.num_trades} trades x 100 scenarios",
+        lambda: fn(q, book, agg, shocks), n_warm)
+    info.update(kernel_build_s=k_build, tables_ms=tab_ms,
+                trades=book.num_trades, U=int(book.unique_times.shape[0]),
+                T=int(tab.trip_s.shape[0]), slots=int(tab.sweep.slot_w.numel()),
+                launches_per_call=info["pvs_sweep"] / info["calls"])
+    if info["pvs_sweep"] != info["calls"]:
+        raise AssertionError(f"make_book_fn launched K1 {info['pvs_sweep']} "
+                             f"times in {info['calls']} calls")
+    pvs, delta, gamma = (out[k].cpu().numpy()
+                         for k in ("pvs", "delta", "gamma"))
+    for k, a in (("pvs", pvs), ("delta", delta), ("gamma", gamma)):
+        if not np.isfinite(a).all():
+            raise AssertionError(f"single-curve book {k}: non-finite")
+    rt = torch.as_tensor(q, device=device)
+    sh = torch.as_tensor(shocks, device=device)
+    totals = np.array([float(aggregate_total_pv(rt + sh[s], curve._plan,
+                                                curve._interp_type, agg))
+                       for s in range(shocks.shape[0])])
+    _check("single-curve book sum of trade PVs vs aggregate_total_pv, worst "
+           "scenario (rel)", float(np.max(np.abs(pvs.sum(1) - totals)
+                                          / np.abs(totals))), 1e-9)
+    j = int(np.abs(delta[0]).argmax())
+    h = 1e-5
+    e = torch.zeros(N, dtype=torch.float64, device=device)
+    e[j] = h
+    fd = (float(aggregate_total_pv(rt + sh[0] + e, curve._plan,
+                                   curve._interp_type, agg))
+          - float(aggregate_total_pv(rt + sh[0] - e, curve._plan,
+                                     curve._interp_type, agg))) / (2 * h)
+    _check(f"single-curve book delta at {tenors[j]} (scenario 0) vs central "
+           f"FD of aggregate_total_pv (rel)", _rel(float(delta[0, j]), fd),
+           1e-5)
+    _check("single-curve book gamma symmetric (abs / max|gamma|)",
+           float(np.abs(gamma - gamma.transpose(0, 2, 1)).max()
+                 / np.abs(gamma).max()), 1e-10)
+    vT, _ = fn.value_table(rt, book, sh)
+    _check("single-curve book K1 vs plain on its inputs (abs / max|ref|)",
+           _max_rel(kernels.pvs_sweep(vT, tab.sweep),
+                    kernels.pvs_sweep_plain(vT, tab.sweep)), 1e-12)
+    del vT
+    # the untiled base book against make_multibook_fn on the same trades
+    # compiled as a one-curve multibook
+    base_out = make_book_fn(curve._plan, curve._interp_type,
+                            device=device)(q, base, aggregate_book(base),
+                                           shocks)
+    mb1 = compile_multibook(base_swaps, model, base_currency=CurrencyTypes.GBP,
+                            curve_names=["GBP_OIS_SONIA"])
+    mb_out = make_multibook_fn(mb1, device)(mb1.basket.quotes0, shocks)
+    for k in ("delta", "gamma"):
+        _check(f"single-curve base book {k} vs make_multibook_fn's on the "
+               f"one-curve multibook (abs / max|ref|)",
+               _max_rel(base_out[k], mb_out[k]), 1e-9)
+    info.update(delta_fd=[tenors[j], float(delta[0, j]), fd])
+    rec["book"] = info
+    print(f"single-curve book: U={info['U']}, T={info['T']}, "
+          f"{info['slots']} K1 slots, tables built in {tab_ms:.1f} ms "
+          f"(kernel build in this process {k_build:.3f} s); card {card}",
+          flush=True)
+    book_args = (fn, rt, book, sh, info)
+    del out, base_out, mb_out
+    mark("single-curve book")
+
+    # ---- the bucketed book -----------------------------------------------
+    rng = np.random.default_rng(7)
+    years = rng.integers(1, 51, 1000)
+    swaps = [OIS(model.value_dt, f"{n}Y",
+                 SwapTypes.PAY if i % 2 else SwapTypes.RECEIVE,
+                 float(rng.uniform(0.02, 0.05)), FrequencyTypes.ANNUAL,
+                 DayCountTypes.ACT_365F, CurveTypes.GBP_OIS_SONIA,
+                 CurrencyTypes.GBP, notional=1e6,
+                 float_dc_type=DayCountTypes.ACT_365F,
+                 bd_type=BusDayAdjustTypes.MODIFIED_FOLLOWING)
+             for i, n in enumerate(years)]
+    buckets, order = compile_book_buckets(swaps, model.value_dt, n_buckets=4)
+    tiled = [tile_book(b, BUCKET_COPIES) for b in buckets]
+    bagg = merge_aggregates([aggregate_book(b) for b in tiled])
+    mono = tile_book(compile_book(swaps, model.value_dt), BUCKET_COPIES)
+    magg = aggregate_book(mono)
+    for k in ("trip_s", "trip_e", "trip_p"):
+        if not np.array_equal(getattr(bagg, k), getattr(magg, k)):
+            raise AssertionError(f"bucketed aggregate {k} differs")
+    _check("bucketed merge_aggregates vs aggregate_book of the monolithic "
+           "tiled book (abs / max|ref|)",
+           max(_max_rel(bagg.w_lin, magg.w_lin),
+               _max_rel(bagg.trip_w, magg.trip_w)), 1e-12)
+    bfn = make_bucketed_book_fn(curve._plan, curve._interp_type,
+                                device=device_arg)
+    bfn.tables(tiled)
+    bout, binfo = _warm_calls(
+        f"bucketed book {sum(b.num_trades for b in tiled)} trades in "
+        f"{len(tiled)} buckets x 100 scenarios",
+        lambda: bfn(q, tiled, bagg, shocks), n_warm)
+    mfn = make_book_fn(curve._plan, curve._interp_type, device=device)
+    mout = mfn(q, mono, magg, shocks)
+    # bucket k's trade c * n_k + i is monolithic trade c * 1000 + order[i]
+    perm, lo = [], 0
+    for b in buckets:
+        n_k = b.num_trades
+        perm += [c * len(swaps) + order[lo:lo + n_k]
+                 for c in range(BUCKET_COPIES)]
+        lo += n_k
+    perm = np.concatenate(perm)
+    _check("bucketed PVs vs make_book_fn's permuted by order (abs / "
+           "max|ref|)", _max_rel(bout["pvs"], mout["pvs"][:, perm]), 1e-12)
+    for k in ("delta", "gamma"):
+        _check(f"bucketed {k} vs the monolithic book's (abs / max|ref|)",
+               _max_rel(bout[k], mout[k]), 1e-12)
+    binfo.update(buckets=[b.num_trades for b in tiled],
+                 pads=[int(b.fix_idx.shape[1]) for b in tiled],
+                 launches_per_call=binfo["pvs_sweep"] / binfo["calls"])
+    if binfo["pvs_sweep"] != binfo["calls"]:
+        raise AssertionError("make_bucketed_book_fn did not launch K1 once "
+                             "a call")
+    rec["bucketed"] = binfo
+    del bout, mout, mono, tiled
+    mark("bucketed book")
+
+    # ---- book SPEED at N = 64 --------------------------------------------
+    m2 = Model(model.value_dt)
+    main = flagship_ois.MAIN_RATES
+    for name, px, dc in (("GBP_OIS_SONIA", main, DayCountTypes.ACT_365F),
+                         ("USD_OIS_SOFR", [r + 0.35 for r in main],
+                          DayCountTypes.ACT_360)):
+        m2.build_curve(name, px_list=px, tenor_list=flagship_ois.MAIN_TENORS,
+                       fixed_dcc_type=dc, float_dc_type=dc,
+                       interp_type=InterpTypes.FLAT_FWD_RATES)
+    m2.build_fx(["GBPUSD"], [1.27])
+    trades = [t for t in flagship_ois.build_ois_trades(
+        model, np.random.default_rng(flagship_ois.SEED))
+        if t._floating_index.name in m2.curves]
+    mb2 = compile_multibook(trades, m2, base_currency=CurrencyTypes.USD)
+    N2 = mb2.basket.n_quotes
+    q2 = mb2.basket.quotes0
+    speed_fn = make_multibook_speed_fn(mb2, device_arg)
+    speed, sinfo = _warm_calls(f"book SPEED N={N2}, {len(trades)} trades",
+                               lambda: speed_fn(q2), n_warm)
+    speed = speed.cpu().numpy()
+    if speed.shape != (N2, N2, N2) or N2 != 64:
+        raise AssertionError(f"SPEED shape {speed.shape}, N {N2}")
+    if not np.isfinite(speed).all():
+        raise AssertionError("SPEED: non-finite")
+    scale = np.abs(speed).max() + 1.0
+    for axes in ((0, 1), (1, 2)):
+        d = np.abs(speed - np.swapaxes(speed, *axes))
+        excess = float((d - (1e-12 * scale + 1e-9 * np.abs(speed))).max())
+        _check(f"SPEED symmetric under the {axes} swap (worst excess over "
+               f"atol 1e-12 x scale + rtol 1e-9)", max(excess, 0.0), 0.0)
+    gfn = make_multibook_fn(mb2, device)
+    for k in (1, N2 - 2):
+        sh2 = np.zeros((2, N2))
+        sh2[0, k], sh2[1, k] = 1e-5, -1e-5
+        g = gfn(q2, sh2)["gamma"].cpu().numpy()
+        fd = (g[0] - g[1]) / 2e-5
+        excess = float((np.abs(speed[:, :, k] - fd)
+                        - (1e-6 * scale + 5e-4 * np.abs(fd))).max())
+        _check(f"SPEED[:, :, {k}] vs central FD of make_multibook_fn's "
+               f"gamma (worst excess over atol 1e-6 x scale + rtol 5e-4)",
+               max(excess, 0.0), 0.0)
+    try:
+        make_multibook_speed_fn(mb_big, device_arg)
+    except LibError:
+        pass
+    else:
+        raise AssertionError("make_multibook_speed_fn did not refuse "
+                             f"N = {mb_big.basket.n_quotes}")
+    sinfo.update(n_quotes=N2, trades=len(trades), max_abs=float(scale - 1.0),
+                 refused_n=mb_big.basket.n_quotes)
+    rec["speed"] = sinfo
+    mark("book SPEED")
+    rec["phase_s"] = time.perf_counter() - t_phase
+    print(f"host API phase: {rec['phase_s']:.1f} s "
+          f"({ {k: round(v, 2) for k, v in rec['parts_s'].items()} }); card "
+          f"{card}", flush=True)
+    return rec, book_args
+
+
+def compare_book_kernel(fn, rates, book, shocks, info) -> dict:
+    """Phase 8's K1 record at the single-curve book's shape (phase 7e's
+    fn, inputs and launch counts): K1 against its twin, timed beside it
+    and one cuSPARSE SpMM of the trade x row CSR, with its bound."""
+    import torch
+
+    from adrates_torch.ops import kernels
+    vT, bt = fn.value_table(rates, book, shocks)
+    tab = bt.sweep
+    M, S = vT.shape
+    B, nnz = tab.n_trades, int(tab.slot_w.numel())
+    ref = kernels.pvs_sweep_plain(vT, tab)
+    err = float((kernels.pvs_sweep(vT, tab) - ref).abs().max())
+    _check("single_curve_book K1 pvs_sweep vs plain (abs / max|ref|)",
+           err / float(ref.abs().max()), 1e-12)
+    with warnings.catch_warnings():          # CSR support is "beta"
+        warnings.simplefilter("ignore", UserWarning)
+        csr = torch.sparse_csr_tensor(tab.tptr.long(), tab.slot_col(),
+                                      tab.slot_w, size=(B, M))
+    vTc = vT.contiguous()
+    _check("single_curve_book K1 cuSPARSE SpMM vs plain (abs / max|ref|)",
+           float((torch.sparse.mm(csr, vTc).T - ref).abs().max()
+                 / ref.abs().max()), 1e-12)
+    tm = _timings(lambda: kernels.pvs_sweep(vT, tab),
+                  lambda: kernels.pvs_sweep_plain(vT, tab),
+                  lambda: torch.sparse.mm(csr, vTc))
+    nbytes = 4 * (B + 1) + 12 * nnz + 8 * M * S + 8 * S * B
+    bound, by = _bound(nbytes, 2.0 * nnz * S, FP64_FLOPS)
+    print(f"single_curve_book K1 pvs_sweep vT [M, S]={[M, S]} B={B}, {nnz} "
+          f"slots: {_fmt_tm(tm)}; bound {bound * 1e3:.1f} us ({by}, "
+          f"{nbytes / 1e6:.1f} MB)", flush=True)
+    return dict(name="pvs_sweep", path="single_curve_book", route="cuda",
+                source="adrates_torch/csrc/pvs_sweep.cu",
+                replaces="adrates_tpu/parallel/book.py:223",
+                max_abs_err=err, **tm,
+                library="torch.sparse.mm (cuSPARSE SpMM) of the [B, M] "
+                        "trade x row CSR by vT",
+                bound_ms=bound, bound_by=by, **_shares(bound, tm),
+                tables_build_ms=info["tables_ms"],
+                reuse=nnz / max(int(tab.brow.numel()), 1))
+
+
 # Peak rates of one H100 SXM at its 700 W limit (NVIDIA's data sheet):
 # HBM3 bytes/s, f64 FMA on the CUDA cores and on the tensor cores.
 HBM_BPS = 3.35e12
@@ -1776,6 +2215,7 @@ def main() -> int:
         model_f, np.random.default_rng(flagship_v5.SEED))
     engine = run_engine(device, model_f, base, coll)
     splines = run_flagship_v5_splines(device, info_f)
+    hostapi, book_args = run_host_api(device, model_f, mb_f)
     for path, info in (("ois_slice", info_o), ("ois_slice_generic", info_g),
                        ("ois_xccy_book", info_x), ("flagship_v5", info_f)):
         for name in ("pvs_sweep", "gamma_quad_form_grouped"):
@@ -1792,9 +2232,11 @@ def main() -> int:
         records += compare_kernels(path, *args, device,
                                    chunk=infos[path]["chunk"])
     records += compare_per_trade_kernels(pt_fns, q_f, device)
+    records.append(compare_book_kernel(*book_args))
     infos.update(flagship_v5_ladders=pt_infos["ladders"],
                  flagship_v5_gamma_256=pt_infos["gamma_256"],
-                 flagship_v5_gamma_blocks=pt_infos["blocks"])
+                 flagship_v5_gamma_blocks=pt_infos["blocks"],
+                 single_curve_book=book_args[4])
     for r in records:
         info = infos[r["path"]]
         r["launches"] = info[r["name"]]
@@ -1815,6 +2257,7 @@ def main() -> int:
               f"{r['launches_per_call']:g} launches per call; card {card}")
     print(json.dumps({"engine": engine}))
     print(json.dumps({"splines": splines}))
+    print(json.dumps({"hostapi": hostapi}))
     print(json.dumps({"kernels": records}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {

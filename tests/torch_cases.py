@@ -707,3 +707,77 @@ def direct_value(model, trade) -> float:
         return trade.value(v, gbp)
     disc = usd if trade._currency.name == "USD" else gbp
     return trade.value(v, disc, curves[trade._floating_index.name])
+
+
+# The quick start's (examples/quickstart.py) curves and book, through
+# either package.
+QS_GBP_TENORS = ["1M", "6M", "1Y", "18M", "2Y", "3Y", "5Y", "7Y", "10Y",
+                 "12Y", "20Y", "30Y", "50Y"]
+QS_GBP_RATES = [5.19, 5.04, 4.71, 4.51, 4.35, 4.13, 3.93, 3.87, 3.87, 3.89,
+                3.88, 3.71, 3.33]
+
+
+def quickstart_gbp_model(pkg: str, interp: str = "LINEAR_ZERO_RATES"):
+    """A model holding the quick start's 13-pillar GBP_OIS_SONIA alone, on
+    the scheme named ``interp``."""
+    u, Model, _ = _ns(pkg)
+    m = Model(u.Date(1, 1, 2024))
+    m.build_curve("GBP_OIS_SONIA", px_list=QS_GBP_RATES,
+                  tenor_list=QS_GBP_TENORS,
+                  fixed_dcc_type=u.DayCountTypes.ACT_365F,
+                  float_dc_type=u.DayCountTypes.ACT_365F,
+                  interp_type=getattr(u.InterpTypes, interp))
+    return m
+
+
+def quickstart_model(pkg: str):
+    """(model, RPI index): the quick start's GBP, USD, GBP/USD basis and
+    GBP RPI curves with GBPUSD."""
+    u, _, _ = _ns(pkg)
+    D = u.DayCountTypes
+    m = quickstart_gbp_model(pkg)
+    m.build_curve("USD_OIS_SOFR",
+                  px_list=[5.33, 5.05, 4.60, 4.25, 4.00, 3.90, 3.88, 3.92,
+                           3.85],
+                  tenor_list=["6M", "1Y", "2Y", "3Y", "5Y", "7Y", "10Y",
+                              "20Y", "30Y"],
+                  fixed_dcc_type=D.ACT_360, float_dc_type=D.ACT_360,
+                  interp_type=u.InterpTypes.FLAT_FWD_RATES)
+    m.build_xccy_curve(name="GBP_USD_BASIS",
+                       domestic_curve_name="USD_OIS_SOFR",
+                       foreign_curve_name="GBP_OIS_SONIA",
+                       basis_spreads=[-2.0, -5.0, -8.0, -11.0, -13.0],
+                       tenor_list=["1Y", "2Y", "5Y", "10Y", "30Y"],
+                       spot_fx=1.27)
+    m.build_fx(["GBPUSD"], [1.27])
+    _, rpi = m.build_inflation_curve(
+        "GBP_RPI_INFLATION",
+        breakeven_list=[3.8, 3.6, 3.5, 3.4, 3.5, 3.45, 3.3],
+        tenor_list=["1Y", "2Y", "3Y", "5Y", "10Y", "20Y", "30Y"],
+        base_cpi=293.0)
+    return m, rpi
+
+
+def quickstart_ten_year(pkg: str):
+    """The quick start's 10Y RECEIVE 3.87% GBP OIS, 10M notional."""
+    u, _, OIS = _ns(pkg)
+    return OIS(u.Date(1, 1, 2024), "10Y", u.SwapTypes.RECEIVE, 0.0387,
+               u.FrequencyTypes.ANNUAL, u.DayCountTypes.ACT_365F,
+               u.CurveTypes.GBP_OIS_SONIA, u.CurrencyTypes.GBP,
+               notional=10_000_000,
+               float_dc_type=u.DayCountTypes.ACT_365F,
+               bd_type=u.BusDayAdjustTypes.MODIFIED_FOLLOWING)
+
+
+def quickstart_book_swaps(pkg: str, rng):
+    """The quick start's 20 base OIS (2Y/5Y/10Y/30Y x 5, coupons from
+    ``rng``)."""
+    u, _, OIS = _ns(pkg)
+    return [OIS(u.Date(1, 1, 2024), ten,
+                u.SwapTypes.PAY if i % 2 else u.SwapTypes.RECEIVE,
+                float(rng.uniform(0.02, 0.05)), u.FrequencyTypes.ANNUAL,
+                u.DayCountTypes.ACT_365F, u.CurveTypes.GBP_OIS_SONIA,
+                u.CurrencyTypes.GBP, notional=1e6,
+                float_dc_type=u.DayCountTypes.ACT_365F,
+                bd_type=u.BusDayAdjustTypes.MODIFIED_FOLLOWING)
+            for i, ten in enumerate(["2Y", "5Y", "10Y", "30Y"] * 5)]
