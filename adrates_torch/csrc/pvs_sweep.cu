@@ -2,7 +2,9 @@
 //
 // Replaces adrates_tpu/parallel/multibook.py:_pvs_sweep (:1782-1835, the
 // gather + weighted row-sum + trade gather part; the cap/floor clamp
-// epilogue stays plain torch in the caller).
+// epilogue stays plain torch in the caller), and the per-trade ladder
+// contraction of make_per_trade_delta_fn (:2842), in f64 and, for its
+// dtype=float32 option (:2825-2829), in f32.
 //
 //   out[s, b] = sum over trade b's live slots of w * vT[col, s]
 //
@@ -47,6 +49,12 @@
 // shared-memory transpose tile as coalesced rows of out[S, B]. No
 // atomics: every output is one thread's sum in slot order, so the result
 // is deterministic.
+//
+// The f32 instantiation (pvs_sweep_f32, the f32 ladders) is the same
+// kernel over float: vT, the slot weights, the sums and out are f32, a
+// 16-byte cp.async piece holds 4 scenarios (so the row stride is a
+// multiple of 4), and the stages take half the shared memory. It moves
+// half the bytes of the f64 sweep at the same slot count.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -61,12 +69,31 @@ constexpr int kSC = 128;                // scenarios per tile
 constexpr int kCH = 32;                 // vT rows per stage
 constexpr int kStages = 3;
 constexpr int kStageElems = kCH * kSC;
-constexpr int kPieces = kCH * (kSC / 2) / kThreads;   // 16-byte copies
 constexpr int kTileLd = kTB + 1;        // transpose tile row stride
 constexpr int kSmemElems = kStages * kStageElems > kSC * kTileLd
                                ? kStages * kStageElems : kSC * kTileLd;
-constexpr size_t kSmemBytes = sizeof(double) * kSmemElems;
 constexpr int kNoRow = 0x7fffffff;      // past a trade's last slot
+
+// per element type: the pair a lane loads, the scenarios of a 16-byte
+// cp.async piece and the fused multiply-add
+template <typename T> struct Elem;
+template <> struct Elem<double> {
+  using Pair = double2;
+  static constexpr int kVec = 2;
+  __device__ static double madd(double a, double b, double c) {
+    return fma(a, b, c);
+  }
+};
+template <> struct Elem<float> {
+  using Pair = float2;
+  static constexpr int kVec = 4;
+  __device__ static float madd(float a, float b, float c) {
+    return fmaf(a, b, c);
+  }
+};
+
+template <typename T>
+constexpr size_t smem_bytes() { return sizeof(T) * kSmemElems; }
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
@@ -83,24 +110,31 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
+template <typename T>
 __global__ void __launch_bounds__(kThreads, 2)
-pvs_sweep_kernel(const double* __restrict__ vT, int ld, int S,
+pvs_sweep_kernel(const T* __restrict__ vT, int ld, int S,
                  const int* __restrict__ tptr,
                  const int* __restrict__ slot_row,
-                 const double* __restrict__ slot_w,
+                 const T* __restrict__ slot_w,
                  const int* __restrict__ bptr, const int* __restrict__ brow,
-                 int B, double* __restrict__ out) {
-  extern __shared__ __align__(16) double smem[];
+                 int B, T* __restrict__ out) {
+  using Pair = typename Elem<T>::Pair;
+  constexpr int kVec = Elem<T>::kVec;          // scenarios per piece
+  constexpr int kRowPieces = kSC / kVec;       // pieces per stage row
+  constexpr int kPieces = kCH * kRowPieces / kThreads;  // per thread
+  constexpr int kRowStep = kThreads / kRowPieces;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* smem = reinterpret_cast<T*>(smem_raw);
   const int blk = blockIdx.x;
   const int s0 = blockIdx.y * kSC;
   const int nS = min(kSC, S - s0);
-  const int nq = (nS + 1) / 2;          // 16-byte pieces of a row tile
+  const int nq = (nS + kVec - 1) / kVec;  // 16-byte pieces of a row tile
   const int t0 = blk * kTB;
   const int r0 = bptr[blk];
   const int nrow = bptr[blk + 1] - r0;
   const int nchunk = (nrow + kCH - 1) / kCH;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int prow = threadIdx.x / (kSC / 2), pq = threadIdx.x % (kSC / 2);
+  const int prow = threadIdx.x / kRowPieces, pq = threadIdx.x % kRowPieces;
 
   // The block's trades go to warps by slot count, longest first, so a
   // warp's trades need about the same number of passes per chunk.
@@ -125,7 +159,7 @@ pvs_sweep_kernel(const double* __restrict__ vT, int ld, int S,
   // 32 slots (row, weight), one per lane; the window for the next chunk
   // is fetched while this one is summed
   int cur[kTPW], end[kTPW], wr[kTPW], nwr[kTPW];
-  double ww[kTPW], nww[kTPW], acc[kTPW][4];
+  T ww[kTPW], nww[kTPW], acc[kTPW][4];
 #pragma unroll
   for (int j = 0; j < kTPW; ++j) {
     const int t = t0 + s_perm[warp * kTPW + j];
@@ -133,9 +167,9 @@ pvs_sweep_kernel(const double* __restrict__ vT, int ld, int S,
     end[j] = t < B ? tptr[t + 1] : 0;
     const int i = cur[j] + lane;
     nwr[j] = i < end[j] ? __ldg(slot_row + i) : kNoRow;
-    nww[j] = i < end[j] ? __ldg(slot_w + i) : 0.0;
+    nww[j] = i < end[j] ? __ldg(slot_w + i) : T(0);
 #pragma unroll
-    for (int q = 0; q < 4; ++q) acc[j][q] = 0.0;
+    for (int q = 0; q < 4; ++q) acc[j][q] = T(0);
   }
   const bool lane0 = 2 * lane < nS, lane1 = 64 + 2 * lane < nS;
 
@@ -144,18 +178,18 @@ pvs_sweep_kernel(const double* __restrict__ vT, int ld, int S,
   auto fetch_rows = [&](int c) {
 #pragma unroll
     for (int i = 0; i < kPieces; ++i) {
-      const int r = c * kCH + prow + i * (kThreads / (kSC / 2));
+      const int r = c * kCH + prow + i * kRowStep;
       nxt[i] = (c < nchunk && r < nrow) ? __ldg(brow + r0 + r) : -1;
     }
   };
   auto load_chunk = [&](int c) {
-    double* st = smem + (c % kStages) * kStageElems;
+    T* st = smem + (c % kStages) * kStageElems;
 #pragma unroll
     for (int i = 0; i < kPieces; ++i) {
-      const int r = prow + i * (kThreads / (kSC / 2));
+      const int r = prow + i * kRowStep;
       if (nxt[i] >= 0 && pq < nq) {
-        cp_async16(st + r * kSC + 2 * pq,
-                   vT + (int64_t)nxt[i] * ld + s0 + 2 * pq);
+        cp_async16(st + r * kSC + kVec * pq,
+                   vT + (int64_t)nxt[i] * ld + s0 + kVec * pq);
       }
     }
   };
@@ -173,7 +207,7 @@ pvs_sweep_kernel(const double* __restrict__ vT, int ld, int S,
     load_chunk(c + kStages - 1);
     cp_async_commit();
     fetch_rows(c + kStages);
-    const double* st = smem + (c % kStages) * kStageElems;
+    const T* st = smem + (c % kStages) * kStageElems;
     const int lo = c * kCH, hi = lo + kCH;
     // a trade's slots in this chunk are a prefix of its window (rows
     // ascending, at most kCH = 32 of them); one pass per slot of the
@@ -190,34 +224,35 @@ pvs_sweep_kernel(const double* __restrict__ vT, int ld, int S,
       cur[j] += cnt[j];
       const int i = cur[j] + lane;
       nwr[j] = i < end[j] ? __ldg(slot_row + i) : kNoRow;
-      nww[j] = i < end[j] ? __ldg(slot_w + i) : 0.0;
+      nww[j] = i < end[j] ? __ldg(slot_w + i) : T(0);
     }
     for (int r = 0; r < passes; ++r) {
 #pragma unroll
       for (int j = 0; j < kTPW; ++j) {
         const bool hit = r < cnt[j];
         const int lr = __shfl_sync(0xffffffffu, wr[j], r);
-        const double wj = __shfl_sync(0xffffffffu, ww[j], r);
-        const double w = hit ? wj : 0.0;
-        const double* row = st + (lr - lo) * kSC;
-        double2 v0 = make_double2(0.0, 0.0), v1 = v0;
+        const T wj = __shfl_sync(0xffffffffu, ww[j], r);
+        const T w = hit ? wj : T(0);
+        const T* row = st + (lr - lo) * kSC;
+        Pair v0, v1;
+        v0.x = v0.y = v1.x = v1.y = T(0);
         if (hit && lane0) {
-          v0 = *reinterpret_cast<const double2*>(row + 2 * lane);
+          v0 = *reinterpret_cast<const Pair*>(row + 2 * lane);
         }
         if (hit && lane1) {
-          v1 = *reinterpret_cast<const double2*>(row + 64 + 2 * lane);
+          v1 = *reinterpret_cast<const Pair*>(row + 64 + 2 * lane);
         }
-        acc[j][0] = fma(w, v0.x, acc[j][0]);
-        acc[j][1] = fma(w, v0.y, acc[j][1]);
-        acc[j][2] = fma(w, v1.x, acc[j][2]);
-        acc[j][3] = fma(w, v1.y, acc[j][3]);
+        acc[j][0] = Elem<T>::madd(w, v0.x, acc[j][0]);
+        acc[j][1] = Elem<T>::madd(w, v0.y, acc[j][1]);
+        acc[j][2] = Elem<T>::madd(w, v1.x, acc[j][2]);
+        acc[j][3] = Elem<T>::madd(w, v1.y, acc[j][3]);
       }
     }
   }
   cp_async_wait<0>();
   __syncthreads();                      // stages free: reuse as the tile
 
-  double* tile = smem;                  // [kSC][kTileLd]
+  T* tile = smem;                       // [kSC][kTileLd]
 #pragma unroll
   for (int j = 0; j < kTPW; ++j) {
     const int tl = s_perm[warp * kTPW + j];
@@ -235,24 +270,41 @@ pvs_sweep_kernel(const double* __restrict__ vT, int ld, int S,
   }
 }
 
+template <typename T>
+int launch(const T* vT, int ld, int S, const int* tptr, const int* slot_row,
+           const T* slot_w, const int* bptr, const int* brow, int B, T* out,
+           cudaStream_t stream) {
+  if (B <= 0 || S <= 0) return 0;
+  // per call: the limit is a property of the current device
+  const cudaError_t err = cudaFuncSetAttribute(
+      pvs_sweep_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem_bytes<T>());
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((B + kTB - 1) / kTB, (S + kSC - 1) / kSC);
+  pvs_sweep_kernel<T><<<grid, kThreads, smem_bytes<T>(), stream>>>(
+      vT, ld, S, tptr, slot_row, slot_w, bptr, brow, B, out);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // out[S, B] (row-major) = the trade PVs; vT [M, >= S] with row stride ld
-// (even) and a 16-byte aligned base. Returns the cudaError_t of the
-// launch.
+// (a multiple of 2 doubles or 4 floats: whole 16-byte pieces) and a
+// 16-byte aligned base. Returns the cudaError_t of the launch.
 extern "C" int pvs_sweep_f64(const double* vT, int ld, int S,
                              const int* tptr, const int* slot_row,
                              const double* slot_w, const int* bptr,
                              const int* brow, int B, double* out,
                              cudaStream_t stream) {
-  if (B <= 0 || S <= 0) return 0;
-  // per call: the limit is a property of the current device
-  const cudaError_t err = cudaFuncSetAttribute(
-      pvs_sweep_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)kSmemBytes);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((B + kTB - 1) / kTB, (S + kSC - 1) / kSC);
-  pvs_sweep_kernel<<<grid, kThreads, kSmemBytes, stream>>>(
-      vT, ld, S, tptr, slot_row, slot_w, bptr, brow, B, out);
-  return (int)cudaGetLastError();
+  return launch<double>(vT, ld, S, tptr, slot_row, slot_w, bptr, brow, B,
+                        out, stream);
+}
+
+extern "C" int pvs_sweep_f32(const float* vT, int ld, int S,
+                             const int* tptr, const int* slot_row,
+                             const float* slot_w, const int* bptr,
+                             const int* brow, int B, float* out,
+                             cudaStream_t stream) {
+  return launch<float>(vT, ld, S, tptr, slot_row, slot_w, bptr, brow, B,
+                       out, stream);
 }

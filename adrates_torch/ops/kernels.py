@@ -9,9 +9,12 @@ row/trade sums). K2 ``gamma_quad_form_grouped``
 (``csrc/pertrade_quad_form.cu``) replaces the per-trade quad forms of
 ``adrates_tpu/parallel/pertrade_blocks.py`` (:316-363) and
 ``multibook.py:_sel_gamma_kernel`` (:2693-2753). All three are
-forward-only (their derivatives are closed form elsewhere), f64
-throughout, and each source file says what bounds it on the card and how
-its design answers that.
+forward-only (their derivatives are closed form elsewhere) and f64; K1
+also has an f32 instantiation for the f32 ladders
+(``make_per_trade_delta_fn(dtype=torch.float32)``, the JAX package's
+``dtype`` option at ``multibook.py:2825-2829``), which reads, sums and
+writes f32. Each source file says what bounds it on the card and how its
+design answers that.
 
 Tables: each kernel runs on static tables built once per book, on the
 book's device, by :func:`sweep_tables` (K1: a per-trade CSR of live
@@ -66,6 +69,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     "pvs_sweep_f64": [_P, _I, _I, _P, _P, _P, _P, _P, _I, _P, _P],
+    "pvs_sweep_f32": [_P, _I, _I, _P, _P, _P, _P, _P, _I, _P, _P],
     "gamma_groups_f64": [_P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P,
                          _P, _I, _I, _I, _P, _P, _P],
     "gamma_reduce_f64": [_P, _I, _I, _P, _P, _I, _P, _P],
@@ -183,7 +187,7 @@ class SweepTables:
     n_cols: int
     tptr: torch.Tensor               # [B + 1] int32
     slot_row: torch.Tensor           # [nnz] int32
-    slot_w: torch.Tensor             # [nnz] f64
+    slot_w: torch.Tensor             # [nnz] f64 (f32: sweep_tables_as)
     bptr: torch.Tensor               # [n_blocks + 1] int32
     brow: torch.Tensor               # [n_rows] int32
 
@@ -238,7 +242,8 @@ def sweep_tables(trade: torch.Tensor, col: torch.Tensor, w: torch.Tensor,
 def pvs_sweep_plain(vT: torch.Tensor, tab: SweepTables) -> torch.Tensor:
     """Plain twin of K1, written from ``_pvs_sweep``: the [S, B] trade
     PVs, sum over each trade's slots of w · vT[col, :], from the [M, S]
-    value table and the tables of :func:`sweep_tables`."""
+    value table and the tables of :func:`sweep_tables`, in the dtype of
+    ``vT`` (the tables' weights are in that dtype too)."""
     S = vT.shape[1]
     trade, col, w = tab.slot_trade(), tab.slot_col(), tab.slot_w
     out = torch.zeros((tab.n_trades, S), dtype=vT.dtype, device=vT.device)
@@ -250,36 +255,50 @@ def pvs_sweep_plain(vT: torch.Tensor, tab: SweepTables) -> torch.Tensor:
     return out.T.contiguous()
 
 
+def sweep_tables_as(tab: SweepTables, dtype) -> SweepTables:
+    """``tab`` with its slot weights cast to ``dtype`` (the f32 sweep's
+    tables; the index tables are shared)."""
+    return dataclasses.replace(tab, slot_w=tab.slot_w.to(dtype))
+
+
+# K1's entry point and the elements of a 16-byte piece, by dtype
+_SWEEP_ENTRY = {torch.float64: ("pvs_sweep_f64", 2),
+                torch.float32: ("pvs_sweep_f32", 4)}
+
+
 def pvs_sweep(vT: torch.Tensor, tab: SweepTables) -> torch.Tensor:
-    """K1: [S, B] trade PVs (see :func:`pvs_sweep_plain`) in one launch.
-    ``vT`` is f64 [M, S] with unit column stride; a row stride that is
-    even (16-byte rows) is taken as it is, else the rows are copied into
-    an even-stride buffer first."""
+    """K1: [S, B] trade PVs (see :func:`pvs_sweep_plain`) in one launch,
+    in f64 or in f32 (``vT``'s dtype, which the tables' weights must
+    share: :func:`sweep_tables_as`; the f32 kernel reads, sums and writes
+    f32). ``vT`` is [M, S] with unit column stride; a 16-byte aligned
+    row stride that holds whole 16-byte pieces is taken as it is, else
+    the rows are copied into such a buffer first."""
     if not vT.is_cuda:
         return pvs_sweep_plain(vT, tab)
     dev = vT.device
     M, S = vT.shape
-    if vT.dtype != torch.float64:
-        raise TypeError(f"vT has dtype {vT.dtype}, expected torch.float64")
+    if vT.dtype not in _SWEEP_ENTRY:
+        raise TypeError(f"vT has dtype {vT.dtype}, expected torch.float64 "
+                        f"or torch.float32")
+    entry, vec = _SWEEP_ENTRY[vT.dtype]
     if M != tab.n_cols:
         raise ValueError(f"vT has {M} rows, the tables {tab.n_cols}")
-    if vT.stride(1) != 1 or vT.stride(0) % 2 or vT.data_ptr() % 16:
-        buf = torch.empty((M, S + (S & 1)), dtype=vT.dtype, device=dev)
+    if vT.stride(1) != 1 or vT.stride(0) % vec or vT.data_ptr() % 16:
+        buf = torch.empty((M, S + (-S) % vec), dtype=vT.dtype, device=dev)
         buf[:, :S] = vT
         vT = buf[:, :S]
     for name in ("tptr", "slot_row", "bptr", "brow"):
         _need(getattr(tab, name), name, torch.int32, 1, dev)
-    _need(tab.slot_w, "slot_w", torch.float64, 1, dev)
+    _need(tab.slot_w, "slot_w", vT.dtype, 1, dev)
     B = tab.n_trades
-    out = torch.empty((S, B), dtype=torch.float64, device=dev)
+    out = torch.empty((S, B), dtype=vT.dtype, device=dev)
     if S == 0 or B == 0:
         return out
     build_kernels()
-    _check(_lib.pvs_sweep_f64(vT.data_ptr(), vT.stride(0), S,
-                              tab.tptr.data_ptr(), tab.slot_row.data_ptr(),
-                              tab.slot_w.data_ptr(), tab.bptr.data_ptr(),
-                              tab.brow.data_ptr(), B, out.data_ptr(),
-                              _stream(dev)), "pvs_sweep_f64")
+    _check(getattr(_lib, entry)(
+        vT.data_ptr(), vT.stride(0), S, tab.tptr.data_ptr(),
+        tab.slot_row.data_ptr(), tab.slot_w.data_ptr(), tab.bptr.data_ptr(),
+        tab.brow.data_ptr(), B, out.data_ptr(), _stream(dev)), entry)
     pvs_sweep.launches += 1
     return out
 

@@ -2,9 +2,7 @@
 one bootstrapped curve under a scenario matrix, and take the book's delta
 and gamma from its aggregate.
 
-Port of ``adrates_tpu/parallel/book.py`` (:89-583) without the mesh
-functions (``shard_book``, ``make_sharded_book_fn``,
-``make_pershard_aggregate_fn``; multi-GPU is a later slice). Every
+Port of ``adrates_tpu/parallel/book.py`` (:89-583). Every
 payment/accrual time collapses into ONE sorted unique-time grid and
 trades hold indices into it, so pricing the book is one bootstrap, one
 interpolation over the grid and per-trade gathers:
@@ -21,7 +19,11 @@ interpolation over the grid and per-trade gathers:
  - the book delta [S, N] and gamma [S, N, N] are ``torch.func`` ``jacrev``
    and ``jacfwd(jacrev)`` of ``aggregate_total_pv``, the O(U + T)
    aggregate, vmapped over the scenarios, as in JAX. K2 is not on this
-   path: JAX differentiates the aggregate here, not a J-based quad form.
+   path: JAX differentiates the aggregate here, not a J-based quad form;
+ - ``shard_book``, ``make_sharded_book_fn`` and
+   ``make_pershard_aggregate_fn`` (:401-470) split the trades over a
+   mesh's ranks (``distributed.py``): each rank prices and differentiates
+   its own trades and the totals, deltas and gammas are all-reduced.
 
 Any interpolation scheme works: the simple ones through their static
 plan, the fitted ones fitted on the bootstrap's nodes
@@ -43,7 +45,10 @@ from ..ops.bootstrap import OISBootstrapPlan, bootstrap_ois, plan_to_torch
 from ..ops.interpolation import df_static, interp_plan
 from ..ops.interpolation import plan_to_torch as interp_plan_to_torch
 from ..utils.device import resolve_device
+from ..utils.error import LibError
 from ..utils.global_types import InterpTypes
+from .multibook import value_table as multibook_value_table
+from .slots import _combine_book, _trip_keys, _unkey, sweep_slots
 
 
 @dataclasses.dataclass(frozen=True)
@@ -208,21 +213,6 @@ def tile_book(base: BookTensors, n_copies: int, coupon_scale=None,
         flt_mask=tile(base.flt_mask))
 
 
-def _combine_book(book: BookTensors):
-    """The scenario-invariant per-slot weights (host numpy [B, P] each):
-
-      pv_b = sum_p w_fix*df[fix] + (w_fwd*(df_s/df_e - 1) + w_spr)*df_pay
-    """
-    w_fix = np.asarray(book.fix_payments) * np.asarray(book.fix_mask)
-    ia = np.asarray(book.flt_index_alphas)
-    pa = np.asarray(book.flt_pay_alphas)
-    ratio = np.where(ia > 0.0, pa / np.where(ia > 0.0, ia, 1.0), 0.0)
-    notional = np.asarray(book.flt_notionals) * np.asarray(book.flt_mask)
-    w_fwd = ratio * notional
-    w_spr = np.asarray(book.flt_spreads) * pa * notional
-    return w_fix, w_fwd, w_spr
-
-
 def _grid_times(plan: OISBootstrapPlan) -> np.ndarray:
     """The bootstrap's node times, t = 0 included (static)."""
     return np.concatenate([[0.0], np.asarray(plan.point_times,
@@ -278,18 +268,6 @@ class BookAggregate:
     trip_p: np.ndarray       # [T] int32
     trip_w: np.ndarray       # [T]
     unique_times: np.ndarray  # [U]
-
-
-def _trip_keys(s, e, p, U: int) -> np.ndarray:
-    """The (start, end, pay) index triple as one int64 key."""
-    return (np.asarray(s).astype(np.int64) * U + e) * U + p
-
-
-def _unkey(uniq: np.ndarray, U: int):
-    """(trip_s, trip_e, trip_p) int32 from sorted trip keys."""
-    return ((uniq // (U * U)).astype(np.int32),
-            ((uniq // U) % U).astype(np.int32),
-            (uniq % U).astype(np.int32))
 
 
 def aggregate_book(book: BookTensors) -> BookAggregate:
@@ -430,42 +408,23 @@ class BookSweep:
 
 def _book_sweep(books, grid_times: np.ndarray, interp_type: InterpTypes,
                 device) -> BookSweep:
-    """Build K1's tables for ``books`` (sharing one unique grid): each
-    trade's fixed slots (``w_fix`` at ``fix_idx``), spread slots
-    (``w_spr`` at ``flt_pay_idx``) and forward slots (``w_fwd`` at the row
-    of its (s, e, p) trip, keyed as ``aggregate_book`` keys them)."""
+    """Build K1's tables for ``books`` (sharing one unique grid, their
+    trades concatenated in order): ``slots.sweep_slots`` over the books'
+    unique grid."""
     U = int(books[0].unique_times.shape[0])
-    trade, col, w, fwd = [], [], [], []
-    off = 0
-    for b in books:
-        B, P = np.asarray(b.fix_idx).shape
-        tid = np.repeat(np.arange(off, off + B, dtype=np.int64), P)
-        w_fix, w_fwd, w_spr = _combine_book(b)
-        pay = np.asarray(b.flt_pay_idx).ravel()
-        trade += [tid, tid]
-        col += [np.asarray(b.fix_idx).ravel(), pay]
-        w += [w_fix.ravel(), w_spr.ravel()]
-        live = w_fwd.ravel() != 0.0
-        fwd.append((tid[live], w_fwd.ravel()[live],
-                    _trip_keys(np.asarray(b.flt_start_idx).ravel()[live],
-                               np.asarray(b.flt_end_idx).ravel()[live],
-                               pay[live], U)))
-        off += B
-    uniq, inverse = np.unique(np.concatenate([k for _, _, k in fwd]),
-                              return_inverse=True)
-    trade.append(np.concatenate([t for t, _, _ in fwd]))
-    col.append(U + inverse.ravel())
-    w.append(np.concatenate([x for _, x, _ in fwd]))
+    offs = np.cumsum([0] + [b.num_trades for b in books])
+    trade, col, w, uniq = sweep_slots(
+        books, [np.arange(o, o + b.num_trades) for o, b in zip(offs, books)],
+        U)
     trip_s, trip_e, trip_p = _unkey(uniq, U)
 
     def i64(a):
         return torch.as_tensor(np.asarray(a, np.int64), device=device)
 
     sweep = kernels.sweep_tables(
-        i64(np.concatenate(trade)), i64(np.concatenate(col)),
-        torch.as_tensor(np.concatenate(w), dtype=torch.float64,
-                        device=device),
-        off, U + uniq.shape[0])
+        i64(trade), i64(col),
+        torch.as_tensor(w, dtype=torch.float64, device=device),
+        int(offs[-1]), U + uniq.shape[0])
     return BookSweep(
         iplan=interp_plan_to_torch(interp_plan(books[0].unique_times,
                                                grid_times, interp_type),
@@ -477,26 +436,28 @@ def _book_sweep(books, grid_times: np.ndarray, interp_type: InterpTypes,
 def _make_fn(plan: OISBootstrapPlan, interp_type: InterpTypes,
              want_gamma: bool, device):
     """The shared body of the book functions: fn(rates, books, agg,
-    shocks), with ``fn.tables(books)`` and ``fn.value_table(rates, books,
-    shocks)`` (tensors on the device). ``books`` is a tuple of books
-    sharing one grid; K1's tables and the aggregate's device copy are
-    built at first sight of each and kept (the objects are held, so their
+    shocks), with ``fn.tables(books)``, ``fn.value_table(rates, books,
+    shocks)`` and ``fn.risk(rates, agg, shocks, total_pv=False)``
+    (tensors on the device). ``books`` is a tuple of books sharing one
+    grid; ``agg`` their aggregate, or None for the books' own
+    (``merge_aggregates`` of each one's ``aggregate_book``). K1's tables,
+    the books' own aggregate and an aggregate's device copy are built at
+    first sight of their objects and kept (the objects are held, so their
     ids stay theirs)."""
-    from .multibook import value_table as multibook_value_table
     dev = resolve_device(device)
     P = plan_to_torch(plan, dev)
     grid_times = _grid_times(plan)
     memo = {}
 
-    def kept(objs: tuple, build):
-        key = tuple(map(id, objs))
+    def kept(tag: str, objs: tuple, build):
+        key = (tag,) + tuple(map(id, objs))
         if key not in memo:
             memo[key] = (objs, build())
         return memo[key][1]
 
     def tables(books) -> BookSweep:
-        return kept(books, lambda: _book_sweep(books, grid_times,
-                                               interp_type, dev))
+        return kept("tables", books, lambda: _book_sweep(
+            books, grid_times, interp_type, dev))
 
     def value_table(rates, books, shocks):
         """(K1's value table [U + T, S], rows 16-byte aligned, and the
@@ -507,13 +468,14 @@ def _make_fn(plan: OISBootstrapPlan, interp_type: InterpTypes,
                                       interp_type))(shocks)
         return multibook_value_table(dfs_u, tab), tab
 
-    def fn(rates, books, agg, shocks):
+    def risk(rates, agg, shocks, total_pv: bool = False):
+        """{delta [S, N], gamma [S, N, N] (with ``want_gamma``), total_pv
+        [S] (with ``total_pv``)}: ``jacrev`` / ``jacfwd∘jacrev`` of the
+        aggregate's O(U + T) total, vmapped over the scenarios."""
         rates = torch.as_tensor(rates, dtype=torch.float64, device=dev)
         shocks = torch.as_tensor(shocks, dtype=torch.float64, device=dev)
-        ag = kept((agg,), lambda: _agg_to(agg, grid_times, interp_type,
-                                          dev))
-        vT, tab = value_table(rates, books, shocks)
-        pvs = kernels.pvs_sweep(vT, tab.sweep)   # one K1 launch
+        ag = kept("agg", (agg,), lambda: _agg_to(agg, grid_times,
+                                                 interp_type, dev))
 
         def total(r):
             return _total(r, P, interp_type, ag)
@@ -523,14 +485,27 @@ def _make_fn(plan: OISBootstrapPlan, interp_type: InterpTypes,
             out = {"delta": jacrev(total)(r)}
             if want_gamma:
                 out["gamma"] = jacfwd(jacrev(total))(r)
+            if total_pv:
+                out["total_pv"] = total(r)
             return out
 
-        out = vmap(one_scenario)(shocks)
+        return vmap(one_scenario)(shocks)
+
+    def fn(rates, books, agg, shocks):
+        if agg is None:
+            agg = kept("own agg", books, lambda: merge_aggregates(
+                [aggregate_book(b) for b in books]))
+        rates = torch.as_tensor(rates, dtype=torch.float64, device=dev)
+        shocks = torch.as_tensor(shocks, dtype=torch.float64, device=dev)
+        vT, tab = value_table(rates, books, shocks)
+        pvs = kernels.pvs_sweep(vT, tab.sweep)   # one K1 launch
+        out = risk(rates, agg, shocks)
         out["pvs"] = pvs
         return out
 
     fn.tables = tables
     fn.value_table = value_table
+    fn.risk = risk
     return fn
 
 
@@ -558,9 +533,76 @@ def make_book_fn(plan: OISBootstrapPlan, interp_type: InterpTypes,
     return fn
 
 
-def _slice_book(book: BookTensors, rows: slice, pad: int) -> BookTensors:
+def shard_book(book: BookTensors, mesh, axis: str = "book") -> BookTensors:
+    """This rank's contiguous slice of the trade axis over ``mesh``'s
+    ``axis`` (the unique grid shared), host numpy (``adrates_tpu``
+    ``book.py:401``). Raises ``LibError`` when the trade count does not
+    divide the shard count: pad with ``tile_book`` first, as the JAX
+    package's caller does."""
+    from .distributed import ShardAxis
+    ax = ShardAxis(mesh, axis)
+    B = book.num_trades
+    if B % ax.n:
+        raise LibError(f"shard_book: {B} trades do not divide into "
+                       f"{ax.n} shards (pad with tile_book)")
+    n = B // ax.n
+    return _slice_book(book, slice(ax.index * n, (ax.index + 1) * n),
+                       None)
+
+
+def make_sharded_book_fn(plan: OISBootstrapPlan, interp_type: InterpTypes,
+                         mesh, axis: str = "book", want_gamma: bool = True,
+                         device=None):
+    """(rates [N], book_shard, shocks [S, N]) -> {total_pv [S], delta
+    [S, N], gamma [S, N, N]} of the whole book on every rank
+    (``adrates_tpu`` ``book.py:414``): ``book_shard`` is this rank's
+    ``shard_book``. Each rank prices its shard's trades on K1 (the
+    ``make_book_fn`` tables, built at first sight of a shard and kept)
+    and takes its shard's delta and gamma by ``jacrev`` /
+    ``jacfwd∘jacrev`` of the shard's aggregate (equal by construction to
+    the derivatives of its trades' PV sum, as in ``make_book_fn``); the
+    three are then all-reduced over the ``axis`` group."""
+    from .distributed import ShardAxis, all_reduce
+    group = ShardAxis(mesh, axis).group
+    inner = _make_fn(plan, interp_type, want_gamma, device)
+
+    def fn(rates, book_shard, shocks):
+        out = inner(rates, (book_shard,), None, shocks)
+        res = {"total_pv": all_reduce(out["pvs"].sum(dim=1), group),
+               "delta": all_reduce(out["delta"], group)}
+        if want_gamma:
+            res["gamma"] = all_reduce(out["gamma"], group)
+        return res
+
+    return fn
+
+
+def make_pershard_aggregate_fn(plan: OISBootstrapPlan,
+                               interp_type: InterpTypes, mesh,
+                               axis: str = "book", device=None):
+    """(rates [N], agg, shocks [S, N]) -> {total_pv [S], delta [S, N],
+    gamma [S, N, N]} of the whole book on every rank (``adrates_tpu``
+    ``book.py:450``): ``agg`` is this rank's shard's aggregate
+    (``aggregate_book(shard_book(...))``); each rank takes its total and
+    its ``jacrev`` / ``jacfwd∘jacrev`` (the O(U + T) graph), and the
+    three are all-reduced: the PV, delta and gamma are linear in the
+    book, so the sum is the whole book's."""
+    from .distributed import ShardAxis, all_reduce
+    group = ShardAxis(mesh, axis).group
+    risk = _make_fn(plan, interp_type, True, device).risk
+
+    def fn(rates, agg, shocks):
+        out = risk(rates, agg, shocks, total_pv=True)
+        return {k: all_reduce(v, group) for k, v in out.items()}
+
+    return fn
+
+
+def _slice_book(book: BookTensors, rows: slice,
+                pad: Optional[int]) -> BookTensors:
     """Row/pad-slice of a compiled book (padded slots sit at the END of
-    each row, so truncating the slot axis keeps every live payment)."""
+    each row, so truncating the slot axis keeps every live payment;
+    ``pad`` None keeps every slot)."""
     def cut(x):
         x = np.asarray(x)
         return x[rows, :pad] if x.ndim == 2 else x

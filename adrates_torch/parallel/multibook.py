@@ -61,6 +61,7 @@ from ..ops.pricers import FloatLegTensor
 from ..utils.observability import timed
 from .curve_batching import (StageTopology, bat_to_torch,
                              build_batched_grids)
+from .slots import _unkey, sweep_slots
 
 # Bytes allowed for the risk pass's live f64 tangent stacks of one
 # scenario chunk. The generic split holds about three [chunk, N, C*U]
@@ -1118,26 +1119,78 @@ def _aggregate(buckets, CU: int) -> MultiBookAggregate:
 
 
 def tile_multibook(mb: MultiBook, n_copies: int,
-                   notional_scale=None) -> MultiBook:
+                   notional_scale=None,
+                   materialize: bool = False) -> MultiBook:
     """Scale a compiled multibook up by tiling its rows with per-copy
     notional multipliers (copies share schedules and curves; amounts
-    differ). Trade k of copy c becomes trade c * B + k. Lazy: the
-    returned book keeps the base tables plus a TileSpec, and
-    ``make_multibook_fn`` expands them on the device."""
+    differ). Trade k of copy c becomes trade c * B + k.
+
+    Default is lazy: the returned book keeps the base tables plus a
+    TileSpec, and the device functions expand them on the device.
+    ``materialize=True`` builds the full numpy tables on the host instead
+    (``adrates_tpu`` ``multibook.py:1306-1355``), as ``shard_multibook``
+    needs."""
     if notional_scale is None:
         notional_scale = np.ones(n_copies)
     scale = np.asarray(notional_scale, dtype=np.float64)
+    B = mb.n_trades
     if mb.tile is not None:
         raise LibError("multibook is already lazily tiled")
-    total = float(scale.sum())
-    agg = MultiBookAggregate(
-        w_lin=np.asarray(mb.aggregate.w_lin) * total,
-        trip_s=mb.aggregate.trip_s, trip_e=mb.aggregate.trip_e,
-        trip_p=mb.aggregate.trip_p,
-        trip_w=np.asarray(mb.aggregate.trip_w) * total)
+    if not materialize:
+        total = float(scale.sum())
+        agg = MultiBookAggregate(
+            w_lin=np.asarray(mb.aggregate.w_lin) * total,
+            trip_s=mb.aggregate.trip_s, trip_e=mb.aggregate.trip_e,
+            trip_p=mb.aggregate.trip_p,
+            trip_w=np.asarray(mb.aggregate.trip_w) * total)
+        return dataclasses.replace(
+            mb, aggregate=agg, n_trades=B * n_copies,
+            tile=TileSpec(scale=scale, base_trades=B))
+
+    def tile(x, amount=False, trade=False):
+        x = np.asarray(x)
+        tiled = np.tile(x, (n_copies,) + (1,) * (x.ndim - 1))
+        if amount:
+            reps = np.repeat(scale, x.shape[0])
+            tiled = tiled * reps.reshape((-1,) + (1,) * (x.ndim - 1))
+        if trade:
+            tiled = tiled + np.repeat(
+                np.arange(n_copies, dtype=np.int32) * B, x.shape[0])
+        return tiled
+
+    buckets = tuple(MultiBookRows(
+        fix_idx=tile(b.fix_idx),
+        fix_payments=tile(b.fix_payments, amount=True),
+        fix_mask=tile(b.fix_mask),
+        flt_pay_idx=tile(b.flt_pay_idx),
+        flt_start_idx=tile(b.flt_start_idx),
+        flt_end_idx=tile(b.flt_end_idx),
+        flt_pay_alphas=tile(b.flt_pay_alphas),
+        flt_index_alphas=tile(b.flt_index_alphas),
+        flt_spreads=tile(b.flt_spreads),
+        flt_notionals=tile(b.flt_notionals, amount=True),
+        flt_mask=tile(b.flt_mask),
+        row_trade=tile(b.row_trade, trade=True).astype(np.int32),
+    ) for b in mb.buckets)
+    clamp = None
+    if mb.clamp is not None:
+        c = mb.clamp
+        clamp = ClampSlots(
+            s_idx=tile(c.s_idx).astype(np.int32),
+            e_idx=tile(c.e_idx).astype(np.int32),
+            p_idx=tile(c.p_idx).astype(np.int32),
+            ia=tile(c.ia), w=tile(c.w, amount=True),
+            spread=tile(c.spread), cap=tile(c.cap), floor=tile(c.floor),
+            slot_trade=tile(c.slot_trade, trade=True).astype(np.int32))
+    cols = tuple(ColRows(
+        col_idx=tile(cb.col_idx).astype(np.int32),
+        w=tile(cb.w, amount=True),
+        row_trade=tile(cb.row_trade, trade=True).astype(np.int32),
+    ) for cb in mb.cols)
     return dataclasses.replace(
-        mb, aggregate=agg, n_trades=mb.n_trades * n_copies,
-        tile=TileSpec(scale=scale, base_trades=mb.n_trades))
+        mb, buckets=buckets, clamp=clamp,
+        aggregate=_aggregate(buckets, mb.basket.n_grid),
+        n_trades=B * n_copies, cols=cols)
 
 
 def _term1_trip_groups(basket, agg: MultiBookAggregate):
@@ -1396,12 +1449,16 @@ def _scenario_risk(grids, q: torch.Tensor, P: dict,
     return out
 
 
-def _even_rows(top: torch.Tensor, bottom: torch.Tensor) -> torch.Tensor:
-    """[top; bottom] ([M, S]) as a view of a buffer with an even row
-    stride, so every row starts on a 16-byte boundary (K1's layout)."""
+def _even_rows(top: torch.Tensor, bottom: torch.Tensor,
+               dtype=None) -> torch.Tensor:
+    """[top; bottom] ([M, S]) in ``dtype`` (default ``top``'s) as a view
+    of a buffer whose rows hold whole 16-byte pieces, so every row
+    starts on a 16-byte boundary (K1's layout)."""
+    dtype = top.dtype if dtype is None else dtype
     S = top.shape[1]
-    buf = torch.empty((top.shape[0] + bottom.shape[0], S + (S & 1)),
-                      dtype=top.dtype, device=top.device)
+    buf = torch.empty((top.shape[0] + bottom.shape[0],
+                       S + (-S) % (16 // dtype.itemsize)),
+                      dtype=dtype, device=top.device)
     out = buf[:, :S]
     out[:top.shape[0]] = top
     out[top.shape[0]:] = bottom
@@ -1491,8 +1548,10 @@ def trip_group_arrays(groups, agg: MultiBookAggregate) -> list:
 def _device_book(inp: BookInputs, device, sweep: bool = True,
                  quad: bool = True) -> DeviceBook:
     """The book's tables on ``device``, a lazily tiled book expanded;
-    K1's ``sweep`` and K2's ``quad`` tables only where asked for (the
-    per-trade gammas need neither, the ladders no ``quad``)."""
+    K1's ``sweep`` tables with the per-trade clamp slots, and K2's
+    ``quad`` tables, only where asked for (the per-trade gammas need
+    neither, the ladders no ``quad``, the sharded paths take their own
+    trades' part of the sweep). Without the sweep, ``clamp`` is None."""
     P = {"bat": bat_to_torch(inp.bat, device),
          "grid_sel": None if inp.grid_sel is None
          else _i64(inp.grid_sel, device)}
@@ -1504,7 +1563,10 @@ def _device_book(inp: BookInputs, device, sweep: bool = True,
         # the aggregate's clamp total is linear in the per-copy scale:
         # the base slots with weights times sum(scale)
         clamp_agg = dataclasses.replace(clamp, w=clamp.w * scale.sum())
-        clamp = _expand_clamp(clamp, scale, int(inp.tile.base_trades))
+        if sweep:
+            clamp = _expand_clamp(clamp, scale, int(inp.tile.base_trades))
+    if not sweep:
+        clamp = None
     sw = None if not sweep else sweep_tables_from_cols(
         expanded_cols(inp, device), inp.n_trades,
         inp.n_grid + agg.trip_s.shape[0])
@@ -1550,28 +1612,11 @@ def _term1_fn(book: DeviceBook):
     return term1
 
 
-def make_multibook_fn(mb: Union[MultiBook, BookInputs], device,
-                      want_gamma: bool = True):
-    """(qvec [N], shocks [S, N]) -> {pvs [S, B], delta [S, N],
-    gamma [S, N, N]} on ``device``: per-trade PVs from the K1 sweep, book
-    delta/gamma from the aggregate graph. N is the packed quote
-    dimension across every curve (OIS rates + basis spreads), so the
-    gamma includes all cross-curve blocks. The book moves to ``device``
-    once, here (a lazily tiled book is expanded there).
-
-    The risk pass takes the STRUCTURED per-stage split
-    (``structured_risk``) whenever the book carries its stage topology,
-    and the generic split (``_scenario_risk``) for a book compiled with
-    ``batch_curves=False``; term1 is the K2 kernel either way.
-
-    ``fn.risk_only`` and ``fn.pvs_only`` run the two halves separately;
-    ``fn.dfs_only`` and ``fn.jacobians`` return the shocked grids (and
-    their quote jacobians); ``fn.chunk(S)`` is the risk pass's scenario
-    chunk for S scenarios; ``fn.structured`` says which split runs;
-    ``fn.book`` holds the device tables."""
-    inp = book_inputs(mb) if isinstance(mb, MultiBook) else mb
-    device = torch.device(device)
-    book = _device_book(inp, device)
+def _risk_fn(inp: BookInputs, book: DeviceBook, want_gamma: bool):
+    """(risk, chunk): ``risk(qvec, shocks)`` -> (dfs [S, n_grid], {delta
+    [S, N], gamma [S, N, N]}), the book's risk pass in scenario chunks
+    of ``chunk(S)`` through the structured split when the book carries
+    its stage topology, else the generic split; term1 on K2."""
     grids, P = book.grids, book.params
     agg, clamp_agg = book.aggregate, book.clamp_agg
     term1 = _term1_fn(book)
@@ -1591,8 +1636,7 @@ def make_multibook_fn(mb: Union[MultiBook, BookInputs], device,
     def chunk(n_scen: int) -> int:
         return risk_chunk_size(N, width, n_scen)
 
-    def _risk(qvec, shocks):
-        """Per-chunk risk; returns (dfs [S, n_grid], delta, gamma)."""
+    def risk(qvec, shocks):
         dfs_l, delta_l, gamma_l = [], [], []
         c = chunk(shocks.shape[0])
         for s0 in range(0, shocks.shape[0], c):
@@ -1618,6 +1662,34 @@ def make_multibook_fn(mb: Union[MultiBook, BookInputs], device,
         if want_gamma:
             res["gamma"] = torch.cat(gamma_l)
         return torch.cat(dfs_l), res
+
+    return risk, chunk
+
+
+def make_multibook_fn(mb: Union[MultiBook, BookInputs], device,
+                      want_gamma: bool = True):
+    """(qvec [N], shocks [S, N]) -> {pvs [S, B], delta [S, N],
+    gamma [S, N, N]} on ``device``: per-trade PVs from the K1 sweep, book
+    delta/gamma from the aggregate graph. N is the packed quote
+    dimension across every curve (OIS rates + basis spreads), so the
+    gamma includes all cross-curve blocks. The book moves to ``device``
+    once, here (a lazily tiled book is expanded there).
+
+    The risk pass takes the STRUCTURED per-stage split
+    (``structured_risk``) whenever the book carries its stage topology,
+    and the generic split (``_scenario_risk``) for a book compiled with
+    ``batch_curves=False``; term1 is the K2 kernel either way.
+
+    ``fn.risk_only`` and ``fn.pvs_only`` run the two halves separately;
+    ``fn.dfs_only`` and ``fn.jacobians`` return the shocked grids (and
+    their quote jacobians); ``fn.chunk(S)`` is the risk pass's scenario
+    chunk for S scenarios; ``fn.structured`` says which split runs;
+    ``fn.book`` holds the device tables."""
+    inp = book_inputs(mb) if isinstance(mb, MultiBook) else mb
+    device = torch.device(device)
+    book = _device_book(inp, device)
+    grids, P, agg = book.grids, book.params, book.aggregate
+    _risk, chunk = _risk_fn(inp, book, want_gamma)
 
     def fn(qvec, shocks):
         dfs_all, out = _risk(_f64(qvec, device), _f64(shocks, device))
@@ -1651,7 +1723,7 @@ def make_multibook_fn(mb: Union[MultiBook, BookInputs], device,
     fn.dfs_only = dfs_only
     fn.jacobians = jacobians
     fn.chunk = chunk
-    fn.structured = structured
+    fn.structured = inp.topology is not None
     fn.book = book
     return fn
 
@@ -1977,33 +2049,27 @@ def _need_multibook(mb) -> MultiBook:
     return mb
 
 
-def make_per_trade_delta_fn(mb: MultiBook, device):
-    """(qvec [N]) -> [B, N] per-trade delta ladders (ccy units per unit
-    rate; multiply by 1e-4 for per-bp) on ``device``, single scenario
-    (``adrates_tpu`` ``make_per_trade_delta_fn``, its "gather" method in
-    f64).
-
-    Chain-rule split: per-slot dPV/dDF coefficients are closed form and
-    J = d dfs/d quotes comes from the book's risk split at q. The ladder
-    is ``ladder[b, :] = sum over b's slots of w · Jv[col, :]`` with
-    Jv = [Jᵀ; J_trip] [n_grid + T, N], the trip rows in closed form: the
-    PV sweep's own CSR (``fn.book.sweep``) over a value table whose S
-    columns are the N quotes, so K1 computes it in one launch. The cap/
-    floor clamp rows are added in torch. ``fn.prep(qvec)`` gives K1's
-    inputs, ``fn.book`` its tables."""
-    mb = _need_multibook(mb)
-    inp = book_inputs(mb)
-    device = torch.device(device)
-    book = _device_book(inp, device, quad=False)
-    jac = _jacobians_fn(inp, book)
-    agg, cl = book.aggregate, book.clamp
-    if cl is not None:
-        ct = dict(cl_s=cl.s_idx, cl_e=cl.e_idx, cl_p=cl.p_idx, cl_ia=cl.ia,
-                  cl_w=cl.w, cl_sp=cl.spread, cl_cap=cl.cap, cl_lo=cl.floor)
+def _ladder_fn(jac, agg: MultiBookAggregate, sweep: kernels.SweepTables,
+               clamp: Optional[ClampSlots], device, dtype=None):
+    """(qvec) -> the ladders of the trades of ``sweep`` and ``clamp``
+    (their trade ids index the rows of the result) on K1, in ``dtype``
+    (None: f64): J from ``jac`` at qvec stays f64, Jv and the slot
+    weights are cast to ``dtype`` and K1 sums in it, the clamp rows are
+    computed in f64 and cast (``adrates_tpu`` ``multibook.py:2825-2829``,
+    ``:2856-2857``). ``fn.prep(qvec)`` gives K1's inputs, ``fn.sweep``
+    its tables."""
+    dtype = torch.float64 if dtype is None else dtype
+    sweep = sweep if dtype == torch.float64 \
+        else kernels.sweep_tables_as(sweep, dtype)
+    if clamp is not None:
+        ct = dict(cl_s=clamp.s_idx, cl_e=clamp.e_idx, cl_p=clamp.p_idx,
+                  cl_ia=clamp.ia, cl_w=clamp.w, cl_sp=clamp.spread,
+                  cl_cap=clamp.cap, cl_lo=clamp.floor)
 
     def prep(qvec):
-        """(dfs [n_grid], Jt [n_grid, N], Jv [n_grid + T, N]) at qvec:
-        K1's value table, rows 16-byte aligned."""
+        """(dfs [n_grid], Jt [n_grid, N], Jv [n_grid + T, N] in the
+        ladder's dtype) at qvec: K1's value table, rows 16-byte
+        aligned."""
         dfs, J = jac(_f64(qvec, device)[None, :])
         dfs, Jt = dfs[0], J[0].T
         a = dfs[agg.trip_s][:, None]
@@ -2012,21 +2078,51 @@ def make_per_trade_delta_fn(mb: MultiBook, device):
         J_trip = (Jt[agg.trip_s] * (c_ / b_)
                   - Jt[agg.trip_e] * (a * c_ / (b_ * b_))
                   + Jt[agg.trip_p] * (a / b_ - 1.0))
-        return dfs, Jt, _even_rows(Jt, J_trip)
+        return dfs, Jt, _even_rows(Jt, J_trip, dtype)
 
     def fn(qvec):
         dfs, Jt, Jv = prep(qvec)
-        out = kernels.pvs_sweep(Jv, book.sweep).T.contiguous()   # [B, N]
-        if cl is not None:
+        out = kernels.pvs_sweep(Jv, sweep).T.contiguous()       # [B, N]
+        if clamp is not None:
             # the clamp slots' DF partials, as in _slot_gradient
             u, v, p, ia, rate, wI = _clamp_slot_terms(dfs, ct)
-            d = ((cl.w * rate)[:, None] * Jt[cl.p_idx]
-                 + (wI * p / (ia * v))[:, None] * Jt[cl.s_idx]
-                 - (wI * p * u / (ia * v * v))[:, None] * Jt[cl.e_idx])
-            out.index_add_(0, cl.slot_trade, d)
+            d = ((clamp.w * rate)[:, None] * Jt[clamp.p_idx]
+                 + (wI * p / (ia * v))[:, None] * Jt[clamp.s_idx]
+                 - (wI * p * u / (ia * v * v))[:, None] * Jt[clamp.e_idx])
+            out.index_add_(0, clamp.slot_trade, d.to(dtype))
         return out
 
     fn.prep = prep
+    fn.sweep = sweep
+    return fn
+
+
+def make_per_trade_delta_fn(mb: MultiBook, device, dtype=None):
+    """(qvec [N]) -> [B, N] per-trade delta ladders (ccy units per unit
+    rate; multiply by 1e-4 for per-bp) on ``device``, single scenario
+    (``adrates_tpu`` ``make_per_trade_delta_fn``, its "gather" method).
+
+    Chain-rule split: per-slot dPV/dDF coefficients are closed form and
+    J = d dfs/d quotes comes from the book's risk split at q. The ladder
+    is ``ladder[b, :] = sum over b's slots of w · Jv[col, :]`` with
+    Jv = [Jᵀ; J_trip] [n_grid + T, N], the trip rows in closed form: the
+    PV sweep's own CSR (``fn.book.sweep``) over a value table whose S
+    columns are the N quotes, so K1 computes it in one launch. The cap/
+    floor clamp rows are added in torch.
+
+    ``dtype`` (e.g. ``torch.float32``) downcasts Jv, the slot weights and
+    the contraction, which then runs on K1's f32 instantiation; the
+    curve graph and J stay f64 and the clamp rows are computed in f64
+    and cast, as in the JAX package (ladders are reporting artifacts,
+    not calibration inputs). ``fn.prep(qvec)`` gives K1's inputs,
+    ``fn.sweep`` the tables K1 reads (in ``dtype``), ``fn.book`` the
+    device book."""
+    mb = _need_multibook(mb)
+    inp = book_inputs(mb)
+    device = torch.device(device)
+    book = _device_book(inp, device, quad=False)
+    fn = _ladder_fn(_jacobians_fn(inp, book), book.aggregate, book.sweep,
+                    book.clamp, device, dtype)
     fn.book = book
     return fn
 
@@ -2084,3 +2180,191 @@ def make_per_trade_gamma_fn(mb: MultiBook, trade_ids, device):
     fn.prep = prep
     fn.k3 = k3
     return fn
+
+
+# ---------------------------------------------------------------------------
+# the book's trades sharded over a mesh
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class MultiBookShard:
+    """One rank's part of a multibook (:func:`shard_multibook`): the
+    trades are padded with dead ones to ``n_pad`` (the trade count
+    rounded up to the shard count) and split into contiguous ranges, and
+    this rank owns trades ``[lo, lo + n_local)``, of which ``[lo, hi)``
+    are live. ``cols`` and ``clamp`` hold the live trades' column rows
+    and clamp slots on ``device``, trade ids made local (``t - lo``);
+    ``axis`` says which shard and group this is."""
+    book: MultiBook
+    axis: object                     # distributed.ShardAxis
+    device: torch.device
+    n_pad: int
+    lo: int
+    hi: int
+    cols: List[ColRows]
+    clamp: Optional[ClampSlots]
+
+    @property
+    def n_local(self) -> int:
+        return self.n_pad // self.axis.n
+
+    @property
+    def rows(self) -> int:
+        """The column rows this rank holds (its trades' only)."""
+        return sum(int(cb.col_idx.shape[0]) for cb in self.cols)
+
+
+def _copy_pieces(lo: int, hi: int, n_base: int):
+    """[(c_a, c_b, k_lo, k_hi)]: trades [lo, hi) of a copy-major tiled
+    book (trade c * n_base + k) as runs of copies [c_a, c_b) of base
+    trades [k_lo, k_hi), whole copies merged into one run."""
+    pieces = []
+    c = lo // n_base
+    while c * n_base < hi:
+        k_lo, k_hi = max(lo - c * n_base, 0), min(hi - c * n_base, n_base)
+        if (k_lo, k_hi) == (0, n_base) and pieces \
+                and pieces[-1][1] == c and pieces[-1][2:] == (0, n_base):
+            pieces[-1] = (pieces[-1][0], c + 1, 0, n_base)
+        else:
+            pieces.append((c, c + 1, k_lo, k_hi))
+        c += 1
+    return pieces
+
+
+def _trade_rows(mb: MultiBook, lo: int, hi: int, device):
+    """(cols, clamp) of trades [lo, hi) on ``device`` with trade ids
+    ``t - lo``. A lazily tiled book expands on the device only the
+    copies the range overlaps, and of a partial copy only its base rows
+    in range: no full-size row table is built."""
+    n_base = _base_trades(mb)
+    scale = _f64(mb.tile.scale if mb.tile is not None else [1.0], device)
+    cols, clamps = [], []
+    for c_a, c_b, k_lo, k_hi in _copy_pieces(lo, hi, n_base):
+        sc, off = scale[c_a:c_b], c_a * n_base - lo
+        for cb in mb.cols:
+            rt = np.asarray(cb.row_trade)
+            sel = (rt >= k_lo) & (rt < k_hi)
+            if not sel.any():
+                continue
+            ex = _expand_cols(ColRows(
+                col_idx=_i32(np.asarray(cb.col_idx)[sel], device),
+                w=_f64(np.asarray(cb.w)[sel], device),
+                row_trade=_i64(rt[sel], device)), sc, n_base)
+            cols.append(dataclasses.replace(ex, row_trade=ex.row_trade + off))
+        if mb.clamp is not None:
+            st = np.asarray(mb.clamp.slot_trade)
+            sel = (st >= k_lo) & (st < k_hi)
+            if sel.any():
+                part = ClampSlots(**{f.name: np.asarray(getattr(
+                    mb.clamp, f.name))[sel] for f in
+                    dataclasses.fields(ClampSlots)})
+                ex = _expand_clamp(_clamp_to(part, device), sc, n_base)
+                clamps.append(dataclasses.replace(
+                    ex, slot_trade=ex.slot_trade + off))
+    clamp = None
+    if clamps:
+        clamp = ClampSlots(**{f.name: torch.cat([getattr(c, f.name)
+                                                 for c in clamps])
+                              for f in dataclasses.fields(ClampSlots)})
+    return cols, clamp
+
+
+def _shard(mb: MultiBook, mesh, axis, device) -> MultiBookShard:
+    from .distributed import ShardAxis
+    mb = _need_multibook(mb)
+    ax = ShardAxis(mesh, axis)
+    device = resolve_device(device)
+    n_pad = mb.n_trades + (-mb.n_trades) % ax.n
+    lo = ax.index * (n_pad // ax.n)
+    hi = max(lo, min(lo + n_pad // ax.n, mb.n_trades))
+    cols, clamp = _trade_rows(mb, lo, hi, device)
+    return MultiBookShard(book=mb, axis=ax, device=device, n_pad=n_pad,
+                          lo=lo, hi=hi, cols=cols, clamp=clamp)
+
+
+def _as_shard(mb, mesh, axis, device) -> MultiBookShard:
+    return mb if isinstance(mb, MultiBookShard) \
+        else _shard(mb, mesh, axis, device)
+
+
+def shard_multibook(mb: MultiBook, mesh, axis="book",
+                    device=None) -> MultiBookShard:
+    """This rank's shard of a materialized multibook (``adrates_tpu``
+    ``multibook.py:2374``): its contiguous range of the trades, padded
+    with dead trades here (not by the caller) to a multiple of the shard
+    count, with their column rows and clamp slots placed on ``device``
+    (None: the card). ``axis`` is one axis name of ``mesh`` (a
+    ``DeviceMesh``, ``distributed.book_mesh``) or a tuple of every axis.
+    A lazily tiled book raises ``LibError``: pass it straight to
+    ``make_sharded_multibook_fn``, which expands only this rank's part
+    on the device."""
+    if mb.tile is not None:
+        raise LibError(
+            "shard_multibook places materialized rows; for a lazy "
+            "TileSpec book pass the MultiBook straight to "
+            "make_sharded_multibook_fn, which expands only this rank's "
+            "trades on the device (no full-size row table is built)")
+    return _shard(mb, mesh, axis, device)
+
+
+def make_sharded_multibook_fn(mb, mesh, axis="book",
+                              want_gamma: bool = True, device=None):
+    """(qvec [N], shocks [S, N]) -> {total_pv [S], delta [S, N],
+    gamma [S, N, N]} on every rank (``adrates_tpu``
+    ``multibook.py:2414``): only the PV sweep is sharded. Each rank runs
+    K1 (and the clamp epilogue) over its own trades and sums them, and
+    the per-scenario totals are all-reduced over the ``axis`` group;
+    delta and gamma come from the replicated aggregate through the
+    book's risk split (structured when the basket has stages; term1 on
+    K2), so no collective carries them.
+
+    ``mb`` is a ``MultiBookShard`` from :func:`shard_multibook`, or a
+    MultiBook, materialized or lazily tiled, sharded here (a lazy book
+    expands on this rank's device only its own trades' rows).
+    ``fn.shard`` is the shard, ``fn.sweep`` its K1 tables, ``fn.book``
+    the replicated device book, ``fn.chunk(S)`` the risk chunk."""
+    shard = _as_shard(mb, mesh, axis, device)
+    inp = book_inputs(shard.book)
+    dev = shard.device
+    book = _device_book(inp, dev, sweep=False, quad=want_gamma)
+    risk, chunk = _risk_fn(inp, book, want_gamma)
+    sweep = sweep_tables_from_cols(
+        shard.cols, shard.n_local,
+        inp.n_grid + int(book.aggregate.trip_s.shape[0]))
+
+    def fn(qvec, shocks):
+        from .distributed import all_reduce
+        dfs_all, out = risk(_f64(qvec, dev), _f64(shocks, dev))
+        pvs = _pvs_sweep(dfs_all, sweep, shard.clamp, book.aggregate)
+        out["total_pv"] = all_reduce(pvs.sum(dim=1), shard.axis.group)
+        return out
+
+    fn.shard = shard
+    fn.sweep = sweep
+    fn.book = book
+    fn.chunk = chunk
+    return fn
+
+
+def trade_pvs(dfs_flat: torch.Tensor, mb_buckets, clamp: Optional[ClampSlots],
+              n_trades: int) -> torch.Tensor:
+    """Per-trade base-ccy PVs [B] of row buckets (``MultiBookRows``, host
+    numpy, as ``compile_multibook`` and ``tile_multibook(...,
+    materialize=True)`` give them) and host clamp slots, from a flat DF
+    vector [n_grid] (or [S, n_grid] -> [S, B]), on K1 (``adrates_tpu``
+    ``multibook.py:1481``): the rows' slots become K1's per-trade CSR
+    over the value table [DF grid; the rows' forward-trip values], then
+    the clamp slots' PVs are added. Tables are built per call."""
+    dfs = dfs_flat if dfs_flat.dim() == 2 else dfs_flat[None]
+    dev, CU = dfs.device, dfs.shape[1]
+    trade, col, w, uniq = sweep_slots(
+        mb_buckets, [b.row_trade for b in mb_buckets], CU)
+    s, e, p = (_i64(x, dev) for x in _unkey(uniq, CU))
+    sweep = kernels.sweep_tables(_i64(trade, dev), _i64(col, dev),
+                                 _f64(w, dev), n_trades, CU + int(s.shape[0]))
+    vT = _even_rows(dfs.T, ((dfs[:, s] / dfs[:, e] - 1.0) * dfs[:, p]).T)
+    pvs = kernels.pvs_sweep(vT, sweep)
+    if clamp is not None:
+        pvs = clamp_epilogue(pvs, dfs, _clamp_to(clamp, dev))
+    return pvs if dfs_flat.dim() == 2 else pvs[0]

@@ -165,11 +165,14 @@ def _sub_block_trades(width: int, k: int) -> int:
     return max(1, multibook.RISK_CHUNK_BYTES // (8 * (width + k * k)))
 
 
-def _group_specs(mb: MultiBook, device):
+def _group_specs(mb: MultiBook, device, part=None):
     """Per-signature-group static metadata: cids, qidx, row_pos,
     trade_ids, Bg, the harvested slot tables ``tab`` (local b), the
     term-2 sub-block ``sizes`` (:func:`_sub_block_trades`) and their
-    device tables ``tabs``, and the group's restricted ``contract``."""
+    device tables ``tabs``, and the group's restricted ``contract``.
+    With ``part = (r, n)`` each group keeps only share r of n of its
+    base trades (contiguous, ceil(Bg / n) each, the last ones shorter or
+    empty), ``range`` says which."""
     basket = mb.basket
     U = mb.unique_times.shape[0]
     if not basket.batch_curves:
@@ -194,14 +197,21 @@ def _group_specs(mb: MultiBook, device):
                       basket.specs[c].offset + basket.specs[c].n_quotes)
             for c in cids]).astype(np.int32)
         row_pos = {cid: i for i, cid in enumerate(cids)}
+        lo, hi = 0, int(base_ids.shape[0])
+        if part is not None:
+            r, n = part
+            share = -(-hi // n)
+            lo, hi = min(r * share, hi), min((r + 1) * share, hi)
+            base_ids = base_ids[lo:hi]
         Bg = int(base_ids.shape[0])
         tab = _harvest_group(mb, base_ids)
         chunk = _sub_block_trades(len(cids) * U, qidx.shape[0])
         n_sub = -(-Bg // chunk)
-        sub_size = -(-Bg // n_sub)
+        sub_size = -(-Bg // n_sub) if n_sub else 0
         sizes = [min(sub_size, Bg - i * sub_size) for i in range(n_sub)]
         specs.append(dict(
             cids=cids, qidx=qidx, row_pos=row_pos, Bg=Bg, tab=tab,
+            range=(lo, hi),
             sizes=sizes,
             tabs=[_tables_device(s, mb, row_pos, device)
                   for s in _split_tables(tab, sizes)],
@@ -212,19 +222,13 @@ def _group_specs(mb: MultiBook, device):
     return specs
 
 
-def make_per_trade_gamma_blocks_fn(mb: MultiBook, device):
-    """Build fn(qvec) -> List[GammaBlockGroup] with every trade's exact
-    own-block gamma matrix (see the module docstring) on ``device``.
-    Requires the batched stage topology (compile_multibook's default
-    batch_curves=True). ``fn.n_groups``, ``fn.group_meta`` ((cids, k, Bg)
-    per group) and ``fn.sub_sizes`` (each group's term-2 sub-blocks)
-    describe the call; ``fn.prep(qvec)`` gives K3's inputs, ``fn.k3`` its
-    tables."""
+def _blocks_fn(mb: MultiBook, device, part=None):
+    """make_per_trade_gamma_blocks_fn's body, over every group's share
+    ``part`` (see :func:`_group_specs`) of its base trades."""
     from .structured_risk import make_pertrade_tensors
 
     mb = _need_multibook(mb)
-    device = torch.device(device)
-    specs = _group_specs(mb, device)
+    specs = _group_specs(mb, device, part)
     inp = book_inputs(mb)
     book = _device_book(inp, device, sweep=False, quad=False)
     jac = _jacobians_fn(inp, book)
@@ -266,7 +270,7 @@ def make_per_trade_gamma_blocks_fn(mb: MultiBook, device):
             parts = [gs["contract"](so, _slot_gradient(
                 dfs, tb, n, width, local=True))
                 for n, tb in zip(gs["sizes"], gs["tabs"])]
-            blocks = t1 + torch.cat(parts)
+            blocks = t1 + torch.cat(parts) if parts else t1
             if scale is not None:
                 k = blocks.shape[1]
                 blocks = (scale[:, None, None, None]
@@ -279,7 +283,19 @@ def make_per_trade_gamma_blocks_fn(mb: MultiBook, device):
     fn.n_groups = len(specs)
     fn.group_meta = [(gs["cids"], gs["qidx"].shape[0], gs["Bg"])
                      for gs in specs]
+    fn.group_ranges = [gs["range"] for gs in specs]
     fn.sub_sizes = [gs["sizes"] for gs in specs]
     fn.prep = prep
     fn.k3 = k3
     return fn
+
+
+def make_per_trade_gamma_blocks_fn(mb: MultiBook, device):
+    """Build fn(qvec) -> List[GammaBlockGroup] with every trade's exact
+    own-block gamma matrix (see the module docstring) on ``device``.
+    Requires the batched stage topology (compile_multibook's default
+    batch_curves=True). ``fn.n_groups``, ``fn.group_meta`` ((cids, k, Bg)
+    per group) and ``fn.sub_sizes`` (each group's term-2 sub-blocks)
+    describe the call; ``fn.prep(qvec)`` gives K3's inputs, ``fn.k3`` its
+    tables."""
+    return _blocks_fn(mb, torch.device(device))

@@ -105,10 +105,37 @@ first use. Phases:
    flagship OIS) cold + 3 warm (symmetric, = FD of the gamma, the
    184-quote book refused); a ``hostapi`` JSON line before the kernels
    line;
+7f. the sharded paths (``adrates_torch.parallel.distributed``) and the
+   f32 ladders; (c) runs before phase 8 and (a), (b) after it, so phase
+   8 times its kernels with no process group made and no rank spawned.
+   (a) World 1 on NCCL in this process
+   (``init_distributed`` on a free localhost port, ``book_mesh``): every
+   sharded function cold + 3 warm with its K1 / K3 launches a call
+   (``make_sharded_multibook_fn`` on phase 7's flagship_v5 at S = 100,
+   the sharded ladders, 256 gammas and blocks, ``make_sharded_book_fn``
+   and ``make_pershard_aggregate_fn`` on phase 7e's 100,000-trade book)
+   beside the single-device warm times of phases 7, 7b and 7e; gates:
+   the totals against phase 7's at 1e-12 rel, delta and gamma at 1e-10
+   x max|ref|, the gathered ladders (dead rows exactly zero), gammas and
+   blocks against phase 7b's fns at 1e-12 x max|ref|, the book fns
+   against ``make_book_fn``'s at 1e-9. (b) World 3 on the one card over
+   gloo: three spawned ranks (``distributed.run_ranks``, joined with a
+   timeout; a failed rank fails the phase), each building flagship_v5
+   at S = 10 (100,400 trades padded to 100,401) and the single-curve
+   book at 5,001 copies, each running every sharded function cold and
+   warm with its K1 once a call on its own trades; rank 0 gathers the
+   shards and holds them to its own single-device results at (a)'s
+   tolerances. (c) The f32 ladders [100,400 x 184] cold + 3 warm, f32,
+   against phase 7b's f64 ladders at rtol 1e-4, atol 3e-6 x max|f64|.
+   A ``sharded`` JSON line before the kernels line (world sizes,
+   backends, times, ``count``, and the note that world 3's times are
+   three processes sharing one card, not a scaling figure);
 8. each kernel against its plain torch twin on the card, at the shapes
    each path's main function gives it (K2 at that function's scenario
    chunk; K1 also at the ladders' Jv [n_grid + T, N]; K3 on both
-   per-trade paths; K1 also at phase 7e's single-curve book; K3's blocks
+   per-trade paths; K1 also at phase 7e's single-curve book; K1's f32
+   instantiation at the f32 ladders' Jv, against its f32 twin at 1e-5 x
+   max|ref| with a cuSPARSE f32 SpMM yardstick; K3's blocks
    also bit for bit symmetric), each timed
    over 30 calls by CUDA events around the call (``ms``, which holds the
    wrapper's host work) and by the device time of its kernels in a
@@ -118,7 +145,10 @@ first use. Phases:
    pre-gathered padded [w X; Y] and [Y; w X] operands, K2's over
    (scenario, group), checked against the twin), and each kernel's bound
    (bytes over HBM rate or flops over peak f64 rate, from that path's
-   tables);
+   tables). The device time comes from the kernels inside each call's
+   ``record_function`` window (the calls with the usual kernel count);
+   a gate holds every device time, the yardsticks' too, to at most 1.1
+   times its event window;
 9. one bound line per kernel with the card line, the kernels' JSON line
    (both times, plain, library, bound, share of bound by device time and
    by events, launches and launches per call on the main path), the card
@@ -175,43 +205,47 @@ def _cuda_ms(f, reps: int = 30) -> float:
 
 
 def _device_stats(f, reps: int = 30):
-    """Device milliseconds per ``f()`` call: the summed times of the
-    kernels a torch.profiler trace records over ``reps`` synchronized
-    calls (after one warm-up call), split into calls by their count;
-    median, min, max and the kernels per call. Unlike the event window it
-    leaves out the host's time before and between launches. None when
-    the trace holds no kernel."""
+    """Device milliseconds per ``f()`` call from one torch.profiler trace
+    of ``reps`` synchronized calls (after one warm-up call), each call
+    inside a ``record_function`` window that ends after its synchronize:
+    a device event (kernel, copy, fill) belongs to the window that holds
+    its midpoint, and one outside every window is not counted. The calls
+    that hold the most common number of device events (a trace can lose
+    one) give the per-call sums: median, min, max, the events per call
+    (``kernels``) and the calls counted (``calls``). Unlike the event
+    window it leaves out the host's time before and between launches.
+    None when no window holds a device event."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
     f()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            f()
-            torch.cuda.synchronize()
-    ks = sorted((e for e in prof.events()
-                 if e.device_type == DeviceType.CUDA),
-                key=lambda e: e.time_range.start)
-    if not ks:
+        for i in range(reps):
+            with record_function(f"_smoke_call_{i}"):
+                f()
+                torch.cuda.synchronize()
+    events = prof.events()
+    wins = sorted((e.time_range.start, e.time_range.end) for e in events
+                  if e.device_type == DeviceType.CPU
+                  and e.name.startswith("_smoke_call_"))
+    per_call = [[] for _ in wins]
+    for e in events:
+        if e.device_type != DeviceType.CUDA \
+                or e.name.startswith("_smoke_call_"):
+            continue                       # host events, GPU annotations
+        mid = (e.time_range.start + e.time_range.end) / 2
+        for k, (a, b) in enumerate(wins):
+            if a <= mid <= b:
+                per_call[k].append(e.time_range.elapsed_us())
+                break
+    counts = [len(c) for c in per_call if c]
+    if not counts:
         return None
-    us = [e.time_range.elapsed_us() for e in ks]
-    if len(us) % reps:
-        # the trace lost a kernel (seen after earlier traces in the same
-        # process): with one kernel a call its events are the calls; else
-        # only the mean kernel times the kernels a call is known
-        n = max(1, round(len(us) / reps))
-        if n == 1:
-            out = _stats([u / 1e3 for u in us])
-        else:
-            mean = sum(us) / len(us) * n / 1e3
-            out = dict(median=mean, min=mean, max=mean, reps=reps)
-        out["kernels"] = n
-        return out
-    n = len(us) // reps
-    out = _stats([sum(us[i * n:(i + 1) * n]) / 1e3 for i in range(reps)])
-    out["kernels"] = n
+    n = statistics.mode(counts)
+    out = _stats([sum(c) / 1e3 for c in per_call if len(c) == n])
+    out.update(kernels=n, calls=out.pop("reps"))
     return out
 
 
@@ -644,6 +678,9 @@ def run_flagship_v5(device, n_warm: int = 3):
     check_outputs("flagship_v5", out, mono, q0, shocks, mb.n_trades,
                   fd_extra=tuple(extra))
     _check_staged_vs_mono("flagship_v5", out, mono, q0, shocks)
+    # the staged results phase 7f holds the sharded function to
+    info["ref"] = dict(total_pv=out["pvs"].sum(dim=1), delta=out["delta"],
+                       gamma=out["gamma"])
     del out
     torch.cuda.empty_cache()
     return fn, mono, mb, q0, shocks, info, model
@@ -1769,6 +1806,362 @@ def run_host_api(device, model, mb_big, n_warm: int = 3, device_arg=None):
     return rec, book_args
 
 
+# ---------------------------------------------------------------------------
+# phase 7f: the sharded paths and the f32 ladders
+# ---------------------------------------------------------------------------
+
+# ranks of phase 7f-b, all on the one card, and their scenarios
+SHARDED_WORLD = 3
+SHARDED_SCEN = 10
+SHARDED_NOTE = ("world 3 runs three processes that share one card over "
+                "gloo: its times are not a scaling figure; no second card "
+                "was available, so no multi-GPU speed-up is measured")
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _gate_rel(name, got, ref, rel):
+    """max |got - ref| / max |ref| of two tensors, as a gate."""
+    _check(name, _max_rel(got, ref), rel)
+
+
+def _gate_totals(name, got, ref, rel=1e-12):
+    """The worst scenario's |got - ref| / |ref| of two [S] totals."""
+    _check(name, float(((got - ref).abs() / ref.abs()).max()), rel)
+
+
+def _gate_blocks(name, got, ref, rel):
+    """Two lists of GammaBlockGroups: the same groups and trades, the
+    blocks at rel x max|ref| (the worst group)."""
+    import numpy as np
+    if len(got) != len(ref):
+        raise AssertionError(f"{name}: {len(got)} groups vs {len(ref)}")
+    for g, r in zip(got, ref):
+        if g.cids != r.cids or not np.array_equal(g.trade_ids, r.trade_ids):
+            raise AssertionError(f"{name}: group {r.cids} differs")
+    _check(name, max(_max_rel(g.blocks, r.blocks) for g, r in zip(got, ref)),
+           rel)
+
+
+def _sharded_book(model, copies, n_scen):
+    """(curve, tiled book, shocks): phase 7e's single-curve book (the
+    quick start's 20 OIS, per-copy coupon and notional scales) at
+    ``copies`` copies and ``n_scen`` scenarios, from the same seeds."""
+    import numpy as np
+
+    from adrates_torch.examples import quickstart
+    from adrates_torch.parallel import compile_book, tile_book
+    curve = model.curves.GBP_OIS_SONIA
+    base = compile_book(quickstart.book_swaps(np.random.default_rng(0)),
+                        model.value_dt)
+    rng = np.random.default_rng(7)
+    cs = rng.uniform(0.5, 1.5, copies)
+    ns = rng.uniform(0.5, 1.5, copies)
+    book = tile_book(base, copies, coupon_scale=cs, notional_scale=ns)
+    shocks = rng.normal(0.0, 1e-3, (n_scen, len(curve.swap_rates)))
+    return curve, book, shocks
+
+
+def _sharded_fns(mesh, mb, sel, curve, book, device):
+    """Every sharded function of the port on ``mesh``: (name, fn) pairs,
+    built in this order (their build ms in the second dict)."""
+    import torch
+
+    from adrates_torch.parallel import (
+        aggregate_book, make_pershard_aggregate_fn, make_sharded_book_fn,
+        make_sharded_multibook_fn, make_sharded_per_trade_delta_fn,
+        make_sharded_per_trade_gamma_blocks_fn,
+        make_sharded_per_trade_gamma_fn, shard_book)
+    builds = {}
+
+    def built(name, make):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        f = make()
+        torch.cuda.synchronize()
+        builds[name] = (time.perf_counter() - t0) * 1e3
+        return f
+
+    shard = shard_book(book, mesh)
+    agg = aggregate_book(shard)
+    q = curve.swap_rates
+    fns = dict(
+        multibook=built("multibook", lambda: make_sharded_multibook_fn(
+            mb, mesh, device=device)),
+        ladders=built("ladders", lambda: make_sharded_per_trade_delta_fn(
+            mb, mesh, device=device)),
+        gamma_256=built("gamma_256", lambda: make_sharded_per_trade_gamma_fn(
+            mb, mesh, sel, device=device)),
+        blocks=built("blocks", lambda: make_sharded_per_trade_gamma_blocks_fn(
+            mb, mesh, device=device)),
+        book=built("book", lambda: make_sharded_book_fn(
+            curve._plan, curve._interp_type, mesh, device=device)),
+        pershard=built("pershard", lambda: make_pershard_aggregate_fn(
+            curve._plan, curve._interp_type, mesh, device=device)))
+    calls = dict(
+        multibook=lambda q0, sh: fns["multibook"](q0, sh),
+        ladders=lambda q0, sh: fns["ladders"](q0),
+        gamma_256=lambda q0, sh: fns["gamma_256"](q0),
+        blocks=lambda q0, sh: fns["blocks"](q0),
+        book=lambda q0, sh: fns["book"](q, shard, sh),
+        pershard=lambda q0, sh: fns["pershard"](q, agg, sh))
+    return fns, calls, builds, shard
+
+
+# the K1 / K3 launches a call of each sharded function makes on a rank
+SHARDED_LAUNCHES = dict(multibook=("pvs_sweep", 1), ladders=("pvs_sweep", 1),
+                        gamma_256=("pertrade_quad_form", 1),
+                        blocks=("pertrade_quad_form", 1),
+                        book=("pvs_sweep", 1), pershard=("pvs_sweep", 0))
+
+
+def _check_launches(name, info, where):
+    kernel, per_call = SHARDED_LAUNCHES[name]
+    if info[kernel] != per_call * info["calls"]:
+        raise AssertionError(f"{where} {name}: {kernel} launched "
+                             f"{info[kernel]} times in {info['calls']} "
+                             f"calls, expected {per_call} a call")
+
+
+def _sharded_gates(where, outs, refs, sel_n, tol_book):
+    """Phase 7f's gates of the sharded outputs ``outs`` (gathered where
+    sharded) against the single-device ``refs``."""
+    m, r = outs["multibook"], refs["multibook"]
+    _gate_totals(f"{where} sharded multibook total_pv vs single device "
+                 f"(rel, worst scenario)", m["total_pv"], r["total_pv"])
+    for k in ("delta", "gamma"):
+        _gate_rel(f"{where} sharded multibook {k} vs single device (abs / "
+                  f"max|ref|)", m[k], r[k], 1e-10)
+    lad = outs["ladders"]
+    n = refs["ladders"].shape[0]
+    if bool(lad[n:].any()):
+        raise AssertionError(f"{where}: the ladders' dead rows are not zero")
+    _gate_rel(f"{where} sharded ladders vs single device (abs / max|ref|)",
+              lad[:n], refs["ladders"], 1e-12)
+    if outs["gamma_256"].shape[0] != sel_n:
+        raise AssertionError(f"{where}: {outs['gamma_256'].shape[0]} gammas")
+    _gate_rel(f"{where} sharded 256 gammas vs single device (abs / "
+              f"max|ref|)", outs["gamma_256"], refs["gamma_256"], 1e-12)
+    _gate_blocks(f"{where} sharded gamma blocks vs single device (abs / "
+                 f"max|ref|, worst group)", outs["blocks"], refs["blocks"],
+                 1e-12)
+    for name in ("book", "pershard"):
+        o, b = outs[name], refs["book"]
+        _gate_totals(f"{where} sharded {name} total_pv vs make_book_fn's "
+                     f"(rel, worst scenario)", o["total_pv"], b["total_pv"],
+                     tol_book)
+        for k in ("delta", "gamma"):
+            _gate_rel(f"{where} sharded {name} {k} vs make_book_fn's (abs / "
+                      f"max|ref|)", o[k], b[k], tol_book)
+
+
+def _book_ref(curve, book, shocks, device):
+    from adrates_torch.parallel import aggregate_book, make_book_fn
+    out = make_book_fn(curve._plan, curve._interp_type, device=device)(
+        curve.swap_rates, book, aggregate_book(book), shocks)
+    return dict(total_pv=out["pvs"].sum(dim=1), delta=out["delta"],
+                gamma=out["gamma"])
+
+
+def _world3_rank(rank, world, n_scen, copies):
+    """Phase 7f-b, one rank (spawned; the group on gloo over a file store,
+    every rank on the one card): flagship_v5 at ``n_scen`` scenarios and
+    the single-curve book at ``copies`` copies built from their seeds,
+    every sharded function called twice (cold, warm) with its launches;
+    rank 0 gathers the shards and holds them to the single-device results
+    it computes itself. Returns the rank's times, launches and shard."""
+    import numpy as np
+    import torch
+
+    from adrates_torch.examples import flagship_v5 as cfg
+    from adrates_torch.parallel import (distributed, make_multibook_fn,
+                                        make_per_trade_delta_fn,
+                                        make_per_trade_gamma_blocks_fn,
+                                        make_per_trade_gamma_fn)
+    device = torch.device("cuda", 0)
+    mesh = distributed.book_mesh()
+    t0 = time.perf_counter()
+    model = cfg.build_model()
+    with warnings.catch_warnings():        # CHF has no trades
+        warnings.simplefilter("ignore", UserWarning)
+        mb, shocks = cfg.build_book(model, np.random.default_rng(cfg.SEED))
+    shocks = shocks[:n_scen]
+    q0 = mb.basket.quotes0
+    sel = _select_trades(mb)[0]
+    curve, book, bshocks = _sharded_book(model, copies, n_scen)
+    setup_s = time.perf_counter() - t0
+    fns, calls, builds, bshard = _sharded_fns(mesh, mb, sel, curve, book,
+                                              device)
+    rec = dict(rank=rank, setup_s=setup_s, build_ms=builds, calls={},
+               trades=dict(multibook=[fns["multibook"].shard.lo,
+                                      fns["multibook"].shard.hi],
+                           book=bshard.num_trades))
+    outs = {}
+    for name, f in calls.items():
+        sh = bshocks if name in ("book", "pershard") else shocks
+        _reset_launches()
+        out, cold = _timed(lambda: f(q0, sh))
+        out, warm = _timed(lambda: f(q0, sh))
+        info = dict(_launches(), calls=2, cold_ms=cold, warm_ms=warm)
+        _check_launches(name, info, f"world {world} rank {rank}")
+        rec["calls"][name] = info
+        outs[name] = out
+    # the shards gathered on every rank (collectives), compared on rank 0
+    outs["ladders"] = fns["ladders"].gather(outs["ladders"])
+    outs["gamma_256"] = fns["gamma_256"].gather(outs["gamma_256"])
+    outs["blocks"] = fns["blocks"].gather(outs["blocks"])
+    if rank == 0:
+        mono = make_multibook_fn(mb, device)(q0, shocks)
+        refs = dict(
+            multibook=dict(total_pv=mono["pvs"].sum(dim=1),
+                           delta=mono["delta"], gamma=mono["gamma"]),
+            ladders=make_per_trade_delta_fn(mb, device)(q0),
+            gamma_256=make_per_trade_gamma_fn(mb, sel, device)(q0),
+            blocks=make_per_trade_gamma_blocks_fn(mb, device)(q0),
+            book=_book_ref(curve, book, bshocks, device))
+        _sharded_gates(f"world {world} (gloo)", outs, refs, len(sel), 1e-9)
+        rec["gates"] = "green"
+    torch.cuda.synchronize()
+    return rec
+
+
+def run_sharded(device, mb, q0, shocks, ref7, pt_fns, model, single,
+                n_warm: int = 3):
+    """Phase 7f-a/b: (a) world 1 on NCCL in this process at full width:
+    every sharded function cold + ``n_warm`` warm on phase 7's
+    flagship_v5 (S = 100) and phase 7e's single-curve book, held to
+    phases 7 (``ref7``), 7b (``pt_fns``) and 7e; (b) world
+    ``SHARDED_WORLD`` on the one card over gloo in spawned ranks
+    (flagship_v5 at ``SHARDED_SCEN`` scenarios, the single-curve book at
+    whole copies per rank), rank 0 holding the gathered shards to its
+    own single-device results. ``single`` holds the single-device warm
+    medians of phases 7, 7b and 7e. Returns the ``sharded`` record."""
+    import torch
+    import torch.distributed as tdist
+
+    from adrates_torch.parallel import distributed
+    card = _card_line()
+    rec = dict(card=card, count=torch.cuda.device_count(), note=SHARDED_NOTE,
+               single_device_warm_ms=single)
+    t_phase = time.perf_counter()
+    lad_fn, gam_fn, blk_fn = pt_fns
+    sel = _select_trades(mb)[0]
+
+    # ---- 7f-a: world 1 on NCCL ------------------------------------------
+    port = _free_port()
+    if not distributed.init_distributed(address=f"127.0.0.1:{port}",
+                                        world_size=1, rank=0,
+                                        backend="nccl"):
+        raise AssertionError("init_distributed made no process group")
+    try:
+        mesh = distributed.book_mesh()
+        curve, book, bshocks = _sharded_book(model, BOOK_COPIES,
+                                             shocks.shape[0])
+        fns, calls, builds, _ = _sharded_fns(mesh, mb, sel, curve, book,
+                                             device)
+        w1 = dict(backend="nccl", world_size=1,
+                  mesh=list(mesh.mesh_dim_names), build_ms=builds, calls={})
+        outs = {}
+        for name, f in calls.items():
+            sh = bshocks if name in ("book", "pershard") else shocks
+            out, info = _drive(f"sharded {name} (world 1, nccl)", f, q0, sh,
+                               n_warm)
+            _check_launches(name, info, "world 1")
+            info["warm_median_ms"] = statistics.median(info["warm_ms"])
+            w1["calls"][name] = info
+            outs[name] = out
+        for name in ("ladders", "gamma_256", "blocks"):
+            outs[name] = fns[name].gather(outs[name])
+        refs = dict(multibook=ref7, ladders=lad_fn(q0),
+                    gamma_256=gam_fn(q0), blocks=blk_fn(q0),
+                    book=_book_ref(curve, book, bshocks, device))
+        _sharded_gates("world 1 (nccl)", outs, refs, len(sel), 1e-9)
+        del outs, refs, fns, calls
+    finally:
+        tdist.destroy_process_group()
+    torch.cuda.empty_cache()
+    rec["world_1"] = w1
+    for name, info in w1["calls"].items():
+        print(f"sharded {name} world 1: warm median "
+              f"{info['warm_median_ms']:.1f} ms (single device "
+              f"{single.get(name, 'n/a')}); card {card}", flush=True)
+    print(f"phase 7f-a (world 1, nccl): every gate green; "
+          f"{time.perf_counter() - t_phase:.1f} s so far", flush=True)
+
+    # ---- 7f-b: world 3 on the one card over gloo -------------------------
+    copies = -(-BOOK_COPIES // SHARDED_WORLD) * SHARDED_WORLD
+    t0 = time.perf_counter()
+    ranks = distributed.run_ranks(
+        SHARDED_WORLD, _world3_rank, (SHARDED_SCEN, copies), timeout_s=600,
+        threads=2)
+    if [r["rank"] for r in ranks] != list(range(SHARDED_WORLD)) \
+            or ranks[0].get("gates") != "green":
+        raise AssertionError("world 3: a rank is missing or rank 0's gates "
+                             "did not run")
+    B = mb.n_trades
+    n_local = -(-B // SHARDED_WORLD)
+    if B % SHARDED_WORLD == 0:
+        raise AssertionError("world 3: the book divides; no padding ran")
+    for r in ranks:
+        lo = r["rank"] * n_local
+        if r["trades"]["multibook"] != [lo, min(lo + n_local, B)]:
+            raise AssertionError(f"world 3 rank {r['rank']}: trades "
+                                 f"{r['trades']['multibook']}")
+    rec["world_3"] = dict(backend="gloo", world_size=SHARDED_WORLD,
+                          device="cuda:0 (every rank)", scenarios=SHARDED_SCEN,
+                          book_trades=copies * 20, padded_trades=(
+                              n_local * SHARDED_WORLD - B),
+                          wall_s=time.perf_counter() - t0, ranks=ranks)
+    print(f"phase 7f-b (world {SHARDED_WORLD}, gloo, one card): every gate "
+          f"green on rank 0, each rank's K1 once a call on its own trades; "
+          f"{rec['world_3']['wall_s']:.1f} s; {SHARDED_NOTE}", flush=True)
+
+    rec["phase_s"] = time.perf_counter() - t_phase
+    print(f"phase 7f-a/b: {rec['phase_s']:.1f} s; card {card}", flush=True)
+    return rec
+
+
+def run_f32_ladders(device, mb, q0, lad_fn, f64_warm_ms, n_warm: int = 3):
+    """Phase 7f-c: the f32 ladders (``make_per_trade_delta_fn(dtype=
+    torch.float32)``, K1's f32 instantiation) cold + ``n_warm`` warm on
+    flagship_v5, held to phase 7b's f64 ladders (``lad_fn``) at the JAX
+    package's own tolerance. Returns (its record, the fn, its info with
+    the launches)."""
+    import torch
+
+    from adrates_torch.parallel import make_per_trade_delta_fn
+    t0 = time.perf_counter()
+    lad32_fn = make_per_trade_delta_fn(mb, device, dtype=torch.float32)
+    lad32, info32 = _drive(f"f32 ladders [{mb.n_trades} x "
+                           f"{mb.basket.n_quotes}]",
+                           lambda q, _: lad32_fn(q), q0, None, n_warm)
+    if lad32.dtype != torch.float32:
+        raise AssertionError(f"f32 ladders have dtype {lad32.dtype}")
+    if info32["pvs_sweep"] != info32["calls"]:
+        raise AssertionError(f"f32 ladders: K1 launched "
+                             f"{info32['pvs_sweep']} times in "
+                             f"{info32['calls']} calls")
+    lad64 = lad_fn(q0)
+    atol = 3e-6 * float(lad64.abs().max())
+    excess = (lad32.double() - lad64).abs() / (atol + 1e-4 * lad64.abs())
+    _check("f32 ladders vs phase 7b's f64 ladders: worst |f32 - f64| / "
+           "(3e-6 max|f64| + 1e-4 |f64|)", float(excess.max()), 1.0)
+    info32["warm_median_ms"] = statistics.median(info32["warm_ms"])
+    info32["pvs_sweep_f32"] = info32["pvs_sweep"]
+    rec = dict(info32, f64_warm_ms=f64_warm_ms,
+               max_rel_err=_max_rel(lad32.double(), lad64))
+    del lad32, lad64, excess
+    torch.cuda.empty_cache()
+    print(f"phase 7f-c: {time.perf_counter() - t0:.1f} s; card "
+          f"{_card_line()}", flush=True)
+    return rec, lad32_fn, info32
+
+
 def compare_book_kernel(fn, rates, book, shocks, info) -> dict:
     """Phase 8's K1 record at the single-curve book's shape (phase 7e's
     fn, inputs and launch counts): K1 against its twin, timed beside it
@@ -1812,10 +2205,12 @@ def compare_book_kernel(fn, rates, book, shocks, info) -> dict:
 
 
 # Peak rates of one H100 SXM at its 700 W limit (NVIDIA's data sheet):
-# HBM3 bytes/s, f64 FMA on the CUDA cores and on the tensor cores.
+# HBM3 bytes/s, f64 FMA on the CUDA cores and on the tensor cores, f32 on
+# the CUDA cores.
 HBM_BPS = 3.35e12
 FP64_FLOPS = 34e12
 FP64_TC_FLOPS = 67e12
+FP32_FLOPS = 67e12
 
 
 def _bound(nbytes: float, flops: float, peak_flops: float):
@@ -1823,6 +2218,53 @@ def _bound(nbytes: float, flops: float, peak_flops: float):
     flops over the peak rate."""
     t_b, t_f = nbytes / HBM_BPS * 1e3, flops / peak_flops * 1e3
     return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
+
+
+def compare_f32_kernel(fn, q0) -> dict:
+    """Phase 8's K1-f32 record at the ladders' shape (phase 7f-c's f32
+    ladder fn: Jv [n_grid + T, N] f32 and the f32 tables): the f32
+    kernel against its f32 twin (1e-5 x max|ref|: both sum in f32, in
+    another order), timed beside the twin and one cuSPARSE f32 SpMM,
+    with its bound (4-byte values and weights)."""
+    import torch
+
+    from adrates_torch.ops import kernels
+    _, _, Jv = fn.prep(q0)
+    tab = fn.sweep
+    M, S = Jv.shape
+    B, nnz = tab.n_trades, int(tab.slot_w.numel())
+    if Jv.dtype != torch.float32 or tab.slot_w.dtype != torch.float32:
+        raise AssertionError(f"f32 ladders' K1 inputs are {Jv.dtype}, "
+                             f"{tab.slot_w.dtype}")
+    ref = kernels.pvs_sweep_plain(Jv, tab)
+    got = kernels.pvs_sweep(Jv, tab)
+    err = float((got - ref).abs().max())
+    _check("flagship_v5 ladders K1 f32 pvs_sweep vs plain f32 (abs / "
+           "max|ref|)", err / float(ref.abs().max()), 1e-5)
+    with warnings.catch_warnings():          # CSR support is "beta"
+        warnings.simplefilter("ignore", UserWarning)
+        csr = torch.sparse_csr_tensor(tab.tptr.long(), tab.slot_col(),
+                                      tab.slot_w, size=(B, M))
+    Jc = Jv.contiguous()
+    _check("flagship_v5 ladders f32 cuSPARSE SpMM vs plain f32 (abs / "
+           "max|ref|)", float((torch.sparse.mm(csr, Jc).T - ref).abs().max()
+                              / ref.abs().max()), 1e-5)
+    tm = _timings(lambda: kernels.pvs_sweep(Jv, tab),
+                  lambda: kernels.pvs_sweep_plain(Jv, tab),
+                  lambda: torch.sparse.mm(csr, Jc))
+    nbytes = 4 * (B + 1) + 8 * nnz + 4 * M * S + 4 * S * B
+    bound, by = _bound(nbytes, 2.0 * nnz * S, FP32_FLOPS)
+    print(f"flagship_v5_ladders_f32 K1 pvs_sweep_f32 Jv [M, N]={[M, S]} "
+          f"B={B}: {_fmt_tm(tm)}; bound {bound * 1e3:.1f} us ({by}, "
+          f"{nbytes / 1e6:.1f} MB)", flush=True)
+    return dict(
+        name="pvs_sweep_f32", path="flagship_v5_ladders_f32", route="cuda",
+        source="adrates_torch/csrc/pvs_sweep.cu",
+        replaces="adrates_tpu/parallel/multibook.py:2842",
+        max_abs_err=err, **tm,
+        library="torch.sparse.mm (cuSPARSE SpMM, f32) of the [B, M] trade "
+                "x column CSR by Jv",
+        bound_ms=bound, bound_by=by, **_shares(bound, tm))
 
 
 def compare_kernels(path, fn, mb, q0, shocks, device, chunk):
@@ -2176,6 +2618,28 @@ def compare_per_trade_kernels(fns, q0, device):
     return records
 
 
+# How far a device time may exceed its event window (two samples of 30
+# calls each): the kernels of a call run inside its window, so a device
+# time above it is a misread trace.
+DEVICE_OVER_EVENTS = 1.10
+
+
+def _gate_device_times(records):
+    """Every phase-8 record's device time (and its yardstick's) is at
+    most its event window times ``DEVICE_OVER_EVENTS``, and present."""
+    for r in records:
+        for dev_key, ev_key in (("device_ms", "ms"),
+                                ("library_device_ms", "library_ms")):
+            if r[ev_key] is None:
+                continue
+            if r[dev_key] is None:
+                raise AssertionError(f"no {dev_key} for {r['name']} on "
+                                     f"{r['path']}: the trace held no "
+                                     f"kernel")
+            _check(f"{r['path']} {r['name']} {dev_key} / {ev_key}",
+                   r[dev_key] / r[ev_key], DEVICE_OVER_EVENTS)
+
+
 def main() -> int:
     import torch
 
@@ -2197,7 +2661,7 @@ def main() -> int:
 
     # ---- phase 2: build ------------------------------------------------
     secs = kernels.build_kernels()
-    print(f"build: K1, K2 + K3 built and loaded in {secs:.2f} s "
+    print(f"build: K1 (f64, f32), K2 + K3 built and loaded in {secs:.2f} s "
           f"({kernels.library_path().name})", flush=True)
 
     # ---- phases 3-7b ----------------------------------------------------
@@ -2205,6 +2669,7 @@ def main() -> int:
     fn_x, mb_x, q_x, sh_x, info_x = run_xccy_book(device)
     staged_f, fn_f, mb_f, q_f, sh_f, info_f, model_f = run_flagship_v5(
         device)
+    ref_f = info_f.pop("ref")
     pt_fns, pt_infos = run_per_trade(device, staged_f, fn_f, mb_f, q_f)
     del staged_f
     # phase 7c on phase 7's model and base trades (the same seed and draw
@@ -2216,6 +2681,10 @@ def main() -> int:
     engine = run_engine(device, model_f, base, coll)
     splines = run_flagship_v5_splines(device, info_f)
     hostapi, book_args = run_host_api(device, model_f, mb_f)
+    # ---- phase 7f-c (before phase 8, which times its K1-f32 inputs) ------
+    f32, lad32_fn, info32 = run_f32_ladders(
+        device, mb_f, q_f, pt_fns[0],
+        statistics.median(pt_infos["ladders"]["warm_ms"]))
     for path, info in (("ois_slice", info_o), ("ois_slice_generic", info_g),
                        ("ois_xccy_book", info_x), ("flagship_v5", info_f)):
         for name in ("pvs_sweep", "gamma_quad_form_grouped"):
@@ -2223,7 +2692,7 @@ def main() -> int:
                 raise AssertionError(f"{name} was not launched on the "
                                      f"{path} path")
 
-    # ---- phase 8 -------------------------------------------------------
+    # ---- phase 8 (before 7f-a/b: no process group, no spawned rank) ------
     infos = dict(ois_slice=info_o, ois_xccy_book=info_x, flagship_v5=info_f)
     records = []
     for path, args in (("ois_slice", (fn_o, mb_o, q_o, sh_o)),
@@ -2233,23 +2702,34 @@ def main() -> int:
                                    chunk=infos[path]["chunk"])
     records += compare_per_trade_kernels(pt_fns, q_f, device)
     records.append(compare_book_kernel(*book_args))
+    records.append(compare_f32_kernel(lad32_fn, q_f))
+    del lad32_fn
     infos.update(flagship_v5_ladders=pt_infos["ladders"],
                  flagship_v5_gamma_256=pt_infos["gamma_256"],
                  flagship_v5_gamma_blocks=pt_infos["blocks"],
-                 single_curve_book=book_args[4])
+                 single_curve_book=book_args[4],
+                 flagship_v5_ladders_f32=info32)
     for r in records:
         info = infos[r["path"]]
         r["launches"] = info[r["name"]]
         r["launches_per_call"] = info[r["name"]] / info["calls"]
+    _gate_device_times(records)
+
+    # ---- phase 7f-a/b ----------------------------------------------------
+    single = {k: statistics.median(pt_infos[k]["warm_ms"])
+              for k in ("ladders", "gamma_256", "blocks")}
+    single.update(multibook=statistics.median(info_f["warm_ms"]),
+                  book=book_args[4]["warm_ms"]["median"])
+    sharded = run_sharded(device, mb_f, q_f, sh_f, ref_f, pt_fns, model_f,
+                          single)
+    sharded["f32_ladders"] = f32
+    del ref_f
     torch.cuda.synchronize()
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
 
     # ---- phase 9 -------------------------------------------------------
     card = _card_line()
     for r in records:
-        if r["device_ms"] is None:
-            raise AssertionError(f"no device time for {r['name']} on "
-                                 f"{r['path']}: the trace held no kernel")
         print(f"bound {r['path']} {r['name']}: device {r['device_ms']:.4f} "
               f"ms (events {r['ms']:.4f} ms) against {r['bound_ms']:.4f} ms "
               f"({r['bound_by']}), share {r['share_of_bound']:.3f} (by "
@@ -2258,6 +2738,7 @@ def main() -> int:
     print(json.dumps({"engine": engine}))
     print(json.dumps({"splines": splines}))
     print(json.dumps({"hostapi": hostapi}))
+    print(json.dumps({"sharded": sharded}))
     print(json.dumps({"kernels": records}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {

@@ -87,6 +87,29 @@ def test_pvs_sweep_kernel_ragged(dev, S):
     assert _rel_err(got_view, ref) <= 1e-12
 
 
+@pytest.mark.parametrize("S", [1, 3, 33, 100, 130, 184])
+def test_pvs_sweep_f32_kernel_matches_plain(dev, S):
+    """K1's f32 instantiation against its f32 twin (1e-5 x max|ref|: both
+    sum in f32, in another order), scenario counts that leave a 16-byte
+    piece short (the copy into a stride of whole pieces) included; one
+    launch; f64 weights with an f32 table refused."""
+    rng = np.random.default_rng(300 + S)
+    M, B = 3000, 64 * 7 + 5
+    vT = torch.tensor(rng.normal(size=(M, S)), dtype=torch.float32,
+                      device=dev)
+    tab64 = _flat_tables(rng, M, B, [(400, 3), (200, 40), (7, 300)], dev)
+    tab = kernels.sweep_tables_as(tab64, torch.float32)
+    before = kernels.pvs_sweep.launches
+    got = kernels.pvs_sweep(vT, tab)
+    assert kernels.pvs_sweep.launches == before + 1
+    assert got.dtype == torch.float32
+    ref = kernels.pvs_sweep_plain(vT, tab)
+    torch.cuda.synchronize()
+    assert _rel_err(got, ref) <= 1e-5
+    with pytest.raises(TypeError):
+        kernels.pvs_sweep(vT, tab64)
+
+
 def _groups(rng, specs, n_grid, dev):
     return [dict(s_idx=rng.integers(0, n_grid, T),
                  e_idx=rng.integers(0, n_grid, T),
