@@ -18,7 +18,8 @@ script.py``, which sets ``MASTER_ADDR`` / ``MASTER_PORT``, ``WORLD_SIZE``,
     axis = mesh.mesh_dim_names           # every axis: the whole mesh
     fn = make_sharded_multibook_fn(mb, mesh, axis=axis)
 
-or at world 1 on one card::
+or at world 1 on one card (the group is made; the call returns False, as
+one process is not a multi-process runtime)::
 
     dist.init_distributed(address="127.0.0.1:29500", world_size=1, rank=0)
 
@@ -59,22 +60,25 @@ def init_distributed(address: Optional[str] = None,
                      rank: Optional[int] = None,
                      backend: Optional[str] = None, device=None,
                      timeout_s: float = DEFAULT_TIMEOUT_S) -> bool:
-    """Initialize the default process group; returns True when one is
-    active after the call.
+    """Initialize the default process group; returns True when a group
+    of more than one rank is active after the call, as the JAX function
+    returns ``jax.process_count() > 1``.
 
     Explicit arguments come first: ``address`` is ``host:port`` (a TCP
     store) or an init-method URL (``tcp://...``, ``file://...``), with
     ``world_size`` and ``rank``. Otherwise torchrun's environment
     (``MASTER_ADDR`` / ``MASTER_PORT``, ``WORLD_SIZE``, ``RANK``). With
     neither it is a no-op and returns False, as the JAX function is
-    single-process; with a group already active it returns True and
-    changes nothing. ``backend`` defaults to "nccl" for a CUDA ``device``
-    (None: the card, ``utils/device.py``) and "gloo" for the CPU; on
-    NCCL each rank takes the card ``LOCAL_RANK`` (else ``rank`` modulo
-    the cards visible). Every collective of the group fails after
-    ``timeout_s`` seconds."""
+    single-process. An explicit world of 1 still makes its group (as
+    ``jax.distributed.initialize(num_processes=1)`` does) and returns
+    False; with a group already active it changes nothing and returns
+    whether that group has more than one rank. ``backend`` defaults to
+    "nccl" for a CUDA ``device`` (None: the card, ``utils/device.py``)
+    and "gloo" for the CPU; on NCCL each rank takes the card
+    ``LOCAL_RANK`` (else ``rank`` modulo the cards visible). Every
+    collective of the group fails after ``timeout_s`` seconds."""
     if dist.is_initialized():
-        return True
+        return dist.get_world_size() > 1
     env = os.environ
     if address is None:
         if not (env.get("MASTER_ADDR") and env.get("WORLD_SIZE")):
@@ -98,7 +102,7 @@ def init_distributed(address: Optional[str] = None,
     dist.init_process_group(
         backend, init_method=init_method, world_size=world_size, rank=rank,
         timeout=datetime.timedelta(seconds=timeout_s))
-    return True
+    return dist.get_world_size() > 1
 
 
 def book_mesh(book_axis: str = "book", dcn_axis: str = "dcn"):

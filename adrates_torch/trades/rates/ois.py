@@ -1,9 +1,10 @@
 """Overnight index swap (OIS) product.
 
 Behavioral parity with the reference's cavour/trades/rates/ois.py (leg
-construction 128-190, value 209-273, position hook 199-205; the position
-takes the device its engine runs on). The float leg defaults mirror the
-reference (annual, THIRTY_E_360, zero spread).
+construction 128-190, value 209-273, pv01 277-287, ir01 289-301,
+swap_rate 304-320, the print tables 324-334, position hook 199-205; the
+position takes the device its engine runs on). The float leg defaults
+mirror the reference (annual, THIRTY_E_360, zero spread).
 """
 
 from __future__ import annotations
@@ -139,6 +140,46 @@ class OIS:
         return fixed_pv + float_pv
 
     # ------------------------------------------------------------------
+
+    def pv01(self, value_dt: Date, discount_curve) -> float:
+        """Value of 1bp of coupon on the fixed leg, per the reference
+        convention (ois.py:277-286): |fixed PV / coupon / notional * 100|."""
+        pv = self._fixed_leg.value(value_dt, discount_curve)
+        pv01 = pv / self._fixed_leg._cpn / self._fixed_leg._notional * 100
+        return abs(pv01)
+
+    def ir01(self, value_dt: Date, discount_curve) -> float:
+        """Central-difference 1bp parallel-shift sensitivity
+        (ois.py:289-301: ±10bp bumps scaled back to 1bp)."""
+        down = self.value(value_dt, discount_curve.bump(-0.001))
+        up = self.value(value_dt, discount_curve.bump(0.001))
+        return (up - down) / 10 / 2
+
+    def swap_rate(self, value_dt: Date, ois_curve,
+                  first_fixing_rate: float = None) -> float:
+        """Float-leg PV / PV01 / notional (ois.py:304-320). As in the
+        reference, this is the signed par coupon over 100: the float leg
+        of a receive-fixed swap has a negative PV and ``pv01`` carries a
+        factor of 100, so a par coupon c gives -c/100 receiving fixed and
+        +c/100 paying it."""
+        pv01 = self.pv01(value_dt, ois_curve)
+        float_leg_value = self._float_leg.value(value_dt, ois_curve,
+                                                ois_curve, first_fixing_rate)
+        return float_leg_value / pv01 / self._fixed_leg._notional
+
+    # ------------------------------------------------------------------
+
+    def print_payments(self):
+        self._fixed_leg.print_payments()
+        self._float_leg.print_payments()
+
+    def print_fixed_leg_pv(self):
+        """Fixed-leg flows table (reference ois.py:324-328)."""
+        self._fixed_leg.print_valuation()
+
+    def print_float_leg_pv(self):
+        """Float-leg flows table (reference ois.py:330-334)."""
+        self._float_leg.print_valuation()
 
     def __repr__(self):
         return (f"OIS({self._effective_dt} -> {self._maturity_dt}, "

@@ -3,8 +3,8 @@
 Port of ``adrates_tpu/trades/rates/xccy_basis_swap.py`` (construction:
 domestic RECEIVE / foreign PAY, both legs with notional exchange; host
 ``value()`` incl. foreign collateral via an inverted curve;
-``position(model, device)``), plus the
-foreign leg's compiled tensor the book compiler reads
+``position(model, device)``; ``print_payments`` / ``print_valuation``),
+plus the foreign leg's compiled tensor the book compiler reads
 (``adrates_tpu/market/position/engine_xccy.py:_float_leg_xccy_tensor``).
 FX convention: spot_fx = domestic per foreign, PV_total = PV_dom +
 spot_fx * PV_for.
@@ -169,6 +169,18 @@ class XccyBasisSwap:
         return dom_pv / spot_fx + for_pv
 
     # ------------------------------------------------------------------
+
+    def print_payments(self):
+        print("DOMESTIC LEG:")
+        self._domestic_leg.print_payments()
+        print("FOREIGN LEG:")
+        self._foreign_leg.print_payments()
+
+    def print_valuation(self):
+        print("DOMESTIC LEG:")
+        self._domestic_leg.print_valuation()
+        print("FOREIGN LEG:")
+        self._foreign_leg.print_valuation()
 
     def __repr__(self):
         return (f"XccyBasisSwap({self._effective_dt} -> "

@@ -105,11 +105,24 @@ first use. Phases:
    flagship OIS) cold + 3 warm (symmetric, = FD of the gamma, the
    184-quote book refused); a ``hostapi`` JSON line before the kernels
    line;
+7g. the OIS host analytics and the print tables (no kernel), after 7e
+   and before 7f-c: ``bench.py``'s config-2 OIS on phase 7's flagship_v5
+   GBP_OIS_SONIA, its ``pv01``, ``ir01`` and ``swap_rate`` cold + 20 warm
+   on the host clock beside the engine's DELTA ladder sum (not gated);
+   gates: the OIS struck at c* = 100 |swap_rate| prices on the card to
+   |VALUE| <= 1e-8 x notional, VALUE(c + 1bp) - VALUE(c) on the card
+   equals pv01 x notional x 1e-6 (1e-9 rel), and the OIS's
+   ``print_payments`` / ``print_fixed_leg_pv`` / ``print_float_leg_pv``
+   and a live basis swap's ``print_payments`` / ``print_valuation``
+   print one table row per payment; no kernel launched; an
+   ``analytics`` JSON line before the kernels line;
 7f. the sharded paths (``adrates_torch.parallel.distributed``) and the
    f32 ladders; (c) runs before phase 8 and (a), (b) after it, so phase
    8 times its kernels with no process group made and no rank spawned.
    (a) World 1 on NCCL in this process
-   (``init_distributed`` on a free localhost port, ``book_mesh``): every
+   (``init_distributed`` on a free localhost port, which makes a group
+   of one rank and returns False, as the JAX function does for one
+   process; ``book_mesh``): every
    sharded function cold + 3 warm with its K1 / K3 launches a call
    (``make_sharded_multibook_fn`` on phase 7's flagship_v5 at S = 100,
    the sharded ladders, 256 gammas and blocks, ``make_sharded_book_fn``
@@ -937,14 +950,15 @@ def _drive_request(p, reqs, n):
     return out, dict(cold_ms=cold, warm_ms=_stats(warm))
 
 
-def _config2_swap(model):
+def _config2_swap(model, cpn: float = 0.0387):
     """``bench.py``'s config-2 trade: a 10Y RECEIVE 0.0387 OIS on the
-    model's GBP_OIS_SONIA, 10M notional, MODIFIED_FOLLOWING."""
+    model's GBP_OIS_SONIA, 10M notional, MODIFIED_FOLLOWING (struck at
+    ``cpn`` when given)."""
     from adrates_torch.trades.rates import OIS
     from adrates_torch.utils import (BusDayAdjustTypes, CurrencyTypes,
                                      CurveTypes, DayCountTypes,
                                      FrequencyTypes, SwapTypes)
-    return OIS(model.value_dt, "10Y", SwapTypes.RECEIVE, 0.0387,
+    return OIS(model.value_dt, "10Y", SwapTypes.RECEIVE, cpn,
                FrequencyTypes.ANNUAL, DayCountTypes.ACT_365F,
                CurveTypes.GBP_OIS_SONIA, CurrencyTypes.GBP,
                notional=10_000_000, float_dc_type=DayCountTypes.ACT_365F,
@@ -1806,6 +1820,107 @@ def run_host_api(device, model, mb_big, n_warm: int = 3, device_arg=None):
     return rec, book_args
 
 
+def _table_rows(text: str) -> int:
+    """The data rows (``| 1 | ...``) of captured ``print_*`` tables."""
+    return sum(line.startswith("| ") and line[2:3].isdigit()
+               for line in text.splitlines())
+
+
+def run_ois_analytics(device, model, basis, n_warm: int = 20):
+    """Phase 7g: the OIS host analytics and the print tables (no kernel).
+    ``bench.py``'s config-2 OIS on phase 7's flagship_v5 GBP_OIS_SONIA:
+    ``pv01``, ``ir01`` and ``swap_rate`` cold + ``n_warm`` warm on the
+    host clock, beside the engine's DELTA ladder sum (not gated: ``ir01``
+    is a parallel forward shift, not a par-quote ladder); gates: the OIS
+    struck at c* = 100 |swap_rate| (the reference's convention: float PV
+    / pv01 / notional is -c*/100 receiving fixed) prices to |VALUE| <=
+    1e-8 x notional on the card, VALUE(c + 1bp) - VALUE(c) on the card
+    equals pv01 x notional x 1e-6 to 1e-9 rel, and the OIS's three and
+    ``basis``'s (a live base XCCY basis swap of phase 7) two print
+    tables are non-empty with one row per payment. Returns the
+    ``analytics`` record."""
+    import contextlib
+    import io
+
+    from adrates_torch.utils import RequestTypes
+    R = RequestTypes
+    card = _card_line()
+    t_phase = time.perf_counter()
+    v, curve = model.value_dt, model.curves.GBP_OIS_SONIA
+    swap = _config2_swap(model)
+    notional = swap._notional
+    rec = dict(card=card)
+    _reset_launches()
+    for name, f in (("pv01", lambda: swap.pv01(v, curve)),
+                    ("ir01", lambda: swap.ir01(v, curve)),
+                    ("swap_rate", lambda: swap.swap_rate(v, curve))):
+        out, cold = _timed(f)
+        out = float(out)
+        warm = [_timed(f)[1] for _ in range(n_warm)]
+        rec[name] = dict(value=out, cold_ms=cold, warm_ms=_stats(warm))
+        print(f"analytics {name} of config 2 (flagship_v5 GBP_OIS_SONIA, "
+              f"10Y RECEIVE 0.0387, 10M): {out!r}; cold {cold:.2f} ms, "
+              f"warm median {rec[name]['warm_ms']['median']:.2f} "
+              f"[{min(warm):.2f}, {max(warm):.2f}] ms over {n_warm}; card "
+              f"{card}", flush=True)
+
+    def value(s):
+        return s.position(model, device=device).compute(
+            [R.VALUE]).value.amount
+
+    res = swap.position(model, device=device).compute([R.VALUE, R.DELTA])
+    rec["delta_ladder_sum"] = float(res.risk.risk_ladder.sum())
+    print(f"analytics ir01 {rec['ir01']['value']:.6f} beside the engine's "
+          f"DELTA ladder sum {rec['delta_ladder_sum']:.6f} (per bp; not "
+          f"gated: a parallel forward shift is not a par-quote ladder); "
+          f"card {card}", flush=True)
+
+    pv01, rate = rec["pv01"]["value"], rec["swap_rate"]["value"]
+    c_star = 100.0 * abs(rate)
+    pv_par = value(_config2_swap(model, c_star))
+    rec["par"] = dict(c_star=c_star, value=pv_par)
+    _check(f"analytics OIS at c* = 100 |swap_rate| = {c_star:.10f}: |VALUE| "
+           f"on the card / notional", abs(pv_par) / notional, 1e-8)
+    v0 = res.value.amount
+    v1 = value(_config2_swap(model, swap._fixed_coupon + 1e-4))
+    step, want = v1 - v0, pv01 * notional * 1e-6
+    rec["coupon_bp"] = dict(value_step=step, pv01_step=want)
+    _check("analytics VALUE(c + 1bp) - VALUE(c) on the card vs pv01 x "
+           "notional x 1e-6 (rel)", abs(abs(step) - want) / want, 1e-9)
+
+    swap.value(v, curve)
+    _direct_value(model, basis, None)
+    fixed, flt = swap._fixed_leg, swap._float_leg
+    legs = (basis._domestic_leg, basis._foreign_leg)
+    rows = {}
+    for name, f, n in (
+            ("ois print_payments", swap.print_payments,
+             len(fixed._payment_dts) + len(flt._payment_dts)),
+            ("ois print_fixed_leg_pv", swap.print_fixed_leg_pv,
+             len(fixed._payment_dts)),
+            ("ois print_float_leg_pv", swap.print_float_leg_pv,
+             len(flt._payment_dts)),
+            ("basis print_payments", basis.print_payments,
+             sum(len(leg._payment_dts) for leg in legs)),
+            ("basis print_valuation", basis.print_valuation,
+             sum(len(leg._payment_dts) for leg in legs))):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            f()
+        rows[name] = _table_rows(buf.getvalue())
+        if not 0 < rows[name] == n:
+            raise AssertionError(f"analytics {name}: {rows[name]} table "
+                                 f"rows for {n} payments")
+    rec["table_rows"] = rows
+    launched = {k: n for k, n in _launches().items() if n}
+    if launched:
+        raise AssertionError(f"analytics launched kernels: {launched}")
+    rec["phase_s"] = time.perf_counter() - t_phase
+    print(f"phase 7g: every gate green; tables {rows} rows (one per "
+          f"payment); {rec['phase_s']:.1f} s; card {card}", flush=True)
+    return rec
+
+
 # ---------------------------------------------------------------------------
 # phase 7f: the sharded paths and the f32 ladders
 # ---------------------------------------------------------------------------
@@ -2054,10 +2169,15 @@ def run_sharded(device, mb, q0, shocks, ref7, pt_fns, model, single,
 
     # ---- 7f-a: world 1 on NCCL ------------------------------------------
     port = _free_port()
-    if not distributed.init_distributed(address=f"127.0.0.1:{port}",
-                                        world_size=1, rank=0,
-                                        backend="nccl"):
-        raise AssertionError("init_distributed made no process group")
+    multi = distributed.init_distributed(address=f"127.0.0.1:{port}",
+                                         world_size=1, rank=0,
+                                         backend="nccl")
+    if not (tdist.is_initialized() and tdist.get_world_size() == 1):
+        raise AssertionError("init_distributed made no process group of "
+                             "one rank")
+    if multi is not False:
+        raise AssertionError(f"init_distributed returned {multi!r} at world "
+                             f"1 (False: one process, as the JAX function)")
     try:
         mesh = distributed.book_mesh()
         curve, book, bshocks = _sharded_book(model, BOOK_COPIES,
@@ -2681,6 +2801,10 @@ def main() -> int:
     engine = run_engine(device, model_f, base, coll)
     splines = run_flagship_v5_splines(device, info_f)
     hostapi, book_args = run_host_api(device, model_f, mb_f)
+    # phase 7g on phase 7's model: config 2's OIS and a live basis swap
+    analytics = run_ois_analytics(
+        device, model_f, next(t for name, t, _ in _route_trades(
+            base, coll, model_f.value_dt) if name == "xccy_basis"))
     # ---- phase 7f-c (before phase 8, which times its K1-f32 inputs) ------
     f32, lad32_fn, info32 = run_f32_ladders(
         device, mb_f, q_f, pt_fns[0],
@@ -2738,6 +2862,7 @@ def main() -> int:
     print(json.dumps({"engine": engine}))
     print(json.dumps({"splines": splines}))
     print(json.dumps({"hostapi": hostapi}))
+    print(json.dumps({"analytics": analytics}))
     print(json.dumps({"sharded": sharded}))
     print(json.dumps({"kernels": records}))
     print(f"card: {card}")

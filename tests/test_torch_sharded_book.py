@@ -7,7 +7,9 @@ the JAX package's functions on a 2-device virtual CPU mesh (its
 port's each rank's shard's) and against the port's single-device
 ``make_book_fn``; ``shard_book`` refuses a trade count that does not
 divide; ``init_distributed`` is a no-op without an address or torchrun's
-environment and refuses an address without a world size and rank;
+environment, refuses an address without a world size and rank, and
+returns False at world 1 (making the group, or finding it) and True at
+world 2, as the JAX function does;
 ``book_mesh`` is 1-D on one host; ``run_ranks`` fails at once when a rank
 fails while another waits in a collective.
 
@@ -114,6 +116,40 @@ def test_init_distributed_needs_world_and_rank_with_an_address():
     with pytest.raises(LibError):
         distributed.init_distributed(address="127.0.0.1:1", device="cpu")
     assert not tdist.is_initialized()
+
+
+def test_init_distributed_at_world_1_makes_a_group_and_returns_false(
+        tmp_path):
+    """An explicit world of 1 makes its group but is no multi-process
+    runtime, so the call returns False, as the JAX function's
+    ``jax.process_count() > 1``; a second call returns False and keeps
+    the group. The group is destroyed here, so no other test sees it."""
+    assert not tdist.is_initialized()
+    try:
+        first = distributed.init_distributed(
+            address=f"file://{tmp_path}/store", world_size=1, rank=0,
+            backend="gloo")
+        group = tdist.group.WORLD
+        assert first is False
+        assert tdist.is_initialized() and tdist.get_world_size() == 1
+        again = distributed.init_distributed(
+            address=f"file://{tmp_path}/other", world_size=1, rank=0,
+            backend="gloo")
+        assert again is False
+        assert tdist.group.WORLD is group and tdist.get_world_size() == 1
+        assert not (tmp_path / "other").exists()
+    finally:
+        if tdist.is_initialized():
+            tdist.destroy_process_group()
+    assert not tdist.is_initialized()
+
+
+def test_init_distributed_at_world_2_returns_true(tmp_path):
+    """Two spawned ranks: True with the group already active and True
+    after making a new one."""
+    out = dc.run_ranks(WORLD, dc.init_ranks, (f"file://{tmp_path}/store",),
+                       timeout_s=120)
+    assert out == [dict(again=True, fresh=True, size=WORLD)] * WORLD
 
 
 def test_book_mesh_needs_a_group():

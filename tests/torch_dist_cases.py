@@ -238,3 +238,18 @@ def failing_rank(rank, world):
     if rank == 1:
         raise ValueError("rank 1 fails before the collective")
     dist.barrier()
+
+
+def init_ranks(rank, world, store):
+    """``init_distributed``'s return values in a spawned rank: with the
+    world's group already active (``again``), then, the group destroyed,
+    making a new one over ``store`` (``fresh``), and the new group's
+    size."""
+    import torch.distributed as dist
+    from adrates_torch.parallel.distributed import init_distributed
+    again = init_distributed(address=store, world_size=world, rank=rank,
+                             backend="gloo")
+    dist.destroy_process_group()
+    fresh = init_distributed(address=store, world_size=world, rank=rank,
+                             backend="gloo")
+    return dict(again=again, fresh=fresh, size=dist.get_world_size())
