@@ -4,9 +4,11 @@ speed cubes and cashflow reports.
 Port of ``adrates_tpu/market/position/engine.py``. One pure function
 quotes -> PV per (instrument, curve) pairing; the delta ladder is one
 ``torch.func.jacrev`` of it, the gamma matrix one ``jacfwd`` of that and
-the speed cube one more ``jacfwd``. The bootstrap
-(``ops/bootstrap.bootstrap_ois``) differentiates to every order, so the
-curve-jacobian chain falls out of the composition.
+the speed cube ``jacfwd(jacrev(jacrev))``. The bootstrap's linear
+solve (``ops/linear_solve``) is one custom op whose derivatives are
+solves, so the curve-jacobian chain falls out of the composition with
+one more solve per AD level; a solve takes at most one forward-mode
+level, hence speed's forward level outermost over two reverse ones.
 
 The engine runs on one device, the CUDA card unless the caller asks for
 another (``device="cpu"``); with no device given and no card visible it
@@ -213,7 +215,7 @@ class Engine(LegacyLegAnalytics):
         """PV / delta ladder / gamma matrix / speed cube of a (fixed leg?,
         float leg?) pair bootstrapped and discounted on ``curve``. Delta
         is one jacrev of the quotes -> PV map, gamma one jacfwd of that,
-        speed one more jacfwd."""
+        speed jacfwd(jacrev(jacrev))."""
         want = (RequestTypes.VALUE in reqs, RequestTypes.DELTA in reqs,
                 RequestTypes.GAMMA in reqs, RequestTypes.SPEED in reqs)
         if not any(want):  # e.g. CASHFLOWS-only requests
@@ -246,9 +248,10 @@ class Engine(LegacyLegAnalytics):
             parts.append(jacfwd(jacrev(pv_fn))(rates).reshape(-1))
             sizes.append(("gamma", (n, n)))
         if want[3]:
-            # third order (SPEED): one more forward level over the gamma
-            # tower
-            parts.append(jacfwd(jacfwd(jacrev(pv_fn)))(rates).reshape(-1))
+            # third order (SPEED): one forward level over two reverse
+            # ones, since a solve takes one forward level only
+            # (ops/linear_solve)
+            parts.append(jacfwd(jacrev(jacrev(pv_fn)))(rates).reshape(-1))
             sizes.append(("speed", (n, n, n)))
         return self._unpack(torch.cat(parts), sizes)
 

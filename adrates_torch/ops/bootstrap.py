@@ -1,19 +1,20 @@
-"""Differentiable OIS curve bootstrap — static point plan + K-sweep solve.
+"""Differentiable OIS curve bootstrap — static point plan + custom linear solve.
 
 Port of ``adrates_tpu/ops/bootstrap.py``. The plan builder is the same
 host numpy code (copied verbatim, including the reference's 2-decimal
-rounded-key memo and the ``searchsorted(side="right")`` rate weights).
-The solve is torch:
+rounded-key memo, the ``searchsorted(side="right")`` rate weights and the
+child table). The solve is torch:
 
     pv01_i = (pv01_prev(i) + acc_i) / (1 + r_i * acc_i)
 
 is the linear triangular system (I - A) pv01 = b with
-A x = gather(x, prev)/denom and b = accs/denom. A is nilpotent (chains
-point strictly backward, at most ``depth`` long), so K = depth Horner
-sweeps x <- b + A x give the exact solution. Autograd differentiates
-through the sweeps directly: the K-sweep polynomial equals (I - A)^-1 b
-for every A with this sparsity, so its derivatives of every order are
-the exact implicit-function derivatives — no custom linear solve needed.
+A x = gather(x, prev)/denom and b = accs/denom. It runs through
+``ops/linear_solve.chain_solve``, the counterpart of the JAX package's
+``lax.custom_linear_solve``: the solve is K4 ``pv01_solve`` on the card
+(the K-sweep on the CPU), and every AD level is one more solve (K5's
+transpose for reverse mode, K4 again for forward mode) instead of
+``depth`` recorded sweeps. At most one forward-mode level may pass
+through it (``ops/linear_solve``).
 """
 
 from __future__ import annotations
@@ -23,6 +24,9 @@ from typing import List, Sequence
 
 import numpy as np
 import torch
+
+from . import kernels
+from .linear_solve import chain_solve
 
 
 @dataclasses.dataclass(frozen=True)
@@ -43,6 +47,8 @@ class OISBootstrapPlan:
     loglinear_rates: interpolate sub-pillar rates in log space
     rate_i0/rate_i1/rate_c: [P] static sub-pillar rate-interpolation
                  bracket and weight (same for log and linear space)
+    child_idx/child_mask: [P, Kc] the points whose prev is each point,
+                 and a 0/1 mask (the transpose solve's plain sweep)
     """
     point_times: np.ndarray
     accs: np.ndarray
@@ -55,6 +61,8 @@ class OISBootstrapPlan:
     rate_i0: np.ndarray = None
     rate_i1: np.ndarray = None
     rate_c: np.ndarray = None
+    child_idx: np.ndarray = None
+    child_mask: np.ndarray = None
 
 
 def prepare_ois_plan(swap_times: Sequence[float],
@@ -127,6 +135,19 @@ def prepare_ois_plan(swap_times: Sequence[float],
         depths[idx] = 1 if p < 0 else depths[p] + 1
     depth = int(depths.max()) if len(sorted_points) else 0
 
+    P = len(sorted_points)
+    rows = np.nonzero(prev_idx >= 0)[0]
+    children: List[List[int]] = [[] for _ in range(P)]
+    for i in rows:
+        children[prev_idx[i]].append(int(i))
+    kc = max((len(c) for c in children), default=1) or 1
+    child_idx = np.zeros((P, kc), dtype=np.int64)
+    child_mask = np.zeros((P, kc))
+    for j, c in enumerate(children):
+        for k, i in enumerate(c):
+            child_idx[j, k] = i
+            child_mask[j, k] = 1.0
+
     sw = np.asarray(swap_times, dtype=float)
     ri = np.clip(np.searchsorted(sw, point_times, side="right"), 1,
                  max(sw.shape[0] - 1, 1))
@@ -149,12 +170,15 @@ def prepare_ois_plan(swap_times: Sequence[float],
                             swap_times=sw, pillar_point=pillar_point,
                             depth=depth, loglinear_rates=loglinear_rates,
                             rate_i0=ri0.astype(np.int32),
-                            rate_i1=ri1.astype(np.int32), rate_c=rc)
+                            rate_i1=ri1.astype(np.int32), rate_c=rc,
+                            child_idx=child_idx, child_mask=child_mask)
 
 
 def plan_to_torch(plan: OISBootstrapPlan, device) -> dict:
     """The plan's arrays as tensors on ``device`` (indices int64, times
-    and weights f64), plus its two static switches."""
+    and weights f64), its log-rates switch, and ``chain``, the pv01
+    solve's tables with the plan's depth (``kernels.chain_tables``: every
+    link is checked to point backward here, once per plan)."""
     def f64(a):
         return torch.as_tensor(np.asarray(a, dtype=np.float64),
                                device=device)
@@ -166,8 +190,10 @@ def plan_to_torch(plan: OISBootstrapPlan, device) -> dict:
                 prev_idx=i64(plan.prev_idx), pillar_idx=i64(plan.pillar_idx),
                 rate_i0=i64(plan.rate_i0), rate_i1=i64(plan.rate_i1),
                 rate_c=f64(plan.rate_c), pillar_point=i64(plan.pillar_point),
-                depth=int(plan.depth),
-                loglinear_rates=bool(plan.loglinear_rates))
+                loglinear_rates=bool(plan.loglinear_rates),
+                chain=kernels.chain_tables(plan.prev_idx, plan.child_idx,
+                                           plan.child_mask, plan.depth,
+                                           device))
 
 
 def bootstrap_ois(rates: torch.Tensor, plan: dict):
@@ -210,15 +236,9 @@ def bootstrap_ois(rates: torch.Tensor, plan: dict):
     has_prev = prev_idx >= 0
     gather_idx = prev_idx.clamp(min=0)
 
-    def A(x):
-        return torch.where(has_prev, x.gather(-1, gather_idx), 0.0) / denom
-
-    # K Horner sweeps of the Neumann series, exact after K = depth
-    # sweeps since A is nilpotent.
+    # (I - A) pv01 = b, solved as one custom linear solve
     b = accs / denom
-    pv01 = b
-    for _ in range(max(plan["depth"], 1)):
-        pv01 = b + A(pv01)
+    pv01 = chain_solve(b, denom, plan["chain"])
 
     prev_pv01 = torch.where(has_prev, pv01.gather(-1, gather_idx), 0.0)
     dfs = (1.0 - point_rates * prev_pv01) / denom

@@ -8,8 +8,13 @@ row/trade sums). K2 ``gamma_quad_form_grouped``
 (:1660, the trip term). K3 ``pertrade_quad_form``
 (``csrc/pertrade_quad_form.cu``) replaces the per-trade quad forms of
 ``adrates_tpu/parallel/pertrade_blocks.py`` (:316-363) and
-``multibook.py:_sel_gamma_kernel`` (:2693-2753). All three are
-forward-only (their derivatives are closed form elsewhere) and f64; K1
+``multibook.py:_sel_gamma_kernel`` (:2693-2753). K4 ``pv01_solve`` and
+K5 ``pv01_solve_t`` (``csrc/pv01_solve.cu``) replace the ``solve`` and
+``transpose_solve`` of the custom linear solve in
+``adrates_tpu/ops/bootstrap.py:bootstrap_ois`` (:332-341), the OIS
+pv01 chain (I - A) x = b and its transpose; ``ops/linear_solve`` makes
+them the derivatives of each other. K1-K3 are forward-only (their
+derivatives are closed form elsewhere). All five are f64; K1
 also has an f32 instantiation for the f32 ladders
 (``make_per_trade_delta_fn(dtype=torch.float32)``, the JAX package's
 ``dtype`` option at ``multibook.py:2825-2829``), which reads, sums and
@@ -20,15 +25,17 @@ Tables: each kernel runs on static tables built once per book, on the
 book's device, by :func:`sweep_tables` (K1: a per-trade CSR of live
 (column, weight) slots plus each trade block's distinct value rows),
 :func:`quad_tables` (K2: the trip groups, the launch's work list of
-group row blocks, and the table that sums the groups' blocks into G) and
+group row blocks, and the table that sums the groups' blocks into G),
 :func:`pertrade_tables` (K3: groups of quote rows, their trades' slot
-CSR and the launch's work list of units packed into blocks). The plain
-twins read the same tables.
+CSR and the launch's work list of units packed into blocks) and
+:func:`chain_tables` (K4/K5: an OIS plan's previous-point links, once
+per plan). The plain twins read the same tables.
 
 Dispatch: a wrapper given CPU tensors runs the plain twin; given CUDA
 tensors it launches the kernel or raises. Nothing falls back. Each
 wrapper counts its kernel launches in ``<wrapper>.launches`` (a plain
-int; the plain path never touches it).
+int; the plain path never touches it); K4's and K5's also count their
+calls on either path in ``<wrapper>.calls``.
 
 Build: at first use on a CUDA tensor, one ``nvcc`` per ``*.cu`` under
 ``adrates_torch/csrc`` (all started together) compiles it for ``sm_90a``,
@@ -75,6 +82,8 @@ _SIGNATURES = {
     "gamma_reduce_f64": [_P, _I, _I, _P, _P, _I, _P, _P],
     "pertrade_quad_f64": [_P, _I, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P,
                           _P, _P, _P],
+    "pv01_solve_f64": [_P, _P, _P, _I, _I, _I, _P, _P],
+    "pv01_solve_t_f64": [_P, _P, _P, _I, _I, _I, _P, _P],
 }
 
 _lib = None
@@ -852,3 +861,164 @@ def pertrade_quad_form(Jt: torch.Tensor, dfs: torch.Tensor, w: torch.Tensor,
 
 
 pertrade_quad_form.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K4 / K5: the OIS pv01 chain solve and its transpose
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class ChainTables:
+    """K4's and K5's tables: an OIS point plan's previous-point links,
+    every one strictly backward (checked by :func:`chain_tables`), and
+    the JAX package's child table, which the plain transpose sweep
+    gathers through. ``shape`` is the plan's own, (P,) or (G, P) for a
+    stacked plan; a tensor the solve reads ends in it."""
+    shape: tuple
+    depth: int
+    prev: torch.Tensor        # [G, P] int32, -1 at a root
+    has_prev: torch.Tensor    # [*shape] bool
+    prev_flat: torch.Tensor   # [G * P] int64: g * P + max(prev, 0)
+    child_flat: torch.Tensor  # [G * P * Kc] int64: g * P + child
+    child_mask: torch.Tensor  # [*shape, Kc] f64
+
+
+def chain_tables(prev_idx, child_idx, child_mask, depth: int,
+                 device) -> ChainTables:
+    """K4/K5's tables on ``device`` from a (stacked) OIS plan's host
+    arrays: ``prev_idx`` [P] or [G, P], ``child_idx`` / ``child_mask``
+    [..., P, Kc]. Raises ValueError unless every point's previous point
+    precedes it, which the kernels' single pass relies on."""
+    prev = np.asarray(prev_idx, dtype=np.int64)
+    shape = prev.shape
+    P = shape[-1]
+    rows = prev.reshape(-1, P)
+    G = rows.shape[0]
+    if np.any(rows >= np.arange(P)):
+        raise ValueError("OIS plan: a point's previous point does not "
+                         "precede it")
+    off = (np.arange(G) * P)[:, None]
+    child = np.asarray(child_idx, dtype=np.int64).reshape(G, P, -1)
+    return ChainTables(
+        shape=tuple(shape), depth=int(depth),
+        prev=torch.as_tensor(rows.astype(np.int32), device=device),
+        has_prev=torch.as_tensor(prev >= 0, device=device),
+        prev_flat=torch.as_tensor((off + np.maximum(rows, 0)).reshape(-1),
+                                  device=device),
+        child_flat=torch.as_tensor((off[:, :, None] + child).reshape(-1),
+                                   device=device),
+        child_mask=torch.as_tensor(np.asarray(child_mask,
+                                              dtype=np.float64),
+                                   device=device))
+
+
+def chain_matvec(x: torch.Tensor, denom: torch.Tensor,
+                 tab: ChainTables) -> torch.Tensor:
+    """A x, (A x)_i = x[prev_i] / d_i (0 at a root), over tensors
+    [..., *tab.shape]."""
+    flat = x.reshape(x.shape[:x.dim() - len(tab.shape)] + (-1,))
+    g = flat.index_select(-1, tab.prev_flat).reshape(x.shape)
+    return torch.where(tab.has_prev, g, 0.0) / denom
+
+
+def chain_matvec_t(y: torch.Tensor, denom: torch.Tensor,
+                   tab: ChainTables) -> torch.Tensor:
+    """A' y, (A' y)_j = the sum of y_i / d_i over the points i whose
+    previous point is j: the JAX package's child-table gather
+    (``adrates_tpu/ops/bootstrap.py:313-318``)."""
+    yd = y / denom
+    yd = yd.reshape(yd.shape[:yd.dim() - len(tab.shape)] + (-1,))
+    yd = yd.index_select(-1, tab.child_flat)
+    return (tab.child_mask * yd.reshape(y.shape + (-1,))).sum(-1)
+
+
+def pv01_solve_plain(b: torch.Tensor, denom: torch.Tensor,
+                     tab: ChainTables) -> torch.Tensor:
+    """Plain version of K4: (I - A)^-1 b by ``depth`` Horner sweeps
+    x <- b + A x, the K-sweep of the JAX package's ``solve``. ``b`` and
+    ``denom`` are [R, P]; row r runs on plan row r mod G."""
+    bb = b.reshape((-1,) + tab.shape)
+    dd = denom.reshape((-1,) + tab.shape)
+    x = bb
+    for _ in range(max(tab.depth, 1)):
+        x = bb + chain_matvec(x, dd, tab)
+    return x.reshape(b.shape)
+
+
+def pv01_solve_t_plain(c: torch.Tensor, denom: torch.Tensor,
+                       tab: ChainTables) -> torch.Tensor:
+    """Plain version of K5: (I - A)^-T c by ``depth`` sweeps
+    y <- c + A' y over the child table, the JAX package's
+    ``transpose_solve``; the layout of :func:`pv01_solve_plain`."""
+    cc = c.reshape((-1,) + tab.shape)
+    dd = denom.reshape((-1,) + tab.shape)
+    y = cc
+    for _ in range(max(tab.depth, 1)):
+        y = cc + chain_matvec_t(y, dd, tab)
+    return y.reshape(c.shape)
+
+
+def _chain_rows(rhs: torch.Tensor, denom: torch.Tensor, tab: ChainTables):
+    G, P = tab.prev.shape
+    if rhs.dim() != 2 or rhs.shape != denom.shape or rhs.shape[1] != P \
+            or rhs.shape[0] % G:
+        raise ValueError(f"the solve takes [R, {P}] rows with R a "
+                         f"multiple of {G}; got {tuple(rhs.shape)} and "
+                         f"{tuple(denom.shape)}")
+
+
+def _chain_launch(entry: str, rhs: torch.Tensor, denom: torch.Tensor,
+                  tab: ChainTables) -> torch.Tensor:
+    dev = rhs.device
+    _need(rhs, "rhs", torch.float64, 2, dev)
+    _need(denom, "denom", torch.float64, 2, dev)
+    _need(tab.prev, "prev", torch.int32, 2, dev)
+    R, P = rhs.shape
+    out = torch.empty_like(rhs)
+    if R == 0 or P == 0:
+        return out
+    if _lib is None:
+        build_kernels()
+    _check(getattr(_lib, entry)(rhs.data_ptr(), denom.data_ptr(),
+                                tab.prev.data_ptr(), R, P,
+                                tab.prev.shape[0], out.data_ptr(),
+                                _stream(dev)), entry)
+    return out
+
+
+def pv01_solve(b: torch.Tensor, denom: torch.Tensor,
+               tab: ChainTables) -> torch.Tensor:
+    """K4: x = (I - A)^-1 b over [R, P] rows (see
+    :func:`pv01_solve_plain`), one pass in ascending point order, one
+    ``torch.empty`` and one launch. ``calls`` counts calls on either
+    path, ``launches`` the kernel's launches."""
+    _chain_rows(b, denom, tab)
+    pv01_solve.calls += 1
+    if not b.is_cuda:
+        return pv01_solve_plain(b, denom, tab)
+    out = _chain_launch("pv01_solve_f64", b, denom, tab)
+    pv01_solve.launches += 1
+    return out
+
+
+pv01_solve.launches = 0
+pv01_solve.calls = 0
+
+
+def pv01_solve_t(c: torch.Tensor, denom: torch.Tensor,
+                 tab: ChainTables) -> torch.Tensor:
+    """K5: y = (I - A)^-T c over [R, P] rows (see
+    :func:`pv01_solve_t_plain`), one pass in descending point order; the
+    counters of :func:`pv01_solve`."""
+    _chain_rows(c, denom, tab)
+    pv01_solve_t.calls += 1
+    if not c.is_cuda:
+        return pv01_solve_t_plain(c, denom, tab)
+    out = _chain_launch("pv01_solve_t_f64", c, denom, tab)
+    pv01_solve_t.launches += 1
+    return out
+
+
+pv01_solve_t.launches = 0
+pv01_solve_t.calls = 0

@@ -13,10 +13,12 @@ numpy dataclass; the solve is torch:
    strictly-lower-triangular system (I - A) x = b.
 
 A is nilpotent of index <= S, so ceil(log2 S) Neumann doublings
-v <- v + A^(2^k) v give the exact solution. Autograd differentiates the
-doublings directly (the JAX package wraps them in a custom linear solve):
-the doubling polynomial equals (I - A)^-1 b for every A with this
-sparsity, so its derivatives of every order are exact.
+v <- v + A^(2^k) v give the exact solution. The solve is
+``ops/linear_solve.neumann_solve``, the counterpart of the JAX package's
+``lax.custom_linear_solve`` here: the doubling runs in ``torch.matmul``
+with the powers squared once per solve, and every AD level is one more
+solve (with Aᵀ for reverse mode) instead of recorded doublings. At most
+one forward-mode level may pass through it.
 
 The foreign curve's DFs at the cashflow times come from a static plan
 (``foreign_plan``: ``ops/interpolation.interp_plan`` over the cashflow
@@ -37,6 +39,7 @@ import torch
 
 from ..utils.error import LibError
 from .interpolation import df_static, interp_df, interp_fit
+from .linear_solve import neumann_solve
 
 
 @dataclasses.dataclass(frozen=True)
@@ -151,7 +154,6 @@ def bootstrap_xccy(spreads: torch.Tensor, pv_dom: torch.Tensor,
     cf_mat = cf.gather(-1, plan["mat_pos"])              # [S]
     base_mat = base.gather(-1, plan["mat_pos"])          # [S]
 
-    S = spreads.shape[-1]
     fxs = torch.as_tensor(spot_fx, dtype=spreads.dtype,
                           device=spreads.device) * plan["foreign_sign"]
     fxs = fxs.unsqueeze(-1)                              # [.., 1]
@@ -159,15 +161,7 @@ def bootstrap_xccy(spreads: torch.Tensor, pv_dom: torch.Tensor,
     b_vec = -(pv_dom + fxs * (plan["v0"] + W[..., 0])) / d
     A = (-(fxs / d)).unsqueeze(-1) * W[..., 1:]          # [S, S] strict lower
 
-    # Neumann doubling: (I + A)(I + A^2)(I + A^4)... = sum_{k < 2^m} A^k,
-    # exact once 2^m >= S since A^S = 0.
-    m_steps = max(int(np.ceil(np.log2(max(S, 2)))), 1)
-    x = b_vec
-    Mk = A
-    for k in range(m_steps):
-        x = x + (Mk @ x.unsqueeze(-1)).squeeze(-1)
-        if k + 1 < m_steps:
-            Mk = Mk @ Mk
+    x = neumann_solve(A, b_vec)
 
     one = torch.ones(x.shape[:-1] + (1,), dtype=x.dtype, device=x.device)
     C_final = torch.cat([one, x], dim=-1)

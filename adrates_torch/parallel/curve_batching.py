@@ -100,6 +100,13 @@ def _stack_ois_plans(plans: Sequence[OISBootstrapPlan]) -> OISBootstrapPlan:
                         p.swap_times[-1] + 1.0
                         + np.arange(Q - p.swap_times.shape[0])])
         for p in plans])
+    kc = max(p.child_idx.shape[1] for p in plans)
+    child_idx = np.zeros((len(plans), P, kc), dtype=np.int64)
+    child_mask = np.zeros((len(plans), P, kc))
+    for g, p in enumerate(plans):
+        n, k = p.child_idx.shape
+        child_idx[g, :n, :k] = p.child_idx
+        child_mask[g, :n, :k] = p.child_mask
     return OISBootstrapPlan(
         point_times=point_times,
         accs=f("accs", 0.0),
@@ -112,7 +119,7 @@ def _stack_ois_plans(plans: Sequence[OISBootstrapPlan]) -> OISBootstrapPlan:
         # pad rows read rates[0] with weight c=0 — their interp value
         # is unused (acc=0 rows solve to df=1 regardless)
         rate_i0=f("rate_i0", 0), rate_i1=f("rate_i1", 0),
-        rate_c=f("rate_c", 0.0))
+        rate_c=f("rate_c", 0.0), child_idx=child_idx, child_mask=child_mask)
 
 
 def _stack_xccy_plans(plans: Sequence[XccyBootstrapPlan]

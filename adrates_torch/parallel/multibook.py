@@ -49,6 +49,7 @@ import torch
 from torch.func import grad, jacfwd, jacrev, jvp, vmap
 
 from ..ops import kernels
+from ..ops.linear_solve import jvp_by_vjp
 from ..utils.currency import CurrencyTypes
 from ..utils.day_count import DayCountTypes
 from ..utils.device import resolve_device
@@ -1735,7 +1736,8 @@ def make_multibook_speed_fn(mb: MultiBook, device=None,
     unit-rate³; multiply by 1e-12 for per-bp³), on ``device`` (None: the
     CUDA card). Port of ``adrates_tpu/parallel/multibook.py:2256``.
 
-    The plain AD tower ``jacfwd(jacfwd(jacrev(total)))`` over the
+    The plain AD tower ``jacfwd(jacrev(jacrev(total)))`` (one forward
+    level, as a solve takes at most one: ``ops/linear_solve``) over the
     aggregate graph, ``total(q) = aggregate_total(grids(q, P), agg,
     clamp)`` with the tile and clamp aggregates carried as
     ``make_multibook_fn`` carries them — NO structured shortcut, for the
@@ -1767,7 +1769,7 @@ def make_multibook_speed_fn(mb: MultiBook, device=None,
     def total(q):
         return aggregate_total(grids(q, P), agg, clamp_agg)
 
-    tower = jacfwd(jacfwd(jacrev(total)))
+    tower = jacfwd(jacrev(jacrev(total)))
 
     def fn(qvec):
         return tower(_f64(qvec, device))
@@ -2139,7 +2141,8 @@ def make_per_trade_gamma_fn(mb: MultiBook, trade_ids, device):
     term 1 is the K3 kernel over their trip and in-band clamp slots at
     full width (k = N); term 2 is the structured per-stage curve-Hessian
     contraction (``structured_risk.make_pertrade_curvehess``), or for a
-    book without the stage topology one ``jacfwd(jacfwd(grids))``.
+    book without the stage topology one ``jacfwd`` over the grids'
+    ``jvp_by_vjp`` (one forward level through the solves).
     ``fn.prep(qvec)`` gives K3's inputs, ``fn.k3`` its tables."""
     mb = _need_multibook(mb)
     sel = np.asarray(trade_ids, dtype=np.int64)
@@ -2161,8 +2164,15 @@ def make_per_trade_gamma_fn(mb: MultiBook, trade_ids, device):
         def term2(q, G):
             return contract(tensors(q, book.params), G)
     else:
+        eye = torch.eye(N, dtype=torch.float64, device=device)
+
+        def grids(x):
+            return book.grids(x, book.params)
+
         def term2(q, G):
-            H = jacfwd(jacfwd(lambda x: book.grids(x, book.params)))(q)
+            H = jacfwd(lambda x: vmap(
+                lambda s: jvp_by_vjp(grids, x, s)[1])(eye))(q)
+            H = H.permute(1, 0, 2)                      # [CU, N, N]
             return (G @ H.reshape(CU, N * N)).reshape(-1, N, N)
 
     def prep(qvec):

@@ -46,6 +46,7 @@ import numpy as np
 import torch
 from torch.func import grad, jvp, vjp, vmap
 
+from ..ops.linear_solve import jvp_by_vjp
 from .curve_batching import (StageTopology, infl_native_ds, ois_native_ds,
                              stage_rows, xccy_boot_ds, xccy_legs_pv,
                              xccy_native_ds)
@@ -571,17 +572,38 @@ def make_structured_risk(topo: StageTopology, term1):
 # ---------------------------------------------------------------------------
 
 
-def _so_tensor(f, x0: torch.Tensor, seeds: torch.Tensor):
+def _so_fwd(f, x0: torch.Tensor, seeds: torch.Tensor) -> torch.Tensor:
     """Second-order directional-derivative tensor T[i, j, ...] =
     d^2 f/(d s_i)(d s_j) at x0 (``adrates_tpu`` ``_so_tensor``): one jvp
-    over jvp per seed pair under vmap. The seed bases are member-parallel
-    (outputs of different group members never mix, so one seed carries
-    every member's direction at once). ``f`` may return a tuple."""
+    over jvp per seed pair under vmap, for an ``f`` with no linear solve
+    on its path (a solve takes one forward-mode level only). The seed
+    bases are member-parallel (outputs of different group members never
+    mix, so one seed carries every member's direction at once)."""
     def one(s1):
         def inner(x):
             return jvp(f, (x,), (s1,))[1]
         return vmap(lambda s2: jvp(inner, (x0,), (s2,))[1])(seeds)
     return vmap(one)(seeds)
+
+
+def _so_tensor(native, x0: torch.Tensor, seeds: torch.Tensor, rows):
+    """(ds, D, H, T): ``native``'s value ds and directional derivatives D
+    at x0, and the second-order tensors of :func:`_so_fwd` for ``native``
+    (a stage's bootstrap, whose solve takes one forward-mode level) and
+    for f = rows∘native. H is one jvp over the inner directional
+    derivative taken by two reverse passes (``ops/linear_solve
+    .jvp_by_vjp``) per seed pair under vmap; T follows by the chain rule,
+    T[i, j] = R'(ds) H[i, j] + R''(ds)[D_i, D_j] with D_i = native' s_i,
+    the second term by :func:`_so_fwd` on ``rows`` (no solve)."""
+    def one(s1):
+        def inner(x):
+            return jvp_by_vjp(native, x, s1)[1]
+        return vmap(lambda s2: jvp(inner, (x0,), (s2,))[1])(seeds)
+
+    H = vmap(one)(seeds)
+    ds, D = _jac(native, x0, seeds)
+    first = vmap(vmap(lambda h: jvp(rows, (ds,), (h,))[1]))(H)
+    return ds, D, H, first + _so_fwd(rows, ds, D)
 
 
 def make_pertrade_tensors(topo: StageTopology):
@@ -612,18 +634,15 @@ def make_pertrade_tensors(topo: StageTopology):
             st = stages[si]
             b = B[st.key]
             native = ois_native_ds if st.kind == "ois" else infl_native_ds
-
-            def fwd(r, b=b, si=si, native=native):
-                ds = native(r, b)
-                return ds, stage_rows(ds, its_of[si], b["row_plan"])
-
             q_local = q[b["qidx"]]                         # [G, Qp]
             seeds = _seeds(q_local.shape[-1], len(st.ids), q)
-            (ds, _), (dds, _) = _jac(fwd, q_local, seeds)
+            ds, dds, dsT, rowsT = _so_tensor(
+                lambda r, b=b, native=native: native(r, b), q_local, seeds,
+                lambda d, b=b, si=si: stage_rows(d, its_of[si],
+                                                 b["row_plan"]))
             dds_st[si] = dds                               # [Qp, G, P1]
             for mi, cid in enumerate(st.ids):
                 ds_of[cid] = ds[mi]
-            dsT, rowsT = _so_tensor(fwd, q_local, seeds)
             so[si] = dict(dsT=dsT, rowsT=rowsT)
 
         for si in meta["xccy_last"]:
@@ -639,12 +658,14 @@ def make_pertrade_tensors(topo: StageTopology):
                 ds_of[c], (0, m["Lf"] - ds_of[c].shape[-1]), value=1.0)
                 for c in st.for_ids])
 
+            def rows(d, b=b, si=si):
+                return stage_rows(d, its_of[si], b["row_plan"])
+
             if m["parents"] is None:
-                def fwd0(sp, b=b, st=st, si=si, dd=dom_ds, fd=for_ds):
-                    ds = xccy_native_ds(sp, dd, fd, b, st)
-                    return stage_rows(ds, its_of[si], b["row_plan"])
-                so[si] = dict(rowsT=_so_tensor(fwd0, spreads,
-                                               _seeds(S, G, q)))
+                def native0(sp, b=b, st=st, dd=dom_ds, fd=for_ds):
+                    return xccy_native_ds(sp, dd, fd, b, st)
+                so[si] = dict(rowsT=_so_tensor(native0, spreads,
+                                               _seeds(S, G, q), rows)[3])
                 continue
 
             Qd, Qf = m["Qd"], m["Qf"]
@@ -664,17 +685,18 @@ def make_pertrade_tensors(topo: StageTopology):
             Jlegs_nat = vmap(lambda ct: legs_vjp(ct)[0])(
                 _seeds(S, G, q))                           # [S, G, Ld]
 
-            def boot_z(Z, b=b, st=st, si=si, spreads=spreads, pv0=pv0,
-                       for_ds=for_ds, tf2=tf2, S=S):
+            def native_z(Z, b=b, st=st, spreads=spreads, pv0=pv0,
+                         for_ds=for_ds, tf2=tf2, S=S):
                 fd2 = for_ds + torch.einsum("gd,dgl->gl", Z, tf2)
-                ds = xccy_boot_ds(spreads + Z[:, :S], pv0 + Z[:, S:2 * S],
-                                  fd2, b, st)
-                return stage_rows(ds, its_of[si], b["row_plan"])
+                return xccy_boot_ds(spreads + Z[:, :S], pv0 + Z[:, S:2 * S],
+                                    fd2, b, st)
 
             Z0 = q.new_zeros((G, D2))
             seedsD = _seeds(D2, G, q)
-            _, drows2 = _jac(boot_z, Z0, seedsD)          # [D2, G, U]
-            rowsTx = _so_tensor(boot_z, Z0, seedsD)       # [D2, D2, G, U]
+            _, drows2 = _jac(lambda Z, native_z=native_z, rows=rows:
+                             rows(native_z(Z)), Z0, seedsD)  # [D2, G, U]
+            rowsTx = _so_tensor(native_z, Z0, seedsD,
+                                rows)[3]                 # [D2, D2, G, U]
 
             def boot_fd(fd, b=b, st=st, si=si, spreads=spreads, pv0=pv0):
                 ds = xccy_boot_ds(spreads, pv0, fd, b, st)
@@ -687,8 +709,8 @@ def make_pertrade_tensors(topo: StageTopology):
                 return legs(dom_ds + torch.einsum("gd,dgl->gl", Zd,
                                                   td_legs))
 
-            legsT = _so_tensor(legs_z, q.new_zeros((G, Qd)),
-                               _seeds(Qd, G, q))           # [Qd, Qd, G, S]
+            legsT = _so_fwd(legs_z, q.new_zeros((G, Qd)),
+                            _seeds(Qd, G, q))              # [Qd, Qd, G, S]
             so[si] = dict(Jpv=Jpv, Jlegs_nat=Jlegs_nat, drows2=drows2,
                           rowsTx=rowsTx, drows_fd=drows_fd, legsT=legsT)
         return so

@@ -10,7 +10,8 @@ first use. Phases:
 
 1. environment: the card's name and power limit, torch/CUDA/nvcc versions;
 2. build: compile and load the kernels (K1 pvs_sweep, K2 gamma quad form,
-   K3 per-trade quad form);
+   K3 per-trade quad form, K4 pv01_solve and K5 pv01_solve_t, the OIS
+   bootstrap's chain solve and its transpose);
 3. OIS slice: the flagship OIS book (7 curves, N = 144 quotes, 720 OIS
    tiled to 100,080 trades, 100 scenarios) through ``make_multibook_fn``
    on the structured risk split: one cold call, then 3 warm calls;
@@ -47,7 +48,8 @@ first use. Phases:
    its gamma at zero shock (1e-9 rel), the FRN's and the XCCY trade's
    ladders against a central FD of their PVs (1e-5 rel), each dense
    gamma symmetric and equal to its block (1e-10 rel);
-7c. the single-trade engine on phase 7's model (no kernel of its own):
+7c. the single-trade engine on phase 7's model (K4 / K5 its only
+   kernels):
    the README quick start (VALUE, DELTA, GAMMA through ``position(model)``
    with no device, so on the card); ``bench.py``'s config 2 on
    flagship_v5's 32-pillar GBP curve (a 10Y OIS: VALUE + DELTA + GAMMA
@@ -63,7 +65,10 @@ first use. Phases:
    counts of that path (none); the engine against the book of the GBP
    OIS and ZCIS (PVs at 1e-10, K1's per-trade ladders x 1e-4 at rtol
    1e-9 / 1e-8); a Portfolio per valuation currency equal to the sum of
-   its trades' PVs; an ``engine`` JSON line before the kernels line;
+   its trades' PVs; the forward-mode rule of ``ops/linear_solve`` on this
+   torch (one level counted under jacfwd(jacrev), two under
+   jacfwd(jacfwd), where the bootstrap raises); an ``engine`` JSON line
+   before the kernels line;
 7d. flagship_v5 on the fitted schemes (``flagship_v5.SPLINE_SCHEMES``:
    GBP PCHIP_LOG_DISCOUNT, USD PCHIP_ZERO_RATES, EUR
    NATCUBIC_LOG_DISCOUNT, JPY NATCUBIC_ZERO_RATES, AUD
@@ -105,7 +110,7 @@ first use. Phases:
    flagship OIS) cold + 3 warm (symmetric, = FD of the gamma, the
    184-quote book refused); a ``hostapi`` JSON line before the kernels
    line;
-7g. the OIS host analytics and the print tables (no kernel), after 7e
+7g. the OIS host analytics and the print tables (K4 / K5 only), after 7e
    and before 7f-c: ``bench.py``'s config-2 OIS on phase 7's flagship_v5
    GBP_OIS_SONIA, its ``pv01``, ``ir01`` and ``swap_rate`` cold + 20 warm
    on the host clock beside the engine's DELTA ladder sum (not gated);
@@ -114,7 +119,7 @@ first use. Phases:
    equals pv01 x notional x 1e-6 (1e-9 rel), and the OIS's
    ``print_payments`` / ``print_fixed_leg_pv`` / ``print_float_leg_pv``
    and a live basis swap's ``print_payments`` / ``print_valuation``
-   print one table row per payment; no kernel launched; an
+   print one table row per payment; none of K1-K3 launched; an
    ``analytics`` JSON line before the kernels line;
 7f. the sharded paths (``adrates_torch.parallel.distributed``) and the
    f32 ladders; (c) runs before phase 8 and (a), (b) after it, so phase
@@ -149,7 +154,13 @@ first use. Phases:
    per-trade paths; K1 also at phase 7e's single-curve book; K1's f32
    instantiation at the f32 ladders' Jv, against its f32 twin at 1e-5 x
    max|ref| with a cuSPARSE f32 SpMM yardstick; K3's blocks
-   also bit for bit symmetric), each timed
+   also bit for bit symmetric; K4 and K5 at the largest call of one
+   config-2 engine request and of one flagship_v5 staged call (region
+   A's seeds x scenarios x curves), K4 bit for bit equal to its plain
+   K-sweep and K5 at 1e-14 x max|ref|, with one batched
+   ``torch.linalg.solve_triangular`` on the dense (I - A) as the
+   yardstick and the kernel's time on one row a plan, its chain of P
+   dependent steps), each timed
    over 30 calls by CUDA events around the call (``ms``, which holds the
    wrapper's host work) and by the device time of its kernels in a
    torch.profiler trace (``device_ms``), the twin's time, K1's table
@@ -168,7 +179,10 @@ first use. Phases:
    line, and the final JSON line.
 
 Each path's kernel launch counts are set to 0 just before it runs and
-read just after. Any failed check raises, so the script exits non-zero
+read just after (or read before and after it). Every path that
+bootstraps an OIS curve on the card (phases 3-7g) reports its K4 / K5
+launches a call and fails unless K4 launched, and K5 too where the path
+differentiates in reverse mode. Any failed check raises, so the script exits non-zero
 and prints no result. It exits non-zero at once when no CUDA card is
 visible.
 """
@@ -327,19 +341,104 @@ def _check(name: str, err: float, bound: float):
         raise AssertionError(f"check {name} failed: {err!r} > {bound!r}")
 
 
+# every kernel's wrapper, by its launch-count key
+KERNELS = ("pvs_sweep", "gamma_quad_form_grouped", "pertrade_quad_form",
+           "pv01_solve", "pv01_solve_t")
+
+
 def _reset_launches():
     from adrates_torch.ops import kernels
-    kernels.pvs_sweep.launches = 0
-    kernels.gamma_quad_form_grouped.launches = 0
-    kernels.pertrade_quad_form.launches = 0
+    for k in KERNELS:
+        getattr(kernels, k).launches = 0
 
 
 def _launches() -> dict:
     from adrates_torch.ops import kernels
-    return {"pvs_sweep": kernels.pvs_sweep.launches,
-            "gamma_quad_form_grouped":
-                kernels.gamma_quad_form_grouped.launches,
-            "pertrade_quad_form": kernels.pertrade_quad_form.launches}
+    return {k: getattr(kernels, k).launches for k in KERNELS}
+
+
+def _launches_since(before: dict, calls: int) -> dict:
+    """The launches made since ``before`` (a ``_launches()``), with
+    ``calls``."""
+    return dict({k: n - before[k] for k, n in _launches().items()},
+                calls=calls)
+
+
+def _solve_launches(path: str, info: dict, reverse: bool = True):
+    """Report K4 / K5 launches a call on one path that bootstraps on the
+    card (``info``: its launch counts and ``calls``): K4 must have
+    launched, and K5 too where the path differentiates in reverse mode."""
+    k4, k5, n = info["pv01_solve"], info["pv01_solve_t"], info["calls"]
+    print(f"{path}: K4 pv01_solve {k4 / n:g} and K5 pv01_solve_t "
+          f"{k5 / n:g} launches a call ({n} calls)", flush=True)
+    if k4 <= 0 or (reverse and k5 <= 0):
+        raise AssertionError(f"{path}: the pv01 solve kernels were not "
+                             f"launched (K4 {k4}, K5 {k5})")
+
+
+def _capture_solves(run) -> dict:
+    """Run ``run()`` with K4's and K5's wrappers watched: per kernel, the
+    (rhs, denom, tables) of its call with the most rows, copied. The
+    kernels' own launch counts are left as they were."""
+    import torch
+
+    from adrates_torch.ops import kernels
+    keep = {}
+    orig = {k: getattr(kernels, k) for k in ("pv01_solve", "pv01_solve_t")}
+
+    def watched(name, f):
+        def g(rhs, denom, tab):
+            if name not in keep or rhs.shape[0] > keep[name][0].shape[0]:
+                keep[name] = (rhs.clone(), denom.clone(), tab)
+            return f(rhs, denom, tab)
+        g.launches, g.calls = f.launches, f.calls
+        return g
+
+    for name, f in orig.items():
+        setattr(kernels, name, watched(name, f))
+    try:
+        run()
+        torch.cuda.synchronize()
+    finally:
+        for name, f in orig.items():
+            setattr(kernels, name, f)
+    if sorted(keep) != sorted(orig):
+        raise AssertionError(f"the watched call ran {sorted(keep)} only")
+    return keep
+
+
+def _nested_forward_raises(curve, device) -> dict:
+    """The forward-mode rule of ``ops/linear_solve`` on this torch, on the
+    card: ``forward_levels`` (torch's private functorch interpreter stack)
+    counts one level under ``jacfwd(jacrev)`` and two under
+    ``jacfwd(jacfwd)``, where the bootstrap raises ``LibError``."""
+    import numpy as np
+    import torch
+    from torch.func import jacfwd, jacrev
+
+    from adrates_torch.ops import linear_solve
+    from adrates_torch.ops.bootstrap import bootstrap_ois, plan_to_torch
+    from adrates_torch.utils import LibError
+    plan = plan_to_torch(curve._plan, device)
+    r = torch.as_tensor(np.asarray(curve.swap_rates), device=device)
+    seen = []
+
+    def pv(x):
+        seen.append(linear_solve.forward_levels())
+        return bootstrap_ois(x, plan)[1].sum()
+
+    jacfwd(jacrev(pv))(r)
+    try:
+        jacfwd(jacfwd(pv))(r)
+        raised = False
+    except LibError:
+        raised = True
+    if seen != [1, 2] or not raised:
+        raise AssertionError(f"forward levels seen {seen}, raised {raised}")
+    print(f"nested forward mode on torch {torch.__version__}: levels "
+          f"{seen}, jacfwd(jacfwd) through the bootstrap raised LibError",
+          flush=True)
+    return dict(levels=seen, raised=raised, torch=torch.__version__)
 
 
 def _timed(f):
@@ -765,6 +864,9 @@ def run_per_trade(device, staged, mono, mb, q0, n_warm: int = 3):
         f"per-trade gamma blocks [{mb.n_trades} trades]",
         lambda q, _: blk_fn(q), q0, None, n_warm)
     infos["blocks"]["build_ms"] = build_ms
+    for key in ("ladders", "gamma_256", "blocks"):
+        _solve_launches(f"per-trade {key}", infos[key],
+                        reverse=key != "ladders")
     k_max = max(k for _, k, _ in blk_fn.group_meta)
     print(f"per-trade gamma blocks: builder {build_ms:.1f} ms (host "
           f"harvest + device tables); {blk_fn.n_groups} groups, k_max "
@@ -1056,9 +1158,18 @@ def run_engine(device, model, trades, coll, n_warm: int = 20):
     curve = model.curves.GBP_OIS_SONIA
     swap = _config2_swap(model)
     pos = swap.position(model, device=device)
+    before = _launches()
     res, rec["config2"] = _drive_request(pos, VDG, n_warm)
+    rec["config2"]["launches"] = _launches_since(before, 1 + n_warm)
+    _solve_launches("engine config 2", rec["config2"]["launches"])
     finite(res, "config 2")
+    before = _launches()
     res_s, rec["config2_speed"] = _drive_request(pos, [R.SPEED], 5)
+    rec["config2_speed"]["launches"] = _launches_since(before, 6)
+    _solve_launches("engine config 2 SPEED",
+                    rec["config2_speed"]["launches"])
+    rec["solve_inputs"] = _capture_solves(lambda: pos.compute(VDG))
+    rec["nested_forward"] = _nested_forward_raises(curve, device)
     for key, reqs in (("config2", VDG), ("config2_speed", [R.SPEED])):
         n_ops, d_ms = _request_device(lambda: pos.compute(reqs))
         rec[key].update(device_ops=n_ops, device_ms=d_ms)
@@ -1151,7 +1262,8 @@ def run_engine(device, model, trades, coll, n_warm: int = 20):
               f"{cold:.1f} ms, warm {warm:.1f} ms", flush=True)
 
     mark("the route trades")
-    # the engine's path launches none of K1-K3 (read before the book gate)
+    # the engine's path launches K4 / K5 and none of K1-K3 (read before
+    # the book gate)
     rec["main_path_launches"] = _launches()
     print(f"engine main path kernel launches: {rec['main_path_launches']}",
           flush=True)
@@ -1307,6 +1419,7 @@ def run_flagship_v5_splines(device, flat, n_warm: int = 3):
         if info[name] <= 0:
             raise AssertionError(f"{name} was not launched on the spline "
                                  f"book's staged path")
+    _solve_launches("flagship_v5 splines staged", info)
     _call_device("flagship_v5 splines staged", fn, q0, shocks, info)
     info["regions_ms"], a = _time_regions(fn, q0, shocks, device)
     _print_regions("flagship_v5 splines", a["dfs"].shape[0],
@@ -1335,6 +1448,8 @@ def run_flagship_v5_splines(device, flat, n_warm: int = 3):
     _reset_launches()
     out_gen, info["generic_ms"] = _timed(lambda: fn_gen(q0, shocks))
     info["generic_launches"] = _launches()
+    _solve_launches("flagship_v5 splines generic",
+                    dict(info["generic_launches"], calls=1))
     print(f"flagship_v5 splines generic: one call {info['generic_ms']:.1f} "
           f"ms; launches {info['generic_launches']}", flush=True)
     for k, bound in (("pvs", 1e-10), ("delta", 1e-9), ("gamma", 1e-8)):
@@ -1393,7 +1508,10 @@ def run_flagship_v5_splines(device, flat, n_warm: int = 3):
     # ---- the engine on the PCHIP GBP curve, a bond's analytics -----------
     swap = _config2_swap(model)
     pos = swap.position(model, device=device)
+    before = _launches()
     res, c2 = _drive_request(pos, VDG, 20)
+    c2["launches"] = _launches_since(before, 21)
+    _solve_launches("flagship_v5 splines engine config 2", c2["launches"])
     c2["device_ops"], c2["device_ms"] = _request_device(
         lambda: pos.compute(VDG))
     res_cpu, _ = _drive_request(swap.position(model, device="cpu"), VDG, 1)
@@ -1547,6 +1665,7 @@ def run_host_api(device, model, mb_big, n_warm: int = 3, device_arg=None):
           f"launches {_launches()}", flush=True)
     _check("quick start: second-order P&L error / first-order's", e2 / e1,
            1.0 - 1e-12)
+    _solve_launches("quick start", dict(_launches(), calls=1))
     rec["quick_start"] = dict(
         pv_10y=qs["pv_10y"], pnl_100bp=float(qs["pnl_100bp"]),
         pnl_order1=qs["pnl_order1"], pnl_order2=qs["pnl_order2"],
@@ -1588,6 +1707,7 @@ def run_host_api(device, model, mb_big, n_warm: int = 3, device_arg=None):
         _check(f"scenario_grid row {s} vs model.scenario DFs (abs)",
                float((grid[s].cpu() - ref).abs().max()), 1e-12)
     sg["shape"] = list(grid.shape)
+    _solve_launches("scenario_grid", sg, reverse=False)
     rec["scenario_grid"] = sg
     mark("scenario_grid")
 
@@ -1652,6 +1772,7 @@ def run_host_api(device, model, mb_big, n_warm: int = 3, device_arg=None):
     if info["pvs_sweep"] != info["calls"]:
         raise AssertionError(f"make_book_fn launched K1 {info['pvs_sweep']} "
                              f"times in {info['calls']} calls")
+    _solve_launches("single-curve book", info)
     pvs, delta, gamma = (out[k].cpu().numpy()
                          for k in ("pvs", "delta", "gamma"))
     for k, a in (("pvs", pvs), ("delta", delta), ("gamma", gamma)):
@@ -1757,6 +1878,7 @@ def run_host_api(device, model, mb_big, n_warm: int = 3, device_arg=None):
     if binfo["pvs_sweep"] != binfo["calls"]:
         raise AssertionError("make_bucketed_book_fn did not launch K1 once "
                              "a call")
+    _solve_launches("bucketed book", binfo)
     rec["bucketed"] = binfo
     del bout, mout, mono, tiled
     mark("bucketed book")
@@ -1780,6 +1902,7 @@ def run_host_api(device, model, mb_big, n_warm: int = 3, device_arg=None):
     speed_fn = make_multibook_speed_fn(mb2, device_arg)
     speed, sinfo = _warm_calls(f"book SPEED N={N2}, {len(trades)} trades",
                                lambda: speed_fn(q2), n_warm)
+    _solve_launches("book SPEED", sinfo)
     speed = speed.cpu().numpy()
     if speed.shape != (N2, N2, N2) or N2 != 64:
         raise AssertionError(f"SPEED shape {speed.shape}, N {N2}")
@@ -1913,8 +2036,12 @@ def run_ois_analytics(device, model, basis, n_warm: int = 20):
                                  f"rows for {n} payments")
     rec["table_rows"] = rows
     launched = {k: n for k, n in _launches().items() if n}
-    if launched:
-        raise AssertionError(f"analytics launched kernels: {launched}")
+    if set(launched) - {"pv01_solve", "pv01_solve_t"} \
+            or not launched.get("pv01_solve"):
+        raise AssertionError(f"analytics launched {launched}: K4 (its "
+                             f"card requests' bootstraps) and no K1-K3 "
+                             f"expected")
+    rec["launches"] = launched
     rec["phase_s"] = time.perf_counter() - t_phase
     print(f"phase 7g: every gate green; tables {rows} rows (one per "
           f"payment); {rec['phase_s']:.1f} s; card {card}", flush=True)
@@ -2041,6 +2168,7 @@ def _check_launches(name, info, where):
         raise AssertionError(f"{where} {name}: {kernel} launched "
                              f"{info[kernel]} times in {info['calls']} "
                              f"calls, expected {per_call} a call")
+    _solve_launches(f"{where} {name}", info, reverse=name != "ladders")
 
 
 def _sharded_gates(where, outs, refs, sel_n, tol_book):
@@ -2385,6 +2513,90 @@ def compare_f32_kernel(fn, q0) -> dict:
         library="torch.sparse.mm (cuSPARSE SpMM, f32) of the [B, M] trade "
                 "x column CSR by Jv",
         bound_ms=bound, bound_by=by, **_shares(bound, tm))
+
+
+def _dense_chain(denom, tab):
+    """[R, P, P] dense unit lower (I - A) of every row of a K4 / K5 call
+    (row r on plan row r mod G)."""
+    import torch
+    R, P = denom.shape
+    G = tab.prev.shape[0]
+    prev = tab.prev.long()[torch.arange(R, device=denom.device) % G]
+    M = torch.eye(P, dtype=denom.dtype, device=denom.device).repeat(R, 1, 1)
+    r, i = torch.nonzero(prev >= 0, as_tuple=True)
+    M[r, i, prev[r, i]] = -1.0 / denom[r, i]
+    return M
+
+
+def compare_solve_kernels(path, inputs) -> list:
+    """Phase 8's K4 and K5 records at one path's largest solve
+    (``inputs`` from ``_capture_solves``): K4 against its plain K-sweep
+    bit for bit, K5 against its child-table sweep at 1e-14 x max|ref|;
+    each timed beside its plain version and one batched
+    ``torch.linalg.solve_triangular`` on the dense unit triangular (I - A)
+    of every row (built outside the timed window; the port never calls
+    it), and on one row of each plan (its chain of P dependent steps,
+    which no number of rows shortens); its bound is bytes (each input
+    read once, the output written once) over the HBM rate against the
+    2 R P divisions and additions over the f64 rate."""
+    import torch
+
+    from adrates_torch.ops import kernels
+    recs = []
+    for name, line in (("pv01_solve", 332), ("pv01_solve_t", 338)):
+        rhs, denom, tab = inputs[name]
+        kern, plain = getattr(kernels, name), getattr(kernels, name + "_plain")
+        R, P = rhs.shape
+        G = tab.prev.shape[0]
+        ref = plain(rhs, denom, tab)
+        got = kern(rhs, denom, tab)
+        err = float((got - ref).abs().max())
+        if name == "pv01_solve":
+            _check(f"{path} K4 pv01_solve vs plain, bit for bit (abs)",
+                   err, 0.0)
+            if not torch.equal(got, ref):
+                raise AssertionError(f"{path} K4 differs from its plain "
+                                     f"version")
+        else:
+            _check(f"{path} K5 pv01_solve_t vs plain (abs / max|ref|)",
+                   err / float(ref.abs().max()), 1e-14)
+        M = _dense_chain(denom, tab)
+        if name == "pv01_solve_t":
+            M = M.mT.contiguous()
+        b3 = rhs.unsqueeze(-1)
+        upper = name == "pv01_solve_t"
+
+        def library():
+            return torch.linalg.solve_triangular(M, b3, upper=upper,
+                                                 unitriangular=True)
+
+        _check(f"{path} {name} yardstick solve_triangular vs plain (abs / "
+               f"max|ref|)", float((library()[..., 0] - ref).abs().max()
+                                   / ref.abs().max()), 1e-12)
+        tm = _timings(lambda: kern(rhs, denom, tab),
+                      lambda: plain(rhs, denom, tab), library)
+        r1, d1 = rhs[:G].contiguous(), denom[:G].contiguous()
+        chain = _device_stats(lambda: kern(r1, d1, tab))
+        chain_ms = chain and chain["median"]
+        nbytes = 24 * R * P + 4 * G * P
+        bound, by = _bound(nbytes, 2.0 * R * P, FP64_FLOPS)
+        print(f"{path} {name} [R, P]={[R, P]} on {G} plan(s): "
+              f"{_fmt_tm(tm)}; one row a plan {_fmt_ms(chain_ms)} (the "
+              f"chain); bound {bound * 1e3:.2f} us ({by}, "
+              f"{nbytes / 1e6:.2f} MB)", flush=True)
+        recs.append(dict(
+            name=name, path=path, route="cuda",
+            source="adrates_torch/csrc/pv01_solve.cu",
+            replaces=f"adrates_tpu/ops/bootstrap.py:{line}",
+            max_abs_err=err, **tm,
+            library="torch.linalg.solve_triangular (unitriangular) on the "
+                    "dense [R, P, P] (I - A)" + ("^T" if upper else ""),
+            bound_ms=bound, bound_by=by, **_shares(bound, tm),
+            rows=R, points=P, plans=G, chain_ms=chain_ms,
+            chain_share=chain_ms and tm["device_ms"]
+            and chain_ms / tm["device_ms"]))
+        del M
+    return recs
 
 
 def compare_kernels(path, fn, mb, q0, shocks, device, chunk):
@@ -2781,7 +2993,8 @@ def main() -> int:
 
     # ---- phase 2: build ------------------------------------------------
     secs = kernels.build_kernels()
-    print(f"build: K1 (f64, f32), K2 + K3 built and loaded in {secs:.2f} s "
+    print(f"build: K1 (f64, f32), K2, K3, K4 + K5 built and loaded in "
+          f"{secs:.2f} s "
           f"({kernels.library_path().name})", flush=True)
 
     # ---- phases 3-7b ----------------------------------------------------
@@ -2791,6 +3004,9 @@ def main() -> int:
         device)
     ref_f = info_f.pop("ref")
     pt_fns, pt_infos = run_per_trade(device, staged_f, fn_f, mb_f, q_f)
+    # K4 / K5 at their largest calls of one warm staged call (region A's
+    # seeds x scenarios x curves), for phase 8
+    solve_f = _capture_solves(lambda: staged_f(q_f, sh_f))
     del staged_f
     # phase 7c on phase 7's model and base trades (the same seed and draw
     # order rebuild them)
@@ -2799,6 +3015,7 @@ def main() -> int:
     base, coll = flagship_v5.build_base_trades(
         model_f, np.random.default_rng(flagship_v5.SEED))
     engine = run_engine(device, model_f, base, coll)
+    solve_e = engine.pop("solve_inputs")
     splines = run_flagship_v5_splines(device, info_f)
     hostapi, book_args = run_host_api(device, model_f, mb_f)
     # phase 7g on phase 7's model: config 2's OIS and a live basis swap
@@ -2815,6 +3032,7 @@ def main() -> int:
             if info[name] <= 0:
                 raise AssertionError(f"{name} was not launched on the "
                                      f"{path} path")
+        _solve_launches(path, info)
 
     # ---- phase 8 (before 7f-a/b: no process group, no spawned rank) ------
     infos = dict(ois_slice=info_o, ois_xccy_book=info_x, flagship_v5=info_f)
@@ -2828,11 +3046,15 @@ def main() -> int:
     records.append(compare_book_kernel(*book_args))
     records.append(compare_f32_kernel(lad32_fn, q_f))
     del lad32_fn
+    records += compare_solve_kernels("engine_config2", solve_e)
+    records += compare_solve_kernels("flagship_v5", solve_f)
+    del solve_e, solve_f
     infos.update(flagship_v5_ladders=pt_infos["ladders"],
                  flagship_v5_gamma_256=pt_infos["gamma_256"],
                  flagship_v5_gamma_blocks=pt_infos["blocks"],
                  single_curve_book=book_args[4],
-                 flagship_v5_ladders_f32=info32)
+                 flagship_v5_ladders_f32=info32,
+                 engine_config2=engine["config2"]["launches"])
     for r in records:
         info = infos[r["path"]]
         r["launches"] = info[r["name"]]

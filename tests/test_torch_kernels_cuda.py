@@ -426,3 +426,68 @@ def test_per_trade_paths_on_cuda_match_cpu(dev):
         mb, sel, "cpu")(q0)) <= 1e-12
     for g, r in zip(blk, tpb.make_per_trade_gamma_blocks_fn(mb, "cpu")(q0)):
         assert _rel_err(g.blocks.cpu(), r.blocks) <= 1e-12
+
+
+@pytest.mark.parametrize("G", [1, 3])
+@pytest.mark.parametrize("P", [1, 2, 72, 300])
+@pytest.mark.parametrize("R", [1, 3, 33, 4097])
+def test_pv01_solve_kernels_match_plain(dev, R, P, G):
+    """K4 equals its plain K-sweep bit for bit; K5 its child-table sweep
+    within 1e-14 x max|ref| (it adds a point's children in another
+    order). With G = 3 plans, R x 3 rows, row r on plan row r mod 3."""
+    rng = np.random.default_rng(1000 * P + 10 * R + G)
+    prev, ci, cm, depth = cases.chain_forest(rng, P, G=G,
+                                             pad=2 if P > 2 else 0)
+    tab = kernels.chain_tables(prev, ci, cm, depth, dev)
+    rows = R * G
+    b = torch.tensor(rng.normal(size=(rows, P)), device=dev)
+    d = torch.tensor(1.0 + rng.uniform(0.01, 0.5, size=(rows, P)),
+                     device=dev)
+    before = (kernels.pv01_solve.launches, kernels.pv01_solve_t.launches)
+    x = kernels.pv01_solve(b, d, tab)
+    y = kernels.pv01_solve_t(b, d, tab)
+    assert (kernels.pv01_solve.launches,
+            kernels.pv01_solve_t.launches) == (before[0] + 1, before[1] + 1)
+    x_ref = kernels.pv01_solve_plain(b, d, tab)
+    y_ref = kernels.pv01_solve_t_plain(b, d, tab)
+    torch.cuda.synchronize()
+    assert torch.equal(x, x_ref)
+    assert _rel_err(y, y_ref) <= 1e-14
+
+
+def test_bootstrap_tower_on_cuda_matches_cpu(dev):
+    """bootstrap_ois's value, jacobian, Hessian and third order on the
+    card (K4 and K5 under every level) equal the CPU's plain sweeps."""
+    from torch.func import jacfwd, jacrev
+
+    from adrates_torch.models import Model
+    from adrates_torch.ops import bootstrap as tboot
+    from adrates_torch.utils import Date, DayCountTypes
+    m = Model(Date(1, 1, 2024))
+    c = m.build_curve("GBP_OIS_SONIA", px_list=[5.0, 4.7, 4.3, 3.9, 3.87],
+                      tenor_list=["6M", "1Y", "2Y", "5Y", "10Y"],
+                      fixed_dcc_type=DayCountTypes.ACT_365F,
+                      float_dc_type=DayCountTypes.ACT_365F)
+    w = np.random.default_rng(8).normal(size=c._plan.point_times.shape[0]
+                                        + 1)
+    r = np.array([5.0, 4.7, 4.3, 3.9, 3.87]) / 100.0
+
+    def orders(device):
+        plan = tboot.plan_to_torch(c._plan, device)
+        wt = torch.tensor(w, device=device)
+
+        def pv(x):
+            return torch.dot(wt, tboot.bootstrap_ois(x, plan)[1])
+
+        x = torch.tensor(r, device=device)
+        return [pv(x), jacrev(pv)(x), jacfwd(jacrev(pv))(x),
+                jacfwd(jacrev(jacrev(pv)))(x)]
+
+    before = (kernels.pv01_solve.launches, kernels.pv01_solve_t.launches)
+    got = orders(dev)
+    torch.cuda.synchronize()
+    # 1 + 1 + 2 + 4 forward solves, 0 + 1 + 2 + 4 transpose solves
+    assert kernels.pv01_solve.launches - before[0] == 8
+    assert kernels.pv01_solve_t.launches - before[1] == 7
+    for g, ref in zip(got, orders("cpu")):
+        assert _rel_err(g.cpu(), ref) <= 1e-12

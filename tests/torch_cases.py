@@ -781,3 +781,42 @@ def quickstart_book_swaps(pkg: str, rng):
                 float_dc_type=u.DayCountTypes.ACT_365F,
                 bd_type=u.BusDayAdjustTypes.MODIFIED_FOLLOWING)
             for i, ten in enumerate(["2Y", "5Y", "10Y", "30Y"] * 5)]
+
+
+def chain_forest(rng, P: int, G: int = 1, depth: int = None, pad: int = 0):
+    """A random OIS-style point plan for the pv01 chain solve, as the
+    host arrays of ``ops/kernels.chain_tables``: each of ``G`` rows has
+    several roots and branching chains (every link strictly backward),
+    the last ``pad`` points of a row roots, as a stacked stage pads; with
+    ``depth`` given, row 0 opens with one chain that long. Returns
+    (prev [P] or [G, P], child_idx, child_mask, depth)."""
+    prev = np.full((G, P), -1, dtype=np.int64)
+    for g in range(G):
+        live = P - pad
+        lo = 0
+        if depth is not None and g == 0:
+            prev[g, 1:depth] = np.arange(depth - 1)
+            lo = depth
+        for i in range(max(lo, 1), live):
+            if rng.random() > 0.15:
+                prev[g, i] = rng.integers(max(0, i - 6), i)
+    depths = np.zeros((G, P), dtype=np.int64)
+    for g in range(G):
+        for i in range(P):
+            p = prev[g, i]
+            depths[g, i] = 1 if p < 0 else depths[g, p] + 1
+    kids = [[[] for _ in range(P)] for _ in range(G)]
+    for g in range(G):
+        for i in range(P):
+            if prev[g, i] >= 0:
+                kids[g][prev[g, i]].append(i)
+    kc = max(1, max(len(c) for row in kids for c in row))
+    child_idx = np.zeros((G, P, kc), dtype=np.int64)
+    child_mask = np.zeros((G, P, kc))
+    for g in range(G):
+        for j, c in enumerate(kids[g]):
+            child_idx[g, j, :len(c)] = c
+            child_mask[g, j, :len(c)] = 1.0
+    if G == 1:
+        prev, child_idx, child_mask = prev[0], child_idx[0], child_mask[0]
+    return prev, child_idx, child_mask, int(depths.max())
