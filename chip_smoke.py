@@ -2551,10 +2551,11 @@ def compare_solve_kernels(path, inputs) -> list:
         ref = plain(rhs, denom, tab)
         got = kern(rhs, denom, tab)
         err = float((got - ref).abs().max())
+        exact = bool(torch.equal(got, ref))
         if name == "pv01_solve":
             _check(f"{path} K4 pv01_solve vs plain, bit for bit (abs)",
                    err, 0.0)
-            if not torch.equal(got, ref):
+            if not exact:
                 raise AssertionError(f"{path} K4 differs from its plain "
                                      f"version")
         else:
@@ -2583,7 +2584,7 @@ def compare_solve_kernels(path, inputs) -> list:
         print(f"{path} {name} [R, P]={[R, P]} on {G} plan(s): "
               f"{_fmt_tm(tm)}; one row a plan {_fmt_ms(chain_ms)} (the "
               f"chain); bound {bound * 1e3:.2f} us ({by}, "
-              f"{nbytes / 1e6:.2f} MB)", flush=True)
+              f"{nbytes / 1e6:.2f} MB); bit for bit {exact}", flush=True)
         recs.append(dict(
             name=name, path=path, route="cuda",
             source="adrates_torch/csrc/pv01_solve.cu",
@@ -2592,7 +2593,8 @@ def compare_solve_kernels(path, inputs) -> list:
             library="torch.linalg.solve_triangular (unitriangular) on the "
                     "dense [R, P, P] (I - A)" + ("^T" if upper else ""),
             bound_ms=bound, bound_by=by, **_shares(bound, tm),
-            rows=R, points=P, plans=G, chain_ms=chain_ms,
+            rows=R, points=P, plans=G, bit_for_bit=exact, chain_ms=chain_ms,
+            chain_step_ns=chain_ms and chain_ms * 1e6 / P,
             chain_share=chain_ms and tm["device_ms"]
             and chain_ms / tm["device_ms"]))
         del M

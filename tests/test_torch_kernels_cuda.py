@@ -455,6 +455,66 @@ def test_pv01_solve_kernels_match_plain(dev, R, P, G):
     assert _rel_err(y, y_ref) <= 1e-14
 
 
+def _solve_both(dev, kind, R, b, d):
+    """K4 and K5 (one launch each) and their plain versions on
+    ``torch_cases.chain_edge_plan(kind)``, R rows a plan."""
+    tab = kernels.chain_tables(*cases.chain_edge_plan(kind), dev)
+    G = tab.prev.shape[0]
+    b = torch.tensor(b(R * G), device=dev)
+    d = torch.tensor(d(R * G), device=dev)
+    before = (kernels.pv01_solve.launches, kernels.pv01_solve_t.launches)
+    x = kernels.pv01_solve(b, d, tab)
+    y = kernels.pv01_solve_t(b, d, tab)
+    assert (kernels.pv01_solve.launches,
+            kernels.pv01_solve_t.launches) == (before[0] + 1, before[1] + 1)
+    x_ref = kernels.pv01_solve_plain(b, d, tab)
+    y_ref = kernels.pv01_solve_t_plain(b, d, tab)
+    torch.cuda.synchronize()
+    return x, x_ref, y, y_ref
+
+
+@pytest.mark.parametrize("kind, R", [("padded_stack", 1600),
+                                     ("one_chain", 33), ("interleaved", 33)])
+def test_pv01_solve_kernels_match_plain_on_edge_plans(dev, kind, R):
+    """K4 and K5 bit for bit on plans where no point has two children:
+    region A's shape (flagship_v5's OIS stage, G = 7 padded plans, 1,600
+    rows each: [11,200, 72]), one chain of 72 (every link the point just
+    before) and two interleaved chains (none)."""
+    rng = np.random.default_rng(R + len(kind))
+    x, x_ref, y, y_ref = _solve_both(
+        dev, kind, R, lambda n: rng.normal(size=(n, 72)),
+        lambda n: 1.0 + rng.uniform(0.01, 0.5, size=(n, 72)))
+    assert torch.equal(x, x_ref)
+    assert _rel_err(y, y_ref) <= 1e-14
+    assert torch.equal(y, y_ref)
+
+
+@pytest.mark.parametrize("kind", ["padded_stack", "one_chain"])
+def test_pv01_solve_kernels_exact_outside_the_fast_range(dev, kind):
+    """Values for which the kernels' split division must fall back to the
+    IEEE v / d (zeros of either sign, denormals and magnitudes beyond
+    2^+-400 in b, beyond 2^400 in d) among ordinary ones: K4 and K5 still
+    equal their plain versions."""
+    rng = np.random.default_rng(len(kind))
+
+    def b(n):
+        v = rng.normal(size=(n, 72))
+        m = rng.random(v.shape) < 0.15
+        v[m] = rng.choice([0.0, -0.0, 1e-310, -1e-150, 1e-125, 1e150,
+                           -1e130], m.sum())
+        return v
+
+    def d(n):
+        v = 1.0 + rng.uniform(0.01, 0.5, size=(n, 72))
+        m = rng.random(v.shape) < 0.05
+        v[m] = rng.choice([1e150, 2e125], m.sum())
+        return v
+
+    x, x_ref, y, y_ref = _solve_both(dev, kind, 9, b, d)
+    assert torch.equal(x, x_ref)
+    assert torch.equal(y, y_ref)
+
+
 def test_bootstrap_tower_on_cuda_matches_cpu(dev):
     """bootstrap_ois's value, jacobian, Hessian and third order on the
     card (K4 and K5 under every level) equal the CPU's plain sweeps."""

@@ -15,8 +15,11 @@ adrates_tpu's ``lax.custom_linear_solve`` and against unrolled sweeps.
 - Two forward-mode levels through a solve raise ``LibError``.
 - The number of solves a composition runs does not grow with the plan's
   depth (the wrappers' ``calls``, kept apart from ``launches``).
-- K4's single pass, emulated in numpy, equals its plain version bit for
-  bit; K5's within 1e-14 x max|ref|.
+- K4's single pass, emulated in numpy as the kernel walks it (the
+  carried value, far links read ahead), equals its plain version bit for
+  bit; K5's within 1e-14 x max|ref|, and bit for bit on plans where no
+  point has two children (one chain, interleaved chains, flagship_v5's
+  padded OIS stage).
 """
 
 import jax
@@ -464,45 +467,80 @@ def test_bootstrap_gamma_tower_solves(ois_refs, case):
 
 
 def _k4_emulated(b, d, prev):
-    """K4's single ascending pass per row, in numpy scalars."""
+    """K4's single ascending pass per row, in numpy scalars, as the kernel
+    walks it: where a point's link is the point just before, the value
+    carried from the last step; a far link's value read a step ahead; a
+    root's 0. Each x_i = b_i + v / d_i."""
     R, P = b.shape
     G = prev.shape[0]
     x = b.copy()
     for r in range(R):
         pv = prev[r % G]
+        carry = ahead = 0.0
         for i in range(P):
-            v = x[r, pv[i]] if pv[i] >= 0 else 0.0
-            x[r, i] = x[r, i] + v / d[r, i]
+            v = carry if pv[i] == i - 1 else ahead
+            pn = pv[i + 1] if i + 1 < P else -1
+            ahead = x[r, pn] if 0 <= pn < i else 0.0
+            carry = x[r, i] = b[r, i] + v / d[r, i]
     return x
 
 
 def _k5_emulated(c, d, prev):
-    """K5's single descending pass per row, in numpy scalars."""
+    """K5's single descending pass per row, in numpy scalars, as the kernel
+    walks it: y_i = (c_i + f_i) + the adjacent child's y_{i+1} / d_{i+1}
+    (carried), f_i the far children's terms summed from 0 in descending
+    order."""
     R, P = c.shape
     G = prev.shape[0]
     y = c.copy()
     for r in range(R):
         pv = prev[r % G]
+        f = np.zeros(P)
+        carry = 0.0
         for i in range(P - 1, -1, -1):
-            if pv[i] >= 0:
-                y[r, pv[i]] += y[r, i] / d[r, i]
+            ahead = c[r, i] + f[i]
+            y[r, i] = ahead + carry if i + 1 < P and pv[i + 1] == i \
+                else ahead
+            carry = y[r, i] / d[r, i]
+            if pv[i] >= 0 and pv[i] != i - 1:
+                f[pv[i]] += carry
     return y
+
+
+def _pass_inputs(rng, R, P):
+    return rng.normal(size=(R, P)), 1.0 + rng.uniform(0.01, 0.4, size=(R, P))
 
 
 @pytest.mark.parametrize("G", [1, 3])
 def test_kernel_passes_match_plain(G):
     tab, prev = _tables(P=23, G=G, pad=2 if G > 1 else 0, seed=40 + G)
     prev = np.asarray(prev).reshape(G, -1)
-    rng = np.random.default_rng(G)
-    R, P = 4 * G, prev.shape[1]
-    b = rng.normal(size=(R, P))
-    d = 1.0 + rng.uniform(0.01, 0.4, size=(R, P))
+    b, d = _pass_inputs(np.random.default_rng(G), 4 * G, prev.shape[1])
     tb, td = torch.tensor(b), torch.tensor(d)
     x = kernels.pv01_solve(tb, td, tab)
     assert torch.equal(x, torch.tensor(_k4_emulated(b, d, prev)))
     assert torch.equal(x, kernels.pv01_solve_plain(tb, td, tab))
     y = kernels.pv01_solve_t(tb, td, tab)
     _close(y.numpy(), _k5_emulated(b, d, prev), 1e-14)
+
+
+@pytest.mark.parametrize("kind", ["one_chain", "interleaved", "padded_stack"])
+def test_kernel_passes_on_edge_plans(kind):
+    """On plans where no point has two children, both passes equal their
+    plain sweeps bit for bit: one chain of 72 (every link the point just
+    before), two interleaved chains (none), and flagship_v5's OIS stage
+    shape (G = 7, padded)."""
+    prev, ci, cm, depth = cases.chain_edge_plan(kind)
+    tab = kernels.chain_tables(prev, ci, cm, depth, "cpu")
+    prev = prev.reshape(-1, prev.shape[-1])
+    G, P = prev.shape
+    b, d = _pass_inputs(np.random.default_rng(len(kind)), 3 * G, P)
+    tb, td = torch.tensor(b), torch.tensor(d)
+    x = kernels.pv01_solve_plain(tb, td, tab)
+    assert torch.equal(x, torch.tensor(_k4_emulated(b, d, prev)))
+    assert torch.equal(x, kernels.pv01_solve(tb, td, tab))
+    y = kernels.pv01_solve_t_plain(tb, td, tab)
+    assert torch.equal(y, torch.tensor(_k5_emulated(b, d, prev)))
 
 
 def test_chain_tables_refuse_a_forward_link():

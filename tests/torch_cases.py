@@ -800,16 +800,27 @@ def chain_forest(rng, P: int, G: int = 1, depth: int = None, pad: int = 0):
         for i in range(max(lo, 1), live):
             if rng.random() > 0.15:
                 prev[g, i] = rng.integers(max(0, i - 6), i)
+    return chain_plan(prev[0] if G == 1 else prev)
+
+
+def chain_plan(prev):
+    """The host arrays of ``ops/kernels.chain_tables`` for the links
+    ``prev`` [P] or [G, P] (-1 at a root, every link strictly backward):
+    (prev, child_idx, child_mask, depth), children in ascending order as
+    the JAX package's plan lists them."""
+    prev = np.asarray(prev, dtype=np.int64)
+    rows = prev.reshape(-1, prev.shape[-1])
+    G, P = rows.shape
     depths = np.zeros((G, P), dtype=np.int64)
     for g in range(G):
         for i in range(P):
-            p = prev[g, i]
+            p = rows[g, i]
             depths[g, i] = 1 if p < 0 else depths[g, p] + 1
     kids = [[[] for _ in range(P)] for _ in range(G)]
     for g in range(G):
         for i in range(P):
-            if prev[g, i] >= 0:
-                kids[g][prev[g, i]].append(i)
+            if rows[g, i] >= 0:
+                kids[g][rows[g, i]].append(i)
     kc = max(1, max(len(c) for row in kids for c in row))
     child_idx = np.zeros((G, P, kc), dtype=np.int64)
     child_mask = np.zeros((G, P, kc))
@@ -817,6 +828,28 @@ def chain_forest(rng, P: int, G: int = 1, depth: int = None, pad: int = 0):
         for j, c in enumerate(kids[g]):
             child_idx[g, j, :len(c)] = c
             child_mask[g, j, :len(c)] = 1.0
-    if G == 1:
-        prev, child_idx, child_mask = prev[0], child_idx[0], child_mask[0]
-    return prev, child_idx, child_mask, int(depths.max())
+    shape = prev.shape + (kc,)
+    return (prev, child_idx.reshape(shape), child_mask.reshape(shape),
+            int(depths.max()))
+
+
+def chain_edge_plan(kind: str):
+    """The pv01 chain plans the K4 / K5 tests hold apart from the random
+    forests, as ``chain_plan`` arrays: ``one_chain`` (P = 72, every link
+    the point just before), ``interleaved`` (P = 72, two chains, no link
+    the point just before) and ``padded_stack`` (G = 7 rows of P = 72
+    shaped as flagship_v5's OIS stage: three of 72 points, 12 roots and
+    two far links, four of 42 points, 3 roots, padded with roots)."""
+    P = 72
+    i = np.arange(P)
+    if kind == "one_chain":
+        return chain_plan(i - 1)
+    if kind == "interleaved":
+        return chain_plan(np.where(i >= 2, i - 2, -1))
+    if kind == "padded_stack":
+        long = np.where(i >= 14, i - 1, -1)
+        long[12], long[13] = 5, 11
+        short = np.full(P, -1)
+        short[3:42] = np.arange(2, 41)
+        return chain_plan(np.stack([long] * 3 + [short] * 4))
+    raise ValueError(kind)
