@@ -3,7 +3,10 @@ twins, the static tables they run on, and the build that binds them.
 
 K1 ``pvs_sweep`` (``csrc/pvs_sweep.cu``) replaces
 ``adrates_tpu/parallel/multibook.py:_pvs_sweep`` (:1782, the gather and
-row/trade sums). K2 ``gamma_quad_form_grouped``
+row/trade sums) with a scenario-major kernel writing [S, B], and the
+per-trade ladder contraction of ``make_per_trade_delta_fn`` (:2842)
+with a trade-major kernel writing [B, N] (``trade_major=True``, launch
+plan :func:`sweep_plan`). K2 ``gamma_quad_form_grouped``
 (``csrc/gamma_quad_form.cu``) replaces ``_gamma_quad_form_grouped``
 (:1660, the trip term). K3 ``pertrade_quad_form``
 (``csrc/pertrade_quad_form.cu``) replaces the per-trade quad forms of
@@ -15,10 +18,10 @@ K5 ``pv01_solve_t`` (``csrc/pv01_solve.cu``) replace the ``solve`` and
 pv01 chain (I - A) x = b and its transpose; ``ops/linear_solve`` makes
 them the derivatives of each other. K1-K3 are forward-only (their
 derivatives are closed form elsewhere). All five are f64; K1
-also has an f32 instantiation for the f32 ladders
+also has f32 instantiations for the f32 ladders
 (``make_per_trade_delta_fn(dtype=torch.float32)``, the JAX package's
-``dtype`` option at ``multibook.py:2825-2829``), which reads, sums and
-writes f32. Each source file says what bounds it on the card and how its
+``dtype`` option at ``multibook.py:2825-2829``), which read, sum and
+write f32. Each source file says what bounds it on the card and how its
 design answers that.
 
 Tables: each kernel runs on static tables built once per book, on the
@@ -77,6 +80,8 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "pvs_sweep_f64": [_P, _I, _I, _P, _P, _P, _P, _P, _I, _P, _P],
     "pvs_sweep_f32": [_P, _I, _I, _P, _P, _P, _P, _P, _I, _P, _P],
+    "pvs_sweep_tm_f64": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P, _P],
+    "pvs_sweep_tm_f32": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P, _P],
     "gamma_groups_f64": [_P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P,
                          _P, _I, _I, _I, _P, _P, _P],
     "gamma_reduce_f64": [_P, _I, _I, _P, _P, _I, _P, _P],
@@ -248,11 +253,13 @@ def sweep_tables(trade: torch.Tensor, col: torch.Tensor, w: torch.Tensor,
         bptr=bptr, brow=(bkey % n_cols).to(torch.int32))
 
 
-def pvs_sweep_plain(vT: torch.Tensor, tab: SweepTables) -> torch.Tensor:
+def pvs_sweep_plain(vT: torch.Tensor, tab: SweepTables,
+                    trade_major: bool = False) -> torch.Tensor:
     """Plain twin of K1, written from ``_pvs_sweep``: the [S, B] trade
     PVs, sum over each trade's slots of w · vT[col, :], from the [M, S]
     value table and the tables of :func:`sweep_tables`, in the dtype of
-    ``vT`` (the tables' weights are in that dtype too)."""
+    ``vT`` (the tables' weights are in that dtype too); with
+    ``trade_major`` the same sums as [B, S] (the ladders' layout)."""
     S = vT.shape[1]
     trade, col, w = tab.slot_trade(), tab.slot_col(), tab.slot_w
     out = torch.zeros((tab.n_trades, S), dtype=vT.dtype, device=vT.device)
@@ -261,7 +268,7 @@ def pvs_sweep_plain(vT: torch.Tensor, tab: SweepTables) -> torch.Tensor:
     for lo in range(0, w.shape[0], chunk):
         sl = slice(lo, lo + chunk)
         out.index_add_(0, trade[sl], w[sl, None] * vT[col[sl]])
-    return out.T.contiguous()
+    return out if trade_major else out.T.contiguous()
 
 
 def sweep_tables_as(tab: SweepTables, dtype) -> SweepTables:
@@ -270,26 +277,69 @@ def sweep_tables_as(tab: SweepTables, dtype) -> SweepTables:
     return dataclasses.replace(tab, slot_w=tab.slot_w.to(dtype))
 
 
-# K1's entry point and the elements of a 16-byte piece, by dtype
-_SWEEP_ENTRY = {torch.float64: ("pvs_sweep_f64", 2),
-                torch.float32: ("pvs_sweep_f32", 4)}
+# K1's entry points (scenario-major, trade-major), the elements of a
+# 16-byte piece and the pieces a lane owns in a trade-major pass, by dtype
+_SWEEP_ENTRY = {torch.float64: ("pvs_sweep_f64", "pvs_sweep_tm_f64", 2, 3),
+                torch.float32: ("pvs_sweep_f32", "pvs_sweep_tm_f32", 4, 2)}
+# the trade-major kernel's ring (csrc/pvs_sweep.cu kTMStages, kTMRows):
+# at most 98 KB at any N, so two blocks of 512 threads stay on an SM
+SWEEP_STAGES = 2
+SWEEP_ROWS = 32
 
 
-def pvs_sweep(vT: torch.Tensor, tab: SweepTables) -> torch.Tensor:
+@dataclasses.dataclass(frozen=True)
+class SweepPlan:
+    """The trade-major K1 launch for ``n_cols`` output columns: ``passes``
+    column passes of up to ``width`` columns (grid.y), ``pieces`` 16-byte
+    pieces a lane of ``vec`` elements each; the value table's row stride
+    ``ld`` (whole pieces); a stage row of ``pitch`` elements and
+    ``smem_bytes`` for the ring of ``SWEEP_STAGES`` stages of
+    ``SWEEP_ROWS`` rows."""
+    width: int
+    passes: int
+    pieces: int
+    vec: int
+    ld: int
+    pitch: int
+    smem_bytes: int
+
+
+def sweep_plan(n_cols: int, dtype) -> SweepPlan:
+    """The trade-major K1 launch plan (see :class:`SweepPlan`): a pass is
+    32 lanes x ``pieces`` x ``vec`` columns (192 f64, 256 f32), so at
+    N <= width one pass reads the slot tables once; a stage row holds the
+    widest pass."""
+    if dtype not in _SWEEP_ENTRY:
+        raise TypeError(f"no K1 for dtype {dtype}")
+    _, _, vec, pieces = _SWEEP_ENTRY[dtype]
+    size = torch.empty((), dtype=dtype).element_size()
+    width = 32 * pieces * vec
+    n = int(n_cols)
+    ld = -(-n // vec) * vec
+    pitch = min(ld, width)
+    return SweepPlan(width=width, passes=-(-n // width), pieces=pieces,
+                     vec=vec, ld=ld, pitch=pitch,
+                     smem_bytes=SWEEP_STAGES * SWEEP_ROWS * pitch * size)
+
+
+def pvs_sweep(vT: torch.Tensor, tab: SweepTables,
+              trade_major: bool = False) -> torch.Tensor:
     """K1: [S, B] trade PVs (see :func:`pvs_sweep_plain`) in one launch,
     in f64 or in f32 (``vT``'s dtype, which the tables' weights must
     share: :func:`sweep_tables_as`; the f32 kernel reads, sums and writes
-    f32). ``vT`` is [M, S] with unit column stride; a 16-byte aligned
-    row stride that holds whole 16-byte pieces is taken as it is, else
-    the rows are copied into such a buffer first."""
+    f32). With ``trade_major`` the trade-major kernel writes the [B, S]
+    sums itself (the ladders: S = N quotes; :func:`sweep_plan`). ``vT`` is
+    [M, S] with unit column stride; a 16-byte aligned row stride that
+    holds whole 16-byte pieces is taken as it is, else the rows are
+    copied into such a buffer first."""
     if not vT.is_cuda:
-        return pvs_sweep_plain(vT, tab)
+        return pvs_sweep_plain(vT, tab, trade_major)
     dev = vT.device
     M, S = vT.shape
     if vT.dtype not in _SWEEP_ENTRY:
         raise TypeError(f"vT has dtype {vT.dtype}, expected torch.float64 "
                         f"or torch.float32")
-    entry, vec = _SWEEP_ENTRY[vT.dtype]
+    entry, entry_tm, vec, _ = _SWEEP_ENTRY[vT.dtype]
     if M != tab.n_cols:
         raise ValueError(f"vT has {M} rows, the tables {tab.n_cols}")
     if vT.stride(1) != 1 or vT.stride(0) % vec or vT.data_ptr() % 16:
@@ -300,14 +350,21 @@ def pvs_sweep(vT: torch.Tensor, tab: SweepTables) -> torch.Tensor:
         _need(getattr(tab, name), name, torch.int32, 1, dev)
     _need(tab.slot_w, "slot_w", vT.dtype, 1, dev)
     B = tab.n_trades
-    out = torch.empty((S, B), dtype=vT.dtype, device=dev)
+    out = torch.empty((B, S) if trade_major else (S, B), dtype=vT.dtype,
+                      device=dev)
     if S == 0 or B == 0:
         return out
     build_kernels()
-    _check(getattr(_lib, entry)(
-        vT.data_ptr(), vT.stride(0), S, tab.tptr.data_ptr(),
-        tab.slot_row.data_ptr(), tab.slot_w.data_ptr(), tab.bptr.data_ptr(),
-        tab.brow.data_ptr(), B, out.data_ptr(), _stream(dev)), entry)
+    ptrs = (tab.tptr.data_ptr(), tab.slot_row.data_ptr(),
+            tab.slot_w.data_ptr(), tab.bptr.data_ptr(), tab.brow.data_ptr(),
+            B, out.data_ptr(), _stream(dev))
+    if trade_major:
+        plan = sweep_plan(S, vT.dtype)
+        _check(getattr(_lib, entry_tm)(vT.data_ptr(), vT.stride(0), S,
+                                       plan.pitch, *ptrs), entry_tm)
+    else:
+        _check(getattr(_lib, entry)(vT.data_ptr(), vT.stride(0), S, *ptrs),
+               entry)
     pvs_sweep.launches += 1
     return out
 

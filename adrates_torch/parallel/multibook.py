@@ -2056,10 +2056,11 @@ def _ladder_fn(jac, agg: MultiBookAggregate, sweep: kernels.SweepTables,
     """(qvec) -> the ladders of the trades of ``sweep`` and ``clamp``
     (their trade ids index the rows of the result) on K1, in ``dtype``
     (None: f64): J from ``jac`` at qvec stays f64, Jv and the slot
-    weights are cast to ``dtype`` and K1 sums in it, the clamp rows are
-    computed in f64 and cast (``adrates_tpu`` ``multibook.py:2825-2829``,
-    ``:2856-2857``). ``fn.prep(qvec)`` gives K1's inputs, ``fn.sweep``
-    its tables."""
+    weights are cast to ``dtype`` and K1 sums in it, trade-major, the
+    clamp rows are computed in f64 and cast (``adrates_tpu``
+    ``multibook.py:2825-2829``, ``:2856-2857``). ``fn.prep(qvec)`` gives
+    K1's inputs, ``fn.contract(*fn.prep(qvec))`` the ladders from them,
+    ``fn.sweep`` K1's tables."""
     dtype = torch.float64 if dtype is None else dtype
     sweep = sweep if dtype == torch.float64 \
         else kernels.sweep_tables_as(sweep, dtype)
@@ -2082,9 +2083,10 @@ def _ladder_fn(jac, agg: MultiBookAggregate, sweep: kernels.SweepTables,
                   + Jt[agg.trip_p] * (a / b_ - 1.0))
         return dfs, Jt, _even_rows(Jt, J_trip, dtype)
 
-    def fn(qvec):
-        dfs, Jt, Jv = prep(qvec)
-        out = kernels.pvs_sweep(Jv, sweep).T.contiguous()       # [B, N]
+    def contract(dfs, Jt, Jv):
+        """The ladders [B, N] from ``prep``'s outputs: one trade-major K1
+        launch, then the clamp rows."""
+        out = kernels.pvs_sweep(Jv, sweep, trade_major=True)    # [B, N]
         if clamp is not None:
             # the clamp slots' DF partials, as in _slot_gradient
             u, v, p, ia, rate, wI = _clamp_slot_terms(dfs, ct)
@@ -2094,7 +2096,11 @@ def _ladder_fn(jac, agg: MultiBookAggregate, sweep: kernels.SweepTables,
             out.index_add_(0, clamp.slot_trade, d.to(dtype))
         return out
 
+    def fn(qvec):
+        return contract(*prep(qvec))
+
     fn.prep = prep
+    fn.contract = contract
     fn.sweep = sweep
     return fn
 
@@ -2109,8 +2115,9 @@ def make_per_trade_delta_fn(mb: MultiBook, device, dtype=None):
     is ``ladder[b, :] = sum over b's slots of w · Jv[col, :]`` with
     Jv = [Jᵀ; J_trip] [n_grid + T, N], the trip rows in closed form: the
     PV sweep's own CSR (``fn.book.sweep``) over a value table whose S
-    columns are the N quotes, so K1 computes it in one launch. The cap/
-    floor clamp rows are added in torch.
+    columns are the N quotes, so K1's trade-major kernel writes the
+    [B, N] ladders in one launch. The cap/floor clamp rows are added in
+    torch.
 
     ``dtype`` (e.g. ``torch.float32``) downcasts Jv, the slot weights and
     the contraction, which then runs on K1's f32 instantiation; the

@@ -39,7 +39,8 @@ first use. Phases:
    (CUDA events, and the device time of their kernels in one
    torch.profiler trace);
 7b. per-trade risk on phase 7's book at ``bench.py``'s shapes: every
-   trade's delta ladder [100,400 x 184] (K1), the dense gammas of 256
+   trade's delta ladder [100,400 x 184] (K1 trade-major, one launch a
+   call), the dense gammas of 256
    trades from ``default_rng(7)`` with a capped FRN and an XCCY trade
    among them (K3 at k = 184) and every trade's own-block gamma (K3 over
    the signature groups), each cold + 3 warm with its launch counts, its
@@ -150,10 +151,13 @@ first use. Phases:
    three processes sharing one card, not a scaling figure);
 8. each kernel against its plain torch twin on the card, at the shapes
    each path's main function gives it (K2 at that function's scenario
-   chunk; K1 also at the ladders' Jv [n_grid + T, N]; K3 on both
-   per-trade paths; K1 also at phase 7e's single-curve book; K1's f32
-   instantiation at the f32 ladders' Jv, against its f32 twin at 1e-5 x
-   max|ref| with a cuSPARSE f32 SpMM yardstick; K3's blocks
+   chunk; K1's trade-major kernel at the ladders' Jv [n_grid + T, N] in
+   f64 and in f32 (against its f32 twin at 1e-5 x max|ref|, with a
+   cuSPARSE f32 SpMM yardstick), each with the whole contraction as the
+   ladder path runs it (``fn.contract``: K1 and the clamp rows) and
+   whether it equals the scenario-major kernel's sums transposed, bit
+   for bit; K3 on both per-trade paths; K1 also at phase 7e's
+   single-curve book; K3's blocks
    also bit for bit symmetric; K4 and K5 at the largest call of one
    config-2 engine request and of one flagship_v5 staged call (region
    A's seeds x scenarios x curves), K4 bit for bit equal to its plain
@@ -171,8 +175,8 @@ first use. Phases:
    (bytes over HBM rate or flops over peak f64 rate, from that path's
    tables). The device time comes from the kernels inside each call's
    ``record_function`` window (the calls with the usual kernel count);
-   a gate holds every device time, the yardsticks' too, to at most 1.1
-   times its event window;
+   a gate holds every device time, the yardsticks' and the ladders'
+   contractions' too, to at most 1.1 times its event window;
 9. one bound line per kernel with the card line, the kernels' JSON line
    (both times, plain, library, bound, share of bound by device time and
    by events, launches and launches per call on the main path), the card
@@ -851,6 +855,12 @@ def run_per_trade(device, staged, mono, mb, q0, n_warm: int = 3):
     lad, infos["ladders"] = _drive(
         f"per-trade ladders [{mb.n_trades} x {N}]",
         lambda q, _: lad_fn(q), q0, None, n_warm)
+    # one trade-major K1 launch a call writes the [B, N] ladders
+    infos["ladders"]["pvs_sweep_tm_f64"] = infos["ladders"]["pvs_sweep"]
+    if infos["ladders"]["pvs_sweep"] != infos["ladders"]["calls"]:
+        raise AssertionError(f"ladders: K1 launched "
+                             f"{infos['ladders']['pvs_sweep']} times in "
+                             f"{infos['ladders']['calls']} calls")
     gam_fn = make_per_trade_gamma_fn(mb, sel, device)
     gam, infos["gamma_256"] = _drive(
         f"per-trade gammas [{len(sel)} x {N} x {N}]",
@@ -1352,8 +1362,9 @@ def _twin_gates(name, mono, q0, shocks, chunk, pt_fns) -> dict:
     lad_fn, gam_fn, blk_fn = pt_fns
     _, _, Jv = lad_fn.prep(q0)
     tab = lad_fn.book.sweep
-    gate("ladders K1 pvs_sweep", [kernels.pvs_sweep(Jv, tab)],
-         [kernels.pvs_sweep_plain(Jv, tab)])
+    gate("ladders K1 pvs_sweep (trade-major)",
+         [kernels.pvs_sweep(Jv, tab, trade_major=True)],
+         [kernels.pvs_sweep_plain(Jv, tab, trade_major=True)])
     del Jv
     for key, f in (("gamma_256", gam_fn), ("gamma_blocks", blk_fn)):
         _, dfs, Jt, w = f.prep(q0)
@@ -2400,7 +2411,7 @@ def run_f32_ladders(device, mb, q0, lad_fn, f64_warm_ms, n_warm: int = 3):
     _check("f32 ladders vs phase 7b's f64 ladders: worst |f32 - f64| / "
            "(3e-6 max|f64| + 1e-4 |f64|)", float(excess.max()), 1.0)
     info32["warm_median_ms"] = statistics.median(info32["warm_ms"])
-    info32["pvs_sweep_f32"] = info32["pvs_sweep"]
+    info32["pvs_sweep_tm_f32"] = info32["pvs_sweep"]
     rec = dict(info32, f64_warm_ms=f64_warm_ms,
                max_rel_err=_max_rel(lad32.double(), lad64))
     del lad32, lad64, excess
@@ -2468,51 +2479,72 @@ def _bound(nbytes: float, flops: float, peak_flops: float):
     return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
 
 
-def compare_f32_kernel(fn, q0) -> dict:
-    """Phase 8's K1-f32 record at the ladders' shape (phase 7f-c's f32
-    ladder fn: Jv [n_grid + T, N] f32 and the f32 tables): the f32
-    kernel against its f32 twin (1e-5 x max|ref|: both sum in f32, in
-    another order), timed beside the twin and one cuSPARSE f32 SpMM,
-    with its bound (4-byte values and weights)."""
+def _ladder_record(fn, q0, path) -> dict:
+    """Phase 8's K1 record at the ladders' shape (a ladder fn of phase 7b
+    or 7f-c: Jv [n_grid + T, N] and the tables in the ladder's dtype):
+    the trade-major kernel as the path calls it, against its twin
+    (1e-12 x max|ref| in f64; 1e-5 in f32, both summing in f32 in
+    another order), timed beside the twin and one cuSPARSE SpMM of the
+    same dtype (which writes [B, N] too), with its bound; the whole
+    contraction as the path runs it (``fn.contract``: K1 and the clamp
+    rows); and whether it equals the scenario-major kernel's sums
+    transposed, bit for bit."""
     import torch
 
     from adrates_torch.ops import kernels
-    _, _, Jv = fn.prep(q0)
+    dfs, Jt, Jv = fn.prep(q0)
     tab = fn.sweep
     M, S = Jv.shape
     B, nnz = tab.n_trades, int(tab.slot_w.numel())
-    if Jv.dtype != torch.float32 or tab.slot_w.dtype != torch.float32:
-        raise AssertionError(f"f32 ladders' K1 inputs are {Jv.dtype}, "
+    f32 = Jv.dtype == torch.float32
+    if tab.slot_w.dtype != Jv.dtype:
+        raise AssertionError(f"{path}: K1 inputs are {Jv.dtype}, "
                              f"{tab.slot_w.dtype}")
-    ref = kernels.pvs_sweep_plain(Jv, tab)
-    got = kernels.pvs_sweep(Jv, tab)
+    name = "pvs_sweep_tm_f32" if f32 else "pvs_sweep_tm_f64"
+    tol = 1e-5 if f32 else 1e-12
+    ref = kernels.pvs_sweep_plain(Jv, tab, trade_major=True)
+    got = kernels.pvs_sweep(Jv, tab, trade_major=True)
     err = float((got - ref).abs().max())
-    _check("flagship_v5 ladders K1 f32 pvs_sweep vs plain f32 (abs / "
-           "max|ref|)", err / float(ref.abs().max()), 1e-5)
+    _check(f"{path} K1 {name} vs plain (abs / max|ref|)",
+           err / float(ref.abs().max()), tol)
+    same = bool(torch.equal(got, kernels.pvs_sweep(Jv, tab).T))
+    print(f"{path} K1 trade-major == scenario-major transposed, bit for "
+          f"bit: {same}", flush=True)
     with warnings.catch_warnings():          # CSR support is "beta"
         warnings.simplefilter("ignore", UserWarning)
         csr = torch.sparse_csr_tensor(tab.tptr.long(), tab.slot_col(),
                                       tab.slot_w, size=(B, M))
     Jc = Jv.contiguous()
-    _check("flagship_v5 ladders f32 cuSPARSE SpMM vs plain f32 (abs / "
-           "max|ref|)", float((torch.sparse.mm(csr, Jc).T - ref).abs().max()
-                              / ref.abs().max()), 1e-5)
-    tm = _timings(lambda: kernels.pvs_sweep(Jv, tab),
-                  lambda: kernels.pvs_sweep_plain(Jv, tab),
+    _check(f"{path} cuSPARSE SpMM vs plain (abs / max|ref|)",
+           float((torch.sparse.mm(csr, Jc) - ref).abs().max()
+                 / ref.abs().max()), tol)
+    tm = _timings(lambda: kernels.pvs_sweep(Jv, tab, trade_major=True),
+                  lambda: kernels.pvs_sweep_plain(Jv, tab, trade_major=True),
                   lambda: torch.sparse.mm(csr, Jc))
-    nbytes = 4 * (B + 1) + 8 * nnz + 4 * M * S + 4 * S * B
-    bound, by = _bound(nbytes, 2.0 * nnz * S, FP32_FLOPS)
-    print(f"flagship_v5_ladders_f32 K1 pvs_sweep_f32 Jv [M, N]={[M, S]} "
-          f"B={B}: {_fmt_tm(tm)}; bound {bound * 1e3:.1f} us ({by}, "
-          f"{nbytes / 1e6:.1f} MB)", flush=True)
+    con = _device_stats(lambda: fn.contract(dfs, Jt, Jv))
+    extra = dict(
+        contraction_ms=_cuda_ms(lambda: fn.contract(dfs, Jt, Jv)),
+        contraction_device_ms=con and con["median"],
+        trade_major_equals_scenario_major=same)
+    size = Jv.element_size()
+    nbytes = 4 * (B + 1) + (4 + size) * nnz + size * (M * S + S * B)
+    bound, by = _bound(nbytes, 2.0 * nnz * S,
+                       FP32_FLOPS if f32 else FP64_FLOPS)
+    plan = kernels.sweep_plan(S, Jv.dtype)
+    print(f"{path} K1 {name} Jv [M, N]={[M, S]} B={B} ({plan.passes} "
+          f"pass(es) of {plan.width} columns, {plan.smem_bytes} B of "
+          f"shared memory): {_fmt_tm(tm)}; the contraction "
+          f"{extra['contraction_ms']:.4f} ms (device "
+          f"{_fmt_ms(extra['contraction_device_ms'])}); bound "
+          f"{bound * 1e3:.1f} us ({by}, {nbytes / 1e6:.1f} MB)", flush=True)
     return dict(
-        name="pvs_sweep_f32", path="flagship_v5_ladders_f32", route="cuda",
+        name=name, path=path, route="cuda",
         source="adrates_torch/csrc/pvs_sweep.cu",
         replaces="adrates_tpu/parallel/multibook.py:2842",
         max_abs_err=err, **tm,
-        library="torch.sparse.mm (cuSPARSE SpMM, f32) of the [B, M] trade "
-                "x column CSR by Jv",
-        bound_ms=bound, bound_by=by, **_shares(bound, tm))
+        library=f"torch.sparse.mm (cuSPARSE SpMM{', f32' if f32 else ''}) "
+                f"of the [B, M] trade x column CSR by Jv",
+        bound_ms=bound, bound_by=by, **_shares(bound, tm), **extra)
 
 
 def _dense_chain(denom, tab):
@@ -2853,51 +2885,17 @@ def _k3_bytes_flops(tab, n_grid: int, n_quotes: int):
 
 
 def compare_per_trade_kernels(fns, q0, device):
-    """Phase 8, the per-trade rows: K1 at the ladders' shape (Jv as the
-    value table, the N quotes as its columns) and K3 on the selected and
-    the blocks path, each against its twin, with its bound and
-    yardstick; returns the records (without launch counts)."""
+    """Phase 8, the per-trade rows: K1's trade-major kernel at the
+    ladders' shape (``_ladder_record``) and K3 on the selected and the
+    blocks path, each against its twin, with its bound and yardstick;
+    returns the records (without launch counts)."""
     import torch
 
     from adrates_torch.ops import kernels
     lad_fn, gam_fn, blk_fn = fns
     records = []
 
-    _, _, Jv = lad_fn.prep(q0)
-    tab = lad_fn.book.sweep
-    M, S = Jv.shape
-    B, nnz = tab.n_trades, int(tab.slot_w.numel())
-    ref = kernels.pvs_sweep_plain(Jv, tab)
-    got = kernels.pvs_sweep(Jv, tab)
-    err = float((got - ref).abs().max())
-    _check("flagship_v5 ladders K1 pvs_sweep vs plain (abs / max|ref|)",
-           err / float(ref.abs().max()), 1e-12)
-    with warnings.catch_warnings():          # CSR support is "beta"
-        warnings.simplefilter("ignore", UserWarning)
-        csr = torch.sparse_csr_tensor(tab.tptr.long(), tab.slot_col(),
-                                      tab.slot_w, size=(B, M))
-    Jc = Jv.contiguous()
-    lib = torch.sparse.mm(csr, Jc)
-    _check("flagship_v5 ladders cuSPARSE SpMM vs plain (abs / max|ref|)",
-           float((lib.T - ref).abs().max() / ref.abs().max()), 1e-12)
-    tm = _timings(lambda: kernels.pvs_sweep(Jv, tab),
-                  lambda: kernels.pvs_sweep_plain(Jv, tab),
-                  lambda: torch.sparse.mm(csr, Jc))
-    nbytes = 4 * (B + 1) + 12 * nnz + 8 * M * S + 8 * S * B
-    bound, by = _bound(nbytes, 2.0 * nnz * S, FP64_FLOPS)
-    print(f"flagship_v5_ladders K1 pvs_sweep Jv [M, N]={[M, S]} B={B}: "
-          f"{_fmt_tm(tm)}; bound {bound * 1e3:.1f} us ({by}, "
-          f"{nbytes / 1e6:.1f} MB)", flush=True)
-    records.append(dict(
-        name="pvs_sweep", path="flagship_v5_ladders", route="cuda",
-        source="adrates_torch/csrc/pvs_sweep.cu",
-        replaces="adrates_tpu/parallel/multibook.py:2842",
-        max_abs_err=err, **tm,
-        library="torch.sparse.mm (cuSPARSE SpMM) of the [B, M] trade x "
-                "column CSR by Jv",
-        bound_ms=bound, bound_by=by, **_shares(bound, tm)))
-    del Jv, Jc, ref, got, lib, csr
-
+    records.append(_ladder_record(lad_fn, q0, "flagship_v5_ladders"))
     for path, fn, replaces in (
             ("flagship_v5_gamma_256", gam_fn,
              "adrates_tpu/parallel/multibook.py:2693"),
@@ -2963,8 +2961,10 @@ def _gate_device_times(records):
     most its event window times ``DEVICE_OVER_EVENTS``, and present."""
     for r in records:
         for dev_key, ev_key in (("device_ms", "ms"),
-                                ("library_device_ms", "library_ms")):
-            if r[ev_key] is None:
+                                ("library_device_ms", "library_ms"),
+                                ("contraction_device_ms",
+                                 "contraction_ms")):
+            if r.get(ev_key) is None:
                 continue
             if r[dev_key] is None:
                 raise AssertionError(f"no {dev_key} for {r['name']} on "
@@ -2995,7 +2995,8 @@ def main() -> int:
 
     # ---- phase 2: build ------------------------------------------------
     secs = kernels.build_kernels()
-    print(f"build: K1 (f64, f32), K2, K3, K4 + K5 built and loaded in "
+    print(f"build: K1 (scenario- and trade-major, f64 and f32), K2, K3, "
+          f"K4 + K5 built and loaded in "
           f"{secs:.2f} s "
           f"({kernels.library_path().name})", flush=True)
 
@@ -3046,7 +3047,7 @@ def main() -> int:
                                    chunk=infos[path]["chunk"])
     records += compare_per_trade_kernels(pt_fns, q_f, device)
     records.append(compare_book_kernel(*book_args))
-    records.append(compare_f32_kernel(lad32_fn, q_f))
+    records.append(_ladder_record(lad32_fn, q_f, "flagship_v5_ladders_f32"))
     del lad32_fn
     records += compare_solve_kernels("engine_config2", solve_e)
     records += compare_solve_kernels("flagship_v5", solve_f)

@@ -77,11 +77,11 @@ def test_f32_ladder_runs_k1_on_f32_tables(book, monkeypatch):
     seen = []
     sweep = kernels.pvs_sweep
     monkeypatch.setattr(kernels, "pvs_sweep",
-                        lambda vT, tab: seen.append((vT.dtype,
-                                                     tab.slot_w.dtype))
-                        or sweep(vT, tab))
+                        lambda vT, tab, **kw: seen.append(
+                            (vT.dtype, tab.slot_w.dtype, kw))
+                        or sweep(vT, tab, **kw))
     fn(tb.basket.quotes0)
-    assert seen == [(torch.float32, torch.float32)]
+    assert seen == [(torch.float32, torch.float32, {"trade_major": True})]
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])

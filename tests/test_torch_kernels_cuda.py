@@ -110,6 +110,80 @@ def test_pvs_sweep_f32_kernel_matches_plain(dev, S):
         kernels.pvs_sweep(vT, tab64)
 
 
+# trade-major (the ladders' [B, N]): around the piece and pass widths
+TM_NS = [1, 3, 33, 128, 129, 184, 193, 300]
+TM_TOL = {torch.float64: 1e-12, torch.float32: 1e-5}
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("N", TM_NS)
+def test_pvs_sweep_trade_major_kernel_matches_plain(dev, N, dtype):
+    """The trade-major kernel against its plain twin (1e-12 / 1e-5 x
+    max|ref|) in one launch, and bit for bit the scenario-major kernel's
+    sums transposed (both one FMA chain in slot order); a last block
+    short of 32 trades and trades with no slot (their rows exactly 0)."""
+    rng = np.random.default_rng(400 + N)
+    M, B = 3000, 64 * 7 + 5
+    vT = torch.tensor(rng.normal(size=(M, N)), dtype=dtype, device=dev)
+    tab = _flat_tables(rng, M, B, [(400, 3), (200, 40), (7, 300)], dev)
+    tab = kernels.sweep_tables_as(tab, dtype)
+    empty = tab.tptr[1:] == tab.tptr[:-1]
+    assert int(empty.sum()) > 0
+    before = kernels.pvs_sweep.launches
+    got = kernels.pvs_sweep(vT, tab, trade_major=True)
+    assert kernels.pvs_sweep.launches == before + 1
+    assert got.shape == (B, N) and got.dtype == dtype
+    sm = kernels.pvs_sweep(vT, tab)
+    ref = kernels.pvs_sweep_plain(vT, tab, trade_major=True)
+    torch.cuda.synchronize()
+    assert _rel_err(got, ref) <= TM_TOL[dtype]
+    assert torch.equal(got, sm.T)
+    assert not got[empty].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("N", [1, 5, 184, 193])
+def test_pvs_sweep_trade_major_kernel_ragged(dev, N, dtype):
+    """Blocks whose distinct rows span many stages and trades longer
+    than a window, taken once through the aligned copy (an [M, N] table
+    whose rows are not whole 16-byte pieces where N is odd) and once
+    through a view of a wider buffer whose stride holds whole pieces
+    (taken as it is): the same sums, bit for bit."""
+    rng = np.random.default_rng(500 + N)
+    M, B = 5000, 32 * 5 + 31
+    tab = kernels.sweep_tables_as(
+        _flat_tables(rng, M, B, [(300, 2), (120, 90), (9, 500)], dev), dtype)
+    vT = torch.tensor(rng.normal(size=(M, N)), dtype=dtype, device=dev)
+    vec = 16 // vT.element_size()
+    buf = torch.zeros((M, N + vec + (-N) % vec), dtype=dtype, device=dev)
+    buf[:, :N] = vT
+    view = buf[:, :N]
+    assert view.stride(0) % vec == 0
+    ref = kernels.pvs_sweep_plain(vT, tab, trade_major=True)
+    got = kernels.pvs_sweep(vT, tab, trade_major=True)
+    got_view = kernels.pvs_sweep(view, tab, trade_major=True)
+    torch.cuda.synchronize()
+    assert _rel_err(got, ref) <= TM_TOL[dtype]
+    assert torch.equal(got, got_view)
+
+
+def test_pvs_sweep_trade_major_refuses(dev):
+    """f64 weights with an f32 table, a table of the wrong height and
+    int64 index tables are refused before any launch."""
+    rng = np.random.default_rng(7)
+    tab = _flat_tables(rng, 50, 40, [(30, 4)], dev)
+    vT = torch.ones((50, 184), dtype=torch.float32, device=dev)
+    before = kernels.pvs_sweep.launches
+    with pytest.raises(TypeError):
+        kernels.pvs_sweep(vT, tab, trade_major=True)
+    with pytest.raises(ValueError):
+        kernels.pvs_sweep(vT[:49].double(), tab, trade_major=True)
+    with pytest.raises(TypeError):
+        kernels.pvs_sweep(vT.double(), dataclasses.replace(
+            tab, brow=tab.brow.long()), trade_major=True)
+    assert kernels.pvs_sweep.launches == before
+
+
 def _groups(rng, specs, n_grid, dev):
     return [dict(s_idx=rng.integers(0, n_grid, T),
                  e_idx=rng.integers(0, n_grid, T),

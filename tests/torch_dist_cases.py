@@ -83,8 +83,8 @@ def _count_k1(f):
     twin counts no launch."""
     from adrates_torch.ops import kernels
     calls, sweep = [], kernels.pvs_sweep
-    kernels.pvs_sweep = lambda vT, tab: calls.append(tab.n_trades) \
-        or sweep(vT, tab)
+    kernels.pvs_sweep = lambda vT, tab, **kw: calls.append(
+        tab.n_trades) or sweep(vT, tab, **kw)
     try:
         return f(), calls
     finally:
