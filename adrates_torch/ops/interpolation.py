@@ -31,9 +31,13 @@ solve of ``utils/math.py``), differentiable in the DFs to every order;
 ``clip(searchsorted(x, t, left) - 1, 0, n - 2)``, so a query past the last
 knot extrapolates the last polynomial and one before the first the first.
 ``fitted_interp_plan`` fixes that bracket in numpy for static queries on a
-static grid (the book path) and ``fitted_df_static`` fits and evaluates
-against it; the dynamic ``interp_df`` computes the same bracket with
-``torch.searchsorted`` and evaluates with the same code. ``interp_plan`` /
+static grid (the book path); its device form (``plan_to_torch``) is an
+``ops/fitted_rows.FittedPlan``, and ``fitted_df_static`` / ``df_static``
+evaluate it through ``ops/fitted_rows`` (the fit and the evaluation as
+one linear map on K6, its derivatives on K7 and K6; a list of member
+plans stacked into one plan, evaluated in one call). The dynamic
+``interp_df`` computes the same bracket with ``torch.searchsorted`` and
+fits and evaluates with the torch code here. ``interp_plan`` /
 ``df_static`` take either kind of plan.
 """
 
@@ -48,6 +52,7 @@ from ..utils.error import LibError
 from ..utils.global_types import InterpTypes
 from ..utils.global_vars import gSmall
 from ..utils.math import solve_tridiagonal
+from .fitted_rows import FittedPlan, fitted_eval, fitted_plan
 
 _SIMPLE_SCHEMES = (InterpTypes.FLAT_FWD_RATES, InterpTypes.LINEAR_ZERO_RATES,
                    InterpTypes.LINEAR_FWD_RATES)
@@ -109,11 +114,17 @@ def simple_interp_plan(q, x, interp_type: InterpTypes) -> dict:
 
 
 def plan_to_torch(plan, device):
-    """A numpy plan (or a stack of them, or a list of per-member plans) as
-    tensors on ``device``: indices as int64 (what ``torch.gather`` takes),
-    weights and times f64."""
+    """A numpy plan (or a stack of them, or a list of per-member plans) on
+    ``device``. A simple plan as tensors: indices as int64 (what
+    ``torch.gather`` takes), weights and times f64. A fitted plan as its
+    ``FittedPlan``, and a list of fitted member plans as one stacked
+    ``FittedPlan``."""
     if isinstance(plan, (list, tuple)):
+        if plan and all("idx" in p for p in plan):
+            return fitted_plan(plan, device, stacked=True)
         return [plan_to_torch(p, device) for p in plan]
+    if "idx" in plan:
+        return fitted_plan([plan], device, stacked=False)
     out = {}
     for k, v in plan.items():
         v = np.asarray(v)
@@ -313,19 +324,35 @@ def fitted_interp_plan(q, x, interp_type: InterpTypes) -> dict:
     x = np.asarray(x, np.float64)
     idx = np.clip(np.searchsorted(x, q, side="left") - 1, 0,
                   x.shape[0] - 2)
-    return dict(x=x, q=q, idx=idx.astype(np.int32))
+    return dict(x=x, q=q, idx=idx.astype(np.int32),
+                scheme=np.array(interp_type.value))
 
 
-def fitted_df_static(plan: dict, dfs: torch.Tensor,
+def fitted_df_static(plan: FittedPlan, dfs: torch.Tensor,
                      interp_type: InterpTypes) -> torch.Tensor:
     """Fit the curve on the plan's knots and evaluate it at the plan's
-    queries. ``dfs`` [..., L] holds the knots' DFs first (positions past
-    the plan's knot count, a stage's padding, are not read); leading dims
-    batch. Returns the queries' shape (behind the leading dims)."""
-    x = plan["x"]
-    d = dfs[..., :x.shape[-1]]
-    return _fitted_eval(plan["q"], x, interp_fit(x, d, interp_type),
-                        plan["idx"], interp_type)
+    queries (the device form of one :func:`fitted_interp_plan`), in one
+    ``ops/fitted_rows`` call. ``dfs`` [..., L] holds the knots' DFs first
+    (positions past the plan's knot count, a stage's padding, are not
+    read); leading dims batch. Returns the queries' shape (behind the
+    leading dims)."""
+    if plan.stacked:
+        raise LibError("fitted_df_static takes one curve's plan; a stack "
+                       "of member plans goes through df_static")
+    plan.check((interp_type,))
+    out = fitted_eval(plan, dfs.unsqueeze(-2))[..., 0, :]
+    return out.reshape(out.shape[:-1] + plan.qshape)
+
+
+def _stacked_df(tab: FittedPlan, dfs: torch.Tensor) -> torch.Tensor:
+    """Member g of a stacked fitted plan against ``dfs[g]`` ([G, ..., L]):
+    [G, ..., *qshape], in one call."""
+    if tab.qshape is None:
+        raise LibError("df_static: the member plans' queries differ in "
+                       "shape")
+    out = fitted_eval(tab, dfs.movedim(0, -2))       # [..., G, W]
+    out = out.reshape(out.shape[:-1] + tab.qshape)
+    return out.movedim(-1 - len(tab.qshape), 0)
 
 
 def interp_plan(q, x, interp_type: InterpTypes) -> dict:
@@ -339,13 +366,19 @@ def interp_plan(q, x, interp_type: InterpTypes) -> dict:
 def df_static(plan, dfs: torch.Tensor,
               interp_type: InterpTypes) -> torch.Tensor:
     """Evaluate a torch static plan of any scheme; a list of per-member
-    plans evaluates member g against ``dfs[g]`` and stacks the results
-    (the members of a stage have knot counts of their own)."""
+    plans, or a stacked ``FittedPlan``, evaluates member g against
+    ``dfs[g]`` and stacks the results (the members of a stage have knot
+    counts of their own). A stacked ``FittedPlan`` (``plan_to_torch`` of
+    a list of fitted member plans) goes through one ``ops/fitted_rows``
+    call however many members it has."""
     if isinstance(plan, (list, tuple)):
         return torch.stack([df_static(p, dfs[g], interp_type)
                             for g, p in enumerate(plan)])
-    if "idx" in plan:
-        return fitted_df_static(plan, dfs, interp_type)
+    if isinstance(plan, FittedPlan):
+        if not plan.stacked:
+            return fitted_df_static(plan, dfs, interp_type)
+        plan.check((interp_type,) * plan.G)
+        return _stacked_df(plan, dfs)
     return simple_df_static(plan, dfs, interp_type)
 
 

@@ -16,8 +16,16 @@ K5 ``pv01_solve_t`` (``csrc/pv01_solve.cu``) replace the ``solve`` and
 ``transpose_solve`` of the custom linear solve in
 ``adrates_tpu/ops/bootstrap.py:bootstrap_ois`` (:332-341), the OIS
 pv01 chain (I - A) x = b and its transpose; ``ops/linear_solve`` makes
-them the derivatives of each other. K1-K3 are forward-only (their
-derivatives are closed form elsewhere). All five are f64; K1
+them the derivatives of each other. K6 ``fitted_rows`` and K7
+``fitted_rows_t`` (``csrc/fitted_rows.cu``) replace the fitted schemes'
+fit and evaluation at static queries (``adrates_tpu/ops/interpolation.py``
+``interp_fit`` :350 and ``interp_df`` :375, as
+``adrates_tpu/parallel/curve_batching.py:stage_rows`` :320 calls them):
+a stage's fitted members, stacked, in one linear map from the knot
+values (and the PCHIP slopes) to the query values, and its transpose;
+``ops/fitted_rows`` makes them the derivatives of each other. K1-K3 are
+forward-only (their derivatives are closed form elsewhere). All seven
+are f64; K1
 also has f32 instantiations for the f32 ladders
 (``make_per_trade_delta_fn(dtype=torch.float32)``, the JAX package's
 ``dtype`` option at ``multibook.py:2825-2829``), which read, sum and
@@ -51,6 +59,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 import hashlib
 import os
 import shutil
@@ -61,6 +70,7 @@ from typing import Sequence
 
 import numpy as np
 import torch
+
 
 _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
@@ -89,6 +99,10 @@ _SIGNATURES = {
                           _P, _P, _P],
     "pv01_solve_f64": [_P, _P, _P, _I, _I, _I, _P, _P],
     "pv01_solve_t_f64": [_P, _P, _P, _I, _I, _I, _P, _P],
+    "fitted_rows_f64": [_P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
+                        _P, _P],
+    "fitted_rows_t_f64": [_P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
+                          _P, _P, _P],
 }
 
 _lib = None
@@ -1079,3 +1093,372 @@ def pv01_solve_t(c: torch.Tensor, denom: torch.Tensor,
 
 pv01_solve_t.launches = 0
 pv01_solve_t.calls = 0
+
+
+# ---------------------------------------------------------------------------
+# K6 / K7: the fitted schemes' rows at static queries, and their transpose
+# ---------------------------------------------------------------------------
+
+# member kinds (csrc/fitted_rows.cu): a Hermite cubic on given slopes (the
+# PCHIP schemes), a natural spline, a spline natural on the left and
+# clamped (S' = 0) on the right
+FIT_HERMITE, FIT_NATURAL, FIT_CLAMPED = 0, 1, 2
+# a K6 / K7 block stages two f64 rows of n_max | 1 values a tile row in at
+# most 96 KB of shared memory (csrc/fitted_rows.cu kSmemBudget), so a tile
+# of one row takes members of up to FIT_MAX_KNOTS knots
+FIT_MAX_KNOTS = 96 * 1024 // 16 - 1
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class FittedTables:
+    """K6's and K7's tables for G members, each a cubic Hermite map on its
+    own knots x_g (n_g of them) to its own static queries q_g (W_g of
+    them, flattened), all on one device and padded to ``n_max`` knots and
+    ``W_max`` queries.
+
+    The map K6 computes is linear: from y [R, G, n_max] (a member's knot
+    values) and, for a Hermite member, its slopes d to u [R, G, W_max],
+    the cubic Hermite interpolant at each query,
+
+        u = w00 y_i + w10 d_i + w01 y_{i+1} + w11 d_{i+1},  i = idx(q),
+
+    with the static weights ``qw`` = (h00, h10 h, h01, h11 h) of
+    ``hermite_eval``. A spline member's slopes are d = T^-1 R y: T its
+    knot-slope tridiagonal (``cubic_spline_coeffs``), factored once here
+    in f64 (``sp``: Thomas multipliers l, reciprocal pivots 1 / b', the
+    super-diagonal c), and R the static tridiagonal map from y to the
+    right-hand side (``sp``: rl, rd, ru). The input of K6 is
+    X [R, G, K, n_max]: y in slot 0 and, where ``K`` is 2 (some member
+    is Hermite), the given slopes in slot 1. Pad knots are decoupled:
+    T's pad rows are identity rows, R's and the weights' pad entries 0,
+    pad intervals 1 long, and no query brackets a pad; pad queries
+    evaluate to 0. K7 takes u-bar [R, G, W_max] to X-bar through ``iq``
+    / ``ikey``: each member's queries by interval, in query order within
+    an interval, and each one's interval.
+
+    ``host`` keeps the padded knots and queries in numpy (``x``, ``q``,
+    ``idx``, ``qmask``, ``ns``, ``kinds``, T's ``bands``); the plain
+    twins build their own tensors from it on first use (:attr:`twin`)."""
+    G: int
+    n_max: int
+    W_max: int
+    K: int
+    kind: torch.Tensor        # [G] int32
+    nk: torch.Tensor          # [G] int32 knots
+    nw: torch.Tensor          # [G] int32 queries
+    qidx: torch.Tensor        # [G, W_max] int32 bracket
+    qw: torch.Tensor          # [G, W_max, 4] f64 Hermite weights
+    sp: torch.Tensor          # [G, 6, n_max] f64: l, 1/b', c, rl, rd, ru
+    iq: torch.Tensor          # [G, W_max] int32 queries by interval
+    ikey: torch.Tensor        # [G, W_max] int32 the interval of iq's query
+    host: dict
+
+    @functools.cached_property
+    def twin(self) -> "_FitTwin":
+        """The plain twins' tensors, on the tables' device."""
+        return _fit_twin(self.host, self.qw.device)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class _FitTwin:
+    """What ``fitted_rows_plain`` / ``fitted_rows_t_plain`` read beside
+    :class:`FittedTables` to repeat ``cubic_spline_coeffs`` /
+    ``cubic_eval`` and ``hermite_eval`` operation for operation."""
+    spline: torch.Tensor      # [G, 1] bool: a spline member
+    any_spline: bool
+    any_hermite: bool
+    qmask: torch.Tensor       # [G, W_max] bool real queries
+    idx: torch.Tensor         # [G, W_max] int64 bracket
+    uq: torch.Tensor          # [G, W_max] q - x[idx]
+    h: torch.Tensor           # [G, n_max - 1] interval lengths (pads 1)
+    ih: torch.Tensor          # [G, n_max, 2] inv_h left and right of a knot
+    hh: torch.Tensor          # [G, n_max - 1] h * h
+    first: torch.Tensor       # [G, n_max] bool knot 0
+    last: torch.Tensor        # [G, n_max] bool the last knot
+    rhs0: torch.Tensor        # [G, n_max] bool rhs rows set to 0
+    bands: torch.Tensor       # [G, 3, n_max] T's lower, diag, upper
+    bands_t: torch.Tensor     # [G, 3, n_max] T^T's lower, diag, upper
+
+
+def _fit_twin(host: dict, device) -> _FitTwin:
+    x, q, idx, qmask = host["x"], host["q"], host["idx"], host["qmask"]
+    ns, kinds, bands = host["ns"], host["kinds"], host["bands"]
+    G, n_max = x.shape
+    h = x[:, 1:] - x[:, :-1]
+    inv_h = 1.0 / h
+    ih = np.zeros((G, n_max, 2))
+    ih[:, 1:, 0] = inv_h
+    ih[:, :-1, 1] = inv_h
+    knot = np.arange(n_max)[None, :]
+    pad = knot >= np.asarray(ns)[:, None]
+    last = knot == np.asarray(ns)[:, None] - 1
+    spl = np.array([k != FIT_HERMITE for k in kinds])
+    clamped = np.array([k == FIT_CLAMPED for k in kinds])
+    rhs0 = pad | ~spl[:, None] | (last & clamped[:, None])
+    bands_t = np.zeros_like(bands)
+    bands_t[:, 1] = bands[:, 1]
+    bands_t[:, 0, 1:] = bands[:, 2, :-1]
+    bands_t[:, 2, :-1] = bands[:, 0, 1:]
+
+    def t(a, dtype=np.float64):
+        return torch.as_tensor(np.ascontiguousarray(a, dtype), device=device)
+
+    return _FitTwin(
+        spline=t(spl[:, None], bool), any_spline=bool(spl.any()),
+        any_hermite=bool((~spl).any()), qmask=t(qmask, bool),
+        idx=t(idx, np.int64), uq=t(q - np.take_along_axis(x, idx, 1)),
+        h=t(h), ih=t(ih), hh=t(h * h), first=t(knot == 0, bool),
+        last=t(last, bool), rhs0=t(rhs0, bool), bands=t(bands),
+        bands_t=t(bands_t))
+
+
+def _spline_rows(x: np.ndarray, clamped: bool):
+    """One spline member's T bands (``cubic_spline_coeffs``' formulas, in
+    its order of operations), Thomas factors and R, on its n real
+    knots."""
+    n = x.shape[0]
+    h = x[1:] - x[:-1]
+    inv_h = 1.0 / h
+    lower = np.concatenate([[0.0], inv_h[:-1], [1.0]])
+    diag = np.concatenate([[2.0], 2.0 * (inv_h[:-1] + inv_h[1:]), [2.0]])
+    upper = np.concatenate([[1.0], inv_h[1:], [0.0]])
+    rl, rd, ru = np.zeros(n), np.zeros(n), np.zeros(n)
+    rd[0], ru[0] = -3.0 / h[0], 3.0 / h[0]
+    a = 3.0 * inv_h / h                      # 3 / h^2 by interval
+    rl[1:n - 1] = -a[:-1]
+    rd[1:n - 1] = a[:-1] - a[1:]
+    ru[1:n - 1] = a[1:]
+    if clamped:
+        lower[n - 1], diag[n - 1] = 0.0, 1.0
+    else:
+        rl[n - 1], rd[n - 1] = -3.0 / h[-1], 3.0 / h[-1]
+    piv = diag.copy()
+    l = np.zeros(n)
+    for i in range(1, n):
+        l[i] = lower[i] / piv[i - 1]
+        piv[i] = diag[i] - l[i] * upper[i - 1]
+    return (lower, diag, upper), (l, 1.0 / piv, upper.copy(), rl, rd, ru)
+
+
+def fitted_tables(members: Sequence[tuple], device) -> FittedTables:
+    """K6/K7's tables on ``device`` for ``members``, each (x, q, idx,
+    kind): its knots, its static queries (any shape), their brackets
+    (``ops/interpolation.fitted_index``) and its kind (``FIT_HERMITE``,
+    ``FIT_NATURAL``, ``FIT_CLAMPED``). Raises ValueError on a member of
+    fewer than 2 or more than ``FIT_MAX_KNOTS`` knots, or a bracket
+    outside its grid."""
+    G = len(members)
+    if G == 0:
+        raise ValueError("fitted_tables: no member")
+    xs = [np.asarray(m[0], np.float64) for m in members]
+    qs = [np.asarray(m[1], np.float64).reshape(-1) for m in members]
+    ids = [np.asarray(m[2], np.int64).reshape(-1) for m in members]
+    kinds = [int(m[3]) for m in members]
+    ns = [x.shape[0] for x in xs]
+    if min(ns) < 2 or max(ns) > FIT_MAX_KNOTS:
+        raise ValueError(f"fitted_tables: knot counts {ns} outside [2, "
+                         f"{FIT_MAX_KNOTS}]")
+    ws = [q.size for q in qs]
+    n_max, W_max = max(ns), max(ws)
+
+    x = np.zeros((G, n_max))
+    q = np.zeros((G, W_max))
+    idx = np.zeros((G, W_max), np.int64)
+    qmask = np.zeros((G, W_max), bool)
+    for g in range(G):
+        n, w = ns[g], ws[g]
+        x[g, :n] = xs[g]
+        x[g, n:] = xs[g][-1] + 1.0 + np.arange(n_max - n)
+        q[g, :w] = qs[g]
+        q[g, w:] = xs[g][0]
+        idx[g, :w] = ids[g]
+        qmask[g, :w] = True
+    if np.any(idx < 0) or np.any(idx > np.asarray(ns)[:, None] - 2):
+        raise ValueError("fitted_tables: a bracket outside its grid")
+    # hermite_eval's weights, in its order of operations
+    x0 = np.take_along_axis(x, idx, 1)
+    hq = np.take_along_axis(x, idx + 1, 1) - x0
+    s = (q - x0) / hq
+    s2 = s * s
+    s3 = s2 * s
+    qw = np.stack([2.0 * s3 - 3.0 * s2 + 1.0, (s3 - 2.0 * s2 + s) * hq,
+                   -2.0 * s3 + 3.0 * s2, (s3 - s2) * hq], axis=-1)
+    qw[~qmask] = 0.0
+
+    sp = np.zeros((G, 6, n_max))
+    sp[:, 1] = 1.0
+    bands = np.zeros((G, 3, n_max))
+    bands[:, 1] = 1.0
+    for g in range(G):
+        if kinds[g] != FIT_HERMITE:
+            n = ns[g]
+            bnd, fac = _spline_rows(xs[g], kinds[g] == FIT_CLAMPED)
+            bands[g, :, :n] = np.stack(bnd)
+            sp[g, :, :n] = np.stack(fac)
+
+    iq = np.zeros((G, W_max), np.int32)
+    ikey = np.zeros((G, W_max), np.int32)
+    for g in range(G):
+        w = ws[g]
+        order = np.argsort(ids[g], kind="stable")
+        iq[g, :w] = order
+        ikey[g, :w] = ids[g][order]
+
+    def t(a, dtype):
+        return torch.as_tensor(np.ascontiguousarray(a, dtype), device=device)
+
+    return FittedTables(
+        G=G, n_max=n_max, W_max=W_max,
+        K=2 if FIT_HERMITE in kinds else 1, kind=t(kinds, np.int32),
+        nk=t(ns, np.int32), nw=t(ws, np.int32), qidx=t(idx, np.int32),
+        qw=t(qw, np.float64), sp=t(sp, np.float64), iq=t(iq, np.int32),
+        ikey=t(ikey, np.int32),
+        host=dict(x=x, q=q, idx=idx, qmask=qmask, ns=ns, kinds=kinds,
+                  bands=bands))
+
+
+def _fit_gather(v: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """v [R, G, n] at the static per-member indices idx [G, W]."""
+    return v.gather(-1, idx.expand(v.shape[:-1] + idx.shape[-1:]))
+
+
+def fitted_rows_plain(X: torch.Tensor, tab: FittedTables) -> torch.Tensor:
+    """Plain version of K6: U [R, G, W_max] from X [R, G, K, n_max]. A
+    Hermite member runs ``hermite_eval``'s arithmetic on the given
+    slopes; a spline member ``cubic_spline_coeffs`` (the PCR solve and the
+    scipy-layout coefficients) and ``cubic_eval``, stacked: the pad rows
+    are decoupled identity rows, so each member's values are bit for bit
+    those of its own fit. Pad queries are 0."""
+    from ..utils.math import solve_tridiagonal
+    tw = tab.twin
+    y = X[:, :, 0]
+    val = None
+    if tw.any_hermite:
+        d = X[:, :, 1]
+        w = tab.qw
+        y0 = _fit_gather(y, tw.idx)
+        y1 = _fit_gather(y, tw.idx + 1)
+        d0 = _fit_gather(d, tw.idx)
+        d1 = _fit_gather(d, tw.idx + 1)
+        val = w[..., 0] * y0 + w[..., 1] * d0 + w[..., 2] * y1 \
+            + w[..., 3] * d1
+    if tw.any_spline:
+        h = tw.h
+        m = (y[..., 1:] - y[..., :-1]) / h
+        m_prev = torch.cat([m[..., :1], m], dim=-1)
+        m_next = torch.cat([m, m[..., -1:]], dim=-1)
+        interior = 3.0 * (m_prev * tw.ih[..., 0] + m_next * tw.ih[..., 1])
+        rhs = torch.where(tw.first, 3.0 * m_next,
+                          torch.where(tw.last, 3.0 * m_prev, interior))
+        rhs = torch.where(tw.rhs0, 0.0, rhs)
+        s = solve_tridiagonal(tw.bands[:, 0], tw.bands[:, 1],
+                              tw.bands[:, 2], rhs)
+        s0 = s[..., :-1]
+        s1 = s[..., 1:]
+        c1 = (3.0 * m - 2.0 * s0 - s1) / h
+        c0 = (s0 + s1 - 2.0 * m) / tw.hh
+        u = tw.uq
+        spl = ((_fit_gather(c0, tw.idx) * u + _fit_gather(c1, tw.idx)) * u
+               + _fit_gather(s0, tw.idx)) * u + _fit_gather(y, tw.idx)
+        val = spl if val is None else torch.where(tw.spline, spl, val)
+    return torch.where(tw.qmask, val, 0.0)
+
+
+def fitted_rows_t_plain(Ub: torch.Tensor, tab: FittedTables) -> torch.Tensor:
+    """Plain version of K7, the transpose of K6: X-bar [R, G, K, n_max]
+    from U-bar [R, G, W_max]. The query cotangents scattered onto their
+    brackets' Hermite inputs; for a spline member the slope cotangents
+    through T^-T (the PCR solve on T's transpose) and R^T into the knot
+    values' and its slope slot 0; pads 0."""
+    from ..utils.math import solve_tridiagonal
+    tw = tab.twin
+    R = Ub.shape[0]
+    ub = torch.where(tw.qmask, Ub, 0.0)
+    w = tab.qw
+    shape = (R, tab.G, tab.n_max)
+    i0 = tw.idx.expand(ub.shape)
+    i1 = (tw.idx + 1).expand(ub.shape)
+    yb = Ub.new_zeros(shape).scatter_add(-1, i0, w[..., 0] * ub) \
+        .scatter_add(-1, i1, w[..., 2] * ub)
+    sb = Ub.new_zeros(shape).scatter_add(-1, i0, w[..., 1] * ub) \
+        .scatter_add(-1, i1, w[..., 3] * ub)
+    if tw.any_spline:
+        z = solve_tridiagonal(tw.bands_t[:, 0], tw.bands_t[:, 1],
+                              tw.bands_t[:, 2],
+                              torch.where(tw.spline, sb, 0.0))
+        sp = tab.sp
+        zero = z.new_zeros(z.shape[:-1] + (1,))
+        rtz = sp[:, 4] * z \
+            + torch.cat([sp[:, 3, 1:] * z[..., 1:], zero], dim=-1) \
+            + torch.cat([zero, sp[:, 5, :-1] * z[..., :-1]], dim=-1)
+        yb = yb + torch.where(tw.spline, rtz, 0.0)
+    if tab.K == 1:
+        return yb.unsqueeze(2)
+    return torch.stack([yb, torch.where(tw.spline, 0.0, sb)], dim=2)
+
+
+def _fit_shapes(t: torch.Tensor, tab: FittedTables, what: str, tail):
+    if t.dim() != 2 + len(tail) or t.shape[1] != tab.G \
+            or tuple(t.shape[2:]) != tail:
+        raise ValueError(f"{what} takes [R, {tab.G}, "
+                         f"{', '.join(map(str, tail))}]; got "
+                         f"{tuple(t.shape)}")
+
+
+def _fit_launch(entry: str, inp: torch.Tensor, out_shape,
+                tab: FittedTables, *extra) -> torch.Tensor:
+    dev = inp.device
+    _need(inp, "input", torch.float64, inp.dim(), dev)
+    _need(tab.qw, "qw", torch.float64, 3, dev)
+    out = torch.empty(out_shape, dtype=torch.float64, device=dev)
+    R = inp.shape[0]
+    if out.numel() == 0 or R == 0:
+        return out
+    if _lib is None:
+        build_kernels()
+    _check(getattr(_lib, entry)(
+        inp.data_ptr(), R, tab.G, tab.K, tab.n_max, tab.W_max,
+        tab.kind.data_ptr(), tab.nk.data_ptr(), tab.nw.data_ptr(), *extra,
+        out.data_ptr(), _stream(dev)), entry)
+    return out
+
+
+def fitted_rows(X: torch.Tensor, tab: FittedTables) -> torch.Tensor:
+    """K6: U [R, G, W_max] from X [R, G, K, n_max] (see
+    :class:`FittedTables` and :func:`fitted_rows_plain`): one block a
+    (tile of rows, member), a spline member's slopes solved by the stored
+    factors a lane a row, then a thread a query over the tile's rows from
+    shared memory; one ``torch.empty`` and one launch."""
+    _fit_shapes(X, tab, "fitted_rows", (tab.K, tab.n_max))
+    if not X.is_cuda:
+        return fitted_rows_plain(X, tab)
+    out = _fit_launch("fitted_rows_f64", X, (X.shape[0], tab.G, tab.W_max),
+                      tab, tab.qidx.data_ptr(), tab.qw.data_ptr(),
+                      tab.sp.data_ptr())
+    fitted_rows.launches += 1
+    return out
+
+
+fitted_rows.launches = 0
+
+
+def fitted_rows_t(Ub: torch.Tensor, tab: FittedTables) -> torch.Tensor:
+    """K7: X-bar [R, G, K, n_max] from U-bar [R, G, W_max], the exact
+    transpose of :func:`fitted_rows` (see :func:`fitted_rows_t_plain`):
+    a warp a row sums the queries' weighted cotangents by interval (a
+    segmented scan over the queries in interval order: a fixed order, no
+    atomics) into the intervals' two knots, a spline member's slope
+    cotangents through T^-T by the same factors and R^T; one
+    ``torch.empty`` and one launch."""
+    _fit_shapes(Ub, tab, "fitted_rows_t", (tab.W_max,))
+    if not Ub.is_cuda:
+        return fitted_rows_t_plain(Ub, tab)
+    out = _fit_launch("fitted_rows_t_f64", Ub,
+                      (Ub.shape[0], tab.G, tab.K, tab.n_max), tab,
+                      tab.qw.data_ptr(), tab.sp.data_ptr(),
+                      tab.iq.data_ptr(), tab.ikey.data_ptr())
+    fitted_rows_t.launches += 1
+    return out
+
+
+fitted_rows_t.launches = 0

@@ -114,8 +114,11 @@ def pv_float_leg(dfs: torch.Tensor, disc_interp_type: InterpTypes,
     (scalars [...]). The DFs at the query orders concat(start, end) and
     concat(pay, value[, effective, maturity]) come from ``plans``,
     dict(idx=..., disc=...) of torch static plans (``df_static``: stacked
-    simple plans with the same leading dims as ``dfs``, or per-member
-    lists of plans over ``dfs``'s first axis), or, without plans, from
+    simple plans with the same leading dims as ``dfs``, or stacked
+    fitted member plans over ``dfs``'s first axis), or dict(both=...,
+    n_idx=...) when one fitted curve is both (its plan's queries the
+    index ones, ``n_idx`` of them, then the discount ones: one
+    ``ops/fitted_rows`` call), or, without plans, from
     dynamic
     interpolation of one leg on the grids (``times``, ``dfs``) and
     (``idx_times``, ``idx_dfs``), each defaulting to the discount curve's.
@@ -129,7 +132,13 @@ def pv_float_leg(dfs: torch.Tensor, disc_interp_type: InterpTypes,
     pay_t = leg["payment_times"]
     n = pay_t.shape[-1]
 
-    if plans is not None:
+    if plans is not None and "both" in plans:
+        if idx_dfs is not dfs or idx_it != disc_interp_type:
+            raise LibError("pv_float_leg: a joint plan needs one curve")
+        both = df_static(plans["both"], dfs, disc_interp_type)
+        idx_out = both[..., :plans["n_idx"]]
+        disc_out = both[..., plans["n_idx"]:]
+    elif plans is not None:
         idx_out = df_static(plans["idx"], idx_dfs, idx_it)
         disc_out = df_static(plans["disc"], dfs, disc_interp_type)
     else:

@@ -22,7 +22,8 @@ one forward-mode level may pass through it.
 
 The foreign curve's DFs at the cashflow times come from a static plan
 (``foreign_plan``: ``ops/interpolation.interp_plan`` over the cashflow
-query times, of any scheme, or per-member plans of a stacked stage) or,
+query times, of any scheme, or the stacked fitted plan of a stage's
+members, evaluated in one ``ops/fitted_rows`` call) or,
 without one, from ``interp_fit`` plus ``interp_df`` on the foreign grid
 (``foreign_times``), under the foreign curve's own scheme either way.
 
@@ -105,7 +106,8 @@ def bootstrap_xccy(spreads: torch.Tensor, pv_dom: torch.Tensor,
     foreign_interp_type: the foreign curve's scheme
     foreign_plan: the torch form of an ``interp_plan`` over
         concat(start_t, end_t, pay_t_foreign) x the foreign grid times
-        (a list of per-member plans for a stacked plan), or None
+        (a stacked ``ops/fitted_rows.FittedPlan`` for a stacked fitted
+        plan), or None
     foreign_times: the foreign grid's times, read when there is no plan
 
     With a stacked [G, ...] plan every argument carries the same leading

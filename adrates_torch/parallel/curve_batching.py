@@ -31,9 +31,12 @@ Every interpolation here goes through a static plan (the query times and
 the grid times are both fixed at compile time), including the XCCY
 calibration legs (``legs_plan``) and the bootstrap's foreign-curve
 queries (``fboot_plan``). Same-simple-scheme members of a stage batch
-through one stacked plan; a fitted member has a plan of its own
+through one stacked plan; a fitted member has a host plan of its own
 (``ops/interpolation.fitted_interp_plan``: its knots, the queries and
-their brackets), and is fitted and evaluated per curve.
+their brackets), and the device form stacks a stage's fitted members,
+whatever their schemes, into one ``ops/fitted_rows.FittedPlan``,
+evaluated in one ``ops/fitted_rows`` call (one K6 launch an AD
+evaluation).
 """
 
 from __future__ import annotations
@@ -46,9 +49,9 @@ import torch
 
 from ..ops.bootstrap import OISBootstrapPlan, bootstrap_ois
 from ..ops.bootstrap import plan_to_torch as ois_plan_to_torch
-from ..ops.interpolation import (fitted_df_static, fitted_interp_plan,
-                                 plan_to_torch, simple_df_static,
-                                 simple_interp_plan)
+from ..ops.fitted_rows import fitted_eval, fitted_plan
+from ..ops.interpolation import (fitted_interp_plan, plan_to_torch,
+                                 simple_df_static, simple_interp_plan)
 from ..ops.pricers import FloatLegTensor, leg_to_torch, pv_float_leg
 from ..ops.xccy_bootstrap import XccyBootstrapPlan, bootstrap_xccy
 from ..ops.xccy_bootstrap import plan_to_torch as xccy_plan_to_torch
@@ -297,9 +300,9 @@ def xccy_legs_pv(dom_ds: torch.Tensor, b: dict, st: _Stage) -> torch.Tensor:
     exploits: dom-quote directions compose through these S values
     instead of re-differentiating the whole stage)."""
     lp = b["legs_plan"]
-    if isinstance(lp["idx"], list):
-        # a fitted dom scheme: member g's plans fit dom_ds[g] once for
-        # all S legs
+    if "both" in lp:
+        # a fitted dom scheme: member g's plan fits dom_ds[g] once for
+        # all S legs' index and discount queries
         return pv_float_leg(dom_ds, st.dom_interp, b["legs"], lp)
     S = b["legs"]["leg_sign"].shape[-1]
     dds = dom_ds.unsqueeze(-2).expand(dom_ds.shape[:-1] + (S,)
@@ -335,16 +338,16 @@ def stage_rows(ds: torch.Tensor, its: Sequence[InterpTypes],
                plan: dict) -> torch.Tensor:
     """Interpolate a stage's [G, P1] native grids at the stage's static
     query times: [G, W]. Same-simple-scheme members batch through one
-    static plan; a fitted member is fitted on its real knots and evaluated
-    through its own plan (``plan`` is the torch form of a stage's
-    ``row_plan`` or ``row_plan_keep``; ``plan["fit"]`` maps a fitted
-    member's position to its plan)."""
-    fit = plan.get("fit", {})
+    static plan; the fitted members, each fitted on its real knots,
+    through one ``ops/fitted_rows`` call (``plan`` is the torch form of a
+    stage's ``row_plan`` or ``row_plan_keep``; ``plan["fit"]`` is the
+    fitted members' positions and their stacked tables)."""
+    fit = plan.get("fit")
     by_scheme: Dict[InterpTypes, List[int]] = {}
     for m, it in enumerate(its):
         if it in _SIMPLE:
             by_scheme.setdefault(it, []).append(m)
-    if not fit and len(by_scheme) == 1:
+    if fit is None and len(by_scheme) == 1:
         (it, _), = by_scheme.items()
         return simple_df_static(plan[it.name], ds, it)
     rows: List = [None] * ds.shape[0]
@@ -352,8 +355,14 @@ def stage_rows(ds: torch.Tensor, its: Sequence[InterpTypes],
         out = simple_df_static(plan[it.name], ds[mids], it)
         for k, m in enumerate(mids):
             rows[m] = out[k]
-    for m, fp in fit.items():
-        rows[m] = fitted_df_static(fp, ds[m], its[m])
+    if fit is not None:
+        mids, tab = fit
+        tab.check(its[m] for m in mids)
+        if not by_scheme:
+            return fitted_eval(tab, ds)
+        out = fitted_eval(tab, ds[list(mids)])
+        for k, m in enumerate(mids):
+            rows[m] = out[k]
     return torch.stack(rows)
 
 
@@ -669,17 +678,37 @@ def _grid_plans(unique_times, ts_static_of, real_ts_of, interp_of) -> dict:
 
 def _plans_to_torch(plans: dict, device) -> dict:
     """{scheme name: numpy plan, "fit": {member: numpy plan}, "q": array}
-    -> the same on ``device``."""
+    -> the same on ``device``, with "fit" as (the fitted members in
+    ascending order, their stacked ``FittedPlan``)."""
     out = {}
     for k, v in plans.items():
         if k == "fit":
-            out[k] = {m: plan_to_torch(p, device) for m, p in v.items()}
+            mids = tuple(sorted(v))
+            out[k] = (mids, fitted_plan([v[m] for m in mids], device))
         elif isinstance(v, dict):
             out[k] = plan_to_torch(v, device)
         else:
             out[k] = torch.as_tensor(np.asarray(v, dtype=np.float64),
                                      device=device)
     return out
+
+
+def _legs_plan_to_torch(lp: dict, device) -> dict:
+    """The calibration legs' plans on ``device``. On a fitted dom scheme
+    the index and the discount queries are one curve's, so each member's
+    two plans become one (``both``: the index queries, then the discount
+    ones, ``n_idx`` of the first), evaluated by one ``ops/fitted_rows``
+    call."""
+    if not isinstance(lp["idx"], list):
+        return {k: plan_to_torch(v, device) for k, v in lp.items()}
+    both = []
+    for pi, pd in zip(lp["idx"], lp["disc"]):
+        if not np.array_equal(pi["x"], pd["x"]):
+            raise LibError("calibration-leg plans on different knots")
+        both.append(dict(pi, q=np.concatenate([pi["q"], pd["q"]], -1),
+                         idx=np.concatenate([pi["idx"], pd["idx"]], -1)))
+    return dict(both=fitted_plan(both, device),
+                n_idx=int(np.asarray(lp["idx"][0]["q"]).shape[-1]))
 
 
 def bat_to_torch(bat: dict, device) -> dict:
@@ -712,8 +741,7 @@ def bat_to_torch(bat: dict, device) -> dict:
                      legs=leg_to_torch(b["legs"], device),
                      spot_fx=f64(b["spot_fx"]), pv_dom0=f64(b["pv_dom0"]),
                      fboot_plan=plan_to_torch(b["fboot_plan"], device),
-                     legs_plan={k: plan_to_torch(v, device)
-                                for k, v in b["legs_plan"].items()})
+                     legs_plan=_legs_plan_to_torch(b["legs_plan"], device))
         else:
             d["plan"] = ois_plan_to_torch(b["plan"], device)
         out[key] = d
@@ -726,8 +754,7 @@ def make_grids(stages: Sequence[_Stage], interp_of: Sequence[InterpTypes]):
     P["grid_sel"] is set. P["bat"] is :func:`bat_to_torch` output."""
     C = len(interp_of)
     schemes = list(_by_scheme(interp_of).items())
-    fitted = [(cid, it) for cid, it in enumerate(interp_of)
-              if it not in _SIMPLE]
+    fitted = any(it not in _SIMPLE for it in interp_of)
 
     def _stack_native(native, ids):
         """Stack per-curve native dfs to a common padded length (pad
@@ -762,9 +789,11 @@ def make_grids(stages: Sequence[_Stage], interp_of: Sequence[InterpTypes]):
                                    _stack_native(native, ids), it)
             for g, cid in enumerate(ids):
                 rows[cid] = out[g]
-        for cid, it in fitted:
-            rows[cid] = fitted_df_static(B["gplan"]["fit"][cid], native[cid],
-                                         it)
+        if fitted:
+            cids, tab = B["gplan"]["fit"]
+            out = fitted_eval(tab, _stack_native(native, cids))
+            for g, cid in enumerate(cids):
+                rows[cid] = out[g]
         flat = torch.cat([rows[i] for i in range(C)])
         sel = P.get("grid_sel")
         return flat if sel is None else flat[sel]

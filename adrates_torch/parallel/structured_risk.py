@@ -572,21 +572,29 @@ def make_structured_risk(topo: StageTopology, term1):
 # ---------------------------------------------------------------------------
 
 
-def _so_fwd(f, x0: torch.Tensor, seeds: torch.Tensor) -> torch.Tensor:
+def _so_fwd(f, x0: torch.Tensor, seeds: torch.Tensor,
+            fitted: bool = False) -> torch.Tensor:
     """Second-order directional-derivative tensor T[i, j, ...] =
-    d^2 f/(d s_i)(d s_j) at x0 (``adrates_tpu`` ``_so_tensor``): one jvp
-    over jvp per seed pair under vmap, for an ``f`` with no linear solve
-    on its path (a solve takes one forward-mode level only). The seed
-    bases are member-parallel (outputs of different group members never
-    mix, so one seed carries every member's direction at once)."""
+    d^2 f/(d s_i)(d s_j) at x0 (``adrates_tpu`` ``_so_tensor``): per seed
+    pair under vmap, one jvp over jvp for an ``f`` with no solve and no
+    fitted curve on its path; where ``fitted`` (``f`` reaches a fitted
+    curve's rows, ``ops/fitted_rows``, which take one forward-mode level
+    only, and raise under two), one jvp over the inner directional
+    derivative taken by two reverse passes
+    (``ops/linear_solve.jvp_by_vjp``). The seed bases are
+    member-parallel (outputs of different group members never mix, so one
+    seed carries every member's direction at once)."""
     def one(s1):
         def inner(x):
+            if fitted:
+                return jvp_by_vjp(f, x, s1)[1]
             return jvp(f, (x,), (s1,))[1]
         return vmap(lambda s2: jvp(inner, (x0,), (s2,))[1])(seeds)
     return vmap(one)(seeds)
 
 
-def _so_tensor(native, x0: torch.Tensor, seeds: torch.Tensor, rows):
+def _so_tensor(native, x0: torch.Tensor, seeds: torch.Tensor, rows,
+               fitted: bool = False):
     """(ds, D, H, T): ``native``'s value ds and directional derivatives D
     at x0, and the second-order tensors of :func:`_so_fwd` for ``native``
     (a stage's bootstrap, whose solve takes one forward-mode level) and
@@ -594,7 +602,8 @@ def _so_tensor(native, x0: torch.Tensor, seeds: torch.Tensor, rows):
     derivative taken by two reverse passes (``ops/linear_solve
     .jvp_by_vjp``) per seed pair under vmap; T follows by the chain rule,
     T[i, j] = R'(ds) H[i, j] + R''(ds)[D_i, D_j] with D_i = native' s_i,
-    the second term by :func:`_so_fwd` on ``rows`` (no solve)."""
+    the second term by :func:`_so_fwd` on ``rows`` (``fitted``: they
+    reach a fitted curve)."""
     def one(s1):
         def inner(x):
             return jvp_by_vjp(native, x, s1)[1]
@@ -603,7 +612,7 @@ def _so_tensor(native, x0: torch.Tensor, seeds: torch.Tensor, rows):
     H = vmap(one)(seeds)
     ds, D = _jac(native, x0, seeds)
     first = vmap(vmap(lambda h: jvp(rows, (ds,), (h,))[1]))(H)
-    return ds, D, H, first + _so_fwd(rows, ds, D)
+    return ds, D, H, first + _so_fwd(rows, ds, D, fitted)
 
 
 def make_pertrade_tensors(topo: StageTopology):
@@ -639,7 +648,8 @@ def make_pertrade_tensors(topo: StageTopology):
             ds, dds, dsT, rowsT = _so_tensor(
                 lambda r, b=b, native=native: native(r, b), q_local, seeds,
                 lambda d, b=b, si=si: stage_rows(d, its_of[si],
-                                                 b["row_plan"]))
+                                                 b["row_plan"]),
+                "fit" in b["row_plan"])
             dds_st[si] = dds                               # [Qp, G, P1]
             for mi, cid in enumerate(st.ids):
                 ds_of[cid] = ds[mi]
@@ -665,7 +675,8 @@ def make_pertrade_tensors(topo: StageTopology):
                 def native0(sp, b=b, st=st, dd=dom_ds, fd=for_ds):
                     return xccy_native_ds(sp, dd, fd, b, st)
                 so[si] = dict(rowsT=_so_tensor(native0, spreads,
-                                               _seeds(S, G, q), rows)[3])
+                                               _seeds(S, G, q), rows,
+                                               "fit" in b["row_plan"])[3])
                 continue
 
             Qd, Qf = m["Qd"], m["Qf"]
@@ -695,8 +706,8 @@ def make_pertrade_tensors(topo: StageTopology):
             seedsD = _seeds(D2, G, q)
             _, drows2 = _jac(lambda Z, native_z=native_z, rows=rows:
                              rows(native_z(Z)), Z0, seedsD)  # [D2, G, U]
-            rowsTx = _so_tensor(native_z, Z0, seedsD,
-                                rows)[3]                 # [D2, D2, G, U]
+            rowsTx = _so_tensor(native_z, Z0, seedsD, rows,
+                                "fit" in b["row_plan"])[3]  # [D2, D2, G, U]
 
             def boot_fd(fd, b=b, st=st, si=si, spreads=spreads, pv0=pv0):
                 ds = xccy_boot_ds(spreads, pv0, fd, b, st)
@@ -709,8 +720,8 @@ def make_pertrade_tensors(topo: StageTopology):
                 return legs(dom_ds + torch.einsum("gd,dgl->gl", Zd,
                                                   td_legs))
 
-            legsT = _so_fwd(legs_z, q.new_zeros((G, Qd)),
-                            _seeds(Qd, G, q))              # [Qd, Qd, G, S]
+            legsT = _so_fwd(legs_z, q.new_zeros((G, Qd)), _seeds(Qd, G, q),
+                            "both" in b["legs_plan"])      # [Qd, Qd, G, S]
             so[si] = dict(Jpv=Jpv, Jlegs_nat=Jlegs_nat, drows2=drows2,
                           rowsTx=rowsTx, drows_fd=drows_fd, legsT=legsT)
         return so

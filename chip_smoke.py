@@ -11,7 +11,9 @@ first use. Phases:
 1. environment: the card's name and power limit, torch/CUDA/nvcc versions;
 2. build: compile and load the kernels (K1 pvs_sweep, K2 gamma quad form,
    K3 per-trade quad form, K4 pv01_solve and K5 pv01_solve_t, the OIS
-   bootstrap's chain solve and its transpose);
+   bootstrap's chain solve and its transpose, K6 fitted_rows and K7
+   fitted_rows_t, the fitted schemes' rows at static queries and their
+   transpose);
 3. OIS slice: the flagship OIS book (7 curves, N = 144 quotes, 720 OIS
    tiled to 100,080 trades, 100 scenarios) through ``make_multibook_fn``
    on the structured risk split: one cold call, then 3 warm calls;
@@ -81,7 +83,12 @@ first use. Phases:
    once (= structured); each spline curve's ``df_t`` against the book's
    grid row and the engine's PV against the book's on one live OIS of
    each spline curve and one basis swap of each XCCY curve (1e-10); the
-   per-trade paths of phase 7b on this book; K1, K2 and K3 against their
+   per-trade paths of phase 7b on this book; K6 / K7 launches a call on
+   the staged, generic and per-trade paths (gated: every path launches
+   them), the 256 gammas' warm wall and device ops beside phase 7b's on
+   FLAT_FWD; K6's and K7's inputs captured from one staged chunk's
+   regions A, C1 and C2 for phase 8;
+   K1, K2 and K3 against their
    twins on its inputs (1e-12, gates, not kernel records); config 2 on
    the PCHIP GBP curve (cold + 20 warm, device ops, cuda = cpu) and one
    bond's duration and g-spread on the host; a ``splines`` JSON line
@@ -164,7 +171,11 @@ first use. Phases:
    K-sweep and K5 at 1e-14 x max|ref|, with one batched
    ``torch.linalg.solve_triangular`` on the dense (I - A) as the
    yardstick and the kernel's time on one row a plan, its chain of P
-   dependent steps), each timed
+   dependent steps); K6 and K7 at the spline book's largest calls of
+   regions A (K6) and C2 (K7: the OIS stage's five fitted members) and
+   of region C1 (an XCCY stage's foreign curve) against their twins at
+   1e-12 x max|ref|, with one torch.bmm of the inputs by the dense
+   operators the plan implies as the yardstick), each timed
    over 30 calls by CUDA events around the call (``ms``, which holds the
    wrapper's host work) and by the device time of its kernels in a
    torch.profiler trace (``device_ms``), the twin's time, K1's table
@@ -173,8 +184,9 @@ first use. Phases:
    pre-gathered padded [w X; Y] and [Y; w X] operands, K2's over
    (scenario, group), checked against the twin), and each kernel's bound
    (bytes over HBM rate or flops over peak f64 rate, from that path's
-   tables). The device time comes from the kernels inside each call's
-   ``record_function`` window (the calls with the usual kernel count);
+   tables). The device time comes from the kernels launched inside each
+   call's ``record_function`` window (placed by their launch's
+   correlation id; the calls with the usual kernel count);
    a gate holds every device time, the yardsticks' and the ladders'
    contractions' too, to at most 1.1 times its event window;
 9. one bound line per kernel with the card line, the kernels' JSON line
@@ -238,46 +250,63 @@ def _cuda_ms(f, reps: int = 30) -> float:
 def _device_stats(f, reps: int = 30):
     """Device milliseconds per ``f()`` call from one torch.profiler trace
     of ``reps`` synchronized calls (after one warm-up call), each call
-    inside a ``record_function`` window that ends after its synchronize:
-    a device event (kernel, copy, fill) belongs to the window that holds
-    its midpoint, and one outside every window is not counted. The calls
-    that hold the most common number of device events (a trace can lose
-    one) give the per-call sums: median, min, max, the events per call
-    (``kernels``) and the calls counted (``calls``). Unlike the event
-    window it leaves out the host's time before and between launches.
-    None when no window holds a device event."""
+    inside a ``record_function`` window that ends after its synchronize.
+    A device event (kernel, copy, fill) belongs to the window that holds
+    the host call that launched it (the runtime API event of the same
+    correlation id, on the host's clock), or, where the trace holds no
+    such host event, the window that holds its own midpoint; one outside
+    every window is not counted. The calls that hold the most common
+    number of device events (a trace can lose one) give the per-call
+    sums: median, min, max, the events per call (``kernels``), the calls
+    counted (``calls``) and the share of events placed by their launch
+    (``by_launch``). Unlike the event window it leaves out the host's
+    time before and between launches. A trace whose windows hold no
+    device event (a trace on the card can come back empty) is taken
+    again, up to three times; None if none holds one."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
     f()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for i in range(reps):
-            with record_function(f"_smoke_call_{i}"):
-                f()
-                torch.cuda.synchronize()
-    events = prof.events()
-    wins = sorted((e.time_range.start, e.time_range.end) for e in events
-                  if e.device_type == DeviceType.CPU
-                  and e.name.startswith("_smoke_call_"))
-    per_call = [[] for _ in wins]
-    for e in events:
-        if e.device_type != DeviceType.CUDA \
-                or e.name.startswith("_smoke_call_"):
-            continue                       # host events, GPU annotations
-        mid = (e.time_range.start + e.time_range.end) / 2
-        for k, (a, b) in enumerate(wins):
-            if a <= mid <= b:
-                per_call[k].append(e.time_range.elapsed_us())
-                break
-    counts = [len(c) for c in per_call if c]
-    if not counts:
-        return None
-    n = statistics.mode(counts)
-    out = _stats([sum(c) / 1e3 for c in per_call if len(c) == n])
-    out.update(kernels=n, calls=out.pop("reps"))
-    return out
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for i in range(reps):
+                with record_function(f"_smoke_call_{i}"):
+                    f()
+                    torch.cuda.synchronize()
+        events = prof.events()
+        wins = sorted((e.time_range.start, e.time_range.end) for e in events
+                      if e.device_type == DeviceType.CPU
+                      and e.name.startswith("_smoke_call_"))
+        # the host's CUDA API calls (cudaLaunchKernel, cuLaunchKernel,
+        # cudaMemsetAsync, ...) by correlation id
+        launch = {e.id: (e.time_range.start + e.time_range.end) / 2
+                  for e in events if e.device_type == DeviceType.CPU
+                  and e.name.startswith("cu")}
+        per_call = [[] for _ in wins]
+        placed = total = 0
+        for e in events:
+            if e.device_type != DeviceType.CUDA \
+                    or e.name.startswith("_smoke_call_"):
+                continue                   # host events, GPU annotations
+            at = launch.get(e.id)
+            total += 1
+            placed += at is not None
+            if at is None:
+                at = (e.time_range.start + e.time_range.end) / 2
+            for k, (a, b) in enumerate(wins):
+                if a <= at <= b:
+                    per_call[k].append(e.time_range.elapsed_us())
+                    break
+        counts = [len(c) for c in per_call if c]
+        if counts:
+            n = statistics.mode(counts)
+            out = _stats([sum(c) / 1e3 for c in per_call if len(c) == n])
+            out.update(kernels=n, calls=out.pop("reps"),
+                       by_launch=placed / total)
+            return out
+    return None
 
 
 def _request_device(f):
@@ -304,16 +333,20 @@ def _timings(kernel, plain, library=None) -> dict:
     """A kernel record's times, 30 calls each: the kernel's event window
     (``ms``, median) and its device time (``device_ms``, median, with min
     and max), the plain twin's event window, and the yardstick's event
-    window and device time (None without one)."""
+    window and device time (None without one); ``device_by_launch`` is
+    the share of the kernel's device events placed in their windows by
+    their launch (``_device_stats``)."""
+    ms = _cuda_ms(kernel)
     dv = _device_stats(kernel)
-    out = dict(ms=_cuda_ms(kernel), device_ms=dv and dv["median"],
+    out = dict(ms=ms, device_ms=dv and dv["median"],
                device_ms_min=dv and dv["min"], device_ms_max=dv and dv["max"],
+               device_by_launch=dv and dv["by_launch"],
                plain_ms=_cuda_ms(plain), library_ms=None,
                library_device_ms=None)
     if library is not None:
+        lms = _cuda_ms(library)
         lv = _device_stats(library)
-        out.update(library_ms=_cuda_ms(library),
-                   library_device_ms=lv and lv["median"])
+        out.update(library_ms=lms, library_device_ms=lv and lv["median"])
     return out
 
 
@@ -347,7 +380,8 @@ def _check(name: str, err: float, bound: float):
 
 # every kernel's wrapper, by its launch-count key
 KERNELS = ("pvs_sweep", "gamma_quad_form_grouped", "pertrade_quad_form",
-           "pv01_solve", "pv01_solve_t")
+           "pv01_solve", "pv01_solve_t", "fitted_rows", "fitted_rows_t")
+FITTED = ("fitted_rows", "fitted_rows_t")
 
 
 def _reset_launches():
@@ -409,6 +443,66 @@ def _capture_solves(run) -> dict:
     if sorted(keep) != sorted(orig):
         raise AssertionError(f"the watched call ran {sorted(keep)} only")
     return keep
+
+
+def _fitted_launches(path: str, info: dict, reverse: bool = True) -> dict:
+    """Report K6 / K7 launches a call on one path that evaluates a static
+    fitted plan on the card (``info``: its launch counts and ``calls``):
+    K6 must have launched, and K7 too where the path differentiates the
+    rows in reverse mode. Returns them a call."""
+    n = info["calls"]
+    per = {k: info[k] / n for k in FITTED}
+    print(f"{path}: K6 fitted_rows {per['fitted_rows']:g} and K7 "
+          f"fitted_rows_t {per['fitted_rows_t']:g} launches a call ({n} "
+          f"calls)", flush=True)
+    if info["fitted_rows"] <= 0 or (reverse and info["fitted_rows_t"] <= 0):
+        raise AssertionError(f"{path}: the fitted-rows kernels were not "
+                             f"launched ({ {k: info[k] for k in FITTED} })")
+    return per
+
+
+def _capture_fitted(fn, q0, shocks, device) -> dict:
+    """Run regions A, C1 and C2 of one staged chunk with K6's and K7's
+    wrappers watched: per region and kernel, the (input shape, tables) of
+    its call with the most elements."""
+    import numpy as np
+    import torch
+
+    from adrates_torch.ops import kernels
+    keep = {}
+    region = [None]
+    orig = {k: getattr(kernels, k) for k in FITTED}
+
+    def watched(name, f):
+        def g(t, tab):
+            key = (region[0], name)
+            if key not in keep or t.numel() > np.prod(keep[key][0]):
+                keep[key] = (tuple(t.shape), tab)
+            return f(t, tab)
+        g.launches = f.launches
+        return g
+
+    sh = torch.as_tensor(shocks[:fn.chunk(shocks.shape[0])], device=device)
+    q = torch.as_tensor(q0, device=device)[None, :] + sh
+    r = fn.regions
+    for name, f in orig.items():
+        setattr(kernels, name, watched(name, f))
+    try:
+        region[0] = "A"
+        a = r["A"](q)
+        region[0] = "C1"
+        _, v_of = r["C1"](q, a["g"], a["carry"])
+        region[0] = "C2"
+        r["C2"](q, a["g"], v_of)
+        torch.cuda.synchronize()
+    finally:
+        for name, f in orig.items():
+            setattr(kernels, name, f)
+    want = [("A", "fitted_rows"), ("C2", "fitted_rows_t"),
+            ("C1", "fitted_rows"), ("C1", "fitted_rows_t")]
+    if any(k not in keep for k in want):
+        raise AssertionError(f"the watched regions ran {sorted(keep)}")
+    return {k: keep[k] for k in want}
 
 
 def _nested_forward_raises(curve, device) -> dict:
@@ -1374,7 +1468,7 @@ def _twin_gates(name, mono, q0, shocks, chunk, pt_fns) -> dict:
     return errs
 
 
-def run_flagship_v5_splines(device, flat, n_warm: int = 3):
+def run_flagship_v5_splines(device, flat, flat_gam, n_warm: int = 3):
     """Phase 7d: flagship_v5 with five of its OIS curves on the fitted
     schemes (``flagship_v5.SPLINE_SCHEMES``; the book, seed and draw order
     unchanged): the staged path cold + ``n_warm`` warm with phase 7's
@@ -1384,7 +1478,10 @@ def run_flagship_v5_splines(device, flat, n_warm: int = 3):
     curve's ``df_t`` against the book's grid row; the per-trade paths;
     K1-K3 against their twins on this book; config 2 on the PCHIP GBP
     curve and a bond's analytics. ``flat`` is phase 7's info, printed
-    beside this phase's. Returns the ``splines`` record."""
+    beside this phase's, and ``flat_gam`` (phase 7b's 256-gamma fn, its
+    quotes, its info) the FLAT_FWD gammas measured beside this book's.
+    Returns (the ``splines`` record, the staged path's info, K6's and
+    K7's captured inputs for phase 8)."""
     import numpy as np
     import torch
 
@@ -1431,11 +1528,17 @@ def run_flagship_v5_splines(device, flat, n_warm: int = 3):
             raise AssertionError(f"{name} was not launched on the spline "
                                  f"book's staged path")
     _solve_launches("flagship_v5 splines staged", info)
+    info["fitted_per_call"] = _fitted_launches("flagship_v5 splines staged",
+                                               info)
     _call_device("flagship_v5 splines staged", fn, q0, shocks, info)
     info["regions_ms"], a = _time_regions(fn, q0, shocks, device)
     _print_regions("flagship_v5 splines", a["dfs"].shape[0],
                    info["regions_ms"])
     del a
+    fit_inputs = _capture_fitted(fn, q0, shocks, device)
+    print("flagship_v5 splines K6 / K7 calls captured: "
+          + ", ".join(f"{k[1]} {k[0]} {list(v[0])}"
+                      for k, v in fit_inputs.items()), flush=True)
     mono = tmb.make_multibook_fn(mb, device=device)
     delta0 = out["delta"][0]
     fd = []
@@ -1461,6 +1564,8 @@ def run_flagship_v5_splines(device, flat, n_warm: int = 3):
     info["generic_launches"] = _launches()
     _solve_launches("flagship_v5 splines generic",
                     dict(info["generic_launches"], calls=1))
+    _fitted_launches("flagship_v5 splines generic",
+                     dict(info["generic_launches"], calls=1))
     print(f"flagship_v5 splines generic: one call {info['generic_ms']:.1f} "
           f"ms; launches {info['generic_launches']}", flush=True)
     for k, bound in (("pvs", 1e-10), ("delta", 1e-9), ("gamma", 1e-8)):
@@ -1511,6 +1616,22 @@ def run_flagship_v5_splines(device, flat, n_warm: int = 3):
     # ---- the per-trade paths and the kernels' twins -----------------------
     print("phase 7d per-trade paths on the spline book:", flush=True)
     pt_fns, pt_infos = run_per_trade(device, fn, mono, mb, q0, n_warm)
+    for key in ("ladders", "gamma_256", "blocks"):
+        pt_infos[key]["fitted_per_call"] = _fitted_launches(
+            f"flagship_v5 splines per-trade {key}", pt_infos[key],
+            reverse=key != "ladders")
+    gam_fn, (fgam_fn, fq0, fgam_info) = pt_fns[1], flat_gam
+    g_ops, g_ms = _request_device(lambda: gam_fn(q0))
+    f_ops, f_ms = _request_device(lambda: fgam_fn(fq0))
+    pt_infos["gamma_256"].update(device_ops=g_ops, device_ms=g_ms,
+                                 flat_device_ops=f_ops, flat_device_ms=f_ms)
+    print(f"flagship_v5 splines 256 gammas vs phase 7b (FLAT_FWD): warm "
+          f"median {statistics.median(pt_infos['gamma_256']['warm_ms']):.1f}"
+          f" vs {statistics.median(fgam_info['warm_ms']):.1f} ms, one warm "
+          f"call {g_ops} vs {f_ops} device ops, device {_fmt_ms(g_ms)} vs "
+          f"{_fmt_ms(f_ms)}; K6 / K7 launches a call "
+          f"{pt_infos['gamma_256']['fitted_per_call']}; card {card}",
+          flush=True)
     twins = _twin_gates("flagship_v5 splines", mono, q0, shocks,
                         info["chunk"], pt_fns)
     del pt_fns, fn, mono
@@ -1557,12 +1678,19 @@ def run_flagship_v5_splines(device, flat, n_warm: int = 3):
                     regions_ms=i["regions_ms"], device_ops=i["device_ops"],
                     device_ms=i["device_ms"], peak_gib=i["peak_gib"],
                     launches={k: i[k] for k in ("pvs_sweep",
-                                                "gamma_quad_form_grouped")})
+                                                "gamma_quad_form_grouped")
+                              + FITTED})
     rec = dict(card=card, schemes=schemes, pads=pads, model_ms=t_model * 1e3,
                compile_ms=t_compile * 1e3, staged=book_rec(info),
                flat_staged=book_rec(flat), generic_ms=info["generic_ms"],
+               fitted_per_call=info["fitted_per_call"],
                per_trade={k: dict(warm_ms=i["warm_ms"], prep_ms=i["prep_ms"],
-                                  peak_gib=i["peak_gib"])
+                                  peak_gib=i["peak_gib"],
+                                  fitted_per_call=i["fitted_per_call"],
+                                  **{m: i[m] for m in (
+                                      "device_ops", "device_ms",
+                                      "flat_device_ops", "flat_device_ms")
+                                     if m in i})
                           for k, i in pt_infos.items() if isinstance(i, dict)},
                twins=twins, config2=c2,
                bond=dict(duration=dur, g_spread=gsp, ms=bond_ms))
@@ -1573,9 +1701,10 @@ def run_flagship_v5_splines(device, flat, n_warm: int = 3):
           f"{statistics.median(f['warm_ms']):.1f} ms, device ops "
           f"{s['device_ops']} vs {f['device_ops']}, device "
           f"{_fmt_ms(s['device_ms'])} vs {_fmt_ms(f['device_ms'])}, peak "
-          f"{s['peak_gib']:.2f} vs {f['peak_gib']:.2f} GiB; phase "
+          f"{s['peak_gib']:.2f} vs {f['peak_gib']:.2f} GiB; K6 / K7 "
+          f"launches a call {rec['fitted_per_call']}; phase "
           f"{rec['phase_s']:.1f} s; card {card}", flush=True)
-    return rec
+    return rec, info, fit_inputs
 
 
 # Single-curve book sizes of phase 7e (the quick start's 20 base OIS tiled
@@ -2633,6 +2762,95 @@ def compare_solve_kernels(path, inputs) -> list:
     return recs
 
 
+def _fit_operators(tab):
+    """[G, W_max, K n_max]: each member's dense operator from (its knot
+    values | its slopes) to its queries, built once by K6 on the unit
+    basis (outside any timed window; the port never calls it)."""
+    import torch
+
+    from adrates_torch.ops import kernels
+    kn = tab.K * tab.n_max
+    eye = torch.eye(kn, dtype=torch.float64, device=tab.qw.device)
+    X = eye.reshape(kn, 1, tab.K, tab.n_max).expand(
+        kn, tab.G, tab.K, tab.n_max).contiguous()
+    return kernels.fitted_rows(X, tab).permute(1, 2, 0).contiguous()
+
+
+def compare_fitted_kernels(inputs) -> list:
+    """Phase 8's K6 and K7 records at the spline book's captured calls
+    (``inputs`` from ``_capture_fitted``: each call's shape and tables),
+    on standard normal inputs drawn from a seed (the kernels' work does
+    not depend on the values; a captured cotangent can be one whose exact
+    image is 0, as the calibration legs' are, their floating coupons and
+    principal telescoping, and then both results are rounding alone):
+    each against its twin at 1e-12 x max|ref| (the kernels solve a
+    spline's slopes by Thomas sweeps, the twins by PCR, and sum in
+    another order), timed beside the twin and one batched ``torch.bmm``
+    of the inputs by the members' dense operators (checked against the
+    twin too); the bound is bytes (the input read once, the output
+    written once, the tables once) over the HBM rate against the FMAs
+    over the f64 rate."""
+    import numpy as np
+    import torch
+
+    from adrates_torch.ops import kernels
+    recs = []
+    for k, ((region, name), (shape, tab)) in enumerate(inputs.items()):
+        t = torch.as_tensor(np.random.default_rng(15 + k).standard_normal(
+            shape), device=tab.qw.device)
+        kern, plain = getattr(kernels, name), getattr(kernels,
+                                                      name + "_plain")
+        R, G, W, n, K = t.shape[0], tab.G, tab.W_max, tab.n_max, tab.K
+        path = f"flagship_v5_splines_{region}"
+        ref = plain(t, tab)
+        got = kern(t, tab)
+        err = float((got - ref).abs().max())
+        _check(f"{path} {name} vs plain (abs / max|ref|)",
+               err / float(ref.abs().max()), 1e-12)
+        M = _fit_operators(tab)                       # [G, W, K n]
+        if name == "fitted_rows":
+            a = t.reshape(R, G, K * n).permute(1, 0, 2).contiguous()
+            b = M.transpose(1, 2).contiguous()
+            lib_ref = ref.permute(1, 0, 2)
+        else:
+            a = t.permute(1, 0, 2).contiguous()
+            b = M
+            lib_ref = ref.reshape(R, G, K * n).permute(1, 0, 2)
+
+        def library(a=a, b=b):
+            return torch.bmm(a, b)
+
+        _check(f"{path} {name} yardstick torch.bmm vs plain (abs / "
+               f"max|ref|)", float((library() - lib_ref).abs().max()
+                                   / lib_ref.abs().max()), 1e-12)
+        tm = _timings(lambda: kern(t, tab), lambda: plain(t, tab), library)
+        n_spl = int(tab.nk[tab.kind != kernels.FIT_HERMITE].sum())
+        tables = 12 * G + 36 * G * W + 48 * G * n \
+            + (4 * G * n + 4 * G * W if name == "fitted_rows_t" else 0)
+        nbytes = 8 * R * G * (K * n + W) + tables
+        bound, by = _bound(nbytes, 8.0 * R * G * W + 10.0 * R * n_spl,
+                           FP64_FLOPS)
+        print(f"{path} {name} [R, G, K, n_max, W_max]={[R, G, K, n, W]} "
+              f"(kinds {tab.kind.tolist()}, knots "
+              f"{tab.nk.tolist()}): {_fmt_tm(tm)}; bound "
+              f"{bound * 1e3:.2f} us ({by}, {nbytes / 1e6:.2f} MB)",
+              flush=True)
+        recs.append(dict(
+            name=name, path=path, route="cuda",
+            source="adrates_torch/csrc/fitted_rows.cu",
+            replaces="adrates_tpu/ops/interpolation.py:350",
+            replaces_also=["adrates_tpu/ops/interpolation.py:375",
+                           "adrates_tpu/parallel/curve_batching.py:320"],
+            max_abs_err=err, **tm,
+            library="torch.bmm of the inputs by the members' dense "
+                    + ("operators [G, K n_max, W_max]" if name == "fitted_rows"
+                       else "operators [G, W_max, K n_max] (the transpose)"),
+            bound_ms=bound, bound_by=by, **_shares(bound, tm),
+            rows=R, members=G, knots=n, queries=W, slots=K))
+        del M, a, b
+    return recs
+
+
 def compare_kernels(path, fn, mb, q0, shocks, device, chunk):
     """Phase 8: each kernel against its plain twin at one path's shapes,
     with its bound and yardstick; returns the kernels' records (without
@@ -2996,7 +3214,7 @@ def main() -> int:
     # ---- phase 2: build ------------------------------------------------
     secs = kernels.build_kernels()
     print(f"build: K1 (scenario- and trade-major, f64 and f32), K2, K3, "
-          f"K4 + K5 built and loaded in "
+          f"K4 + K5, K6 + K7 built and loaded in "
           f"{secs:.2f} s "
           f"({kernels.library_path().name})", flush=True)
 
@@ -3019,7 +3237,8 @@ def main() -> int:
         model_f, np.random.default_rng(flagship_v5.SEED))
     engine = run_engine(device, model_f, base, coll)
     solve_e = engine.pop("solve_inputs")
-    splines = run_flagship_v5_splines(device, info_f)
+    splines, info_s, fit_inputs = run_flagship_v5_splines(
+        device, info_f, (pt_fns[1], q_f, pt_infos["gamma_256"]))
     hostapi, book_args = run_host_api(device, model_f, mb_f)
     # phase 7g on phase 7's model: config 2's OIS and a live basis swap
     analytics = run_ois_analytics(
@@ -3051,13 +3270,16 @@ def main() -> int:
     del lad32_fn
     records += compare_solve_kernels("engine_config2", solve_e)
     records += compare_solve_kernels("flagship_v5", solve_f)
-    del solve_e, solve_f
+    records += compare_fitted_kernels(fit_inputs)
+    del solve_e, solve_f, fit_inputs
     infos.update(flagship_v5_ladders=pt_infos["ladders"],
                  flagship_v5_gamma_256=pt_infos["gamma_256"],
                  flagship_v5_gamma_blocks=pt_infos["blocks"],
                  single_curve_book=book_args[4],
                  flagship_v5_ladders_f32=info32,
-                 engine_config2=engine["config2"]["launches"])
+                 engine_config2=engine["config2"]["launches"],
+                 **{f"flagship_v5_splines_{r}": info_s
+                    for r in ("A", "C1", "C2")})
     for r in records:
         info = infos[r["path"]]
         r["launches"] = info[r["name"]]

@@ -1,0 +1,118 @@
+#!/usr/bin/env python3
+"""The spline cell's paths, where the fitted-scheme rows sit, for one
+checkout, on one CUDA card: walls, device ops and device ms.
+
+    python3 scripts/fitted_ab.py [ROOT]
+
+ROOT is a checkout of this repository (default: the one holding this
+script); its ``adrates_torch`` is imported and its kernels built. The
+inputs and the timing helpers come from this checkout's
+``chip_smoke.py``, so two checkouts are measured on the same inputs and
+clocks. Measured on flagship_v5 with ``SPLINE_SCHEMES`` (chip_smoke
+7d's book, S = 100):
+
+- the staged call: host-clock ms (median of 3 warm) and the device ops
+  and device ms of one warm call (a CUDA-only torch.profiler trace);
+- regions A, C1 and C2 on the first 50-scenario chunk, the same;
+- the 256 selected trades' dense gammas (``make_per_trade_gamma_fn``),
+  the same;
+- on flagship_v5's own FLAT_FWD curves (chip_smoke phase 7b's book):
+  the 256 dense gammas and every trade's own-block gamma
+  (``make_per_trade_gamma_blocks_fn``), the same;
+- the launches of K4 / K5 and K6 / K7 in each (those the checkout has).
+
+Prints one JSON line. To compare commits, run parent, change, change,
+parent in one call.
+"""
+
+import importlib.util
+import json
+import sys
+import warnings
+from pathlib import Path
+
+HERE = Path(__file__).resolve().parent.parent
+KERNELS = ("pv01_solve", "pv01_solve_t", "fitted_rows", "fitted_rows_t")
+
+
+def main(argv) -> int:
+    root = Path(argv[1] if len(argv) > 1 else HERE).resolve()
+    sys.path.insert(0, str(root))
+    spec = importlib.util.spec_from_file_location("chip_smoke_here",
+                                                  HERE / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    import numpy as np
+    import torch
+    if not torch.cuda.is_available():
+        print("fitted_ab: no CUDA device visible", file=sys.stderr)
+        return 2
+    import adrates_torch
+    if root not in Path(adrates_torch.__file__).resolve().parents:
+        raise AssertionError(f"imported {adrates_torch.__file__}, not from "
+                             f"{root}")
+    from adrates_torch.examples import flagship_v5 as cfg
+    from adrates_torch.ops import kernels
+    from adrates_torch.parallel import (make_per_trade_gamma_blocks_fn,
+                                        make_per_trade_gamma_fn)
+    from adrates_torch.parallel.multibook import warmup_multibook
+    kernels.build_kernels()
+    dev = torch.device("cuda", 0)
+    names = [k for k in KERNELS if hasattr(kernels, k)]
+
+    def launches():
+        return {k: getattr(kernels, k).launches for k in names}
+
+    def measure(f, n=3):
+        f()
+        before = launches()
+        w = cs._stats([cs._timed(f)[1] for _ in range(n)])
+        ls = {k: v - before[k] for k, v in launches().items()}
+        ops, dms = cs._request_device(f)
+        return dict(warm_ms=w, device_ops=ops, device_ms=dms, launches=ls,
+                    calls=n)
+
+    model = cfg.build_model(schemes=cfg.SPLINE_SCHEMES)
+    with warnings.catch_warnings():        # CHF has no trades
+        warnings.simplefilter("ignore", UserWarning)
+        mb, shocks = cfg.build_book(model, np.random.default_rng(cfg.SEED))
+    q0 = mb.basket.quotes0
+    out = dict(root=str(root), card=cs._card_line(),
+               torch=torch.__version__)
+    fn = warmup_multibook(mb, shocks.shape[0], dev, staged=True)
+    out["staged"] = measure(lambda: fn(q0, shocks))
+    chunk = fn.chunk(shocks.shape[0])
+    q = torch.as_tensor(q0, device=dev)[None, :] \
+        + torch.as_tensor(shocks[:chunk], device=dev)
+    r = fn.regions
+    a = r["A"](q)
+    _, v_of = r["C1"](q, a["g"], a["carry"])
+    for name, f in (("A", lambda: r["A"](q)),
+                    ("C1", lambda: r["C1"](q, a["g"], a["carry"])),
+                    ("C2", lambda: r["C2"](q, a["g"], v_of))):
+        out[f"region_{name}"] = dict(measure(f), chunk=chunk)
+    del a, v_of, fn
+    g = make_per_trade_gamma_fn(mb, cs._select_trades(mb)[0], dev)
+    out["gamma_256"] = measure(lambda: g(q0))
+    del g, mb
+    model = cfg.build_model()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)
+        mb, _ = cfg.build_book(model, np.random.default_rng(cfg.SEED))
+    q0 = mb.basket.quotes0
+    g = make_per_trade_gamma_fn(mb, cs._select_trades(mb)[0], dev)
+    out["flat_gamma_256"] = measure(lambda: g(q0))
+    del g
+    blk = make_per_trade_gamma_blocks_fn(mb, dev)
+    out["flat_blocks"] = measure(lambda: blk(q0))
+    torch.cuda.synchronize()
+    print(json.dumps(out))
+    summary = {k: (round(v["warm_ms"]["median"], 1), v["device_ops"])
+               for k, v in out.items() if isinstance(v, dict)}
+    print(f"fitted_ab {root.name}: (warm median ms, device ops) "
+          f"{summary}; card {out['card']}", file=sys.stderr)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv))

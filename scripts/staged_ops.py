@@ -2,14 +2,19 @@
 """Count the torch ops of one warm staged call of flagship_v5, on the
 FLAT_FWD curves and on ``flagship_v5.SPLINE_SCHEMES``, region by region.
 
-    python3 scripts/staged_ops.py [N_TRADES]
+    python3 scripts/staged_ops.py [N_TRADES] [--as-card]
 
 Runs on the CPU at a small book (N_TRADES, default 1,004: the base book
 once) and one 50-scenario chunk, the staged path's chunk at bench.py's
 100 scenarios. It counts the leaf aten ops of a torch.profiler trace (ops
 with no aten op below them, views and metadata ops left out): a
 host-side estimate of the kernels a call launches on a card, whose count
-does not depend on the number of trades.
+does not depend on the number of trades. On the CPU the fitted-rows
+wrappers (K6 / K7) run their plain twins, dozens of ops each; with
+``--as-card`` each call of one counts as the one op its kernel is on a
+card (its output made by one ``torch.zeros``), so that the spline count
+estimates the card's. The values are then wrong: only the count is
+read.
 """
 
 import pathlib
@@ -51,7 +56,7 @@ def leaf_ops(f) -> int:
     return n
 
 
-def count(schemes, n_trades: int) -> dict:
+def count(schemes, n_trades: int, as_card: bool = False) -> dict:
     cfg.N_TRADES = n_trades
     model = cfg.build_model(schemes=schemes)
     with warnings.catch_warnings():        # CHF has no trades
@@ -60,6 +65,7 @@ def count(schemes, n_trades: int) -> dict:
     shocks = shocks[:50]
     fn = tmb.make_staged_multibook_fn(mb, "cpu")
     q0 = mb.basket.quotes0
+    saved = _one_op_kernels() if as_card else {}
     fn(q0, shocks)
     out = {"call": leaf_ops(lambda: fn(q0, shocks))}
     r = fn.regions
@@ -70,15 +76,34 @@ def count(schemes, n_trades: int) -> dict:
                C1=leaf_ops(lambda: r["C1"](q, a["g"], a["carry"])),
                C2=leaf_ops(lambda: r["C2"](q, a["g"], v_of)),
                P=leaf_ops(lambda: r["P"](a["dfs"])))
+    from adrates_torch.ops import kernels
+    for name, f in saved.items():
+        setattr(kernels, name, f)
     return out
 
 
+def _one_op_kernels() -> dict:
+    """K6 and K7 as one op a call, the shape of their outputs, until the
+    returned wrappers are put back (the model and the book are built with
+    the real ones)."""
+    from adrates_torch.ops import kernels
+    saved = {k: getattr(kernels, k) for k in ("fitted_rows",
+                                              "fitted_rows_t")}
+    kernels.fitted_rows = lambda X, tab: torch.zeros(
+        (X.shape[0], tab.G, tab.W_max), dtype=X.dtype)
+    kernels.fitted_rows_t = lambda U, tab: torch.zeros(
+        (U.shape[0], tab.G, tab.K, tab.n_max), dtype=U.dtype)
+    return saved
+
+
 def main() -> int:
-    n = int(sys.argv[1]) if len(sys.argv) > 1 else 1004
+    args = [a for a in sys.argv[1:] if a != "--as-card"]
+    as_card = "--as-card" in sys.argv[1:]
+    n = int(args[0]) if args else 1004
     for label, schemes in (("FLAT_FWD", None),
                            ("SPLINE_SCHEMES", cfg.SPLINE_SCHEMES)):
         print(f"{label}: leaf aten ops of one warm 50-scenario staged call "
-              f"and of its regions: {count(schemes, n)}", flush=True)
+              f"and of its regions: {count(schemes, n, as_card)}", flush=True)
     return 0
 
 

@@ -625,3 +625,120 @@ def test_bootstrap_tower_on_cuda_matches_cpu(dev):
     assert kernels.pv01_solve_t.launches - before[1] == 7
     for g, ref in zip(got, orders("cpu")):
         assert _rel_err(g.cpu(), ref) <= 1e-12
+
+
+# ---------------------------------------------------------------------------
+# K6 / K7: the fitted rows and their transpose
+# ---------------------------------------------------------------------------
+
+_FIT_SCHEMES = ("PCHIP_LOG_DISCOUNT", "PCHIP_ZERO_RATES",
+                "NATCUBIC_LOG_DISCOUNT", "NATCUBIC_ZERO_RATES",
+                "FINCUBIC_ZERO_RATES")
+
+
+def _fit_plans(rng, schemes, ns, ws):
+    """Host fitted plans of the given schemes, knot and query counts (a
+    t = 0 node on every other member; queries before, between and past
+    the knots)."""
+    from adrates_torch.ops.interpolation import fitted_interp_plan
+    from adrates_torch.utils.global_types import InterpTypes
+    plans = []
+    for g, (s, n, w) in enumerate(zip(schemes, ns, ws)):
+        x0 = 0.0 if g % 2 == 0 else rng.uniform(0.02, 0.3)
+        x = x0 + np.concatenate([[0.0], np.cumsum(rng.uniform(0.02, 2.0,
+                                                              n - 1))])
+        q = rng.uniform(x[0] - 0.1, x[-1] + 3.0, w)
+        plans.append(fitted_interp_plan(q, x, InterpTypes[s]))
+    return plans
+
+
+def _fit_both(dev, plans, R, seed):
+    """K6 and K7 (one launch each) and their twins on random X and
+    U-bar of R rows."""
+    from adrates_torch.ops.fitted_rows import fitted_plan
+    rng = np.random.default_rng(seed)
+    tab = fitted_plan(plans, dev).tables
+    X = torch.tensor(rng.normal(size=(R, tab.G, tab.K, tab.n_max)),
+                     device=dev)
+    Ub = torch.tensor(rng.normal(size=(R, tab.G, tab.W_max)), device=dev)
+    before = (kernels.fitted_rows.launches, kernels.fitted_rows_t.launches)
+    U = kernels.fitted_rows(X, tab)
+    Xb = kernels.fitted_rows_t(Ub, tab)
+    assert (kernels.fitted_rows.launches,
+            kernels.fitted_rows_t.launches) == (before[0] + 1, before[1] + 1)
+    U_ref = kernels.fitted_rows_plain(X, tab)
+    Xb_ref = kernels.fitted_rows_t_plain(Ub, tab)
+    torch.cuda.synchronize()
+    return U, U_ref, Xb, Xb_ref
+
+
+def test_fitted_rows_kernels_at_the_spline_cell(dev):
+    """The spline cell's OIS stage (flagship_v5 on SPLINE_SCHEMES): its
+    five fitted members (AUD, EUR, GBP, JPY, USD: 43, 73, 73, 43 and 73
+    knots) at the keep-compact rows (2,225 queries) of region A's 1,600
+    rows (50 scenarios x 32 quote seeds), within 1e-12 x max|ref|."""
+    rng = np.random.default_rng(73)
+    plans = _fit_plans(rng, ("FINCUBIC_ZERO_RATES", "NATCUBIC_LOG_DISCOUNT",
+                             "PCHIP_LOG_DISCOUNT", "NATCUBIC_ZERO_RATES",
+                             "PCHIP_ZERO_RATES"),
+                       (43, 73, 73, 43, 73), (2225,) * 5)
+    U, U_ref, Xb, Xb_ref = _fit_both(dev, plans, 1600, 1)
+    assert _rel_err(U, U_ref) <= 1e-12
+    assert _rel_err(Xb, Xb_ref) <= 1e-12
+
+
+@pytest.mark.parametrize("R", [1, 7, 33, 100])
+@pytest.mark.parametrize("case", ["ragged", "short", "wide", "one"])
+def test_fitted_rows_kernels_ragged(dev, case, R):
+    """Knot counts from 2 to 97 (a tile of 32 rows past 48 KB of shared
+    memory), query counts from 0 (a member with none) and 1, one member
+    alone, and 257 knots (tiles of fewer rows); pad queries are 0."""
+    ns, ws = {"ragged": ((2, 97, 12, 43, 3), (1, 300, 0, 17, 5)),
+              "short": ((2, 3, 2, 3, 2), (1, 2, 3, 0, 9)),
+              "wide": ((257, 5, 190, 2, 73), (40, 1, 500, 2, 64)),
+              "one": ((73,), (130,))}[case]
+    rng = np.random.default_rng(R + len(case))
+    schemes = [_FIT_SCHEMES[(g + R) % 5] for g in range(len(ns))]
+    U, U_ref, Xb, Xb_ref = _fit_both(dev, _fit_plans(rng, schemes, ns, ws),
+                                     R, R)
+    assert _rel_err(U, U_ref) <= 1e-12
+    assert _rel_err(Xb, Xb_ref) <= 1e-12
+    for g, w in enumerate(ws):
+        assert not U[:, g, w:].any()
+
+
+def test_fitted_rows_cuda_never_runs_a_twin(dev, monkeypatch):
+    """On CUDA tensors the wrappers launch (the counts move) and never
+    call a twin, and the Function's AD tower on the card equals the CPU's
+    twins: one K6 / K7 launch per evaluation."""
+    from torch.func import jacfwd, jacrev
+
+    from adrates_torch.ops.fitted_rows import fitted_eval, fitted_plan
+    rng = np.random.default_rng(5)
+    plans = _fit_plans(rng, _FIT_SCHEMES, (12, 73, 2, 43, 3),
+                       (40, 40, 40, 40, 40))
+    rows = np.exp(-0.03 * np.sort(rng.uniform(0, 30, (5, 76)), axis=1))
+
+    def tower(device):
+        tab = fitted_plan(plans, device)
+        d = torch.tensor(rows, device=device)
+
+        def f(v):
+            return fitted_eval(tab, v)
+        return [f(d), jacrev(f)(d), jacfwd(jacrev(f))(d)]
+
+    ref = tower("cpu")
+
+    def refuse(*a):
+        raise AssertionError("a twin ran on a CUDA tensor")
+    monkeypatch.setattr(kernels, "fitted_rows_plain", refuse)
+    monkeypatch.setattr(kernels, "fitted_rows_t_plain", refuse)
+    before = (kernels.fitted_rows.launches, kernels.fitted_rows_t.launches)
+    got = tower(dev)
+    torch.cuda.synchronize()
+    # value 1, jacrev 1 + 1, jacfwd(jacrev): forward and its jvp, the
+    # transpose and its jvp
+    assert (kernels.fitted_rows.launches - before[0],
+            kernels.fitted_rows_t.launches - before[1]) == (4, 3)
+    for g, r in zip(got, ref):
+        assert _rel_err(g.cpu(), r) <= 1e-12
