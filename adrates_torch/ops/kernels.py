@@ -102,7 +102,7 @@ _SIGNATURES = {
     "fitted_rows_f64": [_P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
                         _P, _P],
     "fitted_rows_t_f64": [_P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
-                          _P, _P, _P],
+                          _P, _P, _P, _I, _P, _P],
 }
 
 _lib = None
@@ -1103,10 +1103,19 @@ pv01_solve_t.calls = 0
 # PCHIP schemes), a natural spline, a spline natural on the left and
 # clamped (S' = 0) on the right
 FIT_HERMITE, FIT_NATURAL, FIT_CLAMPED = 0, 1, 2
-# a K6 / K7 block stages two f64 rows of n_max | 1 values a tile row in at
-# most 96 KB of shared memory (csrc/fitted_rows.cu kSmemBudget), so a tile
-# of one row takes members of up to FIT_MAX_KNOTS knots
+# a K6 block stages two f64 rows of n_max | 1 values a tile row in at most
+# 96 KB of shared memory (csrc/fitted_rows.cu kSmemBudget), so a tile of
+# one row takes members of up to FIT_MAX_KNOTS knots
 FIT_MAX_KNOTS = 96 * 1024 // 16 - 1
+# K7 streams a member's queries, in interval order, in chunks of at most
+# FIT_CHUNK queries and FIT_SEGS segments (csrc/fitted_rows.cu kChunk,
+# kSegs), a segment being at most FIT_SEG_LEN queries of one interval; a
+# chunk reaches at most 2 FIT_SEGS knots, and its tables take FIT_TAB
+# ints (kTab: its segments, then its knots as pairs)
+FIT_CHUNK = 256
+FIT_SEGS = 32
+FIT_SEG_LEN = 8
+FIT_TAB = 5 * FIT_SEGS
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -1133,8 +1142,20 @@ class FittedTables:
     T's pad rows are identity rows, R's and the weights' pad entries 0,
     pad intervals 1 long, and no query brackets a pad; pad queries
     evaluate to 0. K7 takes u-bar [R, G, W_max] to X-bar through ``iq``
-    / ``ikey``: each member's queries by interval, in query order within
-    an interval, and each one's interval.
+    / ``ikey`` (each member's queries by interval, in query order within
+    an interval, and each one's interval) cut into chunks, segments and
+    knots (:func:`_fit_stream`): ``fcp`` [G + 1] the members' ranges of
+    ``fchunk`` [chunks + G, 4] (each member's chunks and an end entry:
+    the chunk's first position in ``iq``, its counts of segments and
+    knots, and 1 + its first query where its queries are consecutive in
+    memory, else 0) and ``ftab`` [chunks + G, FIT_TAB] (the same rows:
+    the chunk's segments, a segment's first position in the chunk | its
+    length << 16, from column 0; its knots as pairs from column
+    FIT_SEGS, a knot the chunk's segments reach: the knot | the first
+    << 16 and the end << 24 of the chunk's segments in the interval right
+    of it, whose left sums it takes; the first | the end << 8 of those in
+    the interval left of it, whose right sums it takes). ``nc`` is the
+    most rows of ``fchunk`` a member has.
 
     ``host`` keeps the padded knots and queries in numpy (``x``, ``q``,
     ``idx``, ``qmask``, ``ns``, ``kinds``, T's ``bands``); the plain
@@ -1151,6 +1172,10 @@ class FittedTables:
     sp: torch.Tensor          # [G, 6, n_max] f64: l, 1/b', c, rl, rd, ru
     iq: torch.Tensor          # [G, W_max] int32 queries by interval
     ikey: torch.Tensor        # [G, W_max] int32 the interval of iq's query
+    fcp: torch.Tensor         # [G + 1] int32 members' chunk ranges
+    fchunk: torch.Tensor      # [chunks + G, 4] int32 K7's chunks
+    ftab: torch.Tensor        # [chunks + G, FIT_TAB] int32 their tables
+    nc: int                   # the most chunks of a member, + 1
     host: dict
 
     @functools.cached_property
@@ -1240,6 +1265,48 @@ def _spline_rows(x: np.ndarray, clamped: bool):
     return (lower, diag, upper), (l, 1.0 / piv, upper.copy(), rl, rd, ru)
 
 
+def _fit_stream(key: np.ndarray, iq: np.ndarray):
+    """K7's cut of one member's queries in interval order (``iq``, their
+    intervals ``key``, nondecreasing): chunks of at most ``FIT_CHUNK``
+    queries and ``FIT_SEGS`` segments; a segment, at most
+    ``FIT_SEG_LEN`` consecutive queries of one interval within a chunk
+    (a chunk's segments of one interval are consecutive); the knots that
+    a chunk's segments reach, each with its two ranges of segments, those
+    of the interval right of it and those of the one left of it. Returns
+    the chunks [c + 1, 4] (first position, segments, knots, and 1 + its
+    first query where its queries are consecutive in memory, else 0; the
+    last entry the end) and their tables [c + 1, FIT_TAB] (see
+    :class:`FittedTables`)."""
+    W = key.size
+    chunks, tabs = [], []
+    k = 0
+    while k < W:
+        k0, segs = k, []
+        runs = {}                           # interval: its segments
+        while k < W and k - k0 < FIT_CHUNK and len(segs) < FIT_SEGS:
+            end = min(k + FIT_SEG_LEN, k0 + FIT_CHUNK, W)
+            e = k + int(np.searchsorted(key[k:end], key[k], side="right"))
+            j = int(key[k])
+            runs[j] = (runs.get(j, (len(segs), 0))[0], len(segs) + 1)
+            segs.append((k - k0) | (e - k) << 16)
+            k = e
+        knots = []
+        for i in sorted(set(runs) | {j + 1 for j in runs}):
+            lb, le = runs.get(i, (0, 0))
+            rb, re = runs.get(i - 1, (0, 0))
+            knots += [i | lb << 16 | le << 24, rb | re << 8]
+        tab = np.zeros(FIT_TAB, np.int64)
+        tab[:len(segs)] = segs
+        tab[FIT_SEGS:FIT_SEGS + len(knots)] = knots
+        cons = bool(np.all(np.diff(iq[k0:k]) == 1))
+        chunks.append((k0, len(segs), len(knots) // 2,
+                       1 + int(iq[k0]) if cons else 0))
+        tabs.append(tab)
+    chunks.append((W, 0, 0, 0))
+    tabs.append(np.zeros(FIT_TAB, np.int64))
+    return np.array(chunks, np.int64), np.stack(tabs)
+
+
 def fitted_tables(members: Sequence[tuple], device) -> FittedTables:
     """K6/K7's tables on ``device`` for ``members``, each (x, q, idx,
     kind): its knots, its static queries (any shape), their brackets
@@ -1298,11 +1365,16 @@ def fitted_tables(members: Sequence[tuple], device) -> FittedTables:
 
     iq = np.zeros((G, W_max), np.int32)
     ikey = np.zeros((G, W_max), np.int32)
+    fcp, fchunk, ftab = [0], [], []
     for g in range(G):
         w = ws[g]
         order = np.argsort(ids[g], kind="stable")
         iq[g, :w] = order
         ikey[g, :w] = ids[g][order]
+        ch, tb = _fit_stream(ikey[g, :w], iq[g, :w])
+        fchunk.append(ch)
+        ftab.append(tb)
+        fcp.append(fcp[-1] + ch.shape[0])
 
     def t(a, dtype):
         return torch.as_tensor(np.ascontiguousarray(a, dtype), device=device)
@@ -1312,7 +1384,10 @@ def fitted_tables(members: Sequence[tuple], device) -> FittedTables:
         K=2 if FIT_HERMITE in kinds else 1, kind=t(kinds, np.int32),
         nk=t(ns, np.int32), nw=t(ws, np.int32), qidx=t(idx, np.int32),
         qw=t(qw, np.float64), sp=t(sp, np.float64), iq=t(iq, np.int32),
-        ikey=t(ikey, np.int32),
+        ikey=t(ikey, np.int32), fcp=t(fcp, np.int32),
+        fchunk=t(np.concatenate(fchunk), np.int32),
+        ftab=t(np.concatenate(ftab), np.int32),
+        nc=int(np.diff(fcp).max()),
         host=dict(x=x, q=q, idx=idx, qmask=qmask, ns=ns, kinds=kinds,
                   bands=bands))
 
@@ -1445,18 +1520,20 @@ fitted_rows.launches = 0
 def fitted_rows_t(Ub: torch.Tensor, tab: FittedTables) -> torch.Tensor:
     """K7: X-bar [R, G, K, n_max] from U-bar [R, G, W_max], the exact
     transpose of :func:`fitted_rows` (see :func:`fitted_rows_t_plain`):
-    a warp a row sums the queries' weighted cotangents by interval (a
-    segmented scan over the queries in interval order: a fixed order, no
-    atomics) into the intervals' two knots, a spline member's slope
-    cotangents through T^-T by the same factors and R^T; one
-    ``torch.empty`` and one launch."""
+    a block a (tile of rows, member) streams the member's cotangents in
+    interval order through shared memory, a chunk at a time, sums each
+    static segment's weighted cotangents (a thread a segment and row),
+    then each knot's segments into it (a thread a knot and row: a fixed
+    order, no atomics), a spline member's slope cotangents through T^-T
+    by the same factors and R^T; one ``torch.empty`` and one launch."""
     _fit_shapes(Ub, tab, "fitted_rows_t", (tab.W_max,))
     if not Ub.is_cuda:
         return fitted_rows_t_plain(Ub, tab)
     out = _fit_launch("fitted_rows_t_f64", Ub,
                       (Ub.shape[0], tab.G, tab.K, tab.n_max), tab,
                       tab.qw.data_ptr(), tab.sp.data_ptr(),
-                      tab.iq.data_ptr(), tab.ikey.data_ptr())
+                      tab.iq.data_ptr(), tab.fcp.data_ptr(),
+                      tab.fchunk.data_ptr(), tab.ftab.data_ptr(), tab.nc)
     fitted_rows_t.launches += 1
     return out
 

@@ -205,13 +205,24 @@ def all_gather(t: torch.Tensor, group=None, dim: int = 0) -> torch.Tensor:
 def _rank_entry(rank: int, world: int, store: str, timeout_s: float,
                 threads: Optional[int], target, args, results):
     """One spawned rank: the gloo group over the file store, ``target(rank,
-    world, *args)``, its result or its traceback on ``results``."""
+    world, *args)``, its result or its traceback on ``results``.
+
+    A rank leaves ``init_distributed`` once its own side of each
+    connection is made, while a peer can still be making its side; a
+    rank that then closed its group (the target's destroy, or this
+    function's on exit) would break the peer's connect ("Connection
+    closed by peer"). So the ranks meet in a barrier on the new group
+    before the target runs, and again on the group active after it (the
+    target may make a new one) before any rank reports and exits."""
     try:
         if threads:
             torch.set_num_threads(threads)
         init_distributed(address=store, world_size=world, rank=rank,
                          backend="gloo", timeout_s=timeout_s)
+        dist.barrier()
         out = target(rank, world, *args)
+        if dist.is_initialized():
+            dist.barrier()
         results.put((rank, True, out))
     except BaseException:                  # reported to the parent
         results.put((rank, False, traceback.format_exc()))

@@ -87,7 +87,8 @@ first use. Phases:
    the staged, generic and per-trade paths (gated: every path launches
    them), the 256 gammas' warm wall and device ops beside phase 7b's on
    FLAT_FWD; K6's and K7's inputs captured from one staged chunk's
-   regions A, C1 and C2 for phase 8;
+   regions A, C1 and C2 and K7's largest call in the 256 gammas for
+   phase 8;
    K1, K2 and K3 against their
    twins on its inputs (1e-12, gates, not kernel records); config 2 on
    the PCHIP GBP curve (cold + 20 warm, device ops, cuda = cpu) and one
@@ -172,10 +173,12 @@ first use. Phases:
    ``torch.linalg.solve_triangular`` on the dense (I - A) as the
    yardstick and the kernel's time on one row a plan, its chain of P
    dependent steps); K6 and K7 at the spline book's largest calls of
-   regions A (K6) and C2 (K7: the OIS stage's five fitted members) and
-   of region C1 (an XCCY stage's foreign curve) against their twins at
-   1e-12 x max|ref|, with one torch.bmm of the inputs by the dense
-   operators the plan implies as the yardstick), each timed
+   regions A (K6) and C2 (K7: the OIS stage's five fitted members), of
+   region C1 (an XCCY stage's foreign curve and legs) and K7's of the
+   256 gammas against their twins at 1e-12 x max|ref| and against their
+   own second launch bit for bit (gated), with one torch.bmm of the
+   inputs by the dense operators the plan implies as the yardstick),
+   each timed
    over 30 calls by CUDA events around the call (``ms``, which holds the
    wrapper's host work) and by the device time of its kernels in a
    torch.profiler trace (``device_ms``), the twin's time, K1's table
@@ -461,48 +464,57 @@ def _fitted_launches(path: str, info: dict, reverse: bool = True) -> dict:
     return per
 
 
-def _capture_fitted(fn, q0, shocks, device) -> dict:
-    """Run regions A, C1 and C2 of one staged chunk with K6's and K7's
-    wrappers watched: per region and kernel, the (input shape, tables) of
-    its call with the most elements."""
+def _watch_fitted(steps, want) -> dict:
+    """Run each ``(label, f)`` of ``steps`` in order with K6's and K7's
+    wrappers watched: for each (label, kernel) of ``want``, the (input
+    shape, tables) of its call with the most elements. The kernels' own
+    launch counts are left as they were."""
     import numpy as np
     import torch
 
     from adrates_torch.ops import kernels
     keep = {}
-    region = [None]
+    label = [None]
     orig = {k: getattr(kernels, k) for k in FITTED}
 
     def watched(name, f):
         def g(t, tab):
-            key = (region[0], name)
+            key = (label[0], name)
             if key not in keep or t.numel() > np.prod(keep[key][0]):
                 keep[key] = (tuple(t.shape), tab)
             return f(t, tab)
         g.launches = f.launches
         return g
 
-    sh = torch.as_tensor(shocks[:fn.chunk(shocks.shape[0])], device=device)
-    q = torch.as_tensor(q0, device=device)[None, :] + sh
-    r = fn.regions
     for name, f in orig.items():
         setattr(kernels, name, watched(name, f))
     try:
-        region[0] = "A"
-        a = r["A"](q)
-        region[0] = "C1"
-        _, v_of = r["C1"](q, a["g"], a["carry"])
-        region[0] = "C2"
-        r["C2"](q, a["g"], v_of)
+        for label[0], f in steps:
+            f()
         torch.cuda.synchronize()
     finally:
         for name, f in orig.items():
             setattr(kernels, name, f)
-    want = [("A", "fitted_rows"), ("C2", "fitted_rows_t"),
-            ("C1", "fitted_rows"), ("C1", "fitted_rows_t")]
     if any(k not in keep for k in want):
-        raise AssertionError(f"the watched regions ran {sorted(keep)}")
+        raise AssertionError(f"the watched calls ran {sorted(keep)}")
     return {k: keep[k] for k in want}
+
+
+def _capture_fitted(fn, q0, shocks, device) -> dict:
+    """K6's and K7's largest calls (``_watch_fitted``) in regions A, C1
+    and C2 of one staged chunk."""
+    import torch
+    sh = torch.as_tensor(shocks[:fn.chunk(shocks.shape[0])], device=device)
+    q = torch.as_tensor(q0, device=device)[None, :] + sh
+    r, st = fn.regions, {}
+    steps = [("A", lambda: st.update(a=r["A"](q))),
+             ("C1", lambda: st.update(v=r["C1"](q, st["a"]["g"],
+                                                st["a"]["carry"])[1])),
+             ("C2", lambda: r["C2"](q, st["a"]["g"], st["v"]))]
+    return _watch_fitted(steps, [("A", "fitted_rows"),
+                                 ("C2", "fitted_rows_t"),
+                                 ("C1", "fitted_rows"),
+                                 ("C1", "fitted_rows_t")])
 
 
 def _nested_forward_raises(curve, device) -> dict:
@@ -1480,8 +1492,9 @@ def run_flagship_v5_splines(device, flat, flat_gam, n_warm: int = 3):
     curve and a bond's analytics. ``flat`` is phase 7's info, printed
     beside this phase's, and ``flat_gam`` (phase 7b's 256-gamma fn, its
     quotes, its info) the FLAT_FWD gammas measured beside this book's.
-    Returns (the ``splines`` record, the staged path's info, K6's and
-    K7's captured inputs for phase 8)."""
+    Returns (the ``splines`` record, the staged path's info with the 256
+    gammas' under ``gamma_256``, K6's and K7's captured inputs for phase
+    8)."""
     import numpy as np
     import torch
 
@@ -1620,7 +1633,13 @@ def run_flagship_v5_splines(device, flat, flat_gam, n_warm: int = 3):
         pt_infos[key]["fitted_per_call"] = _fitted_launches(
             f"flagship_v5 splines per-trade {key}", pt_infos[key],
             reverse=key != "ladders")
+    info["gamma_256"] = pt_infos["gamma_256"]
     gam_fn, (fgam_fn, fq0, fgam_info) = pt_fns[1], flat_gam
+    fit_inputs.update(_watch_fitted([("gamma_256", lambda: gam_fn(q0))],
+                                    [("gamma_256", "fitted_rows_t")]))
+    print(f"flagship_v5 splines 256 gammas' largest K7 call "
+          f"{list(fit_inputs[('gamma_256', 'fitted_rows_t')][0])}",
+          flush=True)
     g_ops, g_ms = _request_device(lambda: gam_fn(q0))
     f_ops, f_ms = _request_device(lambda: fgam_fn(fq0))
     pt_infos["gamma_256"].update(device_ops=g_ops, device_ms=g_ms,
@@ -2778,18 +2797,19 @@ def _fit_operators(tab):
 
 def compare_fitted_kernels(inputs) -> list:
     """Phase 8's K6 and K7 records at the spline book's captured calls
-    (``inputs`` from ``_capture_fitted``: each call's shape and tables),
+    (``inputs`` from ``_watch_fitted``: each call's shape and tables;
+    regions A / C1 / C2 and the 256 dense gammas' largest K7 call),
     on standard normal inputs drawn from a seed (the kernels' work does
     not depend on the values; a captured cotangent can be one whose exact
     image is 0, as the calibration legs' are, their floating coupons and
     principal telescoping, and then both results are rounding alone):
     each against its twin at 1e-12 x max|ref| (the kernels solve a
     spline's slopes by Thomas sweeps, the twins by PCR, and sum in
-    another order), timed beside the twin and one batched ``torch.bmm``
-    of the inputs by the members' dense operators (checked against the
-    twin too); the bound is bytes (the input read once, the output
-    written once, the tables once) over the HBM rate against the FMAs
-    over the f64 rate."""
+    another order) and against its own second launch bit for bit, timed
+    beside the twin and one batched ``torch.bmm`` of the inputs by the
+    members' dense operators (checked against the twin too); the bound
+    is bytes (the input read once, the output written once, the tables
+    once) over the HBM rate against the FMAs over the f64 rate."""
     import numpy as np
     import torch
 
@@ -2807,6 +2827,12 @@ def compare_fitted_kernels(inputs) -> list:
         err = float((got - ref).abs().max())
         _check(f"{path} {name} vs plain (abs / max|ref|)",
                err / float(ref.abs().max()), 1e-12)
+        repeat = bool(torch.equal(got, kern(t, tab)))
+        print(f"{path} {name}: two launches on one input equal bit for "
+              f"bit: {repeat}", flush=True)
+        if not repeat:
+            raise AssertionError(f"{path} {name}: two launches on one "
+                                 f"input differ")
         M = _fit_operators(tab)                       # [G, W, K n]
         if name == "fitted_rows":
             a = t.reshape(R, G, K * n).permute(1, 0, 2).contiguous()
@@ -2846,7 +2872,8 @@ def compare_fitted_kernels(inputs) -> list:
                     + ("operators [G, K n_max, W_max]" if name == "fitted_rows"
                        else "operators [G, W_max, K n_max] (the transpose)"),
             bound_ms=bound, bound_by=by, **_shares(bound, tm),
-            rows=R, members=G, knots=n, queries=W, slots=K))
+            rows=R, members=G, knots=n, queries=W, slots=K,
+            bit_for_bit_repeat=repeat))
         del M, a, b
     return recs
 
@@ -3278,6 +3305,7 @@ def main() -> int:
                  single_curve_book=book_args[4],
                  flagship_v5_ladders_f32=info32,
                  engine_config2=engine["config2"]["launches"],
+                 flagship_v5_splines_gamma_256=info_s["gamma_256"],
                  **{f"flagship_v5_splines_{r}": info_s
                     for r in ("A", "C1", "C2")})
     for r in records:

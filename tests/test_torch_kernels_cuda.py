@@ -742,3 +742,98 @@ def test_fitted_rows_cuda_never_runs_a_twin(dev, monkeypatch):
             kernels.fitted_rows_t.launches - before[1]) == (4, 3)
     for g, r in zip(got, ref):
         assert _rel_err(g.cpu(), r) <= 1e-12
+
+
+def _fit_t_plans(case):
+    """Host plans of K7's streaming cases: a 43-knot spline whose 700
+    queries past its last knot lie in one interval (after 60 spread over
+    the knots); a joint legs plan (two sorted runs of 372 queries on 73
+    knots, gathered through the interval order); a member of one
+    interval (2 knots, 600 queries); a member with a query in each of its
+    399 intervals (chunks cut at 64 segments); and all four stacked
+    (W_max 760, not a multiple of the 256-query chunk)."""
+    from adrates_torch.ops.interpolation import fitted_interp_plan
+    from adrates_torch.utils.global_types import InterpTypes as IT
+    rng = np.random.default_rng(len(case))
+
+    def knots(n):
+        return np.concatenate([[0.0], np.cumsum(rng.uniform(0.02, 2.0,
+                                                            n - 1))])
+
+    def plan(kind):
+        if kind == "tail":
+            x = knots(43)
+            q = np.concatenate([np.sort(rng.uniform(0.0, x[-1], 60)),
+                                np.sort(rng.uniform(x[-1], x[-1] + 30.0,
+                                                    700))])
+            return fitted_interp_plan(q, x, IT.NATCUBIC_ZERO_RATES)
+        if kind == "legs":
+            x = knots(73)
+            q = np.concatenate([np.sort(rng.uniform(0.0, x[-1] + 5.0, 372))
+                                for _ in range(2)])
+            return fitted_interp_plan(q, x, IT.PCHIP_LOG_DISCOUNT)
+        if kind == "one_interval":
+            x = np.array([0.0, 1.5])
+            return fitted_interp_plan(rng.uniform(-0.1, 4.0, 600), x,
+                                      IT.FINCUBIC_ZERO_RATES)
+        x = np.arange(400, dtype=np.float64)
+        return fitted_interp_plan(x[:-1] + 0.5, x, IT.PCHIP_ZERO_RATES)
+
+    kinds = ("tail", "legs", "one_interval", "segment_cap")
+    return [plan(k) for k in (kinds if case == "stacked" else (case,))]
+
+
+def _fit_t_twice(dev, plans, R, seed):
+    """K7 launched twice on one seeded U-bar of R rows (the launches
+    counted), and its twin."""
+    from adrates_torch.ops.fitted_rows import fitted_plan
+    tab = fitted_plan(plans, dev).tables
+    Ub = torch.tensor(np.random.default_rng(seed).normal(
+        size=(R, tab.G, tab.W_max)), device=dev)
+    before = kernels.fitted_rows_t.launches
+    got = kernels.fitted_rows_t(Ub, tab)
+    again = kernels.fitted_rows_t(Ub, tab)
+    assert kernels.fitted_rows_t.launches == before + 2
+    ref = kernels.fitted_rows_t_plain(Ub, tab)
+    torch.cuda.synchronize()
+    return got, again, ref
+
+
+@pytest.mark.parametrize("R", [1, 13, 100])
+@pytest.mark.parametrize("case", ["tail", "legs", "one_interval",
+                                  "segment_cap", "stacked"])
+def test_fitted_rows_t_streams_at_1e12(dev, case, R):
+    """K7's stream against its twin at 1e-12 x max|ref| on the long tail,
+    the legs, one interval, the segment cap and all stacked, at R = 1 and
+    R not a multiple of the tile; two launches equal bit for bit."""
+    got, again, ref = _fit_t_twice(dev, _fit_t_plans(case), R, R)
+    assert _rel_err(got, ref) <= 1e-12
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("call", ["C2", "C1", "gamma_256"])
+def test_fitted_rows_t_at_the_phase8_shapes(dev, call):
+    """K7 at chip_smoke phase 8's three calls: region C2's [1,600, 5,
+    2,225] (the spline cell's five fitted members, 43 and 73 knots),
+    region C1's [1,600, 1, 744] (a joint legs plan on 73 knots) and the
+    256 gammas' [32, 5, 4,337]; within 1e-12 x max|ref| of its twin and
+    bit for bit equal to its second launch."""
+    from adrates_torch.ops.interpolation import fitted_interp_plan
+    from adrates_torch.utils.global_types import InterpTypes as IT
+    rng = np.random.default_rng(16)
+    if call == "C1":
+        plans = _fit_t_plans("legs")
+        R = 1600
+    else:
+        W, R = (2225, 1600) if call == "C2" else (4337, 32)
+        plans = []
+        for s, n in zip(("FINCUBIC_ZERO_RATES", "NATCUBIC_LOG_DISCOUNT",
+                         "PCHIP_LOG_DISCOUNT", "NATCUBIC_ZERO_RATES",
+                         "PCHIP_ZERO_RATES"), (43, 73, 73, 43, 73)):
+            x = np.concatenate([[0.0], np.cumsum(rng.uniform(0.02, 1.0,
+                                                             n - 1))])
+            q = np.sort(rng.uniform(0.0, x[-1] + 20.0, W))
+            plans.append(fitted_interp_plan(q, x, IT[s]))
+    got, again, ref = _fit_t_twice(dev, plans, R, 17)
+    assert _rel_err(got, ref) <= 1e-12
+    assert torch.equal(got, again)
