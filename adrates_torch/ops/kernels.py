@@ -23,8 +23,17 @@ fit and evaluation at static queries (``adrates_tpu/ops/interpolation.py``
 ``adrates_tpu/parallel/curve_batching.py:stage_rows`` :320 calls them):
 a stage's fitted members, stacked, in one linear map from the knot
 values (and the PCHIP slopes) to the query values, and its transpose;
-``ops/fitted_rows`` makes them the derivatives of each other. K1-K3 are
-forward-only (their derivatives are closed form elsewhere). All seven
+``ops/fitted_rows`` makes them the derivatives of each other. K8
+``xccy_stage_jvp``, K9 ``xccy_legs_jvp``, K10 ``xccy_stage_hess`` and
+K11 ``xccy_legs_hess`` (``csrc/xccy_stage.cu``) replace the
+``torch.func`` towers over an XCCY stage of the structured risk pass
+(``adrates_tpu/parallel/structured_risk.py`` :321 and :457-603 over
+``curve_batching.py`` :265-319, ``ops/xccy_bootstrap.py`` :78 and
+``ops/pricers.py`` :102): the stage evaluated a thread at a time in dual
+or hyper-dual arithmetic on ``ops/xccy_stage.XccyStageTables``, whose
+module holds their plain versions. K1-K3 are
+forward-only (their derivatives are closed form elsewhere), and so are
+K8-K11 (derivatives themselves). All eleven
 are f64; K1
 also has f32 instantiations for the f32 ladders
 (``make_per_trade_delta_fn(dtype=torch.float32)``, the JAX package's
@@ -40,7 +49,9 @@ group row blocks, and the table that sums the groups' blocks into G),
 :func:`pertrade_tables` (K3: groups of quote rows, their trades' slot
 CSR and the launch's work list of units packed into blocks) and
 :func:`chain_tables` (K4/K5: an OIS plan's previous-point links, once
-per plan). The plain twins read the same tables.
+per plan), and ``ops/xccy_stage.stage_tables`` (K8-K11: an XCCY
+stage's chain, plans and legs, once per stage). The plain twins read
+the same tables.
 
 Dispatch: a wrapper given CPU tensors runs the plain twin; given CUDA
 tensors it launches the kernel or raises. Nothing falls back. Each
@@ -70,6 +81,8 @@ from typing import Sequence
 
 import numpy as np
 import torch
+
+from . import xccy_stage
 
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -103,6 +116,11 @@ _SIGNATURES = {
                         _P, _P],
     "fitted_rows_t_f64": [_P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
                           _P, _P, _P, _I, _P, _P],
+    "xccy_stage_jvp_f64": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P],
+    "xccy_legs_jvp_f64": [_P, _I, _I, _P, _P, _P, _P, _P],
+    "xccy_stage_hess_f64": [_P, _I, _I, _I, _I, _P, _I, _P, _P, _P, _P, _P,
+                            _P, _P, _P, _P],
+    "xccy_legs_hess_f64": [_P, _I, _I, _I, _P, _I, _P, _P, _P, _P, _P, _P],
 }
 
 _lib = None
@@ -1539,3 +1557,187 @@ def fitted_rows_t(Ub: torch.Tensor, tab: FittedTables) -> torch.Tensor:
 
 
 fitted_rows_t.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K8-K11: the XCCY stage's directional derivatives and Hessians
+# ---------------------------------------------------------------------------
+
+
+class _XStage(ctypes.Structure):
+    """csrc/xccy_stage.cu ``StageTab``: an ``XccyStageTables``' sizes and
+    its tensors' device pointers."""
+    _fields_ = ([(k, ctypes.c_int) for k in
+                 ("G", "S", "n", "U1", "Lf", "Ld", "W", "P", "Pd", "fsch",
+                  "dsch", "flags")]
+                + [(k, ctypes.c_void_p) for k in
+                   ("pt_f", "pt_i", "v0", "fxs", "fq_i", "fq_f", "f_xs",
+                    "rq_i", "rq_f", "r_sch", "r_xs", "li_i", "li_f", "ld_i",
+                    "ld_f", "d_xs", "leg_f", "leg_s")])
+
+
+def _xstage(tab: xccy_stage.XccyStageTables) -> int:
+    """The address of ``tab``'s argument block (built once, kept in
+    ``tab.cache`` beside the tensors it points into)."""
+    st = tab.cache.get("c")
+    if st is None:
+        for k, _ in _XStage._fields_[12:]:
+            t = getattr(tab, k)
+            _need(t, k, torch.float64 if t.dtype == torch.float64
+                  else torch.int32, t.dim(), tab.pt_f.device)
+        st = _XStage(*[getattr(tab, k) for k, _ in _XStage._fields_[:12]],
+                     *[getattr(tab, k).data_ptr()
+                       for k, _ in _XStage._fields_[12:]])
+        tab.cache["c"] = st
+    return ctypes.addressof(st)
+
+
+def _xshape(t, name: str, shape):
+    if t is None or tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape "
+                         f"{None if t is None else tuple(t.shape)}, "
+                         f"expected {tuple(shape)}")
+
+
+def _xlaunch(entry: str, tab, *args):
+    if _lib is None:
+        build_kernels()
+    _check(getattr(_lib, entry)(_xstage(tab), *args,
+                                _stream(tab.pt_f.device)), entry)
+
+
+def _xin(t: torch.Tensor, name: str, dev):
+    _need(t, name, torch.float64, t.dim(), dev)
+    return t.data_ptr()
+
+
+def xccy_stage_jvp(tab, sp: torch.Tensor, pv: torch.Tensor,
+                   fd: torch.Tensor, tf=None):
+    """K8: (ds [Sc, G, U1], rows [Sc, G, W], drows [Sc, D, G, W]), the
+    stage's native DFs, rows and the rows' directional derivatives along
+    its D directions (see ``xccy_stage.xccy_stage_jvp_plain``), from sp,
+    pv [Sc, G, S], fd [Sc, G, Lf] and tf [Sc, D, G, Lf] (None when the
+    parents are held as values): a dual-number thread a (scenario,
+    member, direction); three ``torch.empty`` and one launch."""
+    Sc, G, S = sp.shape[0], tab.G, tab.S
+    _xshape(sp, "sp", (Sc, G, S))
+    _xshape(pv, "pv", (Sc, G, S))
+    _xshape(fd, "fd", (Sc, G, tab.Lf))
+    if tab.recal:
+        _xshape(tf, "tf", (Sc, tab.D, G, tab.Lf))
+    elif tf is not None:
+        raise ValueError("tf: the parents are held as values")
+    if not sp.is_cuda:
+        return xccy_stage.xccy_stage_jvp_plain(tab, sp, pv, fd, tf)
+    dev = sp.device
+    ds = torch.empty((Sc, G, tab.U1), dtype=torch.float64, device=dev)
+    rows = torch.empty((Sc, G, tab.W), dtype=torch.float64, device=dev)
+    drows = torch.empty((Sc, tab.D, G, tab.W), dtype=torch.float64,
+                        device=dev)
+    if Sc:
+        _xlaunch("xccy_stage_jvp_f64", tab, Sc, tab.D, tab.npv,
+                 _xin(sp, "sp", dev), _xin(pv, "pv", dev),
+                 _xin(fd, "fd", dev),
+                 None if tf is None else _xin(tf, "tf", dev),
+                 ds.data_ptr(), rows.data_ptr(), drows.data_ptr())
+        xccy_stage_jvp.launches += 1
+    return ds, rows, drows
+
+
+xccy_stage_jvp.launches = 0
+
+
+def xccy_legs_jvp(tab, dd: torch.Tensor, tdl: torch.Tensor):
+    """K9: (pv0 [Sc, G, S], Jpv [Sc, Qd, G, S]), the calibration legs'
+    PVs and their directional derivatives along the domestic tangents
+    tdl [Sc, Qd, G, Ld] at dd [Sc, G, Ld] (see
+    ``xccy_stage.xccy_legs_jvp_plain``): a dual-number thread a
+    (scenario, member, direction); two ``torch.empty`` and one launch."""
+    Sc, G = dd.shape[0], tab.G
+    _xshape(dd, "dd", (Sc, G, tab.Ld))
+    _xshape(tdl, "tdl", (Sc, tab.Qd, G, tab.Ld))
+    if not dd.is_cuda:
+        return xccy_stage.xccy_legs_jvp_plain(tab, dd, tdl)
+    dev = dd.device
+    pv0 = torch.empty((Sc, G, tab.S), dtype=torch.float64, device=dev)
+    jpv = torch.empty((Sc, tab.Qd, G, tab.S), dtype=torch.float64,
+                      device=dev)
+    if Sc and tab.Qd:
+        _xlaunch("xccy_legs_jvp_f64", tab, Sc, tab.Qd, _xin(dd, "dd", dev),
+                 _xin(tdl, "tdl", dev), pv0.data_ptr(), jpv.data_ptr())
+        xccy_legs_jvp.launches += 1
+    return pv0, jpv
+
+
+xccy_legs_jvp.launches = 0
+
+
+def xccy_stage_hess(tab, sp: torch.Tensor, pv: torch.Tensor,
+                    fd: torch.Tensor, tf, gs: torch.Tensor):
+    """K10: (gZ [Sc, G, D], gf [Sc, G, Lf] or None, H [Sc, D, G, D]) for
+    s(Z, fd) = sum(gs . rows) at Z = 0 over the stage's D directions and
+    its foreign grid (see ``xccy_stage.xccy_stage_hess_plain``; ``gs``
+    [Sc, G, W]): a hyper-dual thread a (scenario, member, pair i <= j of
+    ``tab.hpairs``) writing H at [i, j] and [j, i] (and gZ from i = j),
+    then, recalibrated, a dual thread a (scenario, member, foreign grid
+    entry); three ``torch.empty`` and one launch."""
+    Sc, G = sp.shape[0], tab.G
+    _xshape(gs, "gs", (Sc, G, tab.W))
+    _xshape(sp, "sp", (Sc, G, tab.S))
+    _xshape(pv, "pv", (Sc, G, tab.S))
+    _xshape(fd, "fd", (Sc, G, tab.Lf))
+    if tab.recal:
+        _xshape(tf, "tf", (Sc, tab.D, G, tab.Lf))
+    elif tf is not None:
+        raise ValueError("tf: the parents are held as values")
+    if not sp.is_cuda:
+        return xccy_stage.xccy_stage_hess_plain(tab, sp, pv, fd, tf, gs)
+    dev = sp.device
+    gZ = torch.empty((Sc, G, tab.D), dtype=torch.float64, device=dev)
+    gf = torch.empty((Sc, G, tab.Lf), dtype=torch.float64, device=dev)
+    H = torch.empty((Sc, tab.D, G, tab.D), dtype=torch.float64, device=dev)
+    if Sc:
+        _need(tab.hpairs, "hpairs", torch.int32, 2, dev)
+        _xlaunch("xccy_stage_hess_f64", tab, Sc, tab.D, tab.npv,
+                 tab.hpairs.shape[0], tab.hpairs.data_ptr(),
+                 tab.Lf if tab.recal else 0, _xin(sp, "sp", dev),
+                 _xin(pv, "pv", dev), _xin(fd, "fd", dev),
+                 None if tf is None else _xin(tf, "tf", dev),
+                 _xin(gs, "gs", dev), gZ.data_ptr(), gf.data_ptr(),
+                 H.data_ptr())
+        xccy_stage_hess.launches += 1
+    return gZ, (gf if tab.recal else None), H
+
+
+xccy_stage_hess.launches = 0
+
+
+def xccy_legs_hess(tab, dd: torch.Tensor, tdl: torch.Tensor,
+                   gpv: torch.Tensor):
+    """K11: (gdd [Sc, G, Ld], Hl [Sc, Qd, G, Qd]) for s(Zd, dd) =
+    sum(gpv . legs(dd + Zd . tdl)) at Zd = 0 (see
+    ``xccy_stage.xccy_legs_hess_plain``; gpv [Sc, G, S]): a hyper-dual
+    thread a (scenario, member, pair of ``tab.lpairs``), written at
+    [i, j] and [j, i], then a dual thread a (scenario, member, domestic
+    grid entry); two ``torch.empty`` and one launch."""
+    Sc, G = dd.shape[0], tab.G
+    _xshape(dd, "dd", (Sc, G, tab.Ld))
+    _xshape(tdl, "tdl", (Sc, tab.Qd, G, tab.Ld))
+    _xshape(gpv, "gpv", (Sc, G, tab.S))
+    if not dd.is_cuda:
+        return xccy_stage.xccy_legs_hess_plain(tab, dd, tdl, gpv)
+    dev = dd.device
+    gdd = torch.empty((Sc, G, tab.Ld), dtype=torch.float64, device=dev)
+    Hl = torch.empty((Sc, tab.Qd, G, tab.Qd), dtype=torch.float64,
+                     device=dev)
+    if Sc:
+        _need(tab.lpairs, "lpairs", torch.int32, 2, dev)
+        _xlaunch("xccy_legs_hess_f64", tab, Sc, tab.Qd,
+                 tab.lpairs.shape[0], tab.lpairs.data_ptr(), tab.Ld,
+                 _xin(dd, "dd", dev), _xin(tdl, "tdl", dev),
+                 _xin(gpv, "gpv", dev), gdd.data_ptr(), Hl.data_ptr())
+        xccy_legs_hess.launches += 1
+    return gdd, Hl
+
+
+xccy_legs_hess.launches = 0

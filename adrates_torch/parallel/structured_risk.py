@@ -46,7 +46,10 @@ import numpy as np
 import torch
 from torch.func import grad, jvp, vjp, vmap
 
+from ..ops import kernels
 from ..ops.linear_solve import jvp_by_vjp
+from ..ops.xccy_stage import stage_routes, stage_tables
+from ..utils.error import LibError
 from .curve_batching import (StageTopology, infl_native_ds, ois_native_ds,
                              stage_rows, xccy_boot_ds, xccy_legs_pv,
                              xccy_native_ds)
@@ -137,6 +140,30 @@ def _build_meta(topo: StageTopology) -> dict:
                            if st.kind == "xccy"])
 
 
+def xccy_stage_tables(topo: StageTopology, device) -> dict:
+    """{stage index: ``ops/xccy_stage.XccyStageTables``} on ``device``
+    for every XCCY stage on the kernel route (``xccy_stage.stage_routes``),
+    at the row plan and the direction counts the structured pass uses;
+    built once with the book's device tables (``P["xstage"]``)."""
+    meta = _build_meta(topo)
+    out = {}
+    for si, route in stage_routes(topo).items():
+        if route != "kernels":
+            continue
+        st = topo.stages[si]
+        b = topo.bat[st.key]
+        m = meta["xmeta"][si]
+        S = m["S"]
+        recal = m["parents"] is not None
+        out[si] = stage_tables(
+            st, meta["its_of"][si], b,
+            b["row_plan_keep"] if meta["grid"]["keeprows"]
+            else b["row_plan"],
+            2 * S + m["Qf"] if recal else S, m["Qd"] if recal else 0,
+            device)
+    return out
+
+
 def fold_pads(seg: torch.Tensor, n_live: int, dim: int) -> torch.Tensor:
     """Fold pad-duplicate slices (beyond n_live along ``dim``) into the
     last live one: a padded direction duplicates the member's last quote,
@@ -200,9 +227,16 @@ def make_structured_parts(topo: StageTopology) -> dict:
       hessians with the cotangents folded into each stage scalar.
     - ``term2(q, P, g, carry)``: their sum.
 
-    ``P`` holds ``bat`` (curve_batching.bat_to_torch of ``topo.bat``);
-    ``agg``/``clamp_agg`` are the device aggregate and clamp slots.
-    gamma = term1 + term2.
+    ``P`` holds ``bat`` (curve_batching.bat_to_torch of ``topo.bat``)
+    and ``xstage`` (:func:`xccy_stage_tables`); ``agg``/``clamp_agg`` are
+    the device aggregate and clamp slots. gamma = term1 + term2.
+
+    An XCCY stage on the kernel route (``xccy_stage.stage_routes``)
+    takes its derivatives from K8-K11 (``ops/kernels``:
+    ``xccy_stage_jvp``, ``xccy_legs_jvp``, ``xccy_stage_hess``,
+    ``xccy_legs_hess``; on CPU tensors their plain versions) in place of
+    the ``torch.func`` towers over the stage, which the other XCCY stages
+    keep; the outputs and ``carry`` are the same.
     """
     from .multibook import aggregate_total
 
@@ -220,6 +254,18 @@ def make_structured_parts(topo: StageTopology) -> dict:
     Uc_of = grid["Uc_of"]
     offs = grid["offsets"]
     p1_of = meta["p1_of"]
+    xroutes = stage_routes(topo)
+
+    def _xtab(si, P):
+        """The stage's kernel tables when it takes the kernel route, else
+        None."""
+        if xroutes.get(si) != "kernels":
+            return None
+        tab = P.get("xstage", {}).get(si)
+        if tab is None:
+            raise LibError(f"XCCY stage {si} is on the kernel route but "
+                           f"the device tables lack its XccyStageTables")
+        return tab
 
     def _rp(b):
         """The stage row plan: keep-compact when available (rows only at
@@ -285,6 +331,29 @@ def make_structured_parts(topo: StageTopology) -> dict:
             ds_of[c], (0, L - ds_of[c].shape[-1]), value=1.0)
             for c in ids], dim=1)
 
+    def _xccy_jac(b, st, si, spreads, dom_ds, for_ds, td_legs, tf2):
+        """torch.func's (ds, rows, pv0, Jpv, drows2) of a recalibrated
+        XCCY stage along its composed directions."""
+        G, S = spreads.shape[1:]
+        D2 = tf2.shape[1]
+        tb2 = spreads.new_zeros((D2, G, S))
+        tb2[:S] = _seeds(S, G, spreads)
+        tp2 = spreads.new_zeros((D2, G, S))
+        tp2[S:2 * S] = _seeds(S, G, spreads)
+        boot = _boot_fwd(b, st, si)
+
+        def legs(dd):
+            return xccy_legs_pv(dd, b, st)
+
+        def one(sp, dd, fd, tdl, tf):
+            pv0, Jpv = _jac(legs, dd, tdl)        # Jpv [Qd, G, S]
+            (ds, rows), (_, drows2) = vmap(
+                lambda a, c, e: jvp(boot, (sp, pv0, fd),
+                                    (a, c, e)))(tb2, tp2, tf)
+            return ds[0], rows[0], pv0, Jpv, drows2
+
+        return vmap(one)(spreads, dom_ds, for_ds, td_legs, tf2)
+
     def fwd_delta(q, P, agg, clamp_agg):
         B = P["bat"]
         Sc = q.shape[0]
@@ -319,7 +388,13 @@ def make_structured_parts(topo: StageTopology) -> dict:
             dom_ds = _parent_stack(ds_of, st.dom_ids, m["Ld"])
             for_ds = _parent_stack(ds_of, st.for_ids, m["Lf"])
 
-            if m["parents"] is None:
+            tab = _xtab(si, P)
+            if m["parents"] is None and tab is not None:
+                ds, rows, drows_st[si] = kernels.xccy_stage_jvp(
+                    tab, spreads, tab.pv_dom0.expand(Sc, G, S).contiguous(),
+                    for_ds)
+                carry[si] = dict(dom_ds=dom_ds, for_ds=for_ds)
+            elif m["parents"] is None:
                 # parents enter as VALUES only: basis spreads are the
                 # only differentiation directions
                 def fwd(sp, dd, fd, b=b, st=st, si=si):
@@ -347,25 +422,13 @@ def make_structured_parts(topo: StageTopology) -> dict:
                         dds_st[p["sd"]][:, :, p["md"], :]
                     tf2[:, 2 * S:2 * S + p["qf"], mi, :p["p1f"]] = \
                         dds_st[p["sf"]][:, :, p["mf"], :]
-                tb2 = q.new_zeros((D2, G, S))
-                tb2[:S] = _seeds(S, G, q)
-                tp2 = q.new_zeros((D2, G, S))
-                tp2[S:2 * S] = _seeds(S, G, q)
-                boot = _boot_fwd(b, st, si)
-
-                def legs(dd, b=b, st=st):
-                    return xccy_legs_pv(dd, b, st)
-
-                def one(sp, dd, fd, tdl, tf, boot=boot, legs=legs,
-                        tb2=tb2, tp2=tp2):
-                    pv0, Jpv = _jac(legs, dd, tdl)        # Jpv [Qd, G, S]
-                    (ds, rows), (_, drows2) = vmap(
-                        lambda a, c, e: jvp(boot, (sp, pv0, fd),
-                                            (a, c, e)))(tb2, tp2, tf)
-                    return ds[0], rows[0], pv0, Jpv, drows2
-
-                ds, rows, pv0, Jpv, drows2 = vmap(one)(
-                    spreads, dom_ds, for_ds, td_legs, tf2)
+                if tab is not None:
+                    pv0, Jpv = kernels.xccy_legs_jvp(tab, dom_ds, td_legs)
+                    ds, rows, drows2 = kernels.xccy_stage_jvp(
+                        tab, spreads, pv0, for_ds, tf2)
+                else:
+                    ds, rows, pv0, Jpv, drows2 = _xccy_jac(
+                        b, st, si, spreads, dom_ds, for_ds, td_legs, tf2)
                 # compose to quote-direction space, per-member layout
                 # matching segments(): [basis | dom quotes | for quotes]
                 D = m["D"]
@@ -419,7 +482,15 @@ def make_structured_parts(topo: StageTopology) -> dict:
             G, S = len(st.ids), m["S"]
             g_stage = _stage_g(g0, st)                      # [Sc, G, W]
             spreads = q[:, b["qidx"]]                       # [Sc, G, S]
+            tab = _xtab(si, P)
 
+            if m["parents"] is None and tab is not None:
+                _, _, Hx = kernels.xccy_stage_hess(
+                    tab, spreads, tab.pv_dom0.expand(Sc, G, S).contiguous(),
+                    xs["for_ds"], None, g_stage)            # [Sc, S, G, S]
+                for mi in range(G):
+                    place_hess(H2, Hx[:, :, mi, :], segments(si, mi))
+                continue
             if m["parents"] is None:
                 def one_plain(sp, gs, dd, fd, b=b, st=st, si=si):
                     def s_plain(x):
@@ -434,81 +505,97 @@ def make_structured_parts(topo: StageTopology) -> dict:
                     place_hess(H2, Hx[:, :, mi, :], segments(si, mi))
                 continue
 
-            Qd, Qf = m["Qd"], m["Qf"]
-            D2 = 2 * S + Qf
-            boot = _boot_fwd(b, st, si)
-
-            def legs(dd, b=b, st=st):
-                return xccy_legs_pv(dd, b, st)
-
-            def one(sp0, pv0, fd0, dd0, gs, tf, tdl, boot=boot, legs=legs,
-                    S=S, Qd=Qd, D2=D2, G=G):
-                # boot-stage hessian over (basis, pv, composed-foreign)
-                # directions; fd enters as a second argument so one grad
-                # gives both gZ = [gb | gpv | composed-f] and the
-                # native-foreign cotangent gf
-                def s_hat(Z, fd):
-                    fd2 = fd + torch.einsum("gd,dgl->gl", Z, tf)
-                    _, rows = boot(sp0 + Z[:, :S], pv0 + Z[:, S:2 * S], fd2)
-                    return torch.sum(gs * rows)
-
-                Z0 = sp0.new_zeros((G, D2))
-                gZ0, gf = grad(s_hat, argnums=(0, 1))(Z0, fd0)
-                Hx2 = _hess(lambda Z: s_hat(Z, fd0), Z0,
-                            _seeds(D2, G, sp0))             # [D2, G, D2]
-
-                # legs-stage hessian over dom-quote directions (legs
-                # only): sum_s gpv_s d2 pv_s / dq_dom2, and the legs vjp
-                # cotangent gdd on the dom grids
-                gpv0 = gZ0[:, S:2 * S].detach()
-
-                def s_legs(Zd, dd):
-                    dd2 = dd + torch.einsum("gd,dgl->gl", Zd, tdl)
-                    return torch.sum(gpv0 * legs(dd2))
-
-                Zd0 = sp0.new_zeros((G, Qd))
-                gdd = grad(s_legs, argnums=1)(Zd0, dd0)
-                Hl = _hess(lambda Zd: s_legs(Zd, dd0), Zd0,
-                           _seeds(Qd, G, sp0))              # [Qd, G, Qd]
-                return gf, gdd, Hx2, Hl
-
-            gf, gdd, Hx2, Hl = vmap(one)(
-                spreads, xs["pv0"], xs["for_ds"], xs["dom_ds"], g_stage,
-                xs["tf2"], xs["td_legs"])
-
-            # cotangents at the primal: gdd routes to the dom parent's
-            # native grid, gf to the foreign parent directly
-            for mi, p in enumerate(m["parents"]):
-                for cid_par, cot, p1 in (
-                        (st.dom_ids[mi], gdd, p["p1d"]),
-                        (st.for_ids[mi], gf, p["p1f"])):
-                    key = str(cid_par)
-                    add = cot[:, mi, :p1]
-                    v_of[key] = add if key not in v_of else v_of[key] + add
-
-            # transform the boot hessian to quote space per member
-            Jpv = xs["Jpv"]                                # [Sc, Qd, G, S]
-            for mi, p in enumerate(m["parents"]):
-                qd_m, qf_m = p["qd"], p["qf"]
-                Hb = Hx2[:, :, mi, :]                       # [Sc, D2, D2]
-                Jv = Jpv[:, :qd_m, mi]                      # [Sc, qd, S]
-                JvT = Jv.transpose(1, 2)
-                bb = Hb[:, :S, :S]
-                bp = Hb[:, :S, S:2 * S]
-                bf = Hb[:, :S, 2 * S:2 * S + qf_m]
-                pp = Hb[:, S:2 * S, S:2 * S]
-                pf = Hb[:, S:2 * S, 2 * S:2 * S + qf_m]
-                ff = Hb[:, 2 * S:2 * S + qf_m, 2 * S:2 * S + qf_m]
-                q_bd = bp @ JvT                             # [Sc, S, qd]
-                q_dd = Jv @ pp @ JvT + Hl[:, :qd_m, mi, :qd_m]
-                q_df = Jv @ pf                              # [Sc, qd, qf]
-                Hq = torch.cat([
-                    torch.cat([bb, q_bd, bf], dim=2),
-                    torch.cat([q_bd.transpose(1, 2), q_dd, q_df], dim=2),
-                    torch.cat([bf.transpose(1, 2), q_df.transpose(1, 2),
-                               ff], dim=2)], dim=1)
-                place_hess(H2, Hq, segments(si, mi))
+            if tab is not None:
+                gZ0, gf, Hx2 = kernels.xccy_stage_hess(
+                    tab, spreads, xs["pv0"], xs["for_ds"], xs["tf2"],
+                    g_stage)
+                gdd, Hl = kernels.xccy_legs_hess(
+                    tab, xs["dom_ds"], xs["td_legs"],
+                    gZ0[:, :, S:2 * S].contiguous())
+            else:
+                gf, gdd, Hx2, Hl = _xccy_hess(b, st, si, spreads, g_stage,
+                                              xs, m)
+            _xccy_place(H2, v_of, st, si, m, gf, gdd, Hx2, Hl, xs["Jpv"])
         return H2, v_of
+
+    def _xccy_hess(b, st, si, spreads, g_stage, xs, m):
+        """torch.func's (gf, gdd, Hx2, Hl) of a recalibrated XCCY stage."""
+        G, S = spreads.shape[1:]
+        Qd, Qf = m["Qd"], m["Qf"]
+        D2 = 2 * S + Qf
+        boot = _boot_fwd(b, st, si)
+
+        def legs(dd):
+            return xccy_legs_pv(dd, b, st)
+
+        def one(sp0, pv0, fd0, dd0, gs, tf, tdl):
+            # boot-stage hessian over (basis, pv, composed-foreign)
+            # directions; fd enters as a second argument so one grad
+            # gives both gZ = [gb | gpv | composed-f] and the
+            # native-foreign cotangent gf
+            def s_hat(Z, fd):
+                fd2 = fd + torch.einsum("gd,dgl->gl", Z, tf)
+                _, rows = boot(sp0 + Z[:, :S], pv0 + Z[:, S:2 * S], fd2)
+                return torch.sum(gs * rows)
+
+            Z0 = sp0.new_zeros((G, D2))
+            gZ0, gf = grad(s_hat, argnums=(0, 1))(Z0, fd0)
+            Hx2 = _hess(lambda Z: s_hat(Z, fd0), Z0,
+                        _seeds(D2, G, sp0))             # [D2, G, D2]
+
+            # legs-stage hessian over dom-quote directions (legs only):
+            # sum_s gpv_s d2 pv_s / dq_dom2, and the legs vjp cotangent
+            # gdd on the dom grids
+            gpv0 = gZ0[:, S:2 * S].detach()
+
+            def s_legs(Zd, dd):
+                dd2 = dd + torch.einsum("gd,dgl->gl", Zd, tdl)
+                return torch.sum(gpv0 * legs(dd2))
+
+            Zd0 = sp0.new_zeros((G, Qd))
+            gdd = grad(s_legs, argnums=1)(Zd0, dd0)
+            Hl = _hess(lambda Zd: s_legs(Zd, dd0), Zd0,
+                       _seeds(Qd, G, sp0))              # [Qd, G, Qd]
+            return gf, gdd, Hx2, Hl
+
+        return vmap(one)(spreads, xs["pv0"], xs["for_ds"], xs["dom_ds"],
+                         g_stage, xs["tf2"], xs["td_legs"])
+
+    def _xccy_place(H2, v_of, st, si, m, gf, gdd, Hx2, Hl, Jpv):
+        """A recalibrated XCCY stage's parent cotangents into ``v_of`` and
+        its boot and legs hessians, in quote space, into H2."""
+        S = m["S"]
+        # cotangents at the primal: gdd routes to the dom parent's
+        # native grid, gf to the foreign parent directly
+        for mi, p in enumerate(m["parents"]):
+            for cid_par, cot, p1 in (
+                    (st.dom_ids[mi], gdd, p["p1d"]),
+                    (st.for_ids[mi], gf, p["p1f"])):
+                key = str(cid_par)
+                add = cot[:, mi, :p1]
+                v_of[key] = add if key not in v_of else v_of[key] + add
+
+        # transform the boot hessian to quote space per member
+        for mi, p in enumerate(m["parents"]):
+            qd_m, qf_m = p["qd"], p["qf"]
+            Hb = Hx2[:, :, mi, :]                       # [Sc, D2, D2]
+            Jv = Jpv[:, :qd_m, mi]                      # [Sc, qd, S]
+            JvT = Jv.transpose(1, 2)
+            bb = Hb[:, :S, :S]
+            bp = Hb[:, :S, S:2 * S]
+            bf = Hb[:, :S, 2 * S:2 * S + qf_m]
+            pp = Hb[:, S:2 * S, S:2 * S]
+            pf = Hb[:, S:2 * S, 2 * S:2 * S + qf_m]
+            ff = Hb[:, 2 * S:2 * S + qf_m, 2 * S:2 * S + qf_m]
+            q_bd = bp @ JvT                             # [Sc, S, qd]
+            q_dd = Jv @ pp @ JvT + Hl[:, :qd_m, mi, :qd_m]
+            q_df = Jv @ pf                              # [Sc, qd, qf]
+            Hq = torch.cat([
+                torch.cat([bb, q_bd, bf], dim=2),
+                torch.cat([q_bd.transpose(1, 2), q_dd, q_df], dim=2),
+                torch.cat([bf.transpose(1, 2), q_df.transpose(1, 2),
+                           ff], dim=2)], dim=1)
+            place_hess(H2, Hq, segments(si, mi))
 
     def term2_ois(q, P, g, v_of):
         """OIS/inflation-stage hessian placements with the XCCY chain

@@ -13,7 +13,8 @@ first use. Phases:
    K3 per-trade quad form, K4 pv01_solve and K5 pv01_solve_t, the OIS
    bootstrap's chain solve and its transpose, K6 fitted_rows and K7
    fitted_rows_t, the fitted schemes' rows at static queries and their
-   transpose);
+   transpose, K8-K11 the XCCY stage's jacobian and Hessian in dual and
+   hyper-dual arithmetic);
 3. OIS slice: the flagship OIS book (7 curves, N = 144 quotes, 720 OIS
    tiled to 100,080 trades, 100 scenarios) through ``make_multibook_fn``
    on the structured risk split: one cold call, then 3 warm calls;
@@ -29,6 +30,10 @@ first use. Phases:
    and 3 warm calls of ``make_staged_multibook_fn``, with the checks of
    phase 4 (the FD delta also on the largest XCCY basis quote), each
    region's time, and the staged outputs against ``make_multibook_fn``;
+   the route of every XCCY stage (K8-K11 or torch.func, decided when the
+   book compiles) is printed for every book, and K8-K11's launches a
+   call on this path and phase 7's (gated: all four launched) and on
+   phase 7b's ladders (K8, K9);
 7. flagship_v5, the whole book of the repository's ``bench.py``: 12
    curves (7 OIS + 3 XCCY + 2 inflation, N = 184), 1,004 trades of every
    kind (FRNs with cap/floor clamp slots, bonds, ZCIS and YoY, fix-float
@@ -177,7 +182,14 @@ first use. Phases:
    region C1 (an XCCY stage's foreign curve and legs) and K7's of the
    256 gammas against their twins at 1e-12 x max|ref| and against their
    own second launch bit for bit (gated), with one torch.bmm of the
-   inputs by the dense operators the plan implies as the yardstick),
+   inputs by the dense operators the plan implies as the yardstick);
+   K8-K11 at their calls of one flagship_v5 staged chunk (captured; K9
+   and K11 on legs that do not telescope, ``xccy_stage.probe_tables``,
+   and seeded domestic tangents) against their plain versions at 1e-12 x
+   max|ref| of every output, the Hessians symmetric bit for bit, with no
+   library yardstick (no PyTorch call computes a stage's jacobian or
+   Hessian) and their bound from the operations the function needs,
+   ``xccy_stage.needed_flops``),
    each timed
    over 30 calls by CUDA events around the call (``ms``, which holds the
    wrapper's host work) and by the device time of its kernels in a
@@ -383,8 +395,12 @@ def _check(name: str, err: float, bound: float):
 
 # every kernel's wrapper, by its launch-count key
 KERNELS = ("pvs_sweep", "gamma_quad_form_grouped", "pertrade_quad_form",
-           "pv01_solve", "pv01_solve_t", "fitted_rows", "fitted_rows_t")
+           "pv01_solve", "pv01_solve_t", "fitted_rows", "fitted_rows_t",
+           "xccy_stage_jvp", "xccy_legs_jvp", "xccy_stage_hess",
+           "xccy_legs_hess")
 FITTED = ("fitted_rows", "fitted_rows_t")
+XCCY = ("xccy_stage_jvp", "xccy_legs_jvp", "xccy_stage_hess",
+        "xccy_legs_hess")
 
 
 def _reset_launches():
@@ -515,6 +531,71 @@ def _capture_fitted(fn, q0, shocks, device) -> dict:
                                  ("C2", "fitted_rows_t"),
                                  ("C1", "fitted_rows"),
                                  ("C1", "fitted_rows_t")])
+
+
+def _xccy_routes(name, mb) -> dict:
+    """Print and return each XCCY stage's route (K8-K11 or torch.func),
+    decided when the book compiled."""
+    from adrates_torch.ops.xccy_stage import stage_routes
+    from adrates_torch.parallel.multibook import book_inputs
+    topo = book_inputs(mb).topology
+    routes = {}
+    for si, r in ({} if topo is None else stage_routes(topo)).items():
+        st = topo.stages[si]
+        names = ", ".join(topo.specs[c].name for c in st.ids)
+        routes[f"{st.key} ({names})"] = r
+    print(f"{name}: XCCY stage routes {routes}", flush=True)
+    return routes
+
+
+def _xccy_launches(path: str, info: dict, hess: bool = True) -> dict:
+    """Report K8-K11 launches a call on one path whose XCCY stages take
+    the kernels (``info``: its launch counts and ``calls``): K8 and K9
+    must have launched, and K10 and K11 too where the path takes the
+    stage's Hessian. Returns them a call."""
+    n = info["calls"]
+    per = {k: info[k] / n for k in XCCY}
+    print(f"{path}: K8-K11 (xccy_stage_jvp, xccy_legs_jvp, "
+          f"xccy_stage_hess, xccy_legs_hess) "
+          f"{[per[k] for k in XCCY]} launches a call ({n} calls)",
+          flush=True)
+    need = XCCY if hess else XCCY[:2]
+    if any(info[k] <= 0 for k in need):
+        raise AssertionError(f"{path}: the XCCY stage kernels were not "
+                             f"launched ({ {k: info[k] for k in XCCY} })")
+    return per
+
+
+def _capture_xccy(run) -> dict:
+    """Run ``run()`` with K8-K11's wrappers watched: per kernel, the
+    arguments of its first call (the first scenario chunk), tensors
+    copied. The kernels' own launch counts are left as they were."""
+    import torch
+
+    from adrates_torch.ops import kernels
+    keep = {}
+    orig = {k: getattr(kernels, k) for k in XCCY}
+
+    def watched(name, f):
+        def g(*args):
+            if name not in keep:
+                keep[name] = tuple(a.clone() if isinstance(a, torch.Tensor)
+                                   else a for a in args)
+            return f(*args)
+        g.launches = f.launches
+        return g
+
+    for name, f in orig.items():
+        setattr(kernels, name, watched(name, f))
+    try:
+        run()
+        torch.cuda.synchronize()
+    finally:
+        for name, f in orig.items():
+            setattr(kernels, name, f)
+    if sorted(keep) != sorted(orig):
+        raise AssertionError(f"the watched call ran {sorted(keep)} only")
+    return keep
 
 
 def _nested_forward_raises(curve, device) -> dict:
@@ -652,6 +733,7 @@ def _describe(name, mb, fn, n_scen, t_model, t_compile, n_base):
           f"groups of k={torch.diff(fn.book.quad.rptr).tolist()}"
           f"; stages {[(st.kind, len(st.ids)) for st in mb.basket.stages]}",
           flush=True)
+    _xccy_routes(name, mb)
 
 
 def run_ois_slice(device, n_warm: int = 3):
@@ -2781,6 +2863,113 @@ def compare_solve_kernels(path, inputs) -> list:
     return recs
 
 
+# K8-K11's sources and the JAX package's functions they replace (no
+# Pallas kernel: plain jnp, which XLA lowers)
+_XCCY_SRC = dict(
+    xccy_stage_jvp=("adrates_tpu/parallel/structured_risk.py:321",
+                    ["adrates_tpu/ops/xccy_bootstrap.py:78",
+                     "adrates_tpu/parallel/curve_batching.py:265"]),
+    xccy_legs_jvp=("adrates_tpu/parallel/structured_risk.py:367",
+                   ["adrates_tpu/ops/pricers.py:102"]),
+    xccy_stage_hess=("adrates_tpu/parallel/structured_risk.py:529",
+                     ["adrates_tpu/ops/xccy_bootstrap.py:78"]),
+    xccy_legs_hess=("adrates_tpu/parallel/structured_risk.py:552",
+                    ["adrates_tpu/ops/pricers.py:102"]))
+
+
+def compare_xccy_kernels(path, inputs) -> list:
+    """Phase 8's K8-K11 records at one path's captured XCCY calls
+    (``inputs`` from ``_capture_xccy``: the first chunk's arguments): K8
+    and K10 on the captured inputs; K9 and K11 on the captured grids and
+    cotangents through ``xccy_stage.probe_tables`` with seeded domestic
+    tangents, since a book's calibration legs price to 0 on any curve (so
+    their PVs and derivatives are rounding alone); each against its plain
+    version (torch.func on the same tables) at 1e-12 x max|ref| of every
+    output, the Hessians' mirror entries bit for bit, timed (30 calls by
+    events and by profiler device time; the plain version over 5 calls)
+    with no library call (no single PyTorch call computes a stage's
+    jacobian or Hessian); the bound is bytes (inputs, tables and outputs
+    once) over the HBM rate against the f64 operations the function needs
+    over the f64 rate (``xccy_stage.needed_flops``: the primal once a
+    (scenario, member), each first tangent once, each pair's e1 e2 part
+    once; exp and log one each), the threads' own count beside it.
+    """
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from adrates_torch.ops import kernels
+    from adrates_torch.ops import xccy_stage as xs
+    recs = []
+    for k, name in enumerate(XCCY):
+        args = list(inputs[name])
+        tab = args[0]
+        Sc = args[1].shape[0]
+        if name in ("xccy_legs_jvp", "xccy_legs_hess"):
+            tab = xs.probe_tables(tab, 31 + k)
+            args[0] = tab
+            args[2] = torch.as_tensor(1e-3 * np.random.default_rng(
+                41 + k).standard_normal(tuple(args[2].shape)),
+                device=args[1].device)
+        kern, plain = getattr(kernels, name), getattr(xs, name + "_plain")
+        ref = [r for r in plain(*args) if r is not None]
+        got = [r for r in kern(*args) if r is not None]
+        rels = [float((a - b).abs().max() / b.abs().max())
+                for a, b in zip(got, ref)]
+        err = max(float((a - b).abs().max()) for a, b in zip(got, ref))
+        _check(f"{path} {name} vs plain (abs / max|ref|, worst output)",
+               max(rels), 1e-12)
+        if name.endswith("hess"):
+            H = got[-1]
+            if not torch.equal(H, H.permute(0, 3, 2, 1)):
+                raise AssertionError(f"{path} {name}: H not symmetric bit "
+                                     f"for bit")
+        ms = _cuda_ms(lambda: kern(*args))
+        dv = _device_stats(lambda: kern(*args))
+        tm = dict(ms=ms, device_ms=dv and dv["median"],
+                  device_ms_min=dv and dv["min"],
+                  device_ms_max=dv and dv["max"],
+                  device_by_launch=dv and dv["by_launch"],
+                  plain_ms=_cuda_ms(lambda: plain(*args), reps=5),
+                  library_ms=None, library_device_ms=None)
+        ops = xs.needed_flops(name, *args)
+        flops = ops["needed"]
+        G = tab.G
+        tables = sum(getattr(tab, f.name).numel()
+                     * getattr(tab, f.name).element_size()
+                     for f in dataclasses.fields(tab)
+                     if isinstance(getattr(tab, f.name), torch.Tensor))
+        io = sum(a.numel() * 8 for a in args[1:]
+                 if isinstance(a, torch.Tensor)) \
+            + sum(r.numel() * 8 for r in got)
+        nbytes = tables + io
+        bound, by = _bound(nbytes, float(flops), FP64_FLOPS)
+        print(f"{path} {name} [Sc, G, S, D, Qd, W]="
+              f"{[Sc, G, tab.S, tab.D, tab.Qd, tab.W]}: {_fmt_tm(tm)}; "
+              f"bound {bound * 1e3:.2f} us ({by}, {nbytes / 1e6:.2f} MB, "
+              f"{flops / 1e9:.3f} GFLOP needed, the threads' "
+              f"{ops['threads'] / 1e9:.3f}); worst rel err {max(rels):.2e}",
+              flush=True)
+        replaces, also = _XCCY_SRC[name]
+        recs.append(dict(
+            name=name, path=path, route="cuda",
+            source="adrates_torch/csrc/xccy_stage.cu",
+            replaces=replaces, replaces_also=also,
+            max_abs_err=err, max_rel_err=max(rels), **tm,
+            library="none: no single PyTorch call computes a stage's "
+                    "jacobian or Hessian",
+            bound_ms=bound, bound_by=by, **_shares(bound, tm),
+            scenarios=Sc, members=G, spreads=tab.S, directions=tab.D,
+            dom_directions=tab.Qd, rows=tab.W, flops=flops,
+            thread_flops=ops["threads"],
+            inputs="captured" if name in ("xccy_stage_jvp",
+                                          "xccy_stage_hess")
+            else "captured grids and cotangents, probe legs, seeded "
+                 "tangents"))
+    return recs
+
+
 def _fit_operators(tab):
     """[G, W_max, K n_max]: each member's dense operator from (its knot
     values | its slopes) to its queries, built once by K6 on the unit
@@ -3241,7 +3430,7 @@ def main() -> int:
     # ---- phase 2: build ------------------------------------------------
     secs = kernels.build_kernels()
     print(f"build: K1 (scenario- and trade-major, f64 and f32), K2, K3, "
-          f"K4 + K5, K6 + K7 built and loaded in "
+          f"K4 + K5, K6 + K7, K8-K11 built and loaded in "
           f"{secs:.2f} s "
           f"({kernels.library_path().name})", flush=True)
 
@@ -3255,6 +3444,8 @@ def main() -> int:
     # K4 / K5 at their largest calls of one warm staged call (region A's
     # seeds x scenarios x curves), for phase 8
     solve_f = _capture_solves(lambda: staged_f(q_f, sh_f))
+    # K8-K11 at their calls of one warm staged call's first chunk
+    xccy_f = _capture_xccy(lambda: staged_f(q_f, sh_f))
     del staged_f
     # phase 7c on phase 7's model and base trades (the same seed and draw
     # order rebuild them)
@@ -3282,6 +3473,9 @@ def main() -> int:
                 raise AssertionError(f"{name} was not launched on the "
                                      f"{path} path")
         _solve_launches(path, info)
+    for path, info in (("ois_xccy_book", info_x), ("flagship_v5", info_f)):
+        _xccy_launches(path, info)
+    _xccy_launches("flagship_v5_ladders", pt_infos["ladders"], hess=False)
 
     # ---- phase 8 (before 7f-a/b: no process group, no spawned rank) ------
     infos = dict(ois_slice=info_o, ois_xccy_book=info_x, flagship_v5=info_f)
@@ -3298,7 +3492,8 @@ def main() -> int:
     records += compare_solve_kernels("engine_config2", solve_e)
     records += compare_solve_kernels("flagship_v5", solve_f)
     records += compare_fitted_kernels(fit_inputs)
-    del solve_e, solve_f, fit_inputs
+    records += compare_xccy_kernels("flagship_v5", xccy_f)
+    del solve_e, solve_f, fit_inputs, xccy_f
     infos.update(flagship_v5_ladders=pt_infos["ladders"],
                  flagship_v5_gamma_256=pt_infos["gamma_256"],
                  flagship_v5_gamma_blocks=pt_infos["blocks"],

@@ -837,3 +837,145 @@ def test_fitted_rows_t_at_the_phase8_shapes(dev, call):
     got, again, ref = _fit_t_twice(dev, plans, R, 17)
     assert _rel_err(got, ref) <= 1e-12
     assert torch.equal(got, again)
+
+
+# ---------------------------------------------------------------------------
+# K8-K11: the XCCY stage
+# ---------------------------------------------------------------------------
+
+_XBOOKS = {                       # (OIS scheme, XCCY scheme, S)
+    "v1_flat": None,              # the OIS + XCCY test book: G = 1, S = 3
+    "v3_flat": ("FLAT_FWD_RATES", "FLAT_FWD_RATES", 5),
+    "v3_zero_fwd": ("LINEAR_ZERO_RATES", "LINEAR_FWD_RATES", 5),
+    "v3_fwd_zero": ("LINEAR_FWD_RATES", "LINEAR_ZERO_RATES", 7),
+}
+
+
+def _xccy_case(name, recal, dev, seed=0):
+    """(tables on dev, inputs on the CPU) of a book's XCCY stage: the
+    spreads, PVs, parent grids and tangents of one torch.func fwd_delta on
+    3 scenarios; the legs' tables from ``probe_tables`` (a cap and floor,
+    an ia = 0 slot, a fixed first coupon), which do not telescope, and
+    seeded domestic tangents and cotangents."""
+    from adrates_torch.ops import xccy_stage as xs
+    from adrates_torch.parallel import structured_risk as tsr
+    if _XBOOKS[name] is None:
+        mb = cases.compile_xccy_book(
+            "adrates_torch", cases.build_xccy_model("adrates_torch"),
+            recalibrate_xccy=recal)
+    else:
+        o, x, S = _XBOOKS[name]
+        mb = cases.xccy3_book("adrates_torch", o, x, S,
+                              recalibrate_xccy=recal)
+    topo = tmb.book_inputs(mb).topology
+    cpu = tmb.make_multibook_fn(mb, "cpu").book
+    (si, tab_c), = cpu.params["xstage"].items()
+    rng = np.random.default_rng(seed)
+    q = torch.tensor(mb.basket.quotes0[None, :] + rng.normal(
+        0.0, 1e-3, (3, mb.basket.n_quotes)))
+    fw = tsr.make_structured_parts(topo)["fwd_delta"](
+        q, cpu.params, cpu.aggregate, cpu.clamp_agg)
+    c = fw["carry"][si]
+    G, S = tab_c.G, tab_c.S
+    inp = dict(sp=q[:, cpu.params["bat"][topo.stages[si].key]["qidx"]],
+               fd=c["for_ds"], tf=c.get("tf2"),
+               gs=torch.tensor(rng.standard_normal((3, G, tab_c.W))),
+               dd=c["dom_ds"],
+               tdl=torch.tensor(1e-3 * rng.standard_normal(
+                   (3, max(tab_c.Qd, 3), G, tab_c.Ld))),
+               gpv=torch.tensor(rng.standard_normal((3, G, S))))
+    inp["pv"] = c["pv0"] if recal else tab_c.pv_dom0.expand(
+        3, G, S).contiguous()
+    tab = tmb.make_multibook_fn(mb, dev).book.params["xstage"][si]
+    legs = xs.probe_tables(tab, seed)
+    legs_c = xs.probe_tables(tab_c, seed)
+    if not recal:                   # held as values: no dom directions
+        lp = torch.tensor(xs.pair_table(3), dtype=torch.int32)
+        legs = dataclasses.replace(legs, Qd=3, lpairs=lp.to(dev))
+        legs_c = dataclasses.replace(legs_c, Qd=3, lpairs=lp)
+    return tab, tab_c, legs, legs_c, inp
+
+
+def _xrel(got, ref):
+    return float((got.cpu() - ref).abs().max() / ref.abs().max())
+
+
+@pytest.mark.parametrize("recal", [True, False], ids=["recal", "values"])
+@pytest.mark.parametrize("name", list(_XBOOKS))
+def test_xccy_stage_kernels_match_plain(dev, name, recal):
+    """K8-K11 against their plain versions at 1e-12 x max|ref| on G = 1
+    (S = 3) and G = 3 (S = 5, 7) stages on the three simple schemes, both
+    branches, one launch each; the Hessians' mirror entries equal bit for
+    bit."""
+    from adrates_torch.ops import xccy_stage as xs
+    tab, tab_c, legs, legs_c, inp = _xccy_case(name, recal, dev)
+    on = {k: None if v is None else v.to(dev).contiguous()
+          for k, v in inp.items()}
+    names = ("xccy_stage_jvp", "xccy_legs_jvp", "xccy_stage_hess",
+             "xccy_legs_hess")
+    before = [getattr(kernels, k).launches for k in names]
+    got = kernels.xccy_stage_jvp(tab, on["sp"], on["pv"], on["fd"], on["tf"])
+    ref = xs.xccy_stage_jvp_plain(tab_c, inp["sp"], inp["pv"], inp["fd"],
+                                  inp["tf"])
+    for a, b in zip(got, ref):
+        assert _xrel(a, b) <= 1e-12
+    got = kernels.xccy_stage_hess(tab, on["sp"], on["pv"], on["fd"],
+                                  on["tf"], on["gs"])
+    ref = xs.xccy_stage_hess_plain(tab_c, inp["sp"], inp["pv"], inp["fd"],
+                                   inp["tf"], inp["gs"])
+    assert (got[1] is None) == (not recal)
+    for a, b in zip(got, ref):
+        if b is not None:
+            assert _xrel(a, b) <= 1e-12
+    H = got[2]
+    assert torch.equal(H, H.permute(0, 3, 2, 1))
+    tdl = on["tdl"][:, :legs.Qd].contiguous()
+    got = kernels.xccy_legs_jvp(legs, on["dd"], tdl)
+    ref = xs.xccy_legs_jvp_plain(legs_c, inp["dd"],
+                                 inp["tdl"][:, :legs.Qd].contiguous())
+    for a, b in zip(got, ref):
+        assert _xrel(a, b) <= 1e-12
+    got = kernels.xccy_legs_hess(legs, on["dd"], tdl, on["gpv"])
+    ref = xs.xccy_legs_hess_plain(legs_c, inp["dd"],
+                                  inp["tdl"][:, :legs.Qd].contiguous(),
+                                  inp["gpv"])
+    for a, b in zip(got, ref):
+        assert _xrel(a, b) <= 1e-12
+    assert torch.equal(got[1], got[1].permute(0, 3, 2, 1))
+    torch.cuda.synchronize()
+    assert [getattr(kernels, k).launches for k in names] == \
+        [b + 1 for b in before]
+
+
+@pytest.mark.parametrize("recal", [True, False], ids=["recal", "values"])
+def test_xccy_stage_route_on_cuda_matches_cpu(dev, recal):
+    """The structured split with its three-member XCCY stage on K8-K11 on
+    the card against the torch.func route on the CPU: dfs, J, H2 and the
+    parent cotangents at 1e-12 x max|ref|; K8-K11 launched (K9 and K11
+    only when recalibrated)."""
+    from adrates_torch.parallel import structured_risk as tsr
+    mb = cases.xccy3_book("adrates_torch", "LINEAR_ZERO_RATES",
+                          "FLAT_FWD_RATES", 5, recalibrate_xccy=recal)
+    topo = tmb.book_inputs(mb).topology
+    q = torch.tensor(mb.basket.quotes0[None, :] + cases.shocks(
+        mb.basket.n_quotes))
+    outs = {}
+    for where in ("cpu", dev):
+        with pytest.MonkeyPatch.context() as mp:
+            if where == "cpu":          # the torch.func route
+                mp.setattr(tsr, "stage_routes", lambda topo: {})
+            b = tmb.make_multibook_fn(mb, where).book
+            parts = tsr.make_structured_parts(topo)
+        qq = q.to(where)
+        fw = parts["fwd_delta"](qq, b.params, b.aggregate, b.clamp_agg)
+        h2x, v_of = parts["term2_xccy"](qq, b.params, fw["g"], fw["carry"])
+        outs[str(where)] = (fw, h2x, v_of)
+    torch.cuda.synchronize()
+    (rf, rh, rv), (gf, gh, gv) = outs["cpu"], outs[str(dev)]
+    for key in ("dfs", "J"):
+        assert _xrel(gf[key], rf[key]) <= 1e-12, key
+    assert _xrel(gh, rh) <= 1e-12
+    assert sorted(gv) == sorted(rv) and bool(rv) == recal
+    scale = max((float(v.abs().max()) for v in rv.values()), default=1.0)
+    for k, v in rv.items():
+        assert float((gv[k].cpu() - v).abs().max()) <= 1e-12 * scale, k

@@ -264,6 +264,57 @@ def compile_xccy_book(pkg: str, model, n_copies: int = 2, **kw):
     return mbmod.tile_multibook(mb, n_copies, notional_scale=scale)
 
 
+def xccy3_book(pkg: str, ois_scheme: str, xccy_scheme: str,
+               n_spreads: int = 5, **kw):
+    """A book whose one XCCY stage has three members: GBP_, EUR_ and
+    JPY_USD_XCCY (``n_spreads`` basis quotes each, on ``xccy_scheme``)
+    over USD, GBP, EUR and JPY OIS curves on ``ois_scheme`` (scheme
+    names); an OIS on each OIS curve and a GBP, EUR and JPY OIS under USD
+    collateral (discounted on the XCCY curves), in USD; ``kw`` goes to
+    compile_multibook (recalibrate_xccy, ...)."""
+    u, Model, OIS = _ns(pkg)
+    mbmod = importlib.import_module(f"{pkg}.parallel.multibook")
+    it = getattr(u.InterpTypes, ois_scheme)
+    m = Model(u.Date(1, 1, 2024))
+    D, F, C, S = (u.DayCountTypes, u.FrequencyTypes, u.CurveTypes,
+                  u.SwapTypes)
+    curves = [("USD_OIS_SOFR", [5.3, 5.0, 4.6, 4.0, 3.88], D.ACT_360, 0.0),
+              ("GBP_OIS_SONIA", [5.0, 4.7, 4.3, 3.9, 3.87], D.ACT_365F,
+               1.27),
+              ("EUR_OIS_ESTR", [3.9, 3.7, 3.3, 2.9, 2.8], D.ACT_360, 1.09),
+              ("JPY_OIS_TONAR", [0.1, 0.2, 0.4, 0.7, 0.9], D.ACT_365F,
+               0.0069)]
+    for name, px, dc, _ in curves:
+        m.build_curve(name, px_list=px,
+                      tenor_list=["6M", "1Y", "2Y", "5Y", "10Y"],
+                      fixed_dcc_type=dc, float_dc_type=dc, interp_type=it)
+    m.build_fx(["GBPUSD", "EURUSD", "JPYUSD"], [1.27, 1.09, 0.0069])
+    tenors = ["1Y", "2Y", "3Y", "5Y", "7Y", "10Y", "15Y"][:n_spreads]
+    for k, (name, _, _, fx) in enumerate(curves[1:]):
+        ccy = name[:3]
+        m.build_xccy_curve(
+            name=f"{ccy}_USD_XCCY", domestic_curve_name="USD_OIS_SOFR",
+            foreign_curve_name=name, spot_fx=fx,
+            basis_spreads=[-5.0 - 7.0 * k - 1.5 * i
+                           for i in range(n_spreads)],
+            tenor_list=tenors,
+            interp_type=getattr(u.InterpTypes, xccy_scheme))
+    v = m.value_dt
+    trades, coll = [], []
+    for k, (name, _, dc, _) in enumerate(curves):
+        ccy = getattr(u.CurrencyTypes, name[:3])
+        for coll_t in ([None] if k == 0 else [None, u.CollateralType.USD]):
+            trades.append(OIS(v.add_months(k), f"{4 + 2 * k}Y",
+                              S.PAY if k % 2 else S.RECEIVE,
+                              0.01 + 0.008 * k, F.ANNUAL, dc,
+                              getattr(C, name), ccy, notional=1e7,
+                              float_dc_type=dc))
+            coll.append(coll_t)
+    return mbmod.compile_multibook(trades, m,
+                                   base_currency=u.CurrencyTypes.USD,
+                                   collateral_types=coll, **kw)
+
+
 def trade_slot_weights(jax_mb, port_mb):
     """([B, M], [B, M]): each trade's (column, weight) slots over the value
     table, densely, from the JAX package's trade row table over its
