@@ -29,9 +29,10 @@ K11 ``xccy_legs_hess`` (``csrc/xccy_stage.cu``) replace the
 ``torch.func`` towers over an XCCY stage of the structured risk pass
 (``adrates_tpu/parallel/structured_risk.py`` :321 and :457-603 over
 ``curve_batching.py`` :265-319, ``ops/xccy_bootstrap.py`` :78 and
-``ops/pricers.py`` :102): the stage evaluated a thread at a time in dual
-or hyper-dual arithmetic on ``ops/xccy_stage.XccyStageTables``, whose
-module holds their plain versions. K1-K3 are
+``ops/pricers.py`` :102): the stage evaluated in dual or hyper-dual
+arithmetic on ``ops/xccy_stage.XccyStageTables``, K8 / K10 split at its
+node DFs (the pair-independent work once a block), whose module holds
+their plain versions. K1-K3 are
 forward-only (their derivatives are closed form elsewhere), and so are
 K8-K11 (derivatives themselves). All eleven
 are f64; K1
@@ -121,6 +122,7 @@ _SIGNATURES = {
     "xccy_stage_hess_f64": [_P, _I, _I, _I, _I, _P, _I, _P, _P, _P, _P, _P,
                             _P, _P, _P, _P],
     "xccy_legs_hess_f64": [_P, _I, _I, _I, _P, _I, _P, _P, _P, _P, _P, _P],
+    "xccy_kernel_info": [_P, _I, _I, _I, _P],
 }
 
 _lib = None
@@ -1566,14 +1568,19 @@ fitted_rows_t.launches = 0
 
 class _XStage(ctypes.Structure):
     """csrc/xccy_stage.cu ``StageTab``: an ``XccyStageTables``' sizes and
-    its tensors' device pointers."""
-    _fields_ = ([(k, ctypes.c_int) for k in
-                 ("G", "S", "n", "U1", "Lf", "Ld", "W", "P", "Pd", "fsch",
-                  "dsch", "flags")]
-                + [(k, ctypes.c_void_p) for k in
-                   ("pt_f", "pt_i", "v0", "fxs", "fq_i", "fq_f", "f_xs",
-                    "rq_i", "rq_f", "r_sch", "r_xs", "li_i", "li_f", "ld_i",
-                    "ld_f", "d_xs", "leg_f", "leg_s")])
+    its tensors' device pointers, then the rows' node and band tables."""
+    _INTS = ("G", "S", "n", "U1", "Lf", "Ld", "W", "P", "Pd", "fsch",
+             "dsch", "flags")
+    _PTRS = ("pt_f", "pt_i", "v0", "fxs", "fq_i", "fq_f", "f_xs", "rq_i",
+             "rq_f", "r_sch", "r_xs", "li_i", "li_f", "ld_i", "ld_f",
+             "d_xs", "leg_f", "leg_s")
+    _BAND_INTS = ("E", "NR", "NB")
+    _BAND_PTRS = ("nr_ptr", "nr_row", "mb_pq", "mb_ptr", "mb_row",
+                  "tp_off")
+    _fields_ = ([(k, ctypes.c_int) for k in _INTS]
+                + [(k, ctypes.c_void_p) for k in _PTRS]
+                + [(k, ctypes.c_int) for k in _BAND_INTS]
+                + [(k, ctypes.c_void_p) for k in _BAND_PTRS])
 
 
 def _xstage(tab: xccy_stage.XccyStageTables) -> int:
@@ -1581,15 +1588,48 @@ def _xstage(tab: xccy_stage.XccyStageTables) -> int:
     ``tab.cache`` beside the tensors it points into)."""
     st = tab.cache.get("c")
     if st is None:
-        for k, _ in _XStage._fields_[12:]:
+        ptrs = _XStage._PTRS + _XStage._BAND_PTRS
+        for k in ptrs:
             t = getattr(tab, k)
             _need(t, k, torch.float64 if t.dtype == torch.float64
                   else torch.int32, t.dim(), tab.pt_f.device)
-        st = _XStage(*[getattr(tab, k) for k, _ in _XStage._fields_[:12]],
-                     *[getattr(tab, k).data_ptr()
-                       for k, _ in _XStage._fields_[12:]])
+        sizes = dict(E=tab.E, NR=tab.nr_row.shape[1],
+                     NB=tab.mb_row.shape[1])
+        st = _XStage(**{k: getattr(tab, k) for k in _XStage._INTS},
+                     **sizes, **{k: getattr(tab, k).data_ptr()
+                                 for k in ptrs})
         tab.cache["c"] = st
     return ctypes.addressof(st)
+
+
+_XCCY_KERNEL = dict(xccy_stage_jvp=8, xccy_legs_jvp=9, xccy_stage_hess=10,
+                    xccy_legs_hess=11)
+
+
+def xccy_kernel_info(tab, name: str) -> dict:
+    """What the card's compiler and occupancy calculator say of kernel
+    ``name`` (one of K8-K11's wrappers) at stage ``tab`` (on the card):
+    its registers and local memory a thread (spills and stack; 0 when no
+    thread keeps an array), and at this stage's sizes its dynamic shared
+    memory a block, the blocks an SM holds at once, its threads a block,
+    K8 / K10's tile of directions, which of the grid's transforms, the
+    chain tables, the foreign tangent rows, K10's tape of primal exps and
+    quotients and its node and band lists their blocks hold in shared
+    memory (``held``; the others are read from device memory, the tape's
+    values computed by every thread) and their blocks a (scenario,
+    member)."""
+    if _lib is None:
+        build_kernels()
+    out = (ctypes.c_int * 8)()
+    _check(_lib.xccy_kernel_info(_xstage(tab), tab.D, _XCCY_KERNEL[name],
+                                 int(tab.recal), out), "xccy_kernel_info")
+    info = dict(zip(("registers", "local_bytes", "smem_bytes",
+                     "blocks_per_sm", "threads", "tile"), list(out)[:6]))
+    info["held"] = [k for b, k in ((1, "grid"), (2, "chain"), (4, "rows"),
+                                   (8, "tape"), (16, "lists"))
+                    if out[6] & b]
+    info["blocks_per_member"] = out[7]
+    return info
 
 
 def _xshape(t, name: str, shape):
@@ -1617,8 +1657,10 @@ def xccy_stage_jvp(tab, sp: torch.Tensor, pv: torch.Tensor,
     stage's native DFs, rows and the rows' directional derivatives along
     its D directions (see ``xccy_stage.xccy_stage_jvp_plain``), from sp,
     pv [Sc, G, S], fd [Sc, G, Lf] and tf [Sc, D, G, Lf] (None when the
-    parents are held as values): a dual-number thread a (scenario,
-    member, direction); three ``torch.empty`` and one launch."""
+    parents are held as values): a block a (scenario, member, tile of
+    directions) runs a dual chain a direction to the node DFs, then the
+    rows once and their tangents from the nodes'; three ``torch.empty``
+    and one launch."""
     Sc, G, S = sp.shape[0], tab.G, tab.S
     _xshape(sp, "sp", (Sc, G, S))
     _xshape(pv, "pv", (Sc, G, S))
@@ -1677,10 +1719,13 @@ def xccy_stage_hess(tab, sp: torch.Tensor, pv: torch.Tensor,
     """K10: (gZ [Sc, G, D], gf [Sc, G, Lf] or None, H [Sc, D, G, D]) for
     s(Z, fd) = sum(gs . rows) at Z = 0 over the stage's D directions and
     its foreign grid (see ``xccy_stage.xccy_stage_hess_plain``; ``gs``
-    [Sc, G, W]): a hyper-dual thread a (scenario, member, pair i <= j of
-    ``tab.hpairs``) writing H at [i, j] and [j, i] (and gZ from i = j),
-    then, recalibrated, a dual thread a (scenario, member, foreign grid
-    entry); three ``torch.empty`` and one launch."""
+    [Sc, G, W]): a block a (scenario, member, tile pair) runs a dual
+    chain a direction, sums a = ds/dds and the band of M = d2s/dds2 over
+    the rows, then a hyper-dual chain a pair i <= j (each pair of
+    ``tab.hpairs`` once), writing H at [i, j] and [j, i] (and gZ at
+    i = j); recalibrated, a block a (scenario, member, 128 foreign grid
+    entries) gives gf by a dual chain an entry; three ``torch.empty`` and
+    one launch."""
     Sc, G = sp.shape[0], tab.G
     _xshape(gs, "gs", (Sc, G, tab.W))
     _xshape(sp, "sp", (Sc, G, tab.S))

@@ -6,10 +6,10 @@ calibration legs ``xccy_legs_pv``) is differentiated by the structured
 split (``parallel/structured_risk``) along D composed directions in
 region A and to the second order in region C1. On the card those
 derivatives come from four hand-written kernels
-(``csrc/xccy_stage.cu``), which evaluate the stage once per thread in a
-scalar type T: a dual number (value and one tangent) for a directional
-derivative, a hyper-dual one (value, e1, e2, e1 e2) for one entry of a
-Hessian, so second derivatives are exact with no hand-derived adjoint:
+(``csrc/xccy_stage.cu``), which evaluate the stage in a scalar type T: a
+dual number (value and one tangent) for a directional derivative, a
+hyper-dual one (value, e1, e2, e1 e2) for one entry of a Hessian, so
+second derivatives are exact with no hand-derived adjoint:
 
 - K8 ``xccy_stage_jvp``: the native DFs, the rows and the rows'
   directional derivatives along the D directions (basis spreads, the
@@ -18,10 +18,22 @@ Hessian, so second derivatives are exact with no hand-derived adjoint:
 - K9 ``xccy_legs_jvp``: the legs' PVs and their directional derivatives
   along the domestic parent's jacobian columns;
 - K10 ``xccy_stage_hess``: for s(Z, fd) = sum gs . rows, its gradient in
-  Z and in the foreign grid and its Hessian in Z, a thread a pair i <= j
-  (written at [i, j] and [j, i]) and a thread a foreign grid entry;
+  Z and in the foreign grid and its Hessian in Z, each pair i <= j once
+  (written at [i, j] and [j, i]);
 - K11 ``xccy_legs_hess``: the same for sum gpv . legs(dd + Zd tdl) over
-  the domestic directions and grid.
+  the domestic directions and grid, a thread a pair.
+
+K8 and K10 split the stage at its node DFs ds [U1]: the *chain* (the
+bootstrap over the chain points, :func:`thread_chain`) ends in ds, and
+the *rows* (:func:`thread_rows`) read ds alone. A block takes one
+(scenario, member) and a tile of ``TILE`` directions (K10: a pair of
+tiles): it runs one dual chain a direction, which gives the nodes'
+first tangents J [U1, D], then the rows once. K8 writes the rows'
+tangents from J; K10 collapses the rows into a = ds/dds of s and the
+band of M = d2s/dds2 (:func:`rows_prologue`: a row reads at most the two
+nodes that bracket it), so that a pair thread runs only the chain in
+hyper-dual numbers and takes H_ij = sum_u a_u d2ds_u/didj + J_i' M J_j
+(:func:`pair_hessian`).
 
 :class:`XccyStageTables` packs one stage's static data into flat
 contiguous f64 / int32 tensors, once when the book's device tables are
@@ -29,10 +41,11 @@ built; the kernels and the plain versions here read the same tables. The
 plain versions are torch on those tables, differentiated by
 ``torch.func``: the CPU path of the wrappers in ``ops/kernels`` and the
 oracle of the kernels' card tests. :func:`thread_stage` and
-:func:`thread_legs` are the kernels' per-thread evaluation written once
-more in Python over any scalar type: the tests run it in hyper-dual
-numpy arithmetic, and the operations the kernels' functions need (their
-bounds) are counted on it (:func:`needed_flops`).
+:func:`thread_legs` are the stage's evaluation written once more in
+Python over any scalar type, split as K8 / K10 split it: the tests run
+it in hyper-dual numpy arithmetic, and the operations the kernels'
+functions need (their bounds) and the kernels' own are counted on it
+(:func:`needed_flops`).
 
 The bootstrap's solve is forward substitution in chain order: pillar k's
 factor x_k = -(pv_k + fxs (v0_k + acc_k)) / d_k, with acc_k the sum of
@@ -42,9 +55,9 @@ converges to; the node DFs and the rows follow in the same pass.
 
 A stage takes the kernels (:func:`stage_route`) when its members', its
 domestic and its foreign schemes are all simple (``LINEAR_FWD_RATES``,
-``FLAT_FWD_RATES``, ``LINEAR_ZERO_RATES``; :func:`kernel_route`), it fits
-the kernels' per-thread arrays (at most ``MAX_S`` pillars and ``MAX_U``
-nodes) and its plan is one the single forward pass can take; any other
+``FLAT_FWD_RATES``, ``LINEAR_ZERO_RATES``; :func:`kernel_route`), it has
+at most ``MAX_S`` pillars and ``MAX_U`` nodes (what K8 / K10's
+shared-memory layout is sized for) and its plan is one the single forward pass can take; any other
 stage keeps the ``torch.func`` route. The route is the stage's alone: on
 CPU tensors the wrappers run the plain versions.
 """
@@ -69,9 +82,17 @@ SCHEME_CODE = {InterpTypes.LINEAR_FWD_RATES: 0,
                InterpTypes.LINEAR_ZERO_RATES: 2}
 LIN_FWD, FLAT_FWD, LIN_ZERO = 0, 1, 2
 
-# the kernels' per-thread array sizes (csrc/xccy_stage.cu kMaxS, kMaxU)
+# the most pillars and nodes a stage on the kernels has (csrc/xccy_stage.cu
+# kMaxS, kMaxU)
 MAX_S = 16
 MAX_U = 64
+
+# K8 / K10's launch (csrc/xccy_stage.cu kTile, kBlock, kItems): K8's
+# directions a block, the threads of a block, K10's items (pairs, grid
+# entries) a block
+TILE = 16
+BLOCK = 128
+ITEMS = 2 * BLOCK
 
 # chain-point flags (pt_i[..., 2]) and the legs' switches (``flags``)
 IS_MAT, IS_NOTL, IS_LAST = 1, 2, 4
@@ -147,7 +168,14 @@ class XccyStageTables:
       value time, first fixing, exchange amount, effective and maturity
       times, cap, floor); ``pv_dom0`` [G, S];
     - the Hessians' pair tables ``hpairs`` [D(D+1)/2, 2] and ``lpairs``
-      [Qd(Qd+1)/2, 2] (i <= j, row-major).
+      [Qd(Qd+1)/2, 2] (i <= j, row-major);
+    - the rows' node and band tables (:func:`_row_bands`; K8 / K10's
+      sums over a member's rows): ``nr_ptr`` [G, U1 + 1] / ``nr_row``
+      [G, NR] the rows that read each node, and ``mb_pq`` [G, E, 2] the
+      entries p < q of M = d2s/dds2 off its diagonal, each with its rows
+      ``mb_ptr`` [G, E + 1] / ``mb_row`` [G, NB];
+    - ``tp_off`` [G, n + 1]: each chain point's place on K10's tape of
+      the primal chain's exps and quotients (:func:`_tape_offsets`).
 
     ``D`` is the stage's direction count (2S + Qf recalibrated, S held
     as values), ``npv`` the PV directions (S or 0), ``Qd`` the domestic
@@ -191,6 +219,13 @@ class XccyStageTables:
     pv_dom0: torch.Tensor
     hpairs: torch.Tensor
     lpairs: torch.Tensor
+    E: int
+    nr_ptr: torch.Tensor
+    nr_row: torch.Tensor
+    mb_pq: torch.Tensor
+    mb_ptr: torch.Tensor
+    mb_row: torch.Tensor
+    tp_off: torch.Tensor
     cache: dict = dataclasses.field(default_factory=dict, init=False,
                                     repr=False)
 
@@ -259,6 +294,74 @@ def _legs_xs(lp: dict, Ld: int) -> np.ndarray:
     if not (xs == xs[:, :1]).all():
         raise LibError("XCCY plan: legs on different grids")
     return xs[:, 0]
+
+
+def _row_bands(rq_i: np.ndarray, U1: int):
+    """The rows' node and band tables from the packed row plans rq_i
+    [G, W, 3]: per member, the rows that read each node in row order (an
+    exact knot its knot, an interpolated row its one or two bracketing
+    nodes) as a CSR (nr_ptr [G, U1 + 1], nr_row [G, NR]); and the pairs
+    p < q of distinct nodes that some row brackets, mb_pq [G, E, 2], in
+    the order first met, each with its rows (mb_ptr [G, E + 1], mb_row
+    [G, NB]). Members pad with entries (0, 0) that no row reaches."""
+    G, W = rq_i.shape[:2]
+    nodes = [[[] for _ in range(U1)] for _ in range(G)]
+    bands = [{} for _ in range(G)]
+    for g in range(G):
+        for w in range(W):
+            i0, i1, kn = (int(x) for x in rq_i[g, w])
+            if kn >= 0:
+                nodes[g][kn].append(w)
+                continue
+            nodes[g][i0].append(w)
+            if i1 != i0:
+                nodes[g][i1].append(w)
+                bands[g].setdefault((min(i0, i1), max(i0, i1)), []).append(w)
+
+    def csr(lists, width):
+        ptr = np.zeros((G, len(lists[0]) + 1), dtype=np.int32)
+        flat = np.zeros((G, width), dtype=np.int32)
+        for g, ls in enumerate(lists):
+            ptr[g, 1:] = np.cumsum([len(x) for x in ls])
+            cat = [w for x in ls for w in x]
+            flat[g, :len(cat)] = cat
+        return ptr, flat
+
+    E = max(1, max(len(b) for b in bands))
+    pq = np.zeros((G, E, 2), dtype=np.int32)
+    rows = [list(b.values()) + [[]] * (E - len(b)) for b in bands]
+    for g, b in enumerate(bands):
+        if b:
+            pq[g, :len(b)] = list(b)
+    nr_ptr, nr_row = csr(nodes, max(1, max(int(sum(len(x) for x in ls))
+                                           for ls in nodes)))
+    mb_ptr, mb_row = csr(rows, max(1, max(int(sum(len(x) for x in ls))
+                                          for ls in rows)))
+    return nr_ptr, nr_row, pq, mb_ptr, mb_row
+
+
+def _tape_offsets(pt_f: np.ndarray, pt_i: np.ndarray, fq_i: np.ndarray,
+                  fsch: int) -> np.ndarray:
+    """[G, n + 1] int32: where each chain point's primal exps and
+    quotients start on K10's tape, in the order the chain takes them (the
+    payment DF's exp, the basis chain's, the start and end DFs' and the
+    coupon's quotient, then a pillar's factor's quotient; an exp only
+    where the query is interpolated on a scheme other than LINEAR_FWD, a
+    quotient two slots), and its end; a point the chain skips takes
+    none."""
+    G, n = pt_i.shape[:2]
+    off = np.zeros((G, n + 1), dtype=np.int32)
+    for g in range(G):
+        for i in range(n):
+            _, _, fl, node = (int(x) for x in pt_i[g, i])
+            k = 0
+            if fl & IS_MAT or pt_f[g, i, 4] != 0.0 or node >= 0:
+                qs = [2 * n + i] + ([] if fl & IS_NOTL else [i, n + i])
+                k = 1 + sum(int(fq_i[g, q, 2] < 0 and fsch != LIN_FWD)
+                            for q in qs)
+                k += 2 * (int(not fl & IS_NOTL) + int(bool(fl & IS_MAT)))
+            off[g, i + 1] = off[g, i] + k
+    return off
 
 
 def _chain(p, pad_mask: np.ndarray):
@@ -364,6 +467,8 @@ def stage_tables(st, its: Sequence[InterpTypes], b: dict, row_plan: dict,
              + CAP_FLOOR * bool(legs.has_cap_floor))
     fxs = np.asarray(b["spot_fx"], dtype=np.float64) \
         * float(p.foreign_sign)
+    nr_ptr, nr_row, mb_pq, mb_ptr, mb_row = _row_bands(rq_i, U1)
+    tp_off = _tape_offsets(pt_f, pt_i, fq_i, SCHEME_CODE[st.foreign_interp])
 
     def f64(a):
         return torch.as_tensor(np.ascontiguousarray(a, dtype=np.float64),
@@ -386,7 +491,9 @@ def stage_tables(st, its: Sequence[InterpTypes], b: dict, row_plan: dict,
         li_i=i32(li_i), li_f=f64(li_f), ld_i=i32(ld_i), ld_f=f64(ld_f),
         d_xs=f64(_legs_xs(lp, Ld)), leg_f=f64(leg_f), leg_s=f64(leg_s),
         pv_dom0=f64(b["pv_dom0"]), hpairs=i32(pair_table(D)),
-        lpairs=i32(pair_table(Qd)))
+        lpairs=i32(pair_table(Qd)), E=int(mb_pq.shape[1]),
+        nr_ptr=i32(nr_ptr), nr_row=i32(nr_row), mb_pq=i32(mb_pq),
+        mb_ptr=i32(mb_ptr), mb_row=i32(mb_row), tp_off=i32(tp_off))
 
 
 # ---------------------------------------------------------------------------
@@ -793,7 +900,8 @@ def _tan_grid(d, ll):
 
 
 def _interp_t(T, sch, qi, qf, xs, grid, d1, d2):
-    """One query of a packed plan in T (csrc/xccy_stage.cu interp)."""
+    """One query of a packed plan in T, the grid's values lifted and
+    transformed as they are read (csrc/xccy_stage.cu interp)."""
     def gv(ll):
         return _lift(T, grid[ll], _tan_grid(d1, ll), _tan_grid(d2, ll))
 
@@ -815,20 +923,85 @@ def _interp_t(T, sch, qi, qf, xs, grid, d1, d2):
     return v
 
 
-def thread_stage(T, h: dict, g: int, sp, pv, fd, d1, d2, row_sink):
-    """One K8 / K10 thread's evaluation of member ``g`` (h = the tables'
-    ``host()``) in the scalar type T (:class:`Dual` or
-    :class:`HyperDual`) at the spreads ``sp`` [S], PVs ``pv`` [S] and
-    foreign grid ``fd`` [Lf], the inputs lifted along the directions
-    ``d1`` / ``d2`` ((kind, index, tangent row)); calls ``row_sink(w,
-    value)`` for every row and returns the node DFs [U1]."""
+def _exp(x):
+    return x.exp() if isinstance(x, (Dual, HyperDual)) else math.exp(x)
+
+
+def _log(x):
+    return x.log() if isinstance(x, (Dual, HyperDual)) else math.log(x)
+
+
+def transform(sch, d, xs):
+    """(d, y, y', y''): a DF d under a simple scheme's interpolated
+    transform y (``LINEAR_FWD_RATES`` y = d, ``FLAT_FWD_RATES`` -log d,
+    ``LINEAR_ZERO_RATES`` -log(d) / x_safe) and its first two
+    derivatives (csrc/xccy_stage.cu transform). ``d`` is a float, or a
+    :class:`Dual` with no tangent to count the operations."""
+    if sch == LIN_FWD:
+        return d, d, 1.0, 0.0
+    inv = 1.0 / d
+    y = -_log(d)
+    if sch == FLAT_FWD:
+        return d, y, -inv, inv * inv
+    return d, y / xs, -inv / xs, inv * inv / xs
+
+
+def _lift_y(T, p, t1, t2):
+    """A transformed grid value p = (d, y, y', y'') lifted along the grid
+    tangents t1 / t2 by the chain rule: (y, t1 y', t2 y', t1 t2 y''),
+    the operations counted as the kernel's lift_y does them."""
+    y, y1, y2 = (float(x) for x in p[1:])
+    if T is Dual:
+        Dual._count(0, int(t1 != 0))
+        return Dual(y, t1 * y1)
+    both = t1 != 0 and t2 != 0 and y2 != 0
+    HyperDual._count(0, int(t1 != 0), int(t2 != 0), 2 * both)
+    return HyperDual(y, t1 * y1, t2 * y1, (t1 * t2) * y2)
+
+
+def _query_t(T, sch, qi, qf, tg, d1, d2):
+    """One query of a packed plan in T on a grid transformed once
+    (``tg``: :func:`transform` of every grid entry), lifted as it is read
+    (csrc/xccy_stage.cu query)."""
+    if qi[2] >= 0:
+        ll = int(qi[2])
+        return _lift(T, float(tg[ll][0]), _tan_grid(d1, ll),
+                     _tan_grid(d2, ll))
+    l0, l1 = int(qi[0]), int(qi[1])
+    y0 = _lift_y(T, tg[l0], _tan_grid(d1, l0), _tan_grid(d2, l0))
+    v = y0 + float(qf[0]) * (_lift_y(T, tg[l1], _tan_grid(d1, l1),
+                                     _tan_grid(d2, l1)) - y0)
+    if sch == FLAT_FWD:
+        return (-v).exp()
+    if sch == LIN_ZERO:
+        return (-v * float(qf[1])).exp()
+    return v
+
+
+def grid_transforms(h: dict, g: int, fd) -> list:
+    """:func:`transform` of every entry of member g's foreign grid fd
+    [Lf], as a K8 / K10 block keeps them."""
+    return [transform(h["fsch"], float(fd[ll]), float(h["f_xs"][g, ll]))
+            for ll in range(h["Lf"])]
+
+
+def thread_chain(T, h: dict, g: int, sp, pv, fd, d1, d2, tg=None):
+    """The chain of member ``g`` (h = the tables' ``host()``) in the
+    scalar type T (:class:`Dual` or :class:`HyperDual`) at the spreads ``sp`` [S], PVs ``pv`` [S] and foreign grid
+    ``fd`` [Lf], the inputs lifted along the directions ``d1`` / ``d2``
+    ((kind, index, tangent row)): the node DFs ds [U1] in T. The foreign
+    grid is transformed at each read, or, given ``tg``
+    (:func:`grid_transforms`), once, as K8 / K10 read it."""
     n, S = h["n"], h["S"]
     pf, pi = h["pt_f"][g], h["pt_i"][g]
     fqi, fqf, fxsg = h["fq_i"][g], h["fq_f"][g], h["f_xs"][g]
     fxs = float(h["fxs"][g])
 
     def fdf(q):
-        return _interp_t(T, h["fsch"], fqi[q], fqf[q], fxsg, fd, d1, d2)
+        if tg is None:
+            return _interp_t(T, h["fsch"], fqi[q], fqf[q], fxsg, fd, d1,
+                             d2)
+        return _query_t(T, h["fsch"], fqi[q], fqf[q], tg, d1, d2)
 
     C = [None] * (S + 1)
     C[0] = _lift(T, 1.0, 0.0, 0.0)
@@ -865,6 +1038,13 @@ def thread_stage(T, h: dict, g: int, sp, pv, fd, d1, d2, row_sink):
             val = C[s] * base
         if node >= 0:
             ds[node] = val
+    return ds
+
+
+def thread_rows(T, h: dict, g: int, ds, row_sink):
+    """Member ``g``'s rows from its node DFs ``ds`` [U1] in T through its
+    own simple plan (``r_sch``): calls ``row_sink(w, value)`` for every
+    row."""
     rs = int(h["r_sch"][g])
     rxs = h["r_xs"][g]
     y = []
@@ -887,7 +1067,143 @@ def thread_stage(T, h: dict, g: int, sp, pv, fd, d1, d2, row_sink):
             elif rs == LIN_ZERO:
                 v = (-v * float(f[1])).exp()
         row_sink(w, v)
+
+
+def thread_stage(T, h: dict, g: int, sp, pv, fd, d1, d2, row_sink):
+    """The whole stage of member ``g`` in T, as one thread of the simple
+    design evaluates it: :func:`thread_chain` then :func:`thread_rows`;
+    calls ``row_sink(w, value)`` for every row and returns the node DFs
+    [U1]."""
+    ds = thread_chain(T, h, g, sp, pv, fd, d1, d2)
+    thread_rows(T, h, g, ds, row_sink)
     return ds
+
+
+def row_terms(h: dict, g: int, w: int, ds, second: bool = True):
+    """Row w of member g at the primal node DFs ds [U1] (floats, or
+    :class:`Dual`s with no tangent to count the operations), as K8 / K10
+    take it apart (csrc/xccy_stage.cu row_val): None for an exact knot
+    (the row is ds[knot]); else (v, v', v'', taps) with v the row as a
+    function of z = y0 + c (y1 - y0), v' and v'' its derivatives in z,
+    and taps [(u, dz/dds_u, d2z/dds_u2)] its one or two nodes (with
+    ``second`` False, v'' and d2z/dds_u2 None: K8 needs neither)."""
+    rs = int(h["r_sch"][g])
+    q, f = h["rq_i"][g, w], h["rq_f"][g, w]
+    if q[2] >= 0:
+        return None
+    u0, u1 = int(q[0]), int(q[1])
+    c, qt = float(f[0]), float(f[1])
+    p0 = transform(rs, ds[u0], float(h["r_xs"][g, u0]))
+    p1 = transform(rs, ds[u1], float(h["r_xs"][g, u1]))
+    z = p0[1] + c * (p1[1] - p0[1])
+    v2 = None
+    if rs == LIN_FWD:
+        v, v1 = z, 1.0
+        if second:
+            v2 = 0.0
+    elif rs == FLAT_FWD:
+        v = _exp(-z)
+        v1, v2 = -v, (v if second else None)
+    else:
+        v = _exp(-z * qt)
+        v1 = -qt * v
+        if second:
+            v2 = qt * (qt * v)
+    if u0 == u1:
+        return v, v1, v2, [(u0, p0[2], p0[3] if second else None)]
+    return v, v1, v2, [
+        (u0, (1.0 - c) * p0[2], (1.0 - c) * p0[3] if second else None),
+        (u1, c * p1[2], c * p1[3] if second else None)]
+
+
+def rows_prologue(h: dict, g: int, ds, gs, band: bool = True):
+    """K10's pair-independent sums over member g's rows at its primal
+    node DFs ds [U1] and the rows' cotangents gs [W] (csrc/xccy_stage.cu
+    rows_sums): (a [U1], md [U1], mo [E]) with a = ds/dds of
+    s = sum gs . rows, md the diagonal of M = d2s/dds2 and mo its entries
+    at ``mb_pq`` (p < q), each a sum over its rows in table order (the
+    node and band tables of :func:`_row_bands`); md and mo are None when
+    ``band`` is False (a alone, which the foreign grid's gradient reads)."""
+    U1 = h["U1"]
+    a = [0.0] * U1
+    md = [0.0] * U1
+    ptr, rows = h["nr_ptr"][g], h["nr_row"][g]
+    for u in range(U1):
+        for p in range(ptr[u], ptr[u + 1]):
+            w = int(rows[p])
+            gw = float(gs[w])
+            t = row_terms(h, g, w, ds)
+            if t is None:
+                a[u] = a[u] + gw
+                continue
+            v, v1, v2, taps = t
+            du, d2u = next((x, y) for uu, x, y in taps if uu == u)
+            a[u] = a[u] + gw * (v1 * du)
+            if band:
+                md[u] = md[u] + gw * (v2 * (du * du) + v1 * d2u)
+    if not band:
+        return a, None, None
+    mo = [0.0] * h["E"]
+    bptr, brow = h["mb_ptr"][g], h["mb_row"][g]
+    for e in range(h["E"]):
+        for p in range(bptr[e], bptr[e + 1]):
+            w = int(brow[p])
+            v, v1, v2, taps = row_terms(h, g, w, ds)
+            mo[e] = mo[e] + float(gs[w]) * (v2 * (taps[0][1] * taps[1][1]))
+    return a, md, mo
+
+
+def band_matrix(h: dict, g: int, md, mo) -> np.ndarray:
+    """M [U1, U1] from its diagonal md and its band entries mo at
+    ``mb_pq``."""
+    M = np.diag(np.asarray([float(x) for x in md]))
+    for e, (p, q) in enumerate(h["mb_pq"][g]):
+        M[p, q] += float(mo[e])
+        if p != q:
+            M[q, p] += float(mo[e])
+    return M
+
+
+def pair_hessian(h: dict, g: int, a, md, mo, dab, Ji, Jj) -> float:
+    """K10's H_ij = sum_u a_u d2ds_u/didj + J_i' M J_j from the pair's
+    hyper-dual node parts dab [U1] (e1 e2), the nodes' first tangents
+    Ji, Jj [U1] and the band (md, mo); the kernel sums the first term in
+    chain order as it writes the nodes, the second as here."""
+    hs = 0.0
+    for u in range(h["U1"]):
+        hs = hs + a[u] * dab[u]
+    hm = 0.0
+    for u in range(h["U1"]):
+        hm = hm + md[u] * (Ji[u] * Jj[u])
+    for e, (p, q) in enumerate(h["mb_pq"][g]):
+        hm = hm + mo[e] * (Ji[p] * Jj[q] + Ji[q] * Jj[p])
+    return hs + hm
+
+
+def rows_jvp(h: dict, g: int, ds, J):
+    """K8's rows phase for member g from its primal node DFs ds [U1] and
+    the nodes' first tangents J [U1][k] along the block's directions:
+    (rows [W], drows [k][W]), each row's primal once and each tangent
+    from the row's one or two taps (csrc/xccy_stage.cu k8_stage_jvp)."""
+    nd = len(J[0]) if len(J) else 0
+    rows, drows = [], [[] for _ in range(nd)]
+    for w in range(h["W"]):
+        t = row_terms(h, g, w, ds, second=False)
+        if t is None:
+            kn = int(h["rq_i"][g, w, 2])
+            rows.append(ds[kn])
+            for k in range(nd):
+                drows[k].append(J[kn][k])
+            continue
+        v, v1, _, taps = t
+        rows.append(v)
+        cs = [(u, v1 * du) for u, du, _ in taps]
+        for k in range(nd):
+            x = cs[0][1] * J[cs[0][0]][k]
+            if len(cs) > 1:
+                x = x + cs[1][1] * J[cs[1][0]][k]
+            drows[k].append(x)
+    return rows, drows
 
 
 def thread_legs(T, h: dict, g: int, dd, d1, d2, leg_sink):
@@ -955,6 +1271,129 @@ def _dir_key(d):
     return d[:2]
 
 
+def _ops_of(f) -> int:
+    """The f64 operations :class:`Dual` counts in its primal part while
+    ``f()`` runs (a float-like mirror of the kernels' scalar code)."""
+    Dual.ops = [0, 0]
+    f()
+    return Dual.ops[0]
+
+
+def tiles(D: int, hess: bool, Dt: Optional[int] = None) -> list:
+    """K8 / K10's tiles of directions, in launch order, as (I, J) lists:
+    K8 a tile I of ``TILE`` directions a block (J None); K10 the tile
+    pairs I <= J of tiles of ``Dt`` directions (all D, as K10 lays a
+    block out when its tables fit three blocks to an SM, which they do
+    at the route's sizes), whose pairs are those i <= j with i in I and j
+    in J (J is I on the diagonal)."""
+    Dt = (D if hess else TILE) if Dt is None else Dt
+    ts = [list(range(k, min(k + Dt, D))) for k in range(0, D, Dt)]
+    if not hess:
+        return [(t, None) for t in ts]
+    return [(ts[i], ts[j]) for i in range(len(ts))
+            for j in range(i, len(ts))]
+
+
+def hess_blocks(D: int, n_gf: int, Dt: Optional[int] = None) -> list:
+    """K10's blocks of one (scenario, member) as (I, J, items): each tile
+    pair's items (its pairs i <= j in row-major order, then, the last tile
+    pair's, from the next multiple of 32 on, the n_gf foreign grid
+    entries as ("grid", l); None for a thread with none) cut into chunks
+    of at most ``ITEMS`` (csrc/xccy_stage.cu hess_blocks; the kernel runs
+    a (scenario, member)'s blocks last first)."""
+    tps = tiles(D, True, Dt)
+    out = []
+    for k, (I, J) in enumerate(tps):
+        items = [(i, j) for i in I for j in J if j >= i]
+        if k == len(tps) - 1 and n_gf:
+            items += [None] * (-len(items) % 32)
+            items += [("grid", ll) for ll in range(n_gf)]
+        out += [(I, J, items[c:c + ITEMS])
+                for c in range(0, len(items), ITEMS)]
+    return out
+
+
+def _row_ops(h: dict, g: int, dsd, hess: bool) -> int:
+    """The operations of member g's rows once (K8: each row and its
+    taps' coefficients, :func:`rows_jvp`; K10: the node and band sums,
+    :func:`rows_prologue`, with ``dsd`` the primal node DFs as counting
+    :class:`Dual`s and unit cotangents)."""
+    if hess:
+        return _ops_of(lambda: rows_prologue(h, g, dsd, np.ones(h["W"])))
+
+    def rows():
+        for w in range(h["W"]):
+            t = row_terms(h, g, w, dsd, second=False)
+            if t is not None:
+                for _, du, _ in t[3]:
+                    t[1] * du
+    return _ops_of(rows)
+
+
+def _tape_len(h: dict, g: int):
+    """(exps, quotients) of member g's chain: what K10's tape holds and a
+    replaying thread leaves out of its primal part."""
+    n, fsch = h["n"], h["fsch"]
+    pi, fqi = h["pt_i"][g], h["fq_i"][g]
+    exps = quots = 0
+    for i in range(n):
+        fl = int(pi[i, 2])
+        if h["tp_off"][g, i + 1] == h["tp_off"][g, i]:
+            continue
+        qs = [2 * n + i] + ([] if fl & IS_NOTL else [i, n + i])
+        exps += 1 + sum(fqi[q][2] < 0 and fsch != LIN_FWD for q in qs)
+        quots += int(not fl & IS_NOTL) + int(bool(fl & IS_MAT))
+    return exps, quots
+
+
+def _stage_kernel_ops(name, h, g, sp, pv, fd, dirs, count_chain) -> int:
+    """The operations of K8's or K10's blocks of one (scenario, member),
+    each phase counted on the Python mirror of the kernel's code: a
+    block's grid transforms and rows once (:func:`_row_ops`); K8's dual
+    chain a direction of the block (computing its exps and quotients, a
+    reciprocal more a quotient) and its rows' tangents (a multiply a tap,
+    an add between two); K10's primal chain (its quotients' reciprocals
+    too), then a dual chain a direction of the block, a hyper-dual chain
+    a pair and a dual chain a foreign grid entry, each replaying the
+    block's tape (no exp, no quotient in its primal part), the
+    contraction a pair (2 operations a real node for sum a . dds.ab, 3 a
+    node and 7 a band entry for J_i' M J_j, 2 a node for gZ at i = j) and
+    2 operations a real node for gf."""
+    hess = name == "xccy_stage_hess"
+    none = (DIR_NONE, 0, None)
+    U1, Lf = h["U1"], h["Lf"]
+    grid = _ops_of(lambda: [transform(h["fsch"], Dual(float(fd[ll])),
+                                      float(h["f_xs"][g, ll]))
+                            for ll in range(Lf)])
+    dsd = [Dual(x.v) for x in thread_chain(Dual, h, g, sp, pv, fd, none,
+                                           none)]
+    live = int((h["u_src"][g] >= 0).sum())
+    rows = _row_ops(h, g, dsd, hess)
+    exps, quots = _tape_len(h, g)
+    firsts = [sum(count_chain(Dual, d, none)) for d in dirs]
+    if not hess:
+        taps = [0 if t is None else len(t[3])
+                for t in (row_terms(h, g, w, [x.v for x in dsd])
+                          for w in range(h["W"]))]
+        return sum(grid + rows + sum(firsts[d] + quots for d in I)
+                   for I, _ in tiles(len(dirs), False)) \
+            + len(dirs) * sum(2 * k - 1 for k in taps if k)
+    contract = 2 * live + 3 * U1 + 7 * h["E"] + 1
+    prim = count_chain(Dual, none, none)[0] + quots
+    total = 0
+    for I, J, items in hess_blocks(len(dirs), Lf if h["recal"] else 0):
+        total += grid + rows + prim + sum(
+            firsts[d] - exps - quots for d in I + ([] if J is I else J))
+        for i, j in (x for x in items if x is not None):
+            if i == "grid":
+                total += sum(count_chain(Dual, (DIR_UNIT, j, None),
+                                         none)) - exps - quots + 2 * live
+                continue
+            total += sum(count_chain(HyperDual, dirs[i], dirs[j])) \
+                - exps - quots + contract + (2 * U1 if i == j else 0)
+    return total
+
+
 def needed_flops(name: str, tab: XccyStageTables, *args) -> dict:
     """The f64 operations of kernel ``name`` (K8-K11) on
     ``kernels.<name>(tab, *args)``'s inputs, counted by running
@@ -967,15 +1406,21 @@ def needed_flops(name: str, tab: XccyStageTables, *args) -> dict:
       direction's first tangent once (and, K10 / K11, each grid entry's
       for the gradient), each pair i <= j's e1 e2 part once (K10 / K11,
       with the sum over the cotangents);
-    - ``threads``: what the kernel's threads compute, each thread its
-      primal and first tangents again.
+    - ``threads``: what the threads of the simple design compute, a
+      thread the whole evaluation of a direction, a pair or a grid entry
+      (K9 / K11's threads; K8 / K10's before they split the stage), each
+      its primal and first tangents again;
+    - ``kernel``: what the kernel's own design computes
+      (:func:`_stage_kernel_ops` for K8 / K10, on the foreign grid
+      transformed once a block, K10's replaying threads without the
+      primal exps and quotients; ``threads`` for K9 / K11).
     """
     h = tab.host()
     a = [x.cpu().numpy() if isinstance(x, torch.Tensor) else x
          for x in args]
     Sc = a[0].shape[0]
     none = (DIR_NONE, 0, None)
-    need = threads = 0
+    need = threads = kernel = 0
     for g in range(tab.G):
         if name in ("xccy_stage_jvp", "xccy_stage_hess"):
             sp, pv, fd, tf = (x[0, g] if x is not None and k < 3 else x
@@ -1016,13 +1461,29 @@ def needed_flops(name: str, tab: XccyStageTables, *args) -> dict:
             return memo[key]
         firsts = [count(Dual, d, none) for d in dirs]
         need += count(Dual, none, none)[0] + sum(c[1] for c in firsts)
+        own = 0
         if cot is None:
-            threads += sum(sum(c) for c in firsts)
-            continue
-        grads = [count(Dual, (DIR_UNIT, ll, None), none)
-                 for ll in range(grid)]
-        pairs = [count(HyperDual, dirs[i], dirs[j])
-                 for i, j in pair_table(len(dirs))]
-        need += sum(c[1] for c in grads) + sum(c[3] for c in pairs)
-        threads += sum(sum(c) for c in grads + pairs)
-    return dict(needed=float(Sc * need), threads=float(Sc * threads))
+            own = sum(sum(c) for c in firsts)
+        else:
+            grads = [count(Dual, (DIR_UNIT, ll, None), none)
+                     for ll in range(grid)]
+            pairs = [count(HyperDual, dirs[i], dirs[j])
+                     for i, j in pair_table(len(dirs))]
+            need += sum(c[1] for c in grads) + sum(c[3] for c in pairs)
+            own = sum(sum(c) for c in grads + pairs)
+        threads += own
+        if name in ("xccy_stage_jvp", "xccy_stage_hess"):
+            tg = grid_transforms(h, g, fd)
+
+            def count_chain(T, d1, d2):
+                key = ("chain", T, _dir_key(d1), _dir_key(d2))
+                if key not in memo:
+                    T.ops = [0] * len(T.ops)
+                    thread_chain(T, h, g, sp, pv, fd, d1, d2, tg)
+                    memo[key] = list(T.ops)
+                return memo[key]
+            own = _stage_kernel_ops(name, h, g, sp, pv, fd, dirs,
+                                    count_chain)
+        kernel += own
+    return dict(needed=float(Sc * need), threads=float(Sc * threads),
+                kernel=float(Sc * kernel))

@@ -186,10 +186,12 @@ first use. Phases:
    K8-K11 at their calls of one flagship_v5 staged chunk (captured; K9
    and K11 on legs that do not telescope, ``xccy_stage.probe_tables``,
    and seeded domestic tangents) against their plain versions at 1e-12 x
-   max|ref| of every output, the Hessians symmetric bit for bit, with no
+   max|ref| of every output, the Hessians symmetric bit for bit, two
+   launches equal bit for bit (gated), their registers, local bytes a
+   thread and blocks an SM, with no
    library yardstick (no PyTorch call computes a stage's jacobian or
    Hessian) and their bound from the operations the function needs,
-   ``xccy_stage.needed_flops``),
+   ``xccy_stage.needed_flops``, beside the kernel's own count),
    each timed
    over 30 calls by CUDA events around the call (``ms``, which holds the
    wrapper's host work) and by the device time of its kernels in a
@@ -2892,7 +2894,13 @@ def compare_xccy_kernels(path, inputs) -> list:
     once) over the HBM rate against the f64 operations the function needs
     over the f64 rate (``xccy_stage.needed_flops``: the primal once a
     (scenario, member), each first tangent once, each pair's e1 e2 part
-    once; exp and log one each), the threads' own count beside it.
+    once; exp and log one each), the kernel's own count beside it
+    (``thread_flops``: K8 / K10 split at the node DFs, their blocks' dual
+    chains, rows and pairs' hyper-dual chains; ``simple_thread_flops``, a
+    thread the whole stage, as K9 / K11 still run); each kernel launched
+    twice on its inputs (equal bit for bit, a gate), and its registers,
+    local bytes a thread, shared memory a block and blocks an SM from the
+    card's compiler (``kernels.xccy_kernel_info``).
     """
     import dataclasses
 
@@ -2925,6 +2933,15 @@ def compare_xccy_kernels(path, inputs) -> list:
             if not torch.equal(H, H.permute(0, 3, 2, 1)):
                 raise AssertionError(f"{path} {name}: H not symmetric bit "
                                      f"for bit")
+        again = [r for r in kern(*args) if r is not None]
+        repeat = all(torch.equal(a, b) for a, b in zip(got, again))
+        info = kernels.xccy_kernel_info(tab, name)
+        print(f"{path} {name}: two launches on one input equal bit for "
+              f"bit: {repeat}; {info}", flush=True)
+        if not repeat:
+            raise AssertionError(f"{path} {name}: two launches on one "
+                                 f"input differ")
+        del again
         ms = _cuda_ms(lambda: kern(*args))
         dv = _device_stats(lambda: kern(*args))
         tm = dict(ms=ms, device_ms=dv and dv["median"],
@@ -2948,9 +2965,10 @@ def compare_xccy_kernels(path, inputs) -> list:
         print(f"{path} {name} [Sc, G, S, D, Qd, W]="
               f"{[Sc, G, tab.S, tab.D, tab.Qd, tab.W]}: {_fmt_tm(tm)}; "
               f"bound {bound * 1e3:.2f} us ({by}, {nbytes / 1e6:.2f} MB, "
-              f"{flops / 1e9:.3f} GFLOP needed, the threads' "
-              f"{ops['threads'] / 1e9:.3f}); worst rel err {max(rels):.2e}",
-              flush=True)
+              f"{flops / 1e9:.3f} GFLOP needed, the kernel's "
+              f"{ops['kernel'] / 1e9:.3f}, a thread the whole stage "
+              f"{ops['threads'] / 1e9:.3f}); worst rel err "
+              f"{max(rels):.2e}", flush=True)
         replaces, also = _XCCY_SRC[name]
         recs.append(dict(
             name=name, path=path, route="cuda",
@@ -2962,7 +2980,11 @@ def compare_xccy_kernels(path, inputs) -> list:
             bound_ms=bound, bound_by=by, **_shares(bound, tm),
             scenarios=Sc, members=G, spreads=tab.S, directions=tab.D,
             dom_directions=tab.Qd, rows=tab.W, flops=flops,
-            thread_flops=ops["threads"],
+            thread_flops=ops["kernel"], simple_thread_flops=ops["threads"],
+            bit_for_bit_repeat=repeat, registers=info["registers"],
+            local_bytes=info["local_bytes"], smem_bytes=info["smem_bytes"],
+            blocks_per_sm=info["blocks_per_sm"], tile=info["tile"],
+            held_in_smem=info["held"],
             inputs="captured" if name in ("xccy_stage_jvp",
                                           "xccy_stage_hess")
             else "captured grids and cotangents, probe legs, seeded "

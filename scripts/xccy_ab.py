@@ -19,7 +19,12 @@ timed calls:
   50-scenario chunk, C2 once more with Python's garbage collector off;
 - the OIS + XCCY book (chip_smoke phase 6's, S = 100): the staged call;
 - flagship_v5's per-trade J pass at the quotes (``prep`` of
-  ``make_per_trade_delta_fn``).
+  ``make_per_trade_delta_fn``);
+- K8 ``xccy_stage_jvp`` and K10 ``xccy_stage_hess`` alone at the
+  arguments of their first call in a flagship_v5 staged call (chip_smoke
+  phase 8's captured inputs: the first 50-scenario chunk), 30 calls each
+  by CUDA events and by profiler device time, with the worst error
+  against their plain versions (abs / max|ref| over the outputs).
 
 Prints one JSON line. To compare commits, run parent, change, change,
 parent in one call.
@@ -86,6 +91,24 @@ def main(argv) -> int:
     q0 = mb.basket.quotes0
     fn = warmup_multibook(mb, shocks.shape[0], dev, staged=True)
     out["staged"] = measure(lambda: fn(q0, shocks))
+    alone = cs._capture_xccy(lambda: fn(q0, shocks))
+    from adrates_torch.ops import xccy_stage as xs
+    for name in ("xccy_stage_jvp", "xccy_stage_hess"):
+        args = alone[name]
+        kern = getattr(kernels, name)
+        got = [r for r in kern(*args) if r is not None]
+        ref = [r for r in getattr(xs, name + "_plain")(*args)
+               if r is not None]
+        err = max(float((a - b).abs().max() / b.abs().max())
+                  for a, b in zip(got, ref))
+        dv = cs._device_stats(lambda: kern(*args))
+        out[f"{name}_alone"] = dict(
+            ms=cs._cuda_ms(lambda: kern(*args)),
+            device_ms=dv and dv["median"], device_ms_min=dv and dv["min"],
+            device_ms_max=dv and dv["max"], max_rel_err=err,
+            scenarios=args[1].shape[0])
+        del got, ref
+    del alone
     chunk = fn.chunk(shocks.shape[0])
     q = torch.as_tensor(q0, device=dev)[None, :] \
         + torch.as_tensor(shocks[:chunk], device=dev)
@@ -119,6 +142,9 @@ def main(argv) -> int:
     print(json.dumps(out))
     summary = {k: (round(v["warm_ms"]["median"], 1), v["device_ops"],
                    v["device_ms"] and round(v["device_ms"], 2))
+               if "warm_ms" in v else (round(v["ms"], 4),
+                                       v["device_ms"]
+                                       and round(v["device_ms"], 4))
                for k, v in out.items() if isinstance(v, dict)}
     print(f"xccy_ab {root.name}: (warm median ms, device ops, device ms) "
           f"{summary}; card {out['card']}", file=sys.stderr)

@@ -979,3 +979,188 @@ def test_xccy_stage_route_on_cuda_matches_cpu(dev, recal):
     scale = max((float(v.abs().max()) for v in rv.values()), default=1.0)
     for k, v in rv.items():
         assert float((gv[k].cpu() - v).abs().max()) <= 1e-12 * scale, k
+
+
+# K8 / K10 split at the node DFs: the route's maxima, a foreign grid
+# longer than a block's shared-memory tile, one direction, odd scenario
+# counts, both branches; H symmetric and two launches equal bit for bit
+
+_XLONG = ["1Y", "2Y", "3Y", "4Y", "5Y", "6Y", "7Y", "8Y", "9Y", "10Y",
+          "15Y", "20Y", "30Y", "40Y", "50Y", "63Y"]
+
+
+def _xccy_one_book(tenors, scheme, recal):
+    """A book whose one XCCY stage is GBP_USD_XCCY on ``scheme`` over the
+    given basis tenors (USD and GBP OIS on FLAT_FWD), with GBP OIS under
+    USD collateral from 1Y to 60Y (discounted on the XCCY curve, its
+    rows); 16 tenors to 63Y give the route's maxima, S = 16 and U1 =
+    64."""
+    import importlib
+    u, Model, OIS = cases._ns("adrates_torch")
+    mbmod = importlib.import_module("adrates_torch.parallel.multibook")
+    m = Model(u.Date(1, 1, 2024))
+    D, F, C, S = (u.DayCountTypes, u.FrequencyTypes, u.CurveTypes,
+                  u.SwapTypes)
+    for name, px, dc in (("USD_OIS_SOFR", [5.3, 5.0, 4.6, 4.0, 3.88],
+                          D.ACT_360),
+                         ("GBP_OIS_SONIA", [5.0, 4.7, 4.3, 3.9, 3.87],
+                          D.ACT_365F)):
+        m.build_curve(name, px_list=px,
+                      tenor_list=["6M", "1Y", "2Y", "5Y", "10Y"],
+                      fixed_dcc_type=dc, float_dc_type=dc,
+                      interp_type=u.InterpTypes.FLAT_FWD_RATES)
+    m.build_fx(["GBPUSD"], [1.27])
+    m.build_xccy_curve(
+        name="GBP_USD_XCCY", domestic_curve_name="USD_OIS_SOFR",
+        foreign_curve_name="GBP_OIS_SONIA", spot_fx=1.27,
+        basis_spreads=[-5.0 - 1.5 * i for i in range(len(tenors))],
+        tenor_list=tenors, interp_type=getattr(u.InterpTypes, scheme))
+    v = m.value_dt
+    trades = [OIS(v, f"{y}Y", S.PAY if y % 2 else S.RECEIVE,
+                  0.02 + 0.001 * k, F.ANNUAL, D.ACT_365F, C.GBP_OIS_SONIA,
+                  u.CurrencyTypes.GBP, notional=1e7,
+                  float_dc_type=D.ACT_365F)
+              for k, y in enumerate((1, 3, 7, 12, 25, 45, 60))]
+    trades.append(OIS(v, "5Y", S.PAY, 0.04, F.ANNUAL, D.ACT_360,
+                      C.USD_OIS_SOFR, u.CurrencyTypes.USD, notional=1e7,
+                      float_dc_type=D.ACT_360))
+    coll = [u.CollateralType.USD] * (len(trades) - 1) + [None]
+    return mbmod.compile_multibook(trades, m,
+                                   base_currency=u.CurrencyTypes.USD,
+                                   collateral_types=coll,
+                                   recalibrate_xccy=recal)
+
+
+def _xstage_inputs(mb, recal, dev, Sc, seed=0):
+    """(tables on dev, tables on the CPU, inputs on the CPU) of a book's
+    one XCCY stage: the spreads, PVs, foreign grids and tangents of a
+    torch.func fwd_delta on Sc scenarios, and seeded cotangents."""
+    from adrates_torch.parallel import structured_risk as tsr
+    topo = tmb.book_inputs(mb).topology
+    cpu = tmb.make_multibook_fn(mb, "cpu").book
+    (si, tab_c), = cpu.params["xstage"].items()
+    rng = np.random.default_rng(seed)
+    q = torch.tensor(mb.basket.quotes0[None, :] + rng.normal(
+        0.0, 1e-3, (Sc, mb.basket.n_quotes)))
+    fw = tsr.make_structured_parts(topo)["fwd_delta"](
+        q, cpu.params, cpu.aggregate, cpu.clamp_agg)
+    c = fw["carry"][si]
+    G, S = tab_c.G, tab_c.S
+    inp = dict(sp=q[:, cpu.params["bat"][topo.stages[si].key]["qidx"]],
+               fd=c["for_ds"], tf=c.get("tf2"),
+               gs=torch.tensor(rng.standard_normal((Sc, G, tab_c.W))))
+    inp["pv"] = c["pv0"] if recal else tab_c.pv_dom0.expand(
+        Sc, G, S).contiguous()
+    tab = tmb.make_multibook_fn(mb, dev).book.params["xstage"][si]
+    return tab, tab_c, inp
+
+
+def _xsplit_check(tab, tab_c, inp, dev):
+    """K8 and K10 against their plain versions at 1e-12 x max|ref| of
+    every output, each launched twice on one input (equal bit for bit),
+    H equal to its mirror bit for bit, two launches counted each."""
+    from adrates_torch.ops import xccy_stage as xs
+    on = {k: None if v is None else v.to(dev).contiguous()
+          for k, v in inp.items()}
+    before = [kernels.xccy_stage_jvp.launches,
+              kernels.xccy_stage_hess.launches]
+    args8 = (on["sp"], on["pv"], on["fd"], on["tf"])
+    got = kernels.xccy_stage_jvp(tab, *args8)
+    again = kernels.xccy_stage_jvp(tab, *args8)
+    ref = xs.xccy_stage_jvp_plain(tab_c, inp["sp"], inp["pv"], inp["fd"],
+                                  inp["tf"])
+    for a, a2, b in zip(got, again, ref):
+        assert _xrel(a, b) <= 1e-12
+        assert torch.equal(a, a2)
+    got = kernels.xccy_stage_hess(tab, *args8, on["gs"])
+    again = kernels.xccy_stage_hess(tab, *args8, on["gs"])
+    ref = xs.xccy_stage_hess_plain(tab_c, inp["sp"], inp["pv"], inp["fd"],
+                                   inp["tf"], inp["gs"])
+    assert (got[1] is None) == (not tab.recal)
+    for a, a2, b in zip(got, again, ref):
+        if b is not None:
+            assert _xrel(a, b) <= 1e-12
+            assert torch.equal(a, a2)
+    H = got[2]
+    assert torch.equal(H, H.permute(0, 3, 2, 1))
+    torch.cuda.synchronize()
+    assert [kernels.xccy_stage_jvp.launches,
+            kernels.xccy_stage_hess.launches] == [b + 2 for b in before]
+
+
+@pytest.mark.parametrize("recal", [True, False], ids=["recal", "values"])
+@pytest.mark.parametrize("scheme", ["FLAT_FWD_RATES", "LINEAR_ZERO_RATES",
+                                    "LINEAR_FWD_RATES"])
+def test_xccy_stage_split_at_the_route_maxima(dev, scheme, recal):
+    """K8 / K10 at the route's maxima (S = 16 pillars, U1 = 64 nodes, 273
+    chain points) on each simple scheme, 5 scenarios."""
+    mb = _xccy_one_book(_XLONG, scheme, recal)
+    tab, tab_c, inp = _xstage_inputs(mb, recal, dev, 5)
+    assert (tab.S, tab.U1) == (16, 64)
+    _xsplit_check(tab, tab_c, inp, dev)
+
+
+@pytest.mark.parametrize("Lf", [1001, 8001])
+@pytest.mark.parametrize("recal", [True, False], ids=["recal", "values"])
+def test_xccy_stage_split_long_foreign_grid(dev, recal, Lf):
+    """A foreign grid padded to Lf entries that no query reads: at 1,001
+    a block's foreign tangent rows (15 directions) no longer fit in its
+    share of an SM's shared memory and are read from device memory; at
+    8,001 the grid's transforms neither, and are computed at each read
+    (the layout's fallbacks)."""
+    mb = cases.xccy3_book("adrates_torch", "LINEAR_ZERO_RATES",
+                          "FLAT_FWD_RATES", 5, recalibrate_xccy=recal)
+    tab, tab_c, inp = _xstage_inputs(mb, recal, dev, 3)
+    pad = Lf - tab.Lf
+    rng = np.random.default_rng(Lf)
+
+    def grow(t, fill):
+        extra = torch.as_tensor(fill(t.shape[:-1] + (pad,)), dtype=t.dtype)
+        return torch.cat([t, extra.to(t.device)], dim=-1).contiguous()
+
+    def longer(tb):
+        return dataclasses.replace(tb, Lf=Lf, f_xs=grow(tb.f_xs, np.ones))
+    tab, tab_c = longer(tab), longer(tab_c)
+    inp["fd"] = grow(inp["fd"], lambda s: rng.uniform(0.5, 1.0, s))
+    if inp["tf"] is not None:
+        inp["tf"] = grow(inp["tf"], lambda s: rng.normal(0.0, 1e-3, s))
+    for name in ("xccy_stage_jvp", "xccy_stage_hess"):
+        held = kernels.xccy_kernel_info(tab, name)["held"]
+        assert "rows" not in held and "chain" in held
+        assert ("grid" in held) == (Lf < 8000)
+    _xsplit_check(tab, tab_c, inp, dev)
+
+
+@pytest.mark.parametrize("recal", [True, False], ids=["recal", "values"])
+def test_xccy_stage_split_one_pillar(dev, recal):
+    """One basis tenor: S = 1, so D = 1 held as values (one direction, one
+    tile, one pair) and D = 2 + Qf recalibrated; 7 scenarios."""
+    mb = _xccy_one_book(["5Y"], "FLAT_FWD_RATES", recal)
+    tab, tab_c, inp = _xstage_inputs(mb, recal, dev, 7)
+    assert tab.S == 1 and (recal or tab.D == 1)
+    _xsplit_check(tab, tab_c, inp, dev)
+
+
+@pytest.mark.parametrize("Sc", [1, 3, 13])
+@pytest.mark.parametrize("recal", [True, False], ids=["recal", "values"])
+def test_xccy_stage_split_odd_scenarios(dev, recal, Sc):
+    """Three members (S = 7, LINEAR_ZERO over LINEAR_FWD OIS) at odd
+    scenario counts."""
+    mb = cases.xccy3_book("adrates_torch", "LINEAR_FWD_RATES",
+                          "LINEAR_ZERO_RATES", 7, recalibrate_xccy=recal)
+    tab, tab_c, inp = _xstage_inputs(mb, recal, dev, Sc, seed=Sc)
+    _xsplit_check(tab, tab_c, inp, dev)
+
+
+def test_xccy_stage_split_no_local_memory(dev):
+    """K8 and K10 keep nothing in local memory (no spill, no stack: every
+    per-thread value is a register or the thread's column of the block's
+    scratch), and their blocks fit several to an SM at flagship_v5-like
+    sizes."""
+    mb = cases.xccy3_book("adrates_torch", "FLAT_FWD_RATES",
+                          "FLAT_FWD_RATES", 7, recalibrate_xccy=True)
+    tab = tmb.make_multibook_fn(mb, dev).book.params["xstage"][1]
+    for name in ("xccy_stage_jvp", "xccy_stage_hess"):
+        info = kernels.xccy_kernel_info(tab, name)
+        assert info["local_bytes"] == 0, (name, info)
+        assert info["blocks_per_sm"] >= 2, (name, info)

@@ -499,3 +499,260 @@ def test_needed_flops(book):
     hess = xs.needed_flops("xccy_stage_hess", tab, sp, pv, c["for_ds"], tf,
                            gs)
     assert jvp["needed"] < hess["needed"] < hess["threads"]
+
+
+# ---------------------------------------------------------------------------
+# K8 / K10 split at the node DFs: the chain to the nodes, then the rows
+# ---------------------------------------------------------------------------
+
+
+def _split_inputs(h, sc, g, sp, pv, fd, tf):
+    """One (scenario, member)'s inputs, its directions and its grid
+    transformed once, as a K8 / K10 block takes them."""
+    args = (sp[sc, g], pv[sc, g], fd[sc, g])
+    dirs = [xs.stage_dir(h, d, None if tf is None else tf[sc, d, g])
+            for d in range(h["D"])]
+    return args, dirs, xs.grid_transforms(h, g, fd[sc, g])
+
+
+def _first_tangents(h, g, args, dirs, tg):
+    """The prologue's dual chains: (J [U1, D], the primal node DFs)."""
+    none = (xs.DIR_NONE, 0, None)
+    ch = [xs.thread_chain(xs.Dual, h, g, *args, d, none, tg) for d in dirs]
+    J = np.array([[c[u].e for c in ch] for u in range(h["U1"])])
+    return J.reshape(h["U1"], len(dirs)), [u.v for u in ch[0]]
+
+
+def emulate_stage_hess_split(h: dict, sp, pv, fd, tf, gs):
+    """K10 as it splits the stage, in Python: per (scenario, member) and
+    tile pair, a dual chain a direction (J and the primal nodes), a and
+    the band of M over the rows, then a hyper-dual chain a pair to the
+    nodes and H_ij = sum a . dds.ab + J_i' M J_j, written at [i, j] and
+    [j, i], gZ_i = a . J_i, and a dual chain a foreign grid entry for gf;
+    (gZ, gf or None, H) as numpy, from numpy inputs shaped as the
+    kernel's."""
+    Sc, G, D, Lf = sp.shape[0], h["G"], h["D"], h["Lf"]
+    gZ = np.full((Sc, G, D), np.nan)
+    gf = np.full((Sc, G, Lf), np.nan)
+    H = np.full((Sc, D, G, D), np.nan)
+    none = (xs.DIR_NONE, 0, None)
+    for sc in range(Sc):
+        for g in range(G):
+            args, dirs, tg = _split_inputs(h, sc, g, sp, pv, fd, tf)
+            for I, Jt in xs.tiles(D, True):
+                blk = I + ([] if Jt is I else Jt)
+                Jb, dsv = _first_tangents(h, g, args, [dirs[d] for d in blk],
+                                          tg)
+                a, md, mo = xs.rows_prologue(h, g, dsv, gs[sc, g])
+                for i in I:
+                    for j in Jt:
+                        if j < i:
+                            continue
+                        dd = xs.thread_chain(xs.HyperDual, h, g, *args,
+                                             dirs[i], dirs[j], tg)
+                        H[sc, i, g, j] = H[sc, j, g, i] = xs.pair_hessian(
+                            h, g, a, md, mo, [u.ab for u in dd],
+                            Jb[:, blk.index(i)], Jb[:, blk.index(j)])
+                        if i == j:
+                            gZ[sc, g, i] = sum(a[u] * Jb[u, blk.index(i)]
+                                               for u in range(h["U1"]))
+            if h["recal"]:
+                _, dsv = _first_tangents(h, g, args, [none], tg)
+                a, _, _ = xs.rows_prologue(h, g, dsv, gs[sc, g],
+                                           band=False)
+                for ll in range(Lf):
+                    dd = xs.thread_chain(xs.Dual, h, g, *args,
+                                         (xs.DIR_UNIT, ll, None), none, tg)
+                    gf[sc, g, ll] = sum(a[u] * dd[u].e
+                                        for u in range(h["U1"]))
+    return gZ, (gf if h["recal"] else None), H
+
+
+def emulate_stage_jvp_split(h: dict, sp, pv, fd, tf):
+    """K8 as it splits the stage, in Python: per (scenario, member) and
+    tile, a dual chain a direction to the nodes, then the rows over (row,
+    direction) from the nodes' tangents; (ds, rows, drows) as numpy."""
+    Sc, G, D, W = sp.shape[0], h["G"], h["D"], h["W"]
+    ds = np.full((Sc, G, h["U1"]), np.nan)
+    rows = np.full((Sc, G, W), np.nan)
+    drows = np.full((Sc, D, G, W), np.nan)
+    for sc in range(Sc):
+        for g in range(G):
+            args, dirs, tg = _split_inputs(h, sc, g, sp, pv, fd, tf)
+            for I, _ in xs.tiles(D, False):
+                Jb, dsv = _first_tangents(h, g, args, [dirs[d] for d in I],
+                                          tg)
+                r, dr = xs.rows_jvp(h, g, dsv, Jb.tolist())
+                if I[0] == 0:
+                    ds[sc, g], rows[sc, g] = dsv, r
+                drows[sc, I, g] = np.array(dr)
+    return ds, rows, drows
+
+
+def _emulated_split(book):
+    """term2_xccy with K10 replaced by its split emulation (K11 by its
+    per-thread one)."""
+    _, _, topo, dbook, q, _ = book
+    parts, fw = _parts(book)
+
+    def hess(tab, sp, pv, fd, tf, gs):
+        h = dict(tab.host(), D=tab.D)
+        out = emulate_stage_hess_split(
+            h, sp.numpy(), pv.numpy(), fd.numpy(),
+            None if tf is None else tf.numpy(), gs.numpy())
+        return tuple(None if o is None else torch.tensor(o) for o in out)
+
+    def legs(tab, dd, tdl, gpv):
+        return tuple(torch.tensor(o) for o in emulate_legs_hess(
+            tab.host(), dd.numpy(), tdl.numpy(), gpv.numpy()))
+
+    mp = pytest.MonkeyPatch()
+    mp.setattr(kernels, "xccy_stage_hess", hess)
+    mp.setattr(kernels, "xccy_legs_hess", legs)
+    try:
+        return parts["term2_xccy"](q, dbook.params, fw["g"], fw["carry"])
+    finally:
+        mp.undo()
+
+
+def test_split_hessian_holds_the_jax_hessian(book):
+    """K10's split (a hyper-dual chain a pair to the nodes, a, M's band
+    and J from the prologue, the contraction), emulated in numpy:
+    term2_xccy's H2 and cotangents at 1e-12 x max|ref|."""
+    recal, ref, *_ = book
+    h2x, v_of = _emulated_split(book)
+    _close(h2x, ref["h2x"], 1e-12)
+    assert bool(v_of) == recal
+    _v_of_close(v_of, ref["v_of"], 1e-12)
+
+
+def _stage_inputs(book, si, tab):
+    _, _, topo, dbook, q, _ = book
+    _, fw = _parts(book)
+    c = fw["carry"][si]
+    sp = q[:, dbook.params["bat"][topo.stages[si].key]["qidx"]]
+    pv = c["pv0"] if tab.recal else tab.pv_dom0.expand(
+        q.shape[0], tab.G, tab.S).contiguous()
+    return sp, pv, c["for_ds"], c.get("tf2")
+
+
+def test_split_jvp_holds_the_plain_jvp(book):
+    """K8's split (a dual chain a direction to the nodes, then the rows
+    over (row, direction)), emulated in numpy, equals the plain K8 at
+    1e-12 x max|ref|; every entry is written; the split K10's H, gZ and
+    gf equal the plain K10's and H its mirror bit for bit."""
+    _, _, _, dbook, q, _ = book
+    for si, tab in dbook.params["xstage"].items():
+        sp, pv, fd, tf = _stage_inputs(book, si, tab)
+        h = dict(tab.host(), D=tab.D)
+        tfn = None if tf is None else tf.numpy()
+        got = emulate_stage_jvp_split(h, sp.numpy(), pv.numpy(), fd.numpy(),
+                                      tfn)
+        ref = xs.xccy_stage_jvp_plain(tab, sp, pv, fd, tf)
+        for a, b in zip(got, ref):
+            assert not np.isnan(a).any()
+            _close(a, b.numpy(), 1e-12)
+        gs = torch.tensor(np.random.default_rng(9).standard_normal(
+            (q.shape[0], tab.G, tab.W)))
+        gZ, gf, H = emulate_stage_hess_split(h, sp.numpy(), pv.numpy(),
+                                             fd.numpy(), tfn, gs.numpy())
+        rgZ, rgf, rH = xs.xccy_stage_hess_plain(tab, sp, pv, fd, tf, gs)
+        assert not np.isnan(H).any() and not np.isnan(gZ).any()
+        assert np.array_equal(H, H.transpose(0, 3, 2, 1))
+        _close(H, rH.numpy(), 1e-12)
+        _close(gZ, rgZ.numpy(), 1e-12)
+        assert (gf is None) == (not tab.recal)
+        if tab.recal:
+            _close(gf, rgf.numpy(), 1e-12)
+
+
+@pytest.mark.parametrize("D", [1, 2, 15, 16, 17, 33, 48, 64])
+def test_tiles_cover_each_pair_once(D):
+    """K8's tiles hold each direction once; K10's tile pairs, at any tile
+    size, hold each pair i <= j once, as the pair table does; its blocks
+    take each pair and each foreign grid entry once, at most ``ITEMS`` a
+    block."""
+    k8 = [d for I, _ in xs.tiles(D, False) for d in I]
+    assert k8 == list(range(D))
+    assert all(len(I) <= xs.TILE for I, _ in xs.tiles(D, False))
+    want = [tuple(p) for p in xs.pair_table(D).tolist()]
+    for Dt in (1, 5, 16, D):
+        pairs = [(i, j) for I, J in xs.tiles(D, True, Dt) for i in I
+                 for j in J if j >= i]
+        assert sorted(pairs) == want
+        blocks = xs.hess_blocks(D, 7, Dt)
+        items = [x for _, _, it in blocks for x in it if x is not None]
+        assert sorted(x for x in items if x[0] != "grid") == want
+        assert [x[1] for x in items if x[0] == "grid"] == list(range(7))
+        assert all(0 < len(it) <= xs.ITEMS for _, _, it in blocks)
+
+
+@pytest.mark.parametrize("scheme", [
+    "FLAT_FWD_RATES", "LINEAR_ZERO_RATES", "LINEAR_FWD_RATES"])
+def test_rows_prologue_band(scheme):
+    """a and M = d2s/dds2 of s = sum gs . rows(ds) from the node and band
+    tables (the rows' plans of a three-member stage on each simple
+    scheme) equal torch.func's gradient and Hessian of the plain rows at
+    1e-12 x max|ref|; M is nonzero only on the diagonal and at the node
+    pairs some row brackets (the band tables' entries), and LINEAR_FWD
+    adds nothing to M."""
+    from torch.func import grad, hessian
+    mb = cases.xccy3_book("adrates_torch", "FLAT_FWD_RATES", scheme, 5,
+                          recalibrate_xccy=False)
+    (si, tab), = tmb.make_multibook_fn(mb, "cpu").book.params[
+        "xstage"].items()
+    h = tab.host()
+    rng = np.random.default_rng(11)
+    sp = torch.tensor(1e-4 * rng.standard_normal((tab.G, tab.S)))
+    ds, _ = xs.stage_forward(tab, sp, tab.pv_dom0, tab.f_xs.new_ones(
+        (tab.G, tab.Lf)) * 0.97)
+    gs = torch.tensor(rng.standard_normal((tab.G, tab.W)))
+    for g in range(tab.G):
+        code = int(h["r_sch"][g])
+
+        def s(d, g=g, code=code):
+            return torch.sum(gs[g] * xs._interp(
+                tab.rq_i[g], tab.rq_f[g], tab.r_xs[g], d, code))
+        a, md, mo = xs.rows_prologue(h, g, ds[g].numpy(), gs[g].numpy())
+        M = xs.band_matrix(h, g, md, mo)
+        _close(np.array(a), grad(s)(ds[g]).numpy(), 1e-12)
+        rM = hessian(s)(ds[g]).numpy()
+        if code == xs.LIN_FWD:
+            assert not M.any() and not rM.any()
+            continue
+        _close(M, rM, 1e-12)
+        band = np.eye(tab.U1, dtype=bool)
+        for i0, i1, kn in h["rq_i"][g]:
+            if kn < 0:
+                band[i0, i1] = band[i1, i0] = True
+        assert not M[~band].any()
+        for e, (p, q) in enumerate(h["mb_pq"][g]):
+            assert p < q or (p == q == 0 and mo[e] == 0.0)
+
+
+def test_kernel_flops(book):
+    """needed_flops counts K8's and K10's own design on the test book
+    beside the bound and the simple design: the kernels do more than the
+    function needs (each block's dual chains, a pair's primal and first
+    tangents again), and K8, recalibrated (D = 2S + Qf), less than a dual
+    thread a direction over the whole stage (held as values, D = 3, a
+    block's grid transforms and rows cost about what they save); K9 /
+    K11 keep the simple design's count."""
+    _, _, topo, dbook, q, _ = book
+    (si, tab), = dbook.params["xstage"].items()
+    sp, pv, fd, tf = _stage_inputs(book, si, tab)
+    gs = torch.tensor(np.random.default_rng(3).standard_normal(
+        (q.shape[0], tab.G, tab.W)))
+    jvp = xs.needed_flops("xccy_stage_jvp", tab, sp, pv, fd, tf)
+    hess = xs.needed_flops("xccy_stage_hess", tab, sp, pv, fd, tf, gs)
+    for c in (jvp, hess):
+        assert c["needed"] < c["kernel"]
+        assert c["kernel"] % q.shape[0] == 0
+    if tab.recal:
+        assert jvp["kernel"] < jvp["threads"]
+    _, fw = _parts(book)
+    c = fw["carry"][si]
+    if tab.recal:
+        legs = xs.needed_flops("xccy_legs_jvp", tab, c["dom_ds"],
+                               c["td_legs"])
+        assert legs["kernel"] == legs["threads"]
