@@ -1,5 +1,6 @@
 // K8-K11: the XCCY stage of the structured risk pass, its directional
-// derivatives and its Hessians, in dual and hyper-dual arithmetic (f64).
+// derivatives and its Hessians (f64): K8 / K10 in dual and hyper-dual
+// arithmetic, K9 / K11 from the calibration legs' flows' partials.
 //
 // Replace the torch.func towers over one XCCY stage in
 // adrates_torch/parallel/structured_risk.py (fwd_delta's pass 2 and
@@ -13,9 +14,9 @@
 // FLAT_FWD staged chunk of flagship_v5 (3,600 of 6,500 counted on the
 // CPU), each a host dispatch on the card.
 //
-// The stage is written once over a scalar type T: double, Dual (value,
-// one tangent) or HDual (value, e1, e2, e1 e2), its inputs lifted along
-// one direction or two, so second derivatives are exact with no
+// K8 / K10's stage is written once over a scalar type T: double, Dual
+// (value, one tangent) or HDual (value, e1, e2, e1 e2), its inputs lifted
+// along one direction or two, so second derivatives are exact with no
 // hand-derived adjoint. It splits at the node DFs ds [U1]:
 //
 //   - the chain (chain_eval): the foreign DFs at each chain point's start,
@@ -70,18 +71,54 @@
 //                        = a . J_i at i = j; recalibrated, a foreign grid
 //                        entry l (the last chunk's, from a warp's boundary
 //                        on), a dual chain giving gf_l = a . dds/dfd_l.
-//   K9 xccy_legs_jvp:    a Dual thread a (scenario, member, dom
-//                        direction): the legs' PVs' tangents and PVs, by
-//                        pv_float_leg's arithmetic on the static plans
-//                        (the double-where of an ia = 0 slot, the
-//                        first-fixing override on flow 0, torch.clamp's
-//                        derivative passing inclusively at the cap and
-//                        floor, strictly future coupons, the notional
-//                        exchanges).
-//   K11 xccy_legs_hess:  an HDual thread a (scenario, member, pair) of
-//                        sum gpv . legs over the dom directions, and a
-//                        Dual thread a grid entry: the simple design, a
-//                        whole evaluation a thread.
+//   K9 xccy_legs_jvp and K11 xccy_legs_hess: the calibration legs split at
+//                        their flows, a block a (scenario, member) of
+//                        kLegBlock threads. Both lift the domestic grid
+//                        linearly along tangent rows t_d, so Jpv[d, s] =
+//                        G_s . t_d and Hl_ij = t_i' M t_j exactly, with G_s
+//                        = dPV_s/dd and M = sum_s gpv_s d2PV_s/dd2: all but
+//                        the last dot is the same for every direction and
+//                        pair. The block transforms its grid once (GPt),
+//                        runs a thread a leg for its value DF V_s, then,
+//                        chunk by chunk, a thread a flow (leg_flow: n =
+//                        sign cf D_pay, PV_s = sum n / V_s, over the index
+//                        start A, index end B and payment C, by
+//                        pv_float_leg's branches:
+//                        a past coupon 0, the first-fixing override, an
+//                        ia = 0 slot's double-where, the cap / floor as
+//                        torch.clamp, strictly future coupons, the
+//                        exchanges at or after the value time, the
+//                        principal on the last coupon) writing n, its
+//                        partials in its six slots (the taps of A, B, C)
+//                        and, K11, gpv_s / V_s times its second partials
+//                        in them into the chunk's table; a thread a static
+//                        segment of at most 32 terms (the host's lists,
+//                        xccy_stage._legs_lists, built from the plans
+//                        alone) sums its terms in table order, then a
+//                        thread a target adds its segments in order: each
+//                        leg's N_s, each (leg, grid row)'s dN_s/dd and,
+//                        K11, each entry of M_N = sum_s w_s d2N_s/dd2 on
+//                        its static support (the rows each flow's queries
+//                        touch). G_s = (dN_s - PV_s dV_s) / V_s; K11
+//                        folds the value DF's coupling of every flow of a
+//                        leg into U_j = M t_j (M = M_N - sum_s w_s (G_s
+//                        dV_s' + dV_s G_s' + PV_s d2V_s), the second term
+//                        through gamma_js = G_s . t_j and beta_js = dV_s .
+//                        t_j), so M is never dense. K9 writes PV and
+//                        Jpv[d, s] a thread a (d, s); K11 writes gdd a
+//                        thread a grid entry, then, by tiles of
+//                        directions j, U_j a thread a (j, row) and Hl_ij =
+//                        t_i . U_j a thread a pair i <= j, written at
+//                        [i, j] and [j, i]. The tangent rows [Qd, rows] sit
+//                        in shared memory where they fit (plan_legs), else
+//                        are read from device memory; U's tile halves until
+//                        the core fits.
+//
+// Hazard: any change to pv_float_leg (adrates_tpu/ops/pricers.py) or the
+// port's legs_forward must also be made in leg_flow here, in
+// xccy_stage.leg_flow and in the support lists (xccy_stage._legs_lists):
+// a slot or a coupling the lists leave out gives a wrong Hessian with no
+// error.
 //
 // What bounds K8 and K10 on an H100. At flagship_v5's XCCY stage (G = 3,
 // S = 8, 78 chain points, 31 nodes, 490 rows, D = 48, 50 scenarios a
@@ -104,6 +141,17 @@
 // the grid's transforms, the chain tables or the foreign tangent rows do
 // not fit, they are read from device memory (through L1) or computed at
 // each read, and the tiles shrink before the core would not fit.
+//
+// What bounds K9 and K11. At flagship_v5's XCCY stage (G = 3, S = 8 legs
+// of P = 30 coupons, a domestic grid of 73 entries of which the legs read
+// 31, Qd = 32, 50 scenarios a chunk) K11 moves about 4 MB (the tangent
+// rows in, Hl out: about 1.2 us at the HBM rate) and the function needs
+// about 0.08 GFLOP of f64, the collapse's own count less
+// (xccy_stage.needed_flops): the bound is a few microseconds. A block
+// does a few thousand flops a thread in short dependent chains between
+// barriers (a flow's three queries, a segment's 32 terms, a target's
+// segments, U's and a pair's dots over 31 rows), so what bounds it is the
+// chain latency of one block on its SM: 150 blocks, one or two an SM.
 //
 // Sums run in a fixed order with no atomics, so two launches agree bit
 // for bit, and each H_ij is written at [i, j] and [j, i] by the thread
@@ -144,6 +192,24 @@ struct XccyStageTab {
   const int* mb_ptr;    // [G, E + 1] their rows (CSR)
   const int* mb_row;    // [G, NB]
   const int* tp_off;    // [G, n + 1] each chain point's place on K10's tape
+  // K9 / K11's lists over the legs (xccy_stage._legs_lists): rows, gradient
+  // targets, M_N's entries, segments, chunks, and the widths of the lists
+  int R, NL, EL, NS, nC, NGD, NMR, NTT;
+  const int* lr_row;    // [G, R] the rows' grid entries (-1 pads)
+  const int* lr_of;     // [G, Ld] each grid entry's row or -1
+  const int* ls_ptr;    // [G, S + 1] each leg's gradient targets
+  const int* ls_row;    // [G, NL] a target's row
+  const int* lt_leg;    // [G, NL] a target's leg
+  const int* gd_ptr;    // [G, R + 1] each row's targets (CSR)
+  const int* gd_t;      // [G, NGD]
+  const int* me_rc;     // [G, EL, 2] M_N's entries (r <= c)
+  const int* mr_ptr;    // [G, R + 1] each row's entries (CSR)
+  const int* mr_e;      // [G, NMR]
+  const int* lt_term;   // [G, NTT] the sums' terms (a chunk table's place)
+  const int* sg;        // [G, NS, 2] the segments' term ranges
+  const int* sc_ptr;    // [G, 2 nC + 1] each chunk's segments
+  const int* ts_ptr;    // [G, S + NL + EL + 1] each target's segments
+  const int* ts_seg;    // [G, NS]
 };
 
 namespace {
@@ -153,7 +219,6 @@ using StageTab = XccyStageTab;
 
 constexpr int kMaxS = 16;     // xccy_stage.MAX_S
 constexpr int kMaxU = 64;     // xccy_stage.MAX_U
-constexpr int kThreads = 128;
 
 enum { kLinFwd = 0, kFlatFwd = 1, kLinZero = 2 };
 enum { kMat = 1, kNotl = 2, kLast = 4 };
@@ -280,35 +345,6 @@ __device__ __forceinline__ double tan_pv(const Dir& d, int s) {
 __device__ __forceinline__ double tan_grid(const Dir& d, int l) {
   if (d.kind == kRow) return d.row[l];
   return d.kind == kUnit && d.idx == l ? 1.0 : 0.0;
-}
-
-template <class T>
-__device__ __forceinline__ T grid_at(const double* grid, int l, const Dir& d1,
-                                     const Dir& d2) {
-  return lift<T>(grid[l], tan_grid(d1, l), tan_grid(d2, l));
-}
-
-template <class T>
-__device__ T grid_y(int sch, const double* grid, const double* xs, int l,
-                    const Dir& d1, const Dir& d2) {
-  const T d = grid_at<T>(grid, l, d1, d2);
-  if (sch == kLinFwd) return d;
-  const T r = -tlog(d);
-  return sch == kFlatFwd ? r : r / xs[l];
-}
-
-// interpolation.simple_df_static at one packed query of a grid whose
-// values are lifted as they are read.
-template <class T>
-__device__ T interp(int sch, const int* qi, const double* qf,
-                    const double* xs, const double* grid, const Dir& d1,
-                    const Dir& d2) {
-  if (qi[2] >= 0) return grid_at<T>(grid, qi[2], d1, d2);
-  const T y0 = grid_y<T>(sch, grid, xs, qi[0], d1, d2);
-  const T v = y0 + qf[0] * (grid_y<T>(sch, grid, xs, qi[1], d1, d2) - y0);
-  if (sch == kFlatFwd) return texp(-v);
-  if (sch == kLinZero) return texp(-v * qf[1]);
-  return v;
 }
 
 // ---- K8 / K10: the stage split at its node DFs ------------------------------
@@ -1073,84 +1109,6 @@ __device__ void direction_chain(const StageTab& t, const Layout& L,
                    Tape{taped ? sm + L.tape : nullptr, 0, false});
 }
 
-// ---- the calibration legs --------------------------------------------------
-
-// Member g's S leg PVs at dd [Ld] lifted along d1 / d2: sink.leg(s, pv).
-template <class T, class Sink>
-__device__ void legs_eval(const StageTab& t, int g, const double* dd,
-                          const Dir& d1, const Dir& d2, Sink& sink) {
-  const int S = t.S, P = t.P, Pd = t.Pd;
-  const double* xs = t.d_xs + (size_t)g * t.Ld;
-  for (int s = 0; s < S; ++s) {
-    const size_t gl = (size_t)g * S + s;
-    const int* ii = t.li_i + gl * 2 * P * 3;
-    const double* fi = t.li_f + gl * 2 * P * 2;
-    const int* id = t.ld_i + gl * Pd * 3;
-    const double* fdd = t.ld_f + gl * Pd * 2;
-    const double* lf = t.leg_f + gl * P * 5;
-    const double* ls = t.leg_s + gl * 9;
-    const double principal = ls[0], sign = ls[1], vt = ls[2], ffr = ls[3],
-                 nx = ls[4], eff = ls[5], matt = ls[6], cap = ls[7],
-                 flo = ls[8];
-    const T dval = interp<T>(t.dsch, id + 3 * P, fdd + 2 * P, xs, dd, d1, d2);
-    T total = lift<T>(0.0, 0.0, 0.0);
-    for (int p = 0; p < P; ++p) {
-      const double payt = lf[5 * p], pa = lf[5 * p + 1], ia = lf[5 * p + 2],
-                   spr = lf[5 * p + 3], notl = lf[5 * p + 4];
-      if (!(payt > vt)) continue;
-      T fwd;
-      if ((t.flags & kOverride) && p == 0) {
-        fwd = lift<T>(ffr, 0.0, 0.0);
-      } else if (ia > 0) {
-        fwd = (interp<T>(t.dsch, ii + 3 * p, fi + 2 * p, xs, dd, d1, d2)
-               / interp<T>(t.dsch, ii + 3 * (P + p), fi + 2 * (P + p), xs,
-                           dd, d1, d2) - 1.0) / ia;
-      } else {
-        fwd = lift<T>(0.0, 0.0, 0.0);
-      }
-      T rate = fwd + spr;
-      if (t.flags & kCapFloor) {
-        if (prim(rate) < flo) rate = lift<T>(flo, 0.0, 0.0);
-        else if (prim(rate) > cap) rate = lift<T>(cap, 0.0, 0.0);
-      }
-      const T cf = (rate * pa) * notl + (p == P - 1 ? principal : 0.0);
-      total = total + (sign * cf) * (interp<T>(t.dsch, id + 3 * p,
-                                               fdd + 2 * p, xs, dd, d1, d2)
-                                     / dval);
-    }
-    if (t.flags & kExchange) {
-      for (int e = 0; e < 2; ++e) {
-        const double ext = e ? matt : eff, amt = e ? nx : -nx;
-        if (ext >= vt) {
-          const int k = P + 1 + e;
-          total = total + (sign * amt) * (interp<T>(t.dsch, id + 3 * k,
-                                                    fdd + 2 * k, xs, dd, d1,
-                                                    d2) / dval);
-        }
-      }
-    }
-    sink.leg(s, total);
-  }
-}
-
-// ---- sinks -----------------------------------------------------------------
-
-struct LegJvpSink {        // K9: the legs' tangents; the PVs at d = 0
-  double *pv0, *jpv;
-  bool first;
-  __device__ void leg(int s, const Dual& v) {
-    jpv[s] = v.e;
-    if (first) pv0[s] = v.v;
-  }
-};
-
-template <class T>
-struct LegSumSink {        // K11: sum gpv . legs
-  const double* gpv;
-  T total;
-  __device__ void leg(int s, const T& v) { total = total + v * gpv[s]; }
-};
-
 // ---- the kernels -----------------------------------------------------------
 
 __global__ void __launch_bounds__(kBlock)
@@ -1219,22 +1177,6 @@ k8_stage_jvp(const StageTab t, const Layout L, int D, int npv,
   XCCY_STAMP_END();
 }
 
-
-__global__ void __launch_bounds__(kThreads)
-k9_legs_jvp(const StageTab t, int Sc, int Qd, const double* dd,
-            const double* tdl, double* pv0, double* jpv) {
-  const long long item = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (item >= (long long)Sc * t.G * Qd) return;
-  const int d = (int)(item % Qd);
-  const long long r = item / Qd;
-  const int g = (int)(r % t.G), sc = (int)(r / t.G);
-  const size_t sg = (size_t)sc * t.G + g;
-  const Dir d1{kRow, 0, tdl + (((size_t)sc * Qd + d) * t.G + g) * t.Ld};
-  const Dir none{kNone, 0, nullptr};
-  LegJvpSink sink{pv0 + sg * t.S,
-                  jpv + (((size_t)sc * Qd + d) * t.G + g) * t.S, d == 0};
-  legs_eval<Dual>(t, g, dd + sg * t.Ld, d1, none, sink);
-}
 
 // K10's work of one (scenario, member): tile pairs I <= J of its D
 // directions, each with its pairs i <= j (i in I, j in J), the last one
@@ -1386,45 +1328,561 @@ k10_stage_hess(const StageTab t, const Layout L, int D, int npv,
   XCCY_STAMP_END();
 }
 
-__global__ void __launch_bounds__(kThreads)
-k11_legs_hess(const StageTab t, int Sc, int Qd, int n_pairs, const int* pairs,
-              int n_gd, const double* dd, const double* tdl,
-              const double* gpv, double* gdd, double* Hl) {
-  const long long item = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const long long n_h = (long long)Sc * t.G * n_pairs;
-  if (item >= n_h + (long long)Sc * t.G * n_gd) return;
-  if (item < n_h) {
-    const int p = (int)(item % n_pairs);
-    const long long r = item / n_pairs;
-    const int g = (int)(r % t.G), sc = (int)(r / t.G);
-    const size_t sg = (size_t)sc * t.G + g;
-    const int i = pairs[2 * p], j = pairs[2 * p + 1];
-    const Dir d1{kRow, 0, tdl + (((size_t)sc * Qd + i) * t.G + g) * t.Ld};
-    const Dir d2{kRow, 0, tdl + (((size_t)sc * Qd + j) * t.G + g) * t.Ld};
-    LegSumSink<HDual> sink{gpv + sg * t.S, {0.0, 0.0, 0.0, 0.0}};
-    legs_eval<HDual>(t, g, dd + sg * t.Ld, d1, d2, sink);
-    Hl[(((size_t)sc * Qd + i) * t.G + g) * Qd + j] = sink.total.ab;
-    Hl[(((size_t)sc * Qd + j) * t.G + g) * Qd + i] = sink.total.ab;
-  } else {
-    const long long it2 = item - n_h;
-    const int l = (int)(it2 % n_gd);
-    const long long r = it2 / n_gd;
-    const int g = (int)(r % t.G), sc = (int)(r / t.G);
-    const size_t sg = (size_t)sc * t.G + g;
-    const Dir d1{kUnit, l, nullptr};
-    const Dir none{kNone, 0, nullptr};
-    LegSumSink<Dual> sink{gpv + sg * t.S, {0.0, 0.0}};
-    legs_eval<Dual>(t, g, dd + sg * t.Ld, d1, none, sink);
-    gdd[sg * t.Ld + l] = sink.total.e;
-  }
-}
-
-int blocks_for(long long items) {
-  return (int)((items + kThreads - 1) / kThreads);
-}
-
 bool fits(const StageTab* t) {
   return t->S >= 1 && t->S <= kMaxS && t->U1 >= 1 && t->U1 <= kMaxU;
+}
+
+// ---- K9 / K11: the calibration legs split at their flows -----------------
+
+constexpr int kLegBlock = 256;  // xccy_stage.LEG_BLOCK: threads a block, and
+                                // the flows of a chunk
+constexpr int kFlowVals = 28;   // xccy_stage.FLOW_VALS: n, 6 partials, 21
+                                // second partials a flow
+constexpr int kJvpVals = 7;     // K9's: n and the partials
+constexpr int kLegVals = 8;     // a leg's V, V' (2), V'' (3), w, PV
+
+// A query of the legs (xccy_stage.leg_query): its DF, its first partials
+// in its one or two taps, its second partials (h00, h01, h11); a knot's
+// second tap and second partials are 0.
+struct QD { double d, d0, d1, h0, h1, h2; };
+
+// Slot pair (a, b), a <= b, of a flow's six slots (xccy_stage.SLOT_PAIRS).
+__host__ __device__ constexpr int spair(int a, int b) {
+  return a * (11 - a) / 2 + b;
+}
+
+// One (scenario, member) as a K9 / K11 block reads its legs: the domestic
+// grid in device memory and its transforms in shared memory where the
+// layout holds them, else computed at each read.
+struct LegView {
+  int sch, Ld;
+  const double *dd, *xs;  // [Ld]
+  const double* gt;       // [4, Ld] d, y, y', y'' or null
+  __device__ __forceinline__ double d(int l) const {
+    return gt ? gt[l] : dd[l];
+  }
+  __device__ __forceinline__ GPt pt(int l) const {
+    if (gt) return {gt[l], gt[Ld + l], gt[2 * Ld + l], gt[3 * Ld + l]};
+    return transform(sch, dd[l], xs[l]);
+  }
+};
+
+// interpolation.simple_df_static at one packed query of the domestic grid
+// with its partials in the grid: the knot select (dD/dd = 1, no second
+// order), else D = v(z), z = (1 - c) y0 + c y1 of the bracketing entries'
+// transforms, through FLAT_FWD's / LINEAR_ZERO's exp (interp's arithmetic).
+__device__ __forceinline__ QD leg_query(const LegView& v, const int* qi,
+                                        const double* qf) {
+  if (qi[2] >= 0) return {v.d(qi[2]), 1.0, 0.0, 0.0, 0.0, 0.0};
+  const double c = qf[0];
+  const GPt p0 = v.pt(qi[0]), p1 = v.pt(qi[1]);
+  const double z = p0.y + c * (p1.y - p0.y);
+  double d, f1, f2;
+  if (v.sch == kLinFwd) {
+    d = z;
+    f1 = 1.0;
+    f2 = 0.0;
+  } else if (v.sch == kFlatFwd) {
+    d = exp(-z);
+    f1 = -d;
+    f2 = d;
+  } else {
+    const double qt = qf[1];
+    d = exp(-z * qt);
+    f1 = -qt * d;
+    f2 = qt * (qt * d);
+  }
+  const double u0 = (1.0 - c) * p0.y1, u1 = c * p1.y1;
+  return {d, f1 * u0, f1 * u1, f2 * (u0 * u0) + f1 * ((1.0 - c) * p0.y2),
+          f2 * (u0 * u1), f2 * (u1 * u1) + f1 * (c * p1.y2)};
+}
+
+// Flow p of leg s (p < P a coupon, P + e exchange e) into its column of
+// the chunk's table (col[k kLegBlock], xccy_stage.leg_flow): n = sign cf
+// D_pay (sign amt D_ex), its partials in its six slots (A: the index
+// start's taps, B: the index end's, C: the payment's or exchange's) and,
+// K11, w times its second partials in them. pv_float_leg's branches as
+// the plain version takes them: a coupon paid at or before the value
+// time and an exchange before it are 0; the first-fixing override on
+// flow 0 and an ia = 0 slot (the double-where) fix the rate and read no
+// index DF; the cap / floor clamp fixes the rate strictly beyond it, the
+// floor first, then the cap, as torch.clamp's min(max(rate, floor), cap)
+// (its derivative passes at the cap and the floor); the principal rides
+// on the last coupon. With f = n: dn/dA = sign C K / B,
+// dn/dB = -dn/dA A / B, dn/dC = sign cf, K = pa notl / ia where the rate
+// follows the forward (else 0), and the cross and B-B second partials
+// from these.
+template <bool kHess>
+__device__ __forceinline__ void leg_flow(const StageTab& t, const LegView& v,
+                                         int g, int s, int p, double w,
+                                         double* col) {
+  const int P = t.P;
+  const size_t gl = (size_t)g * t.S + s;
+  const double* ls = t.leg_s + gl * 9;
+  const double principal = ls[0], sign = ls[1], vt = ls[2], ffr = ls[3],
+               nx = ls[4], eff = ls[5], matt = ls[6], cap = ls[7],
+               flo = ls[8];
+  const int* id = t.ld_i + gl * t.Pd * 3;
+  const double* fdd = t.ld_f + gl * t.Pd * 2;
+  QD A{0.0, 0.0, 0.0, 0.0, 0.0, 0.0}, B{1.0, 0.0, 0.0, 0.0, 0.0, 0.0},
+      C{0.0, 0.0, 0.0, 0.0, 0.0, 0.0};
+  double n = 0.0, nA = 0.0, nB = 0.0, nC = 0.0, kc = 0.0, iB = 0.0,
+         r = 0.0;
+  if (p >= P) {
+    const int e = p - P;
+    const double ext = e ? matt : eff, amt = e ? nx : -nx;
+    if ((t.flags & kExchange) && ext >= vt) {
+      C = leg_query(v, id + 3 * (P + 1 + e), fdd + 2 * (P + 1 + e));
+      nC = sign * amt;
+      n = nC * C.d;
+    }
+  } else {
+    const double* lf = t.leg_f + (gl * P + p) * 5;
+    const double payt = lf[0], pa = lf[1], ia = lf[2], spr = lf[3],
+                 notl = lf[4];
+    if (payt > vt) {
+      C = leg_query(v, id + 3 * p, fdd + 2 * p);
+      double K = 0.0, fwd;
+      if ((t.flags & kOverride) && p == 0) {
+        fwd = ffr;
+      } else if (ia > 0) {
+        const int* ii = t.li_i + gl * 2 * P * 3;
+        const double* fi = t.li_f + gl * 2 * P * 2;
+        A = leg_query(v, ii + 3 * p, fi + 2 * p);
+        B = leg_query(v, ii + 3 * (P + p), fi + 2 * (P + p));
+        fwd = (A.d / B.d - 1.0) / ia;
+        K = (pa * notl) / ia;
+      } else {
+        fwd = 0.0;
+      }
+      double rate = fwd + spr;
+      if (t.flags & kCapFloor) {
+        if (rate < flo) {
+          rate = flo;
+          K = 0.0;
+        }
+        if (rate > cap) {
+          rate = cap;
+          K = 0.0;
+        }
+      }
+      const double cf = (rate * pa) * notl + (p == P - 1 ? principal : 0.0);
+      nC = sign * cf;
+      n = nC * C.d;
+      if (K != 0.0) {
+        iB = 1.0 / B.d;
+        r = A.d * iB;
+        kc = sign * K;
+        nA = (kc * C.d) * iB;
+        nB = -nA * r;
+      }
+    }
+  }
+  col[0] = n;
+  col[1 * kLegBlock] = nA * A.d0;
+  col[2 * kLegBlock] = nA * A.d1;
+  col[3 * kLegBlock] = nB * B.d0;
+  col[4 * kLegBlock] = nB * B.d1;
+  col[5 * kLegBlock] = nC * C.d0;
+  col[6 * kLegBlock] = nC * C.d1;
+  if (!kHess) return;
+  const double wA = w * nA, wB = w * nB, wC = w * nC;
+  const double fAB = -wA * iB, fBB = -2.0 * (wB * iB);
+  const double fAC = (w * kc) * iB, fBC = -fAC * r;
+  double* h = col + 7 * kLegBlock;
+  h[spair(0, 0) * kLegBlock] = wA * A.h0;
+  h[spair(0, 1) * kLegBlock] = wA * A.h1;
+  h[spair(1, 1) * kLegBlock] = wA * A.h2;
+  h[spair(2, 2) * kLegBlock] = wB * B.h0 + fBB * (B.d0 * B.d0);
+  h[spair(2, 3) * kLegBlock] = wB * B.h1 + fBB * (B.d0 * B.d1);
+  h[spair(3, 3) * kLegBlock] = wB * B.h2 + fBB * (B.d1 * B.d1);
+  h[spair(4, 4) * kLegBlock] = wC * C.h0;
+  h[spair(4, 5) * kLegBlock] = wC * C.h1;
+  h[spair(5, 5) * kLegBlock] = wC * C.h2;
+  h[spair(0, 2) * kLegBlock] = fAB * (A.d0 * B.d0);
+  h[spair(0, 3) * kLegBlock] = fAB * (A.d0 * B.d1);
+  h[spair(1, 2) * kLegBlock] = fAB * (A.d1 * B.d0);
+  h[spair(1, 3) * kLegBlock] = fAB * (A.d1 * B.d1);
+  h[spair(0, 4) * kLegBlock] = fAC * (A.d0 * C.d0);
+  h[spair(0, 5) * kLegBlock] = fAC * (A.d0 * C.d1);
+  h[spair(1, 4) * kLegBlock] = fAC * (A.d1 * C.d0);
+  h[spair(1, 5) * kLegBlock] = fAC * (A.d1 * C.d1);
+  h[spair(2, 4) * kLegBlock] = fBC * (B.d0 * C.d0);
+  h[spair(2, 5) * kLegBlock] = fBC * (B.d0 * C.d1);
+  h[spair(3, 4) * kLegBlock] = fBC * (B.d1 * C.d0);
+  h[spair(3, 5) * kLegBlock] = fBC * (B.d1 * C.d1);
+}
+
+// Where a K9 / K11 block keeps its tables in dynamic shared memory, as
+// offsets in doubles (-1: not there; the tangent rows are then read from
+// device memory, the grid's transforms computed at each read). Planned on
+// the host by plan_legs from the stage's own sizes.
+struct LegLayout {
+  int lv, lvi, acc, part, tc, vals, gb, U, T, gt;
+  int Jt, bytes;            // K11's directions a tile of U; the block's bytes
+};
+
+// Member g's lists (xccy_stage._legs_lists) at their rows.
+struct LegLists {
+  const int *lr_row, *lr_of, *ls_ptr, *ls_row, *lt_leg, *gd_ptr, *gd_t,
+      *me_rc, *mr_ptr, *mr_e, *lt_term, *sg, *sc_ptr, *ts_ptr, *ts_seg;
+};
+
+__device__ __forceinline__ LegLists leg_lists(const StageTab& t, int g) {
+  const size_t G = g;
+  return {t.lr_row + G * t.R,      t.lr_of + G * t.Ld,
+          t.ls_ptr + G * (t.S + 1), t.ls_row + G * t.NL,
+          t.lt_leg + G * t.NL,     t.gd_ptr + G * (t.R + 1),
+          t.gd_t + G * t.NGD,      t.me_rc + G * t.EL * 2,
+          t.mr_ptr + G * (t.R + 1), t.mr_e + G * t.NMR,
+          t.lt_term + G * t.NTT,   t.sg + G * t.NS * 2,
+          t.sc_ptr + G * (2 * t.nC + 1),
+          t.ts_ptr + G * (t.S + t.NL + t.EL + 1), t.ts_seg + G * t.NS};
+}
+
+// Tangent row d at row r: the block's copy where the layout holds it, else
+// device memory (a pad row reads 0).
+struct Tangents {
+  const double* sm;        // [Qd, R] or null
+  const double* row0;      // tdl at (scenario, direction 0, member)
+  size_t dstride;          // G Ld
+  const int* lr_row;
+  int R;
+  __device__ __forceinline__ double at(int d, int r) const {
+    if (sm) return sm[d * R + r];
+    const int x = lr_row[r];
+    return x < 0 ? 0.0 : row0[d * dstride + x];
+  }
+};
+
+// K9 / K11's work of a (scenario, member) that no direction or pair
+// depends on (xccy_stage.legs_prologue): the grid's transforms; each leg's
+// value DF and, K11, w = gpv / V; chunk by chunk, a thread a flow into the
+// chunk's table (leg_flow), then a thread a segment summing its terms in
+// table order (K9: the sums' and gradients' segments alone); then a thread
+// a target adding its segments in order: N_s, dN_s/dd at each of the
+// leg's rows and, K11, M_N's entries; PV_s = N_s / V_s; and each gradient
+// target's G_s[r] = (dN_s/dd_r - PV_s dV_s/dd_r) / V_s, in place. No
+// atomics: two launches agree bit for bit.
+template <bool kHess>
+__device__ __forceinline__ void legs_prologue(const StageTab& t,
+                                              const LegLayout& L, double* sm,
+                                              const LegView& v,
+                                              const LegLists& ll, int g,
+                                              const double* gpv) {
+  const int tid = threadIdx.x, S = t.S, P = t.P, F = P + 2;
+  double* lv = sm + L.lv;
+  int* lvi = reinterpret_cast<int*>(sm + L.lvi);
+  double* acc = sm + L.acc;
+  double* part = sm + L.part;
+  for (int s = tid; s < S; s += kLegBlock) {
+    const size_t gl = (size_t)g * S + s;
+    const int* qi = t.ld_i + (gl * t.Pd + P) * 3;
+    const QD V = leg_query(v, qi, t.ld_f + (gl * t.Pd + P) * 2);
+    double* o = lv + s * kLegVals;
+    o[0] = V.d;
+    o[1] = V.d0;
+    o[2] = V.d1;
+    o[3] = V.h0;
+    o[4] = V.h1;
+    o[5] = V.h2;
+    o[6] = kHess ? gpv[s] / V.d : 0.0;
+    lvi[2 * s] = ll.lr_of[qi[2] >= 0 ? qi[2] : qi[0]];
+    lvi[2 * s + 1] = qi[2] >= 0 ? -1 : ll.lr_of[qi[1]];
+  }
+  __syncthreads();
+  XCCY_STAMP(1);
+  for (int c = 0; c < t.nC; ++c) {
+    const int f = c * kLegBlock + tid;
+    if (f < S * F) {
+      const int s = f / F;
+      leg_flow<kHess>(t, v, g, s, f - s * F, lv[s * kLegVals + 6],
+                      sm + L.vals + tid);
+    }
+    __syncthreads();
+    const int k1 = ll.sc_ptr[2 * c + (kHess ? 2 : 1)];
+    const double* vals = sm + L.vals;
+    for (int k = ll.sc_ptr[2 * c] + tid; k < k1; k += kLegBlock) {
+      double a = 0.0;
+#pragma unroll 4
+      for (int x = ll.sg[2 * k]; x < ll.sg[2 * k + 1]; ++x) {
+        const int term = ll.lt_term[x];
+        const double val = vals[term >> 1];
+        a = a + ((term & 1) ? 2.0 * val : val);
+      }
+      part[k] = a;
+    }
+    __syncthreads();
+  }
+  XCCY_STAMP(2);
+  const int nt = S + t.NL + (kHess ? t.EL : 0);
+  for (int x = tid; x < nt; x += kLegBlock) {
+    double a = 0.0;
+    for (int k = ll.ts_ptr[x]; k < ll.ts_ptr[x + 1]; ++k) {
+      a = a + part[ll.ts_seg[k]];
+    }
+    acc[x] = a;
+  }
+  __syncthreads();
+  for (int s = tid; s < S; s += kLegBlock) {
+    lv[s * kLegVals + 7] = acc[s] / lv[s * kLegVals];
+  }
+  __syncthreads();
+  for (int x = tid; x < ll.ls_ptr[S]; x += kLegBlock) {
+    const int s = ll.lt_leg[x], r = ll.ls_row[x];
+    const double* o = lv + s * kLegVals;
+    double dv = 0.0;
+    if (lvi[2 * s] == r) dv = dv + o[1];
+    if (lvi[2 * s + 1] == r) dv = dv + o[2];
+    acc[S + x] = (acc[S + x] - o[7] * dv) / o[0];
+  }
+  __syncthreads();
+}
+
+// The block's start: its view of the grid (transformed into shared memory
+// where the layout holds it) and its copy of the tangent rows [Qd, R]
+// where the layout holds them (the caller synchronises).
+__device__ __forceinline__ LegView leg_start(const StageTab& t,
+                                             const LegLayout& L, double* sm,
+                                             const LegLists& ll, int g,
+                                             size_t sg, int sc, int Qd,
+                                             const double* dd,
+                                             const double* tdl, Tangents* T) {
+  const int tid = threadIdx.x, Ld = t.Ld, R = t.R;
+  LegView v{t.dsch, Ld, dd + sg * Ld, t.d_xs + (size_t)g * Ld, nullptr};
+  if (L.gt >= 0) {
+    double* gt = sm + L.gt;
+    for (int l = tid; l < Ld; l += kLegBlock) {
+      const GPt p = transform(t.dsch, v.dd[l], v.xs[l]);
+      gt[l] = p.d;
+      gt[Ld + l] = p.y;
+      gt[2 * Ld + l] = p.y1;
+      gt[3 * Ld + l] = p.y2;
+    }
+    v.gt = gt;
+  }
+  const double* row0 = tdl ? tdl + ((size_t)sc * Qd * t.G + g) * Ld
+                           : nullptr;
+  *T = Tangents{nullptr, row0, (size_t)t.G * Ld, ll.lr_row, R};
+  if (L.T >= 0 && tdl) {
+    double* ts = sm + L.T;
+    for (int x = tid; x < Qd * R; x += kLegBlock) {
+      const int d = x / R, r = x - d * R;
+      ts[x] = T->at(d, r);
+    }
+    T->sm = ts;
+  }
+  return v;
+}
+
+__global__ void __launch_bounds__(kLegBlock, 2)
+k9_legs_jvp(const StageTab t, const LegLayout L, int Qd, const double* dd,
+            const double* tdl, double* pv0, double* jpv) {
+  extern __shared__ double sm[];
+  const int g = (int)(blockIdx.x % t.G), sc = (int)(blockIdx.x / t.G);
+  const size_t sg = (size_t)sc * t.G + g;
+  const int tid = threadIdx.x, S = t.S;
+  XCCY_STAMP(0);
+  const LegLists ll = leg_lists(t, g);
+  Tangents T;
+  const LegView v = leg_start(t, L, sm, ll, g, sg, sc, Qd, dd, tdl, &T);
+  __syncthreads();
+  legs_prologue<false>(t, L, sm, v, ll, g, nullptr);
+  XCCY_STAMP(3);
+  const double* lv = sm + L.lv;
+  const double* G = sm + L.acc + S;
+  for (int s = tid; s < S; s += kLegBlock) {
+    pv0[sg * S + s] = lv[s * kLegVals + 7];
+  }
+  // Jpv[d, s] = G_s . t_d over the leg's rows, a thread a (d, s), the
+  // stores coalesced over s
+  for (int x = tid; x < Qd * S; x += kLegBlock) {
+    const int d = x / S, s = x - d * S;
+    double a = 0.0;
+    for (int k = ll.ls_ptr[s]; k < ll.ls_ptr[s + 1]; ++k) {
+      a = a + G[k] * T.at(d, ll.ls_row[k]);
+    }
+    jpv[(((size_t)sc * Qd + d) * t.G + g) * S + s] = a;
+  }
+  XCCY_STAMP_END();
+}
+
+// K11: the prologue with M_N, then gdd, then by tiles of Jt directions j:
+// (gamma, beta) a (j, leg), U_j = M t_j at each row (M_N's entries of
+// the row, then the value DFs' coupling folded in, xccy_stage.legs_u),
+// and each pair i <= j's t_i . U_j, written at [i, j] and [j, i].
+__global__ void __launch_bounds__(kLegBlock, 2)
+k11_legs_hess(const StageTab t, const LegLayout L, int Qd, const double* dd,
+              const double* tdl, const double* gpv, double* gdd,
+              double* Hl) {
+  extern __shared__ double sm[];
+  const int g = (int)(blockIdx.x % t.G), sc = (int)(blockIdx.x / t.G);
+  const size_t sg = (size_t)sc * t.G + g;
+  const int tid = threadIdx.x, S = t.S, R = t.R, Ld = t.Ld;
+  XCCY_STAMP(0);
+  const LegLists ll = leg_lists(t, g);
+  Tangents T;
+  const LegView v = leg_start(t, L, sm, ll, g, sg, sc, Qd, dd, tdl, &T);
+  const double* gp = gpv + sg * S;
+  __syncthreads();
+  legs_prologue<true>(t, L, sm, v, ll, g, gp);
+  const double* lv = sm + L.lv;
+  const int* lvi = reinterpret_cast<const int*>(sm + L.lvi);
+  const double* G = sm + L.acc + S;
+  const double* M = G + t.NL;
+  for (int l = tid; l < Ld; l += kLegBlock) {
+    const int r = ll.lr_of[l];
+    double a = 0.0;
+    if (r >= 0) {
+      for (int k = ll.gd_ptr[r]; k < ll.gd_ptr[r + 1]; ++k) {
+        const int x = ll.gd_t[k];
+        a = a + gp[ll.lt_leg[x]] * G[x];
+      }
+    }
+    gdd[sg * Ld + l] = a;
+  }
+  // each gradient target's coefficients in U (xccy_stage.legs_prologue's
+  // "tc"): w G_s[r] of beta and, at a value DF tap, w dV_s/dd_r of gamma
+  // and w PV_s d2V_s/dd_r dd_v of the tangent at each tap v
+  double* tc = sm + L.tc;
+  int* tv = reinterpret_cast<int*>(tc + 4 * t.NL);
+  for (int x = tid; x < ll.ls_ptr[S]; x += kLegBlock) {
+    const int s = ll.lt_leg[x], r = ll.ls_row[x];
+    const double* o = lv + s * kLegVals;
+    const bool a0 = lvi[2 * s] == r, a1 = lvi[2 * s + 1] == r;
+    const double w = o[6], wp = w * o[7];
+    tc[4 * x] = w * G[x];
+    tc[4 * x + 1] = w * ((a0 ? o[1] : 0.0) + (a1 ? o[2] : 0.0));
+    tc[4 * x + 2] = wp * ((a0 ? o[3] : 0.0) + (a1 ? o[4] : 0.0));
+    tc[4 * x + 3] = wp * ((a0 ? o[4] : 0.0) + (a1 ? o[5] : 0.0));
+    tv[x] = a0 || a1;
+  }
+  XCCY_STAMP(3);
+  double* gb = sm + L.gb;
+  double* U = sm + L.U;
+  for (int j0 = 0; j0 < Qd; j0 += L.Jt) {
+    const int nj = min(L.Jt, Qd - j0);
+    for (int x = tid; x < nj * S; x += kLegBlock) {
+      const int jj = x / S, s = x - jj * S, j = j0 + jj;
+      double a = 0.0;
+      for (int k = ll.ls_ptr[s]; k < ll.ls_ptr[s + 1]; ++k) {
+        a = a + G[k] * T.at(j, ll.ls_row[k]);
+      }
+      const double* o = lv + s * kLegVals;
+      double b = o[1] * T.at(j, lvi[2 * s]);
+      if (lvi[2 * s + 1] >= 0) b = b + o[2] * T.at(j, lvi[2 * s + 1]);
+      gb[jj * 2 * S + s] = a;
+      gb[jj * 2 * S + S + s] = b;
+    }
+    __syncthreads();
+    for (int x = tid; x < nj * R; x += kLegBlock) {
+      const int jj = x / R, r = x - jj * R, j = j0 + jj;
+      double a = 0.0;
+      if (ll.lr_row[r] >= 0) {
+        for (int k = ll.mr_ptr[r]; k < ll.mr_ptr[r + 1]; ++k) {
+          const int e = ll.mr_e[k];
+          const int p = ll.me_rc[2 * e], q = ll.me_rc[2 * e + 1];
+          a = a + M[e] * T.at(j, p == r ? q : p);
+        }
+        for (int k = ll.gd_ptr[r]; k < ll.gd_ptr[r + 1]; ++k) {
+          const int xt = ll.gd_t[k], s = ll.lt_leg[xt];
+          const double* c = tc + 4 * xt;
+          double y = c[0] * gb[jj * 2 * S + S + s];
+          if (tv[xt]) {
+            const int v0 = lvi[2 * s], v1 = lvi[2 * s + 1];
+            y = y + c[1] * gb[jj * 2 * S + s] + c[2] * T.at(j, v0)
+                + c[3] * (v1 >= 0 ? T.at(j, v1) : 0.0);
+          }
+          a = a - y;
+        }
+      }
+      U[jj * R + r] = a;
+    }
+    __syncthreads();
+    // the pairs i <= j of the tile's columns, in column order
+    const long long b0 = (long long)j0 * (j0 + 1) / 2;
+    const long long b1 = (long long)(j0 + nj) * (j0 + nj + 1) / 2;
+    for (long long X = b0 + tid; X < b1; X += kLegBlock) {
+      int j = (int)((sqrt(8.0 * (double)X + 1.0) - 1.0) * 0.5);
+      while ((long long)(j + 1) * (j + 2) / 2 <= X) ++j;
+      while ((long long)j * (j + 1) / 2 > X) --j;
+      const int i = (int)(X - (long long)j * (j + 1) / 2);
+      const double* u = U + (j - j0) * R;
+      double a = 0.0;
+#pragma unroll 4
+      for (int r = 0; r < R; ++r) a = a + T.at(i, r) * u[r];
+      Hl[(((size_t)sc * Qd + i) * t.G + g) * Qd + j] = a;
+      Hl[(((size_t)sc * Qd + j) * t.G + g) * Qd + i] = a;
+    }
+    __syncthreads();
+  }
+  XCCY_STAMP_END();
+}
+
+// K9 / K11's layout of a block's tables for a stage with Qd domestic
+// directions: the core (the legs' values, the targets' sums, the
+// segments' partial sums, K11's targets' coefficients in U, the chunk's
+// flow table or, after it, K11's
+// (gamma, beta) and U of a tile of Jt directions) always, the tiles
+// halving until the core fits; then, where they fit, the tangent rows
+// [Qd, R] and the grid's transforms. First within the
+// shared memory that lets two blocks share an SM, else within a block's
+// most.
+bool plan_legs(const StageTab* t, int Qd, bool hess, LegLayout* out) {
+  int dev = 0, smax = 0, ssm = 0, res = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&smax, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&ssm,
+                             cudaDevAttrMaxSharedMemoryPerMultiprocessor,
+                             dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&res, cudaDevAttrReservedSharedMemoryPerBlock,
+                             dev) != cudaSuccess) {
+    return false;
+  }
+  const long long hard = smax / (long long)sizeof(double);
+  long long soft = (ssm / 2 - res) / (long long)sizeof(double);
+  if (soft > hard) soft = hard;
+  const int S = t->S, R = t->R;
+  for (int pass = 0; pass < 2; ++pass) {
+    const long long cap = pass ? hard : soft;
+    for (int Jt = Qd > 1 ? Qd : 1;; Jt = (Jt + 1) / 2) {
+      LegLayout L;
+      long long off = 0;
+      auto take = [&off](long long k) {
+        const int o = (int)off;
+        off += k;
+        return o;
+      };
+      L.Jt = Jt;
+      L.lv = take((long long)kLegVals * S);
+      L.lvi = take(S);
+      L.acc = take(S + t->NL + (hess ? t->EL : 0));
+      L.part = take(t->NS);
+      L.tc = hess ? take(4LL * t->NL + (t->NL + 1) / 2) : -1;
+      const long long vals = (long long)(hess ? kFlowVals : kJvpVals)
+                             * kLegBlock;
+      const long long post = hess ? (long long)Jt * (2LL * S + R) : 0;
+      L.vals = take(vals > post ? vals : post);
+      L.gb = hess ? L.vals : -1;
+      L.U = hess ? L.vals + Jt * 2 * S : -1;
+      if (off <= cap) {
+        auto room = [&off, cap](long long k) { return off + k <= cap; };
+        L.T = Qd > 0 && room((long long)Qd * R) ? take((long long)Qd * R)
+                                                : -1;
+        L.gt = room(4LL * t->Ld) ? take(4LL * t->Ld) : -1;
+        L.bytes = (int)(off * (long long)sizeof(double));
+        *out = L;
+        return true;
+      }
+      if (Jt == 1) break;
+    }
+  }
+  return false;
+}
+
+bool fits_legs(const StageTab* t) {
+  return fits(t) && t->R >= 1;
 }
 
 // K8 / K10's layout of a block's tables for a stage of D directions: the
@@ -1556,16 +2014,19 @@ extern "C" int xccy_stage_jvp_f64(const XccyStageTab* t, int Sc, int D,
 }
 
 // K9: pv0 [Sc, G, S], jpv [Sc, Qd, G, S] from dd [Sc, G, Ld] and tdl
-// [Sc, Qd, G, Ld].
+// [Sc, Qd, G, Ld]. A block a (scenario, member).
 extern "C" int xccy_legs_jvp_f64(const XccyStageTab* t, int Sc, int Qd,
                                  const double* dd, const double* tdl,
                                  double* pv0, double* jpv,
                                  cudaStream_t stream) {
-  if (!fits(t)) return (int)cudaErrorInvalidValue;
-  const long long items = (long long)Sc * t->G * Qd;
-  if (items == 0) return 0;
-  k9_legs_jvp<<<blocks_for(items), kThreads, 0, stream>>>(*t, Sc, Qd, dd, tdl,
-                                                          pv0, jpv);
+  if (!fits_legs(t) || Qd < 0) return (int)cudaErrorInvalidValue;
+  if ((long long)Sc * t->G * Qd == 0) return 0;
+  LegLayout L;
+  if (!plan_legs(t, Qd, false, &L)) return (int)cudaErrorInvalidValue;
+  const cudaError_t err = allow_smem(k9_legs_jvp, L.bytes);
+  if (err != cudaSuccess) return (int)err;
+  k9_legs_jvp<<<(unsigned)((long long)Sc * t->G), kLegBlock, L.bytes,
+                stream>>>(*t, L, Qd, dd, tdl, pv0, jpv);
   return (int)cudaGetLastError();
 }
 
@@ -1601,34 +2062,44 @@ extern "C" int xccy_stage_hess_f64(const XccyStageTab* t, int Sc, int D,
   return (int)cudaGetLastError();
 }
 
-// K11: gdd [Sc, G, Ld] (n_gd = Ld), Hl [Sc, Qd, G, Qd] from pairs
-// [n_pairs, 2], dd [Sc, G, Ld], tdl [Sc, Qd, G, Ld] and gpv [Sc, G, S].
+// K11: gdd [Sc, G, Ld] (n_gd = Ld), Hl [Sc, Qd, G, Qd] from dd [Sc, G,
+// Ld], tdl [Sc, Qd, G, Ld] and gpv [Sc, G, S]. pairs [n_pairs, 2] is the
+// pair table of every i <= j once (n_pairs = Qd(Qd+1)/2), which the
+// kernel enumerates in its own order. A block a (scenario, member).
 extern "C" int xccy_legs_hess_f64(const XccyStageTab* t, int Sc, int Qd,
                                   int n_pairs, const int* pairs, int n_gd,
                                   const double* dd, const double* tdl,
                                   const double* gpv, double* gdd, double* Hl,
                                   cudaStream_t stream) {
-  if (!fits(t)) return (int)cudaErrorInvalidValue;
-  const long long items = (long long)Sc * t->G * (n_pairs + n_gd);
-  if (items == 0) return 0;
-  k11_legs_hess<<<blocks_for(items), kThreads, 0, stream>>>(
-      *t, Sc, Qd, n_pairs, pairs, n_gd, dd, tdl, gpv, gdd, Hl);
+  (void)pairs;
+  if (!fits_legs(t) || Qd < 0
+      || (long long)n_pairs != (long long)Qd * (Qd + 1) / 2
+      || n_gd != t->Ld) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if ((long long)Sc * t->G == 0) return 0;
+  LegLayout L;
+  if (!plan_legs(t, Qd, true, &L)) return (int)cudaErrorInvalidValue;
+  const cudaError_t err = allow_smem(k11_legs_hess, L.bytes);
+  if (err != cudaSuccess) return (int)err;
+  k11_legs_hess<<<(unsigned)((long long)Sc * t->G), kLegBlock, L.bytes,
+                  stream>>>(*t, L, Qd, dd, tdl, gpv, gdd, Hl);
   return (int)cudaGetLastError();
 }
 
 // The registers and local memory a thread of kernel `which` (8-11) takes,
-// and, at this stage with D directions (rows: tangent rows given), its
-// dynamic shared memory a block, the blocks an SM holds at once, its
-// threads a block, K8 / K10's tile, what their layout holds in shared
-// memory beside the core and their blocks a (scenario, member): out[8] =
-// {registers, local bytes a thread, shared bytes a block, blocks an SM,
-// threads a block, tile, held: 1 the grid's transforms | 2 the chain
-// tables | 4 the tangent rows | 8 K10's tape | 16 K10's lists, blocks a
-// (scenario, member)}.
+// and, at this stage with D directions (K9 / K11: Qd; rows: tangent rows
+// given), its dynamic shared memory a block, the blocks an SM holds at
+// once, its threads a block, its tile (K8 / K10: directions; K11: the
+// directions of a tile of U), what its layout holds in shared memory beside
+// the core and its blocks a (scenario, member): out[8] = {registers, local
+// bytes a thread, shared bytes a block, blocks an SM, threads a block,
+// tile, held: 1 the grid's transforms | 2 the chain tables | 4 the tangent
+// rows | 8 K10's tape | 16 K10's lists, blocks a (scenario, member)}.
 extern "C" int xccy_kernel_info(const XccyStageTab* t, int D, int which,
                                 int rows, int* out) {
   const void* fn = nullptr;
-  int smem = 0, threads = kThreads, tile = 0, held = 0, per = 0;
+  int smem = 0, threads = kBlock, tile = 0, held = 0, per = 0;
   cudaError_t err = cudaSuccess;
   if (which == 8 || which == 10) {
     Layout L;
@@ -1637,20 +2108,26 @@ extern "C" int xccy_kernel_info(const XccyStageTab* t, int D, int which,
       return (int)cudaErrorInvalidValue;
     }
     fn = which == 8 ? (const void*)k8_stage_jvp : (const void*)k10_stage_hess;
-    smem = L.bytes;
-    threads = kBlock;
     tile = L.Dt;
     held = (L.gt >= 0) | (L.ptf >= 0) << 1 | (L.tt >= 0) << 2
            | (L.tape >= 0) << 3 | (L.lists >= 0) << 4;
     per = which == 8 ? L.nT : hess_blocks(L.nT, L.Dt, D, rows ? t->Lf : 0);
-    err = allow_smem(fn, smem);
-  } else if (which == 9) {
-    fn = (const void*)k9_legs_jvp;
-  } else if (which == 11) {
-    fn = (const void*)k11_legs_hess;
+    smem = L.bytes;
+  } else if (which == 9 || which == 11) {
+    LegLayout L;
+    if (!fits_legs(t) || D < 0 || !plan_legs(t, D, which == 11, &L)) {
+      return (int)cudaErrorInvalidValue;
+    }
+    fn = which == 9 ? (const void*)k9_legs_jvp : (const void*)k11_legs_hess;
+    threads = kLegBlock;
+    tile = which == 11 ? L.Jt : 0;
+    held = (L.gt >= 0) | (L.T >= 0) << 2;
+    per = 1;
+    smem = L.bytes;
   } else {
     return (int)cudaErrorInvalidValue;
   }
+  err = allow_smem(fn, smem);
   cudaFuncAttributes a;
   if (err == cudaSuccess) err = cudaFuncGetAttributes(&a, fn);
   int nb = 0;

@@ -29,10 +29,13 @@ K11 ``xccy_legs_hess`` (``csrc/xccy_stage.cu``) replace the
 ``torch.func`` towers over an XCCY stage of the structured risk pass
 (``adrates_tpu/parallel/structured_risk.py`` :321 and :457-603 over
 ``curve_batching.py`` :265-319, ``ops/xccy_bootstrap.py`` :78 and
-``ops/pricers.py`` :102): the stage evaluated in dual or hyper-dual
-arithmetic on ``ops/xccy_stage.XccyStageTables``, K8 / K10 split at its
-node DFs (the pair-independent work once a block), whose module holds
-their plain versions. K1-K3 are
+``ops/pricers.py`` :102) on ``ops/xccy_stage.XccyStageTables``: K8 /
+K10 evaluate the stage in dual or hyper-dual arithmetic, split at its
+node DFs (the pair-independent work once a block); K9 / K11 evaluate the
+calibration legs' flows once a (scenario, member), collapse their
+gradients and gpv-weighted Hessian onto the domestic grid and take each
+direction or pair as a dot product. Their module holds their plain
+versions. K1-K3 are
 forward-only (their derivatives are closed form elsewhere), and so are
 K8-K11 (derivatives themselves). All eleven
 are f64; K1
@@ -1568,7 +1571,8 @@ fitted_rows_t.launches = 0
 
 class _XStage(ctypes.Structure):
     """csrc/xccy_stage.cu ``StageTab``: an ``XccyStageTables``' sizes and
-    its tensors' device pointers, then the rows' node and band tables."""
+    its tensors' device pointers, then the rows' node and band tables,
+    then K9 / K11's lists over the legs."""
     _INTS = ("G", "S", "n", "U1", "Lf", "Ld", "W", "P", "Pd", "fsch",
              "dsch", "flags")
     _PTRS = ("pt_f", "pt_i", "v0", "fxs", "fq_i", "fq_f", "f_xs", "rq_i",
@@ -1577,10 +1581,16 @@ class _XStage(ctypes.Structure):
     _BAND_INTS = ("E", "NR", "NB")
     _BAND_PTRS = ("nr_ptr", "nr_row", "mb_pq", "mb_ptr", "mb_row",
                   "tp_off")
+    _LEG_INTS = ("R", "NL", "EL", "NS", "nC", "NGD", "NMR", "NTT")
+    _LEG_PTRS = ("lr_row", "lr_of", "ls_ptr", "ls_row", "lt_leg", "gd_ptr",
+                 "gd_t", "me_rc", "mr_ptr", "mr_e", "lt_term", "sg",
+                 "sc_ptr", "ts_ptr", "ts_seg")
     _fields_ = ([(k, ctypes.c_int) for k in _INTS]
                 + [(k, ctypes.c_void_p) for k in _PTRS]
                 + [(k, ctypes.c_int) for k in _BAND_INTS]
-                + [(k, ctypes.c_void_p) for k in _BAND_PTRS])
+                + [(k, ctypes.c_void_p) for k in _BAND_PTRS]
+                + [(k, ctypes.c_int) for k in _LEG_INTS]
+                + [(k, ctypes.c_void_p) for k in _LEG_PTRS])
 
 
 def _xstage(tab: xccy_stage.XccyStageTables) -> int:
@@ -1588,13 +1598,17 @@ def _xstage(tab: xccy_stage.XccyStageTables) -> int:
     ``tab.cache`` beside the tensors it points into)."""
     st = tab.cache.get("c")
     if st is None:
-        ptrs = _XStage._PTRS + _XStage._BAND_PTRS
+        ptrs = _XStage._PTRS + _XStage._BAND_PTRS + _XStage._LEG_PTRS
         for k in ptrs:
             t = getattr(tab, k)
             _need(t, k, torch.float64 if t.dtype == torch.float64
                   else torch.int32, t.dim(), tab.pt_f.device)
         sizes = dict(E=tab.E, NR=tab.nr_row.shape[1],
-                     NB=tab.mb_row.shape[1])
+                     NB=tab.mb_row.shape[1], R=tab.lr_row.shape[1],
+                     NL=tab.ls_row.shape[1], EL=tab.me_rc.shape[1],
+                     NS=tab.sg.shape[1], nC=tab.sc_ptr.shape[1] // 2,
+                     NGD=tab.gd_t.shape[1], NMR=tab.mr_e.shape[1],
+                     NTT=tab.lt_term.shape[1])
         st = _XStage(**{k: getattr(tab, k) for k in _XStage._INTS},
                      **sizes, **{k: getattr(tab, k).data_ptr()
                                  for k in ptrs})
@@ -1617,12 +1631,16 @@ def xccy_kernel_info(tab, name: str) -> dict:
     quotients and its node and band lists their blocks hold in shared
     memory (``held``; the others are read from device memory, the tape's
     values computed by every thread) and their blocks a (scenario,
-    member)."""
+    member); for K9 / K11 at the stage's Qd domestic directions, which of
+    the domestic grid's transforms and the tangent rows their blocks hold
+    in shared memory and K11's directions a tile of U."""
     if _lib is None:
         build_kernels()
     out = (ctypes.c_int * 8)()
-    _check(_lib.xccy_kernel_info(_xstage(tab), tab.D, _XCCY_KERNEL[name],
-                                 int(tab.recal), out), "xccy_kernel_info")
+    k = _XCCY_KERNEL[name]
+    _check(_lib.xccy_kernel_info(_xstage(tab), tab.Qd if k in (9, 11)
+                                 else tab.D, k, int(tab.recal), out),
+           "xccy_kernel_info")
     info = dict(zip(("registers", "local_bytes", "smem_bytes",
                      "blocks_per_sm", "threads", "tile"), list(out)[:6]))
     info["held"] = [k for b, k in ((1, "grid"), (2, "chain"), (4, "rows"),
@@ -1693,8 +1711,10 @@ def xccy_legs_jvp(tab, dd: torch.Tensor, tdl: torch.Tensor):
     """K9: (pv0 [Sc, G, S], Jpv [Sc, Qd, G, S]), the calibration legs'
     PVs and their directional derivatives along the domestic tangents
     tdl [Sc, Qd, G, Ld] at dd [Sc, G, Ld] (see
-    ``xccy_stage.xccy_legs_jvp_plain``): a dual-number thread a
-    (scenario, member, direction); two ``torch.empty`` and one launch."""
+    ``xccy_stage.xccy_legs_jvp_plain``): a block a (scenario, member)
+    evaluates the legs' flows once, collapses their gradients onto the
+    domestic grid's rows and takes Jpv[d, s] = G_s . t_d; two
+    ``torch.empty`` and one launch."""
     Sc, G = dd.shape[0], tab.G
     _xshape(dd, "dd", (Sc, G, tab.Ld))
     _xshape(tdl, "tdl", (Sc, tab.Qd, G, tab.Ld))
@@ -1761,10 +1781,12 @@ def xccy_legs_hess(tab, dd: torch.Tensor, tdl: torch.Tensor,
                    gpv: torch.Tensor):
     """K11: (gdd [Sc, G, Ld], Hl [Sc, Qd, G, Qd]) for s(Zd, dd) =
     sum(gpv . legs(dd + Zd . tdl)) at Zd = 0 (see
-    ``xccy_stage.xccy_legs_hess_plain``; gpv [Sc, G, S]): a hyper-dual
-    thread a (scenario, member, pair of ``tab.lpairs``), written at
-    [i, j] and [j, i], then a dual thread a (scenario, member, domestic
-    grid entry); two ``torch.empty`` and one launch."""
+    ``xccy_stage.xccy_legs_hess_plain``; gpv [Sc, G, S]): a block a
+    (scenario, member) evaluates the legs' flows once, collapses gdd and
+    the gpv-weighted Hessian M onto the domestic grid's rows, then takes
+    U = M T' and each pair i <= j once as t_i . U_j, written at [i, j]
+    and [j, i] (the kernel enumerates the pairs; ``tab.lpairs`` is passed
+    but not read); two ``torch.empty`` and one launch."""
     Sc, G = dd.shape[0], tab.G
     _xshape(dd, "dd", (Sc, G, tab.Ld))
     _xshape(tdl, "tdl", (Sc, tab.Qd, G, tab.Ld))

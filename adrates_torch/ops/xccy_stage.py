@@ -6,10 +6,11 @@ calibration legs ``xccy_legs_pv``) is differentiated by the structured
 split (``parallel/structured_risk``) along D composed directions in
 region A and to the second order in region C1. On the card those
 derivatives come from four hand-written kernels
-(``csrc/xccy_stage.cu``), which evaluate the stage in a scalar type T: a
-dual number (value and one tangent) for a directional derivative, a
-hyper-dual one (value, e1, e2, e1 e2) for one entry of a Hessian, so
-second derivatives are exact with no hand-derived adjoint:
+(``csrc/xccy_stage.cu``). K8 / K10 evaluate the stage in a scalar type
+T: a dual number (value and one tangent) for a directional derivative,
+a hyper-dual one (value, e1, e2, e1 e2) for one entry of a Hessian, so
+second derivatives are exact with no hand-derived adjoint; K9 / K11 take
+the calibration legs' flows' partials:
 
 - K8 ``xccy_stage_jvp``: the native DFs, the rows and the rows'
   directional derivatives along the D directions (basis spreads, the
@@ -21,7 +22,24 @@ second derivatives are exact with no hand-derived adjoint:
   Z and in the foreign grid and its Hessian in Z, each pair i <= j once
   (written at [i, j] and [j, i]);
 - K11 ``xccy_legs_hess``: the same for sum gpv . legs(dd + Zd tdl) over
-  the domestic directions and grid, a thread a pair.
+  the domestic directions and grid.
+
+K9 and K11 split the legs at their flows. Both lift the domestic grid
+linearly along tangent rows t_d, so Jpv[d, s] = G_s . t_d and Hl_ij =
+t_i' M t_j exactly, G_s = dPV_s/dd and M = sum_s gpv_s d2PV_s/dd2. A
+block takes one (scenario, member): it evaluates every flow once
+(:func:`leg_flow`: n = sign cf D_pay, its partials in the taps of its
+index start, index end and payment DFs and, K11, gpv_s / V_s times its
+second partials), sums them onto the domestic grid's rows in static
+segments of the host's lists (:func:`_legs_lists`, from the plans
+alone), and forms G_s and M_N = sum_s gpv_s / V_s d2N_s/dd2 on its
+static support (:func:`legs_prologue`; PV_s = N_s / V_s, the value DF's
+coupling folded into U_j = M t_j by :func:`legs_u`); then a dot a
+direction (K9) or pair (K11, :func:`legs_pair`). What bounds them is the
+chain latency of one block a (scenario, member), not bytes or
+operations. Any change to ``pv_float_leg`` or :func:`legs_forward` must
+also be made in :func:`leg_flow`, the kernels' ``leg_flow`` and the
+lists: a slot the lists leave out gives a wrong Hessian with no error.
 
 K8 and K10 split the stage at its node DFs ds [U1]: the *chain* (the
 bootstrap over the chain points, :func:`thread_chain`) ends in ds, and
@@ -42,10 +60,11 @@ plain versions are torch on those tables, differentiated by
 ``torch.func``: the CPU path of the wrappers in ``ops/kernels`` and the
 oracle of the kernels' card tests. :func:`thread_stage` and
 :func:`thread_legs` are the stage's evaluation written once more in
-Python over any scalar type, split as K8 / K10 split it: the tests run
-it in hyper-dual numpy arithmetic, and the operations the kernels'
-functions need (their bounds) and the kernels' own are counted on it
-(:func:`needed_flops`).
+Python over any scalar type, split as K8 / K10 split it, and
+:func:`legs_prologue` / :func:`legs_pair` K9 / K11's split: the tests
+run them in (hyper-dual) numpy arithmetic, and the operations the
+kernels' functions need (their bounds) and the kernels' own are counted
+on them (:func:`needed_flops`).
 
 The bootstrap's solve is forward substitution in chain order: pillar k's
 factor x_k = -(pv_k + fxs (v0_k + acc_k)) / d_k, with acc_k the sum of
@@ -93,6 +112,16 @@ MAX_U = 64
 TILE = 16
 BLOCK = 128
 ITEMS = 2 * BLOCK
+
+# K9 / K11's threads a block, which are also the flows of a chunk
+# (csrc/xccy_stage.cu kLegBlock), and the pairs a <= b of a flow's six
+# slots, row-major (spair)
+LEG_BLOCK = 256
+SLOT_PAIRS = [(a, b) for a in range(6) for b in range(a, 6)]
+_PAIR = {ab: k for k, ab in enumerate(SLOT_PAIRS)}
+# the most terms of one segment of K9 / K11's sums (a thread's serial sum
+# before the segments of a target are added in order)
+LEG_SEG = 32
 
 # chain-point flags (pt_i[..., 2]) and the legs' switches (``flags``)
 IS_MAT, IS_NOTL, IS_LAST = 1, 2, 4
@@ -175,7 +204,13 @@ class XccyStageTables:
       entries p < q of M = d2s/dds2 off its diagonal, each with its rows
       ``mb_ptr`` [G, E + 1] / ``mb_row`` [G, NB];
     - ``tp_off`` [G, n + 1]: each chain point's place on K10's tape of
-      the primal chain's exps and quotients (:func:`_tape_offsets`).
+      the primal chain's exps and quotients (:func:`_tape_offsets`);
+    - K9 / K11's lists over the legs (:func:`_legs_lists`): the rows
+      ``lr_row`` / ``lr_of``, the legs' gradient targets ``ls_ptr`` /
+      ``ls_row`` / ``lt_leg`` and each row's ``gd_ptr`` / ``gd_t``, M_N's
+      entries ``me_rc`` and each row's ``mr_ptr`` / ``mr_e``, and the
+      sums' terms ``lt_term`` in segments ``sg`` by chunk ``sc_ptr``,
+      each target's ``ts_ptr`` / ``ts_seg``.
 
     ``D`` is the stage's direction count (2S + Qf recalibrated, S held
     as values), ``npv`` the PV directions (S or 0), ``Qd`` the domestic
@@ -226,6 +261,21 @@ class XccyStageTables:
     mb_ptr: torch.Tensor
     mb_row: torch.Tensor
     tp_off: torch.Tensor
+    lr_row: torch.Tensor
+    lr_of: torch.Tensor
+    ls_ptr: torch.Tensor
+    ls_row: torch.Tensor
+    lt_leg: torch.Tensor
+    gd_ptr: torch.Tensor
+    gd_t: torch.Tensor
+    me_rc: torch.Tensor
+    mr_ptr: torch.Tensor
+    mr_e: torch.Tensor
+    lt_term: torch.Tensor
+    sg: torch.Tensor
+    sc_ptr: torch.Tensor
+    ts_ptr: torch.Tensor
+    ts_seg: torch.Tensor
     cache: dict = dataclasses.field(default_factory=dict, init=False,
                                     repr=False)
 
@@ -364,6 +414,177 @@ def _tape_offsets(pt_f: np.ndarray, pt_i: np.ndarray, fq_i: np.ndarray,
     return off
 
 
+def _taps(qi) -> list:
+    """The grid entries a packed query reads: its exact knot, else the two
+    entries that bracket it."""
+    return [int(qi[2])] if qi[2] >= 0 else [int(qi[0]), int(qi[1])]
+
+
+def _legs_lists(li_i: np.ndarray, ld_i: np.ndarray, P: int, Ld: int):
+    """K9 / K11's static lists over the calibration legs, from the packed
+    index and discount plans alone (``probe_tables`` rewrites the legs'
+    values and switches, never these). A member's flows f = s (P + 2) + p
+    are its legs' P coupons and two notional exchanges (these only where
+    the discount plan has their queries, Pd >= P + 3), in chunks of
+    ``LEG_BLOCK``; a flow's six slots are the taps of its index start
+    (A: 0, 1), index end (B: 2, 3) and payment or exchange DF (C: 4, 5),
+    a knot query filling one. Per member (each padded to the stage's
+    largest):
+
+    - ``lr_row`` [G, R] the grid entries some query of the legs reads (the
+      rows, ascending; -1 pads), ``lr_of`` [G, Ld] each entry's row or -1;
+    - each leg's rows (its flows' and its value DF's), ``ls_ptr``
+      [G, S + 1] / ``ls_row`` [G, NL] (a gradient target a (leg, row), in
+      leg then row order) with ``lt_leg`` [G, NL] its leg, and each row's
+      targets in leg order ``gd_ptr`` [G, R + 1] / ``gd_t``;
+    - the entries (r <= c) of M_N = sum_s w_s d2N_s/dd2 over the rows
+      (the rows of each pair of slots of one flow), ``me_rc`` [G, E, 2]
+      in the order first met, and each row's entries ``mr_ptr``
+      [G, R + 1] / ``mr_e``;
+    - the sums, over the targets [N_s (S) | gradient (NL) | M_N (E)]:
+      each target's terms ``lt_term``, in flow order, a term the place of
+      its value in a chunk's flow table, (k LEG_BLOCK + f mod LEG_BLOCK)
+      2 + 1 where two distinct slots of a pair fall on one row (counted
+      twice), with k 0 the flow's n, 1 + a its slot a's partial and
+      7 + pair its slot pair's second partial (``SLOT_PAIRS``); cut into
+      segments of at most ``LEG_SEG`` terms of one chunk, ``sg`` [G, NS,
+      2] (a term range), in chunk order and, within a chunk, the sums'
+      and gradients' before M_N's (``sc_ptr`` [G, 2 nC + 1]: chunk c's
+      from 2c, its M_N segments from 2c + 1), and each target's segments
+      in term order ``ts_ptr`` [G, S + NL + E + 1] / ``ts_seg``.
+    """
+    G, S = li_i.shape[:2]
+    Pd = ld_i.shape[2]
+    F = P + 2
+    nC = -(-S * F // LEG_BLOCK)
+    n_ex = 2 if Pd >= P + 3 else 0
+    per = []
+    for g in range(G):
+        def flow_slots(s, p):
+            """[(slot, grid entry)] of flow p of leg s."""
+            if p >= P:
+                if p - P >= n_ex:
+                    return []
+                return [(4 + a, x) for a, x in
+                        enumerate(_taps(ld_i[g, s, P + 1 + p - P]))]
+            qs = (li_i[g, s, p], li_i[g, s, P + p], ld_i[g, s, p])
+            return [(2 * k + a, x) for k, q in enumerate(qs)
+                    for a, x in enumerate(_taps(q))]
+        slots = {(s, p): flow_slots(s, p) for s in range(S) for p in range(F)}
+        vt = [_taps(ld_i[g, s, P]) for s in range(S)]
+        rows = sorted({x for v in slots.values() for _, x in v}
+                      | {x for v in vt for x in v})
+        of = {x: r for r, x in enumerate(rows)}
+
+        def term(f, k, dbl=0):
+            return (k * LEG_BLOCK + f % LEG_BLOCK) * 2 + dbl
+
+        sums = [[(s * F + p, term(s * F + p, 0)) for p in range(F)]
+                for s in range(S)]
+        legs, grads, leg_of = [], [], []
+        for s in range(S):
+            lrows = sorted({of[x] for p in range(F) for _, x in slots[s, p]}
+                           | {of[x] for x in vt[s]})
+            legs.append(lrows)
+            for r in lrows:
+                leg_of.append(s)
+                grads.append([(s * F + p, term(s * F + p, 1 + a))
+                              for p in range(F) for a, x in slots[s, p]
+                              if of[x] == r])
+        gd = [[] for _ in rows]
+        for t, r in enumerate(r for ls in legs for r in ls):
+            gd[r].append(t)
+        ents = {}
+        for s in range(S):
+            for p in range(F):
+                f, sl = s * F + p, slots[s, p]
+                for i, (a, xa) in enumerate(sl):
+                    for b, xb in sl[i:]:
+                        ra, rb = of[xa], of[xb]
+                        ents.setdefault((min(ra, rb), max(ra, rb)), []).append(
+                            (f, term(f, 7 + _PAIR[(a, b)],
+                                     int(a != b and ra == rb))))
+        mr = [[] for _ in rows]
+        for e, (r, c) in enumerate(ents):
+            mr[r].append(e)
+            if c != r:
+                mr[c].append(e)
+        per.append(dict(rows=rows, legs=legs, leg_of=leg_of, gd=gd,
+                        mr=mr, ents=list(ents), sums=sums, grads=grads,
+                        mterms=list(ents.values())))
+    R = max(len(m["rows"]) for m in per)
+    NL = max(len(m["leg_of"]) for m in per)
+    E = max(1, max(len(m["ents"]) for m in per))
+
+    def csr(lists):
+        ptr = np.zeros((G, max(len(x) for x in lists) + 1), dtype=np.int32)
+        flat = np.zeros((G, max(1, max(sum(len(y) for y in x)
+                                       for x in lists))), dtype=np.int32)
+        for g, ls in enumerate(lists):
+            c = np.cumsum([len(y) for y in ls]) if ls else [0]
+            ptr[g, 1:len(ls) + 1] = c
+            ptr[g, len(ls) + 1:] = c[-1]
+            cat = [w for y in ls for w in y]
+            flat[g, :len(cat)] = cat
+        return ptr, flat
+
+    def pad(x, n):
+        return x + [[]] * (n - len(x))
+
+    # each target's terms, cut into segments of one chunk
+    lt, sg, ts, sc = [], [], [], []
+    for m in per:
+        targets = m["sums"] + pad(m["grads"], NL) + pad(m["mterms"], E)
+        flat, segs = [], []            # (chunk, M_N?, target, lo, hi)
+        for t, terms in enumerate(targets):
+            lo = len(flat)
+            flat += [c for _, c in terms]
+            chunk = [f // LEG_BLOCK for f, _ in terms]
+            k = lo
+            while k < len(flat):
+                c0, e = chunk[k - lo], k
+                while e < len(flat) and e - k < LEG_SEG \
+                        and chunk[e - lo] == c0:
+                    e += 1
+                segs.append((c0, int(t >= S + NL), t, k, e))
+                k = e
+        segs.sort(key=lambda x: (x[0], x[1]))
+        mine = [[] for _ in targets]
+        for i, x in enumerate(segs):
+            mine[x[2]].append(i)
+        bounds = [0] * (2 * nC + 1)
+        for x in segs:
+            bounds[2 * x[0] + x[1] + 1] += 1
+        lt.append([flat])
+        sg.append([[x[3], x[4]] for x in segs])
+        ts.append(mine)
+        sc.append(np.cumsum(bounds).tolist())
+    NS = max(1, max(len(x) for x in sg))
+    sg_a = np.zeros((G, NS, 2), dtype=np.int32)
+    for g, x in enumerate(sg):
+        if x:
+            sg_a[g, :len(x)] = x
+    lr_row = np.full((G, R), -1, dtype=np.int32)
+    lr_of = np.full((G, Ld), -1, dtype=np.int32)
+    me_rc = np.zeros((G, E, 2), dtype=np.int32)
+    lt_leg = np.zeros((G, max(NL, 1)), dtype=np.int32)
+    for g, m in enumerate(per):
+        lr_row[g, :len(m["rows"])] = m["rows"]
+        lr_of[g, m["rows"]] = np.arange(len(m["rows"]))
+        if m["ents"]:
+            me_rc[g, :len(m["ents"])] = m["ents"]
+        lt_leg[g, :len(m["leg_of"])] = m["leg_of"]
+    ls_ptr, ls_row = csr([m["legs"] for m in per])
+    gd_ptr, gd_t = csr([pad(m["gd"], R) for m in per])
+    mr_ptr, mr_e = csr([pad(m["mr"], R) for m in per])
+    ts_ptr, ts_seg = csr(ts)
+    return dict(lr_row=lr_row, lr_of=lr_of, ls_ptr=ls_ptr, ls_row=ls_row,
+                lt_leg=lt_leg, gd_ptr=gd_ptr, gd_t=gd_t, me_rc=me_rc,
+                mr_ptr=mr_ptr, mr_e=mr_e, lt_term=csr(lt)[1], sg=sg_a,
+                sc_ptr=np.asarray(sc, dtype=np.int32), ts_ptr=ts_ptr,
+                ts_seg=ts_seg)
+
+
 def _chain(p, pad_mask: np.ndarray):
     """(pt_f, pt_i, mat_pos, u_src) from a stacked XccyBootstrapPlan,
     after checking what the single forward pass relies on."""
@@ -467,8 +688,13 @@ def stage_tables(st, its: Sequence[InterpTypes], b: dict, row_plan: dict,
              + CAP_FLOOR * bool(legs.has_cap_floor))
     fxs = np.asarray(b["spot_fx"], dtype=np.float64) \
         * float(p.foreign_sign)
+    if flags & NOTIONAL_EXCHANGE and ld_i.shape[-2] < P + 3:
+        raise LibError("XCCY stage tables: notional exchanges with no "
+                       "discount queries at the effective and maturity "
+                       "times")
     nr_ptr, nr_row, mb_pq, mb_ptr, mb_row = _row_bands(rq_i, U1)
     tp_off = _tape_offsets(pt_f, pt_i, fq_i, SCHEME_CODE[st.foreign_interp])
+    ll = _legs_lists(li_i, ld_i, int(P), int(Ld))
 
     def f64(a):
         return torch.as_tensor(np.ascontiguousarray(a, dtype=np.float64),
@@ -493,7 +719,8 @@ def stage_tables(st, its: Sequence[InterpTypes], b: dict, row_plan: dict,
         pv_dom0=f64(b["pv_dom0"]), hpairs=i32(pair_table(D)),
         lpairs=i32(pair_table(Qd)), E=int(mb_pq.shape[1]),
         nr_ptr=i32(nr_ptr), nr_row=i32(nr_row), mb_pq=i32(mb_pq),
-        mb_ptr=i32(mb_ptr), mb_row=i32(mb_row), tp_off=i32(tp_off))
+        mb_ptr=i32(mb_ptr), mb_row=i32(mb_row), tp_off=i32(tp_off),
+        **{k: i32(v) for k, v in ll.items()})
 
 
 # ---------------------------------------------------------------------------
@@ -1207,8 +1434,10 @@ def rows_jvp(h: dict, g: int, ds, J):
 
 
 def thread_legs(T, h: dict, g: int, dd, d1, d2, leg_sink):
-    """One K9 / K11 thread's evaluation of member ``g``'s calibration
-    legs in T at the domestic grid ``dd`` [Ld] along ``d1`` / ``d2``;
+    """Member ``g``'s calibration legs evaluated whole in T at the
+    domestic grid ``dd`` [Ld] along ``d1`` / ``d2`` (what a K9 / K11
+    thread did before the legs were split at their flows; the count of
+    :func:`needed_flops`' need and the emulated threads of the tests);
     calls ``leg_sink(s, pv)`` for every leg."""
     S, P = h["S"], h["P"]
     xs = h["d_xs"][g]
@@ -1250,6 +1479,299 @@ def thread_legs(T, h: dict, g: int, dd, d1, d2, leg_sink):
                     total = total + (sign * amt) * (q(di, df, P + 1 + e)
                                                    / dval)
         leg_sink(s, total)
+
+
+# ---------------------------------------------------------------------------
+# K9 / K11 split: the legs' primal, gradients and M once a (scenario,
+# member), then a dot a direction or pair
+# ---------------------------------------------------------------------------
+
+
+def _prim(x) -> float:
+    return x.v if isinstance(x, (Dual, HyperDual)) else x
+
+
+def leg_query(h: dict, qi, qf, tg, dd):
+    """One query of a member's legs on its domestic grid ``dd`` [Ld]
+    transformed once (``tg``: :func:`transform` of each entry), as K9 /
+    K11's flow pass takes it (csrc/xccy_stage.cu leg_query): (D, its
+    first partials in its taps (:func:`_taps`), its second partials
+    (h00, h01, h11) in them, None at a knot): interp's knot select (dD/dd
+    = 1, no second order), LINEAR_ZERO's x_safe, FLAT_FWD's exp."""
+    if qi[2] >= 0:
+        return dd[int(qi[2])], [1.0], None
+    c, qt = float(qf[0]), float(qf[1])
+    p0, p1 = tg[int(qi[0])], tg[int(qi[1])]
+    v = p0[1] + c * (p1[1] - p0[1])
+    if h["dsch"] == LIN_FWD:
+        d, f1, f2 = v, 1.0, 0.0
+    elif h["dsch"] == FLAT_FWD:
+        d = _exp(-v)
+        f1, f2 = -d, d
+    else:
+        d = _exp(-v * qt)
+        f1 = -qt * d
+        f2 = qt * (qt * d)
+    u0, u1 = (1.0 - c) * p0[2], c * p1[2]
+    return d, [f1 * u0, f1 * u1], (
+        f2 * (u0 * u0) + f1 * ((1.0 - c) * p0[3]), f2 * (u0 * u1),
+        f2 * (u1 * u1) + f1 * (c * p1[3]))
+
+
+def _put_query_hess(hN, base, k, x1, x2):
+    """k times a query's second partials into the slot Hessian hN at its
+    slots base, base + 1."""
+    if x2 is None:
+        return
+    hN[_PAIR[(base, base)]] = k * x2[0]
+    hN[_PAIR[(base, base + 1)]] = k * x2[1]
+    hN[_PAIR[(base + 1, base + 1)]] = k * x2[2]
+
+
+def leg_flow(h: dict, g: int, s: int, p: int, tg, dd, w=None):
+    """Flow p of member g's leg s (p < P a coupon, P + e exchange e) as
+    K9 / K11's flow pass takes it (csrc/xccy_stage.cu leg_flow): (n,
+    gN [6], hN [21] or None) with n = sign cf D_pay (an exchange: sign
+    amt D_ex), gN its partials in its six slots and, given w (K11:
+    gpv_s / D_val), w times its Hessian in them (pairs of
+    ``SLOT_PAIRS``). pv_float_leg's branches as :func:`thread_legs` takes
+    them: a past coupon (payt <= vt) and an exchange before vt are 0; the
+    first-fixing override on flow 0 and an ia = 0 slot (the double-where)
+    give a fixed rate, no index DF read; the cap / floor clamp fixes the
+    rate strictly beyond it, the floor first, then the cap, as
+    torch.clamp's min(max(rate, floor), cap) (its derivative passes at the
+    cap and the floor); the principal rides on the last coupon."""
+    P, flags = h["P"], h["flags"]
+    principal, sign, vt, ffr, nx, eff, matt, cap, flo = (
+        float(x) for x in h["leg_s"][g, s])
+    di, df = h["ld_i"][g, s], h["ld_f"][g, s]
+    gN = [0.0] * 6
+    hN = None if w is None else [0.0] * 21
+    if p >= P:
+        e = p - P
+        ext, amt = (matt, nx) if e else (eff, -nx)
+        if not (flags & NOTIONAL_EXCHANGE and ext >= vt):
+            return 0.0, gN, hN
+        x, x1, x2 = leg_query(h, di[P + 1 + e], df[P + 1 + e], tg, dd)
+        k = sign * amt
+        for a, v in enumerate(x1):
+            gN[4 + a] = k * v
+        if hN is not None:
+            _put_query_hess(hN, 4, w * k, x1, x2)
+        return k * x, gN, hN
+    payt, pa, ia, spr, notl = (float(x) for x in h["leg_f"][g, s, p])
+    if not payt > vt:
+        return 0.0, gN, hN
+    li, lf = h["li_i"][g, s], h["li_f"][g, s]
+    C, c1, c2 = leg_query(h, di[p], df[p], tg, dd)
+    K = 0.0
+    if flags & OVERRIDE_FIRST and p == 0:
+        fwd = ffr
+    elif ia > 0:
+        A, a1, a2 = leg_query(h, li[p], lf[p], tg, dd)
+        B, b1, b2 = leg_query(h, li[P + p], lf[P + p], tg, dd)
+        fwd = (A / B - 1.0) / ia
+        K = (pa * notl) / ia
+    else:
+        fwd = 0.0
+    rate = fwd + spr
+    if flags & CAP_FLOOR:
+        if _prim(rate) < flo:
+            rate, K = flo, 0.0
+        if _prim(rate) > cap:
+            rate, K = cap, 0.0
+    cf = (rate * pa) * notl + (principal if p == P - 1 else 0.0)
+    nC = sign * cf
+    for a, v in enumerate(c1):
+        gN[4 + a] = nC * v
+    if K != 0.0:
+        iB = 1.0 / B
+        r = A * iB
+        kc = sign * K
+        nA = (kc * C) * iB
+        nB = -nA * r
+        for a, v in enumerate(a1):
+            gN[a] = nA * v
+        for a, v in enumerate(b1):
+            gN[2 + a] = nB * v
+    if hN is None:
+        return nC * C, gN, hN
+    _put_query_hess(hN, 4, w * nC, c1, c2)
+    if K != 0.0:
+        wA, wB = w * nA, w * nB
+        fAB, fBB = -wA * iB, -2.0 * (wB * iB)
+        fAC = (w * kc) * iB
+        fBC = -fAC * r
+        _put_query_hess(hN, 0, wA, a1, a2)
+        _put_query_hess(hN, 2, wB, b1, b2)
+        for a, x in enumerate(b1):
+            for b, y in enumerate(b1[a:], a):
+                hN[_PAIR[(2 + a, 2 + b)]] = hN[_PAIR[(2 + a, 2 + b)]] \
+                    + fBB * (x * y)
+        for a, x in enumerate(a1):
+            for b, y in enumerate(b1):
+                hN[_PAIR[(a, 2 + b)]] = fAB * (x * y)
+            for b, y in enumerate(c1):
+                hN[_PAIR[(a, 4 + b)]] = fAC * (x * y)
+        for a, x in enumerate(b1):
+            for b, y in enumerate(c1):
+                hN[_PAIR[(2 + a, 4 + b)]] = fBC * (x * y)
+    return nC * C, gN, hN
+
+
+def _vtaps(h: dict, g: int, s: int) -> list:
+    """The rows of leg s's value DF's taps."""
+    return [int(h["lr_of"][g, x]) for x in _taps(h["ld_i"][g, s, h["P"]])]
+
+
+def legs_prologue(h: dict, g: int, dd, gpv=None) -> dict:
+    """K9 / K11's work of one (scenario, member) that no direction or
+    pair depends on (csrc/xccy_stage.cu legs_prologue), at the domestic
+    grid dd [Ld] and, for K11, the legs' cotangents gpv [S]: the grid
+    transformed once; each leg's value DF V_s (:func:`leg_query`) and, K11,
+    w_s = gpv_s / V_s; then, chunk by chunk, its flows (:func:`leg_flow`)
+    into the chunk's table and the chunk's segments' sums of their terms
+    (``sg``, ``lt_term``; K9 without M_N's); then each target's segments
+    in order: N_s, each (leg s, row r)'s dN_s/dd_r and, K11, each entry of
+    M_N = sum_s w_s d2N_s/dd2; PV_s = N_s / V_s and G_s[r] = (dN_s/dd_r -
+    PV_s dV_s/dd_r) / V_s, the leg's gradient; K11, gdd[l] = sum_s gpv_s
+    G_s[l] over the row's targets (``gd_*``) and each target's
+    coefficients in U (``tc``: w_s G_s[r] of beta and, at a value DF tap,
+    w_s dV_s/dd_r of gamma and w_s PV_s d2V_s/dd_r dd_v of the tangent at
+    each tap v, with a flag). Entries are floats, or :class:`Dual` s with
+    no tangent to count the operations."""
+    S, P, Ld = h["S"], h["P"], h["Ld"]
+    F = P + 2
+    NL, E = h["ls_row"].shape[1], h["me_rc"].shape[1]
+    xs = h["d_xs"][g]
+    tg = [transform(h["dsch"], dd[ll], float(xs[ll])) for ll in range(Ld)]
+    V = [leg_query(h, h["ld_i"][g, s, P], h["ld_f"][g, s, P], tg, dd)
+         for s in range(S)]
+    w = [None] * S if gpv is None else [float(gpv[s]) / V[s][0]
+                                        for s in range(S)]
+    lt, sgs, scp = h["lt_term"][g], h["sg"][g], h["sc_ptr"][g]
+    part = [0.0] * sgs.shape[0]
+    for c in range(len(scp) // 2):
+        table = {}
+        for f in range(c * LEG_BLOCK, min((c + 1) * LEG_BLOCK, S * F)):
+            s, p = divmod(f, F)
+            n, gN, hN = leg_flow(h, g, s, p, tg, dd, w[s])
+            for k, v in enumerate([n] + gN + (hN or [])):
+                table[k * LEG_BLOCK + f % LEG_BLOCK] = v
+        for k in range(scp[2 * c], scp[2 * c + (1 if gpv is None else 2)]):
+            acc = 0.0
+            for term in lt[sgs[k, 0]:sgs[k, 1]]:
+                v = table[int(term) >> 1]
+                acc = acc + (2.0 * v if term & 1 else v)
+            part[k] = acc
+    tp, tsg = h["ts_ptr"][g], h["ts_seg"][g]
+
+    def total(t):
+        acc = 0.0
+        for k in tsg[tp[t]:tp[t + 1]]:
+            acc = acc + part[k]
+        return acc
+    N = [total(s) for s in range(S)]
+    pv = [N[s] / V[s][0] for s in range(S)]
+    G = []
+    for t in range(int(h["ls_ptr"][g, S])):
+        s, r = int(h["lt_leg"][g, t]), int(h["ls_row"][g, t])
+        dv = 0.0
+        for a, vr in enumerate(_vtaps(h, g, s)):
+            if vr == r:
+                dv = dv + V[s][1][a]
+        G.append((total(S + t) - pv[s] * dv) / V[s][0])
+    out = dict(V=V, w=w, N=N, pv=pv, G=G)
+    if gpv is None:
+        return out
+    M = [total(S + NL + e) for e in range(E)]
+    dp, dt = h["gd_ptr"][g], h["gd_t"][g]
+    gdd = []
+    for ll in range(Ld):
+        r = int(h["lr_of"][g, ll])
+        acc = 0.0
+        if r >= 0:
+            for t in dt[dp[r]:dp[r + 1]]:
+                acc = acc + float(gpv[int(h["lt_leg"][g, t])]) * G[t]
+        gdd.append(acc)
+    tc = []
+    for t in range(len(G)):
+        s, r = int(h["lt_leg"][g, t]), int(h["ls_row"][g, t])
+        vr = _vtaps(h, g, s) + [-1]
+        a0, a1 = vr[0] == r, vr[1] == r
+        Vs, wt = V[s], w[s]
+        wp = wt * pv[s]
+        h2 = Vs[2] or (0.0, 0.0, 0.0)
+        d1 = Vs[1] + [0.0]
+        tc.append((wt * G[t], wt * ((d1[0] if a0 else 0.0)
+                                     + (d1[1] if a1 else 0.0)),
+                   wp * ((h2[0] if a0 else 0.0) + (h2[1] if a1 else 0.0)),
+                   wp * ((h2[1] if a0 else 0.0) + (h2[2] if a1 else 0.0)),
+                   a0 or a1))
+    return dict(out, M=M, gdd=gdd, tc=tc)
+
+
+def legs_dir(h: dict, g: int, pro: dict, t) -> tuple:
+    """Along one domestic tangent row t [Ld] of a (scenario, member):
+    (gamma [S], beta [S]) with gamma_s = G_s . t (K9's Jpv[d, s]) over the
+    leg's targets and beta_s = dV_s/dd . t over its value DF's taps."""
+    S = h["S"]
+    gam, bet = [], []
+    for s in range(S):
+        acc = 0.0
+        for k in range(int(h["ls_ptr"][g, s]), int(h["ls_ptr"][g, s + 1])):
+            acc = acc + pro["G"][k] * float(
+                t[int(h["lr_row"][g, h["ls_row"][g, k]])])
+        gam.append(acc)
+        b = 0.0
+        for a, x in enumerate(_taps(h["ld_i"][g, s, h["P"]])):
+            b = b + pro["V"][s][1][a] * float(t[x])
+        bet.append(b)
+    return gam, bet
+
+
+def legs_u(h: dict, g: int, pro: dict, tj, gam, bet) -> list:
+    """U_j = M t_j [R] over the rows for one tangent row tj [Ld] with its
+    (gamma, beta) (:func:`legs_dir`): M_N's entries of each row (``mr_*``)
+    times tj at the other row, then, less, each of the row's targets'
+    coefficients (``tc``) times beta_s and, at a value DF tap, gamma_s and
+    tj at the taps: the value DF's coupling d2PV_s = d2N_s / V_s - (G_s
+    dV_s' + dV_s G_s') / V_s - PV_s d2V_s / V_s folded in
+    (csrc/xccy_stage.cu k11_legs_hess)."""
+    R = h["lr_row"].shape[1]
+    rows, rc = h["lr_row"][g], h["me_rc"][g]
+    mp, me = h["mr_ptr"][g], h["mr_e"][g]
+    dp, dt = h["gd_ptr"][g], h["gd_t"][g]
+    U = []
+    for r in range(R):
+        acc = 0.0
+        if rows[r] < 0:
+            U.append(acc)
+            continue
+        for e in me[mp[r]:mp[r + 1]]:
+            p, c = (int(x) for x in rc[e])
+            acc = acc + pro["M"][e] * float(tj[rows[c if p == r else p]])
+        for t in dt[dp[r]:dp[r + 1]]:
+            s = int(h["lt_leg"][g, t])
+            c0, c1, c2, c3, at = pro["tc"][t]
+            y = c0 * bet[s]
+            if at:
+                tau = [float(tj[x]) for x in _taps(h["ld_i"][g, s, h["P"]])]
+                y = y + c1 * gam[s] + c2 * tau[0] + c3 * (
+                    tau[1] if len(tau) > 1 else 0.0)
+            acc = acc - y
+        U.append(acc)
+    return U
+
+
+def legs_pair(h: dict, g: int, ti, U) -> float:
+    """K11's Hl_ij = t_i . U_j over the rows (csrc/xccy_stage.cu
+    k11_legs_hess)."""
+    acc = 0.0
+    for r, x in enumerate(h["lr_row"][g]):
+        if x >= 0:
+            acc = acc + float(ti[x]) * U[r]
+    return acc
 
 
 def stage_dir(h: dict, d: int, row):
@@ -1394,6 +1916,30 @@ def _stage_kernel_ops(name, h, g, sp, pv, fd, dirs, count_chain) -> int:
     return total
 
 
+def _legs_kernel_ops(h: dict, g: int, dd, tdl, gpv) -> int:
+    """The operations of K9's (gpv None) or K11's block of one (scenario,
+    member) at its grid dd [Ld] and tangent rows tdl [Qd, Ld]: the
+    prologue counted on its Python mirror (:func:`legs_prologue`: the
+    grid's transforms, the value DFs, the flows, the segments' and the
+    targets' sums, the gradients; K11 gdd too), then, counted from the
+    lists, 2 operations a term of each direction's G_s . t_d (K9's Jpv,
+    K11's gamma) and, K11, 4 a value DF tap for beta, 2 a row entry of
+    M_N and 3 a target (5 more at a value tap) for U, and 2 a row for
+    each pair's t_i . U_j."""
+    S, R = h["S"], int((h["lr_row"][g] >= 0).sum())
+    Qd = tdl.shape[0]
+    prol = _ops_of(lambda: legs_prologue(h, g, [Dual(float(x)) for x in dd],
+                                         gpv))
+    terms = int(h["ls_ptr"][g, S])
+    if gpv is None:
+        return prol + Qd * 2 * terms
+    vt = sum(len(_taps(h["ld_i"][g, s, h["P"]])) for s in range(S))
+    rows_m = int(h["mr_ptr"][g, R])
+    rows_t = int(h["gd_ptr"][g, R])
+    return prol + Qd * (2 * terms + 2 * vt + 2 * rows_m + 3 * rows_t
+                        + 5 * vt) + Qd * (Qd + 1) // 2 * 2 * R
+
+
 def needed_flops(name: str, tab: XccyStageTables, *args) -> dict:
     """The f64 operations of kernel ``name`` (K8-K11) on
     ``kernels.<name>(tab, *args)``'s inputs, counted by running
@@ -1413,7 +1959,9 @@ def needed_flops(name: str, tab: XccyStageTables, *args) -> dict:
     - ``kernel``: what the kernel's own design computes
       (:func:`_stage_kernel_ops` for K8 / K10, on the foreign grid
       transformed once a block, K10's replaying threads without the
-      primal exps and quotients; ``threads`` for K9 / K11).
+      primal exps and quotients; :func:`_legs_kernel_ops` for K9 / K11,
+      the legs' flows once a (scenario, member), then a dot a direction
+      or pair).
     """
     h = tab.host()
     a = [x.cpu().numpy() if isinstance(x, torch.Tensor) else x
@@ -1484,6 +2032,64 @@ def needed_flops(name: str, tab: XccyStageTables, *args) -> dict:
                 return memo[key]
             own = _stage_kernel_ops(name, h, g, sp, pv, fd, dirs,
                                     count_chain)
+        else:
+            own = _legs_kernel_ops(h, g, dd, a[1][0, :, g], cot)
         kernel += own
     return dict(needed=float(Sc * need), threads=float(Sc * threads),
                 kernel=float(Sc * kernel))
+
+
+# the tables each of K8-K11 reads (K9 reads part of K11's last four)
+_K8_READS = ("pt_f", "pt_i", "v0", "fxs", "fq_i", "fq_f", "rq_i", "rq_f",
+             "r_sch", "r_xs")
+_K9_READS = ("leg_f", "leg_s", "li_i", "li_f", "ld_i", "ld_f", "lr_row",
+             "ls_ptr", "ls_row", "lt_leg", "sc_ptr")
+_READS = dict(
+    xccy_stage_jvp=_K8_READS,
+    xccy_stage_hess=_K8_READS + ("nr_ptr", "nr_row", "mb_pq", "mb_ptr",
+                                 "mb_row", "tp_off"),
+    xccy_legs_jvp=_K9_READS,
+    xccy_legs_hess=_K9_READS + ("lr_of", "gd_ptr", "gd_t", "me_rc",
+                                "mr_ptr", "mr_e", "lt_term", "sg", "ts_ptr",
+                                "ts_seg"))
+
+
+def needed_bytes(name: str, tab: XccyStageTables, *args) -> int:
+    """The bytes kernel ``name`` (K8-K11) must move on
+    ``kernels.<name>(tab, *args)``'s inputs, each input read once and
+    each output written once: the tables the kernel reads (``_READS``;
+    K9 only the segments of the legs' sums and gradients, their targets'
+    segment lists and the value DFs' rows of ``lr_of``), the scenario
+    inputs in full but the grids, and each grid only at the entries its
+    plan reads: K8 / K10's foreign DFs ``fd``, their tangents ``tf`` and
+    ``f_xs`` at the taps of ``fq``, K9 / K11's domestic ``dd``, ``tdl``
+    and ``d_xs`` at the legs' rows (``lr_row``)."""
+    h = tab.host()
+    Sc, G, S, D, Qd = args[0].shape[0], tab.G, tab.S, tab.D, tab.Qd
+    nb = sum(h[k].nbytes for k in _READS[name])
+    if name in ("xccy_legs_jvp", "xccy_legs_hess"):
+        taps = int((h["lr_row"] >= 0).sum())
+        grids = (1 + Qd) * Sc * taps + taps             # dd, tdl, d_xs
+        outs = S + Qd * S if name == "xccy_legs_jvp" \
+            else tab.Ld + Qd * Qd                       # pv0, jpv | gdd, Hl
+        ins = S if name == "xccy_legs_hess" else 0      # gpv
+        if name == "xccy_legs_jvp":
+            NL = h["ls_row"].shape[1]
+            for g in range(G):
+                sc = h["sc_ptr"][g]
+                ks = np.concatenate([np.arange(sc[2 * c], sc[2 * c + 1])
+                                     for c in range(len(sc) // 2)])
+                sg = h["sg"][g, ks]
+                nt = int(h["ts_ptr"][g, S + NL])
+                vtaps = sum(len(_taps(h["ld_i"][g, s, h["P"]]))
+                            for s in range(S))
+                nb += 4 * (sg.size + int((sg[:, 1] - sg[:, 0]).sum())
+                           + S + NL + 1 + nt + vtaps)
+    else:
+        taps = sum(len({x for q in h["fq_i"][g] for x in _taps(q)})
+                   for g in range(G))
+        grids = (1 + (D if tab.recal else 0)) * Sc * taps + taps
+        outs = tab.U1 + tab.W + D * tab.W if name == "xccy_stage_jvp" \
+            else D + (tab.Lf if tab.recal else 0) + D * D
+        ins = 2 * S + (tab.W if name == "xccy_stage_hess" else 0)
+    return nb + 8 * (grids + Sc * G * (ins + outs))

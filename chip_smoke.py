@@ -191,7 +191,9 @@ first use. Phases:
    thread and blocks an SM, with no
    library yardstick (no PyTorch call computes a stage's jacobian or
    Hessian) and their bound from the operations the function needs,
-   ``xccy_stage.needed_flops``, beside the kernel's own count),
+   ``xccy_stage.needed_flops``, beside the kernel's own count, the
+   smaller of the two where K9 / K11's collapse onto the domestic grid
+   counts fewer),
    each timed
    over 30 calls by CUDA events around the call (``ms``, which holds the
    wrapper's host work) and by the device time of its kernels in a
@@ -2890,20 +2892,26 @@ def compare_xccy_kernels(path, inputs) -> list:
     output, the Hessians' mirror entries bit for bit, timed (30 calls by
     events and by profiler device time; the plain version over 5 calls)
     with no library call (no single PyTorch call computes a stage's
-    jacobian or Hessian); the bound is bytes (inputs, tables and outputs
-    once) over the HBM rate against the f64 operations the function needs
+    jacobian or Hessian); the bound is bytes (``xccy_stage.needed_bytes``:
+    the tables the kernel reads, the scenario inputs and each grid only
+    at the entries its plan reads, read once, the outputs written once)
+    over the HBM rate against the f64 operations the function needs
     over the f64 rate (``xccy_stage.needed_flops``: the primal once a
     (scenario, member), each first tangent once, each pair's e1 e2 part
     once; exp and log one each), the kernel's own count beside it
     (``thread_flops``: K8 / K10 split at the node DFs, their blocks' dual
-    chains, rows and pairs' hyper-dual chains; ``simple_thread_flops``, a
-    thread the whole stage, as K9 / K11 still run); each kernel launched
-    twice on its inputs (equal bit for bit, a gate), and its registers,
-    local bytes a thread, shared memory a block and blocks an SM from the
-    card's compiler (``kernels.xccy_kernel_info``).
+    chains, rows and pairs' hyper-dual chains; K9 / K11 split at the legs'
+    flows, the flows and the collapse onto the domestic grid once a
+    (scenario, member), then a dot a direction or pair;
+    ``simple_thread_flops``, a thread the whole stage, the first design
+    of K8-K11); where the kernel's own count falls below the need (the
+    collapse's dots over the grid's rows cost less than a dual number's
+    tangent through every operation), the bound takes the smaller count
+    (``bound_flops``); each kernel launched twice on its inputs (equal
+    bit for bit, a gate), and its registers, local bytes a thread, shared
+    memory a block and blocks an SM from the card's compiler
+    (``kernels.xccy_kernel_info``).
     """
-    import dataclasses
-
     import numpy as np
     import torch
 
@@ -2953,21 +2961,16 @@ def compare_xccy_kernels(path, inputs) -> list:
         ops = xs.needed_flops(name, *args)
         flops = ops["needed"]
         G = tab.G
-        tables = sum(getattr(tab, f.name).numel()
-                     * getattr(tab, f.name).element_size()
-                     for f in dataclasses.fields(tab)
-                     if isinstance(getattr(tab, f.name), torch.Tensor))
-        io = sum(a.numel() * 8 for a in args[1:]
-                 if isinstance(a, torch.Tensor)) \
-            + sum(r.numel() * 8 for r in got)
-        nbytes = tables + io
-        bound, by = _bound(nbytes, float(flops), FP64_FLOPS)
+        nbytes = xs.needed_bytes(name, *args)
+        bound_flops = min(flops, ops["kernel"])
+        bound, by = _bound(nbytes, float(bound_flops), FP64_FLOPS)
         print(f"{path} {name} [Sc, G, S, D, Qd, W]="
               f"{[Sc, G, tab.S, tab.D, tab.Qd, tab.W]}: {_fmt_tm(tm)}; "
               f"bound {bound * 1e3:.2f} us ({by}, {nbytes / 1e6:.2f} MB, "
-              f"{flops / 1e9:.3f} GFLOP needed, the kernel's "
-              f"{ops['kernel'] / 1e9:.3f}, a thread the whole stage "
-              f"{ops['threads'] / 1e9:.3f}); worst rel err "
+              f"{flops / 1e9:.4f} GFLOP needed, the kernel's own "
+              f"{ops['kernel'] / 1e9:.4f}, the bound's "
+              f"{bound_flops / 1e9:.4f}, a thread the whole stage "
+              f"{ops['threads'] / 1e9:.4f}); worst rel err "
               f"{max(rels):.2e}", flush=True)
         replaces, also = _XCCY_SRC[name]
         recs.append(dict(
@@ -2980,7 +2983,8 @@ def compare_xccy_kernels(path, inputs) -> list:
             bound_ms=bound, bound_by=by, **_shares(bound, tm),
             scenarios=Sc, members=G, spreads=tab.S, directions=tab.D,
             dom_directions=tab.Qd, rows=tab.W, flops=flops,
-            thread_flops=ops["kernel"], simple_thread_flops=ops["threads"],
+            thread_flops=ops["kernel"], bound_flops=bound_flops,
+            simple_thread_flops=ops["threads"],
             bit_for_bit_repeat=repeat, registers=info["registers"],
             local_bytes=info["local_bytes"], smem_bytes=info["smem_bytes"],
             blocks_per_sm=info["blocks_per_sm"], tile=info["tile"],

@@ -10,9 +10,10 @@ inputs and the timing helpers come from this checkout's
 ``chip_smoke.py``, so two checkouts are measured on the same inputs and
 clocks. Measured, each as host-clock ms (median of 3 warm calls) and the
 device ops and device ms of one warm call (a CUDA-only torch.profiler
-trace), with the launches a call of K4 / K5 and K8-K11 (those the
-checkout has) and the caching allocator's device allocations over the
-timed calls:
+trace), with K8-K11's device ms at each of their launches in that trace
+(``kernel_ms``, by kernel name), the launches a call of K4 / K5 and
+K8-K11 (those the checkout has) and the caching allocator's device
+allocations over the timed calls:
 
 - flagship_v5 on its FLAT_FWD curves (chip_smoke phase 7's book, S =
   100): the staged call, and regions A, C1 and C2 on its first
@@ -20,11 +21,14 @@ timed calls:
 - the OIS + XCCY book (chip_smoke phase 6's, S = 100): the staged call;
 - flagship_v5's per-trade J pass at the quotes (``prep`` of
   ``make_per_trade_delta_fn``);
-- K8 ``xccy_stage_jvp`` and K10 ``xccy_stage_hess`` alone at the
-  arguments of their first call in a flagship_v5 staged call (chip_smoke
-  phase 8's captured inputs: the first 50-scenario chunk), 30 calls each
-  by CUDA events and by profiler device time, with the worst error
-  against their plain versions (abs / max|ref| over the outputs).
+- K8-K11 alone at the arguments of their first call in a flagship_v5
+  staged call (chip_smoke phase 8's captured inputs: the first
+  50-scenario chunk; K9 / K11 on ``xccy_stage.probe_tables`` legs and
+  seeded domestic tangents, as phase 8 takes them, since the book's own
+  legs telescope to 0), 30 calls each by CUDA events and by profiler
+  device time, with the worst error against their plain versions (abs /
+  max|ref| over the outputs); K9 / K11 also on the captured tables and
+  tangents unchanged (``*_alone_book``: the book's own legs, timed only).
 
 Prints one JSON line. To compare commits, run parent, change, change,
 parent in one call.
@@ -40,6 +44,30 @@ from pathlib import Path
 HERE = Path(__file__).resolve().parent.parent
 KERNELS = ("pv01_solve", "pv01_solve_t", "xccy_stage_jvp", "xccy_legs_jvp",
            "xccy_stage_hess", "xccy_legs_hess")
+# K8-K11's __global__ functions (the names the profiler's events carry)
+XCCY_GLOBALS = ("k8_stage_jvp", "k9_legs_jvp", "k10_stage_hess",
+                "k11_legs_hess")
+
+
+def trace(f):
+    """(device ops, their summed device ms, {K8-K11 kernel: [device ms of
+    each launch]}) of one warm ``f()`` call in a CUDA-only torch.profiler
+    trace; (None, None, {}) when the trace holds no device event."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    f()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        f()
+        torch.cuda.synchronize()
+    ks = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not ks:
+        return None, None, {}
+    split = {k: [e.time_range.elapsed_us() / 1e3 for e in ks
+                 if k in e.name] for k in XCCY_GLOBALS}
+    return (len(ks), sum(e.time_range.elapsed_us() for e in ks) / 1e3,
+            {k: v for k, v in split.items() if v})
 
 
 def main(argv) -> int:
@@ -78,9 +106,10 @@ def main(argv) -> int:
         mallocs = torch.cuda.memory_stats(dev).get("num_device_alloc",
                                                    0) - mallocs
         ls = {k: (v - before[k]) / n for k, v in launches().items()}
-        ops, dms = cs._request_device(f)
+        ops, dms, split = trace(f)
         return dict(warm_ms=w, device_ops=ops, device_ms=dms,
-                    launches_per_call=ls, device_mallocs=mallocs)
+                    kernel_ms=split, launches_per_call=ls,
+                    device_mallocs=mallocs)
 
     out = dict(root=str(root), card=cs._card_line(),
                torch=torch.__version__)
@@ -93,8 +122,13 @@ def main(argv) -> int:
     out["staged"] = measure(lambda: fn(q0, shocks))
     alone = cs._capture_xccy(lambda: fn(q0, shocks))
     from adrates_torch.ops import xccy_stage as xs
-    for name in ("xccy_stage_jvp", "xccy_stage_hess"):
-        args = alone[name]
+    for k, name in enumerate(cs.XCCY):
+        args = list(alone[name])
+        if name in ("xccy_legs_jvp", "xccy_legs_hess"):
+            args[0] = xs.probe_tables(args[0], 31 + k)
+            args[2] = torch.as_tensor(1e-3 * np.random.default_rng(
+                41 + k).standard_normal(tuple(args[2].shape)),
+                device=args[1].device)
         kern = getattr(kernels, name)
         got = [r for r in kern(*args) if r is not None]
         ref = [r for r in getattr(xs, name + "_plain")(*args)
@@ -108,6 +142,15 @@ def main(argv) -> int:
             device_ms_max=dv and dv["max"], max_rel_err=err,
             scenarios=args[1].shape[0])
         del got, ref
+        if name in ("xccy_legs_jvp", "xccy_legs_hess"):
+            args = list(alone[name])
+            dv = cs._device_stats(lambda: kern(*args))
+            out[f"{name}_alone_book"] = dict(
+                ms=cs._cuda_ms(lambda: kern(*args)),
+                device_ms=dv and dv["median"],
+                device_ms_min=dv and dv["min"],
+                device_ms_max=dv and dv["max"],
+                scenarios=args[1].shape[0])
     del alone
     chunk = fn.chunk(shocks.shape[0])
     q = torch.as_tensor(q0, device=dev)[None, :] \

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Where K8's and K10's time goes on the card: a per-block timeline at
+"""Where K8-K11's time goes on the card: a per-block timeline at
 flagship_v5's XCCY stage.
 
     python3 scripts/xccy_phases.py
@@ -7,11 +7,16 @@ flagship_v5's XCCY stage.
 Builds ``adrates_torch/csrc/xccy_stage.cu`` again with ``-DXCCY_TIMELINE``
 (each block of K8 ``xccy_stage_jvp`` and K10 ``xccy_stage_hess`` stamps
 the global timer at its start, after its tables are loaded, after its
-dual chains, after the rows' sums (K10) and at its end, with its SM),
-warms flagship_v5 on its FLAT_FWD curves on the staged path (chip_smoke
-phase 7's book, S = 100), captures K8's and K10's arguments at their
-first call (the first 50-scenario chunk, chip_smoke ``_capture_xccy``)
-and launches the profiling build's entry points on them. Prints, per
+dual chains, after the rows' sums (K10) and at its end; each block of K9
+``xccy_legs_jvp`` and K11 ``xccy_legs_hess`` after its grid, tangent
+rows and value DFs are loaded, after its flows and their segments' sums,
+after the targets' sums and gradients (K11: and gdd) and at its end,
+the dots; each with its SM), warms flagship_v5 on its FLAT_FWD curves on
+the staged path (chip_smoke phase 7's book, S = 100), captures K8-K11's
+arguments at their first call (the first 50-scenario chunk, chip_smoke
+``_capture_xccy``; K9 / K11 on ``xccy_stage.probe_tables`` legs and
+seeded tangents, as phase 8 takes them) and launches the profiling
+build's entry points on them. Prints, per
 kernel and kind of block (the last block of a (scenario, member), which
 takes K10's foreign grid entries, and the others), the median and the
 largest time of each phase a block, the launch's span, the blocks each
@@ -35,6 +40,7 @@ from pathlib import Path
 
 HERE = Path(__file__).resolve().parent.parent
 PHASES = ("load", "chains", "sums", "pairs_or_rows")
+LEG_PHASES = ("load", "flows", "sums", "dots")
 
 
 def _timeline_lib(kernels):
@@ -52,7 +58,8 @@ def _timeline_lib(kernels):
         raise RuntimeError(res.stderr)
     ptxas, name = {}, None
     for line in res.stderr.splitlines():
-        for k in ("k8_stage_jvp", "k10_stage_hess"):
+        for k in ("k8_stage_jvp", "k9_legs_jvp", "k10_stage_hess",
+                  "k11_legs_hess"):
             if "Compiling entry" in line and k in line:
                 name = k
         if name and ("registers" in line or "spill" in line):
@@ -68,7 +75,7 @@ def _timeline_lib(kernels):
     return lib, ptxas
 
 
-def _summary(stamps, kinds):
+def _summary(stamps, kinds, phases=PHASES):
     import numpy as np
     out = {}
     start, end = stamps[:, 0].min(), stamps[:, 4].max()
@@ -80,8 +87,8 @@ def _summary(stamps, kinds):
         out[kind] = dict(
             blocks=int(s.shape[0]),
             median_us={p: float(np.median(d[:, k]))
-                       for k, p in enumerate(PHASES)},
-            max_us={p: float(d[:, k].max()) for k, p in enumerate(PHASES)},
+                       for k, p in enumerate(phases)},
+            max_us={p: float(d[:, k].max()) for k, p in enumerate(phases)},
             block_median_us=float(np.median(tot)),
             block_max_us=float(tot.max()),
             first_start_us=float((s[:, 0].min() - start) / 1e3),
@@ -99,8 +106,9 @@ def _summary(stamps, kinds):
 
 def _info(lib, kernels, tab, name):
     out = (ctypes.c_int * 8)()
+    k = kernels._XCCY_KERNEL[name]
     kernels._check(lib.xccy_kernel_info(
-        kernels._xstage(tab), tab.D, kernels._XCCY_KERNEL[name],
+        kernels._xstage(tab), tab.Qd if k in (9, 11) else tab.D, k,
         int(tab.recal), out), "xccy_kernel_info")
     return dict(registers=out[0], local_bytes=out[1], smem_bytes=out[2],
                 blocks_per_sm=out[3], tile=out[5], per=out[7])
@@ -111,16 +119,42 @@ def _run(cs, kernels, lib, name, args, dev):
     (its outputs, the timeline summary, its device ms)."""
     import numpy as np
     import torch
-    tab, sp, pv, fd, tf = args[:5]
+    tab = args[0]
     info = _info(lib, kernels, tab, name)
-    Sc, G, D = sp.shape[0], tab.G, tab.D
+    Sc, G, D, Qd = args[1].shape[0], tab.G, tab.D, tab.Qd
     per = info["per"]
     stream = kernels._stream(dev)
     st = kernels._xstage(tab)
+    phases = PHASES
 
     def ptr(t):
         return None if t is None else t.data_ptr()
-    if name == "xccy_stage_jvp":
+    if name in ("xccy_legs_jvp", "xccy_legs_hess"):
+        phases = LEG_PHASES
+        dd, tdl = args[1:3]
+        if name == "xccy_legs_jvp":
+            got = [torch.empty((Sc, G, tab.S), dtype=torch.float64,
+                               device=dev),
+                   torch.empty((Sc, Qd, G, tab.S), dtype=torch.float64,
+                               device=dev)]
+
+            def launch():
+                kernels._check(lib.xccy_legs_jvp_f64(
+                    st, Sc, Qd, ptr(dd), ptr(tdl),
+                    *[g.data_ptr() for g in got], stream), name)
+        else:
+            got = [torch.empty((Sc, G, tab.Ld), dtype=torch.float64,
+                               device=dev),
+                   torch.empty((Sc, Qd, G, Qd), dtype=torch.float64,
+                               device=dev)]
+
+            def launch():
+                kernels._check(lib.xccy_legs_hess_f64(
+                    st, Sc, Qd, tab.lpairs.shape[0], tab.lpairs.data_ptr(),
+                    tab.Ld, ptr(dd), ptr(tdl), ptr(args[3]),
+                    *[g.data_ptr() for g in got], stream), name)
+    elif name == "xccy_stage_jvp":
+        sp, pv, fd, tf = args[1:5]
         got = [torch.empty((Sc, G, tab.U1), dtype=torch.float64,
                            device=dev),
                torch.empty((Sc, G, tab.W), dtype=torch.float64, device=dev),
@@ -132,6 +166,7 @@ def _run(cs, kernels, lib, name, args, dev):
                 st, Sc, D, tab.npv, ptr(sp), ptr(pv), ptr(fd), ptr(tf),
                 *[g.data_ptr() for g in got], stream), name)
     else:
+        sp, pv, fd, tf = args[1:5]
         got = [torch.empty((Sc, G, D), dtype=torch.float64, device=dev),
                torch.empty((Sc, G, tab.Lf), dtype=torch.float64,
                            device=dev),
@@ -151,7 +186,7 @@ def _run(cs, kernels, lib, name, args, dev):
     buf = np.zeros((n, 6), dtype=np.uint64)
     kernels._check(lib.xccy_timeline(buf.ctypes.data, n), "timeline")
     kinds = ["last" if b % per == per - 1 else "blocks" for b in range(n)]
-    summ = _summary(buf.astype(np.int64), kinds)
+    summ = _summary(buf.astype(np.int64), kinds, phases)
     dv = cs._device_stats(launch)
     if name == "xccy_stage_hess" and not tab.recal:
         got[1] = None
@@ -184,8 +219,13 @@ def main() -> int:
     fn = warmup_multibook(mb, shocks.shape[0], dev, staged=True)
     cap = cs._capture_xccy(lambda: fn(mb.basket.quotes0, shocks))
     out = dict(card=card)
-    for name in ("xccy_stage_jvp", "xccy_stage_hess"):
-        args = cap[name]
+    from adrates_torch.ops import xccy_stage as xs
+    for k, name in enumerate(cs.XCCY):
+        args = list(cap[name])
+        if name in ("xccy_legs_jvp", "xccy_legs_hess"):
+            args[0] = xs.probe_tables(args[0], 31 + k)
+            args[2] = torch.as_tensor(1e-3 * np.random.default_rng(
+                41 + k).standard_normal(tuple(args[2].shape)), device=dev)
         kern = getattr(kernels, name)
         ref = [r for r in kern(*args) if r is not None]
         dv = cs._device_stats(lambda: kern(*args))

@@ -1164,3 +1164,125 @@ def test_xccy_stage_split_no_local_memory(dev):
         info = kernels.xccy_kernel_info(tab, name)
         assert info["local_bytes"] == 0, (name, info)
         assert info["blocks_per_sm"] >= 2, (name, info)
+
+
+# K9 / K11 split at the legs' flows: a long domestic grid, the route's
+# maxima, many domestic directions (the layout's fallbacks); two launches
+# bit for bit, Hl symmetric, no local memory
+
+
+def _legs_inputs(tab, Sc, Qd, seed):
+    """Probe legs of ``tab`` with Qd domestic directions (its pair table
+    on the tables' device) and seeded grids [Sc, G, Ld] (DFs falling from
+    1), tangents [Sc, Qd, G, Ld] and cotangents [Sc, G, S], on the
+    tables' device."""
+    from adrates_torch.ops import xccy_stage as xs
+    dev = tab.leg_f.device
+    pt = xs.probe_tables(tab, seed)
+    pt = dataclasses.replace(pt, Qd=Qd, lpairs=torch.tensor(
+        xs.pair_table(Qd), device=dev))
+    rng = np.random.default_rng(seed)
+    G, Ld = pt.G, pt.Ld
+    dd = np.exp(-np.cumsum(rng.uniform(0.0, 0.08, (Sc, G, Ld)), axis=-1))
+    dd[..., 0] = 1.0
+    return pt, dict(
+        dd=torch.tensor(dd, device=dev),
+        tdl=torch.tensor(1e-3 * rng.standard_normal((Sc, Qd, G, Ld)),
+                         device=dev),
+        gpv=torch.tensor(rng.standard_normal((Sc, G, pt.S)), device=dev))
+
+
+def _legs_check(pt, inp):
+    """K9 and K11 against their plain versions (torch.func on the same
+    tables, on the card) at 1e-12 x max|ref| of every output, each
+    launched twice (equal bit for bit), Hl its own mirror bit for bit,
+    two launches counted each."""
+    from adrates_torch.ops import xccy_stage as xs
+    before = [kernels.xccy_legs_jvp.launches, kernels.xccy_legs_hess.launches]
+    args = (pt, inp["dd"], inp["tdl"])
+    for name, extra in (("xccy_legs_jvp", ()),
+                        ("xccy_legs_hess", (inp["gpv"],))):
+        kern = getattr(kernels, name)
+        got = kern(*args, *extra)
+        again = kern(*args, *extra)
+        ref = getattr(xs, name + "_plain")(*args, *extra)
+        for a, a2, b in zip(got, again, ref):
+            assert _xrel(a, b.cpu()) <= 1e-12, name
+            assert torch.equal(a, a2), name
+    Hl = got[1]
+    assert torch.equal(Hl, Hl.permute(0, 3, 2, 1))
+    torch.cuda.synchronize()
+    assert [kernels.xccy_legs_jvp.launches,
+            kernels.xccy_legs_hess.launches] == [b + 2 for b in before]
+
+
+@pytest.mark.parametrize("scheme", ["FLAT_FWD_RATES", "LINEAR_ZERO_RATES",
+                                    "LINEAR_FWD_RATES"])
+def test_xccy_legs_split_long_domestic_grid(dev, scheme):
+    """A domestic grid padded to 1,001 entries that no query reads (three
+    members, S = 5, on each simple domestic scheme): the rows stay the
+    entries the queries read, the grid's transforms fit in shared memory;
+    gdd is 0 off the rows."""
+    from adrates_torch.ops import xccy_stage as xs
+    mb = cases.xccy3_book("adrates_torch", scheme, "FLAT_FWD_RATES", 5,
+                          recalibrate_xccy=True)
+    tab = tmb.make_multibook_fn(mb, dev).book.params["xstage"][1]
+    pad = 1001 - tab.Ld
+    tab = dataclasses.replace(
+        tab, Ld=1001,
+        d_xs=torch.cat([tab.d_xs, torch.ones(tab.G, pad, dtype=torch.float64,
+                                             device=dev)], -1).contiguous(),
+        lr_of=torch.cat([tab.lr_of, torch.full((tab.G, pad), -1,
+                                               dtype=torch.int32,
+                                               device=dev)], -1).contiguous())
+    pt, inp = _legs_inputs(tab, 3, 6, 1001)
+    _legs_check(pt, inp)
+    gdd, _ = kernels.xccy_legs_hess(pt, inp["dd"], inp["tdl"], inp["gpv"])
+    assert not gdd[..., tab.Ld - pad:].any()
+    info = kernels.xccy_kernel_info(pt, "xccy_legs_hess")
+    assert "grid" in info["held"] and "rows" in info["held"], info
+    assert xs.LEG_BLOCK == info["threads"]
+
+
+@pytest.mark.parametrize("scheme", ["FLAT_FWD_RATES", "LINEAR_ZERO_RATES",
+                                    "LINEAR_FWD_RATES"])
+def test_xccy_legs_split_at_the_route_maxima(dev, scheme):
+    """K9 / K11 at the route's maxima (S = 16 legs of up to 63 annual
+    coupons, 1,040 flows in five chunks) with 64 domestic directions, 5
+    scenarios."""
+    mb = _xccy_one_book(_XLONG, "FLAT_FWD_RATES", True)
+    tab = tmb.make_multibook_fn(mb, dev).book.params["xstage"][1]
+    assert (tab.S, tab.P) == (16, 63)
+    tab = dataclasses.replace(tab, dsch={
+        "FLAT_FWD_RATES": 1, "LINEAR_ZERO_RATES": 2,
+        "LINEAR_FWD_RATES": 0}[scheme])
+    pt, inp = _legs_inputs(tab, 5, 64, 16)
+    _legs_check(pt, inp)
+
+
+@pytest.mark.parametrize("Qd", [400, 1024])
+def test_xccy_legs_split_many_directions(dev, Qd):
+    """Domestic directions beyond a block's shared memory (three members,
+    S = 7, 12 rows): at 400 the tangent rows are read from device memory,
+    at 1,024 U is also cut into tiles of directions (the layout's
+    fallbacks)."""
+    mb = cases.xccy3_book("adrates_torch", "LINEAR_ZERO_RATES",
+                          "FLAT_FWD_RATES", 7, recalibrate_xccy=True)
+    tab = tmb.make_multibook_fn(mb, dev).book.params["xstage"][1]
+    pt, inp = _legs_inputs(tab, 2, Qd, Qd)
+    info = kernels.xccy_kernel_info(pt, "xccy_legs_hess")
+    assert "rows" not in info["held"], info
+    assert (info["tile"] < Qd) == (Qd > 400), info
+    _legs_check(pt, inp)
+
+
+def test_xccy_legs_split_no_local_memory(dev):
+    """K9 and K11 keep nothing in local memory and fit two blocks an SM at
+    flagship_v5-like sizes (three members, S = 7)."""
+    mb = cases.xccy3_book("adrates_torch", "FLAT_FWD_RATES",
+                          "FLAT_FWD_RATES", 7, recalibrate_xccy=True)
+    tab = tmb.make_multibook_fn(mb, dev).book.params["xstage"][1]
+    for name in ("xccy_legs_jvp", "xccy_legs_hess"):
+        info = kernels.xccy_kernel_info(tab, name)
+        assert info["local_bytes"] == 0, (name, info)
+        assert info["blocks_per_sm"] >= 2, (name, info)

@@ -737,7 +737,8 @@ def test_kernel_flops(book):
     tangents again), and K8, recalibrated (D = 2S + Qf), less than a dual
     thread a direction over the whole stage (held as values, D = 3, a
     block's grid transforms and rows cost about what they save); K9 /
-    K11 keep the simple design's count."""
+    K11, the legs' flows once a (scenario, member) and a dot a direction
+    or pair, count less than a thread a direction or pair did."""
     _, _, topo, dbook, q, _ = book
     (si, tab), = dbook.params["xstage"].items()
     sp, pv, fd, tf = _stage_inputs(book, si, tab)
@@ -755,4 +756,476 @@ def test_kernel_flops(book):
     if tab.recal:
         legs = xs.needed_flops("xccy_legs_jvp", tab, c["dom_ds"],
                                c["td_legs"])
-        assert legs["kernel"] == legs["threads"]
+        hl = xs.needed_flops("xccy_legs_hess", tab, c["dom_ds"],
+                             c["td_legs"], torch.ones(q.shape[0], tab.G,
+                                                      tab.S))
+        for x in (legs, hl):
+            assert 0 < x["kernel"] < x["threads"]
+            assert x["kernel"] % q.shape[0] == 0
+
+
+def test_needed_bytes(book):
+    """needed_bytes counts each grid only at the entries its plan reads
+    (per scenario: K8 / K10 the foreign DFs and their tangents at the
+    taps of fq, K9 / K11 the domestic DFs and tangents at the taps of the
+    legs' index and discount queries, both taken from the plans here),
+    the other inputs and the outputs in full, and the tables the kernel
+    reads once; each below the sum of every table and every input and
+    output in full."""
+    _, _, topo, dbook, q, _ = book
+    (si, tab), = dbook.params["xstage"].items()
+    h = tab.host()
+    G, S, D, Qd, W = tab.G, tab.S, tab.D, tab.Qd, tab.W
+    sp, pv, fd, tf = _stage_inputs(book, si, tab)
+    gs = torch.ones(q.shape[0], G, W)
+    _, fw = _parts(book)
+    c = fw["carry"][si]
+    ftaps = sum(len({x for qi in h["fq_i"][g] for x in xs._taps(qi)})
+                for g in range(G))
+    dtaps = sum(len({x for qi in np.concatenate([h["li_i"][g], h["ld_i"][g]],
+                                                axis=1).reshape(-1, 3)
+                     for x in xs._taps(qi)}) for g in range(G))
+    assert dtaps == int((h["lr_row"] >= 0).sum())
+    nf = 1 + (D if tab.recal else 0)
+    per = dict(
+        xccy_stage_jvp=((sp, pv, fd, tf), nf * ftaps
+                        + G * (2 * S + tab.U1 + W + D * W)),
+        xccy_stage_hess=((sp, pv, fd, tf, gs), nf * ftaps
+                         + G * (2 * S + W + D + D * D
+                                + (tab.Lf if tab.recal else 0))))
+    if tab.recal:
+        gpv = torch.ones(q.shape[0], G, S)
+        per.update(
+            xccy_legs_jvp=((c["dom_ds"], c["td_legs"]), (1 + Qd) * dtaps
+                           + G * (S + Qd * S)),
+            xccy_legs_hess=((c["dom_ds"], c["td_legs"], gpv),
+                            (1 + Qd) * dtaps + G * (S + tab.Ld + Qd * Qd)))
+    whole = sum(getattr(tab, f.name).numel()
+                * getattr(tab, f.name).element_size()
+                for f in dataclasses.fields(tab)
+                if isinstance(getattr(tab, f.name), torch.Tensor))
+    for name, (args, scen) in per.items():
+        one = [a if a is None else a[:1] for a in args]
+        n1 = xs.needed_bytes(name, tab, *one)
+        n2 = xs.needed_bytes(name, tab, *[a if a is None else a[:2]
+                                          for a in args])
+        assert n2 - n1 == 8 * scen, name
+        outs = [r for r in getattr(kernels, name)(tab, *one)
+                if r is not None]
+        assert n1 < whole + sum(8 * a.numel() for a in list(one) + outs
+                                if a is not None), name
+    if tab.recal:
+        assert xs.needed_bytes("xccy_legs_jvp", tab, *per[
+            "xccy_legs_jvp"][0]) < xs.needed_bytes(
+            "xccy_legs_hess", tab, *per["xccy_legs_hess"][0])
+
+
+def test_exchanges_need_their_discount_queries(book):
+    """stage_tables refuses legs with notional exchanges whose discount
+    plan lacks the effective and maturity times' queries (the kernels and
+    the plain version read them at P + 1 and P + 2)."""
+    _, _, topo, dbook, _, _ = book
+    (si, tab), = dbook.params["xstage"].items()
+    assert tab.flags & xs.NOTIONAL_EXCHANGE and tab.Pd == tab.P + 3
+    st = topo.stages[si]
+    b = topo.bat[st.key]
+    disc = {k: (np.asarray(v)[..., :tab.P + 1]
+                if k in ("i0", "i1", "at_knot", "knot_idx", "c", "q")
+                else v) for k, v in b["legs_plan"]["disc"].items()}
+    bad = dict(b, legs_plan=dict(b["legs_plan"], disc=disc))
+    with pytest.raises(LibError, match="notional exchanges"):
+        xs.stage_tables(st, [topo.specs[c].interp_type for c in st.ids],
+                        bad, b["row_plan_keep"], tab.D, tab.Qd, "cpu")
+
+
+# ---------------------------------------------------------------------------
+# K9 / K11 split at the legs' flows: the primal, gradients and M once a
+# (scenario, member), then a dot a direction or pair
+# ---------------------------------------------------------------------------
+
+
+def emulate_legs_split(h: dict, dd, tdl, gpv=None):
+    """K9 (gpv None) or K11 as they split the legs, in Python: per
+    (scenario, member) ``xccy_stage.legs_prologue``, then Jpv[d, s] =
+    G_s . t_d (``legs_dir``) or, K11, U_j = M t_j (``legs_u``) and each
+    pair i <= j's t_i . U_j (``legs_pair``), written at [i, j] and
+    [j, i]; (pv0, Jpv) or (gdd, Hl) as numpy, from numpy inputs shaped as
+    the kernels'."""
+    Sc, G, Qd, Ld, S = dd.shape[0], h["G"], tdl.shape[1], h["Ld"], h["S"]
+    pv0 = np.full((Sc, G, S), np.nan)
+    jpv = np.full((Sc, Qd, G, S), np.nan)
+    gdd = np.full((Sc, G, Ld), np.nan)
+    Hl = np.full((Sc, Qd, G, Qd), np.nan)
+    for sc in range(Sc):
+        for g in range(G):
+            pro = xs.legs_prologue(h, g, dd[sc, g],
+                                   None if gpv is None else gpv[sc, g])
+            dirs = [xs.legs_dir(h, g, pro, tdl[sc, d, g]) for d in range(Qd)]
+            if gpv is None:
+                pv0[sc, g] = pro["pv"]
+                for d in range(Qd):
+                    jpv[sc, d, g] = dirs[d][0]
+                continue
+            gdd[sc, g] = pro["gdd"]
+            for j in range(Qd):
+                U = xs.legs_u(h, g, pro, tdl[sc, j, g], *dirs[j])
+                for i in range(j + 1):
+                    Hl[sc, i, g, j] = Hl[sc, j, g, i] = xs.legs_pair(
+                        h, g, tdl[sc, i, g], U)
+    return (pv0, jpv) if gpv is None else (gdd, Hl)
+
+
+def _legs_split_check(tab, dd, tdl, gpv, tol=1e-12):
+    """The split's K9 and K11 against the plain versions at tol x
+    max|ref|, every entry written, Hl its own mirror bit for bit."""
+    h = tab.host()
+    got = emulate_legs_split(h, dd.numpy(), tdl.numpy())
+    for a, b in zip(got, xs.xccy_legs_jvp_plain(tab, dd, tdl)):
+        assert not np.isnan(a).any()
+        _close(a, b.numpy(), tol)
+    gdd, Hl = emulate_legs_split(h, dd.numpy(), tdl.numpy(), gpv.numpy())
+    assert not np.isnan(Hl).any()
+    assert np.array_equal(Hl, Hl.transpose(0, 3, 2, 1))
+    rg, rH = xs.xccy_legs_hess_plain(tab, dd, tdl, gpv)
+    _close(gdd, rg.numpy(), tol)
+    _close(Hl, rH.numpy(), tol)
+
+
+def _probe_legs_inputs(tab, dom_ds, seed, Qd=None):
+    """Probe legs of ``tab`` (Qd domestic directions where given) and
+    seeded tangents [Sc, Qd, G, Ld] and cotangents [Sc, G, S]."""
+    pt = xs.probe_tables(tab, seed)
+    if Qd is not None:
+        pt = dataclasses.replace(pt, Qd=Qd,
+                                 lpairs=torch.tensor(xs.pair_table(Qd)))
+    rng = np.random.default_rng(seed)
+    Sc = dom_ds.shape[0]
+    tdl = torch.tensor(1e-3 * rng.standard_normal((Sc, pt.Qd, pt.G, pt.Ld)))
+    gpv = torch.tensor(rng.standard_normal((Sc, pt.G, pt.S)))
+    return pt, tdl, gpv
+
+
+def _jax_legs(jb, si, pt, dom_ds, tdl, gpv):
+    """The JAX package's K9 / K11 functions on the probe legs of ``pt``:
+    ``jax.linearize`` of ``xccy_legs_pv`` and its Jpv along tdl, and
+    ``s_legs``' gdd and Hl (adrates_tpu/parallel/structured_risk.py
+    :367-379, :546-563), a scenario at a time; (pv0, Jpv, gdd, Hl) as
+    numpy."""
+    import jax.numpy as jnp
+    from adrates_tpu.parallel.curve_batching import xccy_legs_pv
+    st = jsr._build_meta(jb.basket)["stages"][si]
+    b = jb.basket.params["bat"][st.key]
+    h = pt.host()
+    lf, ls = h["leg_f"], h["leg_s"]
+    legs = dataclasses.replace(
+        b["legs"], spreads=lf[..., 3], index_alphas=lf[..., 2],
+        principal=ls[..., 0], first_fixing_rate=ls[..., 3],
+        cap_rate=ls[..., 7], floor_rate=ls[..., 8],
+        override_first=bool(pt.flags & xs.OVERRIDE_FIRST),
+        has_cap_floor=bool(pt.flags & xs.CAP_FLOOR))
+    b2 = dict(b, legs=legs)
+    G, Qd = pt.G, pt.Qd
+
+    def legs_fn(dd):
+        return xccy_legs_pv(dd, b2, st)
+
+    def one(dd, td, gp):
+        pv0, jvp_legs = jax.linearize(legs_fn, dd)
+        Jpv = jax.vmap(jvp_legs)(td)
+
+        def s_legs(Zd, d):
+            return jnp.vdot(gp, legs_fn(d + jnp.einsum("gd,dgl->gl", Zd,
+                                                       td)))
+        (_, gdd), jvp2 = jax.linearize(jax.grad(s_legs, argnums=(0, 1)),
+                                       jnp.zeros((G, Qd)), dd)
+        seeds = jnp.broadcast_to(jnp.eye(Qd)[:, None, :], (Qd, G, Qd))
+        Hl = jax.vmap(lambda s: jvp2(s, jnp.zeros_like(dd))[0])(seeds)
+        return pv0, Jpv, gdd, Hl
+    return tuple(np.asarray(x) for x in jax.jit(jax.vmap(one))(
+        dom_ds.numpy(), tdl.numpy(), gpv.numpy()))
+
+
+def _legs_vs_jax(jb, si, tab, dom_ds, seed, Qd=None):
+    pt, tdl, gpv = _probe_legs_inputs(tab, dom_ds, seed, Qd)
+    rpv, rJ, rg, rH = _jax_legs(jb, si, pt, dom_ds, tdl, gpv)
+    h = pt.host()
+    pv0, jpv = emulate_legs_split(h, dom_ds.numpy(), tdl.numpy())
+    gdd, Hl = emulate_legs_split(h, dom_ds.numpy(), tdl.numpy(),
+                                 gpv.numpy())
+    for got, ref in ((pv0, rpv), (jpv, rJ), (gdd, rg), (Hl, rH)):
+        _close(got, ref, 1e-12)
+    return pt, tdl, gpv
+
+
+def test_legs_split_holds_the_jax_legs(book):
+    """K9 / K11's split (the legs' flows once a (scenario, member),
+    G_s, gdd and M collapsed onto the domestic grid, a dot a direction or
+    pair), in numpy, on probe legs (a cap and floor, an ia = 0 slot, a
+    fixed first coupon, a principal) along seeded tangents: pv0, Jpv,
+    gdd and Hl equal the JAX package's linearize / s_legs at 1e-12 x
+    max|ref|, and the plain versions'."""
+    recal, _, _, dbook, _, _ = book
+    jb = cases.compile_xccy_book("adrates_tpu",
+                                 cases.build_xccy_model("adrates_tpu"),
+                                 recalibrate_xccy=recal)
+    _, fw = _parts(book)
+    for si, tab in dbook.params["xstage"].items():
+        dd = fw["carry"][si]["dom_ds"]
+        pt, tdl, gpv = _legs_vs_jax(jb, si, tab, dd, 4,
+                                    None if recal else 4)
+        _legs_split_check(pt, dd, tdl, gpv)
+
+
+@pytest.mark.parametrize("scheme", [
+    "FLAT_FWD_RATES", "LINEAR_ZERO_RATES", "LINEAR_FWD_RATES"])
+def test_legs_split_on_the_three_schemes(scheme):
+    """The split on a three-member stage whose domestic curve (USD OIS)
+    is on each simple scheme: against the JAX package at 1e-12 x
+    max|ref| on probe legs along seeded tangents, and pv0, Jpv and gdd
+    along the parent's own jacobian columns (td_legs; along these the
+    legs' Hessian is itself a cancellation, its terms meeting at about
+    1e-14 of their size)."""
+    jb = cases.xccy3_book("adrates_tpu", scheme, "FLAT_FWD_RATES", 5,
+                          recalibrate_xccy=True)
+    mb = cases.xccy3_book("adrates_torch", scheme, "FLAT_FWD_RATES", 5,
+                          recalibrate_xccy=True)
+    topo = tmb.book_inputs(mb).topology
+    dbook = tmb.make_multibook_fn(mb, "cpu").book
+    q = torch.tensor(mb.basket.quotes0[None, :] + np.random.default_rng(
+        6).normal(0.0, 1e-3, (2, mb.basket.n_quotes)))
+    c = tsr.make_structured_parts(topo)["fwd_delta"](
+        q, dbook.params, dbook.aggregate, dbook.clamp_agg)["carry"]
+    (si, tab), = dbook.params["xstage"].items()
+    assert tab.dsch == xs.SCHEME_CODE[getattr(InterpTypes, scheme)]
+    pt, _, gpv = _legs_vs_jax(jb, si, tab, c[si]["dom_ds"], 8)
+    rpv, rJ, rg, rH = _jax_legs(jb, si, pt, c[si]["dom_ds"],
+                                c[si]["td_legs"], gpv)
+    h = pt.host()
+    dd, td = c[si]["dom_ds"].numpy(), c[si]["td_legs"].numpy()
+    for got, ref in zip(emulate_legs_split(h, dd, td) + emulate_legs_split(
+            h, dd, td, gpv.numpy())[:1], (rpv, rJ, rg)):
+        _close(got, ref, 1e-12)
+
+
+def _rate_at(h, g, s, p, dd):
+    """The all-in rate of coupon p of leg s, in the kernels' arithmetic."""
+    tg = [xs.transform(h["dsch"], float(x), float(y))
+          for x, y in zip(dd, h["d_xs"][g])]
+    li, lf = h["li_i"][g, s], h["li_f"][g, s]
+    A = xs.leg_query(h, li[p], lf[p], tg, dd)[0]
+    B = xs.leg_query(h, li[h["P"] + p], lf[h["P"] + p], tg, dd)[0]
+    return (A / B - 1.0) / float(h["leg_f"][g, s, p, 2]) \
+        + float(h["leg_f"][g, s, p, 3])
+
+
+def test_legs_split_at_the_cap_and_floor():
+    """A rate exactly at the cap and another exactly at the floor (a
+    LINEAR_FWD domestic curve, whose DFs the plain version and the split
+    compute in the same IEEE operations): torch.clamp's derivative passes
+    at both, the split's strict comparisons agree, at 1e-12 x max|ref|;
+    the rates do sit on the bounds in the plain version's arithmetic.
+    (The JAX package's jnp.clip halves the derivative at a tie, so these
+    are held to the plain versions.)"""
+    mb = cases.xccy3_book("adrates_torch", "LINEAR_FWD_RATES",
+                          "LINEAR_ZERO_RATES", 5, recalibrate_xccy=True)
+    topo = tmb.book_inputs(mb).topology
+    dbook = tmb.make_multibook_fn(mb, "cpu").book
+    (si, tab), = dbook.params["xstage"].items()
+    q = torch.tensor(mb.basket.quotes0[None, :])
+    dd = tsr.make_structured_parts(topo)["fwd_delta"](
+        q, dbook.params, dbook.aggregate, dbook.clamp_agg)["carry"][si][
+            "dom_ds"]
+    pt, tdl, gpv = _probe_legs_inputs(tab, dd, 5)
+    h = pt.host()
+    leg_s = pt.leg_s.clone()
+    hit = []
+    for g in range(pt.G):
+        live = [(s, p) for s in range(pt.S) for p in range(1, pt.P)
+                if h["leg_f"][g, s, p, 2] > 0
+                and h["leg_f"][g, s, p, 0] > h["leg_s"][g, s, 2]]
+        (s0, p0), (s1, p1) = live[0], live[-1]
+        assert s0 != s1
+        leg_s[g, s0, 7] = _rate_at(h, g, s0, p0, dd[0, g].numpy())
+        leg_s[g, s1, 8] = _rate_at(h, g, s1, p1, dd[0, g].numpy())
+        leg_s[g, s1, 7] = leg_s[g, s1, 8] + 0.01
+        hit.append((g, s0, p0, s1, p1))
+    pt = dataclasses.replace(pt, leg_s=leg_s)
+    # the plain version's own rates sit on the bounds
+    P = pt.P
+    idx = xs._interp(pt.li_i, pt.li_f, pt.d_xs.unsqueeze(-2).expand(
+        pt.G, pt.S, pt.Ld), dd[0].unsqueeze(-2).expand(pt.G, pt.S, pt.Ld),
+        pt.dsch)
+    ia = pt.leg_f[..., 2]
+    rate = (idx[..., :P] / idx[..., P:] - 1.0) / torch.where(
+        ia > 0, ia, 1.0) + pt.leg_f[..., 3]
+    for g, s0, p0, s1, p1 in hit:
+        assert float(rate[g, s0, p0]) == float(pt.leg_s[g, s0, 7])
+        assert float(rate[g, s1, p1]) == float(pt.leg_s[g, s1, 8])
+    _legs_split_check(pt, dd, tdl, gpv)
+
+
+def test_legs_split_support_covers_the_hessian(book):
+    """M = sum_s gpv_s d2PV_s/dd2 assembled from the split's pieces (M_N
+    on its entries ``me_rc``, the value DFs' coupling -w_s (G_s dV_s' +
+    dV_s G_s' + PV_s d2V_s)) equals torch.func's dense Hessian of the
+    plain legs at 1e-12 x max|ref| on probe legs, and every nonzero of
+    that Hessian lies on the support: M_N's entries, or a value DF tap's
+    row or column within its leg's rows; gdd equals its gradient."""
+    from torch.func import grad, hessian
+    _, _, _, dbook, _, _ = book
+    _, fw = _parts(book)
+    for si, tab in dbook.params["xstage"].items():
+        pt, _, gpv = _probe_legs_inputs(tab, fw["carry"][si]["dom_ds"], 9, 2)
+        h = pt.host()
+        dd = fw["carry"][si]["dom_ds"][0]
+        for g in range(pt.G):
+            def s_of(d, g=g):
+                full = dd.clone()
+                full[g] = d
+                return torch.sum(gpv[0, g] * xs.legs_forward(pt, full)[g])
+            rM = hessian(s_of)(dd[g]).numpy()
+            pro = xs.legs_prologue(h, g, dd[g].numpy(), gpv[0, g].numpy())
+            _close(np.array(pro["gdd"]), grad(s_of)(dd[g]).numpy(), 1e-12)
+            rows = h["lr_row"][g]
+            M = np.zeros_like(rM)
+            on = np.zeros(rM.shape, dtype=bool)
+            for e, (p, c) in enumerate(h["me_rc"][g]):
+                if rows[p] < 0 or rows[c] < 0:
+                    continue
+                M[rows[p], rows[c]] += pro["M"][e]
+                if p != c:
+                    M[rows[c], rows[p]] += pro["M"][e]
+                on[rows[p], rows[c]] = on[rows[c], rows[p]] = True
+            for s in range(pt.S):
+                lo, hi = h["ls_ptr"][g, s], h["ls_ptr"][g, s + 1]
+                Gs = np.zeros(pt.Ld)
+                lrows = rows[h["ls_row"][g, lo:hi]]
+                Gs[lrows] = pro["G"][lo:hi]
+                V = pro["V"][s]
+                taps = xs._taps(h["ld_i"][g, s, pt.P])
+                dV = np.zeros(pt.Ld)
+                d2V = np.zeros((pt.Ld, pt.Ld))
+                for a, x in enumerate(taps):
+                    dV[x] += V[1][a]
+                    on[x, lrows] = on[lrows, x] = True
+                if V[2] is not None:
+                    for a, b, k in ((0, 0, 0), (0, 1, 1), (1, 0, 1),
+                                    (1, 1, 2)):
+                        d2V[taps[a], taps[b]] += V[2][k]
+                M -= pro["w"][s] * (np.outer(Gs, dV) + np.outer(dV, Gs)
+                                    + pro["pv"][s] * d2V)
+            assert not rM[~on].any()
+            _close(M, rM, 1e-12)
+
+
+def _emulated_legs_split(book):
+    """fwd_delta and term2_xccy with K9 and K11 replaced by their split
+    emulation in numpy."""
+    _, _, topo, dbook, q, _ = book
+    parts = tsr.make_structured_parts(topo)
+
+    def jvp_(tab, dd, tdl):
+        return tuple(torch.tensor(o) for o in emulate_legs_split(
+            tab.host(), dd.numpy(), tdl.numpy()))
+
+    def hess_(tab, dd, tdl, gpv):
+        return tuple(torch.tensor(o) for o in emulate_legs_split(
+            tab.host(), dd.numpy(), tdl.numpy(), gpv.numpy()))
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(kernels, "xccy_legs_jvp", jvp_)
+        mp.setattr(kernels, "xccy_legs_hess", hess_)
+        fw = parts["fwd_delta"](q, dbook.params, dbook.aggregate,
+                                dbook.clamp_agg)
+        return fw, parts["term2_xccy"](q, dbook.params, fw["g"],
+                                       fw["carry"])
+
+
+def test_legs_split_holds_the_jax_book(book):
+    """The book's own calibration legs (which telescope: their PVs and
+    derivatives cancel to rounding) through the split K9 and K11 in
+    fwd_delta and term2_xccy: dfs, J, H2 and the parent cotangents equal
+    the JAX package's at the tolerances of the route's tests, each a
+    multiple of the largest reference entry (the scale of the terms that
+    cancel)."""
+    recal, ref, *_ = book
+    fw, (h2x, v_of) = _emulated_legs_split(book)
+    _close(fw["dfs"], ref["dfs"], 1e-14)
+    _close(fw["J"], ref["J"], 1e-11)
+    _close(h2x, ref["h2x"], 1e-12)
+    assert bool(v_of) == recal
+    _v_of_close(v_of, ref["v_of"], 1e-12)
+
+
+def _flagship_legs_plans():
+    """(li_i, ld_i, P, Ld) of flagship_v5's XCCY stage."""
+    import warnings
+    from adrates_torch.examples import flagship_v5 as cfg
+    model = cfg.build_model()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)
+        trades, coll = cfg.build_base_trades(
+            model, np.random.default_rng(cfg.SEED))
+        mb = cfg.compile_base(model, trades, coll)
+    (_, tab), = tmb.make_multibook_fn(mb, "cpu").book.params[
+        "xstage"].items()
+    return tab.li_i.numpy(), tab.ld_i.numpy(), tab.P, tab.Ld
+
+
+def _random_legs_plans(G=3, S=16, P=63, Ld=12, seed=3):
+    """Random packed plans at the route's maxima (S = 16 legs of 63
+    coupons): bracketing entries, a fifth of the queries at a knot."""
+    rng = np.random.default_rng(seed)
+
+    def plan(shape):
+        i0 = rng.integers(0, Ld - 1, shape)
+        kn = np.where(rng.random(shape) < 0.2, rng.integers(0, Ld, shape),
+                      -1)
+        return np.stack([i0, i0 + 1, kn], axis=-1).astype(np.int32)
+    return plan((G, S, 2 * P)), plan((G, S, P + 3)), P, Ld
+
+
+@pytest.mark.parametrize("plans", [_flagship_legs_plans, _random_legs_plans],
+                         ids=["flagship_v5", "route_maxima"])
+def test_legs_lists_invariants(plans):
+    """K9 / K11's lists on flagship_v5's XCCY stage (G = 3, S = 8, P =
+    30) and on random plans at the route's maxima (S = 16, P = 63): the
+    rows are the entries the queries read; every flow's n lies once in
+    its leg's sum, every slot once in a gradient target, every slot pair
+    once in an M_N entry; segments hold 1 to LEG_SEG terms, the sums' and
+    gradients' before M_N's in each chunk, and each target's segments
+    come in order."""
+    li, ld, P, Ld = plans()
+    G, S = li.shape[:2]
+    F, B = P + 2, xs.LEG_BLOCK
+    ll = xs._legs_lists(li, ld, P, Ld)
+    NL, E = ll["ls_row"].shape[1], ll["me_rc"].shape[1]
+    for g in range(G):
+        rows = ll["lr_row"][g]
+        read = sorted({x for q in list(li[g].reshape(-1, 3))
+                       + list(ld[g].reshape(-1, 3)) for x in xs._taps(q)})
+        assert rows[rows >= 0].tolist() == read
+        lt, seg = ll["lt_term"][g], ll["sg"][g]
+        tp, ts, sc = ll["ts_ptr"][g], ll["ts_seg"][g], ll["sc_ptr"][g]
+        is_m = np.zeros(seg.shape[0], dtype=bool)
+        for c in range(len(sc) // 2):
+            is_m[sc[2 * c + 1]:sc[2 * c + 2]] = True
+        by_k = np.zeros(7 + len(xs.SLOT_PAIRS), dtype=int)
+        for t in range(S + NL + E):
+            ks = ts[tp[t]:tp[t + 1]]
+            assert list(ks) == sorted(ks)
+            for k in ks:
+                assert 0 < seg[k, 1] - seg[k, 0] <= xs.LEG_SEG
+                assert is_m[k] == (t >= S + NL)
+                for x in lt[seg[k, 0]:seg[k, 1]]:
+                    by_k[(x >> 1) // B] += 1
+                    assert (x >> 1) // B == 0 or t >= S
+        slots = [[len(xs._taps(q)) for q in (li[g, s, p], li[g, s, P + p],
+                                             ld[g, s, p])]
+                 for s in range(S) for p in range(P)]
+        slots += [[len(xs._taps(ld[g, s, P + 1 + e]))] for s in range(S)
+                  for e in range(2)]
+        n = [sum(x) for x in slots]
+        assert by_k[0] == S * F
+        assert by_k[1:7].sum() == sum(n)
+        assert by_k[7:].sum() == sum(k * (k + 1) // 2 for k in n)
