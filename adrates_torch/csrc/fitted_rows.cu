@@ -1,67 +1,101 @@
-// K6 / K7: the fitted schemes' curve rows at static queries, and their
-// transpose (f64).
+// K6 / K7: the fitted schemes' evaluation at static queries, its tangent,
+// and the transpose of its linear core (f64).
 //
 // Replace the fit and the evaluation of the fitted schemes at static
 // queries: adrates_tpu/ops/interpolation.py interp_fit (:350) and
 // interp_df (:375), as adrates_tpu/parallel/curve_batching.py stage_rows
 // (:320) runs them for each fitted member of a stage (the port's
-// ops/interpolation.py fitted_df_static). On a static plan the knots x, the
+// ops/fitted_rows.py fitted_eval). On a static plan the knots x, the
 // queries q and their brackets i = idx(q) are fixed when the book compiles;
-// past the scheme's elementwise transform (log DF or the zero rate, done by
-// torch around the kernels), each member is a cubic Hermite interpolant
+// past the scheme's elementwise transform of the DFs (the log DF, or the
+// zero rate -log(df) / (t + gSmall) with the t = 0 knot patched to its
+// neighbour), each member is a cubic Hermite interpolant
 //
-//   u = w00 y_i + w10 d_i + w01 y_{i+1} + w11 d_{i+1}
+//   u = w00 y_i + w10 d_i + w01 y_{i+1} + w11 d_{i+1},  df(q) = exp(fac u)
 //
-// with static weights (hermite_eval's h00, h10 h, h01, h11 h), on slopes d
-// that are given (the PCHIP schemes: slot 1 of the input) or are the
-// spline's, d = T^-1 R y (the three spline schemes: T the knot-slope
-// tridiagonal, R the static map from y to its right-hand side; both depend
-// on the knots alone). So the map (y, d) -> u is linear and static.
+// with static weights (hermite_eval's h00, h10 h, h01, h11 h) and fac = 1
+// (log DF) or -q (zero rates), on slopes d that are pchip_slopes' (the
+// PCHIP schemes) or the spline's, d = T^-1 R y (the three spline schemes:
+// T the knot-slope tridiagonal, R the static map from y to its right-hand
+// side; both depend on the knots alone).
 //
-//   K6 fitted_rows:    U [R, G, W_max] from X [R, G, K, n_max], X[.., 0, :]
-//                      the knot values y, X[.., 1, :] the given slopes
-//                      (read for a Hermite member only; K = 2 where the
-//                      stack holds one).
-//   K7 fitted_rows_t:  its exact transpose, Xb [R, G, K, n_max] from
-//                      Ub [R, G, W_max]: each query's cotangent times its
-//                      four weights, summed by interval into the
-//                      interval's two knots in a fixed order (no atomics);
-//                      for a spline member d-bar -> z = T^-T d-bar and
-//                      y-bar += R^T z, and slot 1 is 0.
+//   K6 fitted_eval:     out [R, G, W_max] from the DFs [R, G, L] (member
+//                       g's knots first; pad knots and positions past them
+//                       not read, pad queries 1): the whole evaluation.
+//   K6 fitted_eval_jvp: its tangent mode, dout [R, D, G, W_max] = out (fac
+//                       du) from the DFs, D tangent rows a primal row
+//                       [R, D, G, L] and out: the transforms' tangents (dd
+//                       / d, divided by -(t + gSmall) for zero rates),
+//                       PCHIP's slope derivative (exactly 0 where its guard
+//                       m0 m1 > 0 is false) or the spline's solve of dy,
+//                       the Hermite rows of (dy, dd); pad queries 0.
+//   K6 fitted_rows:     the linear core alone, U [R, G, W_max] from X [R,
+//                       G, K, n_max] (the knot values, and a Hermite
+//                       member's slopes in slot 1): K7's own derivative.
+//   K7 fitted_rows_t:   the core's exact transpose, Xb [R, G, K, n_max]
+//                       from Ub [R, G, W_max]: each query's cotangent times
+//                       its four weights, summed by interval into the
+//                       interval's two knots in a fixed order (no atomics);
+//                       for a spline member d-bar -> z = T^-T d-bar and
+//                       y-bar += R^T z, and slot 1 is 0. The reverse mode
+//                       of fitted_eval is K7 between torch ops (the vjp of
+//                       exp(fac u) before it, of the transforms after).
 //
-// Row r of X is one (scenario, tangent, ...) evaluation of member g = the
-// second axis; members are padded to n_max knots (T's pad rows identity,
-// R's and the weights' pad entries 0: pads are never read) and W_max
-// queries (K6 writes 0 there, K7 reads none of them).
+// Members are padded to n_max knots (T's pad rows identity, R's and the
+// weights' pad entries 0: pads are never read) and W_max queries.
 //
 // T is factored once on the host in f64 (Thomas: T = L U, L unit lower with
 // multipliers l_i, U upper with pivots b'_i and super-diagonal c_i; T is
 // strictly diagonally dominant, so no pivoting), and the tables hold l, 1 /
 // b' and c: the device solve is two sweeps of FMAs and multiplies, no
 // division. sp [G, 6, n_max] = (l, 1 / b', c, rl, rd, ru), R's three
-// diagonals last.
+// diagonals last; fx [G, 5, n_max] = (-(x + gSmall), h, PCHIP's w1, w2,
+// w12) and fmode [G] (zero rates, t = 0 patched) the transforms'.
 //
-// What bounds them on an H100: bytes. A call reads X (8 R G K n_max bytes)
-// and writes U (8 R G W_max), or the reverse for K7, plus the tables
-// (about 40 G (n_max + W_max) bytes, read once from HBM and then from L2):
+// What bounds them on an H100: bytes. K6 writes R G W_max values (and D
+// times as many tangents) from R G n_max DFs; K7 the reverse; the tables
+// (about 44 G W_max + 88 G n_max bytes) come once from HBM, then from L2:
 // on the spline cell's stages (n_max 73, W_max the book's unique times) the
-// query values are the most of it. The work is a few FMAs a byte (K7: four
-// a cotangent, 142 MFLOP at region C2's [1,600, 5, 2,225], far below the
-// f64 rate). A spline member's solve is a chain of about 2 n dependent
-// FMAs a row (n = 73 on GBP, USD, EUR, 43 on JPY and AUD): about 1-3 us,
-// taken once a tile and hidden behind other blocks' streams.
+// query values are the most of it. The work is a few FMAs a byte.
 //
-// K6: one block a (tile of rows, member) -- the grid is [ceil(R / rows),
-// G] --, 256 threads. The tile's y rows (and d rows of a Hermite member)
-// staged in shared memory, coalesced; a spline member's rows solved one
-// lane a row (the first warp) from the stored factors, into the d rows;
-// then a thread a query loads its bracket and weights once and writes its
-// value in every row of the tile (stores coalesced along the queries; the
-// tables are read once a tile, not once a value). Rows of the shared
-// tiles have an odd stride (n_max | 1 doubles), so the solving lanes, a
-// row each, hit distinct banks. A tile is 32 rows where two of them fit
-// 96 KB of shared memory (n_max < 192), else fewer (down to 1 row: n_max <
-// 6144).
+// K6 (one kernel, k6_kernel<kMode>, for its three entries): one block a
+// tile and a member, 256 threads. A tile is tp primal rows or (tangent
+// mode) one primal row and td of its directions (k6_tile: at most 32 primal
+// rows, 64 staged rows and 96 KB; the largest that still gives every SM a
+// block, then, in tangent mode, directions split on to two blocks an SM
+// while a block keeps 2^15 outputs; all D directions of a row where they
+// fit, or tiles of them, the primal row's transforms taken again in each),
+// and where one-row tiles still leave SMs without a block, a tile of its
+// queries (a multiple of 32; the row's transforms and slopes taken again
+// in each, a tile of pad queries alone skipping them).
+// The block stages its member's tables (the factors, fx) in shared memory
+// once, then its rows' transformed knot values and tangents, a thread a
+// (row, knot), coalesced; PCHIP's slopes (or their tangents) a thread a
+// (row, knot); a spline's solve from shared memory, a warp a row in tiles
+// of at most 32 rows (the sweeps' affine maps scanned over the lanes:
+// spline_solve_warp), else a thread a row over every warp (eight sweep
+// steps' operands loaded together); then a thread a query loads its
+// bracket, weights and fac once and writes its value in every row of the
+// tile (stores coalesced along the queries).
+// Rows of the shared tiles have an odd stride (n_max | 1 doubles), so the
+// solving lanes, a row each, hit distinct banks. No atomics, no
+// allocation, no local memory (ptxas, 0 spill bytes; each entry's
+// registers in chip_smoke's phase 8 and scripts/k6_phases.py).
+//
+// What holds it (scripts/k6_phases.py on an H100 80GB HBM3 at 700 W,
+// seeded inputs at the spline cell's shapes): the tangent mode at region
+// A (50 rows x 32 directions of 5 members, 2,225 queries) takes 0.0858
+// ms, 0.0528 of it with the stores behind a test no value passes: two
+// blocks an SM (tiles of 16 directions) overlap one's work with the
+// other's stores (0.0914 -> 0.0872 ms against one block an SM). The
+// primal evaluations are a block's own chain of dependent steps (the
+// member's tables, the DFs and the query tables from memory, the log, the
+// slopes, exp): A 0.0090 ms (0.0081 without the slopes, 0.0133 with a
+// spline row solved by one thread), C1 (one PCHIP member, 744 queries in
+// 200 blocks) 0.0052 (0.0042 without the slopes, 0.0056 without query
+// tiles), the gammas' (1 row of 5 members, 4,337 queries in 140 blocks)
+// 0.0050 (0.0039, 0.0085, 0.0110); without their stores each moves by at
+// most 0.0004 ms.
 //
 // K7: the cotangents streamed through shared memory and summed over
 // static segments, with no shuffle (kernels.fitted_tables builds the
@@ -134,9 +168,16 @@
 
 namespace {
 
-constexpr int kThreads = 256;            // K7: the summing threads
-constexpr int kMaxRows = 32;              // rows a K6 tile (the solving warp)
-constexpr int kSmemBudget = 96 * 1024;    // bytes of shared memory a block
+constexpr int kThreads = 256;            // K6's threads, K7's summing ones
+// K6
+constexpr int kMaxTileRows = 32;          // primal rows a tile, at most
+constexpr int kMaxSlots = 64;             // rows a tile stages, at most
+constexpr int kSmemPref = 96 * 1024;      // a tile's shared memory, at most
+constexpr int kSmemMax = 232448;          // ... where one row needs more
+constexpr int kTabRows = 11;              // sp's 6 and fx's 5 rows a member
+constexpr long kMinOutputs = 1L << 15;    // a block's outputs, to split more
+constexpr int kWarps = kThreads / 32;
+constexpr int kWarpSolveRows = 32;        // spline rows a tile, to solve by warps
 // K7 (kernels.py FIT_CHUNK, FIT_SEGS, FIT_SEG_LEN)
 constexpr int kChunk = 256;               // queries a chunk, at most
 constexpr int kSegs = 32;                 // segments a chunk, at most
@@ -150,88 +191,441 @@ constexpr int kBlocksSM = 3;              // blocks an SM
 constexpr int kSmemT = 76800;             // bytes a block, for kBlocksSM
 constexpr int kSMs = 132;
 enum { kL = 0, kRb = 1, kC = 2, kRl = 3, kRd = 4, kRu = 5 };  // sp slots
+// fx slots (fitted_rows.py FX_*): -(x + gSmall), h, PCHIP's w1, w2, w12
+enum { kNegX = 0, kH = 1, kW1 = 2, kW2 = 3, kW12 = 4 };
+enum { kZeroRates = 1, kPatch = 2 };      // fmode bits (fitted_rows.py FM_*)
+// K6's entries: the linear map, the whole evaluation, its tangent mode
+enum { kLinear = 0, kEval = 1, kTangent = 2 };
 
 __host__ __device__ inline int row_stride(int n_max) { return n_max | 1; }
-
-int tile_rows(int n_max) {
-  const int per_row = 2 * row_stride(n_max) * (int)sizeof(double);
-  const int tr = kSmemBudget / per_row;
-  return tr < kMaxRows ? tr : kMaxRows;
-}
 
 __device__ __forceinline__ double2 ld2(const double* p) {
   return __ldg(reinterpret_cast<const double2*>(p));
 }
 
-__global__ void __launch_bounds__(kThreads)
-    fitted_rows_kernel(const double* __restrict__ X, int R, int G, int K,
-                       int n_max, int W_max, const int* __restrict__ kind,
-                       const int* __restrict__ nk, const int* __restrict__ nw,
-                       const int* __restrict__ qidx,
-                       const double* __restrict__ qw,
-                       const double* __restrict__ sp, int TR,
-                       double* __restrict__ U) {
-  extern __shared__ double smem[];
-  const int g = blockIdx.y;
-  const int r0 = blockIdx.x * TR;
-  const int rows = min(TR, R - r0);
-  const int n = nk[g], W = nw[g], kd = kind[g];
-  const int ld = row_stride(n_max);
-  double* ys = smem;              // [TR][ld] knot values
-  double* ds = smem + TR * ld;    // [TR][ld] slopes
-
-  // 1. stage the tile's knot values (and a Hermite member's slopes)
-  for (int e = threadIdx.x; e < rows * n; e += blockDim.x) {
-    const int r = e / n, i = e - r * n;
-    const double* xr = X + ((size_t)(r0 + r) * G + g) * K * n_max;
-    ys[r * ld + i] = xr[i];
-    if (kd == 0) ds[r * ld + i] = xr[n_max + i];
+// the SMs of the current device (kSMs where it cannot be read)
+int sm_count() {
+  static int n = 0;
+  if (n <= 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess
+        || cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev)
+               != cudaSuccess
+        || n <= 0)
+      n = kSMs;
   }
-  __syncthreads();
+  return n;
+}
 
-  // 2. a spline member: d = U^-1 L^-1 (R y), one lane a row
-  if (kd != 0) {
-    if ((int)threadIdx.x < rows) {
-      const double* s = sp + (size_t)g * 6 * n_max;
-      const double* y = ys + threadIdx.x * ld;
-      double* d = ds + threadIdx.x * ld;
-      double f = 0.0;
-      for (int i = 0; i < n; ++i) {
-        double rhs = s[kRd * n_max + i] * y[i];
-        if (i > 0) rhs = fma(s[kRl * n_max + i], y[i - 1], rhs);
-        if (i + 1 < n) rhs = fma(s[kRu * n_max + i], y[i + 1], rhs);
-        f = fma(-s[kL * n_max + i], f, rhs);       // l_0 = 0
-        d[i] = f;
-      }
-      double b = 0.0;
-      for (int i = n - 1; i >= 0; --i) {
-        b = fma(-s[kC * n_max + i], b, d[i]) * s[kRb * n_max + i];
-        d[i] = b;
+// a K6 launch's tiles: tp primal rows and (tangent mode) td directions a
+// block, nd_tiles direction tiles a primal tile, tw queries a block and
+// nw_tiles query tiles a (row, direction) tile; the member's tables staged
+// in shared memory where they fit
+struct K6Tile {
+  int tp, td, nd_tiles, tw, nw_tiles;
+  bool stage;
+  size_t smem;
+};
+
+size_t k6_smem(int tp, int slots, int n_max, bool stage) {
+  return sizeof(double) * ((stage ? (size_t)kTabRows * n_max : 0)
+                           + (size_t)2 * tp * slots * row_stride(n_max));
+}
+
+// The most rows a tile (up to kMaxTileRows primal rows, kMaxSlots staged
+// rows, kSmemPref bytes) that still gives a block to every SM; in tangent
+// mode all D directions of a primal row where they fit, else tiles of
+// them, halved until every SM has a block, and on to two blocks an SM
+// while a block keeps kMinOutputs outputs (its stores then overlap the
+// other block's prologue: region A's 50 x 32 directions 0.0914 -> 0.0872
+// ms in 500 tiles of 16, scripts/k6_phases.py). Where one-row tiles still
+// leave SMs without a block (R G D below the SM count: region C1's primal
+// [50, 1], the gammas' [1, 5]), the queries are cut into tiles of a
+// multiple of 32 (at least 32), as many as give every SM a block; each
+// query tile takes its row's transforms and slopes again.
+K6Tile k6_tile(int R, int D, int G, int n_max, int W_max, bool tangent) {
+  const long sms = sm_count();
+  auto slots = [&](int td) { return tangent ? 1 + td : 1; };
+  auto fits = [&](int tp, int td) {
+    return k6_smem(tp, slots(td), n_max, true) <= (size_t)kSmemPref;
+  };
+  auto blocks = [&](int tp, int td) {
+    return (long)((R + tp - 1) / tp) * (tangent ? (D + td - 1) / td : 1) * G;
+  };
+  K6Tile t{1, tangent ? D : 0, 1, W_max, 1, true, 0};
+  while (tangent && t.td > 1 && (slots(t.td) > kMaxSlots || !fits(1, t.td)))
+    t.td = (t.td + 1) / 2;
+  if (!tangent || t.td == D)
+    while (t.tp < kMaxTileRows && 2 * t.tp * slots(t.td) <= kMaxSlots
+           && fits(2 * t.tp, t.td) && blocks(2 * t.tp, t.td) >= sms)
+      t.tp *= 2;
+  while (tangent && t.tp == 1 && t.td > 1 && blocks(1, t.td) < sms)
+    t.td = (t.td + 1) / 2;
+  while (tangent && t.tp == 1 && t.td > 1 && blocks(1, t.td) < 2 * sms
+         && (long)(t.td / 2) * W_max >= kMinOutputs)
+    t.td = (t.td + 1) / 2;
+  t.nd_tiles = tangent ? (D + t.td - 1) / t.td : 1;
+  const long b = blocks(t.tp, t.td);
+  if (b < sms) {
+    const long need = (sms + b - 1) / b;
+    const int tw = max(32, (int)(W_max / need) / 32 * 32);
+    if (tw < W_max) {
+      t.tw = tw;
+      t.nw_tiles = (W_max + tw - 1) / tw;
+    }
+  }
+  t.stage = fits(t.tp, t.td);
+  t.smem = k6_smem(t.tp, slots(t.td), n_max, t.stage);
+  return t;
+}
+
+// a knot's transformed value from its DF row: the log DF or the zero rate
+// -log(df) / (t + gSmall) (as log(df) / -(t + gSmall)), the t = 0 knot of
+// a patched member taking its neighbour's
+__device__ __forceinline__ double knot_value(const double* d,
+                                             const double* negx, int i,
+                                             int md) {
+  const int j = (md & kPatch) && i == 0 ? 1 : i;
+  const double y = log(d[j]);
+  return (md & kZeroRates) ? y / negx[j] : y;
+}
+
+// its tangent along the DF row's tangent dd
+__device__ __forceinline__ double knot_tangent(const double* d,
+                                               const double* dd,
+                                               const double* negx, int i,
+                                               int md) {
+  const int j = (md & kPatch) && i == 0 ? 1 : i;
+  const double dy = dd[j] / d[j];
+  return (md & kZeroRates) ? dy / negx[j] : dy;
+}
+
+// pchip_slopes at knot i of the row y (n knots): the end knots the
+// one-sided secants, an interior knot the weighted harmonic mean of its
+// secants where they have one sign (m0 m1 > 0), else 0
+__device__ __forceinline__ double pchip_slope(const double* y,
+                                              const double* fx, int n_max,
+                                              int i, int n) {
+  const double* h = fx + kH * n_max;
+  if (i == 0) return (y[1] - y[0]) / h[0];
+  if (i == n - 1) return (y[n - 1] - y[n - 2]) / h[n - 2];
+  const double m0 = (y[i] - y[i - 1]) / h[i - 1];
+  const double m1 = (y[i + 1] - y[i]) / h[i];
+  if (!(m0 * m1 > 0)) return 0.0;
+  const int j = i - 1;
+  return fx[kW12 * n_max + j]
+      / (fx[kW1 * n_max + j] / m0 + fx[kW2 * n_max + j] / m1);
+}
+
+// its derivative along dy: the secants' tangents at the end knots; an
+// interior knot, where the guard holds, -w12 dden / den^2 with den =
+// w1 / m0 + w2 / m1 and dden = -(w1 / m0) (dm0 / m0) - (w2 / m1) (dm1 /
+// m1); exactly 0 where it does not
+__device__ __forceinline__ double pchip_dslope(const double* y,
+                                               const double* dy,
+                                               const double* fx, int n_max,
+                                               int i, int n) {
+  const double* h = fx + kH * n_max;
+  if (i == 0) return (dy[1] - dy[0]) / h[0];
+  if (i == n - 1) return (dy[n - 1] - dy[n - 2]) / h[n - 2];
+  const double m0 = (y[i] - y[i - 1]) / h[i - 1];
+  const double m1 = (y[i + 1] - y[i]) / h[i];
+  if (!(m0 * m1 > 0)) return 0.0;
+  const int j = i - 1;
+  const double dm0 = (dy[i] - dy[i - 1]) / h[i - 1];
+  const double dm1 = (dy[i + 1] - dy[i]) / h[i];
+  const double a = fx[kW1 * n_max + j] / m0, b = fx[kW2 * n_max + j] / m1;
+  const double den = a + b;
+  const double dden = -(a * (dm0 / m0) + b * (dm1 / m1));
+  return -(fx[kW12 * n_max + j] / den) * (dden / den);
+}
+
+// a spline row's slopes d = U^-1 L^-1 (R y) from the stored factors F
+// (sp's six rows), eight steps' operands loaded together
+__device__ __forceinline__ void spline_solve(const double* y, double* d,
+                                             const double* F, int n_max,
+                                             int n) {
+  double f = 0.0;
+  for (int i0 = 0; i0 < n; i0 += 8) {
+    double rhs[8], ll[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      const int i = min(i0 + k, n - 1);
+      double r = F[kRd * n_max + i] * y[i];
+      if (i > 0) r = fma(F[kRl * n_max + i], y[i - 1], r);
+      if (i + 1 < n) r = fma(F[kRu * n_max + i], y[i + 1], r);
+      rhs[k] = r;
+      ll[k] = F[kL * n_max + i];
+    }
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      if (i0 + k < n) {
+        f = fma(-ll[k], f, rhs[k]);                // l_0 = 0
+        d[i0 + k] = f;
       }
     }
+  }
+  double b = 0.0;
+  for (int i1 = n - 1; i1 >= 0; i1 -= 8) {
+    double dd[8], cc[8], bb[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      const int i = max(i1 - k, 0);
+      dd[k] = d[i];
+      cc[k] = F[kC * n_max + i];
+      bb[k] = F[kRb * n_max + i];
+    }
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      if (i1 - k >= 0) {
+        b = fma(-cc[k], b, dd[k]) * bb[k];
+        d[i1 - k] = b;
+      }
+    }
+  }
+}
+
+// the same slopes, one warp a row: each Thomas sweep is a chain of affine
+// maps (f_i = -l_i f_{i-1} + rhs_i, then b_i = -(c_i / b'_i) b_{i+1} +
+// f_i / b'_i); a lane composes the maps of its run of c = ceil(n / 32)
+// consecutive knots, the warp scans the 32 composites by shuffles (five
+// steps, lower lanes first for the forward sweep, higher for the backward
+// one), and each lane runs its knots from the value the scan hands it.
+// |l_i| and |c_i / b'_i| are below 1 (T is strictly diagonally dominant),
+// so the composites' products do not grow. A chain of 2 c + 10 steps in
+// place of 2 n for a tile of few rows.
+__device__ __forceinline__ void spline_solve_warp(const double* y, double* d,
+                                                  const double* F, int n_max,
+                                                  int n, int lane) {
+  const int c = (n + 31) >> 5;
+  const int s = min(lane * c, n), e = min(s + c, n);
+  auto rhs = [&](int i) {
+    double r = F[kRd * n_max + i] * y[i];
+    if (i > 0) r = fma(F[kRl * n_max + i], y[i - 1], r);
+    if (i + 1 < n) r = fma(F[kRu * n_max + i], y[i + 1], r);
+    return r;
+  };
+  double A = 1.0, B = 0.0;                  // x -> A x + B over the run
+  for (int i = s; i < e; ++i) {
+    const double a = -F[kL * n_max + i];
+    A *= a;
+    B = fma(a, B, rhs(i));
+  }
+  for (int off = 1; off < 32; off <<= 1) {
+    const double A2 = __shfl_up_sync(~0u, A, off);
+    const double B2 = __shfl_up_sync(~0u, B, off);
+    if (lane >= off) {
+      B = fma(A, B2, B);
+      A *= A2;
+    }
+  }
+  double f = __shfl_up_sync(~0u, B, 1);     // f_{s - 1}
+  if (lane == 0) f = 0.0;
+  for (int i = s; i < e; ++i) {
+    f = fma(-F[kL * n_max + i], f, rhs(i));
+    d[i] = f;
+  }
+  A = 1.0;
+  B = 0.0;
+  for (int i = e - 1; i >= s; --i) {
+    const double rb = F[kRb * n_max + i];
+    const double a = -F[kC * n_max + i] * rb;
+    A *= a;
+    B = fma(a, B, d[i] * rb);
+  }
+  for (int off = 1; off < 32; off <<= 1) {
+    const double A2 = __shfl_down_sync(~0u, A, off);
+    const double B2 = __shfl_down_sync(~0u, B, off);
+    if (lane + off < 32) {
+      B = fma(A, B2, B);
+      A *= A2;
+    }
+  }
+  double b = __shfl_down_sync(~0u, B, 1);   // b_e
+  if (lane == 31) b = 0.0;
+  for (int i = e - 1; i >= s; --i) {
+    b = fma(-F[kC * n_max + i], b, d[i]) * F[kRb * n_max + i];
+    d[i] = b;
+  }
+}
+
+// K6, one block a (tile, member), kThreads threads. A tile is tp primal
+// rows (kLinear, kEval), or tp primal rows and td of their directions
+// (kTangent). Its rows in shared memory: slots of a knot-value row (ys)
+// and a slope row (ds), S slots a primal row (1, or 1 + td: the primal's
+// transformed knots, then each direction's tangents).
+template <int kMode>
+__global__ void __launch_bounds__(kThreads, 2)
+    k6_kernel(const double* __restrict__ X, const double* __restrict__ dX,
+              const double* __restrict__ V, int R, int D, int G, int ldx,
+              int n_max, int W_max, const int* __restrict__ kind,
+              const int* __restrict__ nk, const int* __restrict__ nw,
+              const int* __restrict__ fmode, const int* __restrict__ qidx,
+              const double* __restrict__ qw, const double* __restrict__ sp,
+              const double* __restrict__ fx, const double* __restrict__ fac,
+              int TP, int TD, int nDT, int TW, int nWT, int stage,
+              double* __restrict__ Y) {
+  extern __shared__ __align__(16) double smem[];
+  const int g = blockIdx.y;
+  const int qt = blockIdx.x % nWT, bd = blockIdx.x / nWT;
+  const int bt = bd / nDT, dt = bd - bt * nDT;
+  const int w0 = qt * TW, w1 = min(W_max, w0 + TW);
+  const int p0 = bt * TP, np = min(TP, R - p0);
+  const int k0 = dt * TD;
+  const int nd = kMode == kTangent ? min(TD, D - k0) : 0;
+  const int S = kMode == kTangent ? 1 + TD : 1;
+  const int n = nk[g], W = nw[g], kd = kind[g];
+  const int md = kMode == kLinear ? 0 : fmode[g];
+  const int ld = row_stride(n_max);
+  const double* F = sp + (size_t)g * 6 * n_max;
+  const double* fxg = kMode == kLinear ? nullptr : fx + (size_t)g * 5 * n_max;
+  double* ys = smem + (stage ? kTabRows * n_max : 0);  // [TP S][ld]
+  double* ds = ys + TP * S * ld;                       // [TP S][ld]
+
+  // a query tile of pads alone (past the member's W queries) skips the
+  // prologue
+  if (w0 < W) {
+    // 0. the member's tables (the factors; the transforms' rows) once
+    if (stage) {
+      const int nrow = kMode == kLinear ? 6 : kTabRows;
+      for (int e = threadIdx.x; e < nrow * n; e += kThreads) {
+        const int r = e / n, i = e - r * n;
+        smem[r * n_max + i] = r < 6 ? F[r * n_max + i]
+                                    : fxg[(r - 6) * n_max + i];
+      }
+      F = smem;
+      if (kMode != kLinear) fxg = smem + 6 * n_max;
+      __syncthreads();                        // step 1 reads fx
+    }
+
+    // 1. the knot values (kLinear: as given, with a Hermite member's
+    //    slopes; else the transforms of the DFs) and, in tangent mode, each
+    //    direction's tangents; a thread a (row, knot), coalesced
+    for (int e = threadIdx.x; e < np * n; e += kThreads) {
+      const int p = e / n, i = e - p * n;
+      const double* xr = X + ((size_t)(p0 + p) * G + g) * ldx;
+      double* y = ys + p * S * ld;
+      if (kMode == kLinear) {
+        y[i] = xr[i];
+        if (kd == 0) ds[p * ld + i] = xr[n_max + i];
+      } else {
+        y[i] = knot_value(xr, fxg + kNegX * n_max, i, md);
+      }
+    }
+    if (kMode == kTangent)
+      for (int e = threadIdx.x; e < np * nd * n; e += kThreads) {
+        const int pk = e / n, i = e - pk * n;
+        const int p = pk / nd, k = pk - p * nd;
+        const double* xr = X + ((size_t)(p0 + p) * G + g) * ldx;
+        const double* dxr = dX + (((size_t)(p0 + p) * D + k0 + k) * G + g) * ldx;
+        ys[(p * S + 1 + k) * ld + i] =
+            knot_tangent(xr, dxr, fxg + kNegX * n_max, i, md);
+      }
     __syncthreads();
+
+    // 2. the slopes: PCHIP's (or their tangents) a thread a (row, knot); a
+    //    spline's solve from shared memory, a warp a row where the tile has
+    //    at most kWarpSolveRows rows, else a thread a row over every warp
+    const int nrows = kMode == kTangent ? np * nd : np;
+    if (kd == 0 && kMode != kLinear) {
+      for (int e = threadIdx.x; e < nrows * n; e += kThreads) {
+        const int rr = e / n, i = e - rr * n;
+        if (kMode == kEval) {
+          ds[rr * ld + i] = pchip_slope(ys + rr * ld, fxg, n_max, i, n);
+        } else {
+          const int p = rr / nd, s = p * S + 1 + (rr - p * nd);
+          ds[s * ld + i] =
+              pchip_dslope(ys + p * S * ld, ys + s * ld, fxg, n_max, i, n);
+        }
+      }
+      __syncthreads();
+    } else if (kd != 0 && nrows <= kWarpSolveRows) {
+      const int lane = threadIdx.x & 31;
+      for (int rr = threadIdx.x >> 5; rr < nrows; rr += kWarps) {
+        const int s =
+            kMode == kTangent ? (rr / nd) * S + 1 + rr % nd : rr;
+        spline_solve_warp(ys + s * ld, ds + s * ld, F, n_max, n, lane);
+      }
+      __syncthreads();
+    } else if (kd != 0) {
+      for (int rr = threadIdx.x; rr < nrows; rr += kThreads) {
+        const int s =
+            kMode == kTangent ? (rr / nd) * S + 1 + rr % nd : rr;
+        spline_solve(ys + s * ld, ds + s * ld, F, n_max, n);
+      }
+      __syncthreads();
+    }
   }
 
-  // 3. a thread a query: its bracket and weights loaded once, then its
-  //    value in every row of the tile (stores coalesced along queries)
+  // 3. a thread a query: its bracket, weights (and fac) loaded once, then
+  //    its value in every row of the tile (stores coalesced along queries):
+  //    u (kLinear), exp(fac u) (kEval), V (fac du) a direction (kTangent);
+  //    pad queries 0, 1, 0
   const int* qi = qidx + (size_t)g * W_max;
   const double* w4 = qw + (size_t)g * W_max * 4;
-  for (int w = threadIdx.x; w < W_max; w += blockDim.x) {
-    double* out = U + ((size_t)r0 * G + g) * W_max + w;
-    const size_t step = (size_t)G * W_max;
+  for (int w = w0 + threadIdx.x; w < w1; w += kThreads) {
     if (w < W) {
       const int i = __ldg(qi + w);
       const double2 a = ld2(w4 + 4 * w), c = ld2(w4 + 4 * w + 2);
-      for (int r = 0; r < rows; ++r) {
-        const double* y = ys + r * ld;
-        const double* d = ds + r * ld;
-        out[r * step] = a.x * y[i] + a.y * d[i] + c.x * y[i + 1]
-            + c.y * d[i + 1];
+      const double f = kMode == kLinear ? 0.0 : __ldg(fac + (size_t)g * W_max + w);
+      for (int p = 0; p < np; ++p) {
+        if (kMode == kTangent) {
+          const size_t pr = (size_t)(p0 + p);
+          const double v = __ldg(V + (pr * G + g) * W_max + w);
+          for (int k = 0; k < nd; ++k) {
+            const double* y = ys + (p * S + 1 + k) * ld;
+            const double* d = ds + (p * S + 1 + k) * ld;
+            const double du = a.x * y[i] + a.y * d[i] + c.x * y[i + 1]
+                + c.y * d[i + 1];
+            Y[((pr * D + k0 + k) * G + g) * W_max + w] = v * (f * du);
+          }
+        } else {
+          const double* y = ys + p * ld;
+          const double* d = ds + p * ld;
+          const double u = a.x * y[i] + a.y * d[i] + c.x * y[i + 1]
+              + c.y * d[i + 1];
+          Y[((size_t)(p0 + p) * G + g) * W_max + w] =
+              kMode == kLinear ? u : exp(f * u);
+        }
       }
     } else {
-      for (int r = 0; r < rows; ++r) out[r * step] = 0.0;
+      const double pad = kMode == kEval ? 1.0 : 0.0;
+      for (int p = 0; p < np; ++p) {
+        const size_t pr = (size_t)(p0 + p);
+        if (kMode == kTangent) {
+          for (int k = 0; k < nd; ++k)
+            Y[((pr * D + k0 + k) * G + g) * W_max + w] = 0.0;
+        } else {
+          Y[(pr * G + g) * W_max + w] = pad;
+        }
+      }
     }
   }
+}
+
+template <int kMode>
+int k6_launch(const double* X, const double* dX, const double* V, int R,
+              int D, int G, int ldx, int n_max, int W_max, const int* kind,
+              const int* nk, const int* nw, const int* fmode,
+              const int* qidx, const double* qw, const double* sp,
+              const double* fx, const double* fac, double* Y,
+              cudaStream_t stream) {
+  if (R <= 0 || G <= 0 || W_max <= 0 || (kMode == kTangent && D <= 0))
+    return 0;
+  const K6Tile t = k6_tile(R, D, G, n_max, W_max, kMode == kTangent);
+  if (t.smem > (size_t)kSmemMax) return (int)cudaErrorInvalidValue;
+  auto kernel = k6_kernel<kMode>;
+  if (t.smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)t.smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  dim3 grid(((R + t.tp - 1) / t.tp) * t.nd_tiles * t.nw_tiles, G);
+  kernel<<<grid, kThreads, t.smem, stream>>>(
+      X, dX, V, R, D, G, ldx, n_max, W_max, kind, nk, nw, fmode, qidx, qw,
+      sp, fx, fac, t.tp, t.td, t.nd_tiles, t.tw, t.nw_tiles,
+      t.stage ? 1 : 0, Y);
+  return (int)cudaGetLastError();
 }
 
 __device__ __forceinline__ unsigned smem_u32(const void* p) {
@@ -616,18 +1010,6 @@ __global__ void __launch_bounds__(kThreads + 32, kBlocksSM)
   }
 }
 
-template <typename Kernel>
-cudaError_t prepare(Kernel kernel, int n_max, int* tr, size_t* smem) {
-  *tr = tile_rows(n_max);
-  if (*tr < 1) return cudaErrorInvalidValue;
-  *smem = (size_t)2 * *tr * row_stride(n_max) * sizeof(double);
-  if (*smem > 48 * 1024)
-    return cudaFuncSetAttribute(kernel,
-                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                (int)*smem);
-  return cudaSuccess;
-}
-
 template <int kStages>
 cudaError_t launch_t(const double* Ub, int R, int G, int K, int n_max,
                      int W_max, const int* kind, const int* nk,
@@ -659,15 +1041,61 @@ extern "C" int fitted_rows_f64(const double* X, int R, int G, int K,
                                const int* nk, const int* nw, const int* qidx,
                                const double* qw, const double* sp, double* U,
                                cudaStream_t stream) {
-  if (R <= 0 || G <= 0 || W_max <= 0) return 0;
-  int tr;
-  size_t smem;
-  cudaError_t err = prepare(fitted_rows_kernel, n_max, &tr, &smem);
+  return k6_launch<kLinear>(X, nullptr, nullptr, R, 0, G, K * n_max, n_max,
+                            W_max, kind, nk, nw, nullptr, qidx, qw, sp,
+                            nullptr, nullptr, U, stream);
+}
+
+extern "C" int fitted_eval_f64(const double* dfs, int R, int G, int L,
+                               int n_max, int W_max, const int* kind,
+                               const int* nk, const int* nw,
+                               const int* fmode, const int* qidx,
+                               const double* qw, const double* sp,
+                               const double* fx, const double* fac,
+                               double* out, cudaStream_t stream) {
+  return k6_launch<kEval>(dfs, nullptr, nullptr, R, 0, G, L, n_max, W_max,
+                          kind, nk, nw, fmode, qidx, qw, sp, fx, fac, out,
+                          stream);
+}
+
+extern "C" int fitted_eval_jvp_f64(const double* dfs, const double* ddfs,
+                                   const double* vals, int R, int D, int G,
+                                   int L, int n_max, int W_max,
+                                   const int* kind, const int* nk,
+                                   const int* nw, const int* fmode,
+                                   const int* qidx, const double* qw,
+                                   const double* sp, const double* fx,
+                                   const double* fac, double* dout,
+                                   cudaStream_t stream) {
+  return k6_launch<kTangent>(dfs, ddfs, vals, R, D, G, L, n_max, W_max,
+                             kind, nk, nw, fmode, qidx, qw, sp, fx, fac,
+                             dout, stream);
+}
+
+// K6's entry ``mode`` (kLinear, kEval, kTangent): its registers and local
+// bytes a thread, and the tiles a launch of R rows (D directions) of G
+// members of n_max knots and W_max queries takes: primal rows and
+// directions a tile, blocks, shared memory bytes, whether the tables are
+// staged, queries a tile (out: 8 ints)
+extern "C" int fitted_kernel_info(int mode, int R, int D, int G, int n_max,
+                                  int W_max, int* out) {
+  const void* fns[3] = {(const void*)k6_kernel<kLinear>,
+                        (const void*)k6_kernel<kEval>,
+                        (const void*)k6_kernel<kTangent>};
+  if (mode < 0 || mode > 2) return (int)cudaErrorInvalidValue;
+  cudaFuncAttributes a;
+  const cudaError_t err = cudaFuncGetAttributes(&a, fns[mode]);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((R + tr - 1) / tr, G);
-  fitted_rows_kernel<<<grid, kThreads, smem, stream>>>(
-      X, R, G, K, n_max, W_max, kind, nk, nw, qidx, qw, sp, tr, U);
-  return (int)cudaGetLastError();
+  const K6Tile t = k6_tile(R, D, G, n_max, W_max, mode == kTangent);
+  out[0] = a.numRegs;
+  out[1] = (int)a.localSizeBytes;
+  out[2] = t.tp;
+  out[3] = t.td;
+  out[4] = ((R + t.tp - 1) / t.tp) * t.nd_tiles * t.nw_tiles * G;
+  out[5] = (int)t.smem;
+  out[6] = t.stage ? 1 : 0;
+  out[7] = t.tw;
+  return 0;
 }
 
 extern "C" int fitted_rows_t_f64(const double* Ub, int R, int G, int K,

@@ -16,14 +16,18 @@ K5 ``pv01_solve_t`` (``csrc/pv01_solve.cu``) replace the ``solve`` and
 ``transpose_solve`` of the custom linear solve in
 ``adrates_tpu/ops/bootstrap.py:bootstrap_ois`` (:332-341), the OIS
 pv01 chain (I - A) x = b and its transpose; ``ops/linear_solve`` makes
-them the derivatives of each other. K6 ``fitted_rows`` and K7
-``fitted_rows_t`` (``csrc/fitted_rows.cu``) replace the fitted schemes'
-fit and evaluation at static queries (``adrates_tpu/ops/interpolation.py``
-``interp_fit`` :350 and ``interp_df`` :375, as
-``adrates_tpu/parallel/curve_batching.py:stage_rows`` :320 calls them):
-a stage's fitted members, stacked, in one linear map from the knot
-values (and the PCHIP slopes) to the query values, and its transpose;
-``ops/fitted_rows`` makes them the derivatives of each other. K8
+them the derivatives of each other. K6 ``fitted_eval`` (with its
+tangent mode ``fitted_eval_jvp`` and its linear core ``fitted_rows``)
+and K7 ``fitted_rows_t`` (``csrc/fitted_rows.cu``) replace the fitted
+schemes' fit and evaluation at static queries
+(``adrates_tpu/ops/interpolation.py`` ``interp_fit`` :350 and
+``interp_df`` :375, as ``adrates_tpu/parallel/curve_batching.py:
+stage_rows`` :320 calls them): a stage's fitted members, stacked, from
+their DFs to the queries' DFs in one launch, its directional
+derivatives in one more, and the transpose of the linear map at its
+core (from the transformed knot values and PCHIP slopes to the
+Hermite rows); ``ops/fitted_rows`` makes them the derivatives of each
+other. K8
 ``xccy_stage_jvp``, K9 ``xccy_legs_jvp``, K10 ``xccy_stage_hess`` and
 K11 ``xccy_legs_hess`` (``csrc/xccy_stage.cu``) replace the
 ``torch.func`` towers over an XCCY stage of the structured risk pass
@@ -120,6 +124,11 @@ _SIGNATURES = {
                         _P, _P],
     "fitted_rows_t_f64": [_P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
                           _P, _P, _P, _I, _P, _P],
+    "fitted_eval_f64": [_P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P,
+                        _P, _P, _P, _P],
+    "fitted_kernel_info": [_I, _I, _I, _I, _I, _I, _P],
+    "fitted_eval_jvp_f64": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P,
+                            _P, _P, _P, _P, _P, _P, _P, _P],
     "xccy_stage_jvp_f64": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P],
     "xccy_legs_jvp_f64": [_P, _I, _I, _P, _P, _P, _P, _P],
     "xccy_stage_hess_f64": [_P, _I, _I, _I, _I, _P, _I, _P, _P, _P, _P, _P,
@@ -1562,6 +1571,128 @@ def fitted_rows_t(Ub: torch.Tensor, tab: FittedTables) -> torch.Tensor:
 
 
 fitted_rows_t.launches = 0
+
+
+def _fit_dfs(t: torch.Tensor, tab: FittedTables, what: str, lead: int):
+    if t.dim() != lead + 2 or t.shape[lead] != tab.G \
+            or t.shape[lead + 1] < tab.n_max:
+        rows = "R, D" if lead == 2 else "R"
+        raise ValueError(f"{what} takes DFs [{rows}, {tab.G}, L >= "
+                         f"{tab.n_max}]; got {tuple(t.shape)}")
+
+
+def _eval_tables(plan, dev) -> tuple:
+    """K6's table pointers after the output (kind .. fac) of ``plan``
+    (an ``ops/fitted_rows.FittedPlan``), checked on ``dev``."""
+    tab = plan.tables
+    for name, t, dtype, nd in (("fx", plan.fx, torch.float64, 3),
+                               ("fac", plan.fac, torch.float64, 2),
+                               ("fmode", plan.fmode, torch.int32, 1),
+                               ("sp", tab.sp, torch.float64, 3)):
+        _need(t, name, dtype, nd, dev)
+    return tuple(t.data_ptr() for t in (
+        tab.kind, tab.nk, tab.nw, plan.fmode, tab.qidx, tab.qw, tab.sp,
+        plan.fx, plan.fac))
+
+
+def fitted_eval(dfs: torch.Tensor, plan) -> torch.Tensor:
+    """K6: the members' DFs at their queries [R, G, W_max] from the DFs
+    ``dfs`` [R, G, L] (member g's knots first; pads and positions past
+    them not read), for ``plan`` an ``ops/fitted_rows.FittedPlan`` (see
+    ``fitted_rows.fitted_eval_plain``): one block a (tile of rows,
+    member, tile of queries where one-row tiles leave SMs idle), the
+    tables staged in shared memory, the transforms a thread a (row, knot),
+    a spline member's solve a warp a row (a thread a row in tiles of more
+    than 32), then a thread a query writes exp(fac u) in every row of the
+    tile; one ``torch.empty`` and one launch."""
+    tab = plan.tables
+    _fit_dfs(dfs, tab, "fitted_eval", 1)
+    if not dfs.is_cuda:
+        from .fitted_rows import fitted_eval_plain
+        return fitted_eval_plain(plan, dfs, fitted_rows)
+    dev = dfs.device
+    _need(dfs, "dfs", torch.float64, 3, dev)
+    R, _, L = dfs.shape
+    out = torch.empty((R, tab.G, tab.W_max), dtype=torch.float64,
+                      device=dev)
+    if out.numel() == 0:
+        return out
+    if _lib is None:
+        build_kernels()
+    _check(_lib.fitted_eval_f64(
+        dfs.data_ptr(), R, tab.G, L, tab.n_max, tab.W_max,
+        *_eval_tables(plan, dev), out.data_ptr(), _stream(dev)),
+        "fitted_eval_f64")
+    fitted_eval.launches += 1
+    return out
+
+
+fitted_eval.launches = 0
+
+
+def fitted_eval_jvp(dfs: torch.Tensor, ddfs: torch.Tensor, out: torch.Tensor,
+                    plan) -> torch.Tensor:
+    """K6's tangent mode: dout [R, D, G, W_max], the directional
+    derivatives of :func:`fitted_eval` at ``dfs`` [R, G, L] (``out`` its
+    value [R, G, W_max]) along D tangent rows a primal row ``ddfs``
+    [R, D, G, L] (see ``fitted_rows.fitted_eval_jvp_plain``): one block a
+    (primal row, tile of its directions, member), or a tile of primal rows
+    with all their directions; the primal rows' transformed knots once a
+    block, then each direction's tangent transforms, slopes (PCHIP's
+    derivative, 0 where its guard is false; the spline's solve) and
+    Hermite rows, times out fac; one ``torch.empty`` and one launch."""
+    tab = plan.tables
+    _fit_dfs(dfs, tab, "fitted_eval_jvp", 1)
+    _fit_dfs(ddfs, tab, "fitted_eval_jvp", 2)
+    R, D = ddfs.shape[:2]
+    if dfs.shape[0] != R or ddfs.shape[-1] != dfs.shape[-1] \
+            or tuple(out.shape) != (R, tab.G, tab.W_max):
+        raise ValueError(f"fitted_eval_jvp: dfs {tuple(dfs.shape)}, ddfs "
+                         f"{tuple(ddfs.shape)}, out {tuple(out.shape)}")
+    if not dfs.is_cuda:
+        from .fitted_rows import fitted_eval_jvp_plain
+        return fitted_eval_jvp_plain(plan, dfs, ddfs, out, fitted_rows)
+    dev = dfs.device
+    for name, t, nd in (("dfs", dfs, 3), ("ddfs", ddfs, 4), ("out", out, 3)):
+        _need(t, name, torch.float64, nd, dev)
+    L = dfs.shape[-1]
+    dout = torch.empty((R, D, tab.G, tab.W_max), dtype=torch.float64,
+                       device=dev)
+    if dout.numel() == 0:
+        return dout
+    if _lib is None:
+        build_kernels()
+    _check(_lib.fitted_eval_jvp_f64(
+        dfs.data_ptr(), ddfs.data_ptr(), out.data_ptr(), R, D, tab.G, L,
+        tab.n_max, tab.W_max, *_eval_tables(plan, dev), dout.data_ptr(),
+        _stream(dev)), "fitted_eval_jvp_f64")
+    fitted_eval_jvp.launches += 1
+    return dout
+
+
+fitted_eval_jvp.launches = 0
+
+
+FIT_MODES = ("linear", "eval", "tangent")
+
+
+def fitted_kernel_info(mode: str, R: int, G: int, n_max: int, W_max: int,
+                       D: int = 0) -> dict:
+    """K6's entry ``mode`` (``linear`` = :func:`fitted_rows`, ``eval`` =
+    :func:`fitted_eval`, ``tangent`` = :func:`fitted_eval_jvp`):
+    registers and local bytes a thread (``cudaFuncGetAttributes``), and
+    the tiles of a launch of R rows (D directions) of G members of n_max
+    knots and W_max queries: primal rows and directions a tile, blocks,
+    shared memory bytes a block, whether the member's tables are staged
+    in it, queries a tile (W_max unless one-row tiles leave SMs without a
+    block)."""
+    if _lib is None:
+        build_kernels()
+    out = (ctypes.c_int * 8)()
+    _check(_lib.fitted_kernel_info(FIT_MODES.index(mode), R, D, G, n_max,
+                                   W_max, out), "fitted_kernel_info")
+    return dict(zip(("registers", "local_bytes", "tile_rows", "tile_dirs",
+                     "blocks", "smem_bytes", "staged", "tile_queries"), out))
 
 
 # ---------------------------------------------------------------------------

@@ -11,9 +11,10 @@ first use. Phases:
 1. environment: the card's name and power limit, torch/CUDA/nvcc versions;
 2. build: compile and load the kernels (K1 pvs_sweep, K2 gamma quad form,
    K3 per-trade quad form, K4 pv01_solve and K5 pv01_solve_t, the OIS
-   bootstrap's chain solve and its transpose, K6 fitted_rows and K7
-   fitted_rows_t, the fitted schemes' rows at static queries and their
-   transpose, K8-K11 the XCCY stage's jacobian and Hessian in dual and
+   bootstrap's chain solve and its transpose, K6 fitted_eval (the fitted
+   schemes' evaluation at static queries, DFs to DFs), its tangent mode
+   fitted_eval_jvp and its linear core fitted_rows, K7 fitted_rows_t the
+   core's transpose, K8-K11 the XCCY stage's jacobian and Hessian in dual and
    hyper-dual arithmetic);
 3. OIS slice: the flagship OIS book (7 curves, N = 144 quotes, 720 OIS
    tiled to 100,080 trades, 100 scenarios) through ``make_multibook_fn``
@@ -90,10 +91,11 @@ first use. Phases:
    each spline curve and one basis swap of each XCCY curve (1e-10); the
    per-trade paths of phase 7b on this book; K6 / K7 launches a call on
    the staged, generic and per-trade paths (gated: every path launches
-   them), the 256 gammas' warm wall and device ops beside phase 7b's on
-   FLAT_FWD; K6's and K7's inputs captured from one staged chunk's
-   regions A, C1 and C2 and K7's largest call in the 256 gammas for
-   phase 8;
+   K6's evaluation, and K7 where it runs reverse mode), the 256 gammas'
+   warm wall and device ops
+   beside phase 7b's on FLAT_FWD; K6's and K7's inputs captured from one
+   staged chunk's regions A, C1 and C2 and the 256 gammas for phase 8
+   (K6's evaluation and tangent mode with their inputs, K7's shapes);
    K1, K2 and K3 against their
    twins on its inputs (1e-12, gates, not kernel records); config 2 on
    the PCHIP GBP curve (cold + 20 warm, device ops, cuda = cpu) and one
@@ -177,12 +179,18 @@ first use. Phases:
    K-sweep and K5 at 1e-14 x max|ref|, with one batched
    ``torch.linalg.solve_triangular`` on the dense (I - A) as the
    yardstick and the kernel's time on one row a plan, its chain of P
-   dependent steps); K6 and K7 at the spline book's largest calls of
-   regions A (K6) and C2 (K7: the OIS stage's five fitted members), of
-   region C1 (an XCCY stage's foreign curve and legs) and K7's of the
-   256 gammas against their twins at 1e-12 x max|ref| and against their
-   own second launch bit for bit (gated), with one torch.bmm of the
-   inputs by the dense operators the plan implies as the yardstick);
+   dependent steps); K6's evaluation and its tangent mode at the spline
+   book's largest calls of regions A (the OIS stage's five fitted
+   members) and C1 (an XCCY stage's legs) and of the 256 gammas, on the
+   captured inputs, against their plain versions at 1e-12 x max|ref|
+   and their own second launch bit for bit (gated), with their tiles,
+   registers and local bytes and no yardstick (no PyTorch call computes
+   the evaluation); K6's linear core at the 256 gammas' largest call
+   (the one path that launches it) and, off the path, at A's and C1's
+   tangent calls' rows, and K7 at its largest calls of regions C2 and C1
+   and of the 256 gammas, on seeded inputs, against their twins and their second launch
+   the same way, with one torch.bmm of the inputs by the dense operators
+   the plan implies as the core's yardstick);
    K8-K11 at their calls of one flagship_v5 staged chunk (captured; K9
    and K11 on legs that do not telescope, ``xccy_stage.probe_tables``,
    and seeded domestic tangents) against their plain versions at 1e-12 x
@@ -399,10 +407,11 @@ def _check(name: str, err: float, bound: float):
 
 # every kernel's wrapper, by its launch-count key
 KERNELS = ("pvs_sweep", "gamma_quad_form_grouped", "pertrade_quad_form",
-           "pv01_solve", "pv01_solve_t", "fitted_rows", "fitted_rows_t",
-           "xccy_stage_jvp", "xccy_legs_jvp", "xccy_stage_hess",
-           "xccy_legs_hess")
-FITTED = ("fitted_rows", "fitted_rows_t")
+           "pv01_solve", "pv01_solve_t", "fitted_eval", "fitted_eval_jvp",
+           "fitted_rows", "fitted_rows_t", "xccy_stage_jvp", "xccy_legs_jvp",
+           "xccy_stage_hess", "xccy_legs_hess")
+# K6's entries (the evaluation, its tangent mode, the linear map) and K7
+FITTED = ("fitted_eval", "fitted_eval_jvp", "fitted_rows", "fitted_rows_t")
 XCCY = ("xccy_stage_jvp", "xccy_legs_jvp", "xccy_stage_hess",
         "xccy_legs_hess")
 
@@ -469,16 +478,19 @@ def _capture_solves(run) -> dict:
 
 
 def _fitted_launches(path: str, info: dict, reverse: bool = True) -> dict:
-    """Report K6 / K7 launches a call on one path that evaluates a static
-    fitted plan on the card (``info``: its launch counts and ``calls``):
-    K6 must have launched, and K7 too where the path differentiates the
-    rows in reverse mode. Returns them a call."""
+    """Report K6's (its evaluation, tangent mode and linear map) and K7's
+    launches a call on one path that evaluates a static fitted plan on the
+    card (``info``: its launch counts and ``calls``): K6's evaluation
+    must have launched, and K7 too where the path differentiates the rows
+    in reverse mode. Returns them a call."""
     n = info["calls"]
     per = {k: info[k] / n for k in FITTED}
-    print(f"{path}: K6 fitted_rows {per['fitted_rows']:g} and K7 "
-          f"fitted_rows_t {per['fitted_rows_t']:g} launches a call ({n} "
-          f"calls)", flush=True)
-    if info["fitted_rows"] <= 0 or (reverse and info["fitted_rows_t"] <= 0):
+    print(f"{path}: K6 fitted_eval {per['fitted_eval']:g}, its tangent mode "
+          f"fitted_eval_jvp {per['fitted_eval_jvp']:g}, its linear map "
+          f"fitted_rows {per['fitted_rows']:g} and K7 fitted_rows_t "
+          f"{per['fitted_rows_t']:g} launches a call ({n} calls)",
+          flush=True)
+    if info["fitted_eval"] <= 0 or (reverse and info["fitted_rows_t"] <= 0):
         raise AssertionError(f"{path}: the fitted-rows kernels were not "
                              f"launched ({ {k: info[k] for k in FITTED} })")
     return per
@@ -486,23 +498,31 @@ def _fitted_launches(path: str, info: dict, reverse: bool = True) -> dict:
 
 def _watch_fitted(steps, want) -> dict:
     """Run each ``(label, f)`` of ``steps`` in order with K6's and K7's
-    wrappers watched: for each (label, kernel) of ``want``, the (input
-    shape, tables) of its call with the most elements. The kernels' own
-    launch counts are left as they were."""
-    import numpy as np
+    wrappers watched: for each (label, kernel) of ``want``, its call with
+    the largest output: (input shape, tables) for K6's linear map and K7
+    (their records draw seeded inputs), (the shape [R, D, G, W_max] or
+    [R, G, W_max] of the output, the inputs copied and the plan) for K6's
+    evaluation and tangent mode. The kernels' own launch counts are left
+    as they were."""
     import torch
 
     from adrates_torch.ops import kernels
-    keep = {}
+    keep, size = {}, {}
     label = [None]
     orig = {k: getattr(kernels, k) for k in FITTED}
 
     def watched(name, f):
-        def g(t, tab):
+        def g(*a):
+            out = f(*a)
             key = (label[0], name)
-            if key not in keep or t.numel() > np.prod(keep[key][0]):
-                keep[key] = (tuple(t.shape), tab)
-            return f(t, tab)
+            if out.numel() > size.get(key, -1):
+                size[key] = out.numel()
+                keep[key] = ((tuple(a[0].shape), a[1])
+                             if name in ("fitted_rows", "fitted_rows_t")
+                             else (tuple(out.shape),
+                                   tuple(t.clone() for t in a[:-1])
+                                   + (a[-1],)))
+            return out
         g.launches = f.launches
         return g
 
@@ -520,9 +540,22 @@ def _watch_fitted(steps, want) -> dict:
     return {k: keep[k] for k in want}
 
 
+def _core_call(inputs, label):
+    """K6's linear map at the tangent mode's call of ``label``: R D rows
+    of its plan's tables (region A's 1,600 rows of PR 15's record). No
+    path launches the linear map at this shape: its records there are
+    the comparison with the map's first design, marked off the path; its
+    record on the path is the 256 gammas' call."""
+    shape, args = inputs[(label, "fitted_eval_jvp")]
+    R, D, G = shape[:3]
+    tab = args[-1].tables
+    return (R * D, G, tab.K, tab.n_max), tab
+
+
 def _capture_fitted(fn, q0, shocks, device) -> dict:
     """K6's and K7's largest calls (``_watch_fitted``) in regions A, C1
-    and C2 of one staged chunk."""
+    and C2 of one staged chunk; K6's linear map at A's and C1's tangent
+    calls (``_core_call``: off the path, since no region launches it)."""
     import torch
     sh = torch.as_tensor(shocks[:fn.chunk(shocks.shape[0])], device=device)
     q = torch.as_tensor(q0, device=device)[None, :] + sh
@@ -531,10 +564,15 @@ def _capture_fitted(fn, q0, shocks, device) -> dict:
              ("C1", lambda: st.update(v=r["C1"](q, st["a"]["g"],
                                                 st["a"]["carry"])[1])),
              ("C2", lambda: r["C2"](q, st["a"]["g"], st["v"]))]
-    return _watch_fitted(steps, [("A", "fitted_rows"),
-                                 ("C2", "fitted_rows_t"),
-                                 ("C1", "fitted_rows"),
-                                 ("C1", "fitted_rows_t")])
+    got = _watch_fitted(steps, [("A", "fitted_eval"),
+                                ("A", "fitted_eval_jvp"),
+                                ("C2", "fitted_rows_t"),
+                                ("C1", "fitted_eval"),
+                                ("C1", "fitted_eval_jvp"),
+                                ("C1", "fitted_rows_t")])
+    for label in ("A", "C1"):
+        got[(label, "fitted_rows")] = _core_call(got, label)
+    return got
 
 
 def _xccy_routes(name, mb) -> dict:
@@ -1721,11 +1759,12 @@ def run_flagship_v5_splines(device, flat, flat_gam, n_warm: int = 3):
             reverse=key != "ladders")
     info["gamma_256"] = pt_infos["gamma_256"]
     gam_fn, (fgam_fn, fq0, fgam_info) = pt_fns[1], flat_gam
-    fit_inputs.update(_watch_fitted([("gamma_256", lambda: gam_fn(q0))],
-                                    [("gamma_256", "fitted_rows_t")]))
-    print(f"flagship_v5 splines 256 gammas' largest K7 call "
-          f"{list(fit_inputs[('gamma_256', 'fitted_rows_t')][0])}",
-          flush=True)
+    fit_inputs.update(_watch_fitted(
+        [("gamma_256", lambda: gam_fn(q0))],
+        [("gamma_256", k) for k in FITTED]))
+    print("flagship_v5 splines 256 gammas' largest K6 / K7 calls: "
+          + ", ".join(f"{k} {list(fit_inputs[('gamma_256', k)][0])}"
+                      for k in FITTED), flush=True)
     g_ops, g_ms = _request_device(lambda: gam_fn(q0))
     f_ops, f_ms = _request_device(lambda: fgam_fn(fq0))
     pt_infos["gamma_256"].update(device_ops=g_ops, device_ms=g_ms,
@@ -3010,10 +3049,112 @@ def _fit_operators(tab):
     return kernels.fitted_rows(X, tab).permute(1, 2, 0).contiguous()
 
 
-def compare_fitted_kernels(inputs) -> list:
-    """Phase 8's K6 and K7 records at the spline book's captured calls
-    (``inputs`` from ``_watch_fitted``: each call's shape and tables;
-    regions A / C1 / C2 and the 256 dense gammas' largest K7 call),
+# flops counted for one log or exp in K6's bound (a polynomial of about
+# ten FMAs and the scaling around it)
+FIT_TRANSCENDENTAL_FLOPS = 20
+
+
+def _eval_fit_bound(name, R, D, tab, plan):
+    """K6 ``fitted_eval`` / ``fitted_eval_jvp``'s bound at R primal rows
+    (D directions): bytes (each real knot's DF read once, and its tangents;
+    the values written once, and in tangent mode read once and their
+    tangents written once; the tables once: brackets, weights, fac, the
+    factors and fx) over the HBM rate against the operations (a log and a
+    division a knot, a direction's division or two; PCHIP's slope or the
+    spline's sweeps, 10 a knot; the Hermite row 8, exp and fac) over the
+    f64 rate. Returns (bound ms, bound_by, bytes, flops)."""
+    G, W, n = tab.G, tab.W_max, tab.n_max
+    kn = int(tab.nk.sum())
+    tables = 16 * G + 44 * G * W + 88 * G * n
+    tr = FIT_TRANSCENDENTAL_FLOPS
+    if name == "fitted_eval":
+        nbytes = 8 * R * kn + 8 * R * G * W + tables
+        flops = R * kn * (tr + 11) + R * G * W * (9 + tr)
+    else:
+        nbytes = 8 * R * kn * (1 + D) + 8 * R * G * W * (1 + D) + tables
+        flops = R * kn * (tr + 1) + R * D * kn * 12 + R * D * G * W * 10
+    bound, by = _bound(nbytes, flops, FP64_FLOPS)
+    return bound, by, nbytes, flops
+
+
+def _eval_fit_record(region, name, shape, args) -> dict:
+    """Phase 8's record of K6 ``fitted_eval`` or its tangent mode at one
+    captured call (``args``: its inputs as the path gave them): against
+    its plain version at 1e-12 x max|ref| and its own second launch bit
+    for bit, timed beside the plain version; no PyTorch call computes the
+    whole function (the linear core's torch.bmm stands on the
+    ``fitted_rows`` records); the kernel's registers, local bytes and
+    tiles."""
+    import torch
+
+    from adrates_torch.ops import fitted_rows as tfr
+    from adrates_torch.ops import kernels
+    plan = args[-1]
+    tab = plan.tables
+    path = f"flagship_v5_splines_{region}"
+    if name == "fitted_eval":
+        dfs, = args[:-1]
+        R, D = dfs.shape[0], 0
+
+        def kern():
+            return kernels.fitted_eval(dfs, plan)
+
+        def plain():
+            return tfr.fitted_eval_plain(plan, dfs)
+    else:
+        dfs, ddfs, out = args[:-1]
+        R, D = ddfs.shape[:2]
+
+        def kern():
+            return kernels.fitted_eval_jvp(dfs, ddfs, out, plan)
+
+        def plain():
+            return tfr.fitted_eval_jvp_plain(plan, dfs, ddfs, out)
+    ref = plain()
+    got = kern()
+    err = float((got - ref).abs().max())
+    _check(f"{path} {name} vs plain (abs / max|ref|)",
+           err / float(ref.abs().max()), 1e-12)
+    repeat = bool(torch.equal(got, kern()))
+    print(f"{path} {name}: two launches on one input equal bit for bit: "
+          f"{repeat}", flush=True)
+    if not repeat:
+        raise AssertionError(f"{path} {name}: two launches on one input "
+                             f"differ")
+    del got, ref
+    info = kernels.fitted_kernel_info(
+        "eval" if name == "fitted_eval" else "tangent", R, tab.G, tab.n_max,
+        tab.W_max, D=D)
+    tm = _timings(kern, plain)
+    bound, by, nbytes, flops = _eval_fit_bound(name, R, D, tab, plan)
+    print(f"{path} {name} [R, D, G, n_max, W_max]="
+          f"{[R, D, tab.G, tab.n_max, tab.W_max]} (kinds "
+          f"{tab.kind.tolist()}, knots {tab.nk.tolist()}; tiles {info}): "
+          f"{_fmt_tm(tm)}; bound {bound * 1e3:.2f} us ({by}, "
+          f"{nbytes / 1e6:.2f} MB, {flops / 1e9:.4f} GFLOP)", flush=True)
+    return dict(
+        name=name, path=path, route="cuda",
+        source="adrates_torch/csrc/fitted_rows.cu",
+        replaces="adrates_tpu/ops/interpolation.py:350",
+        replaces_also=["adrates_tpu/ops/interpolation.py:375",
+                       "adrates_tpu/parallel/curve_batching.py:320"],
+        max_abs_err=err, **tm,
+        library="none: no PyTorch call computes the fitted schemes' "
+                "evaluation (the linear core's torch.bmm is on the "
+                "fitted_rows records)",
+        bound_ms=bound, bound_by=by, bound_bytes=nbytes, bound_flops=flops,
+        **_shares(bound, tm), rows=R, directions=D, members=tab.G,
+        knots=tab.n_max, queries=tab.W_max, bit_for_bit_repeat=repeat,
+        **info)
+
+
+def _linear_fit_records(inputs) -> list:
+    """Phase 8's records of K6's linear map and K7 at the spline book's
+    captured shapes (``inputs``: each call's shape and tables; K6's
+    largest call in the 256 dense gammas, the one path that launches it,
+    and, off the path (``on_path`` false), at regions A's and C1's tangent
+    calls; K7's largest calls in regions C1 and C2 and the 256 dense
+    gammas),
     on standard normal inputs drawn from a seed (the kernels' work does
     not depend on the values; a captured cotangent can be one whose exact
     image is 0, as the calibration legs' are, their floating coupons and
@@ -3071,9 +3212,15 @@ def compare_fitted_kernels(inputs) -> list:
         nbytes = 8 * R * G * (K * n + W) + tables
         bound, by = _bound(nbytes, 8.0 * R * G * W + 10.0 * R * n_spl,
                            FP64_FLOPS)
+        on_path = not (name == "fitted_rows" and region in ("A", "C1"))
+        tiles = (kernels.fitted_kernel_info("linear", R, G, n, W)
+                 if name == "fitted_rows" else {})
         print(f"{path} {name} [R, G, K, n_max, W_max]={[R, G, K, n, W]} "
               f"(kinds {tab.kind.tolist()}, knots "
-              f"{tab.nk.tolist()}): {_fmt_tm(tm)}; bound "
+              f"{tab.nk.tolist()}"
+              + (f"; tiles {tiles}" if tiles else "")
+              + ("" if on_path else "; off the main path: no path launches "
+                 "it at this shape") + f"): {_fmt_tm(tm)}; bound "
               f"{bound * 1e3:.2f} us ({by}, {nbytes / 1e6:.2f} MB)",
               flush=True)
         recs.append(dict(
@@ -3088,9 +3235,23 @@ def compare_fitted_kernels(inputs) -> list:
                        else "operators [G, W_max, K n_max] (the transpose)"),
             bound_ms=bound, bound_by=by, **_shares(bound, tm),
             rows=R, members=G, knots=n, queries=W, slots=K,
-            bit_for_bit_repeat=repeat))
+            bit_for_bit_repeat=repeat, on_path=on_path, **tiles))
         del M, a, b
     return recs
+
+
+def compare_fitted_kernels(inputs) -> list:
+    """Phase 8's K6 and K7 records at the spline book's captured calls
+    (``inputs`` from ``_capture_fitted`` and ``_watch_fitted``): K6's
+    evaluation and its tangent mode on the captured inputs
+    (``_eval_fit_record``), then K6's linear map and K7 on seeded inputs
+    at their captured shapes (``_linear_fit_records``)."""
+    new = {k: v for k, v in inputs.items()
+           if k[1] in ("fitted_eval", "fitted_eval_jvp")}
+    recs = [_eval_fit_record(region, name, *v)
+            for (region, name), v in new.items()]
+    return recs + _linear_fit_records(
+        {k: v for k, v in inputs.items() if k not in new})
 
 
 def compare_kernels(path, fn, mb, q0, shocks, device, chunk):
@@ -3554,7 +3715,9 @@ def main() -> int:
               f"ms (events {r['ms']:.4f} ms) against {r['bound_ms']:.4f} ms "
               f"({r['bound_by']}), share {r['share_of_bound']:.3f} (by "
               f"events {r['share_of_bound_events']:.3f}), "
-              f"{r['launches_per_call']:g} launches per call; card {card}")
+              f"{r['launches_per_call']:g} launches per call"
+              + ("" if r.get("on_path", True) else " (a shape off the main "
+                 "path)") + f"; card {card}")
     print(json.dumps({"engine": engine}))
     print(json.dumps({"splines": splines}))
     print(json.dumps({"hostapi": hostapi}))

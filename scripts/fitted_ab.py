@@ -19,7 +19,14 @@ clocks. Measured on flagship_v5 with ``SPLINE_SCHEMES`` (chip_smoke
 - on flagship_v5's own FLAT_FWD curves (chip_smoke phase 7b's book):
   the 256 dense gammas and every trade's own-block gamma
   (``make_per_trade_gamma_blocks_fn``), the same;
-- the launches of K4 / K5 and K6 / K7 in each (those the checkout has).
+- the launches of K4 / K5 and K6 / K7 in each (those the checkout has);
+- in each region, the device ops (and their ms) launched inside the
+  calls of ``ops/fitted_rows.fitted_eval`` (wrapped in a
+  ``record_function`` where ``curve_batching`` and ``interpolation``
+  call it; each device event placed by its launch's correlation id in
+  one traced warm call): all of a call's work in region A, whose
+  derivatives are forward mode, the forward and tangent side alone in
+  C1 and C2.
 
 Prints one JSON line. To compare commits, run parent, change, change,
 parent in one call.
@@ -32,7 +39,8 @@ import warnings
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parent.parent
-KERNELS = ("pv01_solve", "pv01_solve_t", "fitted_rows", "fitted_rows_t")
+KERNELS = ("pv01_solve", "pv01_solve_t", "fitted_eval", "fitted_eval_jvp",
+           "fitted_rows", "fitted_rows_t")
 
 
 def main(argv) -> int:
@@ -72,6 +80,49 @@ def main(argv) -> int:
         return dict(warm_ms=w, device_ops=ops, device_ms=dms, launches=ls,
                     calls=n)
 
+    def inside_fitted(f):
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile, record_function
+
+        from adrates_torch.ops import interpolation as ip
+        from adrates_torch.parallel import curve_batching as cb
+        orig = {m: m.fitted_eval for m in (cb, ip)}
+
+        def wrap(g):
+            def h(*a):
+                with record_function("_fitted_eval_call"):
+                    return g(*a)
+            return h
+        for m, g in orig.items():
+            m.fitted_eval = wrap(g)
+        try:
+            f()
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                f()
+                torch.cuda.synchronize()
+        finally:
+            for m, g in orig.items():
+                m.fitted_eval = g
+        ev = prof.events()
+        wins = [(e.time_range.start, e.time_range.end) for e in ev
+                if e.device_type == DeviceType.CPU
+                and e.name == "_fitted_eval_call"]
+        launch = {e.id: (e.time_range.start + e.time_range.end) / 2
+                  for e in ev if e.device_type == DeviceType.CPU
+                  and e.name.startswith("cu")}
+        ops, us = 0, 0.0
+        for e in ev:
+            at = launch.get(e.id)
+            if e.device_type != DeviceType.CUDA or at is None \
+                    or e.name.startswith("_fitted_eval_call"):
+                continue
+            if any(a <= at <= b for a, b in wins):
+                ops += 1
+                us += e.time_range.elapsed_us()
+        return dict(device_ops=ops, device_ms=us / 1e3, calls=len(wins))
+
     model = cfg.build_model(schemes=cfg.SPLINE_SCHEMES)
     with warnings.catch_warnings():        # CHF has no trades
         warnings.simplefilter("ignore", UserWarning)
@@ -90,7 +141,8 @@ def main(argv) -> int:
     for name, f in (("A", lambda: r["A"](q)),
                     ("C1", lambda: r["C1"](q, a["g"], a["carry"])),
                     ("C2", lambda: r["C2"](q, a["g"], v_of))):
-        out[f"region_{name}"] = dict(measure(f), chunk=chunk)
+        out[f"region_{name}"] = dict(measure(f), chunk=chunk,
+                                     inside_fitted_eval=inside_fitted(f))
     del a, v_of, fn
     g = make_per_trade_gamma_fn(mb, cs._select_trades(mb)[0], dev)
     out["gamma_256"] = measure(lambda: g(q0))
@@ -108,8 +160,11 @@ def main(argv) -> int:
     torch.cuda.synchronize()
     print(json.dumps(out))
     summary = {k: (round(v["warm_ms"]["median"], 1), v["device_ops"])
+               + ((v["inside_fitted_eval"]["device_ops"],)
+                  if "inside_fitted_eval" in v else ())
                for k, v in out.items() if isinstance(v, dict)}
-    print(f"fitted_ab {root.name}: (warm median ms, device ops) "
+    print(f"fitted_ab {root.name}: (warm median ms, device ops[, of them "
+          f"inside fitted_eval calls]) "
           f"{summary}; card {out['card']}", file=sys.stderr)
     return 0
 

@@ -10,11 +10,11 @@ once) and one 50-scenario chunk, the staged path's chunk at bench.py's
 with no aten op below them, views and metadata ops left out): a
 host-side estimate of the kernels a call launches on a card, whose count
 does not depend on the number of trades. On the CPU the fitted-rows
-wrappers (K6 / K7) run their plain twins, dozens of ops each; with
-``--as-card`` each call of one counts as the one op its kernel is on a
-card (its output made by one ``torch.zeros``), so that the spline count
-estimates the card's. The values are then wrong: only the count is
-read.
+wrappers (K6's entries and K7) run their plain twins, dozens of ops
+each; with ``--as-card`` each call of one counts as the one op its
+kernel is on a card (its output made by one ``torch.zeros`` or
+``torch.ones``), so that the spline count estimates the card's. The
+values are then wrong: only the count is read.
 """
 
 import pathlib
@@ -87,12 +87,18 @@ def _one_op_kernels() -> dict:
     returned wrappers are put back (the model and the book are built with
     the real ones)."""
     from adrates_torch.ops import kernels
-    saved = {k: getattr(kernels, k) for k in ("fitted_rows",
-                                              "fitted_rows_t")}
+    saved = {k: getattr(kernels, k) for k in (
+        "fitted_eval", "fitted_eval_jvp", "fitted_rows", "fitted_rows_t")
+        if hasattr(kernels, k)}
     kernels.fitted_rows = lambda X, tab: torch.zeros(
         (X.shape[0], tab.G, tab.W_max), dtype=X.dtype)
     kernels.fitted_rows_t = lambda U, tab: torch.zeros(
         (U.shape[0], tab.G, tab.K, tab.n_max), dtype=U.dtype)
+    if "fitted_eval" in saved:
+        kernels.fitted_eval = lambda d, plan: torch.ones(
+            (d.shape[0], plan.G, plan.tables.W_max), dtype=d.dtype)
+        kernels.fitted_eval_jvp = lambda d, dd, out, plan: torch.zeros(
+            dd.shape[:2] + (plan.G, plan.tables.W_max), dtype=d.dtype)
     return saved
 
 

@@ -731,17 +731,157 @@ def test_fitted_rows_cuda_never_runs_a_twin(dev, monkeypatch):
 
     def refuse(*a):
         raise AssertionError("a twin ran on a CUDA tensor")
+    from adrates_torch.ops import fitted_rows as tfr
     monkeypatch.setattr(kernels, "fitted_rows_plain", refuse)
     monkeypatch.setattr(kernels, "fitted_rows_t_plain", refuse)
-    before = (kernels.fitted_rows.launches, kernels.fitted_rows_t.launches)
+    monkeypatch.setattr(tfr, "fitted_eval_plain", refuse)
+    monkeypatch.setattr(tfr, "fitted_eval_jvp_plain", refuse)
+    names = ("fitted_eval", "fitted_eval_jvp", "fitted_rows", "fitted_rows_t")
+    before = [getattr(kernels, k).launches for k in names]
     got = tower(dev)
     torch.cuda.synchronize()
-    # value 1, jacrev 1 + 1, jacfwd(jacrev): forward and its jvp, the
-    # transpose and its jvp
-    assert (kernels.fitted_rows.launches - before[0],
-            kernels.fitted_rows_t.launches - before[1]) == (4, 3)
+    # value: K6; jacrev: K6, then K7; jacfwd(jacrev): K6 and its tangent
+    # mode, the transpose and its jvp (K7 twice)
+    assert [getattr(kernels, k).launches - b
+            for k, b in zip(names, before)] == [3, 1, 0, 3]
     for g, r in zip(got, ref):
         assert _rel_err(g.cpu(), r) <= 1e-12
+
+
+def _eval_plans(rng, schemes, ns, ws, runs=1):
+    """Host fitted plans for K6's evaluation: knots 0.25-2 apart (from 0
+    on every other member), queries from just before the first knot to
+    two intervals past the last (a cubic's extrapolation far past a short
+    last interval would overflow exp), in ``runs`` sorted runs."""
+    from adrates_torch.ops.interpolation import fitted_interp_plan
+    from adrates_torch.utils.global_types import InterpTypes
+    plans = []
+    for g, (s, n, w) in enumerate(zip(schemes, ns, ws)):
+        x0 = 0.0 if g % 2 == 0 else rng.uniform(0.02, 0.3)
+        x = x0 + np.concatenate([[0.0], np.cumsum(rng.uniform(0.25, 2.0,
+                                                              n - 1))])
+        hi = x[-1] + 2.0 * (x[-1] - x[-2])
+        q = np.concatenate([np.sort(rng.uniform(x[0] - 0.05, hi, w // runs))
+                            for _ in range(runs)] + [x[:w % runs]])
+        plans.append(fitted_interp_plan(q, x, InterpTypes[s]))
+    return plans
+
+
+def _eval_twice(dev, plans, R, D, seed):
+    """K6 ``fitted_eval`` and its tangent mode, each launched twice on
+    seeded DFs [R, G, L] (a noisy upward zero curve, pads 0.5) and
+    tangents [R, D, G, L] (the launches counted), and their plain
+    versions."""
+    from adrates_torch.ops import fitted_rows as tfr
+    plan = tfr.fitted_plan(plans, dev)
+    tab = plan.tables
+    rng = np.random.default_rng(seed)
+    x = tab.host["x"]
+    L = tab.n_max + 2
+    r = 0.02 + 0.01 * np.sqrt(np.abs(x)) \
+        + rng.uniform(-2e-3, 2e-3, (R,) + x.shape)
+    d = np.full((R, tab.G, L), 0.5)
+    d[..., :tab.n_max] = np.exp(-r * x)
+    dfs = torch.tensor(d, device=dev)
+    ddfs = torch.tensor(rng.normal(size=(R, D, tab.G, L)), device=dev)
+    before = (kernels.fitted_eval.launches, kernels.fitted_eval_jvp.launches)
+    out = [kernels.fitted_eval(dfs, plan) for _ in range(2)]
+    dout = [kernels.fitted_eval_jvp(dfs, ddfs, out[0], plan)
+            for _ in range(2)]
+    assert (kernels.fitted_eval.launches,
+            kernels.fitted_eval_jvp.launches) == (before[0] + 2,
+                                                  before[1] + 2)
+    ref = tfr.fitted_eval_plain(plan, dfs)
+    dref = tfr.fitted_eval_jvp_plain(plan, dfs, ddfs, ref)
+    torch.cuda.synchronize()
+    return out, ref, dout, dref
+
+
+def _eval_check(out, ref, dout, dref):
+    assert _rel_err(out[0], ref) <= 1e-12
+    assert _rel_err(dout[0], dref) <= 1e-12
+    assert torch.equal(out[0], out[1]) and torch.equal(dout[0], dout[1])
+
+
+_SPLINE_CELL = (("FINCUBIC_ZERO_RATES", "NATCUBIC_LOG_DISCOUNT",
+                 "PCHIP_LOG_DISCOUNT", "NATCUBIC_ZERO_RATES",
+                 "PCHIP_ZERO_RATES"), (43, 73, 73, 43, 73))
+
+
+@pytest.mark.parametrize("call", ["A", "C1", "gamma_256"])
+def test_fitted_eval_at_the_phase8_shapes(dev, call):
+    """K6 ``fitted_eval`` and its tangent mode at chip_smoke phase 8's
+    calls: region A's (the spline cell's five fitted members, 43 and 73
+    knots, 2,225 queries; 50 scenarios x 32 quote seeds), region C1's (a
+    joint legs plan on 73 knots, two sorted runs of 372 queries; 48
+    directions) and the 256 gammas' (4,337 queries, one primal row,
+    1,024 directions); within 1e-12 x max|ref| of the plain versions,
+    two launches bit for bit."""
+    rng = np.random.default_rng(20)
+    if call == "C1":
+        plans = _eval_plans(rng, ("PCHIP_ZERO_RATES",), (73,), (744,), 2)
+        R, D = 50, 48
+    else:
+        W, R, D = (2225, 50, 32) if call == "A" else (4337, 1, 1024)
+        plans = _eval_plans(rng, _SPLINE_CELL[0], _SPLINE_CELL[1], (W,) * 5)
+    _eval_check(*_eval_twice(dev, plans, R, D, 21))
+
+
+@pytest.mark.parametrize("R, D", [(1, 1), (3, 5), (7, 130), (100, 2)])
+@pytest.mark.parametrize("case", ["ragged", "short", "wide", "one"])
+def test_fitted_eval_ragged(dev, case, R, D):
+    """K6 ``fitted_eval`` and its tangent mode on knot counts from 2 to
+    257 (tiles of fewer rows, 130 directions cut into tiles), query
+    counts from 0 and 1, one member alone, and R G below one block an SM;
+    pad queries 1 (values) and 0 (tangents)."""
+    ns, ws = {"ragged": ((2, 97, 12, 43, 3), (1, 300, 0, 17, 5)),
+              "short": ((2, 3, 2, 3, 2), (1, 2, 3, 0, 9)),
+              "wide": ((257, 5, 190, 2, 73), (40, 1, 500, 2, 64)),
+              "one": ((73,), (130,))}[case]
+    rng = np.random.default_rng(R + D + len(case))
+    schemes = [_FIT_SCHEMES[(g + R) % 5] for g in range(len(ns))]
+    out, ref, dout, dref = _eval_twice(
+        dev, _eval_plans(rng, schemes, ns, ws), R, D, R)
+    _eval_check(out, ref, dout, dref)
+    for g, w in enumerate(ws):
+        assert bool((out[0][:, g, w:] == 1.0).all())
+        assert not dout[0][:, :, g, w:].any()
+
+
+def test_fitted_kernels_no_local_memory(dev):
+    """K6's three entries (the linear map, the evaluation, its tangent
+    mode) keep nothing in local memory and fit two blocks of 256 threads
+    an SM; their tiles give every SM a block at region C1's [2,400, 1]
+    (73 knots, 234 queries), with the tables in shared memory; so do the
+    tangent mode's at C1's tangent call (50 rows x 32 directions, 744
+    queries: 200 tiles of 8 directions) and A's 50 rows x 32 directions
+    of 5 members (2,225 queries: on to two blocks an SM, 500 tiles of
+    16); the evaluation's one-row tiles at C1's primal call [50, 1] (744
+    queries) and the 256 gammas' [1, 5] (4,337 queries) are cut into query
+    tiles (multiples of 32) until every SM has a block, and so is the
+    gammas' tangent call (1 row x 1,024 directions) where its direction
+    tiles do not fill the card."""
+    for mode in kernels.FIT_MODES:
+        c1 = kernels.fitted_kernel_info(mode, 2400, 1, 73, 234, D=48)
+        assert c1["local_bytes"] == 0 and c1["registers"] <= 128, c1
+        assert c1["blocks"] >= 132 and c1["staged"], c1
+    c1t = kernels.fitted_kernel_info("tangent", 50, 1, 73, 744, D=32)
+    a = kernels.fitted_kernel_info("tangent", 50, 5, 73, 2225, D=32)
+    assert a["staged"] and c1t["staged"], (a, c1t)
+    assert (a["blocks"], a["tile_dirs"]) == (500, 16), a
+    assert (c1t["blocks"], c1t["tile_dirs"]) == (200, 8), c1t
+    for mode, R, D, G, W in (("eval", 50, 0, 1, 744),
+                             ("eval", 1, 0, 5, 4337),
+                             ("tangent", 1, 1024, 5, 4337),
+                             ("linear", 1, 0, 5, 4337)):
+        info = kernels.fitted_kernel_info(mode, R, G, 73, W, D=D)
+        assert info["blocks"] >= 132 and info["staged"], (mode, R, G, info)
+        assert info["tile_queries"] % 32 == 0 or info["tile_queries"] == W
+    c1e = kernels.fitted_kernel_info("eval", 50, 1, 73, 744)
+    assert (c1e["blocks"], c1e["tile_queries"]) == (200, 224), c1e
+    big = kernels.fitted_kernel_info("tangent", 1, 1, kernels.FIT_MAX_KNOTS,
+                                     1, D=1)
+    assert not big["staged"] and big["smem_bytes"] <= 232448, big
 
 
 def _fit_t_plans(case):
