@@ -44,13 +44,24 @@
 // Members are padded to n_max knots (T's pad rows identity, R's and the
 // weights' pad entries 0: pads are never read) and W_max queries.
 //
-// T is factored once on the host in f64 (Thomas: T = L U, L unit lower with
-// multipliers l_i, U upper with pivots b'_i and super-diagonal c_i; T is
-// strictly diagonally dominant, so no pivoting), and the tables hold l, 1 /
-// b' and c: the device solve is two sweeps of FMAs and multiplies, no
-// division. sp [G, 6, n_max] = (l, 1 / b', c, rl, rd, ru), R's three
-// diagonals last; fx [G, 5, n_max] = (-(x + gSmall), h, PCHIP's w1, w2,
-// w12) and fmode [G] (zero rates, t = 0 patched) the transforms'.
+// K6 takes a spline member's slopes and rows as the plain version does,
+// operation for operation (no FMA contraction): the right-hand side from
+// the secants, the parallel cyclic reduction of utils/math.py
+// solve_tridiagonal, and cubic_eval's power form. T's reduced coefficients
+// depend on the knots alone, so the host computes them once in that
+// order: pc [G, 2 + 2 st, n_max] = (h, the reduced diagonal b, then each
+// of the st = ceil(log2 n_max) steps' alpha and gamma), beside the
+// offsets qu [G, W_max] = q - x[idx]. A cubic's extrapolation past the
+// last knot multiplies a rounding difference by up to (q - x)^3 / h^3
+// (the spline cell's 43-knot members reach 11.5 last intervals past
+// their last knot), so Thomas sweeps or the Hermite form departed from
+// the plain version by more than 1e-12 of the values there; in one order
+// they agree bit for bit. K7 keeps T factored once on the host in f64
+// (Thomas: T = L U, L unit lower with multipliers l_i, U upper with
+// pivots b'_i and super-diagonal c_i; T is strictly diagonally dominant,
+// so no pivoting): sp [G, 6, n_max] = (l, 1 / b', c, rl, rd, ru), R's
+// three diagonals last. fx [G, 5, n_max] = (-(x + gSmall), h, PCHIP's w1,
+// w2, w12) and fmode [G] (zero rates, t = 0 patched) are the transforms'.
 //
 // What bounds them on an H100: bytes. K6 writes R G W_max values (and D
 // times as many tangents) from R G n_max DFs; K7 the reverse; the tables
@@ -68,15 +79,14 @@
 // and where one-row tiles still leave SMs without a block, a tile of its
 // queries (a multiple of 32; the row's transforms and slopes taken again
 // in each, a tile of pad queries alone skipping them).
-// The block stages its member's tables (the factors, fx) in shared memory
-// once, then its rows' transformed knot values and tangents, a thread a
-// (row, knot), coalesced; PCHIP's slopes (or their tangents) a thread a
-// (row, knot); a spline's solve from shared memory, a warp a row in tiles
-// of at most 32 rows (the sweeps' affine maps scanned over the lanes:
-// spline_solve_warp), else a thread a row over every warp (eight sweep
-// steps' operands loaded together); then a thread a query loads its
-// bracket, weights and fac once and writes its value in every row of the
-// tile (stores coalesced along the queries).
+// The block stages its member's tables (pc, fx) in shared memory once,
+// then its rows' transformed knot values and tangents, a thread a (row,
+// knot), coalesced; PCHIP's slopes (or their tangents) a thread a (row,
+// knot); a spline's solve from shared memory, a warp a row (spline_pcr:
+// the steps' reads and writes ping-pong between the row and the warp's
+// scratch row); then a thread a query loads its bracket, weights (a
+// spline's offset and interval) and fac once and writes its value in
+// every row of the tile (stores coalesced along the queries).
 // Rows of the shared tiles have an odd stride (n_max | 1 doubles), so the
 // solving lanes, a row each, hit distinct banks. No atomics, no
 // allocation, no local memory (ptxas, 0 spill bytes; each entry's
@@ -84,18 +94,18 @@
 //
 // What holds it (scripts/k6_phases.py on an H100 80GB HBM3 at 700 W,
 // seeded inputs at the spline cell's shapes): the tangent mode at region
-// A (50 rows x 32 directions of 5 members, 2,225 queries) takes 0.0858
-// ms, 0.0528 of it with the stores behind a test no value passes: two
-// blocks an SM (tiles of 16 directions) overlap one's work with the
-// other's stores (0.0914 -> 0.0872 ms against one block an SM). The
-// primal evaluations are a block's own chain of dependent steps (the
-// member's tables, the DFs and the query tables from memory, the log, the
-// slopes, exp): A 0.0090 ms (0.0081 without the slopes, 0.0133 with a
-// spline row solved by one thread), C1 (one PCHIP member, 744 queries in
-// 200 blocks) 0.0052 (0.0042 without the slopes, 0.0056 without query
-// tiles), the gammas' (1 row of 5 members, 4,337 queries in 140 blocks)
-// 0.0050 (0.0039, 0.0085, 0.0110); without their stores each moves by at
-// most 0.0004 ms.
+// A (50 rows x 32 directions of 5 members, 2,225 queries) takes 0.0970
+// ms (two blocks an SM, tiles of 16 directions, overlap one's work with
+// the other's stores). The primal evaluations are a block's own chain of
+// dependent steps (the member's tables, the DFs and the query tables from
+// memory, the log, the slopes, the spline's coefficients, exp): A 0.0121
+// ms, C1 (one PCHIP member, 744 queries in 200 blocks) 0.0053, the
+// gammas' (1 row of 5 members, 4,337 queries in 140 blocks) 0.0080. The
+// plain version's order costs divisions: the right-hand side's secants,
+// the reduction's last quotient and three a spline interval (taken once
+// a row and interval, not a query: a tangent call a query took 2.7 times
+// as long). Thomas sweeps on stored factors and the Hermite form, in
+// place of these, took 0.0858, 0.0090, 0.0052 and 0.0050 ms.
 //
 // K7: the cotangents streamed through shared memory and summed over
 // static segments, with no shuffle (kernels.fitted_tables builds the
@@ -174,10 +184,9 @@ constexpr int kMaxTileRows = 32;          // primal rows a tile, at most
 constexpr int kMaxSlots = 64;             // rows a tile stages, at most
 constexpr int kSmemPref = 96 * 1024;      // a tile's shared memory, at most
 constexpr int kSmemMax = 232448;          // ... where one row needs more
-constexpr int kTabRows = 11;              // sp's 6 and fx's 5 rows a member
+constexpr int kFxRows = 5;                // fx's rows a member
 constexpr long kMinOutputs = 1L << 15;    // a block's outputs, to split more
 constexpr int kWarps = kThreads / 32;
-constexpr int kWarpSolveRows = 32;        // spline rows a tile, to solve by warps
 // K7 (kernels.py FIT_CHUNK, FIT_SEGS, FIT_SEG_LEN)
 constexpr int kChunk = 256;               // queries a chunk, at most
 constexpr int kSegs = 32;                 // segments a chunk, at most
@@ -198,6 +207,23 @@ enum { kZeroRates = 1, kPatch = 2 };      // fmode bits (fitted_rows.py FM_*)
 enum { kLinear = 0, kEval = 1, kTangent = 2 };
 
 __host__ __device__ inline int row_stride(int n_max) { return n_max | 1; }
+
+// the steps of the plain version's parallel cyclic reduction over n_max
+// rows (utils/math.py solve_tridiagonal: ceil(log2 n), at least 1), and
+// the rows of a member's PCR table pc: h, the reduced diagonal b, then
+// each step's alpha and gamma (kernels.fitted_tables)
+__host__ __device__ inline int pcr_steps(int n_max) {
+  int s = 0;
+  while ((1 << s) < n_max) ++s;
+  return n_max > 1 ? (s > 1 ? s : 1) : 0;
+}
+__host__ __device__ inline int pcr_rows(int n_max) {
+  return 2 + 2 * pcr_steps(n_max);
+}
+// a tile's table rows in shared memory: pc's, then (not kLinear) fx's
+__host__ __device__ inline int tab_rows(int n_max, bool linear) {
+  return pcr_rows(n_max) + (linear ? 0 : kFxRows);
+}
 
 __device__ __forceinline__ double2 ld2(const double* p) {
   return __ldg(reinterpret_cast<const double2*>(p));
@@ -227,9 +253,19 @@ struct K6Tile {
   size_t smem;
 };
 
+// the warps that solve a tile's spline rows, each with a scratch row: one a
+// row, at most kWarps (tp rows, or tp (slots - 1) direction rows); a slot
+// takes four rows (knot values, slopes, a spline's two coefficients)
+__host__ __device__ inline int solve_warps(int tp, int slots) {
+  const int rows = slots > 1 ? tp * (slots - 1) : tp;
+  return rows < kWarps ? rows : kWarps;
+}
+
 size_t k6_smem(int tp, int slots, int n_max, bool stage) {
-  return sizeof(double) * ((stage ? (size_t)kTabRows * n_max : 0)
-                           + (size_t)2 * tp * slots * row_stride(n_max));
+  return sizeof(double)
+         * ((stage ? (size_t)tab_rows(n_max, false) * n_max : 0)
+            + ((size_t)4 * tp * slots + solve_warps(tp, slots))
+                  * row_stride(n_max));
 }
 
 // The most rows a tile (up to kMaxTileRows primal rows, kMaxSlots staged
@@ -277,6 +313,26 @@ K6Tile k6_tile(int R, int D, int G, int n_max, int W_max, bool tangent) {
   t.stage = fits(t.tp, t.td);
   t.smem = k6_smem(t.tp, slots(t.td), n_max, t.stage);
   return t;
+}
+
+// The plain version's arithmetic, operation for operation: each product
+// and sum rounded on its own (never contracted into an FMA), so that K6's
+// spline and Hermite rows equal fitted_rows_plain's bit for bit where
+// their inputs do. A cubic's extrapolation far past the last knot
+// multiplies any rounding difference by up to (q - x)^3 / h^3, so a
+// different order of the same sums (Thomas against PCR, the Hermite form
+// against the power form) departs by more than 1e-12 of the values there.
+__device__ __forceinline__ double mul(double a, double b) {
+  return __dmul_rn(a, b);
+}
+__device__ __forceinline__ double add(double a, double b) {
+  return __dadd_rn(a, b);
+}
+__device__ __forceinline__ double sub(double a, double b) {
+  return __dsub_rn(a, b);
+}
+__device__ __forceinline__ double quo(double a, double b) {
+  return __ddiv_rn(a, b);
 }
 
 // a knot's transformed value from its DF row: the log DF or the zero rate
@@ -336,117 +392,84 @@ __device__ __forceinline__ double pchip_dslope(const double* y,
   const double dm1 = (dy[i + 1] - dy[i]) / h[i];
   const double a = fx[kW1 * n_max + j] / m0, b = fx[kW2 * n_max + j] / m1;
   const double den = a + b;
-  const double dden = -(a * (dm0 / m0) + b * (dm1 / m1));
+  const double dden = -add(mul(a, dm0 / m0), mul(b, dm1 / m1));
   return -(fx[kW12 * n_max + j] / den) * (dden / den);
 }
 
-// a spline row's slopes d = U^-1 L^-1 (R y) from the stored factors F
-// (sp's six rows), eight steps' operands loaded together
-__device__ __forceinline__ void spline_solve(const double* y, double* d,
-                                             const double* F, int n_max,
-                                             int n) {
-  double f = 0.0;
-  for (int i0 = 0; i0 < n; i0 += 8) {
-    double rhs[8], ll[8];
-#pragma unroll
-    for (int k = 0; k < 8; ++k) {
-      const int i = min(i0 + k, n - 1);
-      double r = F[kRd * n_max + i] * y[i];
-      if (i > 0) r = fma(F[kRl * n_max + i], y[i - 1], r);
-      if (i + 1 < n) r = fma(F[kRu * n_max + i], y[i + 1], r);
-      rhs[k] = r;
-      ll[k] = F[kL * n_max + i];
-    }
-#pragma unroll
-    for (int k = 0; k < 8; ++k) {
-      if (i0 + k < n) {
-        f = fma(-ll[k], f, rhs[k]);                // l_0 = 0
-        d[i0 + k] = f;
-      }
-    }
-  }
-  double b = 0.0;
-  for (int i1 = n - 1; i1 >= 0; i1 -= 8) {
-    double dd[8], cc[8], bb[8];
-#pragma unroll
-    for (int k = 0; k < 8; ++k) {
-      const int i = max(i1 - k, 0);
-      dd[k] = d[i];
-      cc[k] = F[kC * n_max + i];
-      bb[k] = F[kRb * n_max + i];
-    }
-#pragma unroll
-    for (int k = 0; k < 8; ++k) {
-      if (i1 - k >= 0) {
-        b = fma(-cc[k], b, dd[k]) * bb[k];
-        d[i1 - k] = b;
-      }
-    }
-  }
+// hermite_eval's row: w00 y_i + w10 d_i + w01 y_i+1 + w11 d_i+1, summed
+// left to right
+__device__ __forceinline__ double hermite_u(double2 a, double2 c, double y0,
+                                            double d0, double y1,
+                                            double d1) {
+  return add(add(add(mul(a.x, y0), mul(a.y, d0)), mul(c.x, y1)),
+             mul(c.y, d1));
 }
 
-// the same slopes, one warp a row: each Thomas sweep is a chain of affine
-// maps (f_i = -l_i f_{i-1} + rhs_i, then b_i = -(c_i / b'_i) b_{i+1} +
-// f_i / b'_i); a lane composes the maps of its run of c = ceil(n / 32)
-// consecutive knots, the warp scans the 32 composites by shuffles (five
-// steps, lower lanes first for the forward sweep, higher for the backward
-// one), and each lane runs its knots from the value the scan hands it.
-// |l_i| and |c_i / b'_i| are below 1 (T is strictly diagonally dominant),
-// so the composites' products do not grow. A chain of 2 c + 10 steps in
-// place of 2 n for a tile of few rows.
-__device__ __forceinline__ void spline_solve_warp(const double* y, double* d,
-                                                  const double* F, int n_max,
-                                                  int n, int lane) {
-  const int c = (n + 31) >> 5;
-  const int s = min(lane * c, n), e = min(s + c, n);
-  auto rhs = [&](int i) {
-    double r = F[kRd * n_max + i] * y[i];
-    if (i > 0) r = fma(F[kRl * n_max + i], y[i - 1], r);
-    if (i + 1 < n) r = fma(F[kRu * n_max + i], y[i + 1], r);
-    return r;
-  };
-  double A = 1.0, B = 0.0;                  // x -> A x + B over the run
-  for (int i = s; i < e; ++i) {
-    const double a = -F[kL * n_max + i];
-    A *= a;
-    B = fma(a, B, rhs(i));
-  }
-  for (int off = 1; off < 32; off <<= 1) {
-    const double A2 = __shfl_up_sync(~0u, A, off);
-    const double B2 = __shfl_up_sync(~0u, B, off);
-    if (lane >= off) {
-      B = fma(A, B2, B);
-      A *= A2;
+// cubic_spline_coeffs' coefficients of interval i of a row (knot values
+// y, slopes d, interval length h): c1 = (3 m - 2 d_i - d_i+1) / h and c0 =
+// (d_i + d_i+1 - 2 m) / h^2, m the secant
+__device__ __forceinline__ void spline_coefs(const double* y, const double* d,
+                                             int i, double h, double& c1,
+                                             double& c0) {
+  const double m = quo(sub(y[i + 1], y[i]), h);
+  c1 = quo(sub(sub(mul(3.0, m), mul(2.0, d[i])), d[i + 1]), h);
+  c0 = quo(sub(add(d[i], d[i + 1]), mul(2.0, m)), mul(h, h));
+}
+
+// cubic_eval's row in the power form on the query's offset uq = q - x_i:
+// ((c0 uq + c1) uq + d_i) uq + y_i
+__device__ __forceinline__ double spline_u(double y0, double s0, double c1,
+                                           double c0, double uq) {
+  return add(mul(add(mul(add(mul(c0, uq), c1), uq), s0), uq), y0);
+}
+
+// cubic_spline_coeffs' right-hand side at knot i of the row y (n knots):
+// 3 m_0 at the first, 3 m_n-2 at the last (0 for a clamped end), else
+// 3 (m_i-1 / h_i-1 + m_i / h_i)
+__device__ __forceinline__ double spline_rhs(const double* y, const double* h,
+                                             int i, int n, bool clamped) {
+  auto m = [&](int j) { return quo(sub(y[j + 1], y[j]), h[j]); };
+  if (i == 0) return mul(3.0, m(0));
+  if (i == n - 1) return clamped ? 0.0 : mul(3.0, m(n - 2));
+  return mul(3.0, add(mul(m(i - 1), quo(1.0, h[i - 1])),
+                      mul(m(i), quo(1.0, h[i]))));
+}
+
+// A spline row's slopes, one warp a row, by the plain version's parallel
+// cyclic reduction (utils/math.py solve_tridiagonal): the right-hand side
+// into d, then at each step k (stride 2^k) d_i <- (d_i + alpha_i d_i-s) +
+// gamma_i d_i+s, reading the step's old values (ping-pong with the warp's
+// scratch row tmp), and d_i / b_i at the end. T's reduced coefficients
+// alpha, gamma and b depend on the knots alone and come from the host
+// (the member's table P: h, b, then alpha and gamma a step), computed
+// there in the plain version's order; rows past the member's n knots are
+// decoupled and hold 0, so they read as 0.
+__device__ __forceinline__ void spline_pcr(const double* y, double* d,
+                                           double* tmp, const double* P,
+                                           int n_max, int n, bool clamped,
+                                           int lane) {
+  const double* h = P;
+  for (int i = lane; i < n; i += 32) d[i] = spline_rhs(y, h, i, n, clamped);
+  __syncwarp();
+  double* cur = d;
+  double* nxt = tmp;
+  const int st = pcr_steps(n_max);
+  for (int k = 0; k < st; ++k) {
+    const int s = 1 << k;
+    const double* al = P + (2 + 2 * k) * n_max;
+    const double* ga = al + n_max;
+    for (int i = lane; i < n; i += 32) {
+      const double up = i >= s ? cur[i - s] : 0.0;
+      const double dn = i + s < n ? cur[i + s] : 0.0;
+      nxt[i] = add(add(cur[i], mul(al[i], up)), mul(ga[i], dn));
     }
+    __syncwarp();
+    double* t = cur;
+    cur = nxt;
+    nxt = t;
   }
-  double f = __shfl_up_sync(~0u, B, 1);     // f_{s - 1}
-  if (lane == 0) f = 0.0;
-  for (int i = s; i < e; ++i) {
-    f = fma(-F[kL * n_max + i], f, rhs(i));
-    d[i] = f;
-  }
-  A = 1.0;
-  B = 0.0;
-  for (int i = e - 1; i >= s; --i) {
-    const double rb = F[kRb * n_max + i];
-    const double a = -F[kC * n_max + i] * rb;
-    A *= a;
-    B = fma(a, B, d[i] * rb);
-  }
-  for (int off = 1; off < 32; off <<= 1) {
-    const double A2 = __shfl_down_sync(~0u, A, off);
-    const double B2 = __shfl_down_sync(~0u, B, off);
-    if (lane + off < 32) {
-      B = fma(A, B2, B);
-      A *= A2;
-    }
-  }
-  double b = __shfl_down_sync(~0u, B, 1);   // b_e
-  if (lane == 31) b = 0.0;
-  for (int i = e - 1; i >= s; --i) {
-    b = fma(-F[kC * n_max + i], b, d[i]) * F[kRb * n_max + i];
-    d[i] = b;
-  }
+  for (int i = lane; i < n; i += 32) d[i] = quo(cur[i], P[n_max + i]);
+  __syncwarp();
 }
 
 // K6, one block a (tile, member), kThreads threads. A tile is tp primal
@@ -461,10 +484,10 @@ __global__ void __launch_bounds__(kThreads, 2)
               int n_max, int W_max, const int* __restrict__ kind,
               const int* __restrict__ nk, const int* __restrict__ nw,
               const int* __restrict__ fmode, const int* __restrict__ qidx,
-              const double* __restrict__ qw, const double* __restrict__ sp,
-              const double* __restrict__ fx, const double* __restrict__ fac,
-              int TP, int TD, int nDT, int TW, int nWT, int stage,
-              double* __restrict__ Y) {
+              const double* __restrict__ qw, const double* __restrict__ qu,
+              const double* __restrict__ pc, const double* __restrict__ fx,
+              const double* __restrict__ fac, int TP, int TD, int nDT,
+              int TW, int nWT, int stage, double* __restrict__ Y) {
   extern __shared__ __align__(16) double smem[];
   const int g = blockIdx.y;
   const int qt = blockIdx.x % nWT, bd = blockIdx.x / nWT;
@@ -477,24 +500,31 @@ __global__ void __launch_bounds__(kThreads, 2)
   const int n = nk[g], W = nw[g], kd = kind[g];
   const int md = kMode == kLinear ? 0 : fmode[g];
   const int ld = row_stride(n_max);
-  const double* F = sp + (size_t)g * 6 * n_max;
-  const double* fxg = kMode == kLinear ? nullptr : fx + (size_t)g * 5 * n_max;
-  double* ys = smem + (stage ? kTabRows * n_max : 0);  // [TP S][ld]
-  double* ds = ys + TP * S * ld;                       // [TP S][ld]
+  const int prow = pcr_rows(n_max);
+  const double* P = pc + (size_t)g * prow * n_max;
+  const double* fxg =
+      kMode == kLinear ? nullptr : fx + (size_t)g * kFxRows * n_max;
+  // a slot's rows, cs apart: its knot values ys, slopes ds and (a
+  // spline) its intervals' coefficients c1, c0; then the solve's scratch
+  const int cs = TP * S * ld;
+  double* ys = smem + (stage ? tab_rows(n_max, false) * n_max : 0);
+  double* ds = ys + cs;                                // [TP S][ld]
+  double* scr = ys + 4 * cs;                           // [nsw][ld]
+  const int nsw = solve_warps(TP, S);
 
   // a query tile of pads alone (past the member's W queries) skips the
   // prologue
   if (w0 < W) {
-    // 0. the member's tables (the factors; the transforms' rows) once
+    // 0. the member's tables (its PCR table; the transforms' rows) once
     if (stage) {
-      const int nrow = kMode == kLinear ? 6 : kTabRows;
+      const int nrow = tab_rows(n_max, kMode == kLinear);
       for (int e = threadIdx.x; e < nrow * n; e += kThreads) {
         const int r = e / n, i = e - r * n;
-        smem[r * n_max + i] = r < 6 ? F[r * n_max + i]
-                                    : fxg[(r - 6) * n_max + i];
+        smem[r * n_max + i] = r < prow ? P[r * n_max + i]
+                                       : fxg[(r - prow) * n_max + i];
       }
-      F = smem;
-      if (kMode != kLinear) fxg = smem + 6 * n_max;
+      P = smem;
+      if (kMode != kLinear) fxg = smem + prow * n_max;
       __syncthreads();                        // step 1 reads fx
     }
 
@@ -524,8 +554,7 @@ __global__ void __launch_bounds__(kThreads, 2)
     __syncthreads();
 
     // 2. the slopes: PCHIP's (or their tangents) a thread a (row, knot); a
-    //    spline's solve from shared memory, a warp a row where the tile has
-    //    at most kWarpSolveRows rows, else a thread a row over every warp
+    //    spline's solve (spline_pcr) a warp a row
     const int nrows = kMode == kTangent ? np * nd : np;
     if (kd == 0 && kMode != kLinear) {
       for (int e = threadIdx.x; e < nrows * n; e += kThreads) {
@@ -539,53 +568,65 @@ __global__ void __launch_bounds__(kThreads, 2)
         }
       }
       __syncthreads();
-    } else if (kd != 0 && nrows <= kWarpSolveRows) {
-      const int lane = threadIdx.x & 31;
-      for (int rr = threadIdx.x >> 5; rr < nrows; rr += kWarps) {
+    } else if (kd != 0) {
+      const int lane = threadIdx.x & 31, wp = threadIdx.x >> 5;
+      for (int rr = wp; wp < nsw && rr < nrows; rr += nsw) {
         const int s =
             kMode == kTangent ? (rr / nd) * S + 1 + rr % nd : rr;
-        spline_solve_warp(ys + s * ld, ds + s * ld, F, n_max, n, lane);
+        spline_pcr(ys + s * ld, ds + s * ld, scr + wp * ld, P, n_max, n,
+                   kd == 2, lane);
       }
       __syncthreads();
-    } else if (kd != 0) {
-      for (int rr = threadIdx.x; rr < nrows; rr += kThreads) {
+      // the coefficients once a (row, interval), not a (row, query): their
+      // three divisions are most of a query's work otherwise
+      for (int e = threadIdx.x; e < nrows * (n - 1); e += kThreads) {
+        const int rr = e / (n - 1), i = e - rr * (n - 1);
         const int s =
             kMode == kTangent ? (rr / nd) * S + 1 + rr % nd : rr;
-        spline_solve(ys + s * ld, ds + s * ld, F, n_max, n);
+        double* y = ys + s * ld;
+        spline_coefs(y, y + cs, i, P[i], y[2 * cs + i], y[3 * cs + i]);
       }
       __syncthreads();
     }
   }
 
-  // 3. a thread a query: its bracket, weights (and fac) loaded once, then
-  //    its value in every row of the tile (stores coalesced along queries):
-  //    u (kLinear), exp(fac u) (kEval), V (fac du) a direction (kTangent);
-  //    pad queries 0, 1, 0
+  // 3. a thread a query: its bracket, weights or offset (and fac) loaded
+  //    once, then its value in every row of the tile (stores coalesced
+  //    along queries): u (kLinear), exp(fac u) (kEval), V (fac du) a
+  //    direction (kTangent), a Hermite member's u by hermite_u, a
+  //    spline's by spline_u; pad queries 0, 1, 0
   const int* qi = qidx + (size_t)g * W_max;
   const double* w4 = qw + (size_t)g * W_max * 4;
   for (int w = w0 + threadIdx.x; w < w1; w += kThreads) {
     if (w < W) {
       const int i = __ldg(qi + w);
-      const double2 a = ld2(w4 + 4 * w), c = ld2(w4 + 4 * w + 2);
+      double2 a = {0.0, 0.0}, c = {0.0, 0.0};
+      double uq = 0.0;
+      if (kd == 0) {
+        a = ld2(w4 + 4 * w);
+        c = ld2(w4 + 4 * w + 2);
+      } else {
+        uq = __ldg(qu + (size_t)g * W_max + w);
+      }
+      auto row = [&](const double* y, const double* d) {
+        return kd == 0 ? hermite_u(a, c, y[i], d[i], y[i + 1], d[i + 1])
+                       : spline_u(y[i], d[i], y[2 * cs + i], y[3 * cs + i],
+                                  uq);
+      };
       const double f = kMode == kLinear ? 0.0 : __ldg(fac + (size_t)g * W_max + w);
       for (int p = 0; p < np; ++p) {
         if (kMode == kTangent) {
           const size_t pr = (size_t)(p0 + p);
           const double v = __ldg(V + (pr * G + g) * W_max + w);
           for (int k = 0; k < nd; ++k) {
-            const double* y = ys + (p * S + 1 + k) * ld;
-            const double* d = ds + (p * S + 1 + k) * ld;
-            const double du = a.x * y[i] + a.y * d[i] + c.x * y[i + 1]
-                + c.y * d[i + 1];
-            Y[((pr * D + k0 + k) * G + g) * W_max + w] = v * (f * du);
+            const double du = row(ys + (p * S + 1 + k) * ld,
+                                  ds + (p * S + 1 + k) * ld);
+            Y[((pr * D + k0 + k) * G + g) * W_max + w] = mul(v, mul(f, du));
           }
         } else {
-          const double* y = ys + p * ld;
-          const double* d = ds + p * ld;
-          const double u = a.x * y[i] + a.y * d[i] + c.x * y[i + 1]
-              + c.y * d[i + 1];
+          const double u = row(ys + p * ld, ds + p * ld);
           Y[((size_t)(p0 + p) * G + g) * W_max + w] =
-              kMode == kLinear ? u : exp(f * u);
+              kMode == kLinear ? u : exp(mul(f, u));
         }
       }
     } else {
@@ -607,7 +648,8 @@ template <int kMode>
 int k6_launch(const double* X, const double* dX, const double* V, int R,
               int D, int G, int ldx, int n_max, int W_max, const int* kind,
               const int* nk, const int* nw, const int* fmode,
-              const int* qidx, const double* qw, const double* sp,
+              const int* qidx, const double* qw, const double* qu,
+              const double* pc,
               const double* fx, const double* fac, double* Y,
               cudaStream_t stream) {
   if (R <= 0 || G <= 0 || W_max <= 0 || (kMode == kTangent && D <= 0))
@@ -623,7 +665,7 @@ int k6_launch(const double* X, const double* dX, const double* V, int R,
   dim3 grid(((R + t.tp - 1) / t.tp) * t.nd_tiles * t.nw_tiles, G);
   kernel<<<grid, kThreads, t.smem, stream>>>(
       X, dX, V, R, D, G, ldx, n_max, W_max, kind, nk, nw, fmode, qidx, qw,
-      sp, fx, fac, t.tp, t.td, t.nd_tiles, t.tw, t.nw_tiles,
+      qu, pc, fx, fac, t.tp, t.td, t.nd_tiles, t.tw, t.nw_tiles,
       t.stage ? 1 : 0, Y);
   return (int)cudaGetLastError();
 }
@@ -1039,10 +1081,11 @@ cudaError_t launch_t(const double* Ub, int R, int G, int K, int n_max,
 extern "C" int fitted_rows_f64(const double* X, int R, int G, int K,
                                int n_max, int W_max, const int* kind,
                                const int* nk, const int* nw, const int* qidx,
-                               const double* qw, const double* sp, double* U,
+                               const double* qw, const double* qu,
+                               const double* pc, double* U,
                                cudaStream_t stream) {
   return k6_launch<kLinear>(X, nullptr, nullptr, R, 0, G, K * n_max, n_max,
-                            W_max, kind, nk, nw, nullptr, qidx, qw, sp,
+                            W_max, kind, nk, nw, nullptr, qidx, qw, qu, pc,
                             nullptr, nullptr, U, stream);
 }
 
@@ -1050,12 +1093,13 @@ extern "C" int fitted_eval_f64(const double* dfs, int R, int G, int L,
                                int n_max, int W_max, const int* kind,
                                const int* nk, const int* nw,
                                const int* fmode, const int* qidx,
-                               const double* qw, const double* sp,
-                               const double* fx, const double* fac,
-                               double* out, cudaStream_t stream) {
+                               const double* qw, const double* qu,
+                               const double* pc, const double* fx,
+                               const double* fac, double* out,
+                               cudaStream_t stream) {
   return k6_launch<kEval>(dfs, nullptr, nullptr, R, 0, G, L, n_max, W_max,
-                          kind, nk, nw, fmode, qidx, qw, sp, fx, fac, out,
-                          stream);
+                          kind, nk, nw, fmode, qidx, qw, qu, pc, fx, fac,
+                          out, stream);
 }
 
 extern "C" int fitted_eval_jvp_f64(const double* dfs, const double* ddfs,
@@ -1064,11 +1108,11 @@ extern "C" int fitted_eval_jvp_f64(const double* dfs, const double* ddfs,
                                    const int* kind, const int* nk,
                                    const int* nw, const int* fmode,
                                    const int* qidx, const double* qw,
-                                   const double* sp, const double* fx,
-                                   const double* fac, double* dout,
-                                   cudaStream_t stream) {
+                                   const double* qu, const double* pc,
+                                   const double* fx, const double* fac,
+                                   double* dout, cudaStream_t stream) {
   return k6_launch<kTangent>(dfs, ddfs, vals, R, D, G, L, n_max, W_max,
-                             kind, nk, nw, fmode, qidx, qw, sp, fx, fac,
+                             kind, nk, nw, fmode, qidx, qw, qu, pc, fx, fac,
                              dout, stream);
 }
 

@@ -2031,21 +2031,17 @@ extern "C" int xccy_legs_jvp_f64(const XccyStageTab* t, int Sc, int Qd,
 }
 
 // K10: gZ [Sc, G, D], gf [Sc, G, Lf] (n_gf = Lf; 0 writes none), H
-// [Sc, D, G, D] from sp, pv, fd, tf as K8's and gs [Sc, G, W]. pairs
-// [n_pairs, 2] is the pair table of every i <= j once (n_pairs =
-// D(D+1)/2), which the kernel's tile pairs enumerate in its own order. A
+// [Sc, D, G, D] from sp, pv, fd, tf as K8's and gs [Sc, G, W]; each pair
+// i <= j once, in the order the kernel's tile pairs enumerate them. A
 // block a (scenario, member, tile pair), then, recalibrated, a block a
 // (scenario, member, kBlock grid entries).
 extern "C" int xccy_stage_hess_f64(const XccyStageTab* t, int Sc, int D,
-                                   int npv, int n_pairs, const int* pairs,
-                                   int n_gf,
+                                   int npv, int n_gf,
                                    const double* sp, const double* pv,
                                    const double* fd, const double* tf,
                                    const double* gs, double* gZ, double* gf,
                                    double* H, cudaStream_t stream) {
-  (void)pairs;
-  if (!fits(t) || D < 1 || (long long)n_pairs != (long long)D * (D + 1) / 2
-      || (n_gf != 0 && n_gf != t->Lf)) {
+  if (!fits(t) || D < 1 || (n_gf != 0 && n_gf != t->Lf)) {
     return (int)cudaErrorInvalidValue;
   }
   if ((long long)Sc * t->G == 0) return 0;
@@ -2063,18 +2059,14 @@ extern "C" int xccy_stage_hess_f64(const XccyStageTab* t, int Sc, int D,
 }
 
 // K11: gdd [Sc, G, Ld] (n_gd = Ld), Hl [Sc, Qd, G, Qd] from dd [Sc, G,
-// Ld], tdl [Sc, Qd, G, Ld] and gpv [Sc, G, S]. pairs [n_pairs, 2] is the
-// pair table of every i <= j once (n_pairs = Qd(Qd+1)/2), which the
-// kernel enumerates in its own order. A block a (scenario, member).
+// Ld], tdl [Sc, Qd, G, Ld] and gpv [Sc, G, S]; each pair i <= j once, in
+// the kernel's own order. A block a (scenario, member).
 extern "C" int xccy_legs_hess_f64(const XccyStageTab* t, int Sc, int Qd,
-                                  int n_pairs, const int* pairs, int n_gd,
-                                  const double* dd, const double* tdl,
-                                  const double* gpv, double* gdd, double* Hl,
+                                  int n_gd, const double* dd,
+                                  const double* tdl, const double* gpv,
+                                  double* gdd, double* Hl,
                                   cudaStream_t stream) {
-  (void)pairs;
-  if (!fits_legs(t) || Qd < 0
-      || (long long)n_pairs != (long long)Qd * (Qd + 1) / 2
-      || n_gd != t->Ld) {
+  if (!fits_legs(t) || Qd < 0 || n_gd != t->Ld) {
     return (int)cudaErrorInvalidValue;
   }
   if ((long long)Sc * t->G == 0) return 0;

@@ -80,6 +80,7 @@ import ctypes
 import dataclasses
 import functools
 import hashlib
+import math
 import os
 import shutil
 import subprocess
@@ -121,19 +122,19 @@ _SIGNATURES = {
     "pv01_solve_f64": [_P, _P, _P, _I, _I, _I, _P, _P],
     "pv01_solve_t_f64": [_P, _P, _P, _I, _I, _I, _P, _P],
     "fitted_rows_f64": [_P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
-                        _P, _P],
+                        _P, _P, _P],
     "fitted_rows_t_f64": [_P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
                           _P, _P, _P, _I, _P, _P],
     "fitted_eval_f64": [_P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P,
-                        _P, _P, _P, _P],
+                        _P, _P, _P, _P, _P],
     "fitted_kernel_info": [_I, _I, _I, _I, _I, _I, _P],
     "fitted_eval_jvp_f64": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P,
-                            _P, _P, _P, _P, _P, _P, _P, _P],
+                            _P, _P, _P, _P, _P, _P, _P, _P, _P],
     "xccy_stage_jvp_f64": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P],
     "xccy_legs_jvp_f64": [_P, _I, _I, _P, _P, _P, _P, _P],
-    "xccy_stage_hess_f64": [_P, _I, _I, _I, _I, _P, _I, _P, _P, _P, _P, _P,
-                            _P, _P, _P, _P],
-    "xccy_legs_hess_f64": [_P, _I, _I, _I, _P, _I, _P, _P, _P, _P, _P, _P],
+    "xccy_stage_hess_f64": [_P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P,
+                            _P, _P],
+    "xccy_legs_hess_f64": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _P],
     "xccy_kernel_info": [_P, _I, _I, _I, _P],
 }
 
@@ -1137,8 +1138,11 @@ pv01_solve_t.calls = 0
 FIT_HERMITE, FIT_NATURAL, FIT_CLAMPED = 0, 1, 2
 # a K6 block stages two f64 rows of n_max | 1 values a tile row in at most
 # 96 KB of shared memory (csrc/fitted_rows.cu kSmemBudget), so a tile of
-# one row takes members of up to FIT_MAX_KNOTS knots
-FIT_MAX_KNOTS = 96 * 1024 // 16 - 1
+# K6's smallest tile (one row and, in tangent mode, one direction: the
+# knot values, slopes and a spline's two coefficient rows of both, and the
+# spline solve's scratch row, nine rows of n | 1 doubles) takes members of
+# up to FIT_MAX_KNOTS knots in a block's most shared memory (227 KB)
+FIT_MAX_KNOTS = 227 * 1024 // 72 - 1
 # K7 streams a member's queries, in interval order, in chunks of at most
 # FIT_CHUNK queries and FIT_SEGS segments (csrc/fitted_rows.cu kChunk,
 # kSegs), a segment being at most FIT_SEG_LEN queries of one interval; a
@@ -1167,8 +1171,17 @@ class FittedTables:
     ``hermite_eval``. A spline member's slopes are d = T^-1 R y: T its
     knot-slope tridiagonal (``cubic_spline_coeffs``), factored once here
     in f64 (``sp``: Thomas multipliers l, reciprocal pivots 1 / b', the
-    super-diagonal c), and R the static tridiagonal map from y to the
-    right-hand side (``sp``: rl, rd, ru). The input of K6 is
+    super-diagonal c; K7's T^-T), and R the static tridiagonal map from y
+    to the right-hand side (``sp``: rl, rd, ru). K6 takes a spline's slopes
+    and rows as the plain version does, operation for operation: the
+    right-hand side from the secants, the parallel cyclic reduction of
+    ``utils/math.solve_tridiagonal`` on T's coefficients reduced here in
+    its order (``pc``: the interval lengths h, the reduced diagonal b and
+    each of the st = ceil(log2 n_max) steps' alpha and gamma), and
+    ``cubic_eval``'s power form on the offsets ``qu`` = q - x[idx]. A
+    cubic's extrapolation far past the last knot multiplies any rounding
+    difference by up to (q - x)^3 / h^3, so the two agree only in one
+    order of operations. The input of K6 is
     X [R, G, K, n_max]: y in slot 0 and, where ``K`` is 2 (some member
     is Hermite), the given slopes in slot 1. Pad knots are decoupled:
     T's pad rows are identity rows, R's and the weights' pad entries 0,
@@ -1202,6 +1215,8 @@ class FittedTables:
     qidx: torch.Tensor        # [G, W_max] int32 bracket
     qw: torch.Tensor          # [G, W_max, 4] f64 Hermite weights
     sp: torch.Tensor          # [G, 6, n_max] f64: l, 1/b', c, rl, rd, ru
+    pc: torch.Tensor          # [G, 2 + 2 st, n_max] f64: h, b, alpha, gamma
+    qu: torch.Tensor          # [G, W_max] f64: q - x[idx]
     iq: torch.Tensor          # [G, W_max] int32 queries by interval
     ikey: torch.Tensor        # [G, W_max] int32 the interval of iq's query
     fcp: torch.Tensor         # [G + 1] int32 members' chunk ranges
@@ -1295,6 +1310,48 @@ def _spline_rows(x: np.ndarray, clamped: bool):
         l[i] = lower[i] / piv[i - 1]
         piv[i] = diag[i] - l[i] * upper[i - 1]
     return (lower, diag, upper), (l, 1.0 / piv, upper.copy(), rl, rd, ru)
+
+
+def pcr_steps(n: int) -> int:
+    """The steps of ``utils/math.solve_tridiagonal``'s parallel cyclic
+    reduction of n rows (csrc/fitted_rows.cu pcr_steps)."""
+    return max(1, math.ceil(math.log2(n))) if n > 1 else 0
+
+
+def _pcr_table(x: np.ndarray, bands: np.ndarray) -> np.ndarray:
+    """K6's table of the spline solve, [G, 2 + 2 st, n_max]: the interval
+    lengths h (of the padded knots ``x``), then T's coefficients (``bands``
+    [G, 3, n_max]) reduced by ``utils/math.solve_tridiagonal``'s steps in
+    its order of operations: the final diagonal b, then each step's alpha
+    and gamma. They depend on the knots alone, so the plain version's
+    right-hand side goes through exactly these coefficients."""
+    G, n = x.shape
+    st = pcr_steps(n)
+    out = np.zeros((G, 2 + 2 * st, n))
+    out[:, 0, :-1] = x[:, 1:] - x[:, :-1]
+    out[:, 0, -1] = 1.0
+    a = np.concatenate([np.zeros((G, 1)), bands[:, 0, 1:]], axis=-1)
+    b = bands[:, 1].copy()
+    c = np.concatenate([bands[:, 2, :n - 1], np.zeros((G, 1))], axis=-1)
+
+    def up(v, s, fill):
+        return np.concatenate([np.full((G, s), fill), v[:, :-s]], axis=-1)
+
+    def dn(v, s, fill):
+        return np.concatenate([v[:, s:], np.full((G, s), fill)], axis=-1)
+
+    s = 1
+    for k in range(st):
+        alpha = -a / up(b, s, 1.0)
+        gamma = -c / dn(b, s, 1.0)
+        out[:, 2 + 2 * k] = alpha
+        out[:, 3 + 2 * k] = gamma
+        a, b, c = (alpha * up(a, s, 0.0),
+                   b + alpha * up(c, s, 0.0) + gamma * dn(a, s, 0.0),
+                   gamma * dn(c, s, 0.0))
+        s *= 2
+    out[:, 1] = b
+    return out
 
 
 def _fit_stream(key: np.ndarray, iq: np.ndarray):
@@ -1394,6 +1451,8 @@ def fitted_tables(members: Sequence[tuple], device) -> FittedTables:
             bnd, fac = _spline_rows(xs[g], kinds[g] == FIT_CLAMPED)
             bands[g, :, :n] = np.stack(bnd)
             sp[g, :, :n] = np.stack(fac)
+    qu = q - np.take_along_axis(x, idx, 1)
+    qu[~qmask] = 0.0
 
     iq = np.zeros((G, W_max), np.int32)
     ikey = np.zeros((G, W_max), np.int32)
@@ -1415,7 +1474,9 @@ def fitted_tables(members: Sequence[tuple], device) -> FittedTables:
         G=G, n_max=n_max, W_max=W_max,
         K=2 if FIT_HERMITE in kinds else 1, kind=t(kinds, np.int32),
         nk=t(ns, np.int32), nw=t(ws, np.int32), qidx=t(idx, np.int32),
-        qw=t(qw, np.float64), sp=t(sp, np.float64), iq=t(iq, np.int32),
+        qw=t(qw, np.float64), sp=t(sp, np.float64),
+        pc=t(_pcr_table(x, bands), np.float64), qu=t(qu, np.float64),
+        iq=t(iq, np.int32),
         ikey=t(ikey, np.int32), fcp=t(fcp, np.int32),
         fchunk=t(np.concatenate(fchunk), np.int32),
         ftab=t(np.concatenate(ftab), np.int32),
@@ -1533,15 +1594,15 @@ def _fit_launch(entry: str, inp: torch.Tensor, out_shape,
 def fitted_rows(X: torch.Tensor, tab: FittedTables) -> torch.Tensor:
     """K6: U [R, G, W_max] from X [R, G, K, n_max] (see
     :class:`FittedTables` and :func:`fitted_rows_plain`): one block a
-    (tile of rows, member), a spline member's slopes solved by the stored
-    factors a lane a row, then a thread a query over the tile's rows from
-    shared memory; one ``torch.empty`` and one launch."""
+    (tile of rows, member), a spline member's slopes solved a warp a row
+    in the plain version's order (``pc``), then a thread a query over the
+    tile's rows from shared memory; one ``torch.empty`` and one launch."""
     _fit_shapes(X, tab, "fitted_rows", (tab.K, tab.n_max))
     if not X.is_cuda:
         return fitted_rows_plain(X, tab)
     out = _fit_launch("fitted_rows_f64", X, (X.shape[0], tab.G, tab.W_max),
                       tab, tab.qidx.data_ptr(), tab.qw.data_ptr(),
-                      tab.sp.data_ptr())
+                      tab.qu.data_ptr(), tab.pc.data_ptr())
     fitted_rows.launches += 1
     return out
 
@@ -1588,11 +1649,12 @@ def _eval_tables(plan, dev) -> tuple:
     for name, t, dtype, nd in (("fx", plan.fx, torch.float64, 3),
                                ("fac", plan.fac, torch.float64, 2),
                                ("fmode", plan.fmode, torch.int32, 1),
-                               ("sp", tab.sp, torch.float64, 3)):
+                               ("qu", tab.qu, torch.float64, 2),
+                               ("pc", tab.pc, torch.float64, 3)):
         _need(t, name, dtype, nd, dev)
     return tuple(t.data_ptr() for t in (
-        tab.kind, tab.nk, tab.nw, plan.fmode, tab.qidx, tab.qw, tab.sp,
-        plan.fx, plan.fac))
+        tab.kind, tab.nk, tab.nw, plan.fmode, tab.qidx, tab.qw, tab.qu,
+        tab.pc, plan.fx, plan.fac))
 
 
 def fitted_eval(dfs: torch.Tensor, plan) -> torch.Tensor:
@@ -1602,9 +1664,9 @@ def fitted_eval(dfs: torch.Tensor, plan) -> torch.Tensor:
     ``fitted_rows.fitted_eval_plain``): one block a (tile of rows,
     member, tile of queries where one-row tiles leave SMs idle), the
     tables staged in shared memory, the transforms a thread a (row, knot),
-    a spline member's solve a warp a row (a thread a row in tiles of more
-    than 32), then a thread a query writes exp(fac u) in every row of the
-    tile; one ``torch.empty`` and one launch."""
+    a spline member's solve a warp a row, then a thread a query writes
+    exp(fac u) in every row of the tile, each in the plain version's
+    order of operations; one ``torch.empty`` and one launch."""
     tab = plan.tables
     _fit_dfs(dfs, tab, "fitted_eval", 1)
     if not dfs.is_cuda:
@@ -1872,9 +1934,9 @@ def xccy_stage_hess(tab, sp: torch.Tensor, pv: torch.Tensor,
     its foreign grid (see ``xccy_stage.xccy_stage_hess_plain``; ``gs``
     [Sc, G, W]): a block a (scenario, member, tile pair) runs a dual
     chain a direction, sums a = ds/dds and the band of M = d2s/dds2 over
-    the rows, then a hyper-dual chain a pair i <= j (each pair of
-    ``tab.hpairs`` once), writing H at [i, j] and [j, i] (and gZ at
-    i = j); recalibrated, a block a (scenario, member, 128 foreign grid
+    the rows, then a hyper-dual chain a pair i <= j (each pair once, in
+    the kernel's own enumeration), writing H at [i, j] and [j, i] (and gZ
+    at i = j); recalibrated, a block a (scenario, member, 128 foreign grid
     entries) gives gf by a dual chain an entry; three ``torch.empty`` and
     one launch."""
     Sc, G = sp.shape[0], tab.G
@@ -1893,9 +1955,7 @@ def xccy_stage_hess(tab, sp: torch.Tensor, pv: torch.Tensor,
     gf = torch.empty((Sc, G, tab.Lf), dtype=torch.float64, device=dev)
     H = torch.empty((Sc, tab.D, G, tab.D), dtype=torch.float64, device=dev)
     if Sc:
-        _need(tab.hpairs, "hpairs", torch.int32, 2, dev)
         _xlaunch("xccy_stage_hess_f64", tab, Sc, tab.D, tab.npv,
-                 tab.hpairs.shape[0], tab.hpairs.data_ptr(),
                  tab.Lf if tab.recal else 0, _xin(sp, "sp", dev),
                  _xin(pv, "pv", dev), _xin(fd, "fd", dev),
                  None if tf is None else _xin(tf, "tf", dev),
@@ -1916,8 +1976,8 @@ def xccy_legs_hess(tab, dd: torch.Tensor, tdl: torch.Tensor,
     (scenario, member) evaluates the legs' flows once, collapses gdd and
     the gpv-weighted Hessian M onto the domestic grid's rows, then takes
     U = M T' and each pair i <= j once as t_i . U_j, written at [i, j]
-    and [j, i] (the kernel enumerates the pairs; ``tab.lpairs`` is passed
-    but not read); two ``torch.empty`` and one launch."""
+    and [j, i] (the kernel enumerates the pairs); two ``torch.empty`` and
+    one launch."""
     Sc, G = dd.shape[0], tab.G
     _xshape(dd, "dd", (Sc, G, tab.Ld))
     _xshape(tdl, "tdl", (Sc, tab.Qd, G, tab.Ld))
@@ -1929,9 +1989,7 @@ def xccy_legs_hess(tab, dd: torch.Tensor, tdl: torch.Tensor,
     Hl = torch.empty((Sc, tab.Qd, G, tab.Qd), dtype=torch.float64,
                      device=dev)
     if Sc:
-        _need(tab.lpairs, "lpairs", torch.int32, 2, dev)
-        _xlaunch("xccy_legs_hess_f64", tab, Sc, tab.Qd,
-                 tab.lpairs.shape[0], tab.lpairs.data_ptr(), tab.Ld,
+        _xlaunch("xccy_legs_hess_f64", tab, Sc, tab.Qd, tab.Ld,
                  _xin(dd, "dd", dev), _xin(tdl, "tdl", dev),
                  _xin(gpv, "gpv", dev), gdd.data_ptr(), Hl.data_ptr())
         xccy_legs_hess.launches += 1

@@ -72,13 +72,28 @@ its known payments' cf base C_seg over the factors C already solved,
 which is what the JAX package's Neumann series (``ops/linear_solve``)
 converges to; the node DFs and the rows follow in the same pass.
 
-A stage takes the kernels (:func:`stage_route`) when its members', its
-domestic and its foreign schemes are all simple (``LINEAR_FWD_RATES``,
-``FLAT_FWD_RATES``, ``LINEAR_ZERO_RATES``; :func:`kernel_route`), it has
-at most ``MAX_S`` pillars and ``MAX_U`` nodes (what K8 / K10's
-shared-memory layout is sized for) and its plan is one the single forward pass can take; any other
-stage keeps the ``torch.func`` route. The route is the stage's alone: on
-CPU tensors the wrappers run the plain versions.
+A stage takes the kernels (:func:`stage_route`) when its members'
+schemes are simple (``LINEAR_FWD_RATES``, ``FLAT_FWD_RATES``,
+``LINEAR_ZERO_RATES``; :func:`kernel_route`), it has at most ``MAX_S``
+pillars and ``MAX_U`` nodes (what K8 / K10's shared-memory layout is
+sized for) and its plan is one the single forward pass can take; any
+other stage keeps the ``torch.func`` route. The route is the stage's
+alone: on CPU tensors the wrappers run the plain versions.
+
+A parent on a fitted scheme (PCHIP or a cubic spline) enters the stage
+at static queries only: the foreign DFs at the chain points' start, end
+and payment times, and the calibration legs' index and discount DFs. So
+the stage splits there (:func:`lift_grid`, :func:`pull_grid`): K6
+``fitted_eval`` evaluates the parent once a (scenario, member) at each
+member's sorted distinct query times, and its tangent mode the parent's
+tangent rows there; these form a *query grid* on ``LINEAR_FWD_RATES``
+(the identity transform) on which every query is an exact knot, so K8-K11
+read exactly the fitted values and run unchanged. Their gradients on the
+query grid (K10's gf, K11's gdd) go back to the parent's own grid through
+the fitted evaluation's reverse mode (K7 and the transforms' vjp), and the
+Hessians take the curvature the linear lift leaves out, sum_q g_q
+F''_q[t_i, t_j] along the parent's tangent rows, forward over reverse
+(one forward-mode level through ``ops/fitted_rows``).
 """
 
 from __future__ import annotations
@@ -134,22 +149,21 @@ DIR_NONE, DIR_SPREAD, DIR_PV, DIR_ROW, DIR_UNIT = 0, 1, 2, 3, 4
 
 def kernel_route(st, its: Sequence[InterpTypes]) -> bool:
     """Whether XCCY stage ``st`` (``curve_batching._Stage``, its members
-    on the schemes ``its``) runs on K8-K11: its members', its domestic
-    and its foreign schemes all simple."""
-    return st.kind == "xccy" and all(
-        it in SCHEME_CODE
-        for it in list(its) + [st.dom_interp, st.foreign_interp])
+    on the schemes ``its``) runs on K8-K11: its members' schemes simple
+    (its parents on any scheme: a fitted parent through its query
+    grid)."""
+    return st.kind == "xccy" and all(it in SCHEME_CODE for it in its)
 
 
 def stage_route(st, its: Sequence[InterpTypes], b: dict) -> str:
     """"kernels" when XCCY stage ``st`` (its members on ``its``, its host
     ``bat`` entry ``b``) runs on K8-K11, else "torch.func: " and why: a
-    fitted scheme, more pillars or nodes than the kernels' arrays hold, or
-    a plan the single forward pass cannot take (:func:`_chain`)."""
+    fitted member scheme, more pillars or nodes than the kernels' arrays
+    hold, or a plan the single forward pass cannot take
+    (:func:`_chain`)."""
     if not kernel_route(st, its):
-        return "torch.func: a fitted scheme (" + ", ".join(sorted({
-            it.name for it in list(its) + [st.dom_interp, st.foreign_interp]
-            if it not in SCHEME_CODE})) + ")"
+        return "torch.func: a fitted member scheme (" + ", ".join(sorted({
+            it.name for it in its if it not in SCHEME_CODE})) + ")"
     p = b["plan"]
     S = int(np.asarray(p.mat_pos).shape[-1])
     pad_mask = np.asarray(b["pad_mask"], dtype=bool)
@@ -159,7 +173,8 @@ def stage_route(st, its: Sequence[InterpTypes], b: dict) -> str:
                 f"kernels' {MAX_S} / {MAX_U}")
     try:
         _chain(p, pad_mask)
-        _legs_xs(b["legs_plan"], np.asarray(b["dom_ts"]).shape[-1])
+        if st.dom_interp in SCHEME_CODE:
+            _legs_xs(b["legs_plan"], np.asarray(b["dom_ts"]).shape[-1])
     except LibError as e:
         return f"torch.func: {e}"
     return "kernels"
@@ -196,8 +211,12 @@ class XccyStageTables:
       alpha, spread, notional) and ``leg_s`` [G, S, 9] (principal, sign,
       value time, first fixing, exchange amount, effective and maturity
       times, cap, floor); ``pv_dom0`` [G, S];
-    - the Hessians' pair tables ``hpairs`` [D(D+1)/2, 2] and ``lpairs``
-      [Qd(Qd+1)/2, 2] (i <= j, row-major);
+    - ``ffit`` / ``dfit``: where the foreign / domestic parent is on a
+      fitted scheme, the ``ops/fitted_rows.FittedPlan`` of its query grid
+      (each member's sorted distinct query times on its parent's real
+      knots), else None; the stage's grid ``fd`` / ``dd`` is then that
+      query grid (``Lf`` / ``Ld`` its length), on ``LINEAR_FWD_RATES``
+      with every query an exact knot (:func:`lift_grid`);
     - the rows' node and band tables (:func:`_row_bands`; K8 / K10's
       sums over a member's rows): ``nr_ptr`` [G, U1 + 1] / ``nr_row``
       [G, NR] the rows that read each node, and ``mb_pq`` [G, E, 2] the
@@ -214,7 +233,9 @@ class XccyStageTables:
 
     ``D`` is the stage's direction count (2S + Qf recalibrated, S held
     as values), ``npv`` the PV directions (S or 0), ``Qd`` the domestic
-    directions. ``cache`` holds the kernels' argument block."""
+    directions. The Hessians' pairs i <= j are the kernels' own
+    enumeration (:func:`pair_table` the emulations'). ``cache`` holds the
+    kernels' argument block."""
     G: int
     S: int
     n: int
@@ -252,8 +273,8 @@ class XccyStageTables:
     leg_f: torch.Tensor
     leg_s: torch.Tensor
     pv_dom0: torch.Tensor
-    hpairs: torch.Tensor
-    lpairs: torch.Tensor
+    ffit: object
+    dfit: object
     E: int
     nr_ptr: torch.Tensor
     nr_row: torch.Tensor
@@ -585,6 +606,40 @@ def _legs_lists(li_i: np.ndarray, ld_i: np.ndarray, P: int, Ld: int):
                 ts_seg=ts_seg)
 
 
+def _query_grid(sets):
+    """A fitted parent's query grid from its members' static queries:
+    ``sets`` is a list of query sets, each a list of per-member host
+    fitted plans (``ops/interpolation.fitted_interp_plan`` on the parent's
+    real knots; any query shape). Each member's grid is its sorted
+    distinct query times over all the sets. Returns (the packed plans'
+    ints, their floats), one a set, each query an exact knot of its
+    member's grid (i0 = i1 = the knot, weight 0, its time), and the
+    members' host fitted plans at their grid times."""
+    from .interpolation import fitted_interp_plan
+    G = len(sets[0])
+    ints = [[] for _ in sets]
+    flts = [[] for _ in sets]
+    grid = []
+    for g in range(G):
+        qs = [np.asarray(st[g]["q"], np.float64) for st in sets]
+        t, inv = np.unique(np.concatenate([q.reshape(-1) for q in qs]),
+                           return_inverse=True)
+        lo = 0
+        for k, q in enumerate(qs):
+            kn = inv[lo:lo + q.size].reshape(q.shape)
+            lo += q.size
+            ints[k].append(np.stack([kn, kn, kn], -1).astype(np.int32))
+            flts[k].append(np.stack([np.zeros(q.shape), q], -1))
+        x = sets[0][g]["x"]
+        if any(not np.array_equal(st[g]["x"], x) for st in sets):
+            raise LibError("XCCY stage tables: one parent's queries on "
+                           "different knots")
+        grid.append(fitted_interp_plan(t, x, InterpTypes(int(np.asarray(
+            sets[0][g]["scheme"])))))
+    return ([np.stack(x) for x in ints], [np.stack(x) for x in flts],
+            grid)
+
+
 def _chain(p, pad_mask: np.ndarray):
     """(pt_f, pt_i, mat_pos, u_src) from a stacked XccyBootstrapPlan,
     after checking what the single forward pass relies on."""
@@ -640,6 +695,7 @@ def stage_tables(st, its: Sequence[InterpTypes], b: dict, row_plan: dict,
     row plan the structured pass evaluates (keep-compact or full) and its
     direction counts. Raises LibError for a stage off the kernel route
     (:func:`stage_route`)."""
+    from .fitted_rows import fitted_plan
     route = stage_route(st, its, b)
     if route != "kernels":
         raise LibError("XCCY stage tables: the stage keeps " + route)
@@ -649,10 +705,18 @@ def stage_tables(st, its: Sequence[InterpTypes], b: dict, row_plan: dict,
     pad_mask = np.asarray(b["pad_mask"], dtype=bool)
     U1 = pad_mask.shape[-1]
     pt_f, pt_i, mat_pos, u_src = _chain(p, pad_mask)
-    Lf = np.asarray(b["for_ts"]).shape[-1]
-    Ld = np.asarray(b["dom_ts"]).shape[-1]
-    fq_i, fq_f = _pack_plan(b["fboot_plan"])
-    f_xs = _x_safe(b["fboot_plan"], (G, Lf))
+    fsch, dsch = (SCHEME_CODE.get(it, LIN_FWD)
+                  for it in (st.foreign_interp, st.dom_interp))
+    ffit = dfit = None
+    if st.foreign_interp in SCHEME_CODE:
+        Lf = np.asarray(b["for_ts"]).shape[-1]
+        fq_i, fq_f = _pack_plan(b["fboot_plan"])
+        f_xs = _x_safe(b["fboot_plan"], (G, Lf))
+    else:
+        (fq_i,), (fq_f,), grid = _query_grid([b["fboot_plan"]])
+        ffit = fitted_plan(grid, device)
+        Lf = ffit.tables.W_max
+        f_xs = np.ones((G, Lf))
     # the rows: each member's own scheme's stacked plan, by position
     W = int(np.asarray(next(v for k, v in row_plan.items()
                             if k in InterpTypes.__members__)["i0"])
@@ -669,8 +733,17 @@ def stage_tables(st, its: Sequence[InterpTypes], b: dict, row_plan: dict,
         for k, m in enumerate(ms):
             rq_i[m], rq_f[m], r_xs[m] = pi[k], pf[k], xs[k]
     lp = b["legs_plan"]
-    li_i, li_f = _pack_plan(lp["idx"])
-    ld_i, ld_f = _pack_plan(lp["disc"])
+    if st.dom_interp in SCHEME_CODE:
+        Ld = np.asarray(b["dom_ts"]).shape[-1]
+        li_i, li_f = _pack_plan(lp["idx"])
+        ld_i, ld_f = _pack_plan(lp["disc"])
+        d_xs = _legs_xs(lp, Ld)
+    else:
+        (li_i, ld_i), (li_f, ld_f), grid = _query_grid([lp["idx"],
+                                                         lp["disc"]])
+        dfit = fitted_plan(grid, device)
+        Ld = dfit.tables.W_max
+        d_xs = np.ones((G, Ld))
     legs = b["legs"]
     P = np.asarray(legs.payment_times).shape[-1]
     leg_f = np.stack([np.asarray(getattr(legs, k), dtype=np.float64)
@@ -693,7 +766,7 @@ def stage_tables(st, its: Sequence[InterpTypes], b: dict, row_plan: dict,
                        "discount queries at the effective and maturity "
                        "times")
     nr_ptr, nr_row, mb_pq, mb_ptr, mb_row = _row_bands(rq_i, U1)
-    tp_off = _tape_offsets(pt_f, pt_i, fq_i, SCHEME_CODE[st.foreign_interp])
+    tp_off = _tape_offsets(pt_f, pt_i, fq_i, fsch)
     ll = _legs_lists(li_i, ld_i, int(P), int(Ld))
 
     def f64(a):
@@ -708,19 +781,117 @@ def stage_tables(st, its: Sequence[InterpTypes], b: dict, row_plan: dict,
         G=int(G), S=S, n=int(n), U1=int(U1), Lf=int(Lf), Ld=int(Ld),
         W=W, P=int(P), Pd=int(ld_i.shape[-2]), D=int(D),
         npv=S if st.recal else 0, Qd=int(Qd), recal=bool(st.recal),
-        flags=int(flags), fsch=SCHEME_CODE[st.foreign_interp],
-        dsch=SCHEME_CODE[st.dom_interp],
+        flags=int(flags), fsch=fsch, dsch=dsch,
         pt_f=f64(pt_f), pt_i=i32(pt_i), mat_pos=i32(mat_pos),
         u_src=i32(u_src), v0=f64(p.v0), fxs=f64(fxs), fq_i=i32(fq_i),
         fq_f=f64(fq_f), f_xs=f64(f_xs), rq_i=i32(rq_i), rq_f=f64(rq_f),
         r_sch=i32([SCHEME_CODE[it] for it in its]), r_xs=f64(r_xs),
         li_i=i32(li_i), li_f=f64(li_f), ld_i=i32(ld_i), ld_f=f64(ld_f),
-        d_xs=f64(_legs_xs(lp, Ld)), leg_f=f64(leg_f), leg_s=f64(leg_s),
-        pv_dom0=f64(b["pv_dom0"]), hpairs=i32(pair_table(D)),
-        lpairs=i32(pair_table(Qd)), E=int(mb_pq.shape[1]),
+        d_xs=f64(d_xs), leg_f=f64(leg_f), leg_s=f64(leg_s),
+        pv_dom0=f64(b["pv_dom0"]), ffit=ffit, dfit=dfit,
+        E=int(mb_pq.shape[1]),
         nr_ptr=i32(nr_ptr), nr_row=i32(nr_row), mb_pq=i32(mb_pq),
         mb_ptr=i32(mb_ptr), mb_row=i32(mb_row), tp_off=i32(tp_off),
         **{k: i32(v) for k, v in ll.items()})
+
+
+# ---------------------------------------------------------------------------
+# the route: a fitted parent's query grid, K8-K11, back to the parent
+# ---------------------------------------------------------------------------
+
+
+def lift_grid(fit, x: torch.Tensor, t: Optional[torch.Tensor] = None):
+    """(the grid [Sc, G, Lq], its tangent rows [Sc, D, G, Lq] or None) the
+    kernels read of a parent at ``x`` [Sc, G, L] along the tangent rows
+    ``t`` [Sc, D, G, L]: on a fitted parent (``fit``, the stage's
+    ``ffit`` / ``dfit``) its query grid, K6 ``fitted_eval`` and its
+    tangent mode (one launch each on the card); else ``x`` and ``t``."""
+    if fit is None:
+        return x, t
+    from . import kernels
+    q = kernels.fitted_eval(x.contiguous(), fit)
+    if t is None:
+        return q, None
+    return q, kernels.fitted_eval_jvp(x.contiguous(), t.contiguous(), q,
+                                      fit)
+
+
+def pull_grid(fit, x: torch.Tensor, g: torch.Tensor,
+              t: Optional[torch.Tensor] = None):
+    """(g-bar [Sc, G, L], C [Sc, D, G, D] or None): a cotangent ``g`` on
+    the grid :func:`lift_grid` gave for a parent at ``x`` [Sc, G, L],
+    taken to the parent's own grid, and, along the tangent rows ``t``
+    [Sc, D, G, L], the curvature the linear lift leaves out, C_ij =
+    sum_q g_q F''_q[t_i, t_j] (the Hessian of g . F(x) along the rows).
+    On a fitted parent F is ``ops/fitted_rows.fitted_eval``: g-bar its
+    vjp (K7 and the transforms' vjp) and C forward over reverse, the jvp
+    of that vjp along each row (one forward-mode level), dotted with every
+    row; on a simple parent g-bar = g and C = 0 (None)."""
+    if fit is None:
+        return g, None
+    from .fitted_rows import fitted_eval
+
+    def scal(v, w):
+        return torch.sum(w * fitted_eval(fit, v))
+
+    if t is None:
+        return vmap(grad(scal))(x, g), None
+
+    def one(v, w, tt):
+        gv, hv = vmap(lambda s: jvp(lambda u: grad(scal)(u, w), (v,),
+                                    (s,)))(tt)
+        return gv[0], torch.einsum("igl,jgl->igj", hv, tt)
+
+    return vmap(one)(x, g, t)
+
+
+def kernel_jac(tab: XccyStageTables, sp: torch.Tensor, dd: torch.Tensor,
+               fd: torch.Tensor, tdl: torch.Tensor, tf: torch.Tensor):
+    """A recalibrated stage's (ds, rows, pv0, Jpv, drows, grids) on K8 /
+    K9 from its spreads sp [Sc, G, S], its parents' native grids dd
+    [Sc, G, Ld'] / fd [Sc, G, Lf'] and their tangent rows tdl [Sc, Qd, G,
+    Ld'] / tf [Sc, D, G, Lf']: the fitted parents lifted to their query
+    grids (:func:`lift_grid`), the legs' PVs and jacobian on K9, the stage
+    on K8. ``grids`` holds the lifted grids (``dq``, ``tdq``, ``fq``,
+    ``tfq``) where a parent is fitted, for :func:`kernel_hess`."""
+    from . import kernels
+    dq, tdq = lift_grid(tab.dfit, dd, tdl)
+    fq, tfq = lift_grid(tab.ffit, fd, tf)
+    pv0, Jpv = kernels.xccy_legs_jvp(tab, dq, tdq)
+    ds, rows, drows = kernels.xccy_stage_jvp(tab, sp, pv0, fq, tfq)
+    grids = {}
+    if tab.dfit is not None:
+        grids.update(dq=dq, tdq=tdq)
+    if tab.ffit is not None:
+        grids.update(fq=fq, tfq=tfq)
+    return ds, rows, pv0, Jpv, drows, grids
+
+
+def kernel_hess(tab: XccyStageTables, sp: torch.Tensor, pv0: torch.Tensor,
+                gs: torch.Tensor, c: dict):
+    """A recalibrated stage's (gf, gdd, Hx2, Hl) on K10 / K11 from its
+    spreads sp, the legs' PVs pv0 [Sc, G, S], the cotangent of its rows gs
+    [Sc, G, W] and its ``carry`` c (the parents' native grids and tangent
+    rows, and :func:`kernel_jac`'s lifted grids): the stage's Hessian over
+    its D directions and its gradient on the foreign grid (K10), the legs'
+    Hessian over the Qd domestic directions weighted by the PV cotangents
+    and their gradient on the domestic grid (K11); on a fitted parent the
+    gradient taken back to its own grid and the curvature along its rows
+    added to the Hessian's block of its directions (:func:`pull_grid`)."""
+    from . import kernels
+    S = tab.S
+    fq, tfq = c.get("fq", c["for_ds"]), c.get("tfq", c["tf2"])
+    dq, tdq = c.get("dq", c["dom_ds"]), c.get("tdq", c["td_legs"])
+    gZ0, gf, H = kernels.xccy_stage_hess(tab, sp, pv0, fq, tfq, gs)
+    gdd, Hl = kernels.xccy_legs_hess(tab, dq, tdq,
+                                     gZ0[:, :, S:2 * S].contiguous())
+    gf, C = pull_grid(tab.ffit, c["for_ds"], gf, c["tf2"][:, 2 * S:])
+    if C is not None:
+        H[:, 2 * S:, :, 2 * S:] += C
+    gdd, C = pull_grid(tab.dfit, c["dom_ds"], gdd, c["td_legs"])
+    if C is not None:
+        Hl = Hl + C
+    return gf, gdd, H, Hl
 
 
 # ---------------------------------------------------------------------------

@@ -48,7 +48,8 @@ from torch.func import grad, jvp, vjp, vmap
 
 from ..ops import kernels
 from ..ops.linear_solve import jvp_by_vjp
-from ..ops.xccy_stage import stage_routes, stage_tables
+from ..ops.xccy_stage import (kernel_hess, kernel_jac, lift_grid,
+                               stage_routes, stage_tables)
 from ..utils.error import LibError
 from .curve_batching import (StageTopology, infl_native_ds, ois_native_ds,
                              stage_rows, xccy_boot_ds, xccy_legs_pv,
@@ -236,7 +237,10 @@ def make_structured_parts(topo: StageTopology) -> dict:
     ``xccy_stage_jvp``, ``xccy_legs_jvp``, ``xccy_stage_hess``,
     ``xccy_legs_hess``; on CPU tensors their plain versions) in place of
     the ``torch.func`` towers over the stage, which the other XCCY stages
-    keep; the outputs and ``carry`` are the same.
+    keep; the outputs are the same, and ``carry`` holds the same entries
+    (and, where a parent is on a fitted scheme, the query grids the
+    kernels read of it: ``xccy_stage.kernel_jac``). ``xccy_jac`` and
+    ``xccy_hess`` are a recalibrated stage's derivatives on its route.
     """
     from .multibook import aggregate_total
 
@@ -390,10 +394,13 @@ def make_structured_parts(topo: StageTopology) -> dict:
 
             tab = _xtab(si, P)
             if m["parents"] is None and tab is not None:
+                fq, _ = lift_grid(tab.ffit, for_ds)
                 ds, rows, drows_st[si] = kernels.xccy_stage_jvp(
                     tab, spreads, tab.pv_dom0.expand(Sc, G, S).contiguous(),
-                    for_ds)
+                    fq)
                 carry[si] = dict(dom_ds=dom_ds, for_ds=for_ds)
+                if tab.ffit is not None:
+                    carry[si]["fq"] = fq
             elif m["parents"] is None:
                 # parents enter as VALUES only: basis spreads are the
                 # only differentiation directions
@@ -422,13 +429,8 @@ def make_structured_parts(topo: StageTopology) -> dict:
                         dds_st[p["sd"]][:, :, p["md"], :]
                     tf2[:, 2 * S:2 * S + p["qf"], mi, :p["p1f"]] = \
                         dds_st[p["sf"]][:, :, p["mf"], :]
-                if tab is not None:
-                    pv0, Jpv = kernels.xccy_legs_jvp(tab, dom_ds, td_legs)
-                    ds, rows, drows2 = kernels.xccy_stage_jvp(
-                        tab, spreads, pv0, for_ds, tf2)
-                else:
-                    ds, rows, pv0, Jpv, drows2 = _xccy_jac(
-                        b, st, si, spreads, dom_ds, for_ds, td_legs, tf2)
+                ds, rows, pv0, Jpv, drows2, grids = xccy_jac(
+                    si, P, spreads, dom_ds, for_ds, td_legs, tf2)
                 # compose to quote-direction space, per-member layout
                 # matching segments(): [basis | dom quotes | for quotes]
                 D = m["D"]
@@ -443,7 +445,8 @@ def make_structured_parts(topo: StageTopology) -> dict:
                         drows2[:, 2 * S:2 * S + qf_m, mi]
                 drows_st[si] = drows
                 carry[si] = dict(dom_ds=dom_ds, for_ds=for_ds, pv0=pv0,
-                                 Jpv=Jpv, td_legs=td_legs, tf2=tf2)
+                                 Jpv=Jpv, td_legs=td_legs, tf2=tf2,
+                                 **grids)
             for mi, cid in enumerate(st.ids):
                 ds_of[cid] = ds[:, mi]
                 rows_of[cid] = rows[:, mi]
@@ -487,7 +490,7 @@ def make_structured_parts(topo: StageTopology) -> dict:
             if m["parents"] is None and tab is not None:
                 _, _, Hx = kernels.xccy_stage_hess(
                     tab, spreads, tab.pv_dom0.expand(Sc, G, S).contiguous(),
-                    xs["for_ds"], None, g_stage)            # [Sc, S, G, S]
+                    xs.get("fq", xs["for_ds"]), None, g_stage)
                 for mi in range(G):
                     place_hess(H2, Hx[:, :, mi, :], segments(si, mi))
                 continue
@@ -505,18 +508,32 @@ def make_structured_parts(topo: StageTopology) -> dict:
                     place_hess(H2, Hx[:, :, mi, :], segments(si, mi))
                 continue
 
-            if tab is not None:
-                gZ0, gf, Hx2 = kernels.xccy_stage_hess(
-                    tab, spreads, xs["pv0"], xs["for_ds"], xs["tf2"],
-                    g_stage)
-                gdd, Hl = kernels.xccy_legs_hess(
-                    tab, xs["dom_ds"], xs["td_legs"],
-                    gZ0[:, :, S:2 * S].contiguous())
-            else:
-                gf, gdd, Hx2, Hl = _xccy_hess(b, st, si, spreads, g_stage,
-                                              xs, m)
+            gf, gdd, Hx2, Hl = xccy_hess(si, P, spreads, g_stage, xs)
             _xccy_place(H2, v_of, st, si, m, gf, gdd, Hx2, Hl, xs["Jpv"])
         return H2, v_of
+
+    def xccy_jac(si, P, spreads, dom_ds, for_ds, td_legs, tf2):
+        """A recalibrated XCCY stage's (ds, rows, pv0, Jpv, drows2, the
+        lifted grids of its fitted parents) along its composed directions:
+        K8 / K9 on the kernel route (``xccy_stage.kernel_jac``), else
+        torch.func (no lifted grids)."""
+        tab = _xtab(si, P)
+        if tab is not None:
+            return kernel_jac(tab, spreads, dom_ds, for_ds, td_legs, tf2)
+        st = stages[si]
+        return _xccy_jac(P["bat"][st.key], st, si, spreads, dom_ds,
+                         for_ds, td_legs, tf2) + ({},)
+
+    def xccy_hess(si, P, spreads, g_stage, xs):
+        """A recalibrated XCCY stage's (gf, gdd, Hx2, Hl) from its
+        ``carry`` xs: K10 / K11 on the kernel route
+        (``xccy_stage.kernel_hess``), else torch.func."""
+        tab = _xtab(si, P)
+        if tab is not None:
+            return kernel_hess(tab, spreads, xs["pv0"], g_stage, xs)
+        st = stages[si]
+        return _xccy_hess(P["bat"][st.key], st, si, spreads, g_stage, xs,
+                          xmeta[si])
 
     def _xccy_hess(b, st, si, spreads, g_stage, xs, m):
         """torch.func's (gf, gdd, Hx2, Hl) of a recalibrated XCCY stage."""
@@ -631,7 +648,8 @@ def make_structured_parts(topo: StageTopology) -> dict:
         return H2x + term2_ois(q, P, g, v_of)
 
     return dict(fwd_delta=fwd_delta, term2=term2, term2_xccy=term2_xccy,
-                term2_ois=term2_ois, meta=meta)
+                term2_ois=term2_ois, xccy_jac=xccy_jac, xccy_hess=xccy_hess,
+                meta=meta)
 
 
 def make_structured_risk(topo: StageTopology, term1):

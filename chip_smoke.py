@@ -84,9 +84,13 @@ first use. Phases:
    FINCUBIC_ZERO_RATES; CHF and CAD FLAT_FWD; the book, seed and draw
    order of phase 7): each spline member's pad count in its stage, the
    staged path cold + 3 warm with phase 7's gates (FD also on the largest
-   GBP, USD and JPY quotes), per-region times and the device ops and
-   device ms of one warm call (phase 7's beside them), the generic split
-   once (= structured); each spline curve's ``df_t`` against the book's
+   GBP, USD and JPY quotes), per-region times, each region's device ops
+   and device ms on the first chunk beside the parent's (``PERF.md``),
+   and the device ops and device ms of one warm call (phase 7's beside
+   them); the three XCCY stages' routes (gated: each on the kernels, its
+   fitted parents through their query grids), K8-K11 launched on the
+   staged path (gated) and their inputs captured at each stage's calls of
+   the first chunk for phase 8; the generic split once (= structured); each spline curve's ``df_t`` against the book's
    grid row and the engine's PV against the book's on one live OIS of
    each spline curve and one basis swap of each XCCY curve (1e-10); the
    per-trade paths of phase 7b on this book; K6 / K7 launches a call on
@@ -99,8 +103,10 @@ first use. Phases:
    K1, K2 and K3 against their
    twins on its inputs (1e-12, gates, not kernel records); config 2 on
    the PCHIP GBP curve (cold + 20 warm, device ops, cuda = cpu) and one
-   bond's duration and g-spread on the host; a ``splines`` JSON line
-   before the kernels line;
+   bond's duration and g-spread on the host; the farthest reach past the
+   last knot, in last intervals, of every static fitted plan the phase
+   built (the book's, the XCCY stages' query grids, the engine's); a
+   ``splines`` JSON line before the kernels line;
 7e. the host API and the single-curve book (K1; no new kernel): the
    port's quick start (``adrates_torch.examples.quickstart.main()``, on the
    card; the +100 bp P&L beside its first- and second-order estimates,
@@ -191,7 +197,9 @@ first use. Phases:
    and of the 256 gammas, on seeded inputs, against their twins and their second launch
    the same way, with one torch.bmm of the inputs by the dense operators
    the plan implies as the core's yardstick);
-   K8-K11 at their calls of one flagship_v5 staged chunk (captured; K9
+   K8-K11 at their calls of one flagship_v5 staged chunk, and at each of
+   the spline cell's three XCCY stages (their fitted parents' query
+   grids; phase 7d's capture, on the main path) (captured; K9
    and K11 on legs that do not telescope, ``xccy_stage.probe_tables``,
    and seeded domestic tangents) against their plain versions at 1e-12 x
    max|ref| of every output, the Hessians symmetric bit for bit, two
@@ -608,21 +616,28 @@ def _xccy_launches(path: str, info: dict, hess: bool = True) -> dict:
     return per
 
 
-def _capture_xccy(run) -> dict:
+def _capture_xccy(run, per_stage: bool = False) -> dict:
     """Run ``run()`` with K8-K11's wrappers watched: per kernel, the
     arguments of its first call (the first scenario chunk), tensors
-    copied. The kernels' own launch counts are left as they were."""
+    copied; with ``per_stage``, a list of such dicts, one for each XCCY
+    stage in the order its tables first reach a kernel. The kernels' own
+    launch counts are left as they were."""
     import torch
 
     from adrates_torch.ops import kernels
     keep = {}
+    order = []
     orig = {k: getattr(kernels, k) for k in XCCY}
 
     def watched(name, f):
         def g(*args):
-            if name not in keep:
-                keep[name] = tuple(a.clone() if isinstance(a, torch.Tensor)
-                                   else a for a in args)
+            tab = id(args[0]) if per_stage else 0
+            if tab not in order:
+                order.append(tab)
+            if (tab, name) not in keep:
+                keep[tab, name] = tuple(
+                    a.clone() if isinstance(a, torch.Tensor) else a
+                    for a in args)
             return f(*args)
         g.launches = f.launches
         return g
@@ -635,9 +650,81 @@ def _capture_xccy(run) -> dict:
     finally:
         for name, f in orig.items():
             setattr(kernels, name, f)
-    if sorted(keep) != sorted(orig):
-        raise AssertionError(f"the watched call ran {sorted(keep)} only")
-    return keep
+    out = [{name: keep[tab, name] for name in XCCY if (tab, name) in keep}
+           for tab in order]
+    for got in out:
+        if sorted(got) != sorted(orig):
+            raise AssertionError(f"the watched call ran {sorted(got)} only")
+    return out if per_stage else out[0]
+
+
+def _watch_reach():
+    """Record every static fitted plan built from now on (each member of
+    each ``kernels.fitted_tables`` call): its kind, knots, queries and
+    its farthest query past its last knot in lengths of its last interval
+    (0 where none lies past it). Returns (the records, a function that
+    stops the recording)."""
+    import numpy as np
+
+    from adrates_torch.ops import kernels
+    orig = kernels.fitted_tables
+    recs = []
+
+    def watch(members, device):
+        for x, q, _, kind in members:
+            x = np.asarray(x, np.float64)
+            q = np.asarray(q, np.float64).reshape(-1)
+            far = float(q.max() - x[-1]) / float(x[-1] - x[-2]) \
+                if q.size else 0.0
+            recs.append(dict(kind=int(kind), knots=int(x.shape[0]),
+                             queries=int(q.size), reach=max(0.0, far)))
+        return orig(members, device)
+
+    kernels.fitted_tables = watch
+
+    def stop():
+        kernels.fitted_tables = orig
+    return recs, stop
+
+
+def _reach_summary(recs) -> dict:
+    """The farthest reach of the recorded plans, for the splines (natural
+    and clamped, whose solve extrapolates as a cubic) and for PCHIP: the
+    reach and the knots and queries of its member."""
+    from adrates_torch.ops import kernels
+    out = dict(plans=len(recs))
+    for label, kinds in (("spline", (kernels.FIT_NATURAL,
+                                     kernels.FIT_CLAMPED)),
+                         ("pchip", (kernels.FIT_HERMITE,))):
+        mine = [r for r in recs if r["kind"] in kinds]
+        if mine:
+            out[label] = max(mine, key=lambda r: r["reach"])
+    return out
+
+
+def _region_device(fn, q0, shocks, device) -> dict:
+    """Regions A, C1 and C2 of a staged fn on its first chunk: the device
+    ops and device ms of one warm call of each (``_request_device``)."""
+    import torch
+    sh = torch.as_tensor(shocks[:fn.chunk(shocks.shape[0])], device=device)
+    q = torch.as_tensor(q0, device=device)[None, :] + sh
+    r = fn.regions
+    a = r["A"](q)
+    _, v_of = r["C1"](q, a["g"], a["carry"])
+    out = {}
+    for name, f in (("A", lambda: r["A"](q)),
+                    ("C1", lambda: r["C1"](q, a["g"], a["carry"])),
+                    ("C2", lambda: r["C2"](q, a["g"], v_of))):
+        ops, ms = _request_device(f)
+        out[name] = dict(device_ops=ops, device_ms=ms)
+    return out
+
+
+# the spline cell's regions on the first 50-scenario chunk with its XCCY
+# stages on torch.func (PERF.md section 5, scripts/fitted_ab.py; NVIDIA
+# H100 80GB HBM3, 700.00 W): device ops, device ms
+SPLINE_REGIONS_TORCH_FUNC = dict(A=(1296, "4.74-4.76"), C1=(4351, "9.96-10.02"),
+                             C2=(871, "4.34-4.36"))
 
 
 def _nested_forward_raises(curve, device) -> dict:
@@ -1618,7 +1705,7 @@ def run_flagship_v5_splines(device, flat, flat_gam, n_warm: int = 3):
     quotes, its info) the FLAT_FWD gammas measured beside this book's.
     Returns (the ``splines`` record, the staged path's info with the 256
     gammas' under ``gamma_256``, K6's and K7's captured inputs for phase
-    8)."""
+    8, K8-K11's captured inputs at each XCCY stage for phase 8)."""
     import numpy as np
     import torch
 
@@ -1632,6 +1719,7 @@ def run_flagship_v5_splines(device, flat, flat_gam, n_warm: int = 3):
     card = _card_line()
     t_phase = time.perf_counter()
     schemes = {n: it.name for n, it in cfg.SPLINE_SCHEMES.items()}
+    reach, stop_reach = _watch_reach()
 
     rng = np.random.default_rng(cfg.SEED)
     t0 = time.perf_counter()
@@ -1672,6 +1760,25 @@ def run_flagship_v5_splines(device, flat, flat_gam, n_warm: int = 3):
     _print_regions("flagship_v5 splines", a["dfs"].shape[0],
                    info["regions_ms"])
     del a
+    info["regions_device"] = _region_device(fn, q0, shocks, device)
+    print("flagship_v5 splines regions on the first chunk, device ops and "
+          "device ms (with the XCCY stages on torch.func, PERF.md): "
+          + "; ".join(
+              f"{k} {v['device_ops']} ops, {_fmt_ms(v['device_ms'])} "
+              f"(torch.func {SPLINE_REGIONS_TORCH_FUNC[k][0]:,} ops, "
+              f"{SPLINE_REGIONS_TORCH_FUNC[k][1]} ms)"
+              for k, v in info["regions_device"].items())
+          + f"; card {card}", flush=True)
+    # the XCCY stages over the fitted parents take K8-K11
+    routes = _xccy_routes("flagship_v5 splines", mb)
+    if len(routes) != 3 or any(r != "kernels" for r in routes.values()):
+        raise AssertionError(f"flagship_v5 splines: XCCY stage routes "
+                             f"{routes}, expected 3 on the kernels")
+    _xccy_launches("flagship_v5 splines staged", info)
+    xccy_inputs = _capture_xccy(lambda: fn(q0, shocks), per_stage=True)
+    if len(xccy_inputs) != 3:
+        raise AssertionError(f"flagship_v5 splines: K8-K11 captured at "
+                             f"{len(xccy_inputs)} XCCY stages, not 3")
     fit_inputs = _capture_fitted(fn, q0, shocks, device)
     print("flagship_v5 splines K6 / K7 calls captured: "
           + ", ".join(f"{k[1]} {k[0]} {list(v[0])}"
@@ -1823,9 +1930,18 @@ def run_flagship_v5_splines(device, flat, flat_gam, n_warm: int = 3):
                     device_ms=i["device_ms"], peak_gib=i["peak_gib"],
                     launches={k: i[k] for k in ("pvs_sweep",
                                                 "gamma_quad_form_grouped")
-                              + FITTED})
+                              + FITTED + XCCY})
+    stop_reach()
+    rec_reach = _reach_summary(reach)
+    print(f"flagship_v5 splines: the farthest reach past the last knot of "
+          f"the {rec_reach['plans']} static fitted plans the cell and its "
+          f"engine requests built, in last intervals: splines "
+          f"{rec_reach.get('spline')}, PCHIP {rec_reach.get('pchip')}",
+          flush=True)
     rec = dict(card=card, schemes=schemes, pads=pads, model_ms=t_model * 1e3,
                compile_ms=t_compile * 1e3, staged=book_rec(info),
+               xccy_routes=routes, regions_device=info["regions_device"],
+               fitted_reach=rec_reach,
                flat_staged=book_rec(flat), generic_ms=info["generic_ms"],
                fitted_per_call=info["fitted_per_call"],
                per_trade={k: dict(warm_ms=i["warm_ms"], prep_ms=i["prep_ms"],
@@ -1848,7 +1964,7 @@ def run_flagship_v5_splines(device, flat, flat_gam, n_warm: int = 3):
           f"{s['peak_gib']:.2f} vs {f['peak_gib']:.2f} GiB; K6 / K7 "
           f"launches a call {rec['fitted_per_call']}; phase "
           f"{rec['phase_s']:.1f} s; card {card}", flush=True)
-    return rec, info, fit_inputs
+    return rec, info, fit_inputs, xccy_inputs
 
 
 # Single-curve book sizes of phase 7e (the quick start's 20 base OIS tiled
@@ -2920,7 +3036,7 @@ _XCCY_SRC = dict(
                     ["adrates_tpu/ops/pricers.py:102"]))
 
 
-def compare_xccy_kernels(path, inputs) -> list:
+def compare_xccy_kernels(path, inputs, stage=None) -> list:
     """Phase 8's K8-K11 records at one path's captured XCCY calls
     (``inputs`` from ``_capture_xccy``: the first chunk's arguments): K8
     and K10 on the captured inputs; K9 and K11 on the captured grids and
@@ -2949,7 +3065,9 @@ def compare_xccy_kernels(path, inputs) -> list:
     (``bound_flops``); each kernel launched twice on its inputs (equal
     bit for bit, a gate), and its registers, local bytes a thread, shared
     memory a block and blocks an SM from the card's compiler
-    (``kernels.xccy_kernel_info``).
+    (``kernels.xccy_kernel_info``). ``stage`` labels the stage of a path
+    with several XCCY stages (the records carry it; a stage over fitted
+    parents holds its query grids, ``Lf`` / ``Ld`` their lengths).
     """
     import numpy as np
     import torch
@@ -2957,6 +3075,7 @@ def compare_xccy_kernels(path, inputs) -> list:
     from adrates_torch.ops import kernels
     from adrates_torch.ops import xccy_stage as xs
     recs = []
+    label = path if stage is None else f"{path} stage {stage}"
     for k, name in enumerate(XCCY):
         args = list(inputs[name])
         tab = args[0]
@@ -2973,20 +3092,20 @@ def compare_xccy_kernels(path, inputs) -> list:
         rels = [float((a - b).abs().max() / b.abs().max())
                 for a, b in zip(got, ref)]
         err = max(float((a - b).abs().max()) for a, b in zip(got, ref))
-        _check(f"{path} {name} vs plain (abs / max|ref|, worst output)",
+        _check(f"{label} {name} vs plain (abs / max|ref|, worst output)",
                max(rels), 1e-12)
         if name.endswith("hess"):
             H = got[-1]
             if not torch.equal(H, H.permute(0, 3, 2, 1)):
-                raise AssertionError(f"{path} {name}: H not symmetric bit "
+                raise AssertionError(f"{label} {name}: H not symmetric bit "
                                      f"for bit")
         again = [r for r in kern(*args) if r is not None]
         repeat = all(torch.equal(a, b) for a, b in zip(got, again))
         info = kernels.xccy_kernel_info(tab, name)
-        print(f"{path} {name}: two launches on one input equal bit for "
+        print(f"{label} {name}: two launches on one input equal bit for "
               f"bit: {repeat}; {info}", flush=True)
         if not repeat:
-            raise AssertionError(f"{path} {name}: two launches on one "
+            raise AssertionError(f"{label} {name}: two launches on one "
                                  f"input differ")
         del again
         ms = _cuda_ms(lambda: kern(*args))
@@ -3003,8 +3122,10 @@ def compare_xccy_kernels(path, inputs) -> list:
         nbytes = xs.needed_bytes(name, *args)
         bound_flops = min(flops, ops["kernel"])
         bound, by = _bound(nbytes, float(bound_flops), FP64_FLOPS)
-        print(f"{path} {name} [Sc, G, S, D, Qd, W]="
-              f"{[Sc, G, tab.S, tab.D, tab.Qd, tab.W]}: {_fmt_tm(tm)}; "
+        print(f"{label} {name} "
+              f"[Sc, G, S, D, Qd, W, Lf, Ld]="
+              f"{[Sc, G, tab.S, tab.D, tab.Qd, tab.W, tab.Lf, tab.Ld]}: "
+              f"{_fmt_tm(tm)}; "
               f"bound {bound * 1e3:.2f} us ({by}, {nbytes / 1e6:.2f} MB, "
               f"{flops / 1e9:.4f} GFLOP needed, the kernel's own "
               f"{ops['kernel'] / 1e9:.4f}, the bound's "
@@ -3021,7 +3142,10 @@ def compare_xccy_kernels(path, inputs) -> list:
                     "jacobian or Hessian",
             bound_ms=bound, bound_by=by, **_shares(bound, tm),
             scenarios=Sc, members=G, spreads=tab.S, directions=tab.D,
-            dom_directions=tab.Qd, rows=tab.W, flops=flops,
+            dom_directions=tab.Qd, rows=tab.W, foreign_grid=tab.Lf,
+            dom_grid=tab.Ld, query_grids=[k for k, f in (
+                ("foreign", tab.ffit), ("domestic", tab.dfit))
+                if f is not None], stage=stage, on_path=True, flops=flops,
             thread_flops=ops["kernel"], bound_flops=bound_flops,
             simple_thread_flops=ops["threads"],
             bit_for_bit_repeat=repeat, registers=info["registers"],
@@ -3642,7 +3766,7 @@ def main() -> int:
         model_f, np.random.default_rng(flagship_v5.SEED))
     engine = run_engine(device, model_f, base, coll)
     solve_e = engine.pop("solve_inputs")
-    splines, info_s, fit_inputs = run_flagship_v5_splines(
+    splines, info_s, fit_inputs, xccy_s = run_flagship_v5_splines(
         device, info_f, (pt_fns[1], q_f, pt_infos["gamma_256"]))
     hostapi, book_args = run_host_api(device, model_f, mb_f)
     # phase 7g on phase 7's model: config 2's OIS and a live basis swap
@@ -3680,7 +3804,10 @@ def main() -> int:
     records += compare_solve_kernels("flagship_v5", solve_f)
     records += compare_fitted_kernels(fit_inputs)
     records += compare_xccy_kernels("flagship_v5", xccy_f)
-    del solve_e, solve_f, fit_inputs, xccy_f
+    for k, inputs in enumerate(xccy_s):
+        records += compare_xccy_kernels("flagship_v5_splines", inputs,
+                                        stage=k)
+    del solve_e, solve_f, fit_inputs, xccy_f, xccy_s
     infos.update(flagship_v5_ladders=pt_infos["ladders"],
                  flagship_v5_gamma_256=pt_infos["gamma_256"],
                  flagship_v5_gamma_blocks=pt_infos["blocks"],
@@ -3688,6 +3815,7 @@ def main() -> int:
                  flagship_v5_ladders_f32=info32,
                  engine_config2=engine["config2"]["launches"],
                  flagship_v5_splines_gamma_256=info_s["gamma_256"],
+                 flagship_v5_splines=info_s,
                  **{f"flagship_v5_splines_{r}": info_s
                     for r in ("A", "C1", "C2")})
     for r in records:
@@ -3711,7 +3839,9 @@ def main() -> int:
     # ---- phase 9 -------------------------------------------------------
     card = _card_line()
     for r in records:
-        print(f"bound {r['path']} {r['name']}: device {r['device_ms']:.4f} "
+        where = r["path"] if r.get("stage") is None \
+            else f"{r['path']} stage {r['stage']}"
+        print(f"bound {where} {r['name']}: device {r['device_ms']:.4f} "
               f"ms (events {r['ms']:.4f} ms) against {r['bound_ms']:.4f} ms "
               f"({r['bound_by']}), share {r['share_of_bound']:.3f} (by "
               f"events {r['share_of_bound_events']:.3f}), "

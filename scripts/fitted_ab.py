@@ -19,7 +19,8 @@ clocks. Measured on flagship_v5 with ``SPLINE_SCHEMES`` (chip_smoke
 - on flagship_v5's own FLAT_FWD curves (chip_smoke phase 7b's book):
   the 256 dense gammas and every trade's own-block gamma
   (``make_per_trade_gamma_blocks_fn``), the same;
-- the launches of K4 / K5 and K6 / K7 in each (those the checkout has);
+- the launches of K4 / K5, K6 / K7 and K8-K11 in each (those the
+  checkout has);
 - in each region, the device ops (and their ms) launched inside the
   calls of ``ops/fitted_rows.fitted_eval`` (wrapped in a
   ``record_function`` where ``curve_batching`` and ``interpolation``
@@ -40,7 +41,8 @@ from pathlib import Path
 
 HERE = Path(__file__).resolve().parent.parent
 KERNELS = ("pv01_solve", "pv01_solve_t", "fitted_eval", "fitted_eval_jvp",
-           "fitted_rows", "fitted_rows_t")
+           "fitted_rows", "fitted_rows_t", "xccy_stage_jvp", "xccy_legs_jvp",
+           "xccy_stage_hess", "xccy_legs_hess")
 
 
 def main(argv) -> int:

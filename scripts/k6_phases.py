@@ -12,8 +12,7 @@ scratch libraries under ``adrates_torch/_build/``, once as it is
 test no value passes: the block's prologue, slopes and Hermite rows
 without the writes), ``no_slopes`` (PCHIP's slopes and the spline's
 solve skipped: the slope rows hold whatever shared memory held),
-``thread_solve`` (the spline's solve a thread a row in every tile, not
-a warp a row in tiles of at most 32 rows), ``no_qtiles`` (one-row tiles
+``no_qtiles`` (one-row tiles
 not cut into query tiles where they leave SMs without a block), ``lb3`` / ``lb4`` (``__launch_bounds__`` asking for 3 or 4 blocks of
 256 threads an SM, so at most 80 or 64 registers), ``blocks1`` (the
 tangent mode's directions split only until every SM has a block, not on
@@ -49,26 +48,22 @@ HERE = Path(__file__).resolve().parent.parent
 SRC = HERE / "adrates_torch" / "csrc" / "fitted_rows.cu"
 
 _STORES = ("            Y[((pr * D + k0 + k) * G + g) * W_max + w] = "
-           "v * (f * du);")
+           "mul(v, mul(f, du));")
 _EVAL = ("          Y[((size_t)(p0 + p) * G + g) * W_max + w] =\n"
-         "              kMode == kLinear ? u : exp(f * u);")
+         "              kMode == kLinear ? u : exp(mul(f, u));")
 VARIANTS = {
     "full": [],
     "no_stores": [
-        (_STORES, "            const double o = v * (f * du);\n"
+        (_STORES, "            const double o = mul(v, mul(f, du));\n"
                   "            if (o == 1.2345e300) "
                   "Y[((pr * D + k0 + k) * G + g) * W_max + w] = o;"),
         (_EVAL, "          const double o = kMode == kLinear ? u : "
-                "exp(f * u);\n"
+                "exp(mul(f, u));\n"
                 "          if (o == 1.2345e300) "
                 "Y[((size_t)(p0 + p) * G + g) * W_max + w] = o;")],
     "no_slopes": [("  if (kd == 0 && kMode != kLinear) {",
                    "  if (false) {"),
-                  ("} else if (kd != 0 && nrows <= kWarpSolveRows) {",
-                   "} else if (false) {"),
                   ("  } else if (kd != 0) {", "  } else if (false) {")],
-    "thread_solve": [("constexpr int kWarpSolveRows = 32;",
-                      "constexpr int kWarpSolveRows = 0;")],
     "no_qtiles": [("  if (b < sms) {", "  if (false) {")],
     "lb3": [("__launch_bounds__(kThreads, 2)\n    k6_kernel",
              "__launch_bounds__(kThreads, 3)\n    k6_kernel")],
@@ -80,8 +75,7 @@ VARIANTS = {
 }
 # variants that keep the arithmetic and the stores: held to the plain
 # version and bit for bit to ``full``
-EXACT = ("full", "lb3", "lb4", "blocks1", "blocks4", "thread_solve",
-         "no_qtiles")
+EXACT = ("full", "lb3", "lb4", "blocks1", "blocks4", "no_qtiles")
 
 
 def _load(name):

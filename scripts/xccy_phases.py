@@ -150,8 +150,7 @@ def _run(cs, kernels, lib, name, args, dev):
 
             def launch():
                 kernels._check(lib.xccy_legs_hess_f64(
-                    st, Sc, Qd, tab.lpairs.shape[0], tab.lpairs.data_ptr(),
-                    tab.Ld, ptr(dd), ptr(tdl), ptr(args[3]),
+                    st, Sc, Qd, tab.Ld, ptr(dd), ptr(tdl), ptr(args[3]),
                     *[g.data_ptr() for g in got], stream), name)
     elif name == "xccy_stage_jvp":
         sp, pv, fd, tf = args[1:5]
@@ -175,8 +174,7 @@ def _run(cs, kernels, lib, name, args, dev):
 
         def launch():
             kernels._check(lib.xccy_stage_hess_f64(
-                st, Sc, D, tab.npv, tab.hpairs.shape[0],
-                tab.hpairs.data_ptr(), n_gf, ptr(sp), ptr(pv), ptr(fd),
+                st, Sc, D, tab.npv, n_gf, ptr(sp), ptr(pv), ptr(fd),
                 ptr(tf), args[5].data_ptr(),
                 *[g.data_ptr() for g in got], stream), name)
     launch()

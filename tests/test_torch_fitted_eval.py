@@ -10,8 +10,8 @@ the plain versions.
 - The tangent mode's arithmetic and layout (D tangent rows a primal row,
   the primal transforms once a row), emulated in numpy as
   ``csrc/fitted_rows.cu`` runs it (the transforms' tangents, PCHIP's
-  slope derivative with its guard, the spline's Thomas sweeps on the
-  stored factors, the Hermite rows, out fac du), against
+  slope derivative with its guard, the spline's solve and rows in the
+  plain version's order, the Hermite rows, out fac du), against
   ``torch.func.jvp`` of the composition and against
   ``fitted_eval_jvp_plain``.
 - ``vmap(jvp)`` with the tangent batched over an unbatched primal: one
@@ -19,8 +19,11 @@ the plain versions.
 - Members with pad knots, a zero-rate member with a t = 0 knot, a PCHIP
   member with a flat segment and a sign change (the guard's false
   branch: its slope's tangent exactly 0 and every derivative finite).
-- The spline solve a warp a row (tiles of at most 32 rows), emulated in
-  numpy, against the Thomas sweeps a thread a row.
+- The spline solve a warp a row (the plain version's parallel cyclic
+  reduction on the host's reduced coefficients) and the spline rows,
+  emulated in numpy, against the Thomas sweeps on the stored factors,
+  and equal to the plain linear map bit for bit up to 30 last intervals
+  past the last knot.
 - One launch of each wrapper a value and a jvp; a second forward level
   raises ``LibError``; reverse over forward raises (the tangent mode has
   no backward).
@@ -133,7 +136,7 @@ def _emulate_tangent(plan, dfs, ddfs, out):
     its D directions."""
     tab = plan.tables
     fx, fmode, fac = plan.fx.numpy(), plan.fmode.numpy(), plan.fac.numpy()
-    sp, qw, qidx = tab.sp.numpy(), tab.qw.numpy(), tab.qidx.numpy()
+    qw, qidx = tab.qw.numpy(), tab.qidx.numpy()
     kinds, nk, nw = tab.kind.numpy(), tab.nk.numpy(), tab.nw.numpy()
     R, D, G, _ = ddfs.shape
     dout = np.zeros((R, D, G, tab.W_max))
@@ -168,28 +171,48 @@ def _emulate_tangent(plan, dfs, ddfs, out):
                         den = a + b
                         dden = -(a * (dm0 / m0) + b * (dm1 / m1))
                         ds[i] = -(w12[i - 1] / den) * (dden / den)
-                else:                             # U^-1 L^-1 (R dy)
-                    l, rb, c, rl, rd, ru = sp[g, :, :n]
-                    f = 0.0
-                    for i in range(n):
-                        rhs = rd[i] * dy[i]
-                        if i > 0:
-                            rhs += rl[i] * dy[i - 1]
-                        if i + 1 < n:
-                            rhs += ru[i] * dy[i + 1]
-                        f = rhs - l[i] * f
-                        ds[i] = f
-                    b = 0.0
-                    for i in range(n - 1, -1, -1):
-                        b = (ds[i] - c[i] * b) * rb[i]
-                        ds[i] = b
                 w = nw[g]
-                i0 = qidx[g, :w]
-                W4 = qw[g, :w]
-                du = W4[:, 0] * dy[i0] + W4[:, 1] * ds[i0] \
-                    + W4[:, 2] * dy[i0 + 1] + W4[:, 3] * ds[i0 + 1]
+                if kinds[g] == kernels.FIT_HERMITE:
+                    i0 = qidx[g, :w]
+                    W4 = qw[g, :w]
+                    du = W4[:, 0] * dy[i0] + W4[:, 1] * ds[i0] \
+                        + W4[:, 2] * dy[i0 + 1] + W4[:, 3] * ds[i0 + 1]
+                else:
+                    du = _k6_spline(tab, g, dy)[1]
                 dout[p, k, g, :w] = out[p, g, :w] * (fac[g, :w] * du)
     return dout
+
+
+def _k6_spline(tab, g, y):
+    """A spline member g's slopes and rows at its queries from its knot
+    values y [n] as K6 takes them (``spline_pcr``, ``spline_u``), in
+    numpy, each operation rounded: the right-hand side from the secants,
+    the parallel cyclic reduction on the host's reduced coefficients
+    (``pc``: h, b, each step's alpha and gamma; the rows past the
+    member's knots read 0), then the power form on the offsets ``qu``."""
+    n, w = int(tab.nk[g]), int(tab.nw[g])
+    P = tab.pc.numpy()[g]
+    h = P[0]
+    m = (y[1:n] - y[:n - 1]) / h[:n - 1]
+    d = np.zeros(n)
+    d[0] = 3.0 * m[0]
+    d[n - 1] = 0.0 if int(tab.kind[g]) == kernels.FIT_CLAMPED \
+        else 3.0 * m[n - 2]
+    for i in range(1, n - 1):
+        d[i] = 3.0 * (m[i - 1] * (1.0 / h[i - 1]) + m[i] * (1.0 / h[i]))
+    for k in range(kernels.pcr_steps(tab.n_max)):
+        s = 1 << k
+        up = np.concatenate([np.zeros(min(s, n)), d[:max(n - s, 0)]])
+        dn = np.concatenate([d[s:], np.zeros(min(s, n))])
+        d = (d + P[2 + 2 * k, :n] * up) + P[3 + 2 * k, :n] * dn
+    d = d / P[1, :n]
+    i = tab.host["idx"][g, :w]
+    uq = tab.qu.numpy()[g, :w]
+    hi = h[i]
+    mi = (y[i + 1] - y[i]) / hi
+    c1 = ((3.0 * mi - 2.0 * d[i]) - d[i + 1]) / hi
+    c0 = ((d[i] + d[i + 1]) - 2.0 * mi) / (hi * hi)
+    return d, ((c0 * uq + c1) * uq + d[i]) * uq + y[i]
 
 
 def _thomas(F, y):
@@ -211,82 +234,48 @@ def _thomas(F, y):
     return d
 
 
-def _warp_solve(F, y):
-    """``spline_solve_warp`` in numpy: each sweep's affine maps composed
-    over 32 lanes' runs of ceil(n / 32) knots, a Hillis-Steele scan of the
-    composites (lower lanes first forward, higher lanes first backward),
-    then each lane's run from the value the scan hands it."""
-    l, rb, c, rl, rd, ru = F
-    n = len(y)
-    rhs = rd * y
-    rhs[1:] += rl[1:] * y[:-1]
-    rhs[:-1] += ru[:-1] * y[1:]
-    k = -(-n // 32)
-    runs = [range(min(j * k, n), min(j * k + k, n)) for j in range(32)]
-
-    def scan(maps, order):
-        AB = [list(m) for m in maps]
-        for off in (1, 2, 4, 8, 16):
-            prev = [tuple(ab) for ab in AB]
-            for j in range(32):
-                o = order(j, off)
-                if 0 <= o < 32:
-                    A2, B2 = prev[o]
-                    AB[j] = [prev[j][0] * A2, prev[j][0] * B2 + prev[j][1]]
-        return AB
-
-    def compose(steps):
-        A, B = 1.0, 0.0
-        for a, b in steps:
-            A, B = a * A, a * B + b
-        return A, B
-
-    AB = scan([compose([(-l[i], rhs[i]) for i in r]) for r in runs],
-              lambda j, off: j - off)
-    d = np.zeros(n)
-    for j, r in enumerate(runs):
-        f = AB[j - 1][1] if j else 0.0
-        for i in r:
-            f = rhs[i] - l[i] * f
-            d[i] = f
-    AB = scan([compose([(-c[i] * rb[i], d[i] * rb[i]) for i in reversed(r)])
-               for r in runs], lambda j, off: j + off)
-    for j, r in enumerate(runs):
-        b = AB[j + 1][1] if j < 31 else 0.0
-        for i in reversed(r):
-            b = (d[i] - c[i] * b) * rb[i]
-            d[i] = b
-    return d
-
-
 @pytest.mark.parametrize("n", [2, 3, 31, 33, 43, 73, 257])
 @pytest.mark.parametrize("scheme", ["NATCUBIC_LOG_DISCOUNT",
                                     "FINCUBIC_ZERO_RATES"])
 def test_warp_solve_emulated_against_thomas(scheme, n):
-    """K6's spline solve a warp a row (the tiles of at most 32 rows) as
-    ``csrc/fitted_rows.cu`` runs it, emulated in numpy, against the
-    Thomas sweeps a thread a row on the same stored factors and against
-    the plain linear map's slopes (1e-13 x max|ref|)."""
+    """K6's spline solve a warp a row (``spline_pcr``: the plain version's
+    parallel cyclic reduction on the host's reduced coefficients) and its
+    rows (``spline_u``, the power form), emulated in numpy as
+    ``csrc/fitted_rows.cu`` runs them, beside a member of half the knots
+    (its pad rows): the slopes against the Thomas sweeps on the stored
+    factors (1e-13 x max|ref|); the rows equal the plain linear map's bit
+    for bit at queries from before the first knot to 30 last intervals
+    past the last, where a cubic's extrapolation multiplies a rounding
+    difference by up to 30^3; and at each interval's midpoint the Hermite
+    row (y_i + y_i+1) / 2 + h (d_i - d_i+1) / 8 (1e-12)."""
     rng = np.random.default_rng(n)
     x = _knots(rng, n, True)
-    plan = tfr.fitted_plan([tint.fitted_interp_plan(x[:2], x, TIT[scheme])],
-                           "cpu")
-    F = plan.tables.sp.numpy()[0, :, :n]
-    y = rng.standard_normal(n)
-    ref = _thomas(F, y.copy())
-    _close(_warp_solve(F, y.copy()), ref, 1e-13, "warp vs Thomas")
-    # the plain map at each interval's midpoint, where the Hermite row is
-    # (y_i + y_i+1) / 2 + h (d_i - d_i+1) / 8
+    q = np.sort(rng.uniform(x[0] - 0.05, x[-1] + 30.0 * (x[-1] - x[-2]),
+                            64))
     mids = (x[:-1] + x[1:]) / 2
-    plan = tfr.fitted_plan([tint.fitted_interp_plan(mids, x, TIT[scheme])],
-                           "cpu")
-    X = torch.zeros(1, 1, plan.tables.K, plan.tables.n_max,
-                    dtype=torch.float64)
-    X[0, 0, 0, :n] = _t(y)
-    u = kernels.fitted_rows_plain(X, plan.tables)[0, 0, :n - 1].numpy()
-    h = np.diff(x)
-    herm = (y[:-1] + y[1:]) / 2 + h / 8 * (ref[:-1] - ref[1:])
-    _close(u, herm, 1e-12, "plain map vs Thomas slopes")
+    half = x[:max(2, n // 2)]
+    plan = tfr.fitted_plan([tint.fitted_interp_plan(np.concatenate(
+        [mids, q]), x, TIT[scheme]), tint.fitted_interp_plan(q, half,
+                                                             TIT[scheme])],
+        "cpu")
+    tab = plan.tables
+    X = torch.zeros(2, 2, tab.K, tab.n_max, dtype=torch.float64)
+    X[..., 0, :] = _t(rng.standard_normal((2, 2, tab.n_max)))
+    U = kernels.fitted_rows_plain(X, tab).numpy()
+    F = tab.sp.numpy()
+    for r in range(2):
+        for g, xg in enumerate((x, half)):
+            k = xg.shape[0]
+            y = X[r, g, 0].numpy()
+            d, u = _k6_spline(tab, g, y)
+            _close(d, _thomas(F[g, :, :k], y[:k].copy()), 1e-13,
+                   "PCR vs Thomas")
+            w = int(tab.nw[g])
+            assert np.array_equal(u, U[r, g, :w]), (r, g)
+            if g == 0:
+                h = np.diff(x)
+                herm = (y[:n - 1] + y[1:n]) / 2 + h / 8 * (d[:-1] - d[1:])
+                _close(u[:n - 1], herm, 1e-12, "plain map vs the slopes")
 
 
 def test_tangent_layout_emulated_against_torch_jvp():

@@ -748,11 +748,12 @@ def test_fitted_rows_cuda_never_runs_a_twin(dev, monkeypatch):
         assert _rel_err(g.cpu(), r) <= 1e-12
 
 
-def _eval_plans(rng, schemes, ns, ws, runs=1):
+def _eval_plans(rng, schemes, ns, ws, runs=1, reach=2.0):
     """Host fitted plans for K6's evaluation: knots 0.25-2 apart (from 0
     on every other member), queries from just before the first knot to
-    two intervals past the last (a cubic's extrapolation far past a short
-    last interval would overflow exp), in ``runs`` sorted runs."""
+    ``reach`` last intervals past the last (two by default: a cubic's
+    extrapolation far past a short last interval overflows exp on noisy
+    DFs), in ``runs`` sorted runs."""
     from adrates_torch.ops.interpolation import fitted_interp_plan
     from adrates_torch.utils.global_types import InterpTypes
     plans = []
@@ -760,18 +761,18 @@ def _eval_plans(rng, schemes, ns, ws, runs=1):
         x0 = 0.0 if g % 2 == 0 else rng.uniform(0.02, 0.3)
         x = x0 + np.concatenate([[0.0], np.cumsum(rng.uniform(0.25, 2.0,
                                                               n - 1))])
-        hi = x[-1] + 2.0 * (x[-1] - x[-2])
+        hi = x[-1] + reach * (x[-1] - x[-2])
         q = np.concatenate([np.sort(rng.uniform(x[0] - 0.05, hi, w // runs))
                             for _ in range(runs)] + [x[:w % runs]])
         plans.append(fitted_interp_plan(q, x, InterpTypes[s]))
     return plans
 
 
-def _eval_twice(dev, plans, R, D, seed):
+def _eval_twice(dev, plans, R, D, seed, noise=2e-3):
     """K6 ``fitted_eval`` and its tangent mode, each launched twice on
-    seeded DFs [R, G, L] (a noisy upward zero curve, pads 0.5) and
-    tangents [R, D, G, L] (the launches counted), and their plain
-    versions."""
+    seeded DFs [R, G, L] (an upward zero curve with uniform noise of
+    +-``noise`` in the rates, pads 0.5) and tangents [R, D, G, L] (the
+    launches counted), and their plain versions."""
     from adrates_torch.ops import fitted_rows as tfr
     plan = tfr.fitted_plan(plans, dev)
     tab = plan.tables
@@ -779,7 +780,7 @@ def _eval_twice(dev, plans, R, D, seed):
     x = tab.host["x"]
     L = tab.n_max + 2
     r = 0.02 + 0.01 * np.sqrt(np.abs(x)) \
-        + rng.uniform(-2e-3, 2e-3, (R,) + x.shape)
+        + rng.uniform(-noise, noise, (R,) + x.shape)
     d = np.full((R, tab.G, L), 0.5)
     d[..., :tab.n_max] = np.exp(-r * x)
     dfs = torch.tensor(d, device=dev)
@@ -825,6 +826,36 @@ def test_fitted_eval_at_the_phase8_shapes(dev, call):
         W, R, D = (2225, 50, 32) if call == "A" else (4337, 1, 1024)
         plans = _eval_plans(rng, _SPLINE_CELL[0], _SPLINE_CELL[1], (W,) * 5)
     _eval_check(*_eval_twice(dev, plans, R, D, 21))
+
+
+# the farthest any static fitted plan of the spline cell or the engine
+# reaches past its member's last knot, in last intervals: the 43-knot OIS
+# members (last knot 40.03, last interval 1 year) queried to 51.54 years
+# by the 256 gammas' rows and to 50.83 by region A's (chip_smoke phase 7d
+# prints it)
+CELL_REACH = 11.511
+
+
+@pytest.mark.parametrize("reach, noise", [(CELL_REACH, 2e-3), (30.0, 0.0)],
+                         ids=["cell", "far"])
+@pytest.mark.parametrize("call", ["A", "gamma_256"])
+def test_fitted_eval_past_the_last_knot(dev, call, reach, noise):
+    """K6 ``fitted_eval`` and its tangent mode at the spline cell's
+    members (43 and 73 knots, region A's and the 256 gammas' shapes) with
+    queries to the farthest reach of the cell's plans past the last knot
+    (on the noisy DFs of the other cases), and to 30 last intervals, the
+    reach of this file's first generator, on a smooth zero curve, where
+    exp stays finite; within 1e-12 x max|ref| of the plain versions, two
+    launches bit for bit. A cubic's extrapolation multiplies a rounding
+    difference by up to reach^3, so the kernel takes the spline's solve
+    and rows in the plain version's order of operations."""
+    rng = np.random.default_rng(22)
+    W, R, D = (2225, 50, 32) if call == "A" else (4337, 1, 1024)
+    plans = _eval_plans(rng, _SPLINE_CELL[0], _SPLINE_CELL[1], (W,) * 5,
+                        reach=reach)
+    out, ref, dout, dref = _eval_twice(dev, plans, R, D, 23, noise)
+    assert bool(torch.isfinite(ref).all() and torch.isfinite(dref).all())
+    _eval_check(out, ref, dout, dref)
 
 
 @pytest.mark.parametrize("R, D", [(1, 1), (3, 5), (7, 130), (100, 2)])
@@ -988,13 +1019,16 @@ _XBOOKS = {                       # (OIS scheme, XCCY scheme, S)
     "v3_flat": ("FLAT_FWD_RATES", "FLAT_FWD_RATES", 5),
     "v3_zero_fwd": ("LINEAR_ZERO_RATES", "LINEAR_FWD_RATES", 5),
     "v3_fwd_zero": ("LINEAR_FWD_RATES", "LINEAR_ZERO_RATES", 7),
+    # G = 1, S = 3 over fitted parents (torch_cases.XCCY_FITTED_PARENTS):
+    # the kernels read the parents' query grids
+    "fitted_parents": "fitted",
 }
 
 
 def _xccy_case(name, recal, dev, seed=0):
     """(tables on dev, inputs on the CPU) of a book's XCCY stage: the
-    spreads, PVs, parent grids and tangents of one torch.func fwd_delta on
-    3 scenarios; the legs' tables from ``probe_tables`` (a cap and floor,
+    spreads, PVs, parent grids (a fitted parent's query grid) and tangents
+    of one fwd_delta on the CPU on 3 scenarios; the legs' tables from ``probe_tables`` (a cap and floor,
     an ia = 0 slot, a fixed first coupon), which do not telescope, and
     seeded domestic tangents and cotangents."""
     from adrates_torch.ops import xccy_stage as xs
@@ -1003,6 +1037,8 @@ def _xccy_case(name, recal, dev, seed=0):
         mb = cases.compile_xccy_book(
             "adrates_torch", cases.build_xccy_model("adrates_torch"),
             recalibrate_xccy=recal)
+    elif _XBOOKS[name] == "fitted":
+        mb = cases.fitted_parent_book("adrates_torch", recal)[1]
     else:
         o, x, S = _XBOOKS[name]
         mb = cases.xccy3_book("adrates_torch", o, x, S,
@@ -1017,10 +1053,12 @@ def _xccy_case(name, recal, dev, seed=0):
         q, cpu.params, cpu.aggregate, cpu.clamp_agg)
     c = fw["carry"][si]
     G, S = tab_c.G, tab_c.S
+    # the grids the kernels read: a fitted parent's query grid
     inp = dict(sp=q[:, cpu.params["bat"][topo.stages[si].key]["qidx"]],
-               fd=c["for_ds"], tf=c.get("tf2"),
+               fd=c.get("fq", c["for_ds"]), tf=c.get("tfq", c.get("tf2")),
                gs=torch.tensor(rng.standard_normal((3, G, tab_c.W))),
-               dd=c["dom_ds"],
+               dd=c["dq"] if "dq" in c else xs.lift_grid(tab_c.dfit,
+                                                         c["dom_ds"])[0],
                tdl=torch.tensor(1e-3 * rng.standard_normal(
                    (3, max(tab_c.Qd, 3), G, tab_c.Ld))),
                gpv=torch.tensor(rng.standard_normal((3, G, S))))
@@ -1030,9 +1068,8 @@ def _xccy_case(name, recal, dev, seed=0):
     legs = xs.probe_tables(tab, seed)
     legs_c = xs.probe_tables(tab_c, seed)
     if not recal:                   # held as values: no dom directions
-        lp = torch.tensor(xs.pair_table(3), dtype=torch.int32)
-        legs = dataclasses.replace(legs, Qd=3, lpairs=lp.to(dev))
-        legs_c = dataclasses.replace(legs_c, Qd=3, lpairs=lp)
+        legs = dataclasses.replace(legs, Qd=3)
+        legs_c = dataclasses.replace(legs_c, Qd=3)
     return tab, tab_c, legs, legs_c, inp
 
 
@@ -1044,9 +1081,10 @@ def _xrel(got, ref):
 @pytest.mark.parametrize("name", list(_XBOOKS))
 def test_xccy_stage_kernels_match_plain(dev, name, recal):
     """K8-K11 against their plain versions at 1e-12 x max|ref| on G = 1
-    (S = 3) and G = 3 (S = 5, 7) stages on the three simple schemes, both
-    branches, one launch each; the Hessians' mirror entries equal bit for
-    bit."""
+    (S = 3) and G = 3 (S = 5, 7) stages on the three simple schemes, and
+    on a G = 1 stage over fitted parents (the parents' query grids, every
+    query an exact knot), both branches, one launch each; the Hessians'
+    mirror entries equal bit for bit."""
     from adrates_torch.ops import xccy_stage as xs
     tab, tab_c, legs, legs_c, inp = _xccy_case(name, recal, dev)
     on = {k: None if v is None else v.to(dev).contiguous()
@@ -1119,6 +1157,94 @@ def test_xccy_stage_route_on_cuda_matches_cpu(dev, recal):
     scale = max((float(v.abs().max()) for v in rv.values()), default=1.0)
     for k, v in rv.items():
         assert float((gv[k].cpu() - v).abs().max()) <= 1e-12 * scale, k
+
+
+@pytest.mark.parametrize("recal", [True, False], ids=["recal", "values"])
+def test_xccy_fitted_parents_route_on_cuda_matches_cpu(dev, recal):
+    """The structured split of the book over fitted parents
+    (``torch_cases.fitted_parent_book``) with its XCCY stage on the card
+    (K6 lifting the parents to their query grids, K8-K11, K6's reverse
+    mode and the curvature terms) against the torch.func route on the
+    CPU: dfs, J, H2 and the parent cotangents at 1e-12 x max|ref|; K8 and
+    K10 launched (K9 and K11, and K6's tangent mode, when recalibrated),
+    no plain version run on the card."""
+    from adrates_torch.ops import fitted_rows as tfr
+    from adrates_torch.ops import xccy_stage as xs
+    from adrates_torch.parallel import structured_risk as tsr
+    mb = cases.fitted_parent_book("adrates_torch", recal)[1]
+    topo = tmb.book_inputs(mb).topology
+    q = torch.tensor(mb.basket.quotes0[None, :] + cases.shocks(
+        mb.basket.n_quotes))
+    names = ("xccy_stage_jvp", "xccy_legs_jvp", "xccy_stage_hess",
+             "xccy_legs_hess", "fitted_eval", "fitted_eval_jvp")
+    outs = {}
+    for where in ("cpu", dev):
+        with pytest.MonkeyPatch.context() as mp:
+            if where == "cpu":          # the torch.func route
+                mp.setattr(tsr, "stage_routes", lambda topo: {})
+            b = tmb.make_multibook_fn(mb, where).book
+            parts = tsr.make_structured_parts(topo)
+            if where != "cpu":
+                def refuse(*a, **k):
+                    raise AssertionError("a plain version ran on the card")
+                for plain in ("xccy_stage_jvp_plain", "xccy_legs_jvp_plain",
+                              "xccy_stage_hess_plain",
+                              "xccy_legs_hess_plain"):
+                    mp.setattr(xs, plain, refuse)
+                mp.setattr(tfr, "fitted_eval_plain", refuse)
+                mp.setattr(tfr, "fitted_eval_jvp_plain", refuse)
+            before = [getattr(kernels, k).launches for k in names]
+            qq = q.to(where)
+            fw = parts["fwd_delta"](qq, b.params, b.aggregate, b.clamp_agg)
+            h2x, v_of = parts["term2_xccy"](qq, b.params, fw["g"],
+                                            fw["carry"])
+            if where != "cpu":
+                torch.cuda.synchronize()
+        outs[str(where)] = (fw, h2x, v_of)
+    n = [getattr(kernels, k).launches - b for k, b in zip(names, before)]
+    assert n[0] == 1 and n[2] == 1 and n[4] >= 1, n
+    assert (n[1] == 1 and n[3] == 1 and n[5] >= 1) == recal, n
+    (rf, rh, rv), (gf, gh, gv) = outs["cpu"], outs[str(dev)]
+    for key in ("dfs", "J"):
+        assert _xrel(gf[key], rf[key]) <= 1e-12, key
+    assert _xrel(gh, rh) <= 1e-12
+    assert sorted(gv) == sorted(rv) and bool(rv) == recal
+    scale = max((float(v.abs().max()) for v in rv.values()), default=1.0)
+    for k, v in rv.items():
+        assert float((gv[k].cpu() - v).abs().max()) <= 1e-12 * scale, k
+
+
+def test_xccy_query_grid_maps_on_cuda_match_cpu(dev):
+    """The query-grid maps of a stage over fitted parents on the card
+    against the CPU (their plain versions), at 1e-12 x max|ref|: the
+    lift (K6 and its tangent mode at the parents' query times) and the
+    pull-back with the curvature term (K6's reverse mode, forward over
+    reverse), on the domestic and foreign grids, seeded cotangents."""
+    from adrates_torch.ops import xccy_stage as xs
+    from adrates_torch.parallel import structured_risk as tsr
+    mb = cases.fitted_parent_book("adrates_torch", True)[1]
+    topo = tmb.book_inputs(mb).topology
+    cpu = tmb.make_multibook_fn(mb, "cpu").book
+    (si, tab_c), = cpu.params["xstage"].items()
+    tab = tmb.make_multibook_fn(mb, dev).book.params["xstage"][si]
+    q = torch.tensor(mb.basket.quotes0[None, :] + cases.shocks(
+        mb.basket.n_quotes))
+    c = tsr.make_structured_parts(topo)["fwd_delta"](
+        q, cpu.params, cpu.aggregate, cpu.clamp_agg)["carry"][si]
+    rng = np.random.default_rng(4)
+    for side, x, t in (("d", c["dom_ds"], c["td_legs"]),
+                       ("f", c["for_ds"], c["tf2"][:, 2 * tab_c.S:])):
+        fit_c, fit = getattr(tab_c, side + "fit"), getattr(tab, side + "fit")
+        ref = xs.lift_grid(fit_c, x, t)
+        got = xs.lift_grid(fit, x.to(dev), t.to(dev))
+        for a, b in zip(got, ref):
+            assert _xrel(a, b) <= 1e-12, side
+        g = torch.tensor(rng.standard_normal(tuple(ref[0].shape)))
+        ref = xs.pull_grid(fit_c, x, g, t)
+        got = xs.pull_grid(fit, x.to(dev), g.to(dev), t.to(dev))
+        for a, b in zip(got, ref):
+            assert _xrel(a, b) <= 1e-12, side
+    torch.cuda.synchronize()
 
 
 # K8 / K10 split at the node DFs: the route's maxima, a foreign grid
@@ -1319,8 +1445,7 @@ def _legs_inputs(tab, Sc, Qd, seed):
     from adrates_torch.ops import xccy_stage as xs
     dev = tab.leg_f.device
     pt = xs.probe_tables(tab, seed)
-    pt = dataclasses.replace(pt, Qd=Qd, lpairs=torch.tensor(
-        xs.pair_table(Qd), device=dev))
+    pt = dataclasses.replace(pt, Qd=Qd)
     rng = np.random.default_rng(seed)
     G, Ld = pt.G, pt.Ld
     dd = np.exp(-np.cumsum(rng.uniform(0.0, 0.08, (Sc, G, Ld)), axis=-1))

@@ -17,8 +17,8 @@ values:
   once and every entry is written, mirrored bit for bit; its dual
   threads against the plain K8 / K9, and K11's on legs that do not
   telescope (a cap and floor, an ia = 0 slot, a fixed first coupon);
-- ``kernel_route`` over the eight schemes, and the packed tables'
-  invariants.
+- ``kernel_route`` over the eight schemes (the members' schemes decide
+  it; the parents' may be fitted), and the packed tables' invariants.
 """
 
 import dataclasses
@@ -142,7 +142,7 @@ def test_the_route_keeps_the_carry(book, monkeypatch):
 
 def emulate_stage_hess(h: dict, sp, pv, fd, tf, gs):
     """K10 over every thread, in Python: ``xccy_stage.HyperDual`` pair
-    threads from ``hpairs``, each written at [i, j] and [j, i], and
+    threads from ``pair_table(D)``, each written at [i, j] and [j, i], and
     ``Dual`` threads for the foreign grid; (gZ [Sc, G, D], gf [Sc, G, Lf]
     or None, H [Sc, D, G, D]) as numpy, from numpy inputs shaped as the
     kernel's."""
@@ -165,7 +165,7 @@ def emulate_stage_hess(h: dict, sp, pv, fd, tf, gs):
             def d(i):
                 return xs.stage_dir(h, i, None if tf is None
                                     else tf[sc, i, g])
-            for i, j in h["hpairs"]:
+            for i, j in xs.pair_table(D):
                 t = total(xs.HyperDual, d(i), d(j))
                 H[sc, i, g, j] = H[sc, j, g, i] = t.ab
                 if i == j:
@@ -193,7 +193,7 @@ def emulate_legs_hess(h: dict, dd, tdl, gpv):
                     out[0] = out[0] + v * float(gpv[sc, g, s])
                 xs.thread_legs(T, h, g, dd[sc, g], d1, d2, sink)
                 return out[0]
-            for i, j in h["lpairs"]:
+            for i, j in xs.pair_table(Qd):
                 t = total(xs.HyperDual, (xs.DIR_ROW, 0, tdl[sc, i, g]),
                           (xs.DIR_ROW, 0, tdl[sc, j, g]))
                 Hl[sc, i, g, j] = Hl[sc, j, g, i] = t.ab
@@ -326,8 +326,7 @@ def test_legs_hessian_threads_on_live_legs(book):
     for si, tab in dbook.params["xstage"].items():
         pt = xs.probe_tables(tab, 2)
         if not recal:           # held as values: no domestic directions
-            pt = dataclasses.replace(pt, Qd=4,
-                                     lpairs=torch.tensor(xs.pair_table(4)))
+            pt = dataclasses.replace(pt, Qd=4)
         c = fw["carry"][si]
         pv0 = xs.legs_forward(pt, c["dom_ds"][0])
         assert float(pv0.abs().min()) > 1e-6 * float(
@@ -346,15 +345,16 @@ def test_legs_hessian_threads_on_live_legs(book):
 
 @pytest.mark.parametrize("dom", list(InterpTypes), ids=lambda t: t.name)
 def test_kernel_route_over_the_eight_schemes(dom):
-    """A stage takes the kernels when its members', domestic and foreign
-    schemes are all simple; a fitted scheme anywhere keeps torch.func."""
+    """A stage takes the kernels when its members' schemes are simple,
+    its parents on any scheme (a fitted parent through its query grid); a
+    fitted member keeps torch.func."""
     for other in InterpTypes:
         for its in ([other], [InterpTypes.FLAT_FWD_RATES, other]):
             for dom_it, for_it in ((dom, other), (other, dom)):
                 st = _Stage(kind="xccy", ids=list(range(len(its))),
                             key="x", dom_interp=dom_it,
                             foreign_interp=for_it)
-                want = all(it in SIMPLE for it in its + [dom_it, for_it])
+                want = all(it in SIMPLE for it in its)
                 assert xs.kernel_route(st, its) == want
     assert not xs.kernel_route(_Stage(kind="ois", ids=[0], key="o"),
                                [InterpTypes.FLAT_FWD_RATES])
@@ -365,7 +365,7 @@ def test_packed_tables(book):
     every real node slot fed by one chain point and back; pillars in
     maturity order, each its own swap's; weights 0 / 1 on known payments
     only, each before its pillar; the rows' member schemes; the sign and
-    the FX; the pair tables; a plan off the single pass raises."""
+    the FX; a plan off the single pass raises."""
     recal, _, topo, dbook, _, _ = book
     assert tsr.stage_routes(topo) == {1: "kernels"}
     (si, tab), = dbook.params["xstage"].items()
@@ -401,8 +401,6 @@ def test_packed_tables(book):
                                    for c in st.ids]
     np.testing.assert_array_equal(
         h["fxs"], np.asarray(b["spot_fx"]) * b["plan"].foreign_sign)
-    assert h["hpairs"].shape == (tab.D * (tab.D + 1) // 2, 2)
-    assert h["lpairs"].shape == (tab.Qd * (tab.Qd + 1) // 2, 2)
     bad = dict(b, plan=dataclasses.replace(
         b["plan"], mat_pos=b["plan"].mat_pos[:, ::-1].copy()))
     with pytest.raises(LibError):
@@ -896,8 +894,7 @@ def _probe_legs_inputs(tab, dom_ds, seed, Qd=None):
     seeded tangents [Sc, Qd, G, Ld] and cotangents [Sc, G, S]."""
     pt = xs.probe_tables(tab, seed)
     if Qd is not None:
-        pt = dataclasses.replace(pt, Qd=Qd,
-                                 lpairs=torch.tensor(xs.pair_table(Qd)))
+        pt = dataclasses.replace(pt, Qd=Qd)
     rng = np.random.default_rng(seed)
     Sc = dom_ds.shape[0]
     tdl = torch.tensor(1e-3 * rng.standard_normal((Sc, pt.Qd, pt.G, pt.Ld)))

@@ -347,14 +347,16 @@ def trade_slot_weights(jax_mb, port_mb):
     return jax_w, port_w
 
 
-def build_credit_model(pkg: str, schemes=None):
+def build_credit_model(pkg: str, schemes=None, xccy_freq="ANNUAL"):
     """tests/multibook_cases.py:build_model through ``pkg``: USD and GBP
     OIS (FLAT_FWD), GBP_USD_XCCY over them, GBPUSD. ``schemes`` maps a
     curve's name to the name of another interpolation scheme; the two OIS
     curves have the same pillars and points, so neither pads the other in
-    their stage."""
+    their stage. ``xccy_freq`` is the XCCY curve's calibration legs'
+    frequency (both legs)."""
     u, Model, _ = _ns(pkg)
     schemes = schemes or {}
+    freq = getattr(u.FrequencyTypes, xccy_freq)
 
     def it(name):
         return u.InterpTypes[schemes.get(name, "FLAT_FWD_RATES")]
@@ -374,6 +376,7 @@ def build_credit_model(pkg: str, schemes=None):
                        foreign_curve_name="GBP_OIS_SONIA",
                        basis_spreads=[-5.0, -8.0, -11.0],
                        tenor_list=["1Y", "5Y", "10Y"], spot_fx=1.27,
+                       domestic_freq_type=freq, foreign_freq_type=freq,
                        interp_type=it("GBP_USD_XCCY"))
     m.build_fx(["GBPUSD"], [1.27])
     return m
@@ -546,6 +549,30 @@ def spline_book(pkg: str, name: str, **kw):
                             base_currency=u.CurrencyTypes.USD,
                             recalibrate_xccy=name.endswith("recal"),
                             **kw)[1]
+
+
+# a scheme map for build_credit_model with the XCCY curve's two parents on
+# fitted schemes and the XCCY curve itself simple, so that its stage takes
+# K8-K11 through its parents' query grids: USD (the domestic parent)
+# PCHIP_ZERO_RATES, GBP (the foreign parent) NATCUBIC_LOG_DISCOUNT
+XCCY_FITTED_PARENTS = {"USD_OIS_SOFR": "PCHIP_ZERO_RATES",
+                       "GBP_OIS_SONIA": "NATCUBIC_LOG_DISCOUNT",
+                       "GBP_USD_XCCY": "FLAT_FWD_RATES"}
+
+
+def fitted_parent_book(pkg: str, recal: bool, n_copies: int = 2):
+    """(model, tiled book): the credit trades (OIS, a basis swap, FRNs, a
+    bond) on build_credit_model with the scheme map XCCY_FITTED_PARENTS
+    and quarterly calibration legs (their queries fall between the
+    parents' annual knots), in USD, tiled x ``n_copies``; the XCCY curve
+    recalibrated in-graph (``recal``) or held as values. The two OIS
+    curves share one stage unpadded, so the JAX package's batched path
+    fits each on its own knots."""
+    u = importlib.import_module(f"{pkg}.utils")
+    m = build_credit_model(pkg, XCCY_FITTED_PARENTS, xccy_freq="QUARTERLY")
+    return m, compile_tiled(pkg, m, credit_trades_for(pkg, m), n_copies,
+                            base_currency=u.CurrencyTypes.USD,
+                            recalibrate_xccy=recal)[1]
 
 
 PERTRADE_BOOKS = ["ois", "xccy_recal", "xccy_held", "credit", "infl",
