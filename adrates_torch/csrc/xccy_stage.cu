@@ -1,6 +1,7 @@
-// K8-K11: the XCCY stage of the structured risk pass, its directional
-// derivatives and its Hessians (f64): K8 / K10 in dual and hyper-dual
-// arithmetic, K9 / K11 from the calibration legs' flows' partials.
+// K8-K12: the XCCY stage of the structured risk pass, its directional
+// derivatives and its Hessians (f64): K8 / K10 / K12 in dual and
+// hyper-dual arithmetic, K9 / K11 from the calibration legs' flows'
+// partials.
 //
 // Replace the torch.func towers over one XCCY stage in
 // adrates_torch/parallel/structured_risk.py (fwd_delta's pass 2 and
@@ -8,11 +9,15 @@
 // adrates_tpu/parallel/structured_risk.py (:320- and :457-603) over
 // adrates_tpu/parallel/curve_batching.py:265-319 (xccy_legs_pv,
 // xccy_boot_ds, xccy_native_ds), adrates_tpu/ops/xccy_bootstrap.py:78
-// (bootstrap_xccy) and adrates_tpu/ops/pricers.py:102 (pv_float_leg).
-// The JAX package wrote these in plain jnp, which XLA lowers: no Pallas
-// kernel. They were added because the stage was about half the ops of a
-// FLAT_FWD staged chunk of flagship_v5 (3,600 of 6,500 counted on the
-// CPU), each a host dispatch on the card.
+// (bootstrap_xccy) and adrates_tpu/ops/pricers.py:102 (pv_float_leg);
+// K12 (with K9 / K11) those of the per-trade second-order tensors
+// (make_pertrade_tensors), which port the stage's tensors of the
+// per-trade contraction (adrates_tpu/parallel/structured_risk.py:868-
+// 975, rowsTx at :949). The JAX package wrote these in plain jnp, which
+// XLA lowers: no Pallas kernel. They were added because the stage was
+// about half the ops of a FLAT_FWD staged chunk of flagship_v5 (3,600 of
+// 6,500 counted on the CPU), each a host dispatch on the card, and (K12)
+// about 55% of the per-trade tensors' (5,409 of 9,842).
 //
 // K8 / K10's stage is written once over a scalar type T: double, Dual
 // (value, one tangent) or HDual (value, e1, e2, e1 e2), its inputs lifted
@@ -71,6 +76,18 @@
 //                        = a . J_i at i = j; recalibrated, a foreign grid
 //                        entry l (the last chunk's, from a warp's boundary
 //                        on), a dual chain giving gf_l = a . dds/dfd_l.
+//   K12 xccy_stage_node_hess: K10's blocks and items with the node DFs
+//                        as the sink in place of the contraction with a:
+//                        the per-trade rows lie on another plan (the full
+//                        unique-time rows) than the stage's tables, and
+//                        every trade has its own cotangent, so the kernel
+//                        writes ds, the nodes' tangents Jn [D, U1] (from
+//                        J), each pair's nodes' e1 e2 parts Hn[i, j] =
+//                        Hn[j, i] [U1] and, recalibrated, each foreign
+//                        grid entry's node tangents Jfd [U1]; the caller
+//                        contracts a trade's row G_b with the rows'
+//                        derivatives in the nodes (a row reads at most two
+//                        nodes), H_ij = sum_u a_u Hn_iju + J_i' M_b J_j.
 //   K9 xccy_legs_jvp and K11 xccy_legs_hess: the calibration legs split at
 //                        their flows, a block a (scenario, member) of
 //                        kLegBlock threads. Both lift the domestic grid
@@ -141,6 +158,17 @@
 // the grid's transforms, the chain tables or the foreign tangent rows do
 // not fit, they are read from device memory (through L1) or computed at
 // each read, and the tiles shrink before the core would not fit.
+//
+// What bounds K12. At the per-trade call of flagship_v5's stage (one
+// quote vector, G = 3, D = 48) it writes 1.8 MB (Hn's both mirrors) and
+// the function needs under 1 MFLOP: its bound is about 0.6 us of bytes.
+// Its 15 blocks (five a member, of at most 256 items each) fill 15 of
+// 132 SMs, so what bounds it is one block's latency:
+// the primal and 48 dual chains, then two rounds of hyper-dual chains,
+// each a sequence of dependent f64 operations and shared-memory reads,
+// and its uncoalesced writes (a thread a pair's U1 nodes). It is one
+// launch a per-trade call in place of the towers' device ops (their
+// counts on an H100 are in PERF.md, section 5).
 //
 // What bounds K9 and K11. At flagship_v5's XCCY stage (G = 3, S = 8 legs
 // of P = 30 coupons, a domestic grid of 73 entries of which the legs read
@@ -1328,6 +1356,131 @@ k10_stage_hess(const StageTab t, const Layout L, int D, int npv,
   XCCY_STAMP_END();
 }
 
+// K12's stores: K10's pair and grid stores with a node sink in place of
+// the contraction with a, each node's part written out as the chain sets
+// it (Hn at [i, j] and [j, i]; Jfd at the grid entry).
+struct NodePairStore : PairStore {
+  double *hij, *hji;     // [U1] each
+  __device__ void node(int u, const HDual& x) {
+    hij[u] = x.ab;
+    hji[u] = x.ab;
+  }
+};
+
+struct NodeGridStore : GridStore {
+  double* out;           // [U1]
+  __device__ void node(int u, const Dual& x) { out[u] = x.e; }
+};
+
+// K12 xccy_stage_node_hess: K10's blocks and items with the node DFs
+// themselves as outputs, for the per-trade tensors, whose rows are on
+// another plan than the stage's tables (the full unique-time rows): a
+// block runs the primal chain (its tape) and a dual chain a direction of
+// its tile pair, as K10's prologue; the block of tile I's diagonal pair
+// and first chunk writes tile I's tangents Jn [D, U1] from J, the first
+// block ds; then a hyper-dual chain a pair i <= j writes its nodes' e1 e2
+// parts at Hn[i, j] and Hn[j, i], and, recalibrated, a dual chain a
+// foreign grid entry l its nodes' tangents at Jfd[l]. Each such row is
+// zeroed first, so the t = 0 node and the pad slots read 0. No row, no
+// cotangent: the caller contracts the rows' derivatives in the nodes.
+__global__ void __launch_bounds__(kBlock, kK10Blocks)
+k12_stage_node_hess(const StageTab t, const Layout L, int D, int npv,
+                    int n_gf, int per, const double* sp, const double* pv,
+                    const double* fd, const double* tf, double* ds,
+                    double* Jn, double* Jfd, double* Hn) {
+  extern __shared__ double sm[];
+  const int b = per - 1 - (int)(blockIdx.x % per);
+  const long long r = blockIdx.x / per;
+  const int g = (int)(r % t.G), sc = (int)(r / t.G);
+  const size_t sg = (size_t)sc * t.G + g;
+  const int tid = threadIdx.x, S = t.S, U1 = t.U1;
+  int tp = 0, c = b;
+  TilePair P = tile_pair(0, L.nT, L.Dt, D, n_gf);
+  for (;;) {
+    const int nc = (P.items + kItems - 1) / kItems;
+    if (c < nc) break;
+    c -= nc;
+    P = tile_pair(++tp, L.nT, L.Dt, D, n_gf);
+  }
+  const int x0 = c * kItems, x1 = min(P.items, x0 + kItems);
+  const int I = P.I, Jt = P.Jt, nI = P.nI, nd = P.nI + P.nJ;
+  const Member m = load_member(t, L, sm, g, sg, sp, pv, fd);
+  const double *cv = sm + L.cv, *av = sm + L.av;
+  double* scr = sm + L.sc + tid;
+  double* tape = L.tape >= 0 ? sm + L.tape : nullptr;
+  const Dirs B = block_dirs(I, Jt, nI, P.nJ, L.Dt, S + npv);
+  init_block(t, L, sm, B, S, npv, sc, D, g, tf);
+  __syncthreads();
+  if (tape) primal_tape(t, L, sm, m, g);
+  for (int k = tid; k < nd; k += kBlock) {
+    const int d = B.d(k);
+    direction_chain(t, L, sm, m, B, k, npv,
+                    tf ? tf + (((size_t)sc * D + d) * t.G + g) * t.Lf
+                       : nullptr);
+  }
+  __syncthreads();
+  const double* J = sm + L.J;
+  if (c == 0 && Jt == I) {
+    for (int x = tid; x < nI * U1; x += kBlock) {
+      const int k = x / U1, u = x - k * U1;
+      Jn[(((size_t)sc * D + B.d(k)) * t.G + g) * U1 + u] = J[u * nd + k];
+    }
+    if (tp == 0) {
+      for (int u = tid; u < U1; u += kBlock) ds[sg * U1 + u] = sm[L.dsv + u];
+    }
+  }
+  const double* ce = sm + L.ce;
+  const double* ae = sm + L.ae;
+  const Dir none{kNone, 0, nullptr};
+  for (int x = x0 + tid; x < x1; x += kBlock) {
+    if (x >= P.pairs) {
+      const int l = x - P.gf0;
+      if (l < 0) continue;
+      NodeGridStore st;
+      static_cast<GridStore&>(st) = GridStore{scr, L.stride, S, cv, av,
+                                              nullptr, 0.0};
+      st.out = Jfd + (((size_t)sc * t.Lf + l) * t.G + g) * U1;
+      for (int u = 0; u < U1; ++u) st.out[u] = 0.0;
+      st.init();
+      chain_eval<Dual>(m, Dir{kUnit, l, nullptr}, none, st,
+                       Tape{tape, 0, false});
+      continue;
+    }
+    int ki, kj;
+    if (Jt > I) {
+      ki = x / P.nJ;
+      kj = nI + (x - ki * P.nJ);
+    } else {
+      int rest = x;
+      ki = 0;
+      while (rest >= nI - ki) {
+        rest -= nI - ki;
+        ++ki;
+      }
+      kj = ki + rest;
+    }
+    const int i = B.d(ki), j = B.d(kj);
+    const double* rowi =
+        tf ? tf + (((size_t)sc * D + i) * t.G + g) * t.Lf : nullptr;
+    const double* rowj =
+        tf ? tf + (((size_t)sc * D + j) * t.G + g) * t.Lf : nullptr;
+    NodePairStore st;
+    static_cast<PairStore&>(st) = PairStore{
+        scr, L.stride, S, cv, av, ce + ki * L.cs, ce + kj * L.cs,
+        ae + ki * L.cs, ae + kj * L.cs, nullptr, 0.0};
+    st.hij = Hn + ((((size_t)sc * D + i) * D + j) * t.G + g) * U1;
+    st.hji = Hn + ((((size_t)sc * D + j) * D + i) * t.G + g) * U1;
+    for (int u = 0; u < U1; ++u) {
+      st.hij[u] = 0.0;
+      st.hji[u] = 0.0;
+    }
+    st.init();
+    chain_eval<HDual>(m, block_dir(B, ki, S, npv, L, sm, rowi),
+                      block_dir(B, kj, S, npv, L, sm, rowj), st,
+                      Tape{tape, 0, false});
+  }
+}
+
 bool fits(const StageTab* t) {
   return t->S >= 1 && t->S <= kMaxS && t->U1 >= 1 && t->U1 <= kMaxU;
 }
@@ -2058,6 +2211,34 @@ extern "C" int xccy_stage_hess_f64(const XccyStageTab* t, int Sc, int D,
   return (int)cudaGetLastError();
 }
 
+// K12: ds [Sc, G, U1], Jn [Sc, D, G, U1], Jfd [Sc, Lf, G, U1] (n_gf =
+// Lf; 0 writes none) and Hn [Sc, D, D, G, U1] from sp, pv, fd, tf as
+// K10's; each pair i <= j once, in the order the kernel's tile pairs
+// enumerate them. K10's blocks: a block a (scenario, member, chunk of a
+// tile pair's items).
+extern "C" int xccy_stage_node_hess_f64(const XccyStageTab* t, int Sc, int D,
+                                        int npv, int n_gf, const double* sp,
+                                        const double* pv, const double* fd,
+                                        const double* tf, double* ds,
+                                        double* jn, double* jfd, double* hn,
+                                        cudaStream_t stream) {
+  if (!fits(t) || D < 1 || (n_gf != 0 && n_gf != t->Lf)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if ((long long)Sc * t->G == 0) return 0;
+  Layout L;
+  if (!plan_layout(t, D, npv, true, tf != nullptr, &L)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const cudaError_t err = allow_smem(k12_stage_node_hess, L.bytes);
+  if (err != cudaSuccess) return (int)err;
+  const int per = hess_blocks(L.nT, L.Dt, D, n_gf);
+  const long long blocks = (long long)Sc * t->G * per;
+  k12_stage_node_hess<<<(unsigned)blocks, kBlock, L.bytes, stream>>>(
+      *t, L, D, npv, n_gf, per, sp, pv, fd, tf, ds, jn, jfd, hn);
+  return (int)cudaGetLastError();
+}
+
 // K11: gdd [Sc, G, Ld] (n_gd = Ld), Hl [Sc, Qd, G, Qd] from dd [Sc, G,
 // Ld], tdl [Sc, Qd, G, Ld] and gpv [Sc, G, S]; each pair i <= j once, in
 // the kernel's own order. A block a (scenario, member).
@@ -2079,7 +2260,7 @@ extern "C" int xccy_legs_hess_f64(const XccyStageTab* t, int Sc, int Qd,
   return (int)cudaGetLastError();
 }
 
-// The registers and local memory a thread of kernel `which` (8-11) takes,
+// The registers and local memory a thread of kernel `which` (8-12) takes,
 // and, at this stage with D directions (K9 / K11: Qd; rows: tangent rows
 // given), its dynamic shared memory a block, the blocks an SM holds at
 // once, its threads a block, its tile (K8 / K10: directions; K11: the
@@ -2093,13 +2274,15 @@ extern "C" int xccy_kernel_info(const XccyStageTab* t, int D, int which,
   const void* fn = nullptr;
   int smem = 0, threads = kBlock, tile = 0, held = 0, per = 0;
   cudaError_t err = cudaSuccess;
-  if (which == 8 || which == 10) {
+  if (which == 8 || which == 10 || which == 12) {
     Layout L;
     if (!fits(t) || D < 1
-        || !plan_layout(t, D, rows ? t->S : 0, which == 10, rows != 0, &L)) {
+        || !plan_layout(t, D, rows ? t->S : 0, which != 8, rows != 0, &L)) {
       return (int)cudaErrorInvalidValue;
     }
-    fn = which == 8 ? (const void*)k8_stage_jvp : (const void*)k10_stage_hess;
+    fn = which == 8    ? (const void*)k8_stage_jvp
+         : which == 10 ? (const void*)k10_stage_hess
+                       : (const void*)k12_stage_node_hess;
     tile = L.Dt;
     held = (L.gt >= 0) | (L.ptf >= 0) << 1 | (L.tt >= 0) << 2
            | (L.tape >= 0) << 3 | (L.lists >= 0) << 4;

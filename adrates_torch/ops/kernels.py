@@ -38,10 +38,16 @@ K10 evaluate the stage in dual or hyper-dual arithmetic, split at its
 node DFs (the pair-independent work once a block); K9 / K11 evaluate the
 calibration legs' flows once a (scenario, member), collapse their
 gradients and gpv-weighted Hessian onto the domestic grid and take each
-direction or pair as a dot product. Their module holds their plain
+direction or pair as a dot product. K12 ``xccy_stage_node_hess``
+(the same file) replaces the ``torch.func`` towers of the per-trade
+second-order tensors of such a stage (``make_pertrade_tensors``, after
+``adrates_tpu/parallel/structured_risk.py`` :900-1010): K10's blocks
+with the node DFs as outputs, their first tangents and each pair's
+second derivatives, which the caller contracts with the rows'
+derivatives in the nodes. Their module holds their plain
 versions. K1-K3 are
 forward-only (their derivatives are closed form elsewhere), and so are
-K8-K11 (derivatives themselves). All eleven
+K8-K12 (derivatives themselves). All twelve
 are f64; K1
 also has f32 instantiations for the f32 ladders
 (``make_per_trade_delta_fn(dtype=torch.float32)``, the JAX package's
@@ -57,7 +63,7 @@ group row blocks, and the table that sums the groups' blocks into G),
 :func:`pertrade_tables` (K3: groups of quote rows, their trades' slot
 CSR and the launch's work list of units packed into blocks) and
 :func:`chain_tables` (K4/K5: an OIS plan's previous-point links, once
-per plan), and ``ops/xccy_stage.stage_tables`` (K8-K11: an XCCY
+per plan), and ``ops/xccy_stage.stage_tables`` (K8-K12: an XCCY
 stage's chain, plans and legs, once per stage). The plain twins read
 the same tables.
 
@@ -135,6 +141,8 @@ _SIGNATURES = {
     "xccy_stage_hess_f64": [_P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P,
                             _P, _P],
     "xccy_legs_hess_f64": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _P],
+    "xccy_stage_node_hess_f64": [_P, _I, _I, _I, _I, _P, _P, _P, _P, _P,
+                                 _P, _P, _P, _P],
     "xccy_kernel_info": [_P, _I, _I, _I, _P],
 }
 
@@ -1758,7 +1766,7 @@ def fitted_kernel_info(mode: str, R: int, G: int, n_max: int, W_max: int,
 
 
 # ---------------------------------------------------------------------------
-# K8-K11: the XCCY stage's directional derivatives and Hessians
+# K8-K12: the XCCY stage's directional derivatives and Hessians
 # ---------------------------------------------------------------------------
 
 
@@ -1810,19 +1818,19 @@ def _xstage(tab: xccy_stage.XccyStageTables) -> int:
 
 
 _XCCY_KERNEL = dict(xccy_stage_jvp=8, xccy_legs_jvp=9, xccy_stage_hess=10,
-                    xccy_legs_hess=11)
+                    xccy_legs_hess=11, xccy_stage_node_hess=12)
 
 
 def xccy_kernel_info(tab, name: str) -> dict:
     """What the card's compiler and occupancy calculator say of kernel
-    ``name`` (one of K8-K11's wrappers) at stage ``tab`` (on the card):
+    ``name`` (one of K8-K12's wrappers) at stage ``tab`` (on the card):
     its registers and local memory a thread (spills and stack; 0 when no
     thread keeps an array), and at this stage's sizes its dynamic shared
     memory a block, the blocks an SM holds at once, its threads a block,
-    K8 / K10's tile of directions, which of the grid's transforms, the
-    chain tables, the foreign tangent rows, K10's tape of primal exps and
-    quotients and its node and band lists their blocks hold in shared
-    memory (``held``; the others are read from device memory, the tape's
+    K8 / K10 / K12's tile of directions, which of the grid's transforms,
+    the chain tables, the foreign tangent rows, K10 / K12's tape of primal
+    exps and quotients and K10's node and band lists their blocks hold in
+    shared memory (``held``; the others are read from device memory, the tape's
     values computed by every thread) and their blocks a (scenario,
     member); for K9 / K11 at the stage's Qd domestic directions, which of
     the domestic grid's transforms and the tangent rows their blocks hold
@@ -1997,3 +2005,45 @@ def xccy_legs_hess(tab, dd: torch.Tensor, tdl: torch.Tensor,
 
 
 xccy_legs_hess.launches = 0
+
+
+def xccy_stage_node_hess(tab, sp: torch.Tensor, pv: torch.Tensor,
+                         fd: torch.Tensor, tf=None):
+    """K12: (ds [Sc, G, U1], Jn [Sc, D, G, U1], Jfd [Sc, Lf, G, U1] or
+    None, Hn [Sc, D, D, G, U1]), the stage's node DFs, their first
+    tangents along its D directions, along each unit entry of its foreign
+    grid (recalibrated) and their second derivatives in each pair of
+    directions (see ``xccy_stage.xccy_stage_node_hess_plain``), from sp,
+    pv [Sc, G, S], fd [Sc, G, Lf] and tf [Sc, D, G, Lf] (None when the
+    parents are held as values): K10's blocks with the node DFs as the
+    sink, a hyper-dual chain a pair i <= j (each pair once, in the
+    kernel's own enumeration) writing its nodes at [i, j] and [j, i], a
+    dual chain a foreign grid entry; four ``torch.empty`` and one
+    launch."""
+    Sc, G, S = sp.shape[0], tab.G, tab.S
+    _xshape(sp, "sp", (Sc, G, S))
+    _xshape(pv, "pv", (Sc, G, S))
+    _xshape(fd, "fd", (Sc, G, tab.Lf))
+    if tab.recal:
+        _xshape(tf, "tf", (Sc, tab.D, G, tab.Lf))
+    elif tf is not None:
+        raise ValueError("tf: the parents are held as values")
+    if not sp.is_cuda:
+        return xccy_stage.xccy_stage_node_hess_plain(tab, sp, pv, fd, tf)
+    dev = sp.device
+    D, U1 = tab.D, tab.U1
+    ds = torch.empty((Sc, G, U1), dtype=torch.float64, device=dev)
+    jn = torch.empty((Sc, D, G, U1), dtype=torch.float64, device=dev)
+    jfd = torch.empty((Sc, tab.Lf, G, U1), dtype=torch.float64, device=dev)
+    hn = torch.empty((Sc, D, D, G, U1), dtype=torch.float64, device=dev)
+    if Sc:
+        _xlaunch("xccy_stage_node_hess_f64", tab, Sc, D, tab.npv,
+                 tab.Lf if tab.recal else 0, _xin(sp, "sp", dev),
+                 _xin(pv, "pv", dev), _xin(fd, "fd", dev),
+                 None if tf is None else _xin(tf, "tf", dev),
+                 ds.data_ptr(), jn.data_ptr(), jfd.data_ptr(), hn.data_ptr())
+        xccy_stage_node_hess.launches += 1
+    return ds, jn, (jfd if tab.recal else None), hn
+
+
+xccy_stage_node_hess.launches = 0

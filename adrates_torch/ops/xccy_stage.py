@@ -1,4 +1,5 @@
-"""The XCCY stage of the structured risk pass on K8-K11.
+"""The XCCY stage of the structured risk pass on K8-K11, and its
+per-trade second-order tensors on K12, K9 and K11.
 
 An XCCY stage of the batched curve graph (``parallel/curve_batching``:
 the bootstrap ``xccy_boot_ds``, its rows ``stage_rows`` and the
@@ -53,6 +54,20 @@ nodes that bracket it), so that a pair thread runs only the chain in
 hyper-dual numbers and takes H_ij = sum_u a_u d2ds_u/didj + J_i' M J_j
 (:func:`pair_hessian`).
 
+K12 ``xccy_stage_node_hess`` runs K10's blocks with the node DFs as the
+sink: ds, their first tangents Jn [D, U1], each pair's second
+derivatives Hn [D, D, U1] and, recalibrated, their tangents along each
+unit foreign grid entry Jfd [Lf, U1]. The per-trade tensors
+(``parallel/structured_risk.make_pertrade_tensors``) read the rows on
+another plan (the full unique-time rows) and meet every trade's own
+cotangent G_b, so the rows stay outside the kernel: :func:`node_rows`
+takes their first and second derivatives in the nodes (RR; a row reads
+at most two nodes) and :func:`node_quads` what those meet (T: Hn and the
+products of Jn on the band), so that a trade's Hessian over the stage's
+directions is (G_b RR) T = sum_u a_u Hn_u + J' M_b J, K10's split with
+the trade's row in place of the scenario's g. A stage takes it
+(:func:`pertrade_route`) where it takes K8-K11 and no parent is fitted.
+
 :class:`XccyStageTables` packs one stage's static data into flat
 contiguous f64 / int32 tensors, once when the book's device tables are
 built; the kernels and the plain versions here read the same tables. The
@@ -60,7 +75,8 @@ plain versions are torch on those tables, differentiated by
 ``torch.func``: the CPU path of the wrappers in ``ops/kernels`` and the
 oracle of the kernels' card tests. :func:`thread_stage` and
 :func:`thread_legs` are the stage's evaluation written once more in
-Python over any scalar type, split as K8 / K10 split it, and
+Python over any scalar type, split as K8 / K10 split it (the chain
+with a node sink, as K12 writes its nodes), and
 :func:`legs_prologue` / :func:`legs_pair` K9 / K11's split: the tests
 run them in (hyper-dual) numpy arithmetic, and the operations the
 kernels' functions need (their bounds) and the kernels' own are counted
@@ -185,6 +201,34 @@ def stage_routes(topo) -> Dict[int, str]:
     ``StageTopology``, decided once when the book compiles."""
     return {si: stage_route(st, [topo.specs[c].interp_type for c in st.ids],
                             topo.bat[st.key])
+            for si, st in enumerate(topo.stages) if st.kind == "xccy"}
+
+
+def pertrade_route(st, its: Sequence[InterpTypes], b: dict,
+                   parents: Sequence[InterpTypes]) -> str:
+    """"kernels" when the per-trade second-order tensors of XCCY stage
+    ``st`` (its members on ``its``, its host ``bat`` entry ``b``, its
+    domestic and foreign parents on ``parents``) come from K12, K9 and
+    K11 split at the node DFs (``parallel/structured_risk
+    .make_pertrade_tensors``): :func:`stage_route` says "kernels" and no
+    parent is on a fitted scheme; else "torch.func: " and why (a fitted
+    parent's curvature along its tangent rows is not in the split)."""
+    route = stage_route(st, its, b)
+    if route != "kernels":
+        return route
+    fitted = sorted({it.name for it in parents if it not in SCHEME_CODE})
+    if fitted:
+        return ("torch.func: a parent on a fitted scheme ("
+                + ", ".join(fitted) + ")")
+    return "kernels"
+
+
+def pertrade_routes(topo) -> Dict[int, str]:
+    """{stage index: :func:`pertrade_route`} for every XCCY stage of a
+    ``StageTopology``."""
+    return {si: pertrade_route(st, [topo.specs[c].interp_type
+                                    for c in st.ids], topo.bat[st.key],
+                               (st.dom_interp, st.foreign_interp))
             for si, st in enumerate(topo.stages) if st.kind == "xccy"}
 
 
@@ -640,6 +684,28 @@ def _query_grid(sets):
             grid)
 
 
+def _pack_rows(its: Sequence[InterpTypes], row_plan: dict, U1: int):
+    """A stage's rows (rq_i [G, W, 3], rq_f [G, W, 2], r_xs [G, U1]):
+    each member's own simple scheme's stacked plan of ``row_plan``, by
+    position."""
+    G = len(its)
+    W = int(np.asarray(next(v for k, v in row_plan.items()
+                            if k in InterpTypes.__members__)["i0"])
+            .shape[-1])
+    rq_i = np.zeros((G, W, 3), dtype=np.int32)
+    rq_f = np.zeros((G, W, 2))
+    r_xs = np.ones((G, U1))
+    mids: Dict[InterpTypes, list] = {}
+    for m, it in enumerate(its):
+        mids.setdefault(it, []).append(m)
+    for it, ms in mids.items():
+        pi, pf = _pack_plan(row_plan[it.name])
+        xs = _x_safe(row_plan[it.name], (len(ms), U1))
+        for k, m in enumerate(ms):
+            rq_i[m], rq_f[m], r_xs[m] = pi[k], pf[k], xs[k]
+    return rq_i, rq_f, r_xs
+
+
 def _chain(p, pad_mask: np.ndarray):
     """(pt_f, pt_i, mat_pos, u_src) from a stacked XccyBootstrapPlan,
     after checking what the single forward pass relies on."""
@@ -717,21 +783,8 @@ def stage_tables(st, its: Sequence[InterpTypes], b: dict, row_plan: dict,
         ffit = fitted_plan(grid, device)
         Lf = ffit.tables.W_max
         f_xs = np.ones((G, Lf))
-    # the rows: each member's own scheme's stacked plan, by position
-    W = int(np.asarray(next(v for k, v in row_plan.items()
-                            if k in InterpTypes.__members__)["i0"])
-            .shape[-1])
-    rq_i = np.zeros((G, W, 3), dtype=np.int32)
-    rq_f = np.zeros((G, W, 2))
-    r_xs = np.ones((G, U1))
-    mids: Dict[InterpTypes, list] = {}
-    for m, it in enumerate(its):
-        mids.setdefault(it, []).append(m)
-    for it, ms in mids.items():
-        pi, pf = _pack_plan(row_plan[it.name])
-        xs = _x_safe(row_plan[it.name], (len(ms), U1))
-        for k, m in enumerate(ms):
-            rq_i[m], rq_f[m], r_xs[m] = pi[k], pf[k], xs[k]
+    rq_i, rq_f, r_xs = _pack_rows(its, row_plan, U1)
+    W = rq_i.shape[1]
     lp = b["legs_plan"]
     if st.dom_interp in SCHEME_CODE:
         Ld = np.asarray(b["dom_ts"]).shape[-1]
@@ -892,6 +945,124 @@ def kernel_hess(tab: XccyStageTables, sp: torch.Tensor, pv0: torch.Tensor,
     if C is not None:
         Hl = Hl + C
     return gf, gdd, H, Hl
+
+
+# ---------------------------------------------------------------------------
+# the per-trade tensors split at the node DFs: K12's nodes, the rows'
+# derivatives in them on the full unique-time row plan
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class NodeRows:
+    """A stage's rows on a row plan (the per-trade tensors' full
+    unique-time ``row_plan``) as functions of its node DFs, on a device:
+    each member's row w reads nodes ``i0`` and ``i1`` [G, W] at weight
+    ``c`` and query time ``qt`` [G, W], or is its exact knot (``knot``);
+    ``cols`` [G, W, 5] are the columns of :func:`node_rows` its five
+    terms add into (its two taps', their second partials', its band
+    entry's), ``pq`` [G, E, 2] the band entries p < q (:func:`_row_bands`;
+    members pad with (0, 0), which no row reaches), ``sch`` [G, 1] each
+    member's scheme code and ``xs`` [G, U1] its x_safe."""
+    U1: int
+    E: int
+    i0: torch.Tensor
+    i1: torch.Tensor
+    knot: torch.Tensor
+    c: torch.Tensor
+    qt: torch.Tensor
+    cols: torch.Tensor
+    pq: torch.Tensor
+    sch: torch.Tensor
+    xs: torch.Tensor
+
+
+def node_row_tables(its: Sequence[InterpTypes], row_plan: dict, U1: int,
+                    device) -> NodeRows:
+    """:class:`NodeRows` of a stage whose members are on the simple
+    schemes ``its`` at the host row plan ``row_plan`` (one stacked plan a
+    scheme, as ``stage_tables`` packs them), on ``device``."""
+    rq_i, rq_f, r_xs = _pack_rows(its, row_plan, U1)
+    _, _, pq, _, _ = _row_bands(rq_i, U1)
+    G, W = rq_i.shape[:2]
+    i0, i1, kn = (rq_i[..., k].astype(np.int64) for k in range(3))
+    be = np.zeros((G, W), dtype=np.int64)
+    for g in range(G):
+        ent = {(int(p), int(q)): e for e, (p, q) in enumerate(pq[g])}
+        for w in np.flatnonzero((kn[g] < 0) & (i0[g] != i1[g])):
+            be[g, w] = ent[(min(i0[g, w], i1[g, w]), max(i0[g, w],
+                                                         i1[g, w]))]
+    cols = np.stack([np.where(kn >= 0, kn, i0), i1, U1 + i0, U1 + i1,
+                     2 * U1 + be], axis=-1)
+
+    def t(a, dt):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=dt,
+                               device=device)
+
+    return NodeRows(
+        U1=int(U1), E=int(pq.shape[1]), i0=t(i0, torch.int64),
+        i1=t(i1, torch.int64), knot=t(kn >= 0, torch.bool),
+        c=t(rq_f[..., 0], torch.float64), qt=t(rq_f[..., 1], torch.float64),
+        cols=t(cols, torch.int64), pq=t(pq, torch.int64),
+        sch=t(np.asarray([SCHEME_CODE[it] for it in its])[:, None],
+              torch.int64),
+        xs=t(r_xs, torch.float64))
+
+
+def node_rows(nr: NodeRows, ds: torch.Tensor) -> torch.Tensor:
+    """RR [G, W, 2 U1 + E]: each row's first and second derivatives in the
+    node DFs ds [G, U1], as :func:`rows_prologue` takes a row apart: its
+    partials at its one or two nodes in columns [0, U1) (an exact knot: 1
+    at its knot), its second partials at each of them in [U1, 2 U1) and
+    its mixed partial at its band entry in [2 U1, 2 U1 + E). For a trade's
+    DF gradient G_b [W] on the rows, G_b RR is (a, M's diagonal, M's band
+    entries) of s = G_b . rows: K10's rows' sums for the cotangent
+    G_b."""
+    U1 = nr.U1
+    lf, fl = nr.sch == LIN_FWD, nr.sch == FLAT_FWD
+    den = torch.where(fl, 1.0, nr.xs)
+    inv = 1.0 / ds
+    y = torch.where(lf, ds, -torch.log(ds) / den)
+    y1 = torch.where(lf, 1.0, -inv / den)
+    y2 = torch.where(lf, 0.0, inv * inv / den)
+    c = nr.c
+    z0 = y.gather(1, nr.i0)
+    z = z0 + c * (y.gather(1, nr.i1) - z0)
+    qt = torch.where(fl, 1.0, nr.qt)
+    v = torch.exp(-z * qt)
+    v1 = torch.where(lf, 1.0, -qt * v)
+    v2 = torch.where(lf, 0.0, qt * (qt * v))
+    one = nr.i0 == nr.i1
+    w0 = torch.where(one, 1.0, 1.0 - c)
+    t0, s0 = w0 * y1.gather(1, nr.i0), w0 * y2.gather(1, nr.i0)
+    t1 = torch.where(one, 0.0, c * y1.gather(1, nr.i1))
+    s1 = torch.where(one, 0.0, c * y2.gather(1, nr.i1))
+    vals = torch.stack([v1 * t0, v1 * t1, v2 * (t0 * t0) + v1 * s0,
+                        v2 * (t1 * t1) + v1 * s1, v2 * (t0 * t1)], dim=-1)
+    first = torch.arange(5, device=ds.device) == 0
+    vals = torch.where(nr.knot[..., None], first.to(vals.dtype), vals)
+    G, W = nr.i0.shape
+    return vals.new_zeros((G, W, 2 * U1 + nr.E)).scatter_add_(
+        2, nr.cols, vals)
+
+
+def node_quads(nr: NodeRows, Jn: torch.Tensor, Hn: torch.Tensor
+               ) -> torch.Tensor:
+    """T [G, 2 U1 + E, D D], what :func:`node_rows`' columns meet, from
+    K12's node tangents Jn [D, G, U1] and second derivatives Hn [D, D, G,
+    U1]: Hn's nodes (a . Hn = sum_u a_u d2ds_u/didj), J_u J_u' at each
+    node and J_p J_q' + J_q J_p' at each band entry (J_i' M J_j; K10's
+    band_quad), so that G_b RR T = sum_w G_bw d2rows_w/didj, K10's H_ij
+    for the cotangent G_b."""
+    D, G, U1 = Jn.shape
+    J = Jn.permute(1, 2, 0)                                # [G, U1, D]
+    hn = Hn.permute(2, 3, 0, 1).reshape(G, U1, D * D)
+    diag = (J[..., :, None] * J[..., None, :]).reshape(G, U1, D * D)
+    Jp = J.gather(1, nr.pq[..., :1].expand(G, nr.E, D))
+    Jq = J.gather(1, nr.pq[..., 1:].expand(G, nr.E, D))
+    band = (Jp[..., :, None] * Jq[..., None, :]
+            + Jq[..., :, None] * Jp[..., None, :]).reshape(G, nr.E, D * D)
+    return torch.cat([hn, diag, band], dim=1)
 
 
 # ---------------------------------------------------------------------------
@@ -1085,6 +1256,46 @@ def xccy_stage_hess_plain(tab: XccyStageTables, sp: torch.Tensor,
 
     gZ, gf, H = vmap(one)(sp, pv, fd, _fd_tangents(tab, tf, fd), gs)
     return gZ, (gf if tab.recal else None), H
+
+
+def xccy_stage_node_hess_plain(tab: XccyStageTables, sp: torch.Tensor,
+                               pv: torch.Tensor, fd: torch.Tensor,
+                               tf: Optional[torch.Tensor] = None):
+    """Plain version of K12: for the node DFs ds(Z, fd) = stage_forward's
+    ds at (sp + Z_b, pv + Z_pv, fd + Z . tf), at Z = 0: (ds [Sc, G, U1],
+    Jn [Sc, D, G, U1] along the D unit directions of Z, Jfd [Sc, Lf, G,
+    U1] along each unit entry of fd or None when the parents are held as
+    values, Hn [Sc, D, D, G, U1] the second derivatives, jvp over jvp)."""
+    S, npv, D, G, Lf = tab.S, tab.npv, tab.D, tab.G, tab.Lf
+
+    def unit(n, like):
+        eye = torch.eye(n, dtype=like.dtype, device=like.device)
+        return eye[:, None, :].expand(n, G, n)
+
+    def one(s0, p0, f0, t):
+        def nodes(Z, f):
+            f2 = f + torch.einsum("gd,dgl->gl", Z, t)
+            pz = p0 + Z[:, S:S + npv] if npv else p0
+            return stage_forward(tab, s0 + Z[:, :S], pz, f2)[0]
+
+        Z0 = s0.new_zeros((G, D))
+        seeds = unit(D, s0)
+        ds, Jn = vmap(lambda s: jvp(lambda Z: nodes(Z, f0), (Z0,),
+                                    (s,)))(seeds)
+
+        def second(s1, s2):
+            return jvp(lambda Z: jvp(lambda Y: nodes(Y, f0), (Z,),
+                                     (s1,))[1], (Z0,), (s2,))[1]
+
+        Hn = vmap(lambda s1: vmap(lambda s2: second(s1, s2))(seeds))(seeds)
+        if not tab.recal:
+            return ds[0], Jn, Hn
+        _, Jfd = vmap(lambda e: jvp(lambda f: nodes(Z0, f), (f0,),
+                                    (e,)))(unit(Lf, f0))
+        return ds[0], Jn, Hn, Jfd
+
+    out = vmap(one)(sp, pv, fd, _fd_tangents(tab, tf, fd))
+    return out[0], out[1], (out[3] if tab.recal else None), out[2]
 
 
 def xccy_legs_hess_plain(tab: XccyStageTables, dd: torch.Tensor,
@@ -1383,13 +1594,16 @@ def grid_transforms(h: dict, g: int, fd) -> list:
             for ll in range(h["Lf"])]
 
 
-def thread_chain(T, h: dict, g: int, sp, pv, fd, d1, d2, tg=None):
+def thread_chain(T, h: dict, g: int, sp, pv, fd, d1, d2, tg=None,
+                 node_sink=None):
     """The chain of member ``g`` (h = the tables' ``host()``) in the
     scalar type T (:class:`Dual` or :class:`HyperDual`) at the spreads ``sp`` [S], PVs ``pv`` [S] and foreign grid
     ``fd`` [Lf], the inputs lifted along the directions ``d1`` / ``d2``
     ((kind, index, tangent row)): the node DFs ds [U1] in T. The foreign
     grid is transformed at each read, or, given ``tg``
-    (:func:`grid_transforms`), once, as K8 / K10 read it."""
+    (:func:`grid_transforms`), once, as K8 / K10 read it. ``node_sink``
+    (K12's store): called ``node_sink(u, value)`` as the chain sets node
+    u, in chain order."""
     n, S = h["n"], h["S"]
     pf, pi = h["pt_f"][g], h["pt_i"][g]
     fqi, fqf, fxsg = h["fq_i"][g], h["fq_f"][g], h["f_xs"][g]
@@ -1436,6 +1650,8 @@ def thread_chain(T, h: dict, g: int, sp, pv, fd, d1, d2, tg=None):
             val = C[s] * base
         if node >= 0:
             ds[node] = val
+            if node_sink is not None:
+                node_sink(node, val)
     return ds
 
 
@@ -2040,19 +2256,21 @@ def _tape_len(h: dict, g: int):
 
 
 def _stage_kernel_ops(name, h, g, sp, pv, fd, dirs, count_chain) -> int:
-    """The operations of K8's or K10's blocks of one (scenario, member),
-    each phase counted on the Python mirror of the kernel's code: a
-    block's grid transforms and rows once (:func:`_row_ops`); K8's dual
-    chain a direction of the block (computing its exps and quotients, a
-    reciprocal more a quotient) and its rows' tangents (a multiply a tap,
-    an add between two); K10's primal chain (its quotients' reciprocals
-    too), then a dual chain a direction of the block, a hyper-dual chain
-    a pair and a dual chain a foreign grid entry, each replaying the
-    block's tape (no exp, no quotient in its primal part), the
-    contraction a pair (2 operations a real node for sum a . dds.ab, 3 a
-    node and 7 a band entry for J_i' M J_j, 2 a node for gZ at i = j) and
-    2 operations a real node for gf."""
-    hess = name == "xccy_stage_hess"
+    """The operations of K8's, K10's or K12's blocks of one (scenario,
+    member), each phase counted on the Python mirror of the kernel's code:
+    a block's grid transforms and rows once (:func:`_row_ops`; K12 has no
+    rows); K8's dual chain a direction of the block (computing its exps
+    and quotients, a reciprocal more a quotient) and its rows' tangents (a
+    multiply a tap, an add between two); K10's and K12's primal chain (its
+    quotients' reciprocals too), then a dual chain a direction of the
+    block, a hyper-dual chain a pair and a dual chain a foreign grid
+    entry, each replaying the block's tape (no exp, no quotient in its
+    primal part); K10's contraction a pair (2 operations a real node for
+    sum a . dds.ab, 3 a node and 7 a band entry for J_i' M J_j, 2 a node
+    for gZ at i = j) and 2 operations a real node for gf (K12 writes the
+    nodes instead)."""
+    hess = name in ("xccy_stage_hess", "xccy_stage_node_hess")
+    nodes = name == "xccy_stage_node_hess"
     none = (DIR_NONE, 0, None)
     U1, Lf = h["U1"], h["Lf"]
     grid = _ops_of(lambda: [transform(h["fsch"], Dual(float(fd[ll])),
@@ -2061,7 +2279,7 @@ def _stage_kernel_ops(name, h, g, sp, pv, fd, dirs, count_chain) -> int:
     dsd = [Dual(x.v) for x in thread_chain(Dual, h, g, sp, pv, fd, none,
                                            none)]
     live = int((h["u_src"][g] >= 0).sum())
-    rows = _row_ops(h, g, dsd, hess)
+    rows = 0 if nodes else _row_ops(h, g, dsd, hess)
     exps, quots = _tape_len(h, g)
     firsts = [sum(count_chain(Dual, d, none)) for d in dirs]
     if not hess:
@@ -2071,7 +2289,7 @@ def _stage_kernel_ops(name, h, g, sp, pv, fd, dirs, count_chain) -> int:
         return sum(grid + rows + sum(firsts[d] + quots for d in I)
                    for I, _ in tiles(len(dirs), False)) \
             + len(dirs) * sum(2 * k - 1 for k in taps if k)
-    contract = 2 * live + 3 * U1 + 7 * h["E"] + 1
+    contract = 0 if nodes else 2 * live + 3 * U1 + 7 * h["E"] + 1
     prim = count_chain(Dual, none, none)[0] + quots
     total = 0
     for I, J, items in hess_blocks(len(dirs), Lf if h["recal"] else 0):
@@ -2080,10 +2298,12 @@ def _stage_kernel_ops(name, h, g, sp, pv, fd, dirs, count_chain) -> int:
         for i, j in (x for x in items if x is not None):
             if i == "grid":
                 total += sum(count_chain(Dual, (DIR_UNIT, j, None),
-                                         none)) - exps - quots + 2 * live
+                                         none)) - exps - quots \
+                    + (0 if nodes else 2 * live)
                 continue
             total += sum(count_chain(HyperDual, dirs[i], dirs[j])) \
-                - exps - quots + contract + (2 * U1 if i == j else 0)
+                - exps - quots + contract \
+                + (2 * U1 if i == j and not nodes else 0)
     return total
 
 
@@ -2112,7 +2332,7 @@ def _legs_kernel_ops(h: dict, g: int, dd, tdl, gpv) -> int:
 
 
 def needed_flops(name: str, tab: XccyStageTables, *args) -> dict:
-    """The f64 operations of kernel ``name`` (K8-K11) on
+    """The f64 operations of kernel ``name`` (K8-K12) on
     ``kernels.<name>(tab, *args)``'s inputs, counted by running
     :func:`thread_stage` / :func:`thread_legs` in :class:`Dual` and
     :class:`HyperDual` (their ``ops``) on scenario 0 of every member,
@@ -2120,15 +2340,16 @@ def needed_flops(name: str, tab: XccyStageTables, *args) -> dict:
 
     - ``needed``: what the function needs, a forward-mode evaluation that
       computes nothing twice: the primal once a (scenario, member), each
-      direction's first tangent once (and, K10 / K11, each grid entry's
-      for the gradient), each pair i <= j's e1 e2 part once (K10 / K11,
-      with the sum over the cotangents);
+      direction's first tangent once (and, K10 / K11 / K12, each grid
+      entry's for the gradient or the nodes' tangents), each pair i <=
+      j's e1 e2 part once (K10 / K11, with the sum over the cotangents;
+      K12 the chain to the nodes alone, no rows);
     - ``threads``: what the threads of the simple design compute, a
       thread the whole evaluation of a direction, a pair or a grid entry
       (K9 / K11's threads; K8 / K10's before they split the stage), each
       its primal and first tangents again;
     - ``kernel``: what the kernel's own design computes
-      (:func:`_stage_kernel_ops` for K8 / K10, on the foreign grid
+      (:func:`_stage_kernel_ops` for K8 / K10 / K12, on the foreign grid
       transformed once a block, K10's replaying threads without the
       primal exps and quotients; :func:`_legs_kernel_ops` for K9 / K11,
       the legs' flows once a (scenario, member), then a dot a direction
@@ -2140,14 +2361,19 @@ def needed_flops(name: str, tab: XccyStageTables, *args) -> dict:
     Sc = a[0].shape[0]
     none = (DIR_NONE, 0, None)
     need = threads = kernel = 0
+    stage = name in ("xccy_stage_jvp", "xccy_stage_hess",
+                     "xccy_stage_node_hess")
+    second = name in ("xccy_stage_hess", "xccy_legs_hess",
+                      "xccy_stage_node_hess")
     for g in range(tab.G):
-        if name in ("xccy_stage_jvp", "xccy_stage_hess"):
+        if stage:
             sp, pv, fd, tf = (x[0, g] if x is not None and k < 3 else x
                               for k, x in enumerate(a[:4]))
             dirs = [stage_dir(h, d, None if tf is None else tf[0, d, g])
                     for d in range(tab.D)]
             grid = h["Lf"] if tab.recal else 0
             cot = a[4][0, g] if name == "xccy_stage_hess" else None
+            nodes = name == "xccy_stage_node_hess"
 
             def run(T, d1, d2):
                 out = [T(0.0)]
@@ -2155,7 +2381,10 @@ def needed_flops(name: str, tab: XccyStageTables, *args) -> dict:
                 def sink(w, v):
                     if cot is not None:
                         out[0] = out[0] + v * float(cot[w])
-                thread_stage(T, h, g, sp, pv, fd, d1, d2, sink)
+                if nodes:
+                    thread_chain(T, h, g, sp, pv, fd, d1, d2)
+                else:
+                    thread_stage(T, h, g, sp, pv, fd, d1, d2, sink)
         else:
             dd, tdl = a[0][0, g], a[1]
             dirs = [(DIR_ROW, 0, tdl[0, d, g]) for d in range(tab.Qd)]
@@ -2181,7 +2410,7 @@ def needed_flops(name: str, tab: XccyStageTables, *args) -> dict:
         firsts = [count(Dual, d, none) for d in dirs]
         need += count(Dual, none, none)[0] + sum(c[1] for c in firsts)
         own = 0
-        if cot is None:
+        if not second:
             own = sum(sum(c) for c in firsts)
         else:
             grads = [count(Dual, (DIR_UNIT, ll, None), none)
@@ -2191,7 +2420,7 @@ def needed_flops(name: str, tab: XccyStageTables, *args) -> dict:
             need += sum(c[1] for c in grads) + sum(c[3] for c in pairs)
             own = sum(sum(c) for c in grads + pairs)
         threads += own
-        if name in ("xccy_stage_jvp", "xccy_stage_hess"):
+        if stage:
             tg = grid_transforms(h, g, fd)
 
             def count_chain(T, d1, d2):
@@ -2216,6 +2445,8 @@ _K8_READS = ("pt_f", "pt_i", "v0", "fxs", "fq_i", "fq_f", "rq_i", "rq_f",
 _K9_READS = ("leg_f", "leg_s", "li_i", "li_f", "ld_i", "ld_f", "lr_row",
              "ls_ptr", "ls_row", "lt_leg", "sc_ptr")
 _READS = dict(
+    xccy_stage_node_hess=("pt_f", "pt_i", "v0", "fxs", "fq_i", "fq_f",
+                          "tp_off"),
     xccy_stage_jvp=_K8_READS,
     xccy_stage_hess=_K8_READS + ("nr_ptr", "nr_row", "mb_pq", "mb_ptr",
                                  "mb_row", "tp_off"),
@@ -2226,15 +2457,16 @@ _READS = dict(
 
 
 def needed_bytes(name: str, tab: XccyStageTables, *args) -> int:
-    """The bytes kernel ``name`` (K8-K11) must move on
+    """The bytes kernel ``name`` (K8-K12) must move on
     ``kernels.<name>(tab, *args)``'s inputs, each input read once and
     each output written once: the tables the kernel reads (``_READS``;
     K9 only the segments of the legs' sums and gradients, their targets'
     segment lists and the value DFs' rows of ``lr_of``), the scenario
     inputs in full but the grids, and each grid only at the entries its
-    plan reads: K8 / K10's foreign DFs ``fd``, their tangents ``tf`` and
-    ``f_xs`` at the taps of ``fq``, K9 / K11's domestic ``dd``, ``tdl``
-    and ``d_xs`` at the legs' rows (``lr_row``)."""
+    plan reads: K8 / K10 / K12's foreign DFs ``fd``, their tangents
+    ``tf`` and ``f_xs`` at the taps of ``fq``, K9 / K11's domestic
+    ``dd``, ``tdl`` and ``d_xs`` at the legs' rows (``lr_row``); K12's
+    outputs ds, Jn, Jfd and Hn whole, both mirrors of Hn."""
     h = tab.host()
     Sc, G, S, D, Qd = args[0].shape[0], tab.G, tab.S, tab.D, tab.Qd
     nb = sum(h[k].nbytes for k in _READS[name])
@@ -2260,7 +2492,11 @@ def needed_bytes(name: str, tab: XccyStageTables, *args) -> int:
         taps = sum(len({x for q in h["fq_i"][g] for x in _taps(q)})
                    for g in range(G))
         grids = (1 + (D if tab.recal else 0)) * Sc * taps + taps
-        outs = tab.U1 + tab.W + D * tab.W if name == "xccy_stage_jvp" \
-            else D + (tab.Lf if tab.recal else 0) + D * D
+        if name == "xccy_stage_jvp":
+            outs = tab.U1 + tab.W + D * tab.W
+        elif name == "xccy_stage_hess":
+            outs = D + (tab.Lf if tab.recal else 0) + D * D
+        else:
+            outs = tab.U1 * (1 + D + (tab.Lf if tab.recal else 0) + D * D)
         ins = 2 * S + (tab.W if name == "xccy_stage_hess" else 0)
     return nb + 8 * (grids + Sc * G * (ins + outs))

@@ -35,7 +35,14 @@ The per-trade curve-Hessian contraction (``make_pertrade_tensors``,
 ``make_pertrade_curvehess``) ports ``_so_tensor`` and
 ``make_pertrade_curvehess`` (``adrates_tpu/parallel/structured_risk.py``
 :688-1033): each stage's second-order response tensors at one quote
-vector, contracted with every trade's DF-space gradient.
+vector, contracted with every trade's DF-space gradient. An XCCY stage on
+the per-trade kernel route (``xccy_stage.pertrade_route``) takes its
+tensors split at its node DFs: the nodes' first and second derivatives
+from K12 (``kernels.xccy_stage_node_hess``), the legs' from K9 / K11, and
+the rows' derivatives in the nodes on the full unique-time plan in torch
+(``xccy_stage.node_rows`` / ``node_quads``), so that a trade's second
+derivative of its rows is (G_b RR) T, the split K10 makes for the
+scenario pass with the trade's row in place of the scenario's g.
 """
 
 from __future__ import annotations
@@ -49,7 +56,8 @@ from torch.func import grad, jvp, vjp, vmap
 from ..ops import kernels
 from ..ops.linear_solve import jvp_by_vjp
 from ..ops.xccy_stage import (kernel_hess, kernel_jac, lift_grid,
-                               stage_routes, stage_tables)
+                               node_quads, node_row_tables, node_rows,
+                               pertrade_routes, stage_routes, stage_tables)
 from ..utils.error import LibError
 from .curve_batching import (StageTopology, infl_native_ds, ois_native_ds,
                              stage_rows, xccy_boot_ds, xccy_legs_pv,
@@ -727,17 +735,85 @@ def make_pertrade_tensors(topo: StageTopology):
     (``row_plan``) as in the JAX package. They do not depend on the
     trades' DF gradients, so one call serves every trade batch and every
     signature group. Per OIS/inflation stage si: ``so[si] = (dsT
-    [Qp, Qp, G, P1], rowsT [Qp, Qp, G, U])``; per XCCY stage: ``rowsT``
-    [S, S, G, U] (parents held), or (parents recalibrated) the legs
-    jacobian ``Jpv`` [Qd, G, S], the legs vjp rows ``Jlegs_nat``
-    [S, G, Ld], ``drows2`` [D2, G, U] and ``rowsTx`` [D2, D2, G, U] over
-    (basis | pv | composed foreign) directions, ``drows_fd`` [Lf, G, U]
-    and ``legsT`` [Qd, Qd, G, S]."""
+    [Qp, Qp, G, P1], rowsT [Qp, Qp, G, U])``; per XCCY stage off the
+    per-trade kernel route: ``rowsT`` [S, S, G, U] (parents held), or
+    (parents recalibrated) the legs jacobian ``Jpv`` [Qd, G, S], the legs
+    vjp rows ``Jlegs_nat`` [S, G, Ld], ``drows2`` [D2, G, U] and
+    ``rowsTx`` [D2, D2, G, U] over (basis | pv | composed foreign)
+    directions, ``drows_fd`` [Lf, G, U] and ``legsT`` [Qd, Qd, G, S].
+
+    An XCCY stage on the route (``xccy_stage.pertrade_route``; ``P``
+    holds its ``xstage`` tables) keeps no [., ., G, U] tensor: ``RR``
+    [G, U, K] (``node_rows``: the rows' derivatives in the node DFs) and
+    ``T`` [G, K, D D] (``node_quads``: K12's Hn and the products of its
+    Jn), so that ``rowsTx`` = RR T; ``Jn`` [D, G, U1]; and, recalibrated
+    (D = D2), ``Jfd`` [Lf, G, U1] (K12), ``Jpv`` (K9), ``Jlegs_nat`` and
+    ``Hl`` [S, Qd, G, Qd] (K11 with the S unit cotangents of the legs'
+    PVs as its scenario axis: ``legsT`` transposed)."""
     meta = _build_meta(topo)
     stages = meta["stages"]
     its_of = meta["its_of"]
     xmeta = meta["xmeta"]
     C = meta["C"]
+    routes = pertrade_routes(topo)
+    # the full unique-time rows of each stage on the route, per device
+    row_tabs: Dict[tuple, object] = {}
+
+    def _rows_of(si, device):
+        key = (si, str(device))
+        if key not in row_tabs:
+            st = stages[si]
+            b = topo.bat[st.key]
+            row_tabs[key] = node_row_tables(
+                its_of[si], b["row_plan"],
+                int(np.asarray(b["pad_mask"]).shape[-1]), device)
+        return row_tabs[key]
+
+    def _parent_tangents(m, dds_st, like):
+        """(td_legs [Qd, G, Ld], tf2 [D2, G, Lf]): each member's parents'
+        jacobian columns (the OIS stages' dds) as tangent rows over the
+        parents' native grids, tf2's basis and PV rows zero."""
+        S = m["S"]
+        G = len(m["parents"])
+        td_legs = like.new_zeros((m["Qd"], G, m["Ld"]))
+        tf2 = like.new_zeros((2 * S + m["Qf"], G, m["Lf"]))
+        for mi, p in enumerate(m["parents"]):
+            td_legs[:p["qd"], mi, :p["p1d"]] = dds_st[p["sd"]][:, p["md"]]
+            tf2[2 * S:2 * S + p["qf"], mi, :p["p1f"]] = \
+                dds_st[p["sf"]][:, p["mf"]]
+        return td_legs, tf2
+
+    def _node_tensors(si, P, spreads, dom_ds, for_ds, dds_st):
+        """The stage's tensors on K12, K9 and K11 (see above)."""
+        tab = P.get("xstage", {}).get(si)
+        if tab is None:
+            raise LibError(f"XCCY stage {si} is on the per-trade kernel "
+                           f"route but the device tables lack its "
+                           f"XccyStageTables")
+        m = xmeta[si]
+        G, S = spreads.shape
+        nr = _rows_of(si, spreads.device)
+        if m["parents"] is None:
+            ds, Jn, _, Hn = kernels.xccy_stage_node_hess(
+                tab, spreads[None], tab.pv_dom0[None].contiguous(),
+                for_ds[None].contiguous())
+            return dict(Jn=Jn[0], RR=node_rows(nr, ds[0]),
+                        T=node_quads(nr, Jn[0], Hn[0]))
+        Qd = m["Qd"]
+        td_legs, tf2 = (t[None] for t in _parent_tangents(m, dds_st,
+                                                          spreads))
+        dd = dom_ds[None].contiguous()
+        pv0, Jpv = kernels.xccy_legs_jvp(tab, dd, td_legs)
+        ds, Jn, Jfd, Hn = kernels.xccy_stage_node_hess(
+            tab, spreads[None], pv0, for_ds[None].contiguous(), tf2)
+        unit = torch.eye(S, dtype=spreads.dtype, device=spreads.device)
+        Jlegs_nat, Hl = kernels.xccy_legs_hess(
+            tab, dd.expand(S, G, m["Ld"]).contiguous(),
+            td_legs.expand(S, Qd, G, m["Ld"]).contiguous(),
+            unit[:, None, :].expand(S, G, S).contiguous())
+        return dict(Jn=Jn[0], Jfd=Jfd[0], Jpv=Jpv[0], Jlegs_nat=Jlegs_nat,
+                    Hl=Hl, RR=node_rows(nr, ds[0]),
+                    T=node_quads(nr, Jn[0], Hn[0]))
 
     def tensors(q, P):
         B = P["bat"]
@@ -773,6 +849,11 @@ def make_pertrade_tensors(topo: StageTopology):
                 ds_of[c], (0, m["Lf"] - ds_of[c].shape[-1]), value=1.0)
                 for c in st.for_ids])
 
+            if routes[si] == "kernels":
+                so[si] = _node_tensors(si, P, spreads, dom_ds, for_ds,
+                                       dds_st)
+                continue
+
             def rows(d, b=b, si=si):
                 return stage_rows(d, its_of[si], b["row_plan"])
 
@@ -786,12 +867,7 @@ def make_pertrade_tensors(topo: StageTopology):
 
             Qd, Qf = m["Qd"], m["Qf"]
             D2 = 2 * S + Qf
-            td_legs = q.new_zeros((Qd, G, m["Ld"]))
-            tf2 = q.new_zeros((D2, G, m["Lf"]))
-            for mi, p in enumerate(m["parents"]):
-                td_legs[:p["qd"], mi, :p["p1d"]] = dds_st[p["sd"]][:, p["md"]]
-                tf2[2 * S:2 * S + p["qf"], mi, :p["p1f"]] = \
-                    dds_st[p["sf"]][:, p["mf"]]
+            td_legs, tf2 = _parent_tangents(m, dds_st, q)
 
             def legs(dd, b=b, st=st):
                 return xccy_legs_pv(dd, b, st)
@@ -848,6 +924,12 @@ def make_pertrade_curvehess(topo: StageTopology, restrict=None):
     meets the trades' DF-gradient rows in one matrix product, and the
     XCCY chain terms flow as per-trade cotangents on the parents' native
     grids, as in the scenario term 2.
+
+    An XCCY stage whose tensors are split at its node DFs (``RR`` in
+    ``so[si]``) meets a trade's row G_b as W_b = G_b RR (a [B, U1] of the
+    rows in the nodes, and M's band) and W_b T, the trade's Hessian over
+    the stage's directions; its cotangents and the quote-space assembly
+    are the same as the tensors' route.
 
     ``restrict=None``: G is [B, n_grid] on the book's grid axis (re-
     expanded to the dense [C*U] axis here) and the output [B, N, N].
@@ -911,25 +993,40 @@ def make_pertrade_curvehess(topo: StageTopology, restrict=None):
             m = xmeta[si]
             t = so[si]
             S = m["S"]
+            nodes = "RR" in t
             for mi, cid in enumerate(st.ids):
                 Gb = g_rows(cid)
                 if Gb is None:
                     continue
+                if nodes:
+                    # the node split: W_b = G_b RR, Hb = W_b T
+                    Wb = Gb @ t["RR"][mi]                   # [B, K]
+                    D = t["Jn"].shape[0]
+                    Hb = (Wb @ t["T"][mi]).reshape(-1, D, D)
+                    a = Wb[:, :t["Jn"].shape[-1]]           # [B, U1]
                 if m["parents"] is None:
-                    place_hess(out, _contract(Gb, t["rowsT"][:, :, mi]),
-                               segments(si, mi))
+                    place_hess(out, Hb if nodes else _contract(
+                        Gb, t["rowsT"][:, :, mi]), segments(si, mi))
                     continue
                 p = m["parents"][mi]
                 qd_m, qf_m = p["qd"], p["qf"]
-                w_pv = Gb @ t["drows2"][S:2 * S, mi].T      # [B, S]
+                if nodes:
+                    w_pv = a @ t["Jn"][S:2 * S, mi].T       # [B, S]
+                    v_for = a @ t["Jfd"][:, mi].T           # [B, Lf]
+                    Hl = t["Hl"][:, :qd_m, mi, :qd_m]       # [S, qd, qd]
+                    legs = (w_pv @ Hl.reshape(S, -1)).reshape(
+                        -1, qd_m, qd_m)
+                else:
+                    w_pv = Gb @ t["drows2"][S:2 * S, mi].T  # [B, S]
+                    v_for = Gb @ t["drows_fd"][:, mi].T     # [B, Lf]
+                    Hb = _contract(Gb, t["rowsTx"][:, :, mi])
+                    legs = _contract(w_pv, t["legsT"][:qd_m, :qd_m, mi])
                 v_dom = w_pv @ t["Jlegs_nat"][:, mi]        # [B, Ld]
-                v_for = Gb @ t["drows_fd"][:, mi].T         # [B, Lf]
                 for cid_par, vb, p1 in ((st.dom_ids[mi], v_dom, p["p1d"]),
                                         (st.for_ids[mi], v_for, p["p1f"])):
                     add = vb[:, :p1]
                     vnat[cid_par] = add if cid_par not in vnat \
                         else vnat[cid_par] + add
-                Hb = _contract(Gb, t["rowsTx"][:, :, mi])  # [B, D2, D2]
                 Jv = t["Jpv"][:qd_m, mi]                    # [qd, S]
                 bb = Hb[:, :S, :S]
                 bp = Hb[:, :S, S:2 * S]
@@ -938,8 +1035,7 @@ def make_pertrade_curvehess(topo: StageTopology, restrict=None):
                 pf = Hb[:, S:2 * S, 2 * S:2 * S + qf_m]
                 ff = Hb[:, 2 * S:2 * S + qf_m, 2 * S:2 * S + qf_m]
                 q_bd = bp @ Jv.T                            # [B, S, qd]
-                q_dd = Jv @ pp @ Jv.T + _contract(
-                    w_pv, t["legsT"][:qd_m, :qd_m, mi])
+                q_dd = Jv @ pp @ Jv.T + legs
                 q_df = Jv @ pf                              # [B, qd, qf]
                 Hq = torch.cat([
                     torch.cat([bb, q_bd, bf], dim=2),

@@ -15,7 +15,8 @@ first use. Phases:
    schemes' evaluation at static queries, DFs to DFs), its tangent mode
    fitted_eval_jvp and its linear core fitted_rows, K7 fitted_rows_t the
    core's transpose, K8-K11 the XCCY stage's jacobian and Hessian in dual and
-   hyper-dual arithmetic);
+   hyper-dual arithmetic, K12 its node DFs' tangents and second derivatives
+   for the per-trade tensors);
 3. OIS slice: the flagship OIS book (7 curves, N = 144 quotes, 720 OIS
    tiled to 100,080 trades, 100 scenarios) through ``make_multibook_fn``
    on the structured risk split: one cold call, then 3 warm calls;
@@ -56,7 +57,11 @@ first use. Phases:
    checks: the ladders sum to the staged book delta and the blocks to
    its gamma at zero shock (1e-9 rel), the FRN's and the XCCY trade's
    ladders against a central FD of their PVs (1e-5 rel), each dense
-   gamma symmetric and equal to its block (1e-10 rel);
+   gamma symmetric and equal to its block (1e-10 rel); each XCCY stage's
+   per-trade route (gated: on K12, K9 and K11, split at the node DFs),
+   K12 / K9 / K11 launches a call on the gammas and the blocks (gated:
+   launched), the device ops and device ms of one warm call of each, and
+   K12's, K9's and K11's arguments in one gammas call for phase 8;
 7c. the single-trade engine on phase 7's model (K4 / K5 its only
    kernels):
    the README quick start (VALUE, DELTA, GAMMA through ``position(model)``
@@ -93,7 +98,9 @@ first use. Phases:
    the first chunk for phase 8; the generic split once (= structured); each spline curve's ``df_t`` against the book's
    grid row and the engine's PV against the book's on one live OIS of
    each spline curve and one basis swap of each XCCY curve (1e-10); the
-   per-trade paths of phase 7b on this book; K6 / K7 launches a call on
+   per-trade paths of phase 7b on this book (its XCCY stages, over
+   fitted parents, keep the torch.func towers there: routes printed, K12
+   gated as not launched); K6 / K7 launches a call on
    the staged, generic and per-trade paths (gated: every path launches
    K6's evaluation, and K7 where it runs reverse mode), the 256 gammas'
    warm wall and device ops
@@ -204,7 +211,9 @@ first use. Phases:
    and seeded domestic tangents) against their plain versions at 1e-12 x
    max|ref| of every output, the Hessians symmetric bit for bit, two
    launches equal bit for bit (gated), their registers, local bytes a
-   thread and blocks an SM, with no
+   thread and blocks an SM; K12 and K9 / K11 at phase 7b's captured
+   per-trade call the same way (K12's outputs ds, Jn, Jfd, Hn, Hn equal to
+   its mirror bit for bit), with no
    library yardstick (no PyTorch call computes a stage's jacobian or
    Hessian) and their bound from the operations the function needs,
    ``xccy_stage.needed_flops``, beside the kernel's own count, the
@@ -417,11 +426,14 @@ def _check(name: str, err: float, bound: float):
 KERNELS = ("pvs_sweep", "gamma_quad_form_grouped", "pertrade_quad_form",
            "pv01_solve", "pv01_solve_t", "fitted_eval", "fitted_eval_jvp",
            "fitted_rows", "fitted_rows_t", "xccy_stage_jvp", "xccy_legs_jvp",
-           "xccy_stage_hess", "xccy_legs_hess")
+           "xccy_stage_hess", "xccy_legs_hess", "xccy_stage_node_hess")
 # K6's entries (the evaluation, its tangent mode, the linear map) and K7
 FITTED = ("fitted_eval", "fitted_eval_jvp", "fitted_rows", "fitted_rows_t")
 XCCY = ("xccy_stage_jvp", "xccy_legs_jvp", "xccy_stage_hess",
         "xccy_legs_hess")
+# the kernels of the per-trade tensors split at an XCCY stage's node DFs:
+# K12, then K9 / K11 (their legs' PVs, gradients and Hessians)
+NODE = ("xccy_stage_node_hess", "xccy_legs_jvp", "xccy_legs_hess")
 
 
 def _reset_launches():
@@ -616,18 +628,18 @@ def _xccy_launches(path: str, info: dict, hess: bool = True) -> dict:
     return per
 
 
-def _capture_xccy(run, per_stage: bool = False) -> dict:
-    """Run ``run()`` with K8-K11's wrappers watched: per kernel, the
-    arguments of its first call (the first scenario chunk), tensors
-    copied; with ``per_stage``, a list of such dicts, one for each XCCY
-    stage in the order its tables first reach a kernel. The kernels' own
-    launch counts are left as they were."""
+def _capture_xccy(run, per_stage: bool = False, names=XCCY) -> dict:
+    """Run ``run()`` with the wrappers ``names`` (K8-K11's) watched: per
+    kernel, the arguments of its first call (the first scenario chunk),
+    tensors copied; with ``per_stage``, a list of such dicts, one for each
+    XCCY stage in the order its tables first reach a kernel. The kernels'
+    own launch counts are left as they were."""
     import torch
 
     from adrates_torch.ops import kernels
     keep = {}
     order = []
-    orig = {k: getattr(kernels, k) for k in XCCY}
+    orig = {k: getattr(kernels, k) for k in names}
 
     def watched(name, f):
         def g(*args):
@@ -650,7 +662,7 @@ def _capture_xccy(run, per_stage: bool = False) -> dict:
     finally:
         for name, f in orig.items():
             setattr(kernels, name, f)
-    out = [{name: keep[tab, name] for name in XCCY if (tab, name) in keep}
+    out = [{name: keep[tab, name] for name in names if (tab, name) in keep}
            for tab in order]
     for got in out:
         if sorted(got) != sorted(orig):
@@ -1149,13 +1161,36 @@ def _select_trades(mb, n_sel=256):
     return sel, pos[0], pos[1]
 
 
-def run_per_trade(device, staged, mono, mb, q0, n_warm: int = 3):
+def _pertrade_routes(mb) -> dict:
+    """Each XCCY stage's per-trade route (K12, K9, K11 split at its node
+    DFs, or the torch.func towers and why), keyed as ``_xccy_routes``,
+    and whether each such stage is recalibrated."""
+    from adrates_torch.ops.xccy_stage import pertrade_routes
+    from adrates_torch.parallel.multibook import book_inputs
+    topo = book_inputs(mb).topology
+    out = {}
+    for si, r in ({} if topo is None else pertrade_routes(topo)).items():
+        st = topo.stages[si]
+        names = ", ".join(topo.specs[c].name for c in st.ids)
+        out[f"{st.key} ({names})"] = (r, bool(st.recal))
+    return out
+
+
+def run_per_trade(device, staged, mono, mb, q0, n_warm: int = 3,
+                  node_route: bool = True):
     """Phase 7b: the per-trade paths on phase 7's flagship_v5 book: every
     trade's delta ladder (K1), 256 selected trades' dense gammas (K3 at
     k = N) and every trade's own-block gamma (K3 over the signature
     groups), each driven cold + ``n_warm`` warm with its own launch
-    counts (``staged`` and ``mono`` are phase 7's fns), then checked.
-    Returns (the three fns, infos)."""
+    counts (``staged`` and ``mono`` are phase 7's fns), then checked;
+    the device ops and device ms of one warm call of the gammas and the
+    blocks (a CUDA-only trace); each XCCY stage's per-trade route
+    (``node_route``: gated, every stage on K12, K9 and K11) and those
+    kernels' launches a call on both paths (gated: launched where a stage
+    takes the route, K12 not launched where none does); and, where a
+    stage takes it, the arguments of K12, K9 and K11 in one warm call of
+    the gammas for phase 8 (``infos["node_inputs"]``). Returns (the three
+    fns, infos)."""
     import numpy as np
     import torch
 
@@ -1219,6 +1254,36 @@ def run_per_trade(device, staged, mono, mb, q0, n_warm: int = 3):
         if infos[key][name] <= 0:
             raise AssertionError(f"{name} was not launched on the per-trade "
                                  f"{key} path")
+
+    # ---- the XCCY stages' per-trade tensors: K12, K9, K11 ---------------
+    routes = _pertrade_routes(mb)
+    infos["routes"] = {k: r for k, (r, _) in routes.items()}
+    print(f"per-trade: XCCY stage per-trade routes {infos['routes']}; card "
+          f"{card}", flush=True)
+    on = [recal for r, recal in routes.values() if r == "kernels"]
+    if node_route and (not routes or len(on) < len(routes)):
+        raise AssertionError(f"per-trade: an XCCY stage keeps the torch.func "
+                             f"towers: {infos['routes']}")
+    for key, f in (("gamma_256", gam_fn), ("blocks", blk_fn)):
+        i = infos[key]
+        per = {k: i[k] / i["calls"] for k in NODE}
+        i["device_ops"], i["device_ms"] = _request_device(lambda: f(q0))
+        print(f"per-trade {key}: K12 xccy_stage_node_hess, K9 "
+              f"xccy_legs_jvp, K11 xccy_legs_hess "
+              f"{[per[k] for k in NODE]} launches a call ({i['calls']} "
+              f"calls); one warm call {i['device_ops']} device ops, device "
+              f"{_fmt_ms(i['device_ms'])}; card {card}", flush=True)
+        need = NODE if any(on) else NODE[:1] if on else ()
+        if any(i[k] <= 0 for k in need):
+            raise AssertionError(f"per-trade {key}: the node split's kernels "
+                                 f"were not launched "
+                                 f"({ {k: i[k] for k in NODE} })")
+        if not on and i["xccy_stage_node_hess"]:
+            raise AssertionError(f"per-trade {key}: K12 launched with no "
+                                 f"XCCY stage on its route")
+    if on:
+        infos["node_inputs"] = _capture_xccy(
+            lambda: gam_fn(q0), names=NODE if any(on) else NODE[:1])
 
     # ---- checks -------------------------------------------------------
     zero = np.zeros((1, N))
@@ -1701,8 +1766,8 @@ def run_flagship_v5_splines(device, flat, flat_gam, n_warm: int = 3):
     curve's ``df_t`` against the book's grid row; the per-trade paths;
     K1-K3 against their twins on this book; config 2 on the PCHIP GBP
     curve and a bond's analytics. ``flat`` is phase 7's info, printed
-    beside this phase's, and ``flat_gam`` (phase 7b's 256-gamma fn, its
-    quotes, its info) the FLAT_FWD gammas measured beside this book's.
+    beside this phase's, and ``flat_gam`` (phase 7b's 256-gamma info,
+    with its device ops and ms) the FLAT_FWD gammas beside this book's.
     Returns (the ``splines`` record, the staged path's info with the 256
     gammas' under ``gamma_256``, K6's and K7's captured inputs for phase
     8, K8-K11's captured inputs at each XCCY stage for phase 8)."""
@@ -1859,23 +1924,24 @@ def run_flagship_v5_splines(device, flat, flat_gam, n_warm: int = 3):
 
     # ---- the per-trade paths and the kernels' twins -----------------------
     print("phase 7d per-trade paths on the spline book:", flush=True)
-    pt_fns, pt_infos = run_per_trade(device, fn, mono, mb, q0, n_warm)
+    pt_fns, pt_infos = run_per_trade(device, fn, mono, mb, q0, n_warm,
+                                     node_route=False)
     for key in ("ladders", "gamma_256", "blocks"):
         pt_infos[key]["fitted_per_call"] = _fitted_launches(
             f"flagship_v5 splines per-trade {key}", pt_infos[key],
             reverse=key != "ladders")
     info["gamma_256"] = pt_infos["gamma_256"]
-    gam_fn, (fgam_fn, fq0, fgam_info) = pt_fns[1], flat_gam
+    gam_fn, fgam_info = pt_fns[1], flat_gam
     fit_inputs.update(_watch_fitted(
         [("gamma_256", lambda: gam_fn(q0))],
         [("gamma_256", k) for k in FITTED]))
     print("flagship_v5 splines 256 gammas' largest K6 / K7 calls: "
           + ", ".join(f"{k} {list(fit_inputs[('gamma_256', k)][0])}"
                       for k in FITTED), flush=True)
-    g_ops, g_ms = _request_device(lambda: gam_fn(q0))
-    f_ops, f_ms = _request_device(lambda: fgam_fn(fq0))
-    pt_infos["gamma_256"].update(device_ops=g_ops, device_ms=g_ms,
-                                 flat_device_ops=f_ops, flat_device_ms=f_ms)
+    g_ops, g_ms = (pt_infos["gamma_256"][k] for k in ("device_ops",
+                                                     "device_ms"))
+    f_ops, f_ms = fgam_info["device_ops"], fgam_info["device_ms"]
+    pt_infos["gamma_256"].update(flat_device_ops=f_ops, flat_device_ms=f_ms)
     print(f"flagship_v5 splines 256 gammas vs phase 7b (FLAT_FWD): warm "
           f"median {statistics.median(pt_infos['gamma_256']['warm_ms']):.1f}"
           f" vs {statistics.median(fgam_info['warm_ms']):.1f} ms, one warm "
@@ -1951,7 +2017,9 @@ def run_flagship_v5_splines(device, flat, flat_gam, n_warm: int = 3):
                                       "device_ops", "device_ms",
                                       "flat_device_ops", "flat_device_ms")
                                      if m in i})
-                          for k, i in pt_infos.items() if isinstance(i, dict)},
+                          for k, i in pt_infos.items()
+                          if k in ("ladders", "gamma_256", "blocks")},
+               pertrade_routes=pt_infos["routes"],
                twins=twins, config2=c2,
                bond=dict(duration=dur, g_spread=gsp, ms=bond_ms))
     rec["phase_s"] = time.perf_counter() - t_phase
@@ -3033,13 +3101,17 @@ _XCCY_SRC = dict(
     xccy_stage_hess=("adrates_tpu/parallel/structured_risk.py:529",
                      ["adrates_tpu/ops/xccy_bootstrap.py:78"]),
     xccy_legs_hess=("adrates_tpu/parallel/structured_risk.py:552",
-                    ["adrates_tpu/ops/pricers.py:102"]))
+                    ["adrates_tpu/ops/pricers.py:102"]),
+    xccy_stage_node_hess=("adrates_tpu/parallel/structured_risk.py:949",
+                          ["adrates_tpu/parallel/structured_risk.py:886",
+                           "adrates_tpu/parallel/structured_risk.py:688"]))
 
 
-def compare_xccy_kernels(path, inputs, stage=None) -> list:
-    """Phase 8's K8-K11 records at one path's captured XCCY calls
-    (``inputs`` from ``_capture_xccy``: the first chunk's arguments): K8
-    and K10 on the captured inputs; K9 and K11 on the captured grids and
+def compare_xccy_kernels(path, inputs, stage=None, names=XCCY) -> list:
+    """Phase 8's records of the kernels ``names`` (K8-K11, or the
+    per-trade call's K12, K9 and K11) at one path's captured XCCY calls
+    (``inputs`` from ``_capture_xccy``: the first chunk's arguments): K8,
+    K10 and K12 on the captured inputs; K9 and K11 on the captured grids and
     cotangents through ``xccy_stage.probe_tables`` with seeded domestic
     tangents, since a book's calibration legs price to 0 on any curve (so
     their PVs and derivatives are rounding alone); each against its plain
@@ -3076,7 +3148,8 @@ def compare_xccy_kernels(path, inputs, stage=None) -> list:
     from adrates_torch.ops import xccy_stage as xs
     recs = []
     label = path if stage is None else f"{path} stage {stage}"
-    for k, name in enumerate(XCCY):
+    for name in names:
+        k = (XCCY + NODE).index(name)
         args = list(inputs[name])
         tab = args[0]
         Sc = args[1].shape[0]
@@ -3096,7 +3169,9 @@ def compare_xccy_kernels(path, inputs, stage=None) -> list:
                max(rels), 1e-12)
         if name.endswith("hess"):
             H = got[-1]
-            if not torch.equal(H, H.permute(0, 3, 2, 1)):
+            mirror = H.transpose(1, 2) if name == "xccy_stage_node_hess" \
+                else H.permute(0, 3, 2, 1)
+            if not torch.equal(H, mirror):
                 raise AssertionError(f"{label} {name}: H not symmetric bit "
                                      f"for bit")
         again = [r for r in kern(*args) if r is not None]
@@ -3153,7 +3228,8 @@ def compare_xccy_kernels(path, inputs, stage=None) -> list:
             blocks_per_sm=info["blocks_per_sm"], tile=info["tile"],
             held_in_smem=info["held"],
             inputs="captured" if name in ("xccy_stage_jvp",
-                                          "xccy_stage_hess")
+                                          "xccy_stage_hess",
+                                          "xccy_stage_node_hess")
             else "captured grids and cotangents, probe legs, seeded "
                  "tangents"))
     return recs
@@ -3741,7 +3817,7 @@ def main() -> int:
     # ---- phase 2: build ------------------------------------------------
     secs = kernels.build_kernels()
     print(f"build: K1 (scenario- and trade-major, f64 and f32), K2, K3, "
-          f"K4 + K5, K6 + K7, K8-K11 built and loaded in "
+          f"K4 + K5, K6 + K7, K8-K12 built and loaded in "
           f"{secs:.2f} s "
           f"({kernels.library_path().name})", flush=True)
 
@@ -3752,6 +3828,7 @@ def main() -> int:
         device)
     ref_f = info_f.pop("ref")
     pt_fns, pt_infos = run_per_trade(device, staged_f, fn_f, mb_f, q_f)
+    node_f = pt_infos.pop("node_inputs")
     # K4 / K5 at their largest calls of one warm staged call (region A's
     # seeds x scenarios x curves), for phase 8
     solve_f = _capture_solves(lambda: staged_f(q_f, sh_f))
@@ -3767,7 +3844,7 @@ def main() -> int:
     engine = run_engine(device, model_f, base, coll)
     solve_e = engine.pop("solve_inputs")
     splines, info_s, fit_inputs, xccy_s = run_flagship_v5_splines(
-        device, info_f, (pt_fns[1], q_f, pt_infos["gamma_256"]))
+        device, info_f, pt_infos["gamma_256"])
     hostapi, book_args = run_host_api(device, model_f, mb_f)
     # phase 7g on phase 7's model: config 2's OIS and a live basis swap
     analytics = run_ois_analytics(
@@ -3804,10 +3881,12 @@ def main() -> int:
     records += compare_solve_kernels("flagship_v5", solve_f)
     records += compare_fitted_kernels(fit_inputs)
     records += compare_xccy_kernels("flagship_v5", xccy_f)
+    records += compare_xccy_kernels("flagship_v5_gamma_256", node_f,
+                                    names=NODE)
     for k, inputs in enumerate(xccy_s):
         records += compare_xccy_kernels("flagship_v5_splines", inputs,
                                         stage=k)
-    del solve_e, solve_f, fit_inputs, xccy_f, xccy_s
+    del solve_e, solve_f, fit_inputs, xccy_f, xccy_s, node_f
     infos.update(flagship_v5_ladders=pt_infos["ladders"],
                  flagship_v5_gamma_256=pt_infos["gamma_256"],
                  flagship_v5_gamma_blocks=pt_infos["blocks"],

@@ -1551,3 +1551,120 @@ def test_xccy_legs_split_no_local_memory(dev):
         info = kernels.xccy_kernel_info(tab, name)
         assert info["local_bytes"] == 0, (name, info)
         assert info["blocks_per_sm"] >= 2, (name, info)
+
+
+# K12 xccy_stage_node_hess: the per-trade tensors' node DFs, their
+# tangents and second derivatives (K10's blocks with a node sink)
+
+
+def _flagship_base(recal):
+    """flagship_v5's base book (1,004 trades, untiled): its one XCCY stage
+    has three members, S = 8, a 73-entry foreign grid and, recalibrated,
+    D = 2S + 32 = 48 directions (held as values, D = S)."""
+    import warnings
+
+    from adrates_torch.examples import flagship_v5 as cfg
+    model = cfg.build_model()
+    trades, coll = cfg.build_base_trades(model,
+                                         np.random.default_rng(cfg.SEED))
+    with warnings.catch_warnings():        # CHF has no trades
+        warnings.simplefilter("ignore", UserWarning)
+        return cfg.compile_base(model, trades, coll, recalibrate_xccy=recal)
+
+
+def _node_check(tab, tab_c, inp, dev):
+    """K12 against its plain version at 1e-12 x max|ref| of every output,
+    launched twice on one input (equal bit for bit), Hn equal to its
+    mirror bit for bit, Jfd only recalibrated, two launches counted."""
+    from adrates_torch.ops import xccy_stage as xs
+    on = {k: None if v is None else v.to(dev).contiguous()
+          for k, v in inp.items()}
+    before = kernels.xccy_stage_node_hess.launches
+    args = (on["sp"], on["pv"], on["fd"], on["tf"])
+    got = kernels.xccy_stage_node_hess(tab, *args)
+    again = kernels.xccy_stage_node_hess(tab, *args)
+    ref = xs.xccy_stage_node_hess_plain(tab_c, inp["sp"], inp["pv"],
+                                        inp["fd"], inp["tf"])
+    assert (got[2] is None) == (ref[2] is None) == (not tab.recal)
+    for a, a2, b in zip(got, again, ref):
+        if b is not None:
+            assert _xrel(a, b) <= 1e-12
+            assert torch.equal(a, a2)
+    Hn = got[3]
+    assert Hn.shape == (inp["sp"].shape[0], tab.D, tab.D, tab.G, tab.U1)
+    assert torch.equal(Hn, Hn.transpose(1, 2))
+    torch.cuda.synchronize()
+    assert kernels.xccy_stage_node_hess.launches == before + 2
+
+
+@pytest.mark.parametrize("recal", [True, False], ids=["recal", "values"])
+def test_xccy_stage_node_hess_at_flagship_shapes(dev, recal):
+    """K12 at flagship_v5's stage (G = 3, S = 8, Lf = 73; D = 48
+    recalibrated, D = S held as values) at one quote vector, as the
+    per-trade tensors call it."""
+    mb = _flagship_base(recal)
+    tab, tab_c, inp = _xstage_inputs(mb, recal, dev, 1)
+    assert (tab.G, tab.S, tab.Lf, tab.D) == (3, 8, 73, 48 if recal else 8)
+    _node_check(tab, tab_c, inp, dev)
+
+
+@pytest.mark.parametrize("recal", [True, False], ids=["recal", "values"])
+@pytest.mark.parametrize("case", ["maxima", "three_members", "one_pillar"])
+def test_xccy_stage_node_hess_matches_plain(dev, case, recal):
+    """K12 at the route's maxima (S = 16, U1 = 64) on 2 scenarios, on a
+    three-member stage (S = 7, LINEAR_ZERO over LINEAR_FWD OIS) on 3 and
+    on one pillar (S = 1) on 1."""
+    if case == "maxima":
+        mb, Sc = _xccy_one_book(_XLONG, "FLAT_FWD_RATES", recal), 2
+    elif case == "three_members":
+        mb, Sc = cases.xccy3_book("adrates_torch", "LINEAR_FWD_RATES",
+                                  "LINEAR_ZERO_RATES", 7,
+                                  recalibrate_xccy=recal), 3
+    else:
+        mb, Sc = _xccy_one_book(["5Y"], "FLAT_FWD_RATES", recal), 1
+    tab, tab_c, inp = _xstage_inputs(mb, recal, dev, Sc, seed=Sc)
+    _node_check(tab, tab_c, inp, dev)
+
+
+def test_xccy_stage_node_hess_no_local_memory(dev):
+    """K12 keeps nothing in local memory and fits several blocks an SM at
+    flagship_v5's stage."""
+    tab = tmb.make_multibook_fn(_flagship_base(True), dev).book.params[
+        "xstage"][1]
+    info = kernels.xccy_kernel_info(tab, "xccy_stage_node_hess")
+    assert info["local_bytes"] == 0, info
+    assert info["blocks_per_sm"] >= 2, info
+
+
+@pytest.mark.parametrize("recal", [True, False], ids=["recal", "values"])
+def test_pertrade_node_split_on_cuda_matches_cpu(dev, recal):
+    """The per-trade tensors of the OIS + XCCY book's stage on the card
+    (K12, and recalibrated K9 / K11, one launch each) and their
+    contraction with seeded DF gradients, the 256-gamma path's term 2,
+    against the same call on the CPU at 1e-12 x max|ref|; the selected
+    trades' gammas the same."""
+    from adrates_torch.parallel import structured_risk as tsr
+    mb = cases.compile_xccy_book("adrates_torch",
+                                 cases.build_xccy_model("adrates_torch"),
+                                 recalibrate_xccy=recal)
+    topo = mb.basket.topology()
+    inp = tmb.book_inputs(mb)
+    q0 = torch.tensor(mb.basket.quotes0)
+    Gs = torch.tensor(np.random.default_rng(8).normal(0.0, 1e6,
+                                                      (4, inp.n_grid)))
+    names = ("xccy_stage_node_hess", "xccy_legs_jvp", "xccy_legs_hess")
+    out = {}
+    for d in ("cpu", dev):
+        P = tmb._device_book(inp, d, sweep=False, quad=False).params
+        before = [getattr(kernels, k).launches for k in names]
+        so = tsr.make_pertrade_tensors(topo)(q0.to(d), P)
+        out[str(d)] = tsr.make_pertrade_curvehess(topo)(so, Gs.to(d)).cpu()
+        torch.cuda.synchronize()
+        n = [getattr(kernels, k).launches - b for k, b in zip(names, before)]
+        assert n == ([0, 0, 0] if d == "cpu"
+                     else [1, 1, 1] if recal else [1, 0, 0])
+    assert _rel_err(out[str(dev)], out["cpu"]) <= 1e-12
+    sel = cases.pertrade_selection(mb)
+    ref = tmb.make_per_trade_gamma_fn(mb, sel, "cpu")(q0)
+    got = tmb.make_per_trade_gamma_fn(mb, sel, dev)(q0)
+    assert _rel_err(got.cpu(), ref) <= 1e-12
