@@ -76,18 +76,23 @@
 //                        = a . J_i at i = j; recalibrated, a foreign grid
 //                        entry l (the last chunk's, from a warp's boundary
 //                        on), a dual chain giving gf_l = a . dds/dfd_l.
-//   K12 xccy_stage_node_hess: K10's blocks and items with the node DFs
-//                        as the sink in place of the contraction with a:
-//                        the per-trade rows lie on another plan (the full
-//                        unique-time rows) than the stage's tables, and
-//                        every trade has its own cotangent, so the kernel
-//                        writes ds, the nodes' tangents Jn [D, U1] (from
-//                        J), each pair's nodes' e1 e2 parts Hn[i, j] =
-//                        Hn[j, i] [U1] and, recalibrated, each foreign
-//                        grid entry's node tangents Jfd [U1]; the caller
-//                        contracts a trade's row G_b with the rows'
+//   K12 xccy_stage_node_hess: the node DFs as the sink in place of the
+//                        contraction with a: the per-trade rows lie on
+//                        another plan (the full unique-time rows) than the
+//                        stage's tables, and every trade has its own
+//                        cotangent, so the kernel writes ds, the nodes'
+//                        tangents Jn [D, U1], each pair's nodes' e1 e2 parts
+//                        Hn[i, j] = Hn[j, i] [U1] and, recalibrated, each
+//                        foreign grid entry's node tangents Jfd [U1]; the
+//                        caller contracts a trade's row G_b with the rows'
 //                        derivatives in the nodes (a row reads at most two
-//                        nodes), H_ij = sum_u a_u Hn_iju + J_i' M_b J_j.
+//                        nodes), H_ij = sum_u a_u Hn_iju + J_i' M_b J_j. Its
+//                        chains run a warp each, the lanes on the chain
+//                        points (section K12 below): a prologue launch takes
+//                        the primal chain and a dual chain a direction and
+//                        grid entry once a (scenario, member), and leaves
+//                        their tables in a workspace; a second launch takes
+//                        a hyper-dual chain a pair.
 //   K9 xccy_legs_jvp and K11 xccy_legs_hess: the calibration legs split at
 //                        their flows, a block a (scenario, member) of
 //                        kLegBlock threads. Both lift the domestic grid
@@ -162,13 +167,16 @@
 // What bounds K12. At the per-trade call of flagship_v5's stage (one
 // quote vector, G = 3, D = 48) it writes 1.8 MB (Hn's both mirrors) and
 // the function needs under 1 MFLOP: its bound is about 0.6 us of bytes.
-// Its 15 blocks (five a member, of at most 256 items each) fill 15 of
-// 132 SMs, so what bounds it is one block's latency:
-// the primal and 48 dual chains, then two rounds of hyper-dual chains,
-// each a sequence of dependent f64 operations and shared-memory reads,
-// and its uncoalesced writes (a thread a pair's U1 nodes). It is one
-// launch a per-trade call in place of the towers' device ops (their
-// counts on an H100 are in PERF.md, section 5).
+// 234 pair blocks (tile pairs of 4 directions) of 8 warps fill the card,
+// two blocks an SM, each warp two pairs in turn; what bounds it is a
+// chain's latency: its lanes' two or three points' hyper-dual
+// evaluations, each a sequence of dependent shared-memory reads and f64
+// operations through three queries that branch on their kind, then the
+// buckets' sums, the pillars' quotients and S multiply-adds and shuffles,
+// and the block's copy of its tables from L2 before its first chain. The prologue is that copy, the
+// primal chain and one dual chain's latency, on 93 blocks. Two launches a
+// per-trade call in place of the towers' device ops (their counts on an
+// H100 are in PERF.md, section 5).
 //
 // What bounds K9 and K11. At flagship_v5's XCCY stage (G = 3, S = 8 legs
 // of P = 30 coupons, a domestic grid of 73 entries of which the legs read
@@ -183,9 +191,10 @@
 //
 // Sums run in a fixed order with no atomics, so two launches agree bit
 // for bit, and each H_ij is written at [i, j] and [j, i] by the thread
-// that computes it. No allocation; one launch a call on the caller's
-// stream.
+// (K12: the warp) that computes it. No allocation; one launch a call on
+// the caller's stream (K12: two, its workspace allocated by the caller).
 
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
 // ---- the tables (kernels._XStage) ------------------------------------------
@@ -238,6 +247,16 @@ struct XccyStageTab {
   const int* sc_ptr;    // [G, 2 nC + 1] each chunk's segments
   const int* ts_ptr;    // [G, S + NL + EL + 1] each target's segments
   const int* ts_seg;    // [G, NS]
+  // K12's: each pillar's chain point, the known payments by bucket b = k
+  // (k + 1) / 2 + s of swap k and segment s (xccy_stage._term_buckets) and
+  // the tangents of the basis chain's cumulative sums along the spreads
+  int NBT;
+  const int* mat_pos;   // [G, S]
+  const int* nb_ptr;    // [G, S (S + 1) / 2 + 1]
+  const int* nb_pt;     // [G, NBT]
+  const int* nb_pos;    // [G, n] each chain point's place in nb_pt or -1
+  const double* cum_t;  // [G, S, n]
+  const int* pt_ord;    // [G, n] the order the lanes take the points in
 };
 
 namespace {
@@ -422,28 +441,64 @@ struct Tape {
   }
 };
 
-__device__ __forceinline__ double texp(double x, Tape& tp) {
+// K12's tapes, whose mode is the type's: its primal chain records its
+// exps and quotients (Record), every other chain reads them (Replay), so
+// neither carries the other's code.
+struct Record {
+  double* p;
+  int i;
+  __device__ __forceinline__ double exp_of(double x) {
+    const double e = exp(x);
+    p[i++] = e;
+    return e;
+  }
+  __device__ __forceinline__ QR div_of(double x, double y) {
+    const QR d{x / y, 1.0 / y};
+    p[i] = d.q;
+    p[i + 1] = d.r;
+    i += 2;
+    return d;
+  }
+};
+
+struct Replay {
+  const double* p;
+  int i;
+  __device__ __forceinline__ double exp_of(double) { return p[i++]; }
+  __device__ __forceinline__ QR div_of(double, double) {
+    const QR d{p[i], p[i + 1]};
+    i += 2;
+    return d;
+  }
+};
+
+template <class TP>
+__device__ __forceinline__ double texp(double x, TP& tp) {
   return tp.exp_of(x);
 }
-__device__ __forceinline__ Dual texp(const Dual& x, Tape& tp) {
+template <class TP>
+__device__ __forceinline__ Dual texp(const Dual& x, TP& tp) {
   const double e = tp.exp_of(x.v);
   return {e, e * x.e};
 }
-__device__ __forceinline__ HDual texp(const HDual& x, Tape& tp) {
+template <class TP>
+__device__ __forceinline__ HDual texp(const HDual& x, TP& tp) {
   const double e = tp.exp_of(x.v);
   return {e, e * x.a, e * x.b, e * (x.ab + x.a * x.b)};
 }
 
-__device__ __forceinline__ double tdiv(double x, double y, Tape& tp) {
+template <class TP>
+__device__ __forceinline__ double tdiv(double x, double y, TP& tp) {
   return tp.div_of(x, y).q;
 }
-__device__ __forceinline__ Dual tdiv(const Dual& x, const Dual& y,
-                                     Tape& tp) {
+template <class TP>
+__device__ __forceinline__ Dual tdiv(const Dual& x, const Dual& y, TP& tp) {
   const QR d = tp.div_of(x.v, y.v);
   return {d.q, (x.e - d.q * y.e) * d.r};
 }
+template <class TP>
 __device__ __forceinline__ HDual tdiv(const HDual& x, const HDual& y,
-                                      Tape& tp) {
+                                      TP& tp) {
   const QR d = tp.div_of(x.v, y.v);
   const double qa = (x.a - d.q * y.a) * d.r, qb = (x.b - d.q * y.b) * d.r;
   return {d.q, qa, qb, (x.ab - d.q * y.ab - qa * y.b - qb * y.a) * d.r};
@@ -496,8 +551,10 @@ struct Member {
   const double* gt;             // [4, Lf] d, y, y', y'', or null
 };
 
+// kGt: the transforms are in memory (K12), so no transform is taken here.
+template <bool kGt = false>
 __device__ __forceinline__ GPt grid_pt(const Member& m, int l) {
-  if (m.gt) {
+  if (kGt || m.gt) {
     return {m.gt[l], m.gt[m.Lf + l], m.gt[2 * m.Lf + l], m.gt[3 * m.Lf + l]};
   }
   return transform(m.fsch, m.fd[l], m.fxg[l]);
@@ -505,19 +562,20 @@ __device__ __forceinline__ GPt grid_pt(const Member& m, int l) {
 
 // interpolation.simple_df_static at one packed query of the foreign grid,
 // its values lifted as they are read.
-template <class T>
+template <class T, class TP, bool kGt = false>
 __device__ __forceinline__ T query(const Member& m, int q, const Dir& d1,
-                                   const Dir& d2, Tape& tp) {
+                                   const Dir& d2, TP& tp) {
   const int* qi = m.fqi + 3 * q;
   const double* qf = m.fqf + 2 * q;
   const int kn = qi[2];
   if (kn >= 0) {
-    return lift<T>(m.gt ? m.gt[kn] : m.fd[kn], tan_grid(d1, kn),
+    return lift<T>(kGt || m.gt ? m.gt[kn] : m.fd[kn], tan_grid(d1, kn),
                    tan_grid(d2, kn));
   }
   const int l0 = qi[0], l1 = qi[1];
-  const T y0 = lift_y<T>(grid_pt(m, l0), tan_grid(d1, l0), tan_grid(d2, l0));
-  const T v = y0 + qf[0] * (lift_y<T>(grid_pt(m, l1), tan_grid(d1, l1),
+  const T y0 = lift_y<T>(grid_pt<kGt>(m, l0), tan_grid(d1, l0),
+                         tan_grid(d2, l0));
+  const T v = y0 + qf[0] * (lift_y<T>(grid_pt<kGt>(m, l1), tan_grid(d1, l1),
                                       tan_grid(d2, l1)) - y0);
   if (m.fsch == kFlatFwd) return texp(-v, tp);
   if (m.fsch == kLinZero) return texp(-v * qf[1], tp);
@@ -528,21 +586,21 @@ __device__ __forceinline__ T query(const Member& m, int q, const Dir& d1,
 // DFs at its payment, start and end (a coupon's) through the static simple
 // plan, the basis chain's base = df_pay exp(cum) and the cashflow cf (its
 // exps and the coupon's quotient on the tape tp).
-template <class T>
+template <class T, class TP, bool kGt = false>
 __device__ __forceinline__ void point_eval(const Member& m, int i, int fl,
                                            const double* pf, const T& spk,
                                            const T& cum, const Dir& d1,
-                                           const Dir& d2, Tape& tp, T& base,
+                                           const Dir& d2, TP& tp, T& base,
                                            T& cf) {
   const int n = m.n;
   const double notl = pf[0], ss = pf[1], ar = pf[2];
-  const T pay = query<T>(m, 2 * n + i, d1, d2, tp);
+  const T pay = query<T, TP, kGt>(m, 2 * n + i, d1, d2, tp);
   base = pay * texp(cum, tp);
   if (fl & kNotl) {
     cf = lift<T>((fl & kLast) ? notl : -notl, 0.0, 0.0) + spk * ss;
   } else {
-    const T q0 = query<T>(m, i, d1, d2, tp);
-    const T r = tdiv(q0, query<T>(m, n + i, d1, d2, tp), tp);
+    const T q0 = query<T, TP, kGt>(m, i, d1, d2, tp);
+    const T r = tdiv(q0, query<T, TP, kGt>(m, n + i, d1, d2, tp), tp);
     cf = (((r - 1.0) * notl) * ar + ((fl & kLast) ? notl : 0.0)) + spk * ss;
   }
 }
@@ -1356,98 +1414,707 @@ k10_stage_hess(const StageTab t, const Layout L, int D, int npv,
   XCCY_STAMP_END();
 }
 
-// K12's stores: K10's pair and grid stores with a node sink in place of
-// the contraction with a, each node's part written out as the chain sets
-// it (Hn at [i, j] and [j, i]; Jfd at the grid entry).
-struct NodePairStore : PairStore {
-  double *hij, *hji;     // [U1] each
-  __device__ void node(int u, const HDual& x) {
-    hij[u] = x.ab;
-    hji[u] = x.ab;
+// ---- K12: a warp a chain, its lanes on the chain points -------------------
+//
+// K12 xccy_stage_node_hess writes the node DFs themselves, for the per-trade
+// tensors, whose rows are on another plan than the stage's tables (the full
+// unique-time rows): no row, no cotangent. A chain of K12 is one warp
+// (xccy_stage.warp_chain mirrors it):
+//
+//   chain_point: its lanes take the chain points (place x of the host's
+//     order pt_ord to lane x % 32: the coupons, then the notional
+//     exchanges), each evaluating its points' foreign DF queries, base and
+//     cashflow (point_eval) at once, since none of them reads a solved
+//     factor, and keeping each point's base, a pillar's divisor fxs cf base
+//     and, of a known payment's term t = cf base w, the part of t C_s that
+//     C_s's carried part does not touch (K) and t's value (V), at its place
+//     in the host's lists of known payments by swap k and segment s <= k
+//     (nb_ptr / nb_pt / nb_pos);
+//   chain_solve: a lane a (swap, segment) bucket sums its V in list order
+//     (the primal chain; the others read its sums); lane r sums its swap's
+//     K, acc_r's carried part but for the factors, and takes pillar r's
+//     quotient as an affine map of acc_r's carried part, C_{r+1} = al_r +
+//     be_r acc_r (its exps and quotients the tape's, its divisor the
+//     point's); then the ranks in order, each a multiply-add on lane r, its
+//     C_{r+1} broadcast by a shuffle and added to the later swaps' acc
+//     (V_{q, r+1} C_{r+1} on lane q); then the lanes set every node, C
+//     base.
+//
+// Only one part of C and acc is carried (the top part): the value in the
+// primal chain, the tangent in a direction's, the e1 e2 part in a pair's;
+// the others are the member's tables. A first version summed each rank's
+// terms over the lanes by a shuffle tree, a rank at a time: on the card
+// those ranks took about half of a chain, which is why the sums are by
+// bucket and the ranks a multiply-add each. Two launches:
+//
+//   k12_node_prologue: a block a (scenario, member), its warp 0 on the
+//     primal chain and its other warps on as many items. The block copies
+//     the member's chain tables and the tangents of the basis chain's
+//     cumulative sums cum along the spreads (cum_t, static) into shared
+//     memory and takes cum, a thread a point, and its threads evaluate the
+//     primal chain's points (recording their exps and quotients on the
+//     tape, at each point's place tp_off); warp 0 solves the primal chain
+//     while the other warps evaluate their items' points: a dual chain
+//     along a direction of the stage (its first tangents ce / ae of C and
+//     acc, and its nodes' tangents, Jn) or, recalibrated, along a unit
+//     foreign grid entry (Jfd); then they solve them. The member's first
+//     block writes ds and the member's workspace (the tape, the grid's
+//     transforms, cum, the primal C and acc and the buckets' sums of V), a
+//     direction's warp its rows of ce / ae.
+//   k12_node_pairs: a block a (scenario, member) and a tile pair I <= J of
+//     directions (K10's cut), which copies the member's tables, its
+//     workspace and its directions' rows into shared memory once; its warps
+//     take its pairs i <= j in turn, each a chain in hyper-dual numbers (no
+//     exp, no division in its primal part), its nodes' e1 e2 parts written
+//     as one row at Hn[i, j] and at Hn[j, i] (the t = 0 node and the pad
+//     slots 0). The tile is the largest that gives every SM a block.
+//
+// A warp keeps its points' bases in its part of the block's shared memory,
+// lane-contiguous, beside its pillars' divisors, its terms' K and V in list
+// order, the carried parts of C (cab), the buckets' sums of V and its
+// nodes. Copies into shared memory are asynchronous (cp.async), all of a
+// block's in flight at once. The chains read the tape through Replay and
+// the grid's transforms from memory, so their code holds no exp, division
+// or transform (whose slow paths, calls, cost registers and spilled).
+
+constexpr int kLanes = 32;      // xccy_stage.NODE_LANES
+
+#ifdef XCCY_TIMELINE
+// scripts/k12_phases.py: block 0 of each K12 launch stamps the SM's clock
+// (cycles) at its phases, lane 0 of warp 0 at stamp k and of warp 1 at k
+// + 32 (k12_timeline reads them): 0-5 the prologue (start, tables copied,
+// cum, the primal points, warp 0's primal chain solved / warp 1's item
+// points, synchronised), 6-8 a solve (its sums and pillars, its ranks, its
+// nodes; warp 0 the primal chain's, warp 1 its item's), 10-13 the pair
+// launch (start, tables copied, a pair's points begun, evaluated), 14-16
+// a pair's solve, 17 its rows written (warp 0's and 1's last pair).
+__device__ long long g_k12[64];
+__device__ __forceinline__ void k12_stamp(int k) {
+  if (blockIdx.x == 0 && (threadIdx.x & 31) == 0 && threadIdx.x < 64) {
+    g_k12[k + 32 * (threadIdx.x / 32)] = clock64();
+  }
+}
+#define K12_STAMP(k) k12_stamp(k)
+#else
+#define K12_STAMP(k)
+#endif
+constexpr int kNodeWarps = 4;   // xccy_stage.NODE_WARPS: a prologue block's
+                                // item warps (and its primal warp)
+constexpr int kPairWarps = 8;   // xccy_stage.PAIR_WARPS: a pair block's
+constexpr int kMaxNB = kMaxS * (kMaxS + 1) / 2;  // buckets of a member
+
+__device__ __forceinline__ double top(double x) { return x; }
+__device__ __forceinline__ double top(const Dual& x) { return x.e; }
+__device__ __forceinline__ double top(const HDual& x) { return x.ab; }
+__device__ __forceinline__ double val(double x) { return x; }
+__device__ __forceinline__ double val(const Dual& x) { return x.v; }
+__device__ __forceinline__ double val(const HDual& x) { return x.v; }
+
+// A value in a warp's scratch: its parts kLanes apart (a lane's column).
+__device__ __forceinline__ void st_lane(double* p, double x) { p[0] = x; }
+__device__ __forceinline__ void st_lane(double* p, const Dual& x) {
+  p[0] = x.v;
+  p[kLanes] = x.e;
+}
+__device__ __forceinline__ void st_lane(double* p, const HDual& x) {
+  p[0] = x.v;
+  p[kLanes] = x.a;
+  p[2 * kLanes] = x.b;
+  p[3 * kLanes] = x.ab;
+}
+template <class T> __device__ __forceinline__ T ld_lane(const double* p);
+template <> __device__ __forceinline__ double ld_lane<double>(const double* p) {
+  return p[0];
+}
+template <> __device__ __forceinline__ Dual ld_lane<Dual>(const double* p) {
+  return {p[0], p[kLanes]};
+}
+template <> __device__ __forceinline__ HDual ld_lane<HDual>(const double* p) {
+  return {p[0], p[kLanes], p[2 * kLanes], p[3 * kLanes]};
+}
+
+// Asynchronous copies of len values into shared memory (cp.async), by the
+// block's threads; the caller commits, waits and synchronises.
+template <class V>
+__device__ __forceinline__ void acopy(V* dst, const V* src, int len) {
+  for (int x = threadIdx.x; x < len; x += blockDim.x) {
+    __pipeline_memcpy_async(dst + x, src + x, sizeof(V));
+  }
+}
+
+__device__ __forceinline__ void acopy_wait() {
+  __pipeline_commit();
+  __pipeline_wait_prior(0);
+  __syncthreads();
+}
+
+// The factors C_s and sums acc_r of a chain: c(s, top) with its carried
+// part top, low(s) with 0 there (C_0 = 1, no derivative), acc(r, top);
+// solved(r, acc_r's, C_{r+1}'s carried parts) keeps what a later chain
+// reads. kDefer: a term's K = t.e C_s's value is taken once the primal C
+// is known (the prologue's dual chains evaluate their points while the
+// primal chain solves), the point keeping t.e.
+struct PrimFrame {       // double: the primal chain, writing cv / av
+  static constexpr bool kDefer = false;
+  double *cv, *av;
+  __device__ double low(int s) const { return s == 0 ? 1.0 : 0.0; }
+  __device__ double c(int s, double t) const { return s == 0 ? 1.0 : t; }
+  __device__ double acc(int, double t) const { return t; }
+  __device__ void solved(int r, double a, double x) const {
+    cv[r] = x;
+    av[r] = a;
   }
 };
 
-struct NodeGridStore : GridStore {
-  double* out;           // [U1]
-  __device__ void node(int u, const Dual& x) { out[u] = x.e; }
+struct DualFrame {       // Dual: a direction's chain over the primal tables
+  static constexpr bool kDefer = true;   // its K once the primal C is known
+  const double *cv, *av;
+  double *ce, *ae;       // the direction's rows of the first tangents, or null
+  __device__ Dual low(int s) const {
+    return s == 0 ? Dual{1.0, 0.0} : Dual{cv[s - 1], 0.0};
+  }
+  __device__ Dual c(int s, double t) const {
+    return s == 0 ? Dual{1.0, 0.0} : Dual{cv[s - 1], t};
+  }
+  __device__ Dual acc(int r, double t) const { return {av[r], t}; }
+  __device__ void solved(int r, double a, double x) const {
+    if (ce) {
+      ce[r] = x;
+      ae[r] = a;
+    }
+  }
 };
 
-// K12 xccy_stage_node_hess: K10's blocks and items with the node DFs
-// themselves as outputs, for the per-trade tensors, whose rows are on
-// another plan than the stage's tables (the full unique-time rows): a
-// block runs the primal chain (its tape) and a dual chain a direction of
-// its tile pair, as K10's prologue; the block of tile I's diagonal pair
-// and first chunk writes tile I's tangents Jn [D, U1] from J, the first
-// block ds; then a hyper-dual chain a pair i <= j writes its nodes' e1 e2
-// parts at Hn[i, j] and Hn[j, i], and, recalibrated, a dual chain a
-// foreign grid entry l its nodes' tangents at Jfd[l]. Each such row is
-// zeroed first, so the t = 0 node and the pad slots read 0. No row, no
-// cotangent: the caller contracts the rows' derivatives in the nodes.
-__global__ void __launch_bounds__(kBlock, kK10Blocks)
-k12_stage_node_hess(const StageTab t, const Layout L, int D, int npv,
-                    int n_gf, int per, const double* sp, const double* pv,
-                    const double* fd, const double* tf, double* ds,
-                    double* Jn, double* Jfd, double* Hn) {
+struct PairFrame {       // HDual: a pair's chain over the first-order tables
+  static constexpr bool kDefer = false;
+  const double *cv, *av, *ci, *cj, *ai, *aj;
+  __device__ HDual low(int s) const {
+    if (s == 0) return {1.0, 0.0, 0.0, 0.0};
+    return {cv[s - 1], ci[s - 1], cj[s - 1], 0.0};
+  }
+  __device__ HDual c(int s, double t) const {
+    if (s == 0) return {1.0, 0.0, 0.0, 0.0};
+    return {cv[s - 1], ci[s - 1], cj[s - 1], t};
+  }
+  __device__ HDual acc(int r, double t) const {
+    return {av[r], ai[r], aj[r], t};
+  }
+  __device__ void solved(int, double, double) const {}
+};
+
+// What a chain reads beside the member: the tape and its offsets, the
+// basis chain's primal cumulative sums cumv [n] and, for a spread
+// direction d1 / d2, the tangents of cum along it (cs1 / cs2 [n], else
+// null); the pillars' chain points and the lists of known payments.
+struct Chain {
+  const int* off;
+  double* tape;          // recorded by the primal chain, read by the others
+  const double *cumv, *cs1, *cs2;
+  const int *mat, *nbp, *nbq, *ord;
+  const double* vsum;    // the buckets' sums of V (the primal chain's), or
+                         // null: the chain sums them
+  int S, U1;
+};
+
+// A warp's part of the block's shared memory (node_scratch's layout).
+struct WarpScratch {
+  double* ps;            // [npl, parts of T, kLanes]: the points' bases
+  double* dv;            // [kMaxS, 4] the pillars' divisors
+  double* cab;           // [kMaxS + 1] the carried parts of C
+  double* nodes;         // [kMaxU]
+  double* vs;            // [kMaxNB] the buckets' sums of V
+  double* kb;            // [NBT] the terms' K, in list order
+  double* vb;            // [NBT] and V
+};
+
+__device__ __forceinline__ WarpScratch carve(double* p, int npl, int np,
+                                             int nbt) {
+  WarpScratch w;
+  w.ps = p;
+  w.dv = p + np * kLanes * npl;
+  w.cab = w.dv + 4 * kMaxS;
+  w.nodes = w.cab + kMaxS + 1;
+  w.vs = w.nodes + kMaxU;
+  w.kb = w.vs + kMaxNB;
+  w.vb = w.kb + nbt;
+  return w;
+}
+
+// The doubles of a warp's scratch (carve) for values of np parts.
+__host__ __device__ __forceinline__ int node_scratch(int npl, int np,
+                                                     int nbt) {
+  return np * kLanes * npl + 4 * kMaxS + kMaxS + 1 + kMaxU + kMaxNB
+         + 2 * nbt;
+}
+
+// A value's parts contiguous (a pillar's divisor).
+__device__ __forceinline__ void st_flat(double* p, double x) { p[0] = x; }
+__device__ __forceinline__ void st_flat(double* p, const Dual& x) {
+  p[0] = x.v;
+  p[1] = x.e;
+}
+__device__ __forceinline__ void st_flat(double* p, const HDual& x) {
+  p[0] = x.v;
+  p[1] = x.a;
+  p[2] = x.b;
+  p[3] = x.ab;
+}
+template <class T> __device__ __forceinline__ T ld_flat(const double* p);
+template <> __device__ __forceinline__ double ld_flat<double>(const double* p) {
+  return p[0];
+}
+template <> __device__ __forceinline__ Dual ld_flat<Dual>(const double* p) {
+  return {p[0], p[1]};
+}
+template <> __device__ __forceinline__ HDual ld_flat<HDual>(const double* p) {
+  return {p[0], p[1], p[2], p[3]};
+}
+
+// The primal chain records the tape, the others read it.
+template <class T> struct TapeOf { using type = Replay; };
+template <> struct TapeOf<double> { using type = Record; };
+
+// The chain point at place x of the lanes' order, of member m along d1 /
+// d2 (xccy_stage.warp_chain's first step): its base into the chain's
+// scratch at place x (lane x % 32's column), a pillar's divisor at its
+// rank, a known payment's K and V at its place in the lists, whichever
+// thread evaluates it.
+template <class T, class F>
+__device__ __forceinline__ void chain_point(const Member& m, const Chain& ch,
+                                            int x, const Dir& d1,
+                                            const Dir& d2, const F& fr,
+                                            const WarpScratch& w) {
+  constexpr int NP = sizeof(T) / sizeof(double);
+  const int p = ch.ord[x];
+  const int* pi = m.pi + 4 * p;
+  const double* pf = m.pf + 5 * p;
+  const int k = pi[0], fl = pi[2];
+  if (point_skips(fl, pf[4], pi[3])) return;
+  const T spk = lift<T>(m.sp[k], tan_sp(d1, k), tan_sp(d2, k));
+  const T cum = lift<T>(ch.cumv[p], ch.cs1 ? ch.cs1[p] : 0.0,
+                        ch.cs2 ? ch.cs2[p] : 0.0);
+  using TP = typename TapeOf<T>::type;
+  TP tp{ch.tape, ch.off[p]};
+  T base, cf;
+  point_eval<T, TP, true>(m, p, fl, pf, spk, cum, d1, d2, tp, base, cf);
+  st_lane(w.ps + (x / kLanes) * NP * kLanes + (x & (kLanes - 1)), base);
+  if (fl & kMat) {
+    st_flat(w.dv + 4 * k, (m.fxs * cf) * base);
+  } else if (pf[4] != 0.0) {
+    const T t = (cf * base) * pf[4];
+    const int y = ch.nbq[p];
+    w.kb[y] = F::kDefer ? top(t) : top(t * fr.low(pi[1]));
+    if (!ch.vsum) w.vb[y] = val(t);
+  }
+}
+
+// Pillar r's quotient as an affine map of acc_r's carried part: C_{r+1}'s
+// carried part = al + be acc_r's, d its divisor; rr = 1 / d's value (the
+// primal chain's own; the tape's in the others).
+template <class T, class F>
+__device__ __forceinline__ void pillar(const Member& m, const Chain& ch,
+                                       const F& fr, int r, const T& d,
+                                       const Dir& d1, const Dir& d2,
+                                       double& al, double& be, double& rr) {
+  const T num = -(lift<T>(m.pv[r], tan_pv(d1, r), tan_pv(d2, r))
+                  + m.fxs * (m.v0[r] + fr.acc(r, 0.0)));
+  const int o = ch.off[ch.mat[r] + 1] - 2;
+  if constexpr (sizeof(T) == sizeof(double)) {
+    rr = __drcp_rn(d);
+    al = num * rr;
+  } else {
+    Replay tp{ch.tape, o};
+    al = top(tdiv(num, d, tp));
+    rr = ch.tape[o + 1];
+  }
+  be = -m.fxs * rr;
+}
+
+// The rest of the chain, by one warp once its points are in its scratch
+// (xccy_stage.warp_chain): a lane a bucket's sum of V (the primal chain;
+// the others read its sums); lane r its swap's sum of K and its pillar;
+// the ranks in order; the nodes' carried parts into w.nodes (fill where no
+// point sets a node: 1 for the primal DFs, 0 for their derivatives). The
+// primal chain records each pillar's quotient and reciprocal on the tape.
+template <class T, class F>
+__device__ __forceinline__ void chain_solve(const Member& m, const Chain& ch,
+                                            const Dir& d1,
+                            const Dir& d2, const F& fr, const WarpScratch& w,
+                            double fill) {
+  constexpr int NP = sizeof(T) / sizeof(double);
+  const int lane = threadIdx.x & (kLanes - 1), n = m.n, S = ch.S;
+  for (int u = lane; u < ch.U1; u += kLanes) w.nodes[u] = fill;
+  const double* vs = ch.vsum ? ch.vsum : w.vs;
+  if (!ch.vsum) {
+    for (int b = lane; b < S * (S + 1) / 2; b += kLanes) {
+      double v = 0.0;
+      for (int x = ch.nbp[b]; x < ch.nbp[b + 1]; ++x) v = v + w.vb[x];
+      w.vs[b] = v;
+    }
+  }
+  double acc = 0.0, al = 0.0, be = 0.0, rr = 0.0;
+  const int b0 = lane * (lane + 1) / 2;
+  if (lane < S) {
+    if constexpr (F::kDefer) {
+      for (int s = 0; s <= lane; ++s) {
+        const double c = s == 0 ? 1.0 : val(fr.low(s));
+        for (int x = ch.nbp[b0 + s]; x < ch.nbp[b0 + s + 1]; ++x) {
+          acc = acc + w.kb[x] * c;
+        }
+      }
+    } else {
+      for (int x = ch.nbp[b0]; x < ch.nbp[b0 + lane + 1]; ++x) {
+        acc = acc + w.kb[x];
+      }
+    }
+    pillar<T>(m, ch, fr, lane, ld_flat<T>(w.dv + 4 * lane), d1, d2, al, be,
+              rr);
+  }
+  if (lane == 0) w.cab[0] = 0.0;
+  __syncwarp();
+  K12_STAMP(sizeof(T) == sizeof(HDual) ? 14 : 6);
+  for (int r = 0; r < S; ++r) {
+    const double x = __shfl_sync(0xffffffffu, al + be * acc, r);
+    if (lane == r) {
+      w.cab[r + 1] = x;
+      fr.solved(r, acc, x);
+      if constexpr (sizeof(T) == sizeof(double)) {
+        const int o = ch.off[ch.mat[r] + 1] - 2;
+        ch.tape[o] = x;
+        ch.tape[o + 1] = rr;
+      }
+    } else if (lane > r && lane < S) {
+      acc = acc + vs[b0 + r + 1] * x;
+    }
+  }
+  __syncwarp();
+  K12_STAMP(sizeof(T) == sizeof(HDual) ? 15 : 7);
+  for (int x = lane; x < n; x += kLanes) {
+    const int* pi = m.pi + 4 * ch.ord[x];
+    if (pi[3] < 0) continue;
+    const int s = (pi[2] & kMat) ? pi[0] + 1 : pi[1];
+    const T base = ld_lane<T>(w.ps + (x / kLanes) * NP * kLanes + lane);
+    w.nodes[pi[3]] = top(fr.c(s, w.cab[s]) * base);
+  }
+  __syncwarp();
+  K12_STAMP(sizeof(T) == sizeof(HDual) ? 16 : 8);
+}
+
+// A chain's points by one warp's lanes.
+template <class T, class F>
+__device__ __forceinline__ void warp_points(const Member& m, const Chain& ch,
+                                            const Dir& d1, const Dir& d2,
+                                            const F& fr,
+                                            const WarpScratch& w) {
+  for (int x = threadIdx.x & (kLanes - 1); x < m.n; x += kLanes) {
+    chain_point<T>(m, ch, x, d1, d2, fr, w);
+  }
+  __syncwarp();
+}
+
+// K12's layout (node_plan): the blocks' warps, the pair launch's tile of
+// directions, a warp's scratch in each launch, the member's workspace in
+// device memory, and where each launch keeps its tables in dynamic shared
+// memory, as offsets in doubles (-1: read from device memory).
+struct NodeLayout {
+  int warps, pwarps, npl, Dt, nT;
+  int wpro, wpair;
+  int ws, w_tape, w_gt, w_cum, w_cv, w_av, w_vs, w_ce, w_ae;
+  // the prologue: chain tables, sp / pv / v0, tape, cum, cs, cv / av / ds,
+  // the grid's transforms, the warps' scratch
+  int p_tab, p_aux, p_tape, p_cum, p_cs, p_cv, p_gt, p_warps, pro_bytes;
+  // the pairs: the same, the block's directions' rows of ce / ae and their
+  // foreign tangent rows
+  int q_tab, q_aux, q_tape, q_cum, q_cs, q_cv, q_ce, q_gt, q_tf, q_warps;
+  int pair_bytes;
+};
+
+// The doubles of a member's chain tables in shared memory: pt_f, fq_f,
+// then pt_i, fq_i, tp_off, mat_pos, nb_ptr, nb_pos and pt_ord
+// (node_member).
+__host__ __device__ __forceinline__ long long node_tab(const StageTab& t) {
+  const long long n = t.n, S = t.S;
+  return 11 * n + (16 * n + 1 + S + S * (S + 1) / 2 + 1 + 1) / 2;
+}
+
+// Member g of (scenario, member) sg: its chain tables, tape offsets,
+// pillars, lists of known payments and lane order at `tab` in shared
+// memory, or in device memory (tab null); sp, pv and v0 at `aux`; the
+// copies issued (cp.async) by the block's threads, the caller waiting for
+// them (acopy_wait).
+__device__ __forceinline__ Member node_member(const StageTab& t, int g,
+                                              size_t sg,
+                              const double* sp, const double* pv,
+                              const double* fd, double* tab, double* aux,
+                              const int** off, const int** mat,
+                              const int** nbp, const int** nbq,
+                              const int** ord) {
+  const int n = t.n, S = t.S, NB = S * (S + 1) / 2;
+  Member m;
+  m.n = n;
+  m.Lf = t.Lf;
+  m.fsch = t.fsch;
+  m.fxs = t.fxs[g];
+  m.fd = fd + sg * t.Lf;
+  m.fxg = t.f_xs + (size_t)g * t.Lf;
+  m.gt = nullptr;
+  acopy(aux, sp + sg * S, S);
+  acopy(aux + S, pv + sg * S, S);
+  acopy(aux + 2 * S, t.v0 + (size_t)g * S, S);
+  m.sp = aux;
+  m.pv = aux + S;
+  m.v0 = aux + 2 * S;
+  const double* pf = t.pt_f + (size_t)g * n * 5;
+  const double* fqf = t.fq_f + (size_t)g * 3 * n * 2;
+  const int* pi = t.pt_i + (size_t)g * n * 4;
+  const int* fqi = t.fq_i + (size_t)g * 3 * n * 3;
+  const int* o = t.tp_off + (size_t)g * (n + 1);
+  const int* mp = t.mat_pos + (size_t)g * S;
+  const int* bp = t.nb_ptr + (size_t)g * (NB + 1);
+  const int* bq = t.nb_pos + (size_t)g * n;
+  const int* od = t.pt_ord + (size_t)g * n;
+  if (!tab) {
+    m.pf = pf;
+    m.fqf = fqf;
+    m.pi = pi;
+    m.fqi = fqi;
+    *off = o;
+    *mat = mp;
+    *nbp = bp;
+    *nbq = bq;
+    *ord = od;
+    return m;
+  }
+  double* spf = tab;
+  double* sqf = spf + 5 * n;
+  int* spi = reinterpret_cast<int*>(sqf + 6 * n);
+  int* sqi = spi + 4 * n;
+  int* so = sqi + 9 * n;
+  int* smp = so + n + 1;
+  int* sbp = smp + S;
+  int* sbq = sbp + NB + 1;
+  int* sod = sbq + n;
+  acopy(spf, pf, 5 * n);
+  acopy(sqf, fqf, 6 * n);
+  acopy(spi, pi, 4 * n);
+  acopy(sqi, fqi, 9 * n);
+  acopy(so, o, n + 1);
+  acopy(smp, mp, S);
+  acopy(sbp, bp, NB + 1);
+  acopy(sbq, bq, n);
+  acopy(sod, od, n);
+  m.pf = spf;
+  m.fqf = sqf;
+  m.pi = spi;
+  m.fqi = sqi;
+  *off = so;
+  *mat = smp;
+  *nbp = sbp;
+  *nbq = sbq;
+  *ord = sod;
+  return m;
+}
+
+// Direction d of the stage: a basis spread, a leg PV or the foreign
+// tangent row `row` (in shared or device memory).
+__device__ __forceinline__ Dir node_dir(int d, int S, int npv,
+                                        const double* row) {
+  if (d < S) return {kSpread, d, nullptr};
+  if (d < S + npv) return {kPv, d - S, nullptr};
+  return {kRow, 0, row};
+}
+
+__device__ __forceinline__ const double* tf_row(const StageTab& t,
+                                                const double* tf, int sc,
+                                                int D, int d, int g) {
+  return tf + (((size_t)sc * D + d) * t.G + g) * t.Lf;
+}
+
+// The primal chain and a dual chain an item: a block a (scenario, member)
+// and L.warps of its items (its D directions, then its n_gf foreign grid
+// entries); per = the blocks of a (scenario, member).
+__global__ void __launch_bounds__((kNodeWarps + 1) * kLanes, 3)
+k12_node_prologue(const StageTab t, const NodeLayout L, int D, int npv,
+                  int n_gf, int per, const double* sp, const double* pv,
+                  const double* fd, const double* tf, double* ds, double* Jn,
+                  double* Jfd, double* ws) {
   extern __shared__ double sm[];
-  const int b = per - 1 - (int)(blockIdx.x % per);
-  const long long r = blockIdx.x / per;
-  const int g = (int)(r % t.G), sc = (int)(r / t.G);
+  K12_STAMP(0);
+  const int c = (int)(blockIdx.x % per), r = (int)(blockIdx.x / per);
+  const int g = r % t.G, sc = r / t.G;
   const size_t sg = (size_t)sc * t.G + g;
-  const int tid = threadIdx.x, S = t.S, U1 = t.U1;
-  int tp = 0, c = b;
-  TilePair P = tile_pair(0, L.nT, L.Dt, D, n_gf);
-  for (;;) {
-    const int nc = (P.items + kItems - 1) / kItems;
-    if (c < nc) break;
-    c -= nc;
-    P = tile_pair(++tp, L.nT, L.Dt, D, n_gf);
-  }
-  const int x0 = c * kItems, x1 = min(P.items, x0 + kItems);
-  const int I = P.I, Jt = P.Jt, nI = P.nI, nd = P.nI + P.nJ;
-  const Member m = load_member(t, L, sm, g, sg, sp, pv, fd);
-  const double *cv = sm + L.cv, *av = sm + L.av;
-  double* scr = sm + L.sc + tid;
-  double* tape = L.tape >= 0 ? sm + L.tape : nullptr;
-  const Dirs B = block_dirs(I, Jt, nI, P.nJ, L.Dt, S + npv);
-  init_block(t, L, sm, B, S, npv, sc, D, g, tf);
-  __syncthreads();
-  if (tape) primal_tape(t, L, sm, m, g);
-  for (int k = tid; k < nd; k += kBlock) {
-    const int d = B.d(k);
-    direction_chain(t, L, sm, m, B, k, npv,
-                    tf ? tf + (((size_t)sc * D + d) * t.G + g) * t.Lf
-                       : nullptr);
-  }
-  __syncthreads();
-  const double* J = sm + L.J;
-  if (c == 0 && Jt == I) {
-    for (int x = tid; x < nI * U1; x += kBlock) {
-      const int k = x / U1, u = x - k * U1;
-      Jn[(((size_t)sc * D + B.d(k)) * t.G + g) * U1 + u] = J[u * nd + k];
-    }
-    if (tp == 0) {
-      for (int u = tid; u < U1; u += kBlock) ds[sg * U1 + u] = sm[L.dsv + u];
+  const int tid = threadIdx.x, nth = blockDim.x, wid = tid / kLanes;
+  const int lane = tid & (kLanes - 1), S = t.S, n = t.n, U1 = t.U1;
+  const int Lf = t.Lf;
+  double* W = ws + sg * L.ws;
+  const int *off, *mat, *nbp, *nbq, *ord;
+  Member m = node_member(t, g, sg, sp, pv, fd,
+                         L.p_tab >= 0 ? sm + L.p_tab : nullptr, sm + L.p_aux,
+                         &off, &mat, &nbp, &nbq, &ord);
+  double* cs = sm + L.p_cs;
+  acopy(cs, t.cum_t + (size_t)g * S * n, S * n);
+  // the grid's transforms: the block's own, the member's first block's
+  // into the workspace too
+  double* gt = sm + L.p_gt;
+  for (int l = tid; l < Lf; l += nth) {
+    const GPt p = transform(t.fsch, m.fd[l], m.fxg[l]);
+    gt[l] = p.d;
+    gt[Lf + l] = p.y;
+    gt[2 * Lf + l] = p.y1;
+    gt[3 * Lf + l] = p.y2;
+    if (c == 0) {
+      W[L.w_gt + l] = p.d;
+      W[L.w_gt + Lf + l] = p.y;
+      W[L.w_gt + 2 * Lf + l] = p.y1;
+      W[L.w_gt + 3 * Lf + l] = p.y2;
     }
   }
-  const double* ce = sm + L.ce;
-  const double* ae = sm + L.ae;
+  m.gt = gt;
+  acopy_wait();
+  K12_STAMP(1);
+  // cum, a thread a point (xccy_stage.chain_cums)
+  double* cumv = sm + L.p_cum;
+  for (int i = tid; i < n; i += nth) {
+    double v = 0.0;
+    for (int k = 0; k < S; ++k) v = v + m.sp[k] * cs[k * n + i];
+    cumv[i] = v;
+  }
+  __syncthreads();
+  K12_STAMP(2);
+  // the primal chain: its points by the block's threads, recording the
+  // tape; solved by warp 0
+  double* tape = sm + L.p_tape;
+  const WarpScratch w0 = carve(sm + L.p_warps, L.npl, 2, t.NBT);
   const Dir none{kNone, 0, nullptr};
-  for (int x = x0 + tid; x < x1; x += kBlock) {
-    if (x >= P.pairs) {
-      const int l = x - P.gf0;
-      if (l < 0) continue;
-      NodeGridStore st;
-      static_cast<GridStore&>(st) = GridStore{scr, L.stride, S, cv, av,
-                                              nullptr, 0.0};
-      st.out = Jfd + (((size_t)sc * t.Lf + l) * t.G + g) * U1;
-      for (int u = 0; u < U1; ++u) st.out[u] = 0.0;
-      st.init();
-      chain_eval<Dual>(m, Dir{kUnit, l, nullptr}, none, st,
-                       Tape{tape, 0, false});
-      continue;
+  const Chain ch0{off, tape, cumv, nullptr, nullptr, mat, nbp, nbq, ord,
+                  nullptr, S, U1};
+  const PrimFrame f0{sm + L.p_cv, sm + L.p_cv + S};
+  for (int x = tid; x < n; x += nth) {
+    chain_point<double>(m, ch0, x, none, none, f0, w0);
+  }
+  __syncthreads();
+  K12_STAMP(3);
+  // warp 0 solves the primal chain while the other warps evaluate their
+  // items' points (a dual chain each: a direction of the stage, then,
+  // recalibrated, a unit foreign grid entry)
+  const int x = c * L.warps + wid - 1;
+  const bool item = wid > 0 && x < D + n_gf;
+  const WarpScratch w = carve(sm + L.p_warps + wid * L.wpro, L.npl, 2,
+                              t.NBT);
+  Dir d{kUnit, x - D, nullptr};
+  DualFrame fr{sm + L.p_cv, sm + L.p_cv + S, nullptr, nullptr};
+  double* out = nullptr;
+  if (item && x >= D) {
+    out = Jfd + (((size_t)sc * Lf + (x - D)) * t.G + g) * U1;
+  } else if (item) {
+    d = node_dir(x, S, npv, x >= S + npv ? tf_row(t, tf, sc, D, x, g)
+                                         : nullptr);
+    fr.ce = W + L.w_ce + x * S;
+    fr.ae = W + L.w_ae + x * S;
+    out = Jn + (((size_t)sc * D + x) * t.G + g) * U1;
+  }
+  const Chain ch{off, tape, cumv, item && x < S ? cs + x * n : nullptr,
+                 nullptr, mat, nbp, nbq, ord, w0.vs, S, U1};
+  if (wid == 0) {
+    chain_solve<double>(m, ch0, none, none, f0, w0, 1.0);
+    for (int u = lane; u < U1; u += kLanes) {
+      sm[L.p_cv + 2 * S + u] = w0.nodes[u];
     }
+  } else if (item) {
+    warp_points<Dual>(m, ch, d, none, fr, w);
+  }
+  K12_STAMP(4);
+  __syncthreads();
+  K12_STAMP(5);
+  if (item) {
+    chain_solve<Dual>(m, ch, d, none, fr, w, 0.0);
+    for (int u = lane; u < U1; u += kLanes) out[u] = w.nodes[u];
+  }
+  // the member's first block: ds and the workspace
+  if (c == 0) {
+    for (int y = tid; y < off[n]; y += nth) W[L.w_tape + y] = tape[y];
+    for (int y = tid; y < n; y += nth) W[L.w_cum + y] = cumv[y];
+    for (int y = tid; y < S; y += nth) {
+      W[L.w_cv + y] = sm[L.p_cv + y];
+      W[L.w_av + y] = sm[L.p_cv + S + y];
+    }
+    for (int y = tid; y < S * (S + 1) / 2; y += nth) {
+      W[L.w_vs + y] = w0.vs[y];
+    }
+    for (int u = tid; u < U1; u += nth) {
+      ds[sg * U1 + u] = sm[L.p_cv + 2 * S + u];
+    }
+  }
+}
+
+// A hyper-dual chain a pair: a block a (scenario, member) and tile pair I
+// <= J of L.Dt directions (K10's cut, tile_pair), its warps taking its
+// pairs i <= j (i in I, j in J) in turn, row-major. The block copies the
+// member's chain tables and workspace and its directions' rows of ce / ae
+// and foreign tangent rows where the layout holds them; each pair's nodes'
+// e1 e2 parts are written as one row at Hn[i, j] and at Hn[j, i].
+__global__ void __launch_bounds__(kPairWarps * kLanes, 2)
+k12_node_pairs(const StageTab t, const NodeLayout L, int D, int npv,
+               const double* sp, const double* pv, const double* fd,
+               const double* tf, const double* ws, double* Hn) {
+  extern __shared__ double sm[];
+  K12_STAMP(10);
+  const int nTP = L.nT * (L.nT + 1) / 2;
+  const int tp = (int)(blockIdx.x % nTP), r = (int)(blockIdx.x / nTP);
+  const int g = r % t.G, sc = r / t.G;
+  const size_t sg = (size_t)sc * t.G + g;
+  const int tid = threadIdx.x, nth = blockDim.x, wid = tid / kLanes;
+  const int lane = tid & (kLanes - 1), S = t.S, n = t.n, U1 = t.U1;
+  const int Lf = t.Lf;
+  const TilePair P = tile_pair(tp, L.nT, L.Dt, D, 0);
+  const int nI = P.nI, nd = P.nI + P.nJ;
+  auto dir_of = [&](int k) {
+    return k < nI ? P.I * L.Dt + k : P.Jt * L.Dt + (k - nI);
+  };
+  const double* W = ws + sg * L.ws;
+  const int *off, *mat, *nbp, *nbq, *ord;
+  Member m = node_member(t, g, sg, sp, pv, fd,
+                         L.q_tab >= 0 ? sm + L.q_tab : nullptr, sm + L.q_aux,
+                         &off, &mat, &nbp, &nbq, &ord);
+  // the member's workspace and the block's directions' rows, in shared
+  // memory where the layout holds them
+  auto stage = [&](int at, const double* src, int len) -> const double* {
+    if (at < 0) return src;
+    acopy(sm + at, src, len);
+    return sm + at;
+  };
+  double* tape = const_cast<double*>(
+      stage(L.q_tape, W + L.w_tape, t.tp_off[(size_t)g * (n + 1) + n]));
+  m.gt = stage(L.q_gt, W + L.w_gt, 4 * Lf);
+  const double* cumv = stage(L.q_cum, W + L.w_cum, n);
+  const bool spreads = P.I * L.Dt < S;     // the tile has spread directions
+  const double* cs = stage(spreads ? L.q_cs : -1,
+                           t.cum_t + (size_t)g * S * n, S * n);
+  // cv, av and the primal chain's sums of V
+  const double* cv = stage(L.q_cv, W + L.w_cv, 2 * S + S * (S + 1) / 2);
+  double* cea = sm + L.q_ce;                          // [2, nd, S]
+  for (int x = tid; x < 2 * nd * S; x += nth) {
+    const int h = x / (nd * S), k = (x / S) % nd, s = x % S;
+    __pipeline_memcpy_async(cea + x,
+                            W + (h ? L.w_ae : L.w_ce) + dir_of(k) * S + s,
+                            sizeof(double));
+  }
+  const bool rows = tf && L.q_tf >= 0;
+  if (rows) {
+    for (int k = 0; k < nd; ++k) {
+      const int d = dir_of(k);
+      if (d >= S + npv) {
+        acopy(sm + L.q_tf + k * Lf, tf_row(t, tf, sc, D, d, g), Lf);
+      }
+    }
+  }
+  acopy_wait();
+  K12_STAMP(11);
+  const WarpScratch w = carve(sm + L.q_warps + wid * L.wpair, L.npl, 4,
+                              t.NBT);
+  for (int x = wid; x < P.pairs; x += L.pwarps) {
     int ki, kj;
-    if (Jt > I) {
+    if (P.Jt > P.I) {
       ki = x / P.nJ;
       kj = nI + (x - ki * P.nJ);
     } else {
@@ -1459,25 +2126,32 @@ k12_stage_node_hess(const StageTab t, const Layout L, int D, int npv,
       }
       kj = ki + rest;
     }
-    const int i = B.d(ki), j = B.d(kj);
-    const double* rowi =
-        tf ? tf + (((size_t)sc * D + i) * t.G + g) * t.Lf : nullptr;
-    const double* rowj =
-        tf ? tf + (((size_t)sc * D + j) * t.G + g) * t.Lf : nullptr;
-    NodePairStore st;
-    static_cast<PairStore&>(st) = PairStore{
-        scr, L.stride, S, cv, av, ce + ki * L.cs, ce + kj * L.cs,
-        ae + ki * L.cs, ae + kj * L.cs, nullptr, 0.0};
-    st.hij = Hn + ((((size_t)sc * D + i) * D + j) * t.G + g) * U1;
-    st.hji = Hn + ((((size_t)sc * D + j) * D + i) * t.G + g) * U1;
-    for (int u = 0; u < U1; ++u) {
-      st.hij[u] = 0.0;
-      st.hji[u] = 0.0;
+    const int i = dir_of(ki), j = dir_of(kj);
+    const double* ri = i < S + npv ? nullptr
+                       : rows ? sm + L.q_tf + ki * Lf
+                              : tf_row(t, tf, sc, D, i, g);
+    const double* rj = j < S + npv ? nullptr
+                       : rows ? sm + L.q_tf + kj * Lf
+                              : tf_row(t, tf, sc, D, j, g);
+    const Chain ch{off, tape, cumv, i < S ? cs + i * n : nullptr,
+                   j < S ? cs + j * n : nullptr, mat, nbp, nbq, ord,
+                   cv + 2 * S, S, U1};
+    const PairFrame fr{cv, cv + S, cea + ki * S, cea + kj * S,
+                       cea + (nd + ki) * S, cea + (nd + kj) * S};
+    const Dir di = node_dir(i, S, npv, ri), dj = node_dir(j, S, npv, rj);
+    K12_STAMP(12);
+    warp_points<HDual>(m, ch, di, dj, fr, w);
+    K12_STAMP(13);
+    chain_solve<HDual>(m, ch, di, dj, fr, w, 0.0);
+    double* hij = Hn + ((((size_t)sc * D + i) * D + j) * t.G + g) * U1;
+    double* hji = Hn + ((((size_t)sc * D + j) * D + i) * t.G + g) * U1;
+    for (int u = lane; u < U1; u += kLanes) {
+      const double v = w.nodes[u];
+      hij[u] = v;
+      hji[u] = v;
     }
-    st.init();
-    chain_eval<HDual>(m, block_dir(B, ki, S, npv, L, sm, rowi),
-                      block_dir(B, kj, S, npv, L, sm, rowj), st,
-                      Tape{tape, 0, false});
+    __syncwarp();
+    K12_STAMP(17);
   }
 }
 
@@ -2134,6 +2808,106 @@ bool plan_layout(const StageTab* t, int D, int npv, bool hess, bool rows,
   return false;
 }
 
+// K12's layout (NodeLayout) for a stage of D directions at Sc scenarios
+// (rows: foreign tangent rows given): the member's workspace in device
+// memory (the tape, the grid's transforms, cum, the primal C and acc, the
+// primal chain's buckets' sums of V and the directions' first tangents ce
+// / ae); the pair launch's tile of directions, the largest of 8, 4, 2, 1 that
+// gives every SM a block (else 1); a warp's scratch in each launch
+// (node_scratch); what each launch holds in shared memory: the prologue
+// the tape, cum, its tangents, the primal tables, the grid's transforms
+// and its warps' scratch, then, where they fit, the chain tables; the
+// pair launch its warps' scratch and its directions' rows of ce / ae,
+// then, where they fit, the chain tables, the tape, cum, its tangents, the
+// grid's transforms and its directions' foreign tangent rows. A block's
+// warps halve (the pair launch's from kPairWarps, the prologue's from
+// kNodeWarps) until a pair block fits two to an SM, then until it fits a
+// block's most; false where one warp's does not.
+bool node_plan(const StageTab* t, int D, int Sc, bool rows,
+               NodeLayout* out) {
+  int dev = 0, smax = 0, ssm = 0, res = 0, sms = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&smax, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&ssm,
+                             cudaDevAttrMaxSharedMemoryPerMultiprocessor,
+                             dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&res, cudaDevAttrReservedSharedMemoryPerBlock,
+                             dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)
+          != cudaSuccess) {
+    return false;
+  }
+  const long long hard = smax / (long long)sizeof(double);
+  long long soft = (ssm / 2 - res) / (long long)sizeof(double);
+  if (soft > hard) soft = hard;
+  const int n = t->n, S = t->S, U1 = t->U1, Lf = t->Lf;
+  NodeLayout L;
+  L.npl = (n + kLanes - 1) / kLanes;
+  L.wpro = node_scratch(L.npl, 2, t->NBT);
+  L.wpair = node_scratch(L.npl, 4, t->NBT);
+  L.Dt = 1;
+  for (int dt = 8; dt > 1; dt /= 2) {
+    const long long nT = (D + dt - 1) / dt;
+    if ((long long)Sc * t->G * (nT * (nT + 1) / 2) >= sms) {
+      L.Dt = dt;
+      break;
+    }
+  }
+  L.nT = (D + L.Dt - 1) / L.Dt;
+  long long off = 0;
+  auto take = [&off](long long k) {
+    const int o = (int)off;
+    off += k;
+    return o;
+  };
+  L.w_tape = take(8LL * n);
+  L.w_gt = take(4LL * Lf);
+  L.w_cum = take(n);
+  L.w_cv = take(S);
+  L.w_av = take(S);
+  L.w_vs = take((long long)S * (S + 1) / 2);
+  L.w_ce = take((long long)D * S);
+  L.w_ae = take((long long)D * S);
+  L.ws = (int)off;
+  const long long tab = node_tab(*t);
+  for (int pass = 0; pass < 2; ++pass) {
+    const long long cap = pass ? hard : soft;
+    for (int wp = kPairWarps; wp >= 1; wp /= 2) {
+      L.pwarps = wp;
+      L.warps = wp < kNodeWarps ? wp : kNodeWarps;
+      off = 0;
+      L.p_aux = take(3LL * S);
+      L.p_tape = take(8LL * n);
+      L.p_cum = take(n);
+      L.p_cs = take((long long)S * n);
+      L.p_cv = take(2LL * S + U1);
+      L.p_gt = take(4LL * Lf);
+      L.p_warps = take((long long)(L.warps + 1) * L.wpro);
+      if (off > hard) continue;
+      L.p_tab = off + tab <= hard ? take(tab) : -1;
+      L.pro_bytes = (int)(off * (long long)sizeof(double));
+      off = 0;
+      L.q_aux = take(3LL * S);
+      L.q_cv = take(2LL * S + S * (S + 1) / 2);
+      L.q_ce = take(4LL * L.Dt * S);
+      L.q_warps = take((long long)wp * L.wpair);
+      if (off > cap) continue;
+      auto opt = [&](long long k) { return off + k <= cap ? take(k) : -1; };
+      L.q_tab = opt(tab);
+      L.q_tape = opt(8LL * n);
+      L.q_cum = opt(n);
+      L.q_cs = opt((long long)S * n);
+      L.q_gt = opt(4LL * Lf);
+      L.q_tf = rows ? opt(2LL * L.Dt * Lf) : -1;
+      L.pair_bytes = (int)(off * (long long)sizeof(double));
+      *out = L;
+      return true;
+    }
+  }
+  return false;
+}
+
 template <class Kernel>
 cudaError_t allow_smem(Kernel kernel, int bytes) {
   if (bytes <= 48 * 1024) return cudaSuccess;
@@ -2213,29 +2987,38 @@ extern "C" int xccy_stage_hess_f64(const XccyStageTab* t, int Sc, int D,
 
 // K12: ds [Sc, G, U1], Jn [Sc, D, G, U1], Jfd [Sc, Lf, G, U1] (n_gf =
 // Lf; 0 writes none) and Hn [Sc, D, D, G, U1] from sp, pv, fd, tf as
-// K10's; each pair i <= j once, in the order the kernel's tile pairs
-// enumerate them. K10's blocks: a block a (scenario, member, chunk of a
-// tile pair's items).
+// K10's, through the workspace ws [Sc, G, ws_len] (ws_len doubles a
+// (scenario, member): node_plan's, xccy_stage.node_workspace). Two
+// launches: the prologue, a block a (scenario, member) and a few of its
+// items (its directions, then its foreign grid entries), then a warp a pair
+// i <= j, each pair once.
 extern "C" int xccy_stage_node_hess_f64(const XccyStageTab* t, int Sc, int D,
                                         int npv, int n_gf, const double* sp,
                                         const double* pv, const double* fd,
                                         const double* tf, double* ds,
                                         double* jn, double* jfd, double* hn,
+                                        double* ws, int ws_len,
                                         cudaStream_t stream) {
   if (!fits(t) || D < 1 || (n_gf != 0 && n_gf != t->Lf)) {
     return (int)cudaErrorInvalidValue;
   }
   if ((long long)Sc * t->G == 0) return 0;
-  Layout L;
-  if (!plan_layout(t, D, npv, true, tf != nullptr, &L)) {
+  NodeLayout L;
+  if (!node_plan(t, D, Sc, tf != nullptr, &L) || ws_len != L.ws) {
     return (int)cudaErrorInvalidValue;
   }
-  const cudaError_t err = allow_smem(k12_stage_node_hess, L.bytes);
+  cudaError_t err = allow_smem(k12_node_prologue, L.pro_bytes);
+  if (err == cudaSuccess) err = allow_smem(k12_node_pairs, L.pair_bytes);
   if (err != cudaSuccess) return (int)err;
-  const int per = hess_blocks(L.nT, L.Dt, D, n_gf);
-  const long long blocks = (long long)Sc * t->G * per;
-  k12_stage_node_hess<<<(unsigned)blocks, kBlock, L.bytes, stream>>>(
-      *t, L, D, npv, n_gf, per, sp, pv, fd, tf, ds, jn, jfd, hn);
+  const int per = (D + n_gf + L.warps - 1) / L.warps;
+  k12_node_prologue<<<(unsigned)((long long)Sc * t->G * per),
+                      (L.warps + 1) * kLanes, L.pro_bytes, stream>>>(
+      *t, L, D, npv, n_gf, per, sp, pv, fd, tf, ds, jn, jfd, ws);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const long long blocks = (long long)Sc * t->G * (L.nT * (L.nT + 1) / 2);
+  k12_node_pairs<<<(unsigned)blocks, L.pwarps * kLanes, L.pair_bytes,
+                   stream>>>(*t, L, D, npv, sp, pv, fd, tf, ws, hn);
   return (int)cudaGetLastError();
 }
 
@@ -2260,6 +3043,31 @@ extern "C" int xccy_legs_hess_f64(const XccyStageTab* t, int Sc, int Qd,
   return (int)cudaGetLastError();
 }
 
+namespace {
+
+// What the card's compiler and occupancy calculator say of kernel f at
+// smem bytes of dynamic shared memory and threads a block: o[4] =
+// {registers, local bytes a thread, smem, blocks an SM}.
+template <class Kernel>
+cudaError_t kinfo(Kernel f, int smem, int threads, int* o) {
+  cudaError_t err = allow_smem(f, smem);
+  cudaFuncAttributes a;
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&a, f);
+  int nb = 0;
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&nb, f, threads,
+                                                       (size_t)smem);
+  }
+  if (err != cudaSuccess) return err;
+  o[0] = a.numRegs;
+  o[1] = (int)a.localSizeBytes;
+  o[2] = smem;
+  o[3] = nb;
+  return cudaSuccess;
+}
+
+}  // namespace
+
 // The registers and local memory a thread of kernel `which` (8-12) takes,
 // and, at this stage with D directions (K9 / K11: Qd; rows: tangent rows
 // given), its dynamic shared memory a block, the blocks an SM holds at
@@ -2268,53 +3076,71 @@ extern "C" int xccy_legs_hess_f64(const XccyStageTab* t, int Sc, int Qd,
 // the core and its blocks a (scenario, member): out[8] = {registers, local
 // bytes a thread, shared bytes a block, blocks an SM, threads a block,
 // tile, held: 1 the grid's transforms | 2 the chain tables | 4 the tangent
-// rows | 8 K10's tape | 16 K10's lists, blocks a (scenario, member)}.
+// rows | 8 K10's tape | 16 K10's lists, blocks a (scenario, member)}. K12's
+// two launches: out[0, 1] the most registers and local bytes of the two,
+// out[2] the pair launch's shared bytes, out[3] the fewer blocks an SM,
+// out[4] the threads of a pair block, out[5] the pair launch's tile of
+// directions, out[6] what the prologue holds beside its core (1 the
+// grid's transforms | 2 the chain tables | 8 the tape), out[7] the
+// prologue's blocks a (scenario, member); then out[8..11] = {registers,
+// local bytes, shared bytes, blocks an SM} of the prologue, out[12..15] the
+// same of the pair launch, out[16] the pair launch's blocks at one
+// scenario, out[17] a pair block's warps and out[18] a prologue block's
+// (its primal warp and its item warps; out has 19 entries).
 extern "C" int xccy_kernel_info(const XccyStageTab* t, int D, int which,
                                 int rows, int* out) {
-  const void* fn = nullptr;
-  int smem = 0, threads = kBlock, tile = 0, held = 0, per = 0;
-  cudaError_t err = cudaSuccess;
-  if (which == 8 || which == 10 || which == 12) {
+  if (which == 12) {
+    NodeLayout L;
+    if (!fits(t) || D < 1 || !node_plan(t, D, 1, rows != 0, &L)) {
+      return (int)cudaErrorInvalidValue;
+    }
+    const int threads = L.pwarps * kLanes;
+    cudaError_t err = kinfo(k12_node_prologue, L.pro_bytes,
+                            (L.warps + 1) * kLanes, out + 8);
+    if (err == cudaSuccess) {
+      err = kinfo(k12_node_pairs, L.pair_bytes, threads, out + 12);
+    }
+    if (err != cudaSuccess) return (int)err;
+    out[0] = max(out[8], out[12]);
+    out[1] = max(out[9], out[13]);
+    out[2] = L.pair_bytes;
+    out[3] = min(out[11], out[15]);
+    out[4] = threads;
+    out[5] = L.Dt;
+    out[6] = 1 | (L.p_tab >= 0) << 1 | 8;
+    out[7] = (D + (rows ? t->Lf : 0) + L.warps - 1) / L.warps;
+    out[16] = t->G * (L.nT * (L.nT + 1) / 2);
+    out[17] = L.pwarps;
+    out[18] = L.warps + 1;
+    return 0;
+  }
+  int threads = kBlock, tile = 0, held = 0, per = 0;
+  cudaError_t err = cudaErrorInvalidValue;
+  if (which == 8 || which == 10) {
     Layout L;
     if (!fits(t) || D < 1
         || !plan_layout(t, D, rows ? t->S : 0, which != 8, rows != 0, &L)) {
       return (int)cudaErrorInvalidValue;
     }
-    fn = which == 8    ? (const void*)k8_stage_jvp
-         : which == 10 ? (const void*)k10_stage_hess
-                       : (const void*)k12_stage_node_hess;
+    err = which == 8 ? kinfo(k8_stage_jvp, L.bytes, threads, out)
+                     : kinfo(k10_stage_hess, L.bytes, threads, out);
     tile = L.Dt;
     held = (L.gt >= 0) | (L.ptf >= 0) << 1 | (L.tt >= 0) << 2
            | (L.tape >= 0) << 3 | (L.lists >= 0) << 4;
     per = which == 8 ? L.nT : hess_blocks(L.nT, L.Dt, D, rows ? t->Lf : 0);
-    smem = L.bytes;
   } else if (which == 9 || which == 11) {
     LegLayout L;
     if (!fits_legs(t) || D < 0 || !plan_legs(t, D, which == 11, &L)) {
       return (int)cudaErrorInvalidValue;
     }
-    fn = which == 9 ? (const void*)k9_legs_jvp : (const void*)k11_legs_hess;
     threads = kLegBlock;
+    err = which == 9 ? kinfo(k9_legs_jvp, L.bytes, threads, out)
+                     : kinfo(k11_legs_hess, L.bytes, threads, out);
     tile = which == 11 ? L.Jt : 0;
     held = (L.gt >= 0) | (L.T >= 0) << 2;
     per = 1;
-    smem = L.bytes;
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  err = allow_smem(fn, smem);
-  cudaFuncAttributes a;
-  if (err == cudaSuccess) err = cudaFuncGetAttributes(&a, fn);
-  int nb = 0;
-  if (err == cudaSuccess) {
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&nb, fn, threads,
-                                                       (size_t)smem);
   }
   if (err != cudaSuccess) return (int)err;
-  out[0] = a.numRegs;
-  out[1] = (int)a.localSizeBytes;
-  out[2] = smem;
-  out[3] = nb;
   out[4] = threads;
   out[5] = tile;
   out[6] = held;
@@ -2323,6 +3149,12 @@ extern "C" int xccy_kernel_info(const XccyStageTab* t, int D, int which,
 }
 
 #ifdef XCCY_TIMELINE
+// The profiling build's K12 stamps (k12_stamp): out[64], the last
+// launches' block 0, warp 0's then warp 1's.
+extern "C" int k12_timeline(long long* out) {
+  return (int)cudaMemcpyFromSymbol(out, g_k12, sizeof(long long) * 64);
+}
+
 // The profiling build's stamps of the last launch's first n blocks:
 // out[n, 6] = {start, tables loaded, chains, rows' sums, end, SM}.
 extern "C" int xccy_timeline(unsigned long long* out, int n) {

@@ -41,10 +41,12 @@ gradients and gpv-weighted Hessian onto the domestic grid and take each
 direction or pair as a dot product. K12 ``xccy_stage_node_hess``
 (the same file) replaces the ``torch.func`` towers of the per-trade
 second-order tensors of such a stage (``make_pertrade_tensors``, after
-``adrates_tpu/parallel/structured_risk.py`` :900-1010): K10's blocks
-with the node DFs as outputs, their first tangents and each pair's
-second derivatives, which the caller contracts with the rows'
-derivatives in the nodes. Their module holds their plain
+``adrates_tpu/parallel/structured_risk.py`` :900-1010): the node DFs
+as outputs, their first tangents and each pair's second derivatives,
+which the caller contracts with the rows' derivatives in the nodes; a
+chain a warp, its lanes on the chain points, in two launches (the
+pair-independent chains once a (scenario, member), then a pair a
+warp). Their module holds their plain
 versions. K1-K3 are
 forward-only (their derivatives are closed form elsewhere), and so are
 K8-K12 (derivatives themselves). All twelve
@@ -142,7 +144,7 @@ _SIGNATURES = {
                             _P, _P],
     "xccy_legs_hess_f64": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _P],
     "xccy_stage_node_hess_f64": [_P, _I, _I, _I, _I, _P, _P, _P, _P, _P,
-                                 _P, _P, _P, _P],
+                                 _P, _P, _P, _P, _I, _P],
     "xccy_kernel_info": [_P, _I, _I, _I, _P],
 }
 
@@ -1773,7 +1775,7 @@ def fitted_kernel_info(mode: str, R: int, G: int, n_max: int, W_max: int,
 class _XStage(ctypes.Structure):
     """csrc/xccy_stage.cu ``StageTab``: an ``XccyStageTables``' sizes and
     its tensors' device pointers, then the rows' node and band tables,
-    then K9 / K11's lists over the legs."""
+    then K9 / K11's lists over the legs, then K12's pillars and buckets."""
     _INTS = ("G", "S", "n", "U1", "Lf", "Ld", "W", "P", "Pd", "fsch",
              "dsch", "flags")
     _PTRS = ("pt_f", "pt_i", "v0", "fxs", "fq_i", "fq_f", "f_xs", "rq_i",
@@ -1786,12 +1788,16 @@ class _XStage(ctypes.Structure):
     _LEG_PTRS = ("lr_row", "lr_of", "ls_ptr", "ls_row", "lt_leg", "gd_ptr",
                  "gd_t", "me_rc", "mr_ptr", "mr_e", "lt_term", "sg",
                  "sc_ptr", "ts_ptr", "ts_seg")
+    _NODE_INTS = ("NBT",)
+    _NODE_PTRS = ("mat_pos", "nb_ptr", "nb_pt", "nb_pos", "cum_t", "pt_ord")
     _fields_ = ([(k, ctypes.c_int) for k in _INTS]
                 + [(k, ctypes.c_void_p) for k in _PTRS]
                 + [(k, ctypes.c_int) for k in _BAND_INTS]
                 + [(k, ctypes.c_void_p) for k in _BAND_PTRS]
                 + [(k, ctypes.c_int) for k in _LEG_INTS]
-                + [(k, ctypes.c_void_p) for k in _LEG_PTRS])
+                + [(k, ctypes.c_void_p) for k in _LEG_PTRS]
+                + [(k, ctypes.c_int) for k in _NODE_INTS]
+                + [(k, ctypes.c_void_p) for k in _NODE_PTRS])
 
 
 def _xstage(tab: xccy_stage.XccyStageTables) -> int:
@@ -1799,7 +1805,8 @@ def _xstage(tab: xccy_stage.XccyStageTables) -> int:
     ``tab.cache`` beside the tensors it points into)."""
     st = tab.cache.get("c")
     if st is None:
-        ptrs = _XStage._PTRS + _XStage._BAND_PTRS + _XStage._LEG_PTRS
+        ptrs = (_XStage._PTRS + _XStage._BAND_PTRS + _XStage._LEG_PTRS
+                + _XStage._NODE_PTRS)
         for k in ptrs:
             t = getattr(tab, k)
             _need(t, k, torch.float64 if t.dtype == torch.float64
@@ -1809,7 +1816,7 @@ def _xstage(tab: xccy_stage.XccyStageTables) -> int:
                      NL=tab.ls_row.shape[1], EL=tab.me_rc.shape[1],
                      NS=tab.sg.shape[1], nC=tab.sc_ptr.shape[1] // 2,
                      NGD=tab.gd_t.shape[1], NMR=tab.mr_e.shape[1],
-                     NTT=tab.lt_term.shape[1])
+                     NTT=tab.lt_term.shape[1], NBT=tab.nb_pt.shape[1])
         st = _XStage(**{k: getattr(tab, k) for k in _XStage._INTS},
                      **sizes, **{k: getattr(tab, k).data_ptr()
                                  for k in ptrs})
@@ -1834,20 +1841,33 @@ def xccy_kernel_info(tab, name: str) -> dict:
     values computed by every thread) and their blocks a (scenario,
     member); for K9 / K11 at the stage's Qd domestic directions, which of
     the domestic grid's transforms and the tangent rows their blocks hold
-    in shared memory and K11's directions a tile of U."""
+    in shared memory and K11's directions a tile of U. K12 runs two
+    launches: its registers and local bytes are the most of the two, its
+    blocks an SM the fewer, its shared bytes and threads the pair
+    launch's, ``tile`` its directions a tile, ``blocks_per_member`` the
+    prologue's blocks a (scenario, member), ``held`` what the prologue's
+    blocks hold; ``warps`` a pair block, ``blocks`` the pair launch's
+    blocks at one scenario, and ``prologue`` / ``pairs`` each launch's
+    registers, local bytes, shared bytes and blocks an SM (and the
+    prologue's warps a block)."""
     if _lib is None:
         build_kernels()
-    out = (ctypes.c_int * 8)()
+    out = (ctypes.c_int * 19)()
     k = _XCCY_KERNEL[name]
     _check(_lib.xccy_kernel_info(_xstage(tab), tab.Qd if k in (9, 11)
                                  else tab.D, k, int(tab.recal), out),
            "xccy_kernel_info")
-    info = dict(zip(("registers", "local_bytes", "smem_bytes",
-                     "blocks_per_sm", "threads", "tile"), list(out)[:6]))
+    keys = ("registers", "local_bytes", "smem_bytes", "blocks_per_sm")
+    info = dict(zip(keys + ("threads", "tile"), list(out)[:6]))
     info["held"] = [k for b, k in ((1, "grid"), (2, "chain"), (4, "rows"),
                                    (8, "tape"), (16, "lists"))
                     if out[6] & b]
     info["blocks_per_member"] = out[7]
+    if k == 12:
+        info.update(prologue=dict(zip(keys, list(out)[8:12]),
+                                  warps=out[18]),
+                    pairs=dict(zip(keys, list(out)[12:16])),
+                    blocks=out[16], warps=out[17])
     return info
 
 
@@ -2015,11 +2035,15 @@ def xccy_stage_node_hess(tab, sp: torch.Tensor, pv: torch.Tensor,
     grid (recalibrated) and their second derivatives in each pair of
     directions (see ``xccy_stage.xccy_stage_node_hess_plain``), from sp,
     pv [Sc, G, S], fd [Sc, G, Lf] and tf [Sc, D, G, Lf] (None when the
-    parents are held as values): K10's blocks with the node DFs as the
-    sink, a hyper-dual chain a pair i <= j (each pair once, in the
-    kernel's own enumeration) writing its nodes at [i, j] and [j, i], a
-    dual chain a foreign grid entry; four ``torch.empty`` and one
-    launch."""
+    parents are held as values): a chain a warp, its lanes on the chain
+    points; a prologue launch runs the primal chain and a dual chain a
+    direction and a foreign grid entry once a (scenario, member) (ds, Jn,
+    Jfd and the tables of a workspace), then a launch runs a hyper-dual
+    chain a pair i <= j (each pair once; a block a (scenario, member) and
+    tile pair of directions), writing its nodes at [i, j] and [j, i]; five
+    ``torch.empty`` (the outputs and the workspace,
+    ``xccy_stage.node_workspace`` doubles a (scenario, member)) and two
+    launches, counted as one call."""
     Sc, G, S = sp.shape[0], tab.G, tab.S
     _xshape(sp, "sp", (Sc, G, S))
     _xshape(pv, "pv", (Sc, G, S))
@@ -2036,12 +2060,15 @@ def xccy_stage_node_hess(tab, sp: torch.Tensor, pv: torch.Tensor,
     jn = torch.empty((Sc, D, G, U1), dtype=torch.float64, device=dev)
     jfd = torch.empty((Sc, tab.Lf, G, U1), dtype=torch.float64, device=dev)
     hn = torch.empty((Sc, D, D, G, U1), dtype=torch.float64, device=dev)
+    nw = xccy_stage.node_workspace(tab)
+    ws = torch.empty((Sc, G, nw), dtype=torch.float64, device=dev)
     if Sc:
         _xlaunch("xccy_stage_node_hess_f64", tab, Sc, D, tab.npv,
                  tab.Lf if tab.recal else 0, _xin(sp, "sp", dev),
                  _xin(pv, "pv", dev), _xin(fd, "fd", dev),
                  None if tf is None else _xin(tf, "tf", dev),
-                 ds.data_ptr(), jn.data_ptr(), jfd.data_ptr(), hn.data_ptr())
+                 ds.data_ptr(), jn.data_ptr(), jfd.data_ptr(), hn.data_ptr(),
+                 ws.data_ptr(), nw)
         xccy_stage_node_hess.launches += 1
     return ds, jn, (jfd if tab.recal else None), hn
 

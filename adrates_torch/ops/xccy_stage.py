@@ -54,10 +54,18 @@ nodes that bracket it), so that a pair thread runs only the chain in
 hyper-dual numbers and takes H_ij = sum_u a_u d2ds_u/didj + J_i' M J_j
 (:func:`pair_hessian`).
 
-K12 ``xccy_stage_node_hess`` runs K10's blocks with the node DFs as the
+K12 ``xccy_stage_node_hess`` takes the chain with the node DFs as the
 sink: ds, their first tangents Jn [D, U1], each pair's second
 derivatives Hn [D, D, U1] and, recalibrated, their tangents along each
-unit foreign grid entry Jfd [Lf, U1]. The per-trade tensors
+unit foreign grid entry Jfd [Lf, U1]. A chain of K12 is a warp whose
+lanes take the chain points (:func:`warp_chain`): the points' queries,
+bases and cashflows at once, then the known payments' sums by swap and
+segment and the pillars in rank order, a multiply-add each; a prologue
+launch runs the primal chain and a dual chain a direction and a foreign
+grid entry once a (scenario, member) and leaves their tables in a
+workspace (:func:`node_workspace`), then a warp a pair i <= j, in blocks
+of a tile pair of directions, runs its chain in hyper-dual numbers over
+them (:func:`node_hess_blocks`). The per-trade tensors
 (``parallel/structured_risk.make_pertrade_tensors``) read the rows on
 another plan (the full unique-time rows) and meet every trade's own
 cotangent G_b, so the rows stay outside the kernel: :func:`node_rows`
@@ -144,6 +152,20 @@ TILE = 16
 BLOCK = 128
 ITEMS = 2 * BLOCK
 
+# K12's lanes a chain (a warp; csrc/xccy_stage.cu kLanes), a prologue
+# block's item warps (kNodeWarps, beside its primal warp) and a pair
+# block's warps (kPairWarps, where a pair block fits two to an SM)
+NODE_LANES = 32
+NODE_WARPS = 4
+PAIR_WARPS = 8
+# the longest chain and foreign grid of a stage on K12: its prologue block
+# holds the tape, cum and its tangents (up to 25 doubles a chain point at
+# S = 16) and the grid's transforms (4 a grid entry) in shared memory
+NODE_MAX_N = 512
+NODE_MAX_LF = 3000
+# the SMs of an H100 SXM, where the mirrors of K12's cut need a card's
+H100_SMS = 132
+
 # K9 / K11's threads a block, which are also the flows of a chunk
 # (csrc/xccy_stage.cu kLegBlock), and the pairs a <= b of a flow's six
 # slots, row-major (spair)
@@ -210,9 +232,11 @@ def pertrade_route(st, its: Sequence[InterpTypes], b: dict,
     ``st`` (its members on ``its``, its host ``bat`` entry ``b``, its
     domestic and foreign parents on ``parents``) come from K12, K9 and
     K11 split at the node DFs (``parallel/structured_risk
-    .make_pertrade_tensors``): :func:`stage_route` says "kernels" and no
-    parent is on a fitted scheme; else "torch.func: " and why (a fitted
-    parent's curvature along its tangent rows is not in the split)."""
+    .make_pertrade_tensors``): :func:`stage_route` says "kernels", no
+    parent is on a fitted scheme and its chain and foreign grid fit K12's
+    prologue block (``NODE_MAX_N`` points, ``NODE_MAX_LF`` entries); else
+    "torch.func: " and why (a fitted parent's curvature along its tangent
+    rows is not in the split)."""
     route = stage_route(st, its, b)
     if route != "kernels":
         return route
@@ -220,6 +244,11 @@ def pertrade_route(st, its: Sequence[InterpTypes], b: dict,
     if fitted:
         return ("torch.func: a parent on a fitted scheme ("
                 + ", ".join(fitted) + ")")
+    n = int(np.asarray(b["plan"].times).shape[-1])
+    Lf = int(np.asarray(b["for_ts"]).shape[-1])
+    if n > NODE_MAX_N or Lf > NODE_MAX_LF:
+        return (f"torch.func: {n} chain points / a foreign grid of {Lf} "
+                f"exceed K12's {NODE_MAX_N} / {NODE_MAX_LF}")
     return "kernels"
 
 
@@ -268,6 +297,11 @@ class XccyStageTables:
       ``mb_ptr`` [G, E + 1] / ``mb_row`` [G, NB];
     - ``tp_off`` [G, n + 1]: each chain point's place on K10's tape of
       the primal chain's exps and quotients (:func:`_tape_offsets`);
+    - ``nb_ptr`` / ``nb_pt`` / ``nb_pos``: K12's buckets of the known
+      payments by swap and segment (:func:`_term_buckets`); ``cum_t``
+      [G, S, n] the basis chain's cumulative sums' tangents along the
+      spreads (:func:`_cum_tangents`); ``pt_ord`` [G, n] the order in
+      which K12's lanes take the chain points (:func:`_lane_order`);
     - K9 / K11's lists over the legs (:func:`_legs_lists`): the rows
       ``lr_row`` / ``lr_of``, the legs' gradient targets ``ls_ptr`` /
       ``ls_row`` / ``lt_leg`` and each row's ``gd_ptr`` / ``gd_t``, M_N's
@@ -326,6 +360,11 @@ class XccyStageTables:
     mb_ptr: torch.Tensor
     mb_row: torch.Tensor
     tp_off: torch.Tensor
+    nb_ptr: torch.Tensor
+    nb_pt: torch.Tensor
+    nb_pos: torch.Tensor
+    cum_t: torch.Tensor
+    pt_ord: torch.Tensor
     lr_row: torch.Tensor
     lr_of: torch.Tensor
     ls_ptr: torch.Tensor
@@ -477,6 +516,64 @@ def _tape_offsets(pt_f: np.ndarray, pt_i: np.ndarray, fq_i: np.ndarray,
                 k += 2 * (int(not fl & IS_NOTL) + int(bool(fl & IS_MAT)))
             off[g, i + 1] = off[g, i] + k
     return off
+
+
+def _term_buckets(pt_f: np.ndarray, pt_i: np.ndarray, S: int):
+    """(nb_ptr [G, S (S + 1) / 2 + 1], nb_pt [G, NT], nb_pos [G, n])
+    int32: each member's known payments (the chain points that are no
+    pillar and weigh in their swap's par condition) by bucket b = k (k +
+    1) / 2 + s, swap k and segment s <= k, in chain order within a bucket
+    (CSR; pads -1), and each chain point's place in that list (-1: none).
+    K12 sums a swap's acc by these buckets (:func:`warp_chain`)."""
+    G, n = pt_i.shape[:2]
+    NB = S * (S + 1) // 2
+    lists = []
+    for g in range(G):
+        bk = [[] for _ in range(NB)]
+        for i in range(n):
+            k, sg, fl, _ = (int(x) for x in pt_i[g, i])
+            if not fl & IS_MAT and pt_f[g, i, 4] != 0.0:
+                if not 0 <= sg <= k < S:
+                    raise LibError("XCCY plan: a payment's segment after "
+                                   "its swap")
+                bk[k * (k + 1) // 2 + sg].append(i)
+        lists.append(bk)
+    NT = max(1, max(sum(len(x) for x in bk) for bk in lists))
+    ptr = np.zeros((G, NB + 1), dtype=np.int32)
+    pts = np.full((G, NT), -1, dtype=np.int32)
+    pos = np.full((G, n), -1, dtype=np.int32)
+    for g, bk in enumerate(lists):
+        flat = [i for x in bk for i in x]
+        ptr[g, 1:] = np.cumsum([len(x) for x in bk])
+        pts[g, :len(flat)] = flat
+        pos[g, flat] = np.arange(len(flat))
+    return ptr, pts, pos
+
+
+def _lane_order(pt_f: np.ndarray, pt_i: np.ndarray) -> np.ndarray:
+    """[G, n] int32: the order in which K12's lanes take each member's
+    chain points (place x to lane x % 32): the coupons first, then the
+    notional exchanges, then the points the chain skips, each in chain
+    order, so that the lanes of one round evaluate one kind of point."""
+    fl, w, node = pt_i[..., 2], pt_f[..., 4], pt_i[..., 3]
+    skip = ~((fl & IS_MAT) != 0) & (w == 0.0) & (node < 0)
+    key = np.where(skip, 2, np.where((fl & IS_NOTL) != 0, 1, 0))
+    return np.argsort(key, axis=1, kind="stable").astype(np.int32)
+
+
+def _cum_tangents(pt_f: np.ndarray, pt_i: np.ndarray, S: int) -> np.ndarray:
+    """[G, S, n] f64: the tangents of the basis chain's cumulative sums cum
+    = cumsum(-sp dt) along each basis spread at each chain point, in chain
+    order (static: cum is linear in the spreads)."""
+    G, n = pt_i.shape[:2]
+    out = np.zeros((G, S, n))
+    for g in range(G):
+        run = [0.0] * S
+        for i in range(n):
+            k = int(pt_i[g, i, 0])
+            run[k] = run[k] - float(pt_f[g, i, 3])
+            out[g, :, i] = run
+    return out
 
 
 def _taps(qi) -> list:
@@ -820,6 +917,7 @@ def stage_tables(st, its: Sequence[InterpTypes], b: dict, row_plan: dict,
                        "times")
     nr_ptr, nr_row, mb_pq, mb_ptr, mb_row = _row_bands(rq_i, U1)
     tp_off = _tape_offsets(pt_f, pt_i, fq_i, fsch)
+    nb_ptr, nb_pt, nb_pos = _term_buckets(pt_f, pt_i, S)
     ll = _legs_lists(li_i, ld_i, int(P), int(Ld))
 
     def f64(a):
@@ -845,6 +943,9 @@ def stage_tables(st, its: Sequence[InterpTypes], b: dict, row_plan: dict,
         E=int(mb_pq.shape[1]),
         nr_ptr=i32(nr_ptr), nr_row=i32(nr_row), mb_pq=i32(mb_pq),
         mb_ptr=i32(mb_ptr), mb_row=i32(mb_row), tp_off=i32(tp_off),
+        nb_ptr=i32(nb_ptr), nb_pt=i32(nb_pt), nb_pos=i32(nb_pos),
+        cum_t=f64(_cum_tangents(pt_f, pt_i, S)),
+        pt_ord=i32(_lane_order(pt_f, pt_i)),
         **{k: i32(v) for k, v in ll.items()})
 
 
@@ -1655,6 +1756,151 @@ def thread_chain(T, h: dict, g: int, sp, pv, fd, d1, d2, tg=None,
     return ds
 
 
+def chain_cums(h: dict, g: int, sp) -> tuple:
+    """(cumv [n], cs [S, n]) of member g at the spreads ``sp`` [S]: the
+    basis chain's cumulative sums cum = cumsum(-sp dt) at each chain point
+    and their tangents along each basis spread (``cum_t``, static), as
+    K12's prologue takes them: cum_i = sum_s sp_s cs_si, a thread a
+    point."""
+    cs = h["cum_t"][g]
+    cumv = np.zeros(h["n"])
+    for i in range(h["n"]):
+        v = 0.0
+        for k in range(h["S"]):
+            v = v + float(sp[k]) * float(cs[k, i])
+        cumv[i] = v
+    return cumv, cs
+
+
+def warp_chain(T, h: dict, g: int, sp, pv, fd, d1, d2, tg, tabs: dict,
+               lanes: int = NODE_LANES):
+    """Member ``g``'s chain as K12 runs it (csrc/xccy_stage.cu
+    chain_point, chain_solve): ``lanes`` lanes on the chain points (place x
+    of ``pt_ord`` to lane x % ``lanes``) each evaluate their points' base
+    and, of a known payment's term t = cf base w, K_p (the part of t C_s
+    that C_s's carried part does not touch) and V_p (t's value), a
+    pillar's divisor fxs cf base kept; then per swap r, K_r = its terms' K
+    summed in list order (``nb_ptr`` / ``nb_pt``: by segment, chain order
+    within), each segment's sum of V (the primal chain's, ``tabs["vs"]``,
+    in the others) and pillar r's quotient as an affine map of acc_r's
+    carried part, C_{r+1} = al_r + be_r acc_r; then the ranks in order:
+    C_{r+1} from acc_r, then each later swap q adds V_{q, r+1} C_{r+1} to
+    its acc; last, every node is C base (C_s of its segment, C_{k+1} at
+    pillar k). Only one part of C and acc is carried: the value in the
+    primal chain (T :class:`Dual` along no direction, ``tabs`` the cum
+    tables alone; it adds the sums of V to ``tabs``), the tangent in a
+    direction's (T :class:`Dual`, ``tabs`` with the primal ``cv`` /
+    ``av``), the e1 e2 part in a pair's (T :class:`HyperDual`, with ``c1``
+    / ``c2`` / ``a1`` / ``a2``, the two directions' first tangents of C
+    and acc); the others are ``tabs``', as are cum (``cumv``) and its
+    tangents along the spreads (``cs``; :func:`chain_cums`). The lanes set
+    only which lane evaluates a point: no sum depends on them. Returns
+    (the nodes' carried parts [U1], 1 where no point sets a node in the
+    primal chain and 0 in the others; C's [S]; acc's [S])."""
+    n, S, U1 = h["n"], h["S"], h["U1"]
+    pf, pi = h["pt_f"][g], h["pt_i"][g]
+    fqi, fqf = h["fq_i"][g], h["fq_f"][g]
+    fxs, v0 = float(h["fxs"][g]), h["v0"][g]
+    level = ("pair" if T is HyperDual else "dual" if "cv" in tabs
+             else "primal")
+    cs = tabs["cs"]
+
+    def top(x):
+        return x.v if level == "primal" else x.e if level == "dual" \
+            else x.ab
+
+    def full(t, name, k, tp):
+        if level == "primal":
+            return Dual(tp)
+        if level == "dual":
+            return Dual(float(tabs[name][k]), tp)
+        return HyperDual(float(tabs[name][k]), float(tabs[t + "1"][k]),
+                         float(tabs[t + "2"][k]), tp)
+
+    one = _lift(T, 1.0, 0.0, 0.0)
+
+    def c_of(s, tp):
+        return one if s == 0 else full("c", "cv", s - 1, tp)
+
+    def tcum(d, p):
+        return float(cs[d[1], p]) if d[0] == DIR_SPREAD else 0.0
+
+    def fdf(q):
+        return _query_t(T, h["fsch"], fqi[q], fqf[q], tg, d1, d2)
+
+    base, term = {}, {}
+    order = h["pt_ord"][g]
+    for ln in range(lanes):
+        for p in (int(order[x]) for x in range(ln, n, lanes)):
+            k, s, fl, node = (int(x) for x in pi[p])
+            notl, ss, ar, _, w = (float(x) for x in pf[p])
+            mat = bool(fl & IS_MAT)
+            if not mat and w == 0.0 and node < 0:
+                continue
+            spk = _lift(T, float(sp[k]), _tan_sp(d1, k), _tan_sp(d2, k))
+            cum = _lift(T, float(tabs["cumv"][p]), tcum(d1, p), tcum(d2, p))
+            base[p] = fdf(2 * n + p) * cum.exp()
+            if fl & IS_NOTL:
+                cf = _lift(T, notl if fl & IS_LAST else -notl, 0.0, 0.0) \
+                    + spk * ss
+            else:
+                r = fdf(p) / fdf(n + p)
+                cf = (((r - 1.0) * notl) * ar
+                      + (notl if fl & IS_LAST else 0.0)) + spk * ss
+            if mat:
+                term[p] = (fxs * cf) * base[p]
+            elif w != 0.0:
+                term[p] = (cf * base[p]) * w
+    ptr, pts = h["nb_ptr"][g], h["nb_pt"][g]
+    acc, VS, al, be = [], [], [], []
+    for r in range(S):
+        b0 = r * (r + 1) // 2
+        kr = 0.0
+        for x in range(int(ptr[b0]), int(ptr[b0 + r + 1])):
+            p = int(pts[x])
+            kr = kr + top(term[p] * c_of(int(pi[p, 1]), 0.0))
+        acc.append(kr)
+        VS.append([0.0] * (r + 1))
+        for sg in range(1, r + 1):
+            vs = 0.0
+            for x in range(int(ptr[b0 + sg]), int(ptr[b0 + sg + 1])):
+                vs = vs + term[int(pts[x])].v
+            VS[r][sg] = vs if level == "primal" \
+                else float(tabs["vs"][b0 + sg])
+        d = term[int(h["mat_pos"][g][r])]
+        pvk = _lift(T, float(pv[r]), _tan_pv(d1, r), _tan_pv(d2, r))
+        num = -(pvk + fxs * (float(v0[r]) + full("a", "av", r, 0.0)))
+        rr = 1.0 / d.v
+        if level == "primal":
+            a0 = num.v * rr
+        else:
+            q = float(tabs["cv"][r])
+            if level == "dual":
+                a0 = (num.e - q * d.e) * rr
+            else:
+                qa = (num.a - q * d.a) * rr
+                qb = (num.b - q * d.b) * rr
+                a0 = (num.ab - q * d.ab - qa * d.b - qb * d.a) * rr
+        al.append(a0)
+        be.append(-fxs * rr)
+    if level == "primal":
+        tabs["vs"] = [v for r in range(S) for v in VS[r]]
+    cab = [0.0] * (S + 1)
+    atop = [0.0] * S
+    for r in range(S):
+        cab[r + 1] = al[r] + be[r] * acc[r]
+        atop[r] = acc[r]
+        for q in range(r + 1, S):
+            acc[q] = acc[q] + VS[q][r + 1] * cab[r + 1]
+    nodes = [1.0 if level == "primal" else 0.0] * U1
+    for p in range(n):
+        k, s, fl, node = (int(x) for x in pi[p])
+        if node >= 0:
+            sc = k + 1 if fl & IS_MAT else s
+            nodes[node] = top(c_of(sc, cab[sc]) * base[p])
+    return nodes, cab[1:], atop
+
+
 def thread_rows(T, h: dict, g: int, ds, row_sink):
     """Member ``g``'s rows from its node DFs ``ds`` [U1] in T through its
     own simple plan (``r_sch``): calls ``row_sink(w, value)`` for every
@@ -2222,6 +2468,49 @@ def hess_blocks(D: int, n_gf: int, Dt: Optional[int] = None) -> list:
     return out
 
 
+def node_pair_tile(Sc: int, G: int, D: int, sms: int = H100_SMS) -> int:
+    """The directions of a tile of K12's pair launch (csrc/xccy_stage.cu
+    node_plan): the largest of 8, 4, 2 whose tile pairs at Sc scenarios of
+    G members give each of the card's ``sms`` SMs a block, else 1."""
+    for dt in (8, 4, 2):
+        nT = -(-D // dt)
+        if Sc * G * (nT * (nT + 1) // 2) >= sms:
+            return dt
+    return 1
+
+
+def node_hess_blocks(Sc: int, G: int, D: int, n_gf: int,
+                     warps: int = NODE_WARPS, sms: int = H100_SMS) -> tuple:
+    """K12's two launches at Sc scenarios of G members, D directions and
+    n_gf foreign grid entries (csrc/xccy_stage.cu, a block of ``warps``
+    warps): (the prologue's blocks in launch order, each (scenario-member
+    sg, its items: ("dir", d) or ("grid", l), a warp each), a (scenario,
+    member)'s D + n_gf items cut in blocks of ``warps``; the pair launch's
+    blocks, a (scenario, member) and tile pair I <= J of
+    :func:`node_pair_tile` directions each (:func:`tiles`' order), each its
+    pairs i <= j (i in I, j in J) row-major as (sg, i, j), pair x taken by
+    warp x % ``PAIR_WARPS``)."""
+    items = [("dir", d) for d in range(D)] + [("grid", ll)
+                                              for ll in range(n_gf)]
+    pro = [(sg, items[c:c + warps]) for sg in range(Sc * G)
+           for c in range(0, len(items), warps)]
+    tps = tiles(D, True, node_pair_tile(Sc, G, D, sms))
+    pairs = [[(sg, i, j) for i in I for j in J if j >= i]
+             for sg in range(Sc * G) for I, J in tps]
+    return pro, pairs
+
+
+def node_workspace(tab: XccyStageTables) -> int:
+    """The doubles of K12's workspace a (scenario, member)
+    (csrc/xccy_stage.cu node_plan): the tape (8 slots a chain point), the
+    foreign grid's transforms [4, Lf], cum [n], the primal C and acc [S]
+    each, the primal chain's buckets' sums of V [S (S + 1) / 2] and the
+    directions' first tangents of C and acc [D, S] each."""
+    n, S = tab.n, tab.S
+    return 8 * n + 4 * tab.Lf + n + 2 * S + S * (S + 1) // 2 \
+        + 2 * tab.D * S
+
+
 def _row_ops(h: dict, g: int, dsd, hess: bool) -> int:
     """The operations of member g's rows once (K8: each row and its
     taps' coefficients, :func:`rows_jvp`; K10: the node and band sums,
@@ -2256,32 +2545,32 @@ def _tape_len(h: dict, g: int):
 
 
 def _stage_kernel_ops(name, h, g, sp, pv, fd, dirs, count_chain) -> int:
-    """The operations of K8's, K10's or K12's blocks of one (scenario,
-    member), each phase counted on the Python mirror of the kernel's code:
-    a block's grid transforms and rows once (:func:`_row_ops`; K12 has no
-    rows); K8's dual chain a direction of the block (computing its exps
-    and quotients, a reciprocal more a quotient) and its rows' tangents (a
-    multiply a tap, an add between two); K10's and K12's primal chain (its
-    quotients' reciprocals too), then a dual chain a direction of the
-    block, a hyper-dual chain a pair and a dual chain a foreign grid
-    entry, each replaying the block's tape (no exp, no quotient in its
-    primal part); K10's contraction a pair (2 operations a real node for
-    sum a . dds.ab, 3 a node and 7 a band entry for J_i' M J_j, 2 a node
-    for gZ at i = j) and 2 operations a real node for gf (K12 writes the
-    nodes instead)."""
-    hess = name in ("xccy_stage_hess", "xccy_stage_node_hess")
-    nodes = name == "xccy_stage_node_hess"
+    """The operations of K8's or K10's blocks of one (scenario, member),
+    each phase counted on the Python mirror of the kernel's code: a
+    block's grid transforms and rows once (:func:`_row_ops`); K8's dual
+    chain a direction of the block (computing its exps and quotients, a
+    reciprocal more a quotient) and its rows' tangents (a multiply a tap,
+    an add between two); K10's primal chain (its quotients' reciprocals
+    too), then a dual chain a direction of the block, a hyper-dual chain a
+    pair and a dual chain a foreign grid entry, each replaying the block's
+    tape (no exp, no quotient in its primal part); K10's contraction a
+    pair (2 operations a real node for sum a . dds.ab, 3 a node and 7 a
+    band entry for J_i' M J_j, 2 a node for gZ at i = j) and 2 operations
+    a real node for gf. K12's two launches: :func:`_node_kernel_ops`."""
+    hess = name == "xccy_stage_hess"
     none = (DIR_NONE, 0, None)
     U1, Lf = h["U1"], h["Lf"]
     grid = _ops_of(lambda: [transform(h["fsch"], Dual(float(fd[ll])),
                                       float(h["f_xs"][g, ll]))
                             for ll in range(Lf)])
+    exps, quots = _tape_len(h, g)
+    if name == "xccy_stage_node_hess":
+        return _node_kernel_ops(h, g, dirs, count_chain, grid, exps, quots)
+    firsts = [sum(count_chain(Dual, d, none)) for d in dirs]
     dsd = [Dual(x.v) for x in thread_chain(Dual, h, g, sp, pv, fd, none,
                                            none)]
     live = int((h["u_src"][g] >= 0).sum())
-    rows = 0 if nodes else _row_ops(h, g, dsd, hess)
-    exps, quots = _tape_len(h, g)
-    firsts = [sum(count_chain(Dual, d, none)) for d in dirs]
+    rows = _row_ops(h, g, dsd, hess)
     if not hess:
         taps = [0 if t is None else len(t[3])
                 for t in (row_terms(h, g, w, [x.v for x in dsd])
@@ -2289,7 +2578,7 @@ def _stage_kernel_ops(name, h, g, sp, pv, fd, dirs, count_chain) -> int:
         return sum(grid + rows + sum(firsts[d] + quots for d in I)
                    for I, _ in tiles(len(dirs), False)) \
             + len(dirs) * sum(2 * k - 1 for k in taps if k)
-    contract = 0 if nodes else 2 * live + 3 * U1 + 7 * h["E"] + 1
+    contract = 2 * live + 3 * U1 + 7 * h["E"] + 1
     prim = count_chain(Dual, none, none)[0] + quots
     total = 0
     for I, J, items in hess_blocks(len(dirs), Lf if h["recal"] else 0):
@@ -2298,12 +2587,34 @@ def _stage_kernel_ops(name, h, g, sp, pv, fd, dirs, count_chain) -> int:
         for i, j in (x for x in items if x is not None):
             if i == "grid":
                 total += sum(count_chain(Dual, (DIR_UNIT, j, None),
-                                         none)) - exps - quots \
-                    + (0 if nodes else 2 * live)
+                                         none)) - exps - quots + 2 * live
                 continue
             total += sum(count_chain(HyperDual, dirs[i], dirs[j])) \
-                - exps - quots + contract \
-                + (2 * U1 if i == j and not nodes else 0)
+                - exps - quots + contract + (2 * U1 if i == j else 0)
+    return total
+
+
+def _node_kernel_ops(h, g, dirs, count_chain, grid, exps, quots) -> int:
+    """The operations of K12's two launches for one (scenario, member)
+    (:func:`node_hess_blocks`), each chain counted on the Python mirror of
+    its arithmetic (:func:`thread_chain`'s operations, which
+    :func:`warp_chain` reorders into its buckets' sums): each prologue
+    block's grid transforms, primal chain (its quotients' reciprocals
+    too) and cum's tangents along the spreads (an add a point of its
+    swap); a dual chain a direction and a foreign grid entry, replaying
+    the tape (no exp, no quotient in its primal part); a hyper-dual chain
+    a pair, replaying the tape."""
+    none = (DIR_NONE, 0, None)
+    n_gf = h["Lf"] if h["recal"] else 0
+    pro, _ = node_hess_blocks(1, 1, len(dirs), n_gf)
+    replay = exps + quots
+    total = len(pro) * (grid + count_chain(Dual, none, none)[0] + quots
+                        + h["n"])
+    total += sum(sum(count_chain(Dual, d, none)) - replay for d in dirs)
+    total += sum(sum(count_chain(Dual, (DIR_UNIT, ll, None), none))
+                 - replay for ll in range(n_gf))
+    total += sum(sum(count_chain(HyperDual, dirs[i], dirs[j])) - replay
+                 for i, j in pair_table(len(dirs)))
     return total
 
 
@@ -2446,7 +2757,7 @@ _K9_READS = ("leg_f", "leg_s", "li_i", "li_f", "ld_i", "ld_f", "lr_row",
              "ls_ptr", "ls_row", "lt_leg", "sc_ptr")
 _READS = dict(
     xccy_stage_node_hess=("pt_f", "pt_i", "v0", "fxs", "fq_i", "fq_f",
-                          "tp_off"),
+                          "tp_off", "mat_pos", "nb_ptr", "nb_pt"),
     xccy_stage_jvp=_K8_READS,
     xccy_stage_hess=_K8_READS + ("nr_ptr", "nr_row", "mb_pq", "mb_ptr",
                                  "mb_row", "tp_off"),

@@ -213,7 +213,10 @@ first use. Phases:
    launches equal bit for bit (gated), their registers, local bytes a
    thread and blocks an SM; K12 and K9 / K11 at phase 7b's captured
    per-trade call the same way (K12's outputs ds, Jn, Jfd, Hn, Hn equal to
-   its mirror bit for bit), with no
+   its mirror bit for bit; its two launches' device ms each, the pair
+   launch's blocks and warps a block, each launch's registers, local
+   bytes and blocks an SM; gated: no local memory, a block an SM at
+   least), with no
    library yardstick (no PyTorch call computes a stage's jacobian or
    Hessian) and their bound from the operations the function needs,
    ``xccy_stage.needed_flops``, beside the kernel's own count, the
@@ -233,7 +236,9 @@ first use. Phases:
    correlation id; the calls with the usual kernel count);
    a gate holds every device time, the yardsticks' and the ladders'
    contractions' too, to at most 1.1 times its event window;
-9. one bound line per kernel with the card line, the kernels' JSON line
+9. one bound line per kernel with the card line, a ``pertrade`` JSON line
+   (phase 7b's gammas and blocks: device ops and device ms of one warm
+   call, the warm walls, K12 / K9 / K11 launches), the kernels' JSON line
    (both times, plain, library, bound, share of bound by device time and
    by events, launches and launches per call on the main path), the card
    line, and the final JSON line.
@@ -302,9 +307,11 @@ def _device_stats(f, reps: int = 30):
     every window is not counted. The calls that hold the most common
     number of device events (a trace can lose one) give the per-call
     sums: median, min, max, the events per call (``kernels``), the calls
-    counted (``calls``) and the share of events placed by their launch
-    (``by_launch``). Unlike the event window it leaves out the host's
-    time before and between launches. A trace whose windows hold no
+    counted (``calls``), the share of events placed by their launch
+    (``by_launch``) and each kernel's median device ms a call by its name
+    (``by_name``, the name up to its argument list, without namespaces).
+    Unlike the event window it leaves out the host's time before and
+    between launches. A trace whose windows hold no
     device event (a trace on the card can come back empty) is taken
     again, up to three times; None if none holds one."""
     import torch
@@ -329,6 +336,7 @@ def _device_stats(f, reps: int = 30):
                   for e in events if e.device_type == DeviceType.CPU
                   and e.name.startswith("cu")}
         per_call = [[] for _ in wins]
+        names = [[] for _ in wins]
         placed = total = 0
         for e in events:
             if e.device_type != DeviceType.CUDA \
@@ -342,13 +350,24 @@ def _device_stats(f, reps: int = 30):
             for k, (a, b) in enumerate(wins):
                 if a <= at <= b:
                     per_call[k].append(e.time_range.elapsed_us())
+                    nm = e.name.replace("(anonymous namespace)::", "")
+                    names[k].append(nm.split("(")[0].split("::")[-1]
+                                    .split(" ")[-1])
                     break
         counts = [len(c) for c in per_call if c]
         if counts:
             n = statistics.mode(counts)
-            out = _stats([sum(c) / 1e3 for c in per_call if len(c) == n])
+            full = [k for k, c in enumerate(per_call) if len(c) == n]
+            out = _stats([sum(per_call[k]) / 1e3 for k in full])
+            by_name = {}
+            for k in full:
+                for nm, us in zip(names[k], per_call[k]):
+                    by_name.setdefault(nm, {}).setdefault(k, 0.0)
+                    by_name[nm][k] += us / 1e3
             out.update(kernels=n, calls=out.pop("reps"),
-                       by_launch=placed / total)
+                       by_launch=placed / total,
+                       by_name={nm: statistics.median(v.values())
+                                for nm, v in by_name.items()})
             return out
     return None
 
@@ -3159,6 +3178,7 @@ def compare_xccy_kernels(path, inputs, stage=None, names=XCCY) -> list:
             args[2] = torch.as_tensor(1e-3 * np.random.default_rng(
                 41 + k).standard_normal(tuple(args[2].shape)),
                 device=args[1].device)
+        G = tab.G
         kern, plain = getattr(kernels, name), getattr(xs, name + "_plain")
         ref = [r for r in plain(*args) if r is not None]
         got = [r for r in kern(*args) if r is not None]
@@ -3182,6 +3202,12 @@ def compare_xccy_kernels(path, inputs, stage=None, names=XCCY) -> list:
         if not repeat:
             raise AssertionError(f"{label} {name}: two launches on one "
                                  f"input differ")
+        if name == "xccy_stage_node_hess":
+            sms = torch.cuda.get_device_properties(0).multi_processor_count
+            if info["local_bytes"] or info["blocks"] * Sc < sms:
+                raise AssertionError(f"{label} {name}: local memory or "
+                                     f"fewer blocks than SMs ({sms}): "
+                                     f"{info}")
         del again
         ms = _cuda_ms(lambda: kern(*args))
         dv = _device_stats(lambda: kern(*args))
@@ -3191,9 +3217,19 @@ def compare_xccy_kernels(path, inputs, stage=None, names=XCCY) -> list:
                   device_by_launch=dv and dv["by_launch"],
                   plain_ms=_cuda_ms(lambda: plain(*args), reps=5),
                   library_ms=None, library_device_ms=None)
+        if name == "xccy_stage_node_hess":
+            # its two launches: each one's device ms, blocks and warps
+            tm.update(launch_device_ms=dv and dv["by_name"],
+                      blocks=info["blocks"], warps=info["warps"],
+                      prologue=info["prologue"], pairs=info["pairs"],
+                      prologue_blocks=info["blocks_per_member"] * G * Sc)
+            print(f"{label} {name}: device ms a launch "
+                  f"{tm['launch_device_ms']}; prologue "
+                  f"{tm['prologue_blocks']} blocks {info['prologue']}, "
+                  f"pairs {info['blocks']} blocks of {info['warps']} "
+                  f"warps {info['pairs']}", flush=True)
         ops = xs.needed_flops(name, *args)
         flops = ops["needed"]
-        G = tab.G
         nbytes = xs.needed_bytes(name, *args)
         bound_flops = min(flops, ops["kernel"])
         bound, by = _bound(nbytes, float(bound_flops), FP64_FLOPS)
@@ -3932,6 +3968,12 @@ def main() -> int:
     print(json.dumps({"hostapi": hostapi}))
     print(json.dumps({"analytics": analytics}))
     print(json.dumps({"sharded": sharded}))
+    print(json.dumps({"pertrade": {
+        k: dict(device_ops=pt_infos[k]["device_ops"],
+                device_ms=pt_infos[k]["device_ms"],
+                warm_ms=pt_infos[k]["warm_ms"], calls=pt_infos[k]["calls"],
+                launches={n: pt_infos[k][n] for n in NODE})
+        for k in ("gamma_256", "blocks")}}))
     print(json.dumps({"kernels": records}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {

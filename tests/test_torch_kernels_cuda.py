@@ -1636,6 +1636,23 @@ def test_xccy_stage_node_hess_no_local_memory(dev):
     assert info["blocks_per_sm"] >= 2, info
 
 
+def test_xccy_stage_node_hess_fills_the_card(dev):
+    """At flagship_v5's per-trade call (one scenario, G = 3, D = 48, Lf =
+    73) K12's pair launch has at least one block an SM of the card (a
+    block a member and tile pair of directions), and each of its two
+    launches keeps nothing in local memory and fits two blocks an SM."""
+    tab = tmb.make_multibook_fn(_flagship_base(True), dev).book.params[
+        "xstage"][1]
+    info = kernels.xccy_kernel_info(tab, "xccy_stage_node_hess")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert info["blocks"] >= sms, info
+    nT = -(-48 // info["tile"])
+    assert info["blocks"] == 3 * nT * (nT + 1) // 2, info
+    for k in ("prologue", "pairs"):
+        assert info[k]["local_bytes"] == 0, info
+        assert info[k]["blocks_per_sm"] >= 2, info
+
+
 @pytest.mark.parametrize("recal", [True, False], ids=["recal", "values"])
 def test_pertrade_node_split_on_cuda_matches_cpu(dev, recal):
     """The per-trade tensors of the OIS + XCCY book's stage on the card

@@ -15,10 +15,14 @@ curves: G = 1, S = 3), recalibrated in-graph and held as values:
 - ``xccy_stage_node_hess_plain`` against ``torch.func`` over
   ``curve_batching.xccy_boot_ds`` (and ``stage_rows`` on the full plan,
   the rows' second derivatives) at 1e-12 x max|ref|;
-- K12's split emulated in hyper-dual numpy (``thread_chain`` with the
-  node sink: each block's dual chains, each pair and foreign grid entry
-  once, written and mirrored as the kernel writes them) against the plain
-  version on ``probe_tables`` tables;
+- K12's split emulated in hyper-dual numpy against the plain version on
+  ``probe_tables`` tables: its two launches (``warp_chain``, a warp a
+  chain with its lanes on the chain points, the ranks' sums in the
+  kernel's lane and shuffle order; the prologue once a (scenario, member),
+  a warp a pair), at 32 lanes and at 5 (the points split unevenly), and
+  the thread-a-chain split of K10's blocks with a node sink
+  (``thread_chain``), each pair and foreign grid entry once, written and
+  mirrored as the kernel writes them; the two launches' cut;
 - ``pertrade_route`` on fitted parents: the towers kept, with the reason.
 """
 
@@ -254,7 +258,8 @@ def test_plain_version_holds_the_bootstrap(book):
 
 
 def emulate_node_hess(h: dict, sp, pv, fd, tf, Dt=None):
-    """K12 as it splits the stage, in Python, block by block
+    """The thread-a-chain split of the node DFs' derivatives over K10's
+    blocks (K12's first design), in Python, block by block
     (``xccy_stage.hess_blocks`` at a tile of ``Dt`` directions): each
     block's dual chain a direction of its tile pair (J and the primal
     nodes), the first chunk of tile I's diagonal pair writing Jn for tile
@@ -307,18 +312,78 @@ def emulate_node_hess(h: dict, sp, pv, fd, tf, Dt=None):
     return ds, Jn, (Jfd if h["recal"] else None), Hn
 
 
-@pytest.mark.parametrize("Dt", [None, 5], ids=["one_tile", "tile_pairs"])
-def test_node_split_emulation_holds_the_plain_version(book, Dt):
-    """K12's split, emulated in hyper-dual numpy on ``probe_tables``
-    tables at two seeded scenarios, against the plain version at 1e-12 x
+def emulate_node_warps(h: dict, sp, pv, fd, tf, lanes: int):
+    """K12 as its two launches split the stage, in Python
+    (``xccy_stage.node_hess_blocks``), a chain of ``lanes`` lanes
+    (``xccy_stage.warp_chain``): each (scenario, member)'s primal chain
+    along no direction (ds, the primal C and acc, once: every prologue
+    block of a member computes the same), each prologue block's items, a
+    dual chain a direction (Jn, and its first tangents of C and acc) or a
+    foreign grid entry (Jfd); then each pair warp's hyper-dual chain over
+    those tables, its nodes written at [i, j] and [j, i]; (ds, Jn, Jfd or
+    None, Hn) as numpy, unwritten entries NaN."""
+    Sc, G, D, Lf, U1 = sp.shape[0], h["G"], h["D"], h["Lf"], h["U1"]
+    ds = np.full((Sc, G, U1), np.nan)
+    Jn = np.full((Sc, D, G, U1), np.nan)
+    Jfd = np.full((Sc, Lf, G, U1), np.nan)
+    Hn = np.full((Sc, D, D, G, U1), np.nan)
+    none = (xs.DIR_NONE, 0, None)
+    mem = {}
+    pro, pairs = xs.node_hess_blocks(Sc, G, D, Lf if h["recal"] else 0)
+    for sg, items in pro:
+        sc, g = divmod(sg, G)
+        if sg not in mem:
+            args = (sp[sc, g], pv[sc, g], fd[sc, g])
+            tg = xs.grid_transforms(h, g, fd[sc, g])
+            cumv, cs = xs.chain_cums(h, g, sp[sc, g])
+            tabs = dict(cumv=cumv, cs=cs)
+            ds[sc, g], cv, av = xs.warp_chain(xs.Dual, h, g, *args, none,
+                                              none, tg, tabs, lanes)
+            mem[sg] = dict(args=args, tg=tg, tabs=dict(tabs, cv=cv, av=av),
+                           ce={}, ae={}, dirs=[xs.stage_dir(
+                               h, d, None if tf is None else tf[sc, d, g])
+                               for d in range(D)])
+        M = mem[sg]
+        for kind, x in items:
+            d = M["dirs"][x] if kind == "dir" else (xs.DIR_UNIT, x, None)
+            nodes, ce, ae = xs.warp_chain(xs.Dual, h, g, *M["args"], d,
+                                          none, M["tg"], M["tabs"], lanes)
+            if kind == "dir":
+                Jn[sc, x, g] = nodes
+                M["ce"][x], M["ae"][x] = ce, ae
+            else:
+                Jfd[sc, x, g] = nodes
+    for blk in pairs:
+        for sg, i, j in blk:
+            sc, g = divmod(sg, G)
+            M = mem[sg]
+            tabs = dict(M["tabs"], c1=M["ce"][i], c2=M["ce"][j],
+                        a1=M["ae"][i], a2=M["ae"][j])
+            Hn[sc, i, j, g] = Hn[sc, j, i, g] = xs.warp_chain(
+                xs.HyperDual, h, g, *M["args"], M["dirs"][i], M["dirs"][j],
+                M["tg"], tabs, lanes)[0]
+    return ds, Jn, (Jfd if h["recal"] else None), Hn
+
+
+@pytest.mark.parametrize("split", ["one_tile", "tile_pairs", "lanes_32",
+                                   "lanes_5"])
+def test_node_split_emulation_holds_the_plain_version(book, split):
+    """K12's split, emulated in hyper-dual numpy on ``probe_tables`` tables
+    at two seeded scenarios, against the plain version at 1e-12 x
     max|ref| of every output: every entry written, Hn equal to its mirror
-    bit for bit; with one tile of all D directions and with tile pairs of
-    5."""
+    bit for bit; the two launches with 32 lanes a chain and with 5 (the
+    chain points split unevenly, the shuffle tree over 8 with 3 lanes of
+    0), and the thread-a-chain split of K10's blocks, with one tile of all
+    D directions and with tile pairs of 5."""
     tab, sp, pv, fd, tf = _stage_inputs(book, Sc=2, seed=17)
     tab = xs.probe_tables(tab, 3)
     h = dict(tab.host(), D=tab.D)
-    got = emulate_node_hess(h, sp.numpy(), pv.numpy(), fd.numpy(),
-                            None if tf is None else tf.numpy(), Dt)
+    ins = (sp.numpy(), pv.numpy(), fd.numpy(),
+           None if tf is None else tf.numpy())
+    if split.startswith("lanes"):
+        got = emulate_node_warps(h, *ins, int(split[len("lanes_"):]))
+    else:
+        got = emulate_node_hess(h, *ins, None if split == "one_tile" else 5)
     ref = xs.xccy_stage_node_hess_plain(tab, sp, pv, fd, tf)
     assert (got[2] is None) == (ref[2] is None) == (not tab.recal)
     for a, b in zip(got, ref):
@@ -328,6 +393,43 @@ def test_node_split_emulation_holds_the_plain_version(book, Dt):
         _close(a, b.numpy(), 1e-12)
     Hn = got[3]
     assert np.array_equal(Hn, Hn.transpose(0, 2, 1, 3, 4))
+
+
+@pytest.mark.parametrize("shape", [(1, 3, 48, 73), (1, 3, 8, 0),
+                                   (2, 1, 37, 12), (3, 2, 5, 12)],
+                         ids=["flagship", "values", "maxima", "odd"])
+def test_node_launches_cover_every_item_once(shape):
+    """K12's cut (``xccy_stage.node_hess_blocks``): the prologue's blocks
+    take each (scenario, member)'s directions and foreign grid entries once,
+    ``NODE_WARPS`` a block, in launch order; the pair launch's blocks each
+    pair i <= j of each (scenario, member) once, a tile pair a block, on
+    the tile that gives each of the H100's 132 SMs a block where one does:
+    at flagship_v5's per-trade call (Sc = 1, G = 3, D = 48, Lf = 73) 93
+    prologue blocks and 234 pair blocks of tiles of 4 directions."""
+    Sc, G, D, n_gf = shape
+    pro, pairs = xs.node_hess_blocks(Sc, G, D, n_gf)
+    W = xs.NODE_WARPS
+    per = -(-(D + n_gf) // W)
+    assert len(pro) == Sc * G * per
+    assert [sg for sg, _ in pro] == [b // per for b in range(len(pro))]
+    assert all(0 < len(it) <= W for _, it in pro)
+    want = [("dir", d) for d in range(D)] + [("grid", ll)
+                                             for ll in range(n_gf)]
+    for sg in range(Sc * G):
+        assert [x for s, it in pro if s == sg for x in it] == want
+    Dt = xs.node_pair_tile(Sc, G, D)
+    nT = -(-D // Dt)
+    assert len(pairs) == Sc * G * nT * (nT + 1) // 2
+    assert Dt == 1 or len(pairs) >= xs.H100_SMS
+    assert all(0 < len(b) <= Dt * Dt for b in pairs)
+    flat = [x for b in pairs for x in b]
+    assert sorted(flat) == [(sg, int(i), int(j)) for sg in range(Sc * G)
+                            for i, j in xs.pair_table(D)]
+    assert all(len({i for _, i, _ in b} | {j for _, _, j in b}) <= 2 * Dt
+               for b in pairs)
+    assert all(len({sg for sg, _, _ in b}) == 1 for b in pairs)
+    if shape == (1, 3, 48, 73):
+        assert (len(pro), len(pairs), Dt) == (93, 234, 4)
 
 
 def test_wrapper_on_cpu_tensors_runs_the_plain_version(book):
@@ -352,9 +454,10 @@ def test_wrapper_on_cpu_tensors_runs_the_plain_version(book):
 
 def test_needed_flops_and_bytes(book):
     """K12's counts: the kernel's own operations above what the function
-    needs (each block's dual chains, a pair's primal and first tangents
-    again) and below K10's on the same inputs (no rows, no contraction);
-    its bytes grow by its outputs and inputs a scenario."""
+    needs (each prologue block's primal chain, a pair's primal and first
+    tangents again) and below K10's on the same inputs (no rows, no
+    contraction, the first tangents once a (scenario, member)); its bytes
+    grow by its outputs and inputs a scenario."""
     tab, sp, pv, fd, tf = _stage_inputs(book, Sc=2, seed=4)
     c = xs.needed_flops("xccy_stage_node_hess", tab, sp, pv, fd, tf)
     gs = torch.ones(2, tab.G, tab.W)
