@@ -197,6 +197,8 @@
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
+#include "stage_rows.cuh"
+
 // ---- the tables (kernels._XStage) ------------------------------------------
 
 struct XccyStageTab {
@@ -267,7 +269,6 @@ using StageTab = XccyStageTab;
 constexpr int kMaxS = 16;     // xccy_stage.MAX_S
 constexpr int kMaxU = 64;     // xccy_stage.MAX_U
 
-enum { kLinFwd = 0, kFlatFwd = 1, kLinZero = 2 };
 enum { kMat = 1, kNotl = 2, kLast = 4 };
 enum { kOverride = 1, kExchange = 2, kCapFloor = 4 };
 enum { kNone = 0, kSpread = 1, kPv = 2, kRow = 3, kUnit = 4 };
@@ -502,18 +503,6 @@ __device__ __forceinline__ HDual tdiv(const HDual& x, const HDual& y,
   const QR d = tp.div_of(x.v, y.v);
   const double qa = (x.a - d.q * y.a) * d.r, qb = (x.b - d.q * y.b) * d.r;
   return {d.q, qa, qb, (x.ab - d.q * y.ab - qa * y.b - qb * y.a) * d.r};
-}
-
-// A DF d under a simple scheme's interpolated transform y (LINEAR_FWD
-// y = d, FLAT_FWD -log d, LINEAR_ZERO -log(d) / x_safe), with y' and y''
-// (xccy_stage.transform).
-struct GPt { double d, y, y1, y2; };
-
-__device__ __forceinline__ GPt transform(int sch, double d, double xs) {
-  if (sch == kLinFwd) return {d, d, 1.0, 0.0};
-  const double inv = 1.0 / d, y = -log(d);
-  if (sch == kFlatFwd) return {d, y, -inv, inv * inv};
-  return {d, y / xs, -inv / xs, inv * inv / xs};
 }
 
 // A transformed grid value lifted along the grid tangents t1 / t2 by the
@@ -767,43 +756,6 @@ struct PrimStore {       // double, one thread: the primal tables
 };
 
 // ---- the rows ----------------------------------------------------------------
-
-// Row w at the primal node DFs through its member's scheme rs
-// (xccy_stage.row_terms), from the nodes' transforms nt [3, U1] (y, y',
-// y'' of each node, xccy_stage.transform): the row as a function of z =
-// y0 + c (y1 - y0), v and its derivatives v', v'' in z, and its taps'
-// dz/dds (t0, t1) and d2z/dds2 (s0, s1); one tap (t1 = s1 = 0) where
-// i0 = i1.
-struct RowVal { double v, v1, v2, t0, t1, s0, s1; };
-
-__device__ __forceinline__ RowVal row_val(int rs, const int* q,
-                                          const double* f, const double* nt,
-                                          int U1) {
-  const int u0 = q[0], u1 = q[1];
-  const double c = f[0];
-  const double y0 = nt[u0];
-  const double z = y0 + c * (nt[u1] - y0);
-  double v, v1, v2;
-  if (rs == kLinFwd) {
-    v = z;
-    v1 = 1.0;
-    v2 = 0.0;
-  } else if (rs == kFlatFwd) {
-    v = exp(-z);
-    v1 = -v;
-    v2 = v;
-  } else {
-    const double qt = f[1];
-    v = exp(-z * qt);
-    v1 = -qt * v;
-    v2 = qt * (qt * v);
-  }
-  const double* n1 = nt + U1;
-  const double* n2 = nt + 2 * U1;
-  if (u0 == u1) return {v, v1, v2, n1[u0], 0.0, n2[u0], 0.0};
-  return {v, v1, v2, (1.0 - c) * n1[u0], c * n1[u1], (1.0 - c) * n2[u0],
-          c * n2[u1]};
-}
 
 // The transforms nt [3, U1] of member g's primal node DFs ds, a thread a
 // node (the caller synchronises before reading them).

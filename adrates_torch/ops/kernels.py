@@ -47,9 +47,18 @@ which the caller contracts with the rows' derivatives in the nodes; a
 chain a warp, its lanes on the chain points, in two launches (the
 pair-independent chains once a (scenario, member), then a pair a
 warp). Their module holds their plain
-versions. K1-K3 are
+versions. K13 ``ois_stage_jvp`` and K14 ``ois_stage_hess``
+(``csrc/ois_stage.cu``) replace the ``torch.func`` towers over an OIS
+stage of the structured risk pass (region A's OIS pass and
+``term2_ois``, ``adrates_tpu/parallel/structured_risk.py`` :296-318 and
+:604-645 over ``ops/bootstrap.py:213``) on
+``ops/ois_stage.OisStageTables``: a block a (scenario, member), a lane
+of its first warp a quote direction walking the bootstrap's points in
+dual numbers, K14 its adjoint in reverse order in dual numbers (forward
+over reverse, split at the node DFs); ``ops/ois_stage`` holds their
+plain versions. K1-K3 are
 forward-only (their derivatives are closed form elsewhere), and so are
-K8-K12 (derivatives themselves). All twelve
+K8-K14 (derivatives themselves). All fourteen
 are f64; K1
 also has f32 instantiations for the f32 ladders
 (``make_per_trade_delta_fn(dtype=torch.float32)``, the JAX package's
@@ -65,8 +74,10 @@ group row blocks, and the table that sums the groups' blocks into G),
 :func:`pertrade_tables` (K3: groups of quote rows, their trades' slot
 CSR and the launch's work list of units packed into blocks) and
 :func:`chain_tables` (K4/K5: an OIS plan's previous-point links, once
-per plan), and ``ops/xccy_stage.stage_tables`` (K8-K12: an XCCY
-stage's chain, plans and legs, once per stage). The plain twins read
+per plan), ``ops/xccy_stage.stage_tables`` (K8-K12: an XCCY
+stage's chain, plans and legs, once per stage) and
+``ops/ois_stage.stage_tables`` (K13 / K14: an OIS stage's chain and rows,
+once per stage). The plain twins read
 the same tables.
 
 Dispatch: a wrapper given CPU tensors runs the plain twin; given CUDA
@@ -99,7 +110,8 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from . import xccy_stage
+from ..utils.error import LibError
+from . import ois_stage, xccy_stage
 
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -146,6 +158,9 @@ _SIGNATURES = {
     "xccy_stage_node_hess_f64": [_P, _I, _I, _I, _I, _P, _P, _P, _P, _P,
                                  _P, _P, _P, _P, _I, _P],
     "xccy_kernel_info": [_P, _I, _I, _I, _P],
+    "ois_stage_jvp_f64": [_P, _I, _P, _P, _P, _P, _P, _P],
+    "ois_stage_hess_f64": [_P, _I, _P, _P, _P, _P, _P],
+    "ois_kernel_info": [_P, _I, _P],
 }
 
 _lib = None
@@ -164,7 +179,7 @@ def _nvcc() -> str:
 def library_path() -> Path:
     """Where the kernels' shared library for the current sources lives."""
     h = hashlib.sha256(" ".join(_NVCC_FLAGS).encode())
-    for src in sorted(_CSRC.glob("*.cu")):
+    for src in sorted([*_CSRC.glob("*.cu"), *_CSRC.glob("*.cuh")]):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return _BUILD / f"libadrates_kernels_{h.hexdigest()[:16]}.so"
@@ -2074,3 +2089,134 @@ def xccy_stage_node_hess(tab, sp: torch.Tensor, pv: torch.Tensor,
 
 
 xccy_stage_node_hess.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K13 / K14: the OIS stage's directional derivatives and Hessian
+# ---------------------------------------------------------------------------
+
+
+class _OStage(ctypes.Structure):
+    """csrc/ois_stage.cu ``OisStageTab``: an ``OisStageTables``' sizes and
+    its tensors' device pointers, then the list widths and the band's
+    tables."""
+    _INTS = ("G", "P", "P1", "Qp", "W", "E", "log")
+    _PTRS = ("pt_f", "pt_i", "ch_ptr", "ch_pt", "pad", "rq_i", "rq_f",
+             "r_sch", "r_xs")
+    _WIDTHS = ("NC", "NE")
+    _BAND_PTRS = ("mb_pq", "r_e", "nb_ptr", "nb_e")
+    _fields_ = ([(k, ctypes.c_int) for k in _INTS]
+                + [(k, ctypes.c_void_p) for k in _PTRS]
+                + [(k, ctypes.c_int) for k in _WIDTHS]
+                + [(k, ctypes.c_void_p) for k in _BAND_PTRS])
+
+
+def _ostage(tab: ois_stage.OisStageTables) -> int:
+    """The address of ``tab``'s argument block (built once, kept in
+    ``tab.cache`` beside the tensors it points into)."""
+    st = tab.cache.get("c")
+    if st is None:
+        ptrs = _OStage._PTRS + _OStage._BAND_PTRS
+        for k in ptrs:
+            t = getattr(tab, k)
+            _need(t, k, torch.float64 if t.dtype == torch.float64
+                  else torch.int32, t.dim(), tab.pt_f.device)
+        st = _OStage(G=tab.G, P=tab.P, P1=tab.P1, Qp=tab.Qp, W=tab.W,
+                     E=tab.E, log=int(tab.log), NC=tab.ch_pt.shape[1],
+                     NE=tab.nb_e.shape[1],
+                     **{k: getattr(tab, k).data_ptr() for k in ptrs})
+        tab.cache["c"] = st
+    return ctypes.addressof(st)
+
+
+def _outside_transforms(what: str, *ts):
+    """K13 / K14 take plain tensors: raise LibError under a forward-mode
+    transform or for a batched input (a ctypes launch sees neither)."""
+    from torch._C._functorch import is_batchedtensor
+
+    from .linear_solve import forward_levels
+    if forward_levels() > 0 or any(is_batchedtensor(t) for t in ts):
+        raise LibError(f"{what} runs outside torch.func transforms: it is a "
+                       f"derivative itself, with no rule of its own")
+
+
+def ois_kernel_info(tab, name: str) -> dict:
+    """What the card's compiler and occupancy calculator say of K13
+    (``ois_stage_jvp``) or K14 (``ois_stage_hess``) at stage ``tab`` (on
+    the card): registers and local memory a thread (0 when no thread
+    keeps an array), and at this stage's sizes the dynamic shared memory
+    a block (one (scenario, member)), the blocks an SM holds at once and
+    the threads a block."""
+    if _lib is None:
+        build_kernels()
+    out = (ctypes.c_int * 5)()
+    _check(_lib.ois_kernel_info(_ostage(tab), 13 if name == "ois_stage_jvp"
+                                else 14, out), "ois_kernel_info")
+    return dict(zip(("registers", "local_bytes", "smem_bytes",
+                     "blocks_per_sm", "threads"), list(out)))
+
+
+def ois_stage_jvp(tab, q: torch.Tensor):
+    """K13: (ds [Sc, G, P1], rows [Sc, G, W], dds [Sc, Qp, G, P1], drows
+    [Sc, Qp, G, W]), the stage's native DFs, rows and their directional
+    derivatives along the Qp unit quote directions (see
+    ``ois_stage.ois_stage_jvp_plain``), from the local quotes q [Sc, G,
+    Qp]: a block a (scenario, member), a lane of its first warp a
+    direction walking the chain in dual numbers, then its threads on the
+    rows; four ``torch.empty`` and one launch. Outside torch.func
+    transforms only."""
+    _outside_transforms("ois_stage_jvp", q)
+    Sc, G, P1, W, Qp = q.shape[0], tab.G, tab.P1, tab.W, tab.Qp
+    _xshape(q, "q", (Sc, G, Qp))
+    if not q.is_cuda:
+        return ois_stage.ois_stage_jvp_plain(tab, q)
+    dev = q.device
+    ds = torch.empty((Sc, G, P1), dtype=torch.float64, device=dev)
+    rows = torch.empty((Sc, G, W), dtype=torch.float64, device=dev)
+    dds = torch.empty((Sc, Qp, G, P1), dtype=torch.float64, device=dev)
+    drows = torch.empty((Sc, Qp, G, W), dtype=torch.float64, device=dev)
+    if Sc:
+        if _lib is None:
+            build_kernels()
+        _check(_lib.ois_stage_jvp_f64(
+            _ostage(tab), Sc, _xin(q, "q", dev), ds.data_ptr(),
+            rows.data_ptr(), dds.data_ptr(), drows.data_ptr(),
+            _stream(dev)), "ois_stage_jvp_f64")
+        ois_stage_jvp.launches += 1
+    return ds, rows, dds, drows
+
+
+ois_stage_jvp.launches = 0
+
+
+def ois_stage_hess(tab, q: torch.Tensor, gs: torch.Tensor,
+                   vs: torch.Tensor) -> torch.Tensor:
+    """K14: Hs [Sc, Qp, G, Qp], the Hessian over the local quotes q [Sc,
+    G, Qp] of psi = sum(gs * rows) + sum(vs * ds) (gs [Sc, G, W], vs
+    [Sc, G, P1]; see ``ois_stage.ois_stage_hess_plain``): a block a
+    (scenario, member) sums the node cotangent and the rows' band once,
+    its warps on the rows, then a lane of its first warp a direction runs
+    the dual chain and its adjoint in reverse order in dual numbers; one
+    ``torch.empty`` and one launch.
+    Outside torch.func transforms only."""
+    _outside_transforms("ois_stage_hess", q, gs, vs)
+    Sc, G, Qp = q.shape[0], tab.G, tab.Qp
+    _xshape(q, "q", (Sc, G, Qp))
+    _xshape(gs, "gs", (Sc, G, tab.W))
+    _xshape(vs, "vs", (Sc, G, tab.P1))
+    if not q.is_cuda:
+        return ois_stage.ois_stage_hess_plain(tab, q, gs, vs)
+    dev = q.device
+    Hs = torch.empty((Sc, Qp, G, Qp), dtype=torch.float64, device=dev)
+    if Sc:
+        if _lib is None:
+            build_kernels()
+        _check(_lib.ois_stage_hess_f64(
+            _ostage(tab), Sc, _xin(q, "q", dev), _xin(gs, "gs", dev),
+            _xin(vs, "vs", dev), Hs.data_ptr(), _stream(dev)),
+            "ois_stage_hess_f64")
+        ois_stage_hess.launches += 1
+    return Hs
+
+
+ois_stage_hess.launches = 0

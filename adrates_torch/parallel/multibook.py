@@ -1557,8 +1557,9 @@ def _device_book(inp: BookInputs, device, sweep: bool = True,
          "grid_sel": None if inp.grid_sel is None
          else _i64(inp.grid_sel, device)}
     if inp.topology is not None:
-        from .structured_risk import xccy_stage_tables
+        from .structured_risk import ois_stage_tables, xccy_stage_tables
         P["xstage"] = xccy_stage_tables(inp.topology, device)
+        P["ostage"] = ois_stage_tables(inp.topology, P["bat"], device)
     agg = _agg_to(inp.aggregate, device)
     clamp = None if inp.clamp is None else _clamp_to(inp.clamp, device)
     clamp_agg = clamp

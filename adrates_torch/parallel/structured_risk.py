@@ -52,9 +52,12 @@ from typing import Dict, List
 import numpy as np
 import torch
 from torch.func import grad, jvp, vjp, vmap
+from torch.profiler import record_function
 
 from ..ops import kernels
 from ..ops.linear_solve import jvp_by_vjp
+from ..ops.ois_stage import ois_stage_routes
+from ..ops.ois_stage import stage_tables as ois_tables
 from ..ops.xccy_stage import (kernel_hess, kernel_jac, lift_grid,
                                node_quads, node_row_tables, node_rows,
                                pertrade_routes, stage_routes, stage_tables)
@@ -173,6 +176,32 @@ def xccy_stage_tables(topo: StageTopology, device) -> dict:
     return out
 
 
+def ois_stage_tables(topo: StageTopology, B: dict, device) -> dict:
+    """{stage index: ``ops/ois_stage.OisStageTables``} on ``device`` for
+    every OIS stage on the K13 / K14 route (``ois_stage.ois_stage_routes``),
+    at the row plan the structured pass uses, beside the stage's device
+    ``bat`` entry (``B``, curve_batching.bat_to_torch's) that the plain
+    versions read; built once with the book's device tables
+    (``P["ostage"]``)."""
+    keeprows = _build_meta(topo)["grid"]["keeprows"]
+    rk = "row_plan_keep" if keeprows else "row_plan"
+    out = {}
+    for si, route in ois_stage_routes(topo).items():
+        if route != "kernels":
+            continue
+        st = topo.stages[si]
+        out[si] = ois_tables(st, [topo.specs[c].interp_type for c in st.ids],
+                             topo.bat[st.key], topo.bat[st.key][rk],
+                             B[st.key], B[st.key][rk], device)
+    return out
+
+
+def _span(region: str, st, b) -> str:
+    """A stage pass's profiler span: region, stage kind, members and local
+    quotes (``scripts/staged_ops.py`` counts ops by it)."""
+    return f"{region}:{st.kind}:G={len(st.ids)}:Qp={int(b['qidx'].shape[-1])}"
+
+
 def fold_pads(seg: torch.Tensor, n_live: int, dim: int) -> torch.Tensor:
     """Fold pad-duplicate slices (beyond n_live along ``dim``) into the
     last live one: a padded direction duplicates the member's last quote,
@@ -217,6 +246,31 @@ def _hess(f, x: torch.Tensor, seeds: torch.Tensor) -> torch.Tensor:
     return vmap(lambda s: jvp(grad(f), (x,), (s,))[1])(seeds)
 
 
+def tower_jvp(fwd, q: torch.Tensor):
+    """(ds, rows, dds [Sc, n, G, P1], drows [Sc, n, G, W]) of an OIS or
+    inflation stage's forward ``fwd`` (local quotes [G, n] -> (native
+    DFs, rows)) at q [Sc, G, n]: :func:`_jac` along the n unit quote
+    directions under vmap (the OIS stage's plain K13,
+    ``ois_stage.ois_stage_jvp_plain``)."""
+    seeds = _seeds(q.shape[-1], q.shape[1], q)
+    (ds, rows), (dds, drows) = vmap(lambda r: _jac(fwd, r, seeds))(q)
+    return ds, rows, dds, drows
+
+
+def tower_hess(fwd, q: torch.Tensor, gs: torch.Tensor,
+               vs: torch.Tensor) -> torch.Tensor:
+    """[Sc, n, G, n]: the Hessian of psi(x) = sum(gs * rows(x)) + sum(vs *
+    ds(x)) at q [Sc, G, n] for a stage's forward ``fwd``, :func:`_hess`
+    along the n unit quote directions (the OIS stage's plain K14,
+    ``ois_stage.ois_stage_hess_plain``)."""
+    def one(r, g, v):
+        def psi(x):
+            ds, rows = fwd(x)
+            return torch.sum(g * rows) + torch.sum(v * ds)
+        return _hess(psi, r, _seeds(r.shape[-1], r.shape[0], r))
+    return vmap(one)(q, gs, vs)
+
+
 def make_structured_parts(topo: StageTopology) -> dict:
     """The structured risk pass as separable batched functions (the
     regions of multibook.make_staged_multibook_fn):
@@ -236,9 +290,17 @@ def make_structured_parts(topo: StageTopology) -> dict:
       hessians with the cotangents folded into each stage scalar.
     - ``term2(q, P, g, carry)``: their sum.
 
-    ``P`` holds ``bat`` (curve_batching.bat_to_torch of ``topo.bat``)
-    and ``xstage`` (:func:`xccy_stage_tables`); ``agg``/``clamp_agg`` are
-    the device aggregate and clamp slots. gamma = term1 + term2.
+    ``P`` holds ``bat`` (curve_batching.bat_to_torch of ``topo.bat``),
+    ``xstage`` (:func:`xccy_stage_tables`) and ``ostage``
+    (:func:`ois_stage_tables`); ``agg``/``clamp_agg`` are the device
+    aggregate and clamp slots. gamma = term1 + term2.
+
+    An OIS stage on the K13 / K14 route (``ois_stage.ois_stage_routes``:
+    every member on a simple scheme) takes fwd_delta's pass 1 from K13
+    ``kernels.ois_stage_jvp`` and its term2_ois Hessian from K14
+    ``kernels.ois_stage_hess`` (their plain versions on CPU tensors, the
+    ``torch.func`` towers below); an inflation stage and a stage with a
+    fitted member keep the towers. The outputs are the same.
 
     An XCCY stage on the kernel route (``xccy_stage.stage_routes``)
     takes its derivatives from K8-K11 (``ops/kernels``:
@@ -267,6 +329,18 @@ def make_structured_parts(topo: StageTopology) -> dict:
     offs = grid["offsets"]
     p1_of = meta["p1_of"]
     xroutes = stage_routes(topo)
+    oroutes = ois_stage_routes(topo)
+
+    def _otab(si, P):
+        """The OIS stage's K13 / K14 tables when it takes their route, else
+        None."""
+        if oroutes.get(si) != "kernels":
+            return None
+        tab = P.get("ostage", {}).get(si)
+        if tab is None:
+            raise LibError(f"OIS stage {si} is on the kernel route but the "
+                           f"device tables lack its OisStageTables")
+        return tab
 
     def _xtab(si, P):
         """The stage's kernel tables when it takes the kernel route, else
@@ -379,11 +453,15 @@ def make_structured_parts(topo: StageTopology) -> dict:
         for si in ois_first:
             st = stages[si]
             b = B[st.key]
-            fwd = _ois_fwd(b, si)
             q_local = q[:, b["qidx"]]                      # [Sc, G, Qp]
-            seeds = _seeds(q_local.shape[-1], len(st.ids), q)
-            (ds, rows), (dds, drows) = vmap(
-                lambda r: _jac(fwd, r, seeds))(q_local)
+            tab = _otab(si, P)
+            with record_function(_span("A", st, b)):
+                if tab is not None:
+                    ds, rows, dds, drows = kernels.ois_stage_jvp(tab,
+                                                                 q_local)
+                else:
+                    ds, rows, dds, drows = tower_jvp(_ois_fwd(b, si),
+                                                     q_local)
             dds_st[si] = dds
             drows_st[si] = drows
             for mi, cid in enumerate(st.ids):
@@ -638,16 +716,15 @@ def make_structured_parts(topo: StageTopology) -> dict:
             zero = q.new_zeros((Sc, p1_of[si]))
             v_stage = torch.stack([v_of.get(str(cid), zero)
                                    for cid in st.ids], dim=1)
-            fwd = _ois_fwd(b, si)
-
-            def one(r, gs, vs, fwd=fwd, G=G, Qp=Qp):
-                def psi(x):
-                    ds, rows = fwd(x)
-                    return torch.sum(gs * rows) + torch.sum(vs * ds)
-                return _hess(psi, r, _seeds(Qp, G, r))
-
-            Hs = vmap(one)(q_local, g_stage, v_stage)   # [Sc, Qp, G, Qp]
-            for mi in range(G):
+            tab = _otab(si, P)
+            with record_function(_span("C2", st, b)):
+                if tab is not None:
+                    Hs = kernels.ois_stage_hess(tab, q_local, g_stage,
+                                                v_stage)
+                else:
+                    Hs = tower_hess(_ois_fwd(b, si), q_local, g_stage,
+                                    v_stage)
+            for mi in range(G):                     # Hs [Sc, Qp, G, Qp]
                 place_hess(H2, Hs[:, :, mi, :], segments(si, mi))
         return H2
 

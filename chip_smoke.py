@@ -16,10 +16,15 @@ first use. Phases:
    fitted_eval_jvp and its linear core fitted_rows, K7 fitted_rows_t the
    core's transpose, K8-K11 the XCCY stage's jacobian and Hessian in dual and
    hyper-dual arithmetic, K12 its node DFs' tangents and second derivatives
-   for the per-trade tensors);
+   for the per-trade tensors, K13 ois_stage_jvp and K14 ois_stage_hess the
+   OIS stage's quote jacobian and Hessian, a block a (scenario, member));
 3. OIS slice: the flagship OIS book (7 curves, N = 144 quotes, 720 OIS
    tiled to 100,080 trades, 100 scenarios) through ``make_multibook_fn``
-   on the structured risk split: one cold call, then 3 warm calls;
+   on the structured risk split: one cold call, then 3 warm calls, the
+   device ops and ms of one warm call; the route of every OIS stage (K13 /
+   K14 or torch.func) is printed for every book, and on this path, phase
+   6's and phase 7's staged and monolithic calls K13 and K14 are gated as
+   launched and K4 / K5 as not;
 4. checks on its outputs: finite, gamma symmetric, per-scenario sum of
    trade PVs equal to the aggregate total, delta against a central
    finite difference, both kernels launched, zero risk on CHF (a curve
@@ -43,7 +48,8 @@ first use. Phases:
    ``warmup_multibook(staged=True)`` and 3 warm staged calls, with the
    checks of phase 4 (FD deltas also on the largest basis, breakeven and
    clamped-coupon OIS quotes), each region's time (P split into K1 and
-   the clamp epilogue), the staged outputs against ``make_multibook_fn``,
+   the clamp epilogue), the device ops and ms of regions A, C1 and C2 on
+   the first chunk, the staged outputs against ``make_multibook_fn``,
    and the clamp PV epilogue and clamp quad form timed at its shapes
    (CUDA events, and the device time of their kernels in one
    torch.profiler trace);
@@ -187,8 +193,9 @@ first use. Phases:
    for bit; K3 on both per-trade paths; K1 also at phase 7e's
    single-curve book; K3's blocks
    also bit for bit symmetric; K4 and K5 at the largest call of one
-   config-2 engine request and of one flagship_v5 staged call (region
-   A's seeds x scenarios x curves), K4 bit for bit equal to its plain
+   config-2 engine request and of one staged call of phase 7d's spline
+   cell (regions A and C2's torch.func towers over its OIS stage, whose
+   fitted members keep them), K4 bit for bit equal to its plain
    K-sweep and K5 at 1e-14 x max|ref|, with one batched
    ``torch.linalg.solve_triangular`` on the dense (I - A) as the
    yardstick and the kernel's time on one row a plan, its chain of P
@@ -221,7 +228,12 @@ first use. Phases:
    Hessian) and their bound from the operations the function needs,
    ``xccy_stage.needed_flops``, beside the kernel's own count, the
    smaller of the two where K9 / K11's collapse onto the domestic grid
-   counts fewer),
+   counts fewer); K13 and K14 at their calls of one flagship_v5 staged
+   chunk and of one OIS slice chunk (captured) against their plain
+   versions at 1e-12 x max|ref|, two launches equal bit for bit and no
+   local memory (gated), their registers, shared memory and blocks an SM,
+   no library yardstick, their bound from ``ois_stage.needed_flops`` /
+   ``needed_bytes``),
    each timed
    over 30 calls by CUDA events around the call (``ms``, which holds the
    wrapper's host work) and by the device time of its kernels in a
@@ -245,9 +257,10 @@ first use. Phases:
 
 Each path's kernel launch counts are set to 0 just before it runs and
 read just after (or read before and after it). Every path that
-bootstraps an OIS curve on the card (phases 3-7g) reports its K4 / K5
-launches a call and fails unless K4 launched, and K5 too where the path
-differentiates in reverse mode. Any failed check raises, so the script exits non-zero
+bootstraps an OIS curve on the card (phases 3-7g) reports its K4 / K5 and
+K13 / K14 launches a call and fails unless K4 or K13 launched, and K5 or
+K14 too where the path differentiates in reverse mode (the spline cell:
+K4 and K5 themselves). Any failed check raises, so the script exits non-zero
 and prints no result. It exits non-zero at once when no CUDA card is
 visible.
 """
@@ -445,7 +458,8 @@ def _check(name: str, err: float, bound: float):
 KERNELS = ("pvs_sweep", "gamma_quad_form_grouped", "pertrade_quad_form",
            "pv01_solve", "pv01_solve_t", "fitted_eval", "fitted_eval_jvp",
            "fitted_rows", "fitted_rows_t", "xccy_stage_jvp", "xccy_legs_jvp",
-           "xccy_stage_hess", "xccy_legs_hess", "xccy_stage_node_hess")
+           "xccy_stage_hess", "xccy_legs_hess", "xccy_stage_node_hess",
+           "ois_stage_jvp", "ois_stage_hess")
 # K6's entries (the evaluation, its tangent mode, the linear map) and K7
 FITTED = ("fitted_eval", "fitted_eval_jvp", "fitted_rows", "fitted_rows_t")
 XCCY = ("xccy_stage_jvp", "xccy_legs_jvp", "xccy_stage_hess",
@@ -453,6 +467,8 @@ XCCY = ("xccy_stage_jvp", "xccy_legs_jvp", "xccy_stage_hess",
 # the kernels of the per-trade tensors split at an XCCY stage's node DFs:
 # K12, then K9 / K11 (their legs' PVs, gradients and Hessians)
 NODE = ("xccy_stage_node_hess", "xccy_legs_jvp", "xccy_legs_hess")
+# the OIS stage's kernels: K13 (region A's pass) and K14 (term2_ois)
+OIS = ("ois_stage_jvp", "ois_stage_hess")
 
 
 def _reset_launches():
@@ -473,16 +489,64 @@ def _launches_since(before: dict, calls: int) -> dict:
                 calls=calls)
 
 
-def _solve_launches(path: str, info: dict, reverse: bool = True):
-    """Report K4 / K5 launches a call on one path that bootstraps on the
-    card (``info``: its launch counts and ``calls``): K4 must have
-    launched, and K5 too where the path differentiates in reverse mode."""
+def _solve_launches(path: str, info: dict, reverse: bool = True,
+                    solves: bool = False):
+    """Report K4 / K5 and K13 / K14 launches a call on one path that
+    bootstraps on the card (``info``: its launch counts and ``calls``):
+    the OIS bootstrap's kernels must have launched, K4 (the solve under a
+    torch.func tower) or K13 (an OIS stage on its route), and K5 or K14
+    too where the path differentiates in reverse mode; with ``solves``,
+    K4 and K5 themselves (a path whose OIS stages keep the towers)."""
     k4, k5, n = info["pv01_solve"], info["pv01_solve_t"], info["calls"]
-    print(f"{path}: K4 pv01_solve {k4 / n:g} and K5 pv01_solve_t "
-          f"{k5 / n:g} launches a call ({n} calls)", flush=True)
-    if k4 <= 0 or (reverse and k5 <= 0):
-        raise AssertionError(f"{path}: the pv01 solve kernels were not "
-                             f"launched (K4 {k4}, K5 {k5})")
+    k13, k14 = info["ois_stage_jvp"], info["ois_stage_hess"]
+    print(f"{path}: K4 pv01_solve {k4 / n:g}, K5 pv01_solve_t {k5 / n:g}, "
+          f"K13 ois_stage_jvp {k13 / n:g} and K14 ois_stage_hess "
+          f"{k14 / n:g} launches a call ({n} calls)", flush=True)
+    first, second = (k4, k5) if solves else (k4 + k13, k5 + k14)
+    if first <= 0 or (reverse and second <= 0):
+        raise AssertionError(f"{path}: the OIS bootstrap's kernels were not "
+                             f"launched (K4 {k4}, K5 {k5}, K13 {k13}, K14 "
+                             f"{k14})")
+
+
+def _ois_routes(name, mb) -> dict:
+    """Print and return each OIS and inflation stage's route (K13 / K14
+    or torch.func), decided when the book compiled."""
+    from adrates_torch.ops.ois_stage import ois_stage_routes
+    from adrates_torch.parallel.multibook import book_inputs
+    topo = book_inputs(mb).topology
+    routes = {}
+    for si, r in ({} if topo is None else ois_stage_routes(topo)).items():
+        st = topo.stages[si]
+        names = ", ".join(topo.specs[c].name for c in st.ids)
+        routes[f"{st.key} ({names})"] = r
+    print(f"{name}: OIS stage routes {routes}", flush=True)
+    return routes
+
+
+def _ois_launches(path: str, info: dict, routes: dict,
+                  hess: bool = True) -> dict:
+    """Gate a structured path whose OIS stages all take K13 / K14
+    (``routes`` from ``_ois_routes``, inflation stages aside): K13 and,
+    where the path takes term 2, K14 launched, and no K4 / K5 launch (the
+    towers' solves) in the path's calls. Returns the launches a call."""
+    n = info["calls"]
+    per = {k: info[k] / n for k in OIS + ("pv01_solve", "pv01_solve_t")}
+    print(f"{path}: K13 / K14 (ois_stage_jvp, ois_stage_hess) "
+          f"{[per[k] for k in OIS]}, K4 / K5 "
+          f"{[per['pv01_solve'], per['pv01_solve_t']]} launches a call "
+          f"({n} calls)", flush=True)
+    ois = [r for r in routes.values() if r != "torch.func: an inflation "
+           "stage"]
+    if not ois or any(r != "kernels" for r in ois):
+        raise AssertionError(f"{path}: an OIS stage keeps the towers: "
+                             f"{routes}")
+    need = OIS if hess else OIS[:1]
+    if any(info[k] <= 0 for k in need) or info["pv01_solve"] \
+            or info["pv01_solve_t"]:
+        raise AssertionError(f"{path}: K13 / K14 not launched or K4 / K5 "
+                             f"launched ({ {k: info[k] for k in per} })")
+    return per
 
 
 def _capture_solves(run) -> dict:
@@ -924,6 +988,9 @@ def run_ois_slice(device, n_warm: int = 3):
               len(base))
     out, info = _drive("ois structured", fn, q0, shocks, n_warm)
     info["chunk"] = fn.chunk(cfg.N_SCENARIOS)
+    info["ois_per_call"] = _ois_launches("ois structured", info,
+                                         _ois_routes("ois", mb))
+    _call_device("ois structured", fn, q0, shocks, info)
     check_outputs("ois", out, fn, q0, shocks, mb.n_trades)
     chf = mb.basket.quote_slice("CHF_OIS_SARON")
     if not bool((out["delta"][:, chf] == 0).all()):
@@ -1036,6 +1103,8 @@ def run_xccy_book(device, n_warm: int = 3):
         "xccy", mb, shocks, device, n_warm,
         lambda fn: _describe("xccy", mb, fn, cfg.N_SCENARIOS, t_model,
                              t_compile, len(base)))
+    info["ois_per_call"] = _ois_launches("xccy staged", info,
+                                         _ois_routes("xccy", mb))
     info["regions_ms"], a = _time_regions(fn, q0, shocks, device)
     _print_regions("xccy", a["dfs"].shape[0], info["regions_ms"])
     del a
@@ -1083,7 +1152,15 @@ def run_flagship_v5(device, n_warm: int = 3):
 
     fn, out, info = _run_staged("flagship_v5", mb, shocks, device, n_warm,
                                 describe)
+    routes = _ois_routes("flagship_v5", mb)
+    info["ois_per_call"] = _ois_launches("flagship_v5 staged", info, routes)
     _call_device("flagship_v5 staged", fn, q0, shocks, info)
+    info["regions_device"] = _region_device(fn, q0, shocks, device)
+    print("flagship_v5 regions on the first chunk, device ops and device "
+          "ms: " + "; ".join(f"{k} {v['device_ops']} ops, "
+                             f"{_fmt_ms(v['device_ms'])}"
+                             for k, v in info["regions_device"].items())
+          + f"; card {_card_line()}", flush=True)
 
     # per-region times on one warm chunk, P split into value table + K1
     # and the clamp epilogue
@@ -1141,7 +1218,10 @@ def run_flagship_v5(device, n_warm: int = 3):
           f"clamped-coupon OIS {extra[2]}", flush=True)
     check_outputs("flagship_v5", out, mono, q0, shocks, mb.n_trades,
                   fd_extra=tuple(extra))
+    before = _launches()
     _check_staged_vs_mono("flagship_v5", out, mono, q0, shocks)
+    info["mono_ois_per_call"] = _ois_launches(
+        "flagship_v5 monolithic", _launches_since(before, 1), routes)
     # the staged results phase 7f holds the sharded function to
     info["ref"] = dict(total_pv=out["pvs"].sum(dim=1), delta=out["delta"],
                        gamma=out["gamma"])
@@ -1789,7 +1869,10 @@ def run_flagship_v5_splines(device, flat, flat_gam, n_warm: int = 3):
     with its device ops and ms) the FLAT_FWD gammas beside this book's.
     Returns (the ``splines`` record, the staged path's info with the 256
     gammas' under ``gamma_256``, K6's and K7's captured inputs for phase
-    8, K8-K11's captured inputs at each XCCY stage for phase 8)."""
+    8, K8-K11's captured inputs at each XCCY stage for phase 8, K4's and
+    K5's largest calls of one warm staged call for phase 8: its OIS stage
+    has fitted members, so it keeps the torch.func towers over the
+    bootstrap's solve)."""
     import numpy as np
     import torch
 
@@ -1836,7 +1919,8 @@ def run_flagship_v5_splines(device, flat, flat_gam, n_warm: int = 3):
         if info[name] <= 0:
             raise AssertionError(f"{name} was not launched on the spline "
                                  f"book's staged path")
-    _solve_launches("flagship_v5 splines staged", info)
+    _solve_launches("flagship_v5 splines staged", info, solves=True)
+    _ois_routes("flagship_v5 splines", mb)
     info["fitted_per_call"] = _fitted_launches("flagship_v5 splines staged",
                                                info)
     _call_device("flagship_v5 splines staged", fn, q0, shocks, info)
@@ -1864,6 +1948,9 @@ def run_flagship_v5_splines(device, flat, flat_gam, n_warm: int = 3):
         raise AssertionError(f"flagship_v5 splines: K8-K11 captured at "
                              f"{len(xccy_inputs)} XCCY stages, not 3")
     fit_inputs = _capture_fitted(fn, q0, shocks, device)
+    # K4 / K5 at their largest calls of one warm staged call (regions A
+    # and C2's torch.func towers over the OIS stage with fitted members)
+    solve_inputs = _capture_solves(lambda: fn(q0, shocks))
     print("flagship_v5 splines K6 / K7 calls captured: "
           + ", ".join(f"{k[1]} {k[0]} {list(v[0])}"
                       for k, v in fit_inputs.items()), flush=True)
@@ -2051,7 +2138,7 @@ def run_flagship_v5_splines(device, flat, flat_gam, n_warm: int = 3):
           f"{s['peak_gib']:.2f} vs {f['peak_gib']:.2f} GiB; K6 / K7 "
           f"launches a call {rec['fitted_per_call']}; phase "
           f"{rec['phase_s']:.1f} s; card {card}", flush=True)
-    return rec, info, fit_inputs, xccy_inputs
+    return rec, info, fit_inputs, xccy_inputs, solve_inputs
 
 
 # Single-curve book sizes of phase 7e (the quick start's 20 base OIS tiled
@@ -3036,7 +3123,7 @@ def _dense_chain(denom, tab):
     return M
 
 
-def compare_solve_kernels(path, inputs) -> list:
+def compare_solve_kernels(path, inputs, label=None) -> list:
     """Phase 8's K4 and K5 records at one path's largest solve
     (``inputs`` from ``_capture_solves``): K4 against its plain K-sweep
     bit for bit, K5 against its child-table sweep at 1e-14 x max|ref|;
@@ -3046,7 +3133,8 @@ def compare_solve_kernels(path, inputs) -> list:
     it), and on one row of each plan (its chain of P dependent steps,
     which no number of rows shortens); its bound is bytes (each input
     read once, the output written once) over the HBM rate against the
-    2 R P divisions and additions over the f64 rate."""
+    2 R P divisions and additions over the f64 rate. ``label`` says what
+    the captured call is, on the records."""
     import torch
 
     from adrates_torch.ops import kernels
@@ -3101,11 +3189,98 @@ def compare_solve_kernels(path, inputs) -> list:
             library="torch.linalg.solve_triangular (unitriangular) on the "
                     "dense [R, P, P] (I - A)" + ("^T" if upper else ""),
             bound_ms=bound, bound_by=by, **_shares(bound, tm),
-            rows=R, points=P, plans=G, bit_for_bit=exact, chain_ms=chain_ms,
+            label=label, rows=R, points=P, plans=G, bit_for_bit=exact,
+            chain_ms=chain_ms,
             chain_step_ns=chain_ms and chain_ms * 1e6 / P,
             chain_share=chain_ms and tm["device_ms"]
             and chain_ms / tm["device_ms"]))
         del M
+    return recs
+
+
+# K13 / K14's: the OIS stage's passes of the structured split
+_OIS_SRC = dict(
+    ois_stage_jvp=("adrates_tpu/parallel/structured_risk.py:296",
+                   ["adrates_tpu/ops/bootstrap.py:213",
+                    "adrates_tpu/ops/interpolation.py:325"]),
+    ois_stage_hess=("adrates_tpu/parallel/structured_risk.py:604",
+                    ["adrates_tpu/ops/bootstrap.py:213",
+                     "adrates_tpu/ops/interpolation.py:325"]))
+
+
+def compare_ois_kernels(path, inputs) -> list:
+    """Phase 8's K13 and K14 records at one path's captured OIS stage
+    calls (``inputs`` from ``_capture_xccy(..., names=OIS)``: the first
+    chunk's arguments): each against its plain version (torch.func over
+    ois_native_ds and stage_rows on the same tables, on the card) at
+    1e-12 x max|ref| of every output, launched twice on its inputs (equal
+    bit for bit, a gate) with no local memory (a gate), timed (30 calls by
+    events and by profiler device time; the plain version over 5 calls)
+    with no library call (no single PyTorch call computes a bootstrap's
+    jacobian or Hessian); the bound is bytes (``ois_stage.needed_bytes``:
+    the tables each kernel reads, the quotes and cotangents read once, the
+    outputs written once) over the HBM rate against the f64 operations
+    the function needs over the f64 rate (``ois_stage.needed_flops``: the
+    chain's primal once a (scenario, member), each direction's tangents
+    once, counted on the kernels' lanes emulated in Python)."""
+    import torch
+
+    from adrates_torch.ops import kernels
+    from adrates_torch.ops import ois_stage as os_
+    recs = []
+    for name in OIS:
+        args = list(inputs[name])
+        tab, Sc = args[0], args[1].shape[0]
+        kern, plain = getattr(kernels, name), getattr(os_, name + "_plain")
+
+        def outs(f):
+            r = f(*args)
+            return list(r) if isinstance(r, tuple) else [r]
+        ref, got = outs(plain), outs(kern)
+        rels = [float((a - b).abs().max() / b.abs().max())
+                for a, b in zip(got, ref)]
+        err = max(float((a - b).abs().max()) for a, b in zip(got, ref))
+        _check(f"{path} {name} vs plain (abs / max|ref|, worst output)",
+               max(rels), 1e-12)
+        repeat = all(torch.equal(a, b) for a, b in zip(got, outs(kern)))
+        info = kernels.ois_kernel_info(tab, name)
+        print(f"{path} {name}: two launches on one input equal bit for "
+              f"bit: {repeat}; {info}", flush=True)
+        if not repeat or info["local_bytes"]:
+            raise AssertionError(f"{path} {name}: two launches differ or "
+                                 f"local memory: {info}")
+        tm = dict(ms=_cuda_ms(lambda: kern(*args)))
+        dv = _device_stats(lambda: kern(*args))
+        tm.update(device_ms=dv and dv["median"],
+                  device_ms_min=dv and dv["min"],
+                  device_ms_max=dv and dv["max"],
+                  device_by_launch=dv and dv["by_launch"],
+                  plain_ms=_cuda_ms(lambda: plain(*args), reps=5),
+                  library_ms=None, library_device_ms=None)
+        flops = os_.needed_flops(name, *args)
+        nbytes = os_.needed_bytes(name, *args)
+        bound, by = _bound(nbytes, flops, FP64_FLOPS)
+        print(f"{path} {name} [Sc, G, P, Qp, W]="
+              f"{[Sc, tab.G, tab.P, tab.Qp, tab.W]}: {_fmt_tm(tm)}; bound "
+              f"{bound * 1e3:.2f} us ({by}, {nbytes / 1e6:.2f} MB, "
+              f"{flops / 1e9:.5f} GFLOP); worst rel err {max(rels):.2e}",
+              flush=True)
+        replaces, also = _OIS_SRC[name]
+        recs.append(dict(
+            name=name, path=path, route="cuda",
+            source="adrates_torch/csrc/ois_stage.cu",
+            replaces=replaces, replaces_also=also, max_abs_err=err,
+            max_rel_err=max(rels), **tm,
+            library="none: no single PyTorch call computes a bootstrap's "
+                    "jacobian or Hessian",
+            bound_ms=bound, bound_by=by, **_shares(bound, tm),
+            scenarios=Sc, members=tab.G, points=tab.P, quotes=tab.Qp,
+            rows=tab.W, flops=flops, bytes=nbytes, bit_for_bit_repeat=repeat,
+            registers=info["registers"], local_bytes=info["local_bytes"],
+            smem_bytes=info["smem_bytes"],
+            blocks_per_sm=info["blocks_per_sm"], blocks=Sc * tab.G,
+            on_path=True, inputs="captured"))
+        del got, ref
     return recs
 
 
@@ -3853,7 +4028,7 @@ def main() -> int:
     # ---- phase 2: build ------------------------------------------------
     secs = kernels.build_kernels()
     print(f"build: K1 (scenario- and trade-major, f64 and f32), K2, K3, "
-          f"K4 + K5, K6 + K7, K8-K12 built and loaded in "
+          f"K4 + K5, K6 + K7, K8-K12, K13 + K14 built and loaded in "
           f"{secs:.2f} s "
           f"({kernels.library_path().name})", flush=True)
 
@@ -3865,9 +4040,10 @@ def main() -> int:
     ref_f = info_f.pop("ref")
     pt_fns, pt_infos = run_per_trade(device, staged_f, fn_f, mb_f, q_f)
     node_f = pt_infos.pop("node_inputs")
-    # K4 / K5 at their largest calls of one warm staged call (region A's
-    # seeds x scenarios x curves), for phase 8
-    solve_f = _capture_solves(lambda: staged_f(q_f, sh_f))
+    # K13 / K14 at their calls of one warm call's first chunk: the
+    # flagship_v5 staged call and the OIS slice's structured call
+    ois_f = _capture_xccy(lambda: staged_f(q_f, sh_f), names=OIS)
+    ois_o = _capture_xccy(lambda: fn_o(q_o, sh_o), names=OIS)
     # K8-K11 at their calls of one warm staged call's first chunk
     xccy_f = _capture_xccy(lambda: staged_f(q_f, sh_f))
     del staged_f
@@ -3879,7 +4055,7 @@ def main() -> int:
         model_f, np.random.default_rng(flagship_v5.SEED))
     engine = run_engine(device, model_f, base, coll)
     solve_e = engine.pop("solve_inputs")
-    splines, info_s, fit_inputs, xccy_s = run_flagship_v5_splines(
+    splines, info_s, fit_inputs, xccy_s, solve_s = run_flagship_v5_splines(
         device, info_f, pt_infos["gamma_256"])
     hostapi, book_args = run_host_api(device, model_f, mb_f)
     # phase 7g on phase 7's model: config 2's OIS and a live basis swap
@@ -3914,7 +4090,13 @@ def main() -> int:
     records.append(_ladder_record(lad32_fn, q_f, "flagship_v5_ladders_f32"))
     del lad32_fn
     records += compare_solve_kernels("engine_config2", solve_e)
-    records += compare_solve_kernels("flagship_v5", solve_f)
+    records += compare_solve_kernels(
+        "flagship_v5_splines", solve_s,
+        label="the spline cell's staged call: regions A and C2's torch.func "
+              "towers over its OIS stage, whose fitted members keep them "
+              "(on FLAT_FWD the stage takes K13 / K14)")
+    records += compare_ois_kernels("flagship_v5", ois_f)
+    records += compare_ois_kernels("ois_slice", ois_o)
     records += compare_fitted_kernels(fit_inputs)
     records += compare_xccy_kernels("flagship_v5", xccy_f)
     records += compare_xccy_kernels("flagship_v5_gamma_256", node_f,
@@ -3922,7 +4104,7 @@ def main() -> int:
     for k, inputs in enumerate(xccy_s):
         records += compare_xccy_kernels("flagship_v5_splines", inputs,
                                         stage=k)
-    del solve_e, solve_f, fit_inputs, xccy_f, xccy_s, node_f
+    del solve_e, solve_s, fit_inputs, xccy_f, xccy_s, node_f, ois_f, ois_o
     infos.update(flagship_v5_ladders=pt_infos["ladders"],
                  flagship_v5_gamma_256=pt_infos["gamma_256"],
                  flagship_v5_gamma_blocks=pt_infos["blocks"],

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Count the torch ops of one warm staged call of flagship_v5, on the
-FLAT_FWD curves and on ``flagship_v5.SPLINE_SCHEMES``, region by region.
+FLAT_FWD curves and on ``flagship_v5.SPLINE_SCHEMES``, region by region,
+and region A's and C2's ops stage by stage.
 
     python3 scripts/staged_ops.py [N_TRADES] [--as-card]
 
@@ -11,10 +12,14 @@ with no aten op below them, views and metadata ops left out): a
 host-side estimate of the kernels a call launches on a card, whose count
 does not depend on the number of trades. On the CPU the fitted-rows
 wrappers (K6's entries and K7) run their plain twins, dozens of ops
-each; with ``--as-card`` each call of one counts as the one op its
-kernel is on a card (its output made by one ``torch.zeros`` or
-``torch.ones``), so that the spline count estimates the card's. The
-values are then wrong: only the count is read.
+each, and K13 / K14 (the OIS stage, ``ops/kernels.ois_stage_jvp`` /
+``ois_stage_hess``) theirs, ``torch.func`` towers; with ``--as-card``
+each call of one counts as the one op its kernel is on a card (its
+outputs made by one ``torch.zeros`` or ``torch.ones``), so that the
+count estimates the card's. The values are then wrong: only the count is
+read. Region A's and C2's stage passes run inside profiler spans
+``<region>:<kind>:G=<members>:Qp=<quotes>`` (``structured_risk._span``);
+the ops inside each are printed as ``stages``.
 """
 
 import pathlib
@@ -42,18 +47,36 @@ _NO_KERNEL = {
 _NO_KERNEL = {"aten::" + n for n in _NO_KERNEL}
 
 
-def leaf_ops(f) -> int:
-    """Leaf non-view aten ops of one ``f()`` call."""
-    with profile(activities=[ProfilerActivity.CPU]) as prof:
-        f()
-    n = 0
+def _leaves(prof):
+    """The leaf non-view aten events of a trace."""
     for e in prof.events():
         if not e.name.startswith("aten::") or e.name in _NO_KERNEL:
             continue
         if not any(c.name.startswith("aten::") and c.name not in _NO_KERNEL
                    for c in e.cpu_children):
-            n += 1
-    return n
+            yield e
+
+
+def leaf_ops(f) -> int:
+    """Leaf non-view aten ops of one ``f()`` call."""
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        f()
+    return sum(1 for _ in _leaves(prof))
+
+
+def stage_ops(f) -> dict:
+    """{stage span: leaf non-view aten ops inside it} of one ``f()``
+    call (the spans of region A's and C2's stage passes)."""
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        f()
+    out = {}
+    for e in _leaves(prof):
+        p = e.cpu_parent
+        while p is not None and not p.name.startswith(("A:", "C2:")):
+            p = p.cpu_parent
+        if p is not None:
+            out[p.name] = out.get(p.name, 0) + 1
+    return out
 
 
 def count(schemes, n_trades: int, as_card: bool = False) -> dict:
@@ -76,6 +99,9 @@ def count(schemes, n_trades: int, as_card: bool = False) -> dict:
                C1=leaf_ops(lambda: r["C1"](q, a["g"], a["carry"])),
                C2=leaf_ops(lambda: r["C2"](q, a["g"], v_of)),
                P=leaf_ops(lambda: r["P"](a["dfs"])))
+    out["stages"] = dict(
+        stage_ops(lambda: r["A"](q)),
+        **stage_ops(lambda: r["C2"](q, a["g"], v_of)))
     from adrates_torch.ops import kernels
     for name, f in saved.items():
         setattr(kernels, name, f)
@@ -83,13 +109,24 @@ def count(schemes, n_trades: int, as_card: bool = False) -> dict:
 
 
 def _one_op_kernels() -> dict:
-    """K6 and K7 as one op a call, the shape of their outputs, until the
-    returned wrappers are put back (the model and the book are built with
-    the real ones)."""
+    """K6, K7, K13 and K14 as one op a call, the shape of their outputs,
+    until the returned wrappers are put back (the model and the book are
+    built with the real ones)."""
     from adrates_torch.ops import kernels
     saved = {k: getattr(kernels, k) for k in (
-        "fitted_eval", "fitted_eval_jvp", "fitted_rows", "fitted_rows_t")
-        if hasattr(kernels, k)}
+        "fitted_eval", "fitted_eval_jvp", "fitted_rows", "fitted_rows_t",
+        "ois_stage_jvp", "ois_stage_hess") if hasattr(kernels, k)}
+
+    def ois_jvp(tab, q):
+        n = [tab.P1, tab.W, tab.Qp * tab.P1, tab.Qp * tab.W]
+        out = torch.zeros((q.shape[0], tab.G, sum(n)), dtype=q.dtype)
+        a, b, c, d = out.split(n, dim=-1)
+        return (a, b, c.reshape(-1, tab.G, tab.Qp, tab.P1).transpose(1, 2),
+                d.reshape(-1, tab.G, tab.Qp, tab.W).transpose(1, 2))
+
+    kernels.ois_stage_jvp = ois_jvp
+    kernels.ois_stage_hess = lambda tab, q, gs, vs: torch.zeros(
+        (q.shape[0], tab.Qp, tab.G, tab.Qp), dtype=q.dtype)
     kernels.fitted_rows = lambda X, tab: torch.zeros(
         (X.shape[0], tab.G, tab.W_max), dtype=X.dtype)
     kernels.fitted_rows_t = lambda U, tab: torch.zeros(

@@ -43,15 +43,17 @@ from pathlib import Path
 
 HERE = Path(__file__).resolve().parent.parent
 KERNELS = ("pv01_solve", "pv01_solve_t", "xccy_stage_jvp", "xccy_legs_jvp",
-           "xccy_stage_hess", "xccy_legs_hess")
-# K8-K11's __global__ functions (the names the profiler's events carry)
+           "xccy_stage_hess", "xccy_legs_hess", "ois_stage_jvp",
+           "ois_stage_hess")
+# K8-K11's and K13 / K14's __global__ functions (the names the profiler's
+# events carry)
 XCCY_GLOBALS = ("k8_stage_jvp", "k9_legs_jvp", "k10_stage_hess",
-                "k11_legs_hess")
+                "k11_legs_hess", "k13_ois_stage_jvp", "k14_ois_stage_hess")
 
 
 def trace(f):
-    """(device ops, their summed device ms, {K8-K11 kernel: [device ms of
-    each launch]}) of one warm ``f()`` call in a CUDA-only torch.profiler
+    """(device ops, their summed device ms, {K8-K11 / K13-K14 kernel:
+    [device ms of each launch]}) of one warm ``f()`` call in a CUDA-only torch.profiler
     trace; (None, None, {}) when the trace holds no device event."""
     import torch
     from torch.autograd import DeviceType

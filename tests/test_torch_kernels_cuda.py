@@ -1685,3 +1685,125 @@ def test_pertrade_node_split_on_cuda_matches_cpu(dev, recal):
     ref = tmb.make_per_trade_gamma_fn(mb, sel, "cpu")(q0)
     got = tmb.make_per_trade_gamma_fn(mb, sel, dev)(q0)
     assert _rel_err(got.cpu(), ref) <= 1e-12
+
+
+# K13 / K14: the OIS stage, a warp a (scenario, member), a lane a quote
+# direction; seeded stages with mixed schemes, more than 32 quotes (two
+# tiles of lanes), the most points the route takes, quotes that cross zero
+# (linear rates) and one below the 1e-8 clamp
+
+
+OIS_STAGES = {
+    "mixed": ([(8, 1, "FLAT_FWD_RATES"), (5, 2, "LINEAR_ZERO_RATES"),
+               (6, 1, "LINEAR_FWD_RATES")], 40, 1.0, 5),
+    "qp40": ([(40, 1, "FLAT_FWD_RATES"), (33, 1, "LINEAR_ZERO_RATES")], 60,
+             1.0, 3),
+    "p192": ([(24, 4, "FLAT_FWD_RATES"), (10, 2, "LINEAR_FWD_RATES")], 300,
+             2.0, 2),
+}
+
+
+def _ois_case(name, dev):
+    members, W, spacing, Sc = OIS_STAGES[name]
+    tab, q = cases.ois_stage_case(members, W, Sc, 11, dev, spacing=spacing)
+    rng = np.random.default_rng(12)
+    gs = torch.tensor(rng.standard_normal((Sc, tab.G, tab.W)), device=dev)
+    vs = torch.tensor(rng.standard_normal((Sc, tab.G, tab.P1)), device=dev)
+    return tab, q, gs, vs
+
+
+def _cross_zero(q):
+    """Scenario 0's first member crossing zero (linear rates), scenario
+    1's second member with a quote below the 1e-8 clamp."""
+    q = q.clone()
+    q[0, 0] = q[0, 0] - q[0, 0].mean()
+    if q.shape[0] > 1 and q.shape[1] > 1:
+        q[1, 1, 1] = 4e-9
+    return q
+
+
+@pytest.mark.parametrize("clamp", [False, True], ids=["plain", "cross_zero"])
+@pytest.mark.parametrize("name", sorted(OIS_STAGES))
+def test_ois_stage_jvp_matches_plain(dev, name, clamp):
+    """K13 against its plain version (torch.func over ois_native_ds and
+    stage_rows) at 1e-12 x max|ref| of each output; one launch a call;
+    two launches equal bit for bit."""
+    from adrates_torch.ops import ois_stage
+    tab, q, _, _ = _ois_case(name, dev)
+    if clamp:
+        q = _cross_zero(q)
+    ref = ois_stage.ois_stage_jvp_plain(tab, q)
+    before = kernels.ois_stage_jvp.launches
+    got = kernels.ois_stage_jvp(tab, q)
+    assert kernels.ois_stage_jvp.launches == before + 1
+    for a, b in zip(got, ref):
+        assert a.shape == b.shape
+        assert _rel_err(a, b) <= 1e-12
+    again = kernels.ois_stage_jvp(tab, q)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("clamp", [False, True], ids=["plain", "cross_zero"])
+@pytest.mark.parametrize("name", sorted(OIS_STAGES))
+def test_ois_stage_hess_matches_plain(dev, name, clamp):
+    """K14 against its plain version (jvp over grad of g . rows + v . ds)
+    at 1e-12 x max|ref|; one launch a call; two launches equal bit for
+    bit."""
+    from adrates_torch.ops import ois_stage
+    tab, q, gs, vs = _ois_case(name, dev)
+    if clamp:
+        q = _cross_zero(q)
+    ref = ois_stage.ois_stage_hess_plain(tab, q, gs, vs)
+    before = kernels.ois_stage_hess.launches
+    got = kernels.ois_stage_hess(tab, q, gs, vs)
+    assert kernels.ois_stage_hess.launches == before + 1
+    assert got.shape == ref.shape
+    assert _rel_err(got, ref) <= 1e-12
+    assert torch.equal(got, kernels.ois_stage_hess(tab, q, gs, vs))
+
+
+def test_ois_stage_no_local_memory(dev):
+    """K13 and K14 keep nothing in local memory (every per-lane value a
+    register or the lane's column of the warp's shared tables) at the
+    route's largest plan, and their warps fit several to an SM at
+    flagship_v5-like sizes (72 points, 32 quotes)."""
+    big, *_ = _ois_case("p192", dev)
+    flag, _ = cases.ois_stage_case([(30, 1, "FLAT_FWD_RATES")] * 2 + [
+        (14, 1, "FLAT_FWD_RATES")], 500, 1, 3, dev, spacing=1.0)
+    for tab, least in ((big, 1), (flag, 3)):
+        for name in ("ois_stage_jvp", "ois_stage_hess"):
+            info = kernels.ois_kernel_info(tab, name)
+            assert info["local_bytes"] == 0, (name, info)
+            assert info["blocks_per_sm"] >= least, (name, tab.P, info)
+
+
+@pytest.mark.parametrize("recal", [True, False], ids=["recal", "values"])
+def test_ois_stage_route_card_equals_cpu(dev, recal):
+    """The OIS + XCCY book's fwd_delta and term2_ois with its OIS stage on
+    K13 / K14 on the card equal the same parts on the CPU (the plain
+    versions) at 1e-12 x max|ref|; K13 and K14 launch once each a call."""
+    from adrates_torch.parallel import structured_risk as tsr
+    mb = cases.compile_xccy_book("adrates_torch",
+                                 cases.build_xccy_model("adrates_torch"),
+                                 recalibrate_xccy=recal)
+    topo = tmb.book_inputs(mb).topology
+    parts = tsr.make_structured_parts(topo)
+    q0 = torch.tensor(mb.basket.quotes0[None, :]
+                      + cases.shocks(mb.basket.n_quotes))
+    out = {}
+    for d in ("cpu", dev):
+        book = tmb.make_multibook_fn(mb, d).book
+        assert len(book.params["ostage"]) == 1
+        q = q0.to(d)
+        before = (kernels.ois_stage_jvp.launches,
+                  kernels.ois_stage_hess.launches)
+        fw = parts["fwd_delta"](q, book.params, book.aggregate,
+                                book.clamp_agg)
+        _, v_of = parts["term2_xccy"](q, book.params, fw["g"], fw["carry"])
+        h2o = parts["term2_ois"](q, book.params, fw["g"], v_of)
+        n = (kernels.ois_stage_jvp.launches - before[0],
+             kernels.ois_stage_hess.launches - before[1])
+        assert n == ((1, 1) if d != "cpu" else (0, 0))
+        out[str(d)] = [t.cpu() for t in (fw["dfs"], fw["J"], h2o)]
+    for a, b in zip(out[str(dev)], out["cpu"]):
+        assert _rel_err(a, b) <= 1e-12

@@ -931,3 +931,65 @@ def chain_edge_plan(kind: str):
         short[3:42] = np.arange(2, 41)
         return chain_plan(np.stack([long] * 3 + [short] * 4))
     raise ValueError(kind)
+
+
+def ois_stage_host(members, W: int, seed: int, spacing: float = 1.0,
+                   log: bool = True):
+    """A seeded OIS stage built from the port's host pieces, with no model:
+    ``members`` [(pillars, coupons a year, scheme name)], pillar k at
+    ``spacing`` (k + 1) years with its coupons from the start (the
+    plan's rounded-key memo shares the coupon points), stacked and padded
+    as ``curve_batching`` stacks a stage; W rows at seeded times (the t =
+    0 node, every member's knots and times between and past them).
+    Returns (the ``curve_batching._Stage``, its members' schemes, its host
+    ``bat`` entry)."""
+    from adrates_torch.ops.bootstrap import prepare_ois_plan
+    from adrates_torch.parallel import curve_batching as cb
+    from adrates_torch.utils.global_types import InterpTypes
+    rng = np.random.default_rng(seed)
+    plans, its = [], []
+    for n, f, sch in members:
+        T = spacing * np.arange(1, n + 1)
+        plans.append(prepare_ois_plan(
+            T, [[1.0 / f] * int(round(f * t)) for t in T],
+            loglinear_rates=log))
+        its.append(InterpTypes[sch])
+    plan = cb._stack_ois_plans(plans)
+    G, P = plan.point_times.shape
+    Qp = plan.swap_times.shape[1]
+    pad_mask = np.zeros((G, P + 1), dtype=bool)
+    for g, p in enumerate(plans):
+        pad_mask[g, 1 + p.point_times.shape[0]:] = True
+    sent = np.tile(cb._sent(0, P + 1), (G, 1))
+    ts = np.where(pad_mask, sent, np.concatenate(
+        [np.zeros((G, 1)), plan.point_times], axis=1))
+    knots = np.unique(np.concatenate([p.point_times for p in plans]))
+    tmax = float(knots.max())
+    extra = np.sort(rng.uniform(0.0, tmax + 3.0, max(W - 1 - knots.size, 0)))
+    ut = np.unique(np.concatenate([[0.0], knots, extra]))[:W]
+    b = dict(plan=plan, pad_mask=pad_mask,
+             qidx=np.stack([np.minimum(np.arange(Qp), len(p.swap_times) - 1)
+                            for p in plans]),
+             ts_static=ts, row_plan=cb._row_plan(ut, ts, pad_mask, its))
+    return cb._Stage(kind="ois", ids=list(range(G)), key="s"), its, b
+
+
+def ois_stage_case(members, W: int, Sc: int, seed: int, device,
+                   spacing: float = 1.0, log: bool = True):
+    """:func:`ois_stage_host`'s stage as (``ops/ois_stage.OisStageTables``
+    on ``device``, local quotes [Sc, G, Qp] on ``device``: about 3% with
+    seeded noise, each member's pad slots repeating its last quote)."""
+    import torch
+
+    from adrates_torch.ops import ois_stage
+    from adrates_torch.parallel import curve_batching as cb
+    st, its, b = ois_stage_host(members, W, seed, spacing, log)
+    bd = cb.bat_to_torch({"s": b}, device)["s"]
+    tab = ois_stage.stage_tables(st, its, b, b["row_plan"], bd,
+                                 bd["row_plan"], device)
+    n_of = (b["qidx"].max(axis=1) + 1).tolist()
+    rng = np.random.default_rng(seed + 1)
+    q = 0.03 + 0.004 * rng.standard_normal((Sc, tab.G, tab.Qp))
+    for g, n in enumerate(n_of):
+        q[:, g, n:] = q[:, g, n - 1:n]
+    return tab, torch.tensor(q, device=device)
